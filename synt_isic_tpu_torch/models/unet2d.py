@@ -1,0 +1,368 @@
+"""UNet2D: the per-class DDPM epsilon-predictor, in PyTorch.
+
+The port of `synt_isic_tpu/models/unet2d.py`. The architecture is the
+reference's diffusers `UNet2DModel(sample_size=128, in/out=3,
+layers_per_block=2, block_out_channels=(64,128,256,256),
+down=(Down,Down,AttnDown,Down), up=(Up,AttnUp,Up,Up))`; the parameter names
+are the diffusers state-dict keys, so `load_state_dict(strict=True)` takes a
+reference `.pth` unchanged.
+
+Tensors are NCHW, PyTorch's habit. The numerics follow the JAX model:
+  * `dtype` is the compute dtype of every conv and linear layer (their
+    weights are stored in it and their inputs cast to it, as Flax's `dtype`
+    does); GroupNorm statistics are always f32, and the final
+    `conv_norm_out`/`conv_out` run in f32;
+  * `fast_norm` (sub-f32 sampling) keeps the GroupNorm statistics in f32
+    but the normalisation arithmetic in `dtype` (`ops/norms.py`);
+  * `use_fused_attention` routes the attention core through
+    `ops.attention.fused_attention` (the hand-written CUDA kernel on a CUDA
+    device); otherwise it runs the plain einsum path.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.attention import attention_reference, fused_attention
+from ..ops.norms import group_norm_silu_fast
+
+
+@dataclasses.dataclass(frozen=True)
+class UNet2DConfig:
+    sample_size: int = 128
+    in_channels: int = 3
+    out_channels: int = 3
+    layers_per_block: int = 2
+    block_out_channels: Tuple[int, ...] = (64, 128, 256, 256)
+    down_block_types: Tuple[str, ...] = (
+        "DownBlock2D", "DownBlock2D", "AttnDownBlock2D", "DownBlock2D")
+    up_block_types: Tuple[str, ...] = (
+        "UpBlock2D", "AttnUpBlock2D", "UpBlock2D", "UpBlock2D")
+    attention_head_dim: int = 8
+    norm_num_groups: int = 32
+    norm_eps: float = 1e-5
+    flip_sin_to_cos: bool = True
+    freq_shift: int = 0
+    add_mid_attention: bool = True
+    # class-conditional variant (diffusers `num_class_embeds`): an embedding
+    # row added to the timestep embedding; the last index is the null class.
+    # None = unconditional (the reference's per-class checkpoints).
+    num_class_embeds: Optional[int] = None
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+
+class Conv2d(nn.Conv2d):
+    """Conv2d that casts its input to its weights' dtype (Flax `dtype`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype))
+
+
+class Linear(nn.Linear):
+    """Linear that casts its input to its weights' dtype (Flax `dtype`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype))
+
+
+def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
+                           flip_sin_to_cos: bool = True,
+                           downscale_freq_shift: float = 0.0,
+                           max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal timestep embedding (Transformer-style positional), f32."""
+    half_dim = embedding_dim // 2
+    exponent = -math.log(max_period) * torch.arange(
+        half_dim, dtype=torch.float32, device=timesteps.device)
+    exponent = exponent / (half_dim - downscale_freq_shift)
+    emb = torch.exp(exponent)[None, :] * timesteps.float()[:, None]
+    sin, cos = torch.sin(emb), torch.cos(emb)
+    emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+    if embedding_dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class TimestepEmbedding(nn.Module):
+    """MLP on the sinusoidal features: linear_1 -> silu -> linear_2."""
+
+    def __init__(self, in_dim: int, time_embed_dim: int, dtype: torch.dtype):
+        super().__init__()
+        self.linear_1 = Linear(in_dim, time_embed_dim, dtype=dtype)
+        self.linear_2 = Linear(time_embed_dim, time_embed_dim, dtype=dtype)
+
+    def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(F.silu(self.linear_1(t_emb)))
+
+
+class ResnetBlock2D(nn.Module):
+    """norm1 -> silu -> conv1 -> (+ FiLM temb) -> norm2 -> silu -> conv2, residual."""
+
+    def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
+                 groups: int = 32, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32, fast_norm: bool = False):
+        super().__init__()
+        self.groups, self.eps, self.dtype, self.fast_norm = groups, eps, dtype, fast_norm
+        self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1, dtype=dtype)
+        self.time_emb_proj = Linear(temb_channels, out_channels, dtype=dtype)
+        self.norm2 = nn.GroupNorm(groups, out_channels, eps=eps)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, dtype=dtype)
+        self.conv_shortcut = (Conv2d(in_channels, out_channels, 1, dtype=dtype)
+                              if in_channels != out_channels else None)
+
+    def _norm_silu(self, norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+        if self.fast_norm:
+            return group_norm_silu_fast(x.to(self.dtype), norm.weight, norm.bias,
+                                        self.groups, self.eps)
+        return F.silu(norm(x.float())).to(self.dtype)
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        t = self.time_emb_proj(F.silu(temb))
+        h = self.conv1(self._norm_silu(self.norm1, x))
+        h = h + t[:, :, None, None]
+        h = self.conv2(self._norm_silu(self.norm2, h))
+        residual = x if self.conv_shortcut is None else self.conv_shortcut(x)
+        return residual + h
+
+
+class AttentionBlock(nn.Module):
+    """Spatial self-attention over HW tokens with residual connection.
+
+    diffusers' deprecated-attn-block semantics: GroupNorm, per-head q/k/v
+    projections (heads = channels // head_dim), f32 softmax, output
+    projection, additive residual. The (B, T, C) projections go to the
+    attention core as (B, H, T, D) views and come back the same way, with
+    no copy for the head split on either side.
+    """
+
+    def __init__(self, channels: int, head_dim: int = 8, groups: int = 32,
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32,
+                 use_fused: bool = False, fast_norm: bool = False):
+        super().__init__()
+        self.head_dim, self.groups, self.eps = head_dim, groups, eps
+        self.dtype, self.use_fused, self.fast_norm = dtype, use_fused, fast_norm
+        self.group_norm = nn.GroupNorm(groups, channels, eps=eps)
+        self.to_q = Linear(channels, channels, dtype=dtype)
+        self.to_k = Linear(channels, channels, dtype=dtype)
+        self.to_v = Linear(channels, channels, dtype=dtype)
+        self.to_out = nn.ModuleList([Linear(channels, channels, dtype=dtype)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        heads = c // self.head_dim
+        if self.fast_norm:
+            y = group_norm_silu_fast(x.to(self.dtype), self.group_norm.weight,
+                                     self.group_norm.bias, self.groups, self.eps,
+                                     silu=False)
+        else:
+            y = self.group_norm(x.float())
+        y = y.to(self.dtype).reshape(b, c, h * w).transpose(1, 2)    # (B, T, C)
+
+        def split(z):
+            return z.view(b, h * w, heads, self.head_dim).transpose(1, 2)
+
+        attention = fused_attention if self.use_fused else attention_reference
+        out = attention(split(self.to_q(y)), split(self.to_k(y)),
+                        split(self.to_v(y))).to(self.dtype)
+        out = self.to_out[0](out.transpose(1, 2).reshape(b, h * w, c))
+        return x + out.transpose(1, 2).reshape(b, c, h, w)
+
+
+class Downsample2D(nn.Module):
+    def __init__(self, channels: int, dtype: torch.dtype):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    def __init__(self, channels: int, dtype: torch.dtype):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, padding=1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layers:
+    """Builds the blocks' resnets and attentions with the model-wide
+    settings."""
+    temb_channels: int
+    groups: int
+    eps: float
+    dtype: torch.dtype
+    fast_norm: bool
+    head_dim: int
+    use_fused_attention: bool
+
+    def resnet(self, in_channels: int, out_channels: int) -> ResnetBlock2D:
+        return ResnetBlock2D(in_channels, out_channels, self.temb_channels,
+                             self.groups, self.eps, self.dtype, self.fast_norm)
+
+    def attention(self, channels: int) -> AttentionBlock:
+        return AttentionBlock(channels, self.head_dim, self.groups, self.eps,
+                              self.dtype, self.use_fused_attention, self.fast_norm)
+
+
+class DownBlock2D(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, num_layers: int,
+                 add_downsample: bool, with_attention: bool, layers: _Layers):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            layers.resnet(in_channels if i == 0 else out_channels, out_channels)
+            for i in range(num_layers)])
+        self.attentions = (nn.ModuleList([layers.attention(out_channels)
+                                          for _ in range(num_layers)])
+                           if with_attention else None)
+        self.downsamplers = (nn.ModuleList([Downsample2D(out_channels, layers.dtype)])
+                             if add_downsample else None)
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor):
+        states = []
+        for i, resnet in enumerate(self.resnets):
+            x = resnet(x, temb)
+            if self.attentions is not None:
+                x = self.attentions[i](x)
+            states.append(x)
+        if self.downsamplers is not None:
+            x = self.downsamplers[0](x)
+            states.append(x)
+        return x, states
+
+
+class UNetMidBlock2D(nn.Module):
+    def __init__(self, channels: int, add_attention: bool, layers: _Layers):
+        super().__init__()
+        self.resnets = nn.ModuleList([layers.resnet(channels, channels)
+                                      for _ in range(2)])
+        self.attentions = (nn.ModuleList([layers.attention(channels)])
+                           if add_attention else None)
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        x = self.resnets[0](x, temb)
+        if self.attentions is not None:
+            x = self.attentions[0](x)
+        return self.resnets[1](x, temb)
+
+
+class UpBlock2D(nn.Module):
+    def __init__(self, in_channels: int, prev_output_channel: int,
+                 out_channels: int, num_layers: int, add_upsample: bool,
+                 with_attention: bool, layers: _Layers):
+        super().__init__()
+        resnets = []
+        for i in range(num_layers):
+            res_skip = in_channels if i == num_layers - 1 else out_channels
+            res_in = prev_output_channel if i == 0 else out_channels
+            resnets.append(layers.resnet(res_in + res_skip, out_channels))
+        self.resnets = nn.ModuleList(resnets)
+        self.attentions = (nn.ModuleList([layers.attention(out_channels)
+                                          for _ in range(num_layers)])
+                           if with_attention else None)
+        self.upsamplers = (nn.ModuleList([Upsample2D(out_channels, layers.dtype)])
+                           if add_upsample else None)
+
+    def forward(self, x: torch.Tensor, skips: List[torch.Tensor],
+                temb: torch.Tensor) -> torch.Tensor:
+        for i, resnet in enumerate(self.resnets):
+            skip = skips.pop()
+            x = resnet(torch.cat([x, skip.to(x.dtype)], dim=1), temb)
+            if self.attentions is not None:
+                x = self.attentions[i](x)
+        if self.upsamplers is not None:
+            x = self.upsamplers[0](x)
+        return x
+
+
+class UNet2D(nn.Module):
+    """Top-level epsilon-prediction UNet. Input and output NCHW; the output
+    is f32."""
+
+    def __init__(self, config: UNet2DConfig = UNet2DConfig(),
+                 dtype: torch.dtype = torch.float32,
+                 use_fused_attention: bool = False, fast_norm: bool = False):
+        super().__init__()
+        cfg = self.config = config
+        self.dtype = dtype
+        temb = cfg.time_embed_dim
+        last = len(cfg.block_out_channels) - 1
+        layers = _Layers(temb, cfg.norm_num_groups, cfg.norm_eps, dtype, fast_norm,
+                         cfg.attention_head_dim, use_fused_attention)
+
+        self.conv_in = Conv2d(cfg.in_channels, cfg.block_out_channels[0], 3,
+                              padding=1, dtype=dtype)
+        self.time_embedding = TimestepEmbedding(cfg.block_out_channels[0], temb, dtype)
+        self.class_embedding = (nn.Embedding(cfg.num_class_embeds, temb, dtype=dtype)
+                                if cfg.num_class_embeds else None)
+
+        self.down_blocks = nn.ModuleList()
+        out_ch = cfg.block_out_channels[0]
+        for i, block_type in enumerate(cfg.down_block_types):
+            in_ch, out_ch = out_ch, cfg.block_out_channels[i]
+            self.down_blocks.append(DownBlock2D(
+                in_ch, out_ch, cfg.layers_per_block, add_downsample=i != last,
+                with_attention=block_type == "AttnDownBlock2D", layers=layers))
+
+        self.mid_block = UNetMidBlock2D(cfg.block_out_channels[-1],
+                                        cfg.add_mid_attention, layers)
+
+        self.up_blocks = nn.ModuleList()
+        reversed_ch = tuple(reversed(cfg.block_out_channels))
+        out_ch = reversed_ch[0]
+        for i, block_type in enumerate(cfg.up_block_types):
+            prev_out, out_ch = out_ch, reversed_ch[i]
+            self.up_blocks.append(UpBlock2D(
+                reversed_ch[min(i + 1, last)], prev_out, out_ch,
+                cfg.layers_per_block + 1, add_upsample=i != last,
+                with_attention=block_type == "AttnUpBlock2D", layers=layers))
+
+        self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups,
+                                          cfg.block_out_channels[0], eps=cfg.norm_eps)
+        self.conv_out = Conv2d(cfg.block_out_channels[0], cfg.out_channels, 3,
+                               padding=1)
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                class_labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """sample: (B, C, H, W); timesteps: scalar or (B,) ints; class_labels:
+        (B,) class ids, required iff the config is conditional."""
+        cfg = self.config
+        if timesteps.dim() == 0:
+            timesteps = timesteps.expand(sample.shape[0])
+        t_emb = get_timestep_embedding(timesteps, cfg.block_out_channels[0],
+                                       flip_sin_to_cos=cfg.flip_sin_to_cos,
+                                       downscale_freq_shift=float(cfg.freq_shift))
+        emb = self.time_embedding(t_emb)
+        if self.class_embedding is not None:
+            if class_labels is None:
+                raise ValueError("conditional UNet2D (num_class_embeds set) "
+                                 "requires class_labels")
+            emb = emb + self.class_embedding(class_labels.long())
+        elif class_labels is not None:
+            raise ValueError("class_labels passed to an unconditional UNet2D "
+                             "(num_class_embeds is None)")
+
+        x = self.conv_in(sample)
+        skips = [x]
+        for block in self.down_blocks:
+            x, states = block(x, emb)
+            skips.extend(states)
+
+        x = self.mid_block(x, emb)
+
+        for block in self.up_blocks:
+            n = len(block.resnets)
+            block_skips, skips = skips[-n:], skips[:-n]
+            x = block(x, block_skips, emb)
+
+        return self.conv_out(F.silu(self.conv_norm_out(x.float())))

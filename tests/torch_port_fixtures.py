@@ -1,0 +1,56 @@
+"""Shared inputs for the tests that hold the PyTorch port against the JAX
+package: the tiny UNet config in both packages, and a seeded random
+parameter set in the JAX package's own tree layout (shapes from
+`jax.eval_shape` of its `init_unet_params`, values from numpy, so no
+compile is spent on initialisation)."""
+from __future__ import annotations
+
+import jax
+import numpy as np
+import torch
+
+from synt_isic_tpu.models.unet2d import UNet2D as JaxUNet2D
+from synt_isic_tpu.models.unet2d import UNet2DConfig as JaxUNet2DConfig
+from synt_isic_tpu.models.unet2d import init_unet_params
+from synt_isic_tpu_torch.io.convert import state_dict_from_jax
+from synt_isic_tpu_torch.models.unet2d import UNet2D, UNet2DConfig
+
+from tests.torch_oracle.unet2d_torch import tiny_config
+
+_TINY = {k: v for k, v in tiny_config().items()
+         if k not in ("in_channels", "out_channels")}
+TINY_JAX = JaxUNet2DConfig(**_TINY)
+TINY = UNet2DConfig(**_TINY)
+
+
+def jax_params(config: JaxUNet2DConfig = TINY_JAX, seed: int = 0):
+    """Random parameters for `config` as the JAX model lays them out:
+    kernels ~ N(0, 1/fan_in), norm scales ~ 1 + N(0, 0.1^2), biases and
+    embeddings ~ N(0, 0.1^2)."""
+    shapes = jax.eval_shape(lambda: init_unet_params(
+        JaxUNet2D(config=config), jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        z = rng.normal(size=leaf.shape)
+        if name == "kernel":
+            z = z / np.sqrt(np.prod(leaf.shape[:-1]))
+        elif name == "scale":
+            z = 1.0 + 0.1 * z
+        else:
+            z = 0.1 * z
+        return z.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def port_model(params, config: UNet2DConfig = TINY, **kw) -> UNet2D:
+    """The port's UNet2D with `params` (a JAX tree) carried over."""
+    model = UNet2D(config, **kw)
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    return model.eval()
+
+
+def nchw(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x)).permute(0, 3, 1, 2)
