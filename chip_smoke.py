@@ -5,21 +5,36 @@
 Phases, each of which exits non-zero on failure:
   1. the card (name and power limit as nvidia-smi gives them) and the TF32
      settings: PyTorch's defaults (cuDNN convolutions in TF32, matrix
-     products in full f32) for the CLI run and every timing; the
-     whole-network comparisons of phases 4 and 5 run their convolutions in
-     full f32 on both sides, since under TF32 a 1e-6 change in an attention
-     output can flip a TF32 rounding (2^-11 relative) downstream;
-  2. build every hand-written kernel from the sources in the checkout;
-  3. each kernel against its plain PyTorch version at the main path's
-     shapes, in both layouts, then timed beside its bound, the plain
-     version and one PyTorch library call that computes the same function;
-  4. the full-width UNet2D (random weights from a seed), one forward with
-     the kernel and one with the plain attention, f32 and bf16;
-  5. the main path through its entry point: `synt_isic_tpu_torch.cli.main`
+     products in full f32) for the CLI and training runs and every timing;
+     the whole-network comparisons run their convolutions in full f32 on
+     both sides, since under TF32 a 1e-6 change in an attention output can
+     flip a TF32 rounding (2^-11 relative) downstream;
+  2. build every hand-written kernel from the sources in the checkout, all
+     `nvcc`s at once;
+  3. the attention forward against its plain PyTorch version at the
+     sampling path's shapes, in both layouts, then timed beside its bound,
+     the plain version and `scaled_dot_product_attention`;
+  4. the attention backward likewise at the training path's shapes; its
+     forward+backward timed beside `scaled_dot_product_attention`'s through
+     autograd;
+  5. the full-width UNet2D (random weights from a seed): one forward with
+     the kernel and one with the plain attention, f32 and bf16; then one
+     backward each way at batch 4, f32 and bf16 compute on f32 parameters:
+     every attention projection gets a gradient through the kernels; in f32
+     every parameter's gradient agrees with the plain path's, in bf16 the
+     kernel path is as close to the f32 gradients as the plain path is;
+  6. the sampling path through its entry point: `synt_isic_tpu_torch.cli.main`
      generating 8 MEL images, batch 8, DDIM 10 steps, from a random
-     full-width checkpoint; the kernel's launch count must read exactly
-     6 attention calls x 10 steps;
-  6. a JSON line of per-kernel numbers, then as the last line
+     full-width checkpoint; the forward kernel's launch count must read
+     exactly 6 attention calls x 10 steps;
+  7. the training path through its entry point:
+     `synt_isic_tpu_torch.train.__main__.main` on 64 procedural MEL images,
+     2 epochs of batch 16 (8 steps, bf16 compute, f32 parameters); the
+     launch counts must read exactly 6 forward and 6 backward per step; the
+     checkpoint it writes is then loaded by `ModelManager` and sampled
+     (DDIM 10, 8 images);
+  8. `measure_train_step` at batch 32;
+  9. a JSON line of per-kernel numbers, then as the last line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA device; exits
@@ -28,7 +43,10 @@ non-zero without one.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
+import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -44,6 +62,8 @@ from synt_isic_tpu_torch import cli
 from synt_isic_tpu_torch.model_manager import ModelManager
 from synt_isic_tpu_torch.models.unet2d import UNet2D, UNet2DConfig
 from synt_isic_tpu_torch.ops import attention, native
+from synt_isic_tpu_torch.train import __main__ as train_entry
+from synt_isic_tpu_torch.train.benchmark import measure_train_step
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -65,6 +85,27 @@ UNET_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 MAIN_SHAPES = [(8, 32, 1024, 8), (8, 32, 256, 8)]   # the UNet's 6 calls at batch 8
 CLI_STEPS, CLI_BATCH = 10, 8
 ATTENTION_CALLS_PER_UNET = 6
+
+# backward, per gradient as max|diff| <= tol * max|g|: f32 the tolerance of
+# the Pallas backward against autodiff of the einsum path
+# (tests/test_pallas_ops.py); bf16 the whole-UNet gradient tolerance there:
+# the kernel keeps f32 where the plain version rounds P and ds to bf16.
+BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+# whole-UNet parameter gradients, per parameter as max|diff| / max|g|. f32
+# (full-f32 convolutions): kernel path vs plain attention within 1e-3. bf16
+# compute on f32 parameters: every layer rounds to 8 bits of mantissa, and
+# the plain path's own gradients lie up to about 1e-1 from the f32 ones at
+# batch 4 (median about 4e-2), so kernel vs plain cannot be held to less.
+# Instead both bf16 paths are held against the f32 gradients: the kernel
+# path's median and worst distance may not exceed the plain path's by more
+# than these factors.
+UNET_GRAD_TOL = 1e-3
+BF16_GRAD_FACTOR = {"median": 1.25, "worst": 1.5}
+GRAD_BATCH = 4
+TRAIN_IMAGES, TRAIN_EPOCHS, TRAIN_BATCH = 64, 2, 16
+TRAIN_STEPS = TRAIN_EPOCHS * (TRAIN_IMAGES // TRAIN_BATCH)
+TRAIN_SHAPES = [(TRAIN_BATCH, 32, 1024, 8), (TRAIN_BATCH, 32, 256, 8)]
+BENCH_BATCH, BENCH_STEPS = 32, 10
 
 
 def fail(msg: str) -> None:
@@ -114,6 +155,23 @@ def attention_bound_ms(shape, dtype) -> tuple[float, str, float]:
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), exp_ms
 
 
+def attention_bwd_bound_ms(shape, dtype) -> tuple[float, str, float]:
+    """(bound ms, what sets it, exponential ms) for one backward call: q, k,
+    v, do read once and dq, dk, dv written once, against the 5 T x T
+    contractions of 2*B*H*T^2*D flops each at the dtype's peak."""
+    b, h, t, d = shape
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    bytes_ms = 7 * b * h * t * d * itemsize / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 10 * b * h * t * t * d / PEAK_FLOPS[dtype] * 1e3
+    exp_ms = b * h * t * t / SFU_EXP_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), exp_ms
+
+
+def reset_launches() -> None:
+    for key in attention.LAUNCHES:
+        attention.LAUNCHES[key] = 0
+
+
 def phase_card() -> dict:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA device")
@@ -131,11 +189,13 @@ def phase_card() -> dict:
 
 def phase_build() -> None:
     t0 = time.time()
-    logs = native.build(["attention_fwd"])
-    print(f"[build] attention_fwd in {time.time() - t0:.1f} s", flush=True)
-    for line in logs.get("attention_fwd", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}", flush=True)
+    names = [attention.KERNEL, attention.BWD_KERNEL]
+    logs = native.build(names)
+    print(f"[build] {', '.join(names)} in {time.time() - t0:.1f} s", flush=True)
+    for name in names:
+        for line in logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build]   {name}: {line.strip()}", flush=True)
 
 
 def phase_kernel() -> dict:
@@ -181,6 +241,132 @@ def phase_kernel() -> dict:
     return report
 
 
+def phase_kernel_bwd() -> dict:
+    g = torch.Generator(device="cuda").manual_seed(3)
+    report = {}
+    for shape in TRAIN_SHAPES + [(2, 4, 64, 4)]:
+        b, h, t, d = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                           for _ in range(4))
+            want = attention.attention_bwd_reference(q, k, v, do)
+            views = [z.transpose(1, 2).reshape(b, t, h * d).view(b, t, h, d).transpose(1, 2)
+                     for z in (q, k, v, do)]
+            for layout, args in (("BHTD", (q, k, v, do)), ("BTC", views)):
+                got = attention.fused_attention_bwd(*args)
+                torch.cuda.synchronize()
+                worst, max_abs = 0.0, 0.0
+                for name, a, w, src in zip(("dq", "dk", "dv"), got, want, args):
+                    check(a.stride() == src.stride(), f"{layout} {name} strides")
+                    err = (a.float() - w.float()).abs().max().item()
+                    worst = max(worst, err / w.float().abs().max().item())
+                    max_abs = max(max_abs, err)
+                ok = worst <= BWD_TOL[dtype]
+                print(f"[kernel-bwd] {shape} {str(dtype)[6:]:8s} {layout}: max_abs_err "
+                      f"{max_abs:.3e}, worst max|diff|/max|g| {worst:.3e} (allowed "
+                      f"{BWD_TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}", flush=True)
+                check(ok, f"attention backward kernel disagrees with plain at "
+                          f"{shape} {dtype} {layout}")
+                report[(shape, dtype, layout)] = max_abs
+            if shape in TRAIN_SHAPES:
+                kernel_ms = cuda_ms(lambda: attention.fused_attention_bwd(*views))
+                plain_ms = cuda_ms(lambda: attention.attention_bwd_reference(q, k, v, do),
+                                   iters=5)
+                leaves = [z.detach().requires_grad_() for z in (q, k, v)]
+
+                def fwd_bwd(fn):
+                    return lambda: torch.autograd.grad(fn(*leaves), leaves, do)
+
+                pair_ms = cuda_ms(fwd_bwd(attention.fused_attention_trainable))
+                library_ms = cuda_ms(fwd_bwd(F.scaled_dot_product_attention), iters=5)
+                bound, bound_by, exp_ms = attention_bwd_bound_ms(shape, dtype)
+                print(f"[time] attention backward {shape} {str(dtype)[6:]}: kernel "
+                      f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+                      f"({bound_by}), exponentials on the SFUs {exp_ms:.4f} ms; forward+"
+                      f"backward through autograd: kernels {pair_ms:.4f} ms, sdpa "
+                      f"{library_ms:.4f} ms", flush=True)
+                report[(shape, dtype, "time")] = dict(
+                    ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                    fwd_bwd_ms=pair_ms, bound_ms=bound, bound_by=bound_by)
+            del q, k, v, do, want, views
+    return report
+
+
+def phase_unet_grad() -> None:
+    """One backward of the full-width UNet each way, f32 and bf16 compute on
+    f32 parameters: every attention projection weight gets a non-zero
+    gradient through the kernels, and the kernel path's gradients agree with
+    the plain path's (f32) or are as close to the f32 gradients as the plain
+    path's (bf16)."""
+    torch.manual_seed(0)
+    state = UNet2D(UNet2DConfig()).state_dict()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(GRAD_BATCH, 3, 128, 128, generator=g, device="cuda")
+    eps = torch.randn(GRAD_BATCH, 3, 128, 128, generator=g, device="cuda")
+    t = torch.tensor([999, 500, 100, 3], device="cuda")
+
+    def gradients(dtype, fused):
+        model = UNet2D(UNet2DConfig(), dtype=dtype, param_dtype=torch.float32,
+                       use_fused_attention=fused, fast_norm=dtype != torch.float32)
+        model.load_state_dict(state)
+        model = model.cuda()
+        reset_launches()
+        with full_f32_convolutions():
+            torch.mean((model(x, t) - eps) ** 2).backward()
+        torch.cuda.synchronize()
+        want = ATTENTION_CALLS_PER_UNET if fused else 0
+        check(attention.LAUNCHES[attention.KERNEL] == want
+              and attention.LAUNCHES[attention.BWD_KERNEL] == want,
+              f"UNet backward launched {attention.LAUNCHES}, want {want} each")
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        projections = [n for n in grads if re.search(r"\.to_[qkv]\.weight$", n)]
+        if fused:
+            check(len(projections) == 3 * ATTENTION_CALLS_PER_UNET,
+                  f"{len(projections)} projections")
+            for name in projections:
+                check(grads[name] is not None and grads[name].abs().max().item() > 0,
+                      f"{name} got no gradient through the kernel path")
+        return grads
+
+    def distances(grads, ref):
+        """max|diff| / max|g_ref| per parameter, sorted, worst first. Softmax
+        ignores a shift shared by every key, so the key bias's gradient is
+        zero in exact arithmetic and only rounding noise on both sides: it is
+        held against the largest gradient instead."""
+        largest = max(w.abs().max().item() for w in ref.values())
+        out = []
+        for name, w in ref.items():
+            scale = largest if name.endswith("to_k.bias") else w.abs().max().item()
+            out.append(((grads[name] - w).abs().max().item() / scale, name))
+        return sorted(out, reverse=True)
+
+    ref = gradients(torch.float32, False)
+    f32 = distances(gradients(torch.float32, True), ref)
+    print(f"[unet-grad] full width, batch {GRAD_BATCH}, f32: all {3 * ATTENTION_CALLS_PER_UNET} "
+          f"q/k/v projection weights have non-zero gradients through the kernels; "
+          f"kernel vs plain attention, worst max|diff|/max|g| {f32[0][0]:.3e} at "
+          f"{f32[0][1]} (allowed {UNET_GRAD_TOL:.0e})", flush=True)
+    check(f32[0][0] <= UNET_GRAD_TOL, "UNet f32 gradients, kernel vs plain")
+
+    kernel = gradients(torch.bfloat16, True)
+    plain = gradients(torch.bfloat16, False)
+    stats = {}
+    for label, d in (("kernel vs f32", distances(kernel, ref)),
+                     ("plain vs f32", distances(plain, ref)),
+                     ("kernel vs plain", distances(kernel, plain))):
+        stats[label] = {"median": d[len(d) // 2][0], "worst": d[0][0]}
+        print(f"[unet-grad] full width, batch {GRAD_BATCH}, bf16 compute, f32 parameters, "
+              f"{label}: median max|diff|/max|g| {stats[label]['median']:.3e}, worst "
+              f"{stats[label]['worst']:.3e} at {d[0][1]}", flush=True)
+    for key, factor in BF16_GRAD_FACTOR.items():
+        mine, theirs = stats["kernel vs f32"][key], stats["plain vs f32"][key]
+        check(mine <= factor * theirs, f"bf16 gradients: kernel path {key} distance "
+                                       f"from f32 {mine:.3e} > {factor} x plain {theirs:.3e}")
+    print(f"[unet-grad] bf16: the kernel path is as close to the f32 gradients as the "
+          f"plain path (allowed {BF16_GRAD_FACTOR['median']} x its median, "
+          f"{BF16_GRAD_FACTOR['worst']} x its worst)", flush=True)
+
+
 def phase_unet() -> dict:
     torch.manual_seed(0)
     state = UNet2D(UNet2DConfig()).state_dict()
@@ -220,8 +406,7 @@ def phase_cli(state: dict, card: str) -> int:
         argv = ["--base-dir", str(base), "--class-counts", f"MEL:{CLI_BATCH}",
                 "--batch", str(CLI_BATCH), "--scheduler", "ddim",
                 "--steps", str(CLI_STEPS), "--seed", "0", "--device", "cuda"]
-        for key in attention.LAUNCHES:
-            attention.LAUNCHES[key] = 0
+        reset_launches()
         t0 = time.time()
         rc = cli.main(argv)
         torch.cuda.synchronize()
@@ -283,21 +468,98 @@ def phase_cli(state: dict, card: str) -> int:
     return launches[attention.KERNEL]
 
 
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.seen = out, io.StringIO()
+
+    def write(self, text):
+        self.seen.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_train(card: str) -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--classes", "MEL", "--procedural", str(TRAIN_IMAGES),
+                "--epochs", str(TRAIN_EPOCHS), "--batch", str(TRAIN_BATCH),
+                "--checkpoints", tmp, "--seed", "0", "--device", "cuda"]
+        tee = _Tee(sys.stdout)
+        reset_launches()
+        t0 = time.time()
+        with contextlib.redirect_stdout(tee):
+            rc = train_entry.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(attention.LAUNCHES)
+        check(rc == 0, f"train main returned {rc}")
+        losses = [float(m) for m in re.findall(r"\[train:MEL\] epoch \d+/\d+ loss=(\S+)",
+                                               tee.seen.getvalue())]
+        check(len(losses) == TRAIN_EPOCHS and all(math.isfinite(x) for x in losses),
+              f"loss history {losses}")
+        want = ATTENTION_CALLS_PER_UNET * TRAIN_STEPS
+        print(f"[train] {TRAIN_STEPS} steps of batch {TRAIN_BATCH} (bf16 compute, f32 "
+              f"parameters) in {wall:.3f} s (cold: model build, first-call set-up and "
+              f"checkpoint writes included); losses {losses}; launches attention_fwd "
+              f"{launches[attention.KERNEL]}, attention_bwd {launches[attention.BWD_KERNEL]} "
+              f"(want {want} each)", flush=True)
+        check(launches[attention.KERNEL] == want and launches[attention.BWD_KERNEL] == want,
+              f"training launched {launches}, not {want} of each kernel")
+        best = Path(tmp) / "unet_MEL_best.pth"
+        resume = Path(tmp) / "train_state_MEL.pt"
+        check(best.exists() and resume.exists(), "training wrote no best checkpoint or resume state")
+        saved = torch.load(resume, map_location="cpu", weights_only=True)
+        # the log prints losses to 5 decimals
+        check(saved["step"] == TRAIN_STEPS and abs(saved["best_loss"] - min(losses)) <= 1e-5,
+              f"resume state step {saved['step']} best_loss {saved['best_loss']}")
+
+        # train -> sample: the checkpoint just written, through the sampling path
+        mm = ModelManager(checkpoints_dir=tmp, device="cuda")
+        check(mm.load_model("MEL"), "ModelManager.load_model of the trained checkpoint")
+        images = mm.create_sampler(CLI_STEPS, scheduler="ddim").sample(
+            mm.loaded_models["MEL"], np.arange(CLI_BATCH, dtype=np.uint32))["images"]
+        check(images.shape == (CLI_BATCH, 128, 128, 3) and bool(torch.isfinite(images).all()),
+              f"samples from the trained checkpoint: {tuple(images.shape)}")
+        print(f"[train] the trained checkpoint loads in ModelManager and samples "
+              f"{CLI_BATCH} finite images (DDIM {CLI_STEPS}) on {card}", flush=True)
+    return launches
+
+
+def phase_bench(card: str) -> dict:
+    r = measure_train_step(batch=BENCH_BATCH, steps=BENCH_STEPS)
+    check(math.isfinite(r["loss"]), f"measure_train_step loss {r['loss']}")
+    print(f"[bench] measure_train_step: batch {r['batch']}, bf16 compute / f32 parameters, "
+          f"fused attention, fast_norm, {r['steps']} warm steps: {r['sec_per_step']:.5f} "
+          f"s/step, {r['img_per_s']:.2f} images/s, peak device memory "
+          f"{r['peak_bytes'] / 2**30:.3f} GiB, on {card}", flush=True)
+    return r
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
     kernel_report = phase_kernel()
+    bwd_report = phase_kernel_bwd()
     state = phase_unet()
+    phase_unet_grad()
     launches = phase_cli(state, card["card"])
+    train_launches = phase_train(card["card"])
+    phase_bench(card["card"])
 
     shape, dtype = MAIN_SHAPES[0], torch.float32
     timing = kernel_report[(shape, dtype, "time")]
+    bwd_shape = TRAIN_SHAPES[0]
+    bwd_timing = bwd_report[(bwd_shape, dtype, "time")]
     line = {"kernels": [{
         "name": "attention_fwd",
         "route": "cuda",
         "source": "synt_isic_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "synt_isic_tpu/ops/pallas/attention.py:28",
         "launches": launches,
+        "launches_train": train_launches[attention.KERNEL],
         "max_abs_err": kernel_report[(shape, dtype, "BTC")],
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -305,6 +567,23 @@ def main() -> int:
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
         "shape": list(shape),
+        "dtype": "float32",
+    }, {
+        "name": "attention_bwd",
+        "route": "cuda",
+        "source": "synt_isic_tpu_torch/csrc/attention_bwd.cu",
+        "replaces": "synt_isic_tpu/ops/pallas/attention.py:149",
+        "launches": train_launches[attention.BWD_KERNEL],
+        "max_abs_err": bwd_report[(bwd_shape, dtype, "BTC")],
+        "ms": bwd_timing["ms"],
+        "plain_ms": bwd_timing["plain_ms"],
+        "bound_ms": bwd_timing["bound_ms"],
+        "bound_by": bwd_timing["bound_by"],
+        # scaled_dot_product_attention forward+backward through autograd,
+        # beside the kernels' forward+backward (fwd_bwd_ms)
+        "library_ms": bwd_timing["library_ms"],
+        "fwd_bwd_ms": bwd_timing["fwd_bwd_ms"],
+        "shape": list(bwd_shape),
         "dtype": "float32",
     }]}
     print(json.dumps(line), flush=True)

@@ -8,15 +8,20 @@ are the diffusers state-dict keys, so `load_state_dict(strict=True)` takes a
 reference `.pth` unchanged.
 
 Tensors are NCHW, PyTorch's habit. The numerics follow the JAX model:
-  * `dtype` is the compute dtype of every conv and linear layer (their
-    weights are stored in it and their inputs cast to it, as Flax's `dtype`
-    does); GroupNorm statistics are always f32, and the final
-    `conv_norm_out`/`conv_out` run in f32;
+  * `dtype` is the compute dtype of every conv, linear and class-embedding
+    layer: inputs and weights are cast to it inside `forward`, as Flax's
+    `dtype` does. `param_dtype` is the dtype the weights are stored in
+    (Flax's `param_dtype`; default `dtype`, so a bf16 sampling model keeps
+    bf16 weights and the casts are no-ops, while the trainer keeps f32
+    weights under bf16 compute). GroupNorm statistics are always f32, and
+    the final `conv_norm_out`/`conv_out` run in f32;
   * `fast_norm` (sub-f32 sampling) keeps the GroupNorm statistics in f32
     but the normalisation arithmetic in `dtype` (`ops/norms.py`);
-  * `use_fused_attention` routes the attention core through
-    `ops.attention.fused_attention` (the hand-written CUDA kernel on a CUDA
-    device); otherwise it runs the plain einsum path.
+  * `use_fused_attention` routes the attention core through the
+    hand-written CUDA kernels on a CUDA device: `fused_attention` (forward
+    only) when no gradient is taken, `fused_attention_trainable` (forward
+    and backward kernels) when one is; otherwise it runs the plain einsum
+    path.
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import attention_reference, fused_attention
+from ..ops.attention import (attention_reference, fused_attention,
+                             fused_attention_trainable)
 from ..ops.norms import group_norm_silu_fast
 
 
@@ -59,18 +65,47 @@ class UNet2DConfig:
         return self.block_out_channels[0] * 4
 
 
+def _cast(w: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if w is None else w.to(dtype)
+
+
 class Conv2d(nn.Conv2d):
-    """Conv2d that casts its input to its weights' dtype (Flax `dtype`)."""
+    """Conv2d computing in `dtype` on weights stored in `param_dtype`
+    (Flax `dtype`/`param_dtype`; the default stores them in `dtype`)."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, dtype=param_dtype or dtype, **kwargs)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        d = self.compute_dtype
+        return self._conv_forward(x.to(d), self.weight.to(d), _cast(self.bias, d))
 
 
 class Linear(nn.Linear):
-    """Linear that casts its input to its weights' dtype (Flax `dtype`)."""
+    """Linear computing in `dtype` on weights stored in `param_dtype`."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, dtype=param_dtype or dtype, **kwargs)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        d = self.compute_dtype
+        return F.linear(x.to(d), self.weight.to(d), _cast(self.bias, d))
+
+
+class Embedding(nn.Embedding):
+    """Embedding table stored in `param_dtype`, rows returned in `dtype`."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, dtype=param_dtype or dtype, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return super().forward(ids).to(self.compute_dtype)
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
@@ -93,10 +128,12 @@ def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
 class TimestepEmbedding(nn.Module):
     """MLP on the sinusoidal features: linear_1 -> silu -> linear_2."""
 
-    def __init__(self, in_dim: int, time_embed_dim: int, dtype: torch.dtype):
+    def __init__(self, in_dim: int, time_embed_dim: int, dtype: torch.dtype,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.linear_1 = Linear(in_dim, time_embed_dim, dtype=dtype)
-        self.linear_2 = Linear(time_embed_dim, time_embed_dim, dtype=dtype)
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
+        self.linear_1 = Linear(in_dim, time_embed_dim, **kw)
+        self.linear_2 = Linear(time_embed_dim, time_embed_dim, **kw)
 
     def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(t_emb)))
@@ -107,15 +144,17 @@ class ResnetBlock2D(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
                  groups: int = 32, eps: float = 1e-5,
-                 dtype: torch.dtype = torch.float32, fast_norm: bool = False):
+                 dtype: torch.dtype = torch.float32, fast_norm: bool = False,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.groups, self.eps, self.dtype, self.fast_norm = groups, eps, dtype, fast_norm
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
         self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
-        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1, dtype=dtype)
-        self.time_emb_proj = Linear(temb_channels, out_channels, dtype=dtype)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1, **kw)
+        self.time_emb_proj = Linear(temb_channels, out_channels, **kw)
         self.norm2 = nn.GroupNorm(groups, out_channels, eps=eps)
-        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, dtype=dtype)
-        self.conv_shortcut = (Conv2d(in_channels, out_channels, 1, dtype=dtype)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, **kw)
+        self.conv_shortcut = (Conv2d(in_channels, out_channels, 1, **kw)
                               if in_channels != out_channels else None)
 
     def _norm_silu(self, norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
@@ -145,15 +184,17 @@ class AttentionBlock(nn.Module):
 
     def __init__(self, channels: int, head_dim: int = 8, groups: int = 32,
                  eps: float = 1e-5, dtype: torch.dtype = torch.float32,
-                 use_fused: bool = False, fast_norm: bool = False):
+                 use_fused: bool = False, fast_norm: bool = False,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.head_dim, self.groups, self.eps = head_dim, groups, eps
         self.dtype, self.use_fused, self.fast_norm = dtype, use_fused, fast_norm
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
         self.group_norm = nn.GroupNorm(groups, channels, eps=eps)
-        self.to_q = Linear(channels, channels, dtype=dtype)
-        self.to_k = Linear(channels, channels, dtype=dtype)
-        self.to_v = Linear(channels, channels, dtype=dtype)
-        self.to_out = nn.ModuleList([Linear(channels, channels, dtype=dtype)])
+        self.to_q = Linear(channels, channels, **kw)
+        self.to_k = Linear(channels, channels, **kw)
+        self.to_v = Linear(channels, channels, **kw)
+        self.to_out = nn.ModuleList([Linear(channels, channels, **kw)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
@@ -169,26 +210,36 @@ class AttentionBlock(nn.Module):
         def split(z):
             return z.view(b, h * w, heads, self.head_dim).transpose(1, 2)
 
-        attention = fused_attention if self.use_fused else attention_reference
-        out = attention(split(self.to_q(y)), split(self.to_k(y)),
-                        split(self.to_v(y))).to(self.dtype)
+        q, k, v = split(self.to_q(y)), split(self.to_k(y)), split(self.to_v(y))
+        if not self.use_fused:
+            attention = attention_reference
+        elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                          or v.requires_grad):
+            attention = fused_attention_trainable
+        else:
+            attention = fused_attention
+        out = attention(q, k, v).to(self.dtype)
         out = self.to_out[0](out.transpose(1, 2).reshape(b, h * w, c))
         return x + out.transpose(1, 2).reshape(b, c, h, w)
 
 
 class Downsample2D(nn.Module):
-    def __init__(self, channels: int, dtype: torch.dtype):
+    def __init__(self, channels: int, dtype: torch.dtype,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, stride=2, padding=1, dtype=dtype)
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=1, dtype=dtype,
+                           param_dtype=param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
 
 
 class Upsample2D(nn.Module):
-    def __init__(self, channels: int, dtype: torch.dtype):
+    def __init__(self, channels: int, dtype: torch.dtype,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, padding=1, dtype=dtype)
+        self.conv = Conv2d(channels, channels, 3, padding=1, dtype=dtype,
+                           param_dtype=param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
@@ -205,14 +256,23 @@ class _Layers:
     fast_norm: bool
     head_dim: int
     use_fused_attention: bool
+    param_dtype: torch.dtype
 
     def resnet(self, in_channels: int, out_channels: int) -> ResnetBlock2D:
         return ResnetBlock2D(in_channels, out_channels, self.temb_channels,
-                             self.groups, self.eps, self.dtype, self.fast_norm)
+                             self.groups, self.eps, self.dtype, self.fast_norm,
+                             self.param_dtype)
+
+    def downsample(self, channels: int) -> Downsample2D:
+        return Downsample2D(channels, self.dtype, self.param_dtype)
+
+    def upsample(self, channels: int) -> Upsample2D:
+        return Upsample2D(channels, self.dtype, self.param_dtype)
 
     def attention(self, channels: int) -> AttentionBlock:
         return AttentionBlock(channels, self.head_dim, self.groups, self.eps,
-                              self.dtype, self.use_fused_attention, self.fast_norm)
+                              self.dtype, self.use_fused_attention, self.fast_norm,
+                              self.param_dtype)
 
 
 class DownBlock2D(nn.Module):
@@ -225,7 +285,7 @@ class DownBlock2D(nn.Module):
         self.attentions = (nn.ModuleList([layers.attention(out_channels)
                                           for _ in range(num_layers)])
                            if with_attention else None)
-        self.downsamplers = (nn.ModuleList([Downsample2D(out_channels, layers.dtype)])
+        self.downsamplers = (nn.ModuleList([layers.downsample(out_channels)])
                              if add_downsample else None)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor):
@@ -270,7 +330,7 @@ class UpBlock2D(nn.Module):
         self.attentions = (nn.ModuleList([layers.attention(out_channels)
                                           for _ in range(num_layers)])
                            if with_attention else None)
-        self.upsamplers = (nn.ModuleList([Upsample2D(out_channels, layers.dtype)])
+        self.upsamplers = (nn.ModuleList([layers.upsample(out_channels)])
                            if add_upsample else None)
 
     def forward(self, x: torch.Tensor, skips: List[torch.Tensor],
@@ -287,23 +347,28 @@ class UpBlock2D(nn.Module):
 
 class UNet2D(nn.Module):
     """Top-level epsilon-prediction UNet. Input and output NCHW; the output
-    is f32."""
+    is f32. `param_dtype` (default `dtype`) is the storage dtype of the conv,
+    linear and embedding weights; GroupNorm weights and `conv_out` are
+    always f32."""
 
     def __init__(self, config: UNet2DConfig = UNet2DConfig(),
                  dtype: torch.dtype = torch.float32,
-                 use_fused_attention: bool = False, fast_norm: bool = False):
+                 use_fused_attention: bool = False, fast_norm: bool = False,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         cfg = self.config = config
         self.dtype = dtype
+        self.param_dtype = param_dtype = param_dtype or dtype
         temb = cfg.time_embed_dim
         last = len(cfg.block_out_channels) - 1
         layers = _Layers(temb, cfg.norm_num_groups, cfg.norm_eps, dtype, fast_norm,
-                         cfg.attention_head_dim, use_fused_attention)
+                         cfg.attention_head_dim, use_fused_attention, param_dtype)
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
 
         self.conv_in = Conv2d(cfg.in_channels, cfg.block_out_channels[0], 3,
-                              padding=1, dtype=dtype)
-        self.time_embedding = TimestepEmbedding(cfg.block_out_channels[0], temb, dtype)
-        self.class_embedding = (nn.Embedding(cfg.num_class_embeds, temb, dtype=dtype)
+                              padding=1, **kw)
+        self.time_embedding = TimestepEmbedding(cfg.block_out_channels[0], temb, **kw)
+        self.class_embedding = (Embedding(cfg.num_class_embeds, temb, **kw)
                                 if cfg.num_class_embeds else None)
 
         self.down_blocks = nn.ModuleList()

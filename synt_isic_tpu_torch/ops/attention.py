@@ -1,33 +1,43 @@
-"""Spatial self-attention core, softmax(q k^T / sqrt(D)) v, for the UNet.
+"""Spatial self-attention core, softmax(q k^T / sqrt(D)) v, for the UNet:
+forward, backward and the autograd Function that binds them.
 
-`fused_attention` is the port of the Pallas `fused_attention` (both
-layouts) in synt_isic_tpu/ops/pallas/attention.py. For a CUDA tensor it
-launches the hand-written kernel `csrc/attention_fwd.cu` or raises; for a
-CPU tensor it runs `attention_reference`, the plain PyTorch version that the
-tests and `chip_smoke.py` hold the kernel against. There is no other route.
+The port of synt_isic_tpu/ops/pallas/attention.py:
+  * `fused_attention` (both Pallas layouts) launches the hand-written kernel
+    `csrc/attention_fwd.cu` for a CUDA tensor; it has no gradient, so under
+    grad mode it refuses CUDA inputs that require grad;
+  * `fused_attention_bwd` (the Pallas recompute backward) launches
+    `csrc/attention_bwd.cu`;
+  * `fused_attention_trainable` (the Pallas `custom_vjp`) is the autograd
+    Function `FusedAttention`: forward kernel, backward kernel.
+For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
+tensor it runs the plain PyTorch version (`attention_reference`,
+`attention_bwd_reference`), which the tests and `chip_smoke.py` hold the
+kernels against. There is no other route.
 
-q, k, v are (B, H, T, D) tensors of any strides, so a view of a (B, T, C)
-projection output (`z.view(B, T, H, D).transpose(1, 2)`) goes in without a
-copy, and the kernel's result keeps q's strides, so it reshapes back to
-(B, T, C) for free.
+q, k, v (and do) are (B, H, T, D) tensors of any strides, so a view of a
+(B, T, C) projection output (`z.view(B, T, H, D).transpose(1, 2)`) goes in
+without a copy, and every result keeps q's strides (dk and dv those of k
+and v), so it reshapes back to (B, T, C) for free.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from typing import Tuple
 
 import torch
 
 from . import native
 
 KERNEL = "attention_fwd"
+BWD_KERNEL = "attention_bwd"
 HEAD_DIMS = (4, 8)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of each hand-written kernel, counted where the wrapper launches it
 # and nowhere else, so a run can show that its main path went through them.
-LAUNCHES = {KERNEL: 0}
+LAUNCHES = {KERNEL: 0, BWD_KERNEL: 0}
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -41,48 +51,147 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor,
     return torch.matmul(probs.float(), v.float()).to(q.dtype)
 
 
+def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv), step for step as the Pallas `_attention_bwd_kernel`:
+    probabilities rebuilt in f32 and cast to v's dtype; dv = P^T do and
+    dp = do v^T in f32; ds = P (dp - rowsum(dp P)) scale; ds cast to q's
+    dtype before dq = ds k and dk = ds^T q; results in q's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = logits - logits.amax(dim=-1, keepdim=True)
+    exp = torch.exp(logits)
+    probs = (exp / exp.sum(dim=-1, keepdim=True)).to(v.dtype).float()
+    dv = torch.matmul(probs.transpose(-1, -2), do.float())
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    row = (dp * probs).sum(dim=-1, keepdim=True)
+    ds = (probs * (dp - row) * scale).to(q.dtype).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _check(*tensors: torch.Tensor) -> str:
+    """Validate one (B, H, T, D) call; returns the device type."""
+    q = tensors[0]
+    if q.dim() != 4 or any(z.shape != q.shape for z in tensors):
+        raise ValueError(f"inputs must share one (B, H, T, D) shape, got "
+                         f"{[tuple(z.shape) for z in tensors]}")
+    if any(z.device != q.device for z in tensors):
+        raise ValueError("inputs must be on one device")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no attention kernel for device {q.device}")
+    if q.device.type == "cuda":
+        if any(z.dtype != q.dtype for z in tensors) or q.dtype not in _DTYPE_CODES:
+            raise ValueError(f"kernel takes float32 or bfloat16 inputs of one "
+                             f"dtype, got {[z.dtype for z in tensors]}")
+        if q.shape[-1] not in HEAD_DIMS:
+            raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, got {q.shape[-1]}")
+    return q.device.type
+
+
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = native.load(KERNEL)
-    fn = lib.attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def _lib(name: str) -> ctypes.CDLL:
+    lib = native.load(name)
+    if name == KERNEL:
+        lib.attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p]
+        lib.attention_fwd.restype = ctypes.c_int
+    else:
+        lib.attention_bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p]
+        lib.attention_bwd.restype = ctypes.c_int
     return lib
+
+
+def _strides(*tensors: torch.Tensor):
+    return (ctypes.c_int64 * (4 * len(tensors)))(
+        *(s for z in tensors for s in z.stride()))
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The forward on the tensors' device, no gradient: the kernel on CUDA,
+    the plain version on the CPU."""
+    if _check(q, k, v) == "cpu":
+        return attention_reference(q, k, v)
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    b, h, t, d = q.shape
+    with torch.cuda.device(q.device):
+        err = _lib(KERNEL).attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, h, t, d, _DTYPE_CODES[q.dtype], _strides(q, k, v, out),
+            1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
+    LAUNCHES[KERNEL] += 1
+    return out
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     fast_math: bool = False) -> torch.Tensor:
     """softmax(q k^T / sqrt(D)) v over (B, H, T, D) tensors, in q's dtype
-    (on CUDA with q's strides where q is dense)."""
+    (on CUDA with q's strides where q is dense). The CUDA kernel has no
+    gradient: under grad mode, CUDA inputs that require grad raise (use
+    `fused_attention_trainable`)."""
     if fast_math:
         raise NotImplementedError("fast_math (bf16 exponentials) is not ported yet")
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"q, k, v must share one (B, H, T, D) shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v must be on one device")
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"kernel takes float32 or bfloat16 q, k, v of one "
-                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    b, h, t, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, got {d}")
-    out = torch.empty_like(q)
+    if (q.device.type == "cuda" and torch.is_grad_enabled()
+            and any(z.requires_grad for z in (q, k, v))):
+        raise RuntimeError("fused_attention has no gradient on CUDA; call "
+                           "fused_attention_trainable for inputs that require grad")
+    return _forward(q, k, v)
+
+
+def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of softmax(q k^T / sqrt(D)) v for the output gradient
+    `do`, in q's dtype, with the strides of q, k and v where they are dense.
+    One call launches the kernel's two passes and counts one launch."""
+    if _check(q, k, v, do) == "cpu":
+        return attention_bwd_reference(q, k, v, do)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
-        return out
-    strides = (ctypes.c_int64 * 16)(*q.stride(), *k.stride(), *v.stride(),
-                                    *out.stride())
+        return dq, dk, dv
+    b, h, t, d = q.shape
+    # per query row: the base-2 log-sum-exp and delta = do . o (f32 scratch)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
     with torch.cuda.device(q.device):
-        err = _lib().attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, t, d, _DTYPE_CODES[q.dtype], strides, 1.0 / math.sqrt(d),
+        err = _lib(BWD_KERNEL).attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), b, h, t, d, _DTYPE_CODES[q.dtype],
+            _strides(q, k, v, do, dq, dk, dv), 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
-    LAUNCHES[KERNEL] += 1
-    return out
+        raise RuntimeError(f"{BWD_KERNEL} launch failed: cudaError {err}")
+    LAUNCHES[BWD_KERNEL] += 1
+    return dq, dk, dv
+
+
+class FusedAttention(torch.autograd.Function):
+    """The Pallas `fused_attention_trainable` custom VJP: the forward kernel
+    as the primal, the recompute backward kernel as the VJP. Saves q, k, v
+    only (views of the projections, no copy); nothing of size T^2."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return fused_attention_bwd(q, k, v, do.to(q.dtype))
+
+
+def fused_attention_trainable(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor) -> torch.Tensor:
+    """`fused_attention` with a gradient: the same primal, and a backward
+    that is the recompute kernel (the exact derivative of the f32-softmax
+    forward, up to rounding)."""
+    return FusedAttention.apply(q, k, v)

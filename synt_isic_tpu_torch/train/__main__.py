@@ -1,0 +1,145 @@
+"""Training entry point: `python -m synt_isic_tpu_torch.train`.
+
+The port of `python -m synt_isic_tpu.train` for per-class DDPM training:
+the same flags (interactive class menu when `--classes` is omitted), plus
+`--device` (default cuda; raises without CUDA unless `--device cpu`). On
+CUDA the model runs bf16 compute on f32 parameters (unless `--no-bf16`)
+with the hand-written attention kernels and the f32-statistics GroupNorm.
+
+    python -m synt_isic_tpu_torch.train --classes MEL --procedural 64 \
+        --epochs 2 --batch 16 --checkpoints DIR
+
+`--train-classifier`, `--distill-from`, `--conditional` and `--dp-mesh` are
+not ported yet and exit with status 2.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import List
+
+from ..model_manager import resolve_device
+from ..utils.config import CLASS_NAMES
+from .train_ddpm import TrainConfig, train_class
+
+NOT_PORTED = ("train_classifier", "distill_from", "conditional", "dp_mesh")
+
+
+def select_classes_interactive() -> List[str]:
+    print("available classes:")
+    for i, cls in enumerate(CLASS_NAMES, 1):
+        print(f"  {i}. {cls}")
+    print("select: numbers/names (comma-separated) or 'all'")
+    line = input("> ").strip()
+    if not line:
+        return []
+    if line.lower() == "all":
+        return list(CLASS_NAMES)
+    chosen = []
+    for tok in line.split(","):
+        tok = tok.strip()
+        if tok.isdigit() and 1 <= int(tok) <= len(CLASS_NAMES):
+            chosen.append(CLASS_NAMES[int(tok) - 1])
+        elif tok.upper() in CLASS_NAMES:
+            chosen.append(tok.upper())
+    return chosen
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="synt-isic-train-torch")
+    p.add_argument("--classes", nargs="*", help="class names (default: ask)")
+    p.add_argument("--data-dir", default="data/ISIC2018_Task3_Training_Input")
+    p.add_argument("--csv", default="data/ISIC2018_Task3_Training_GroundTruth.csv")
+    p.add_argument("--checkpoints", default="checkpoints")
+    p.add_argument("--epochs", type=int, default=50)
+    # only an explicit --batch/--lr reaches the config: the TrainConfig
+    # defaults (batch 2, lr 1e-4, reference parity) apply otherwise
+    p.add_argument("--batch", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--image-size", type=int, default=128)
+    p.add_argument("--max-samples", type=int, default=500)
+    p.add_argument("--no-bf16", action="store_true")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--ema", type=float, default=0.0, metavar="DECAY",
+                   help="EMA decay for exported weights (e.g. 0.9999; "
+                        "0 = off = reference behavior)")
+    p.add_argument("--offset-noise", type=float, default=0.0, metavar="S",
+                   help="offset-noise strength (e.g. 0.1; 0 = off)")
+    p.add_argument("--lr-schedule", choices=("constant", "cosine"),
+                   default="constant")
+    p.add_argument("--warmup-steps", type=int, default=0)
+    p.add_argument("--min-snr", type=float, default=0.0, metavar="GAMMA",
+                   help="min-SNR loss weighting gamma (e.g. 5.0; 0 = off)")
+    p.add_argument("--eval-every", type=int, default=0, metavar="N",
+                   help="select the best checkpoint by a deterministic probe "
+                        "loss every N epochs (0 = off: running train loss)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--procedural", type=int, default=0, metavar="N",
+                   help="train on N procedural images instead of the ISIC "
+                        "archive (asset-free; see train/procedural.py)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="device to train on (cuda runs the hand-written "
+                        "attention kernels; cpu runs their plain versions)")
+    not_ported = p.add_argument_group("not ported yet (exit with status 2)")
+    not_ported.add_argument("--dp-mesh", action="store_true")
+    not_ported.add_argument("--train-classifier", action="store_true")
+    not_ported.add_argument("--conditional", action="store_true")
+    not_ported.add_argument("--cond-dropout", type=float, default=0.1, metavar="P")
+    not_ported.add_argument("--distill-from", metavar="CKPT")
+    not_ported.add_argument("--distill-start", type=int, default=64, metavar="N")
+    not_ported.add_argument("--distill-end", type=int, default=4, metavar="N")
+    not_ported.add_argument("--distill-steps-per-phase", type=int, default=2000)
+    not_ported.add_argument("--distill-spacing", choices=("leading", "trailing"),
+                            default="trailing")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    for name in NOT_PORTED:
+        if getattr(args, name):
+            print(f"--{name.replace('_', '-')} is not ported yet", file=sys.stderr)
+            return 2
+    device = resolve_device(args.device)
+
+    classes = args.classes or select_classes_interactive()
+    if not classes:
+        print("no classes selected")
+        return 1
+
+    explicit = {k: v for k, v in (("batch_size", args.batch),
+                                  ("learning_rate", args.lr)) if v is not None}
+    cfg = TrainConfig(image_size=args.image_size, epochs=args.epochs,
+                      bf16_compute=not args.no_bf16, seed=args.seed,
+                      ema_decay=args.ema, offset_noise=args.offset_noise,
+                      lr_schedule=args.lr_schedule,
+                      warmup_steps=args.warmup_steps,
+                      min_snr_gamma=args.min_snr, eval_every=args.eval_every,
+                      cond_dropout=args.cond_dropout, **explicit)
+
+    for cls in classes:
+        if args.procedural:
+            from .procedural import ProceduralDataset
+
+            dataset = ProceduralDataset(cls, args.procedural,
+                                        image_size=args.image_size,
+                                        seed=args.seed, device=device)
+        else:
+            from .data import SingleClassDataset
+
+            dataset = SingleClassDataset(args.data_dir, args.csv,
+                                         CLASS_NAMES.index(cls),
+                                         image_size=args.image_size,
+                                         max_samples=args.max_samples)
+        if len(dataset) == 0:
+            print(f"!! no data for {cls}, skipping")
+            continue
+        print(f"== training {cls}: {len(dataset)} images on {device} ==")
+        result = train_class(cls, dataset, args.checkpoints, cfg,
+                             resume=args.resume, device=device)
+        print(f"== {cls} done: best_loss={result['best_loss']:.5f} ==")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

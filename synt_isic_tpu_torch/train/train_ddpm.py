@@ -1,0 +1,496 @@
+"""Per-class DDPM training: noise-prediction MSE with Adam, in PyTorch.
+
+The port of `synt_isic_tpu/train/train_ddpm.py` (itself parity with the
+reference's `train_class`): uniform random timesteps, forward-process
+noising from the schedule's alpha-bar table, MSE on epsilon, Adam lr=1e-4,
+best-loss checkpointing to `unet_<CLASS>_best.pth` (diffusers keys, f32,
+`torch.save`; the JAX package's `load_pth` reads it), every-N-epoch
+snapshots, and a resume state.
+
+What differs from the JAX trainer, and why:
+  * mixed precision is the same: bf16 compute on the model with f32
+    parameters (`UNet2D(dtype=bf16, param_dtype=f32)`), f32 loss and
+    gradients, no gradient scaler (bf16 keeps f32's exponent range);
+  * on CUDA the attention blocks run the hand-written forward and backward
+    kernels (`ops/attention.py`), and GroupNorm the f32-statistics path;
+  * PyTorch runs eagerly: the epoch is a plain loop of steps, with no
+    compiled epoch scan and no CUDA graph yet. Checkpoints go through the
+    async writer (best checkpoint on improvement, coalesced);
+  * random numbers come from a `torch.Generator` seeded from
+    `config.seed`, not from threefry keys, so draws differ from the JAX
+    package's; `train_step` takes injected `t` and `eps` so a test can feed
+    it the JAX draws;
+  * the resume state keeps `best_loss`, and a run resumed after its last
+    epoch runs no further epoch (the JAX trainer re-runs the last one).
+Data-parallel training (`mesh`) is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from ..diffusion.schedules import DiffusionSchedule, device_table
+from ..io.pth import save_checkpoint
+from ..model_manager import resolve_device
+from ..models.unet2d import UNet2D, UNet2DConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The JAX `TrainConfig`, field for field (see its comments for each
+    option's rationale). Every default is the reference's behaviour."""
+    image_size: int = 128
+    batch_size: int = 2
+    learning_rate: float = 1e-4
+    epochs: int = 50
+    num_train_timesteps: int = 1000
+    snapshot_every: int = 5
+    bf16_compute: bool = True
+    seed: int = 0
+    # EMA of the weights (0.0 = off); checkpoints then ship the EMA weights,
+    # warmup d_t = min(decay, (1+t)/(10+t))
+    ema_decay: float = 0.0
+    # "constant" (optionally with a linear warmup) or "cosine" (warmup, then
+    # cosine decay to lr_end_factor * learning_rate over the run)
+    lr_schedule: str = "constant"
+    warmup_steps: int = 0
+    lr_end_factor: float = 0.05
+    # min-SNR loss weighting gamma (0.0 = off)
+    min_snr_gamma: float = 0.0
+    # deterministic probe loss for best selection every N epochs (0 = off:
+    # best selection on the running train loss)
+    eval_every: int = 0
+    eval_probe_images: int = 16
+    eval_t_points: int = 8
+    # label dropout to the null class for classifier-free guidance (labelled
+    # batches only)
+    cond_dropout: float = 0.1
+    # offset-noise strength: a per-(image, channel) constant added to eps
+    offset_noise: float = 0.0
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (updated in place), its optimizer, the lr schedule, the
+    count of steps taken, and the f32 EMA of the weights (None when off)."""
+    model: UNet2D
+    optimizer: torch.optim.Adam
+    lr_schedule: Callable[[int], float]
+    step: int = 0
+    ema: Optional[Dict[str, torch.Tensor]] = None
+
+    def export_params(self) -> Dict[str, torch.Tensor]:
+        """The weights checkpoints ship: the EMA when on, else the model's."""
+        return self.ema if self.ema is not None else self.model.state_dict()
+
+
+def ema_update(ema: Dict[str, torch.Tensor], params: Mapping[str, torch.Tensor],
+               step: int, decay: float) -> None:
+    """In place: ema = d * ema + (1 - d) * params with the warmup
+    d = min(decay, (1+step)/(10+step)), so the average is not biased toward
+    the random init early on."""
+    d = min(decay, (1.0 + step) / (10.0 + step))
+    values = [ema[k] for k in ema]
+    torch._foreach_mul_(values, d)
+    torch._foreach_add_(values, [params[k].detach().float() for k in ema],
+                        alpha=1.0 - d)
+
+
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int) -> Callable[[int], float]:
+    """optax.linear_schedule: init -> end over `transition_steps`, then
+    constant (constant `init_value` for a non-positive length)."""
+    if transition_steps <= 0:
+        return lambda count: init_value
+
+    def schedule(count: int) -> float:
+        frac = 1.0 - min(max(count, 0), transition_steps) / transition_steps
+        return (init_value - end_value) * frac + end_value
+    return schedule
+
+
+def warmup_cosine_schedule(peak_lr: float, warmup_steps: int,
+                           total_steps: int, end_factor: float
+                           ) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule from 0: a linear warmup (clamped
+    to total/10) to `peak_lr`, then cosine decay to end_factor * peak over
+    the rest of `total_steps`."""
+    warmup = min(warmup_steps, max(1, total_steps // 10))
+    decay = total_steps - warmup
+    if decay <= 0:
+        raise ValueError(f"cosine schedule needs total_steps > warmup, got "
+                         f"{total_steps} <= {warmup}")
+    alpha = end_factor if peak_lr != 0.0 else 0.0
+    rise = linear_schedule(0.0, peak_lr, warmup)
+
+    def schedule(count: int) -> float:
+        if count < warmup:
+            return rise(count)
+        c = min(count - warmup, decay)
+        return peak_lr * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * c / decay))
+                          + alpha)
+    return schedule
+
+
+def make_lr_schedule(config: TrainConfig,
+                     total_steps: Optional[int] = None) -> Callable[[int], float]:
+    """lr as a function of the number of updates already made, per
+    TrainConfig (optax's convention: the first update reads count 0).
+    `total_steps` is required for the cosine schedule."""
+    if config.lr_schedule == "constant":
+        if config.warmup_steps > 0:
+            return linear_schedule(0.0, config.learning_rate, config.warmup_steps)
+        return lambda count: config.learning_rate
+    if config.lr_schedule == "cosine":
+        if not total_steps:
+            raise ValueError("cosine lr_schedule needs total_steps "
+                             "(epochs x steps-per-epoch)")
+        return warmup_cosine_schedule(config.learning_rate, config.warmup_steps,
+                                      total_steps, config.lr_end_factor)
+    raise ValueError(f"unknown lr_schedule {config.lr_schedule!r}")
+
+
+def create_train_state(model: UNet2D, config: TrainConfig,
+                       total_steps: Optional[int] = None) -> TrainState:
+    """Adam (optax's defaults: betas 0.9/0.999, eps 1e-8) over the model's
+    parameters, where they are; the EMA starts as an f32 copy of them."""
+    lr = make_lr_schedule(config, total_steps)
+    optimizer = torch.optim.Adam(model.parameters(), lr=lr(0),
+                                 betas=(0.9, 0.999), eps=1e-8)
+    ema = ({k: v.detach().float().clone() for k, v in model.state_dict().items()}
+           if config.ema_decay > 0 else None)
+    return TrainState(model=model, optimizer=optimizer, lr_schedule=lr, ema=ema)
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+def make_train_step(schedule: DiffusionSchedule, config: TrainConfig) -> Callable:
+    """The train step: (state, batch_nhwc, generator=None, t=None, eps=None,
+    labels=None) -> loss, a 0-d f32 tensor on the batch's device (no host
+    sync). Updates `state` in place.
+
+    `t` ((B,) ints) and `eps` (the batch's shape, offset noise included)
+    are drawn from `generator` unless given. `labels` ((B,) class ids)
+    train a conditional UNet, with `cond_dropout` of them replaced by the
+    null class (the last embedding row)."""
+    tables: Dict[torch.device, torch.Tensor] = {}
+    T = schedule.num_train_timesteps
+
+    def train_step(state: TrainState, batch: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   t: Optional[torch.Tensor] = None,
+                   eps: Optional[torch.Tensor] = None,
+                   labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dev = batch.device
+        if dev not in tables:
+            tables[dev] = device_table(schedule.alphas_cumprod, dev)
+        b = batch.shape[0]
+        if t is None:
+            t = torch.randint(0, T, (b,), generator=generator, device=dev)
+        if eps is None:
+            eps = torch.randn(batch.shape, generator=generator, device=dev)
+            if config.offset_noise > 0.0:
+                eps = eps + config.offset_noise * torch.randn(
+                    (b, 1, 1, batch.shape[-1]), generator=generator, device=dev)
+        t = t.to(dev)
+        x0, eps = _nchw(batch.float()), _nchw(eps.to(dev, torch.float32))
+        ab_t = tables[dev][t].reshape(b, 1, 1, 1)
+        noisy = torch.sqrt(ab_t) * x0 + torch.sqrt(1.0 - ab_t) * eps
+        if labels is not None:
+            labels = labels.to(dev).long()
+            if config.cond_dropout > 0.0:
+                null = state.model.config.num_class_embeds - 1
+                drop = torch.rand(b, generator=generator, device=dev) < config.cond_dropout
+                labels = torch.where(drop, torch.full_like(labels, null), labels)
+        pred = state.model(noisy, t, labels)
+        err = torch.mean((pred.float() - eps) ** 2, dim=(1, 2, 3))
+        if config.min_snr_gamma > 0.0:
+            snr = (ab_t / (1.0 - ab_t)).reshape(b)
+            err = err * (torch.clamp(snr, max=config.min_snr_gamma) / snr)
+        loss = err.mean()
+
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        for group in state.optimizer.param_groups:
+            group["lr"] = state.lr_schedule(state.step)
+        state.optimizer.step()
+        if state.ema is not None:
+            ema_update(state.ema, state.model.state_dict(), state.step,
+                       config.ema_decay)
+        state.step += 1
+        return loss.detach()
+
+    return train_step
+
+
+def make_eval_fn(model: UNet2D, schedule: DiffusionSchedule,
+                 config: TrainConfig, probe_images: torch.Tensor) -> Callable:
+    """Deterministic validation loss: params -> float.
+
+    Unweighted epsilon-MSE on a fixed probe: the `probe_images` (NHWC, on
+    the model's device) x `eval_t_points` timesteps stratified over [0, T)
+    x noise fixed from a generator seeded with seed + 0x5EED. `params` (a
+    state dict, e.g. the EMA) is run through the model's graph without
+    touching the model's own weights."""
+    dev = probe_images.device
+    ab = device_table(schedule.alphas_cumprod, dev)
+    T = schedule.num_train_timesteps
+    n_img, n_t = probe_images.shape[0], config.eval_t_points
+    t_grid = ((2 * torch.arange(n_t, device=dev) + 1) * T) // (2 * n_t)
+    gen = torch.Generator(device=dev).manual_seed(config.seed + 0x5EED)
+    eps = torch.randn((n_t,) + tuple(probe_images.shape), generator=gen, device=dev)
+    x0 = _nchw(probe_images.float())
+
+    @torch.no_grad()
+    def eval_fn(params: Mapping[str, torch.Tensor]) -> float:
+        losses = []
+        for i in range(n_t):
+            ab_t = ab[t_grid[i]]
+            e = _nchw(eps[i])
+            noisy = torch.sqrt(ab_t) * x0 + torch.sqrt(1.0 - ab_t) * e
+            t_b = t_grid[i].expand(n_img)
+            pred = torch.func.functional_call(model, dict(params), (noisy, t_b))
+            losses.append(torch.mean((pred.float() - e) ** 2))
+        return float(torch.stack(losses).mean())
+
+    return eval_fn
+
+
+def train_state_tree(state: TrainState, best_loss: float = float("inf")) -> Dict[str, Any]:
+    """Everything a resume needs: weights, optimizer moments and count, the
+    step, the EMA and the best loss so far (live tensors, not copies)."""
+    return {"model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": state.step, "ema": state.ema, "best_loss": float(best_loss)}
+
+
+def _save_tree(tree: Dict[str, Any], path: str) -> None:
+    path = Path(path)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    torch.save(tree, tmp)
+    os.replace(tmp, path)
+
+
+def save_train_state(state: TrainState, path: str,
+                     best_loss: float = float("inf")) -> None:
+    """Full mid-run checkpoint (a torch file): weights, optimizer state,
+    step, EMA and best loss."""
+    _save_tree(train_state_tree(state, best_loss), path)
+
+
+def restore_train_state(state: TrainState, path: str) -> Dict[str, Any]:
+    """Load a `save_train_state` file into a freshly built state of the same
+    architecture (in place; shapes are checked by `load_state_dict`).
+    Returns the rest of what was saved (`best_loss`)."""
+    # loaded on the host: load_state_dict copies the weights and the Adam
+    # moments to the parameters' device, and Adam keeps its step counts on
+    # the host
+    device = next(state.model.parameters()).device
+    tree = torch.load(path, map_location="cpu", weights_only=True)
+    state.model.load_state_dict(tree["model"], strict=True)
+    state.optimizer.load_state_dict(tree["optimizer"])
+    state.step = int(tree["step"])
+    if state.ema is not None and tree["ema"] is not None:
+        state.ema = {k: v.to(device, torch.float32) for k, v in tree["ema"].items()}
+    return {"best_loss": float(tree["best_loss"])}
+
+
+def dataset_color_statistics(dataset, max_images: int = 256):
+    """Per-class RGB mean/std for the generator's color postprocessing.
+
+    Datasets with a materialized `.images` stack (ProceduralDataset, [-1,1])
+    use it directly; lazy datasets exposing `load_raw` ([0,1],
+    SingleClassDataset) load up to `max_images`. None when the dataset
+    supports neither."""
+    from ..io.color_stats import compute_color_statistics
+
+    imgs = getattr(dataset, "images", None)
+    if imgs is not None:
+        return compute_color_statistics(np.asarray(imgs[:max_images]),
+                                        value_range=(-1.0, 1.0))
+    if hasattr(dataset, "load_raw") and len(dataset) > 0:
+        n = min(max_images, len(dataset))
+        arr = np.stack([dataset.load_raw(i) for i in range(n)])
+        return compute_color_statistics(arr, value_range=(0.0, 1.0))
+    return None
+
+
+# the JAX trainer's name for the best/snapshot checkpoint writer
+save_checkpoint_torch_format = save_checkpoint
+
+
+def default_model(config: TrainConfig, device: torch.device) -> UNet2D:
+    """The flagship UNet the trainer builds: bf16 compute (unless
+    `bf16_compute` is off) on f32 parameters, and on CUDA the hand-written
+    attention kernels and the f32-statistics GroupNorm; the CPU keeps the
+    f32 GroupNorm. Weights are initialised from `config.seed`."""
+    on_cuda = device.type == "cuda"
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(config.seed)
+        return UNet2D(UNet2DConfig(sample_size=config.image_size),
+                      dtype=torch.bfloat16 if config.bf16_compute else torch.float32,
+                      param_dtype=torch.float32, use_fused_attention=on_cuda,
+                      fast_norm=on_cuda)
+
+
+def _probe(dataset, config: TrainConfig, device: torch.device) -> torch.Tensor:
+    """The fixed eval probe: the first `eval_probe_images` of a materialized
+    dataset, else the first batches drawn from a dedicated rng."""
+    n_probe = config.eval_probe_images
+    imgs = getattr(dataset, "images", None)
+    if imgs is not None:
+        probe = np.asarray(imgs[:n_probe])
+    else:
+        rng = np.random.default_rng(config.seed + 1)
+        chunks, have = [], 0
+        for b in dataset.batches(min(n_probe, config.batch_size), rng):
+            chunks.append(np.asarray(b))
+            have += len(chunks[-1])
+            if have >= n_probe:
+                break
+        probe = np.concatenate(chunks)[:n_probe]
+    return torch.as_tensor(probe, dtype=torch.float32).to(device)
+
+
+def _epoch_batches(dataset, batch_size: int, rng: np.random.Generator,
+                   device: torch.device):
+    """One epoch of NHWC f32 batches on `device`: one gather for datasets
+    with `epoch_batches` (device-resident ones gather on the device), else
+    host batches prepared in the background (`prefetch`) and copied over."""
+    from .data import prefetch
+
+    if hasattr(dataset, "epoch_batches"):
+        yield from torch.as_tensor(dataset.epoch_batches(batch_size, rng)).to(device)
+        return
+    for batch in prefetch(dataset.batches(batch_size, rng)):
+        yield torch.as_tensor(batch).to(device)
+
+
+def train_class(class_name: str, dataset, checkpoint_dir: str,
+                config: TrainConfig = TrainConfig(),
+                model: Optional[UNet2D] = None,
+                resume: bool = False,
+                mesh=None,
+                log=print,
+                device=None) -> Dict[str, Any]:
+    """Full per-class training loop with best-loss + periodic checkpoints
+    and resume (weights, optimizer state, step, best loss).
+
+    `device`: CUDA unless the caller names another (raises when CUDA is
+    asked for and absent). `model` defaults to `default_model`.
+
+    Resume: the restored step count drives the lr schedule AND the epoch
+    loop — a run interrupted after epoch E continues at E+1; a run that had
+    finished runs no epoch and keeps its best checkpoint and best loss. The
+    data and noise streams restart from the seed, so a resumed run's batch
+    order differs from the uninterrupted run's."""
+    if mesh is not None:
+        raise NotImplementedError("data-parallel training (mesh) is not ported yet")
+    device = resolve_device(device)
+    model = (model or default_model(config, device)).to(device).train()
+    schedule = DiffusionSchedule.create(config.num_train_timesteps)
+    steps_per_epoch = max(1, len(dataset) // config.batch_size)
+    state = create_train_state(model, config,
+                               total_steps=config.epochs * steps_per_epoch)
+    step_fn = make_train_step(schedule, config)
+
+    ckpt_dir = Path(checkpoint_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    best_path = ckpt_dir / f"unet_{class_name}_best.pth"
+    resume_path = ckpt_dir / f"train_state_{class_name}.pt"
+    start_epoch = 1
+    best_loss = float("inf")
+    if resume and resume_path.exists():
+        best_loss = restore_train_state(state, str(resume_path))["best_loss"]
+        start_epoch = state.step // steps_per_epoch + 1
+        log(f"[train:{class_name}] resumed from {resume_path} (step "
+            f"{state.step}, best loss {best_loss:.5f}); "
+            + (f"continuing at epoch {start_epoch}/{config.epochs}"
+               if start_epoch <= config.epochs else "all epochs already done"))
+
+    generator = torch.Generator(device=device).manual_seed(config.seed)
+    data_rng = np.random.default_rng(config.seed)
+    best_val = float("inf")
+    history = []
+
+    eval_fn = None
+    if config.eval_every > 0:
+        eval_fn = make_eval_fn(model, schedule, config, _probe(dataset, config, device))
+
+    def select_best(epoch: int, improved_train: bool) -> bool:
+        """True when the export weights should become the best checkpoint."""
+        nonlocal best_val
+        if eval_fn is None:
+            return improved_train
+        if epoch % config.eval_every and epoch != config.epochs:
+            return False
+        val = eval_fn(state.export_params())
+        if val >= best_val:
+            return False
+        best_val = val
+        return True
+
+    # per-class color statistics for the generator's postprocessing,
+    # written up front (data-derived, not model-derived)
+    color_stats = dataset_color_statistics(dataset)
+    if color_stats is not None:
+        from ..io.color_stats import update_color_statistics_file
+
+        update_color_statistics_file(ckpt_dir / "color_statistics.json",
+                                     class_name, color_stats)
+
+    from .async_ckpt import AsyncCheckpointer
+
+    writer = AsyncCheckpointer(log=log)
+    loop_ok = False
+    try:
+        for epoch in range(start_epoch, config.epochs + 1):
+            t0 = time.time()
+            # losses stay on the device; one host read per epoch
+            losses = [step_fn(state, batch, generator)
+                      for batch in _epoch_batches(dataset, config.batch_size,
+                                                  data_rng, device)]
+            epoch_loss = (float(torch.stack(losses).mean()) if losses
+                          else float("nan"))
+            history.append(epoch_loss)
+            log(f"[train:{class_name}] epoch {epoch}/{config.epochs} "
+                f"loss={epoch_loss:.5f} ({time.time() - t0:.1f}s)")
+            improved = math.isfinite(epoch_loss) and epoch_loss < best_loss
+            if improved:
+                best_loss = epoch_loss
+            if select_best(epoch, improved):
+                writer.submit(state.export_params(), save_checkpoint,
+                              str(best_path), "best")
+                log(f"[train:{class_name}] new best "
+                    f"({best_val if eval_fn is not None else best_loss:.5f}) "
+                    f"-> {best_path}")
+            if epoch % config.snapshot_every == 0:
+                snap = ckpt_dir / f"unet_{class_name}_epoch{epoch}.pth"
+                writer.submit(state.export_params(), save_checkpoint, str(snap))
+                writer.submit(train_state_tree(state, best_loss), _save_tree,
+                              str(resume_path), "resume")
+        writer.submit(train_state_tree(state, best_loss), _save_tree,
+                      str(resume_path), "resume")
+        loop_ok = True
+    finally:
+        # always flush queued writes; if the loop itself raised, don't let a
+        # writer error mask the original failure
+        try:
+            writer.close()
+        except Exception:
+            if loop_ok:
+                raise
+    result = {"class": class_name, "best_loss": best_loss, "history": history,
+              "checkpoint": str(best_path), "steps": state.step}
+    if eval_fn is not None:
+        result["best_val"] = best_val
+    return result

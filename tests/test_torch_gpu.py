@@ -6,9 +6,11 @@ JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
-Tolerances: f32 as the Pallas kernel is held to its einsum reference
-(`tests/test_pallas_ops.py`); bf16 one bf16 ulp of the output, 2^-6 at
-|x| < 4, since the kernel and the plain version round at different points.
+Tolerances: f32 as the Pallas kernels are held to their einsum reference
+(`tests/test_pallas_ops.py`: 2e-5 for the forward, 5e-5 * max|g| for the
+backward); bf16 one bf16 ulp of the forward's output, 2^-6 at |x| < 4, and
+2e-2 * max|g| for the backward (the whole-UNet gradient tolerance there),
+since the kernels and the plain versions round at different points.
 """
 import pytest
 import torch
@@ -78,3 +80,75 @@ def test_unet_runs_the_kernel(cuda, monkeypatch):
             outs[fused] = model.to(cuda)(x.to(cuda), torch.tensor([10, 900], device=cuda))
         assert attention.LAUNCHES[attention.KERNEL] - before == (6 if fused else 0)
     torch.testing.assert_close(outs[True], outs[False], rtol=1e-4, atol=1e-4)
+
+
+BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("layout", ["BHTD", "BTC"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 32, 1024, 8), (8, 32, 256, 8), (1, 2, 100, 4)])
+def test_attention_bwd_kernel_matches_plain(cuda, shape, dtype, layout):
+    b, h, t, d = shape
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v, do = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(4))
+    args = (q, k, v, do)
+    if layout == "BTC":      # (B, T, C) tensors split into heads by a view
+        args = [z.transpose(1, 2).reshape(b, t, h * d).view(b, t, h, d).transpose(1, 2)
+                for z in args]
+    before = attention.LAUNCHES[attention.BWD_KERNEL]
+    got = attention.fused_attention_bwd(*args)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES[attention.BWD_KERNEL] == before + 1
+    want = attention.attention_bwd_reference(q, k, v, do)
+    for name, a, w, src in zip(("dq", "dk", "dv"), got, want, args[:3]):
+        assert a.dtype == dtype and a.stride() == src.stride(), name
+        tol = BWD_TOL[dtype] * w.float().abs().max().item()
+        torch.testing.assert_close(a.float(), w.float(), rtol=0, atol=tol, msg=name)
+
+
+def test_fused_attention_refuses_grad_on_cuda(cuda):
+    q = torch.randn(1, 2, 16, 8, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="fused_attention_trainable"):
+        attention.fused_attention(q, q, q)
+    with torch.no_grad():                      # no graph: the forward kernel runs
+        attention.fused_attention(q, q, q)
+
+
+def test_unet_gradients_through_the_kernels(cuda, monkeypatch):
+    """A backward through `UNet2D(use_fused_attention=True)` on CUDA gives
+    every attention projection a gradient, through the forward and backward
+    kernels, and they match the plain path (f32, full-f32 convolutions,
+    1e-3 * max|g| per parameter). The key bias's gradient is zero in exact
+    arithmetic (softmax ignores a shift shared by every key): there both
+    sides are rounding noise, held to 1e-3 of the largest gradient. Groups
+    of two channels: with one channel per group, GroupNorm would cancel the
+    first block's biases and time projection exactly, and those gradients
+    would be noise too."""
+    cfg = UNet2DConfig(sample_size=32, block_out_channels=(32, 64, 64, 64),
+                       norm_num_groups=16)
+    torch.manual_seed(0)
+    state = UNet2D(cfg).state_dict()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x = torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(1)).to(cuda)
+    eps = torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(2)).to(cuda)
+    t = torch.tensor([10, 900], device=cuda)
+    grads = {}
+    for fused in (True, False):
+        model = UNet2D(cfg, use_fused_attention=fused)
+        model.load_state_dict(state)
+        model.to(cuda)
+        before = dict(attention.LAUNCHES)
+        torch.mean((model(x, t) - eps) ** 2).backward()
+        torch.cuda.synchronize()
+        want = 6 if fused else 0
+        assert attention.LAUNCHES[attention.KERNEL] - before[attention.KERNEL] == want
+        assert attention.LAUNCHES[attention.BWD_KERNEL] - before[attention.BWD_KERNEL] == want
+        grads[fused] = {n: p.grad for n, p in model.named_parameters()}
+    largest = max(g.abs().max().item() for g in grads[False].values())
+    for name, g in grads[True].items():
+        if any(p in name for p in ("to_q.", "to_k.", "to_v.")) and name.endswith("weight"):
+            assert g is not None and g.abs().max().item() > 0, name
+        w = grads[False][name]
+        scale = largest if name.endswith("to_k.bias") else w.abs().max().item()
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-3 * scale, msg=name)

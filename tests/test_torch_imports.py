@@ -1,13 +1,14 @@
 """The port and its chip script stand alone: no module of
-`synt_isic_tpu_torch/`, nor `chip_smoke.py`, imports JAX, Flax, Optax or the
-JAX package."""
+`synt_isic_tpu_torch/`, nor `chip_smoke.py` or the GPU tests, imports JAX,
+Flax, Optax or the JAX package."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "synt_isic_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "synt_isic_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "synt_isic_tpu")
 
 
@@ -23,3 +24,12 @@ def _imports(path):
 def test_no_jax_imports(path):
     bad = [name for name in _imports(path) if name.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_every_ported_module_is_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for module in ("ops/attention.py", "models/unet2d.py", "io/pth.py",
+                   "train/__init__.py", "train/__main__.py", "train/async_ckpt.py",
+                   "train/benchmark.py", "train/data.py", "train/procedural.py",
+                   "train/train_ddpm.py"):
+        assert f"synt_isic_tpu_torch/{module}" in names, module
