@@ -34,7 +34,32 @@ Phases, each of which exits non-zero on failure:
      checkpoint it writes is then loaded by `ModelManager` and sampled
      (DDIM 10, 8 images);
   8. `measure_train_step` at batch 32;
-  9. a JSON line of per-kernel numbers, then as the last line
+  9. [kernel-fast] the forward kernel's fast-math variant (bf16
+     exponentials) at the sampling path's shapes, f32 and bf16, in both
+     layouts: within 1e-2 of its plain version, within the JAX package's
+     fast-math tolerance (rtol 0.05, atol 0.02) of exact attention, and
+     within 5e-6 in f32 (one bf16 ulp in bf16) of the plain version of its
+     own rounding order, a limit the exact kernel must miss in f32; timed
+     beside the exact kernel, its bound, the plain version and
+     `scaled_dot_product_attention`;
+ 10. [kernel-group] heads_per_program G in {1, 2, 4, 8} at (8,32,1024,8), f32
+     and bf16, exact and fast math: every G torch.equal to G = 1, and a time
+     for each; G* is the fastest G > 1 for fast math in bf16, the variant
+     [generator] runs, whose error and time the `kernels` line reports;
+ 11. [generator] the library path: `ImageGenerator` (bf16 compute) on the
+     full-width random checkpoint, `set_attention_tuning(G*, fast_math=True)`,
+     DDIM 10 steps, batch 8, fixed base seed, `generate_images([("MEL", 16)])`:
+     16 PNGs, sidecars and CSV rows; exactly 120 fast-math launches (2 blocks x
+     10 steps x 6), 0 exact ones, 120 grouped; wall time and images/s, cold
+     and warm (the same call again on the same generator, byte-identical to
+     the cold one), and the sampler alone on one block;
+ 12. [reproduce] `python -m synt_isic_tpu_torch.cli --reproduce` in a fresh
+     process: a sidecar of the second [generator] block (60 fast-math
+     launches) and a JPEG sidecar of the CLI phase (f32, 60 exact launches),
+     each byte-identical to its original; and the fast-math image with the
+     flag taken out of its sidecar, which must come out different (60 exact
+     launches);
+ 13. a JSON line of per-kernel numbers, then as the last line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA device; exits
@@ -46,7 +71,9 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -59,6 +86,7 @@ import torch.nn.functional as F
 from PIL import Image
 
 from synt_isic_tpu_torch import cli
+from synt_isic_tpu_torch.generator import ImageGenerator
 from synt_isic_tpu_torch.model_manager import ModelManager
 from synt_isic_tpu_torch.models.unet2d import UNet2D, UNet2DConfig
 from synt_isic_tpu_torch.ops import attention, native
@@ -106,6 +134,23 @@ TRAIN_IMAGES, TRAIN_EPOCHS, TRAIN_BATCH = 64, 2, 16
 TRAIN_STEPS = TRAIN_EPOCHS * (TRAIN_IMAGES // TRAIN_BATCH)
 TRAIN_SHAPES = [(TRAIN_BATCH, 32, 1024, 8), (TRAIN_BATCH, 32, 256, 8)]
 BENCH_BATCH, BENCH_STEPS = 32, 10
+# fast math: against its plain version, bf16-level (the kernel and the plain
+# version round the weights relative to different maxima); against exact
+# attention, the JAX package's own fast-math tolerance
+# (tests/test_pallas_ops.py). Exact attention meets both, so the kernel is
+# also held to the plain version of its own rounding
+# (`attention_fast_math_kernel_order`). In f32 within 5e-6: the [kernel-fast]
+# lines on the H100 read under 1e-6 for the kernel there and over 1e-3 for
+# the exact kernel, which must miss it. In bf16 one bf16 ulp of the output,
+# as TOL, a limit both meet: the f32 check tells fast from exact for both
+# types, which share the kernel's code.
+FAST_TOL = 1e-2
+FAST_VS_EXACT = {"rtol": 0.05, "atol": 0.02}
+FAST_ORDER_TOL = {torch.float32: 5e-6, torch.bfloat16: 2.0 ** -6}
+GROUP_SHAPE = (8, 32, 1024, 8)       # grouped_attention's own shape
+GROUPS = (1, 2, 4, 8)
+GEN_IMAGES, GEN_SEED = 16, 1234
+REPO = Path(__file__).resolve().parent
 
 
 def fail(msg: str) -> None:
@@ -292,6 +337,290 @@ def phase_kernel_bwd() -> dict:
     return report
 
 
+def _btc_views(*tensors):
+    """(B, H, T, D) tensors re-laid as (B, T, C) and split into heads by a
+    view, as the UNet hands them over."""
+    b, h, t, d = tensors[0].shape
+    return [z.transpose(1, 2).reshape(b, t, h * d).view(b, t, h, d).transpose(1, 2)
+            for z in tensors]
+
+
+def phase_kernel_fast() -> dict:
+    g = torch.Generator(device="cuda").manual_seed(5)
+    report = {}
+    for shape in MAIN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                       for _ in range(3))
+            plain = attention.attention_fast_math_reference(q, k, v).float()
+            order = attention.attention_fast_math_kernel_order(q, k, v).float()
+            exact = attention.attention_reference(q, k, v).float()
+            order_tol = FAST_ORDER_TOL[dtype]
+            views = _btc_views(q, k, v)
+            for layout, args in (("BHTD", (q, k, v)), ("BTC", views)):
+                before = attention.LAUNCHES[attention.FAST_KERNEL]
+                got = attention.fused_attention(*args, fast_math=True)
+                torch.cuda.synchronize()
+                check(attention.LAUNCHES[attention.FAST_KERNEL] == before + 1,
+                      "fast-math launch not counted")
+                check(got.stride() == args[0].stride() and got.dtype == dtype,
+                      f"{layout} output strides or dtype")
+                err = (got.float() - plain).abs().max().item()
+                err_order = (got.float() - order).abs().max().item()
+                err_exact = (got.float() - exact).abs().max().item()
+                near = torch.allclose(got.float(), exact, **FAST_VS_EXACT)
+                ok = err <= FAST_TOL and near and err_order <= order_tol
+                print(f"[kernel-fast] {shape} {str(dtype)[6:]:8s} {layout}: max_abs_err "
+                      f"{err:.3e} vs its plain version (allowed {FAST_TOL:.0e}), "
+                      f"{err_order:.3e} vs its own rounding order (allowed "
+                      f"{order_tol:.2e}), {err_exact:.3e} vs exact attention (rtol "
+                      f"{FAST_VS_EXACT['rtol']}, atol {FAST_VS_EXACT['atol']}: "
+                      f"{'within' if near else 'OUTSIDE'}) {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                check(ok, f"fast-math kernel at {shape} {dtype} {layout}")
+                report[(shape, dtype, layout)] = err
+                report[(shape, dtype, layout, "order")] = err_order
+            # the order check tells fast from exact: the exact kernel misses it
+            exact_kernel = attention.fused_attention(*views).float()
+            miss = (exact_kernel - order).abs().max().item()
+            rule = (f"must exceed {order_tol:.2e}" if dtype == torch.float32
+                    else "not checked in bf16")
+            print(f"[kernel-fast] {shape} {str(dtype)[6:]:8s} exact kernel: max_abs_err "
+                  f"{miss:.3e} vs the fast-math rounding order ({rule})", flush=True)
+            check(dtype != torch.float32 or miss > order_tol,
+                  f"the exact kernel passes the fast-math order check at {shape}")
+            # in turns: exact, fast, fast, exact
+            exact_ms = cuda_ms(lambda: attention.fused_attention(*views))
+            fast_ms = cuda_ms(lambda: attention.fused_attention(*views, fast_math=True))
+            fast_ms2 = cuda_ms(lambda: attention.fused_attention(*views, fast_math=True))
+            exact_ms2 = cuda_ms(lambda: attention.fused_attention(*views))
+            plain_ms = cuda_ms(lambda: attention.attention_fast_math_reference(q, k, v),
+                               iters=5)
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            bound, bound_by, exp_ms = attention_bound_ms(shape, dtype)
+            print(f"[time] attention fast math {shape} {str(dtype)[6:]}: kernel "
+                  f"{fast_ms:.4f} / {fast_ms2:.4f} ms, exact kernel {exact_ms:.4f} / "
+                  f"{exact_ms2:.4f} ms (in turns), plain {plain_ms:.4f} ms, sdpa "
+                  f"{library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), "
+                  f"exponentials on the SFUs {exp_ms:.4f} ms", flush=True)
+            report[(shape, dtype, "time")] = dict(
+                ms=min(fast_ms, fast_ms2), exact_ms=min(exact_ms, exact_ms2),
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                bound_by=bound_by)
+            del q, k, v, plain, order, exact, exact_kernel, views
+    return report
+
+
+def phase_kernel_group() -> dict:
+    g = torch.Generator(device="cuda").manual_seed(6)
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(GROUP_SHAPE, generator=g, device="cuda").to(dtype)
+                   for _ in range(3))
+        views = _btc_views(q, k, v)
+        for fast_math in (False, True):
+            math_name = "fast" if fast_math else "exact"
+            base = attention.fused_attention(*views, fast_math=fast_math)
+            times = {}
+            for group in GROUPS:
+                before = attention.LAUNCHES[attention.GROUPED_KERNEL]
+                got = attention.fused_attention(*views, fast_math=fast_math,
+                                                heads_per_program=group)
+                torch.cuda.synchronize()
+                check(attention.LAUNCHES[attention.GROUPED_KERNEL]
+                      == before + (group > 1), "grouped launch not counted")
+                check(torch.equal(got, base),
+                      f"G={group} {math_name} {dtype}: not bit-identical to G=1")
+                times[group] = cuda_ms(lambda: attention.fused_attention(
+                    *views, fast_math=fast_math, heads_per_program=group))
+            report[(dtype, math_name)] = times
+            print(f"[kernel-group] {GROUP_SHAPE} {str(dtype)[6:]:8s} {math_name}: "
+                  f"G in {GROUPS} torch.equal to G=1; kernel ms "
+                  + ", ".join(f"G={grp} {ms:.4f}" for grp, ms in times.items()),
+                  flush=True)
+        if dtype == torch.bfloat16:
+            # the variant [generator] runs: fast math at G*
+            report["g_star"] = min((grp for grp in GROUPS if grp > 1),
+                                   key=report[(dtype, "fast")].get)
+            got = attention.fused_attention(*views, fast_math=True,
+                                            heads_per_program=report["g_star"]).float()
+            plain = attention.attention_fast_math_reference(q, k, v).float()
+            order = attention.attention_fast_math_kernel_order(q, k, v).float()
+            report["max_abs_err"] = (got - plain).abs().max().item()
+            report["max_abs_err_kernel_order"] = (got - order).abs().max().item()
+            check(report["max_abs_err"] <= FAST_TOL
+                  and report["max_abs_err_kernel_order"] <= FAST_ORDER_TOL[dtype],
+                  f"fast-math G={report['g_star']} kernel against its plain versions")
+            report["plain_ms"] = cuda_ms(
+                lambda: attention.attention_fast_math_reference(q, k, v), iters=5)
+            report["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        del q, k, v, views
+    fast = report[(torch.bfloat16, "fast")]
+    best = min(fast, key=fast.get)
+    print(f"[kernel-group] fastest G for fast math in bf16: G={best} ({fast[best]:.4f} ms, "
+          f"G=1 {fast[1]:.4f} ms); G* = {report['g_star']} (the fastest G > 1) drives "
+          f"[generator]", flush=True)
+    return report
+
+
+def _png_arrays(paths):
+    return [np.asarray(Image.open(p)) for p in paths]
+
+
+def phase_generator(state: dict, card: str, base: Path, g_star: int) -> dict:
+    ckpt = base / "checkpoints"
+    ckpt.mkdir(parents=True)
+    torch.save(state, ckpt / "unet_MEL_best.pth")
+    gen = ImageGenerator(checkpoints_dir=str(ckpt), compute_dtype=torch.bfloat16)
+    gen.model_manager.set_attention_tuning(heads_per_program=g_star, fast_math=True)
+    gen.scheduler_kind = "ddim"
+    gen.set_inference_steps(CLI_STEPS)
+    gen.batch_size = CLI_BATCH
+    gen.set_generation_seed(GEN_SEED)
+
+    def run(out: Path) -> tuple:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        result = gen.generate_images([("MEL", GEN_IMAGES)], str(out))
+        torch.cuda.synchronize()
+        return result, time.time() - t0, dict(attention.LAUNCHES)
+
+    out = base / "generated"
+    result, wall, launches = run(out)
+    check(result.get("generated") == GEN_IMAGES, f"generate_images returned {result}")
+    pngs = sorted((out / "MEL").glob("ISIC_*.png"))
+    sidecars = [json.loads(p.with_suffix(".json").read_text()) for p in pngs]
+    rows = (out / "synthetic_dataset.csv").read_text().splitlines()[1:]
+    check(len(pngs) == GEN_IMAGES and len(rows) == GEN_IMAGES,
+          f"generator wrote {len(pngs)} PNGs, {len(rows)} CSV rows")
+    for meta in sidecars:
+        sched = meta["scheduler"]
+        check(sched.get("attention_fast_math") is True and sched["dtype"] == "bfloat16"
+              and sched["kind"] == "ddim" and meta["device"].startswith("cuda")
+              and len(meta["block"]["seeds"]) == CLI_BATCH, f"sidecar {meta}")
+    arrays = _png_arrays(pngs)
+    check(all(a.shape == (128, 128, 3) for a in arrays), "PNG shapes")
+    check(len({a.tobytes() for a in arrays}) == GEN_IMAGES, "generated images repeat")
+    steps = GEN_IMAGES // CLI_BATCH * CLI_STEPS
+    want = ATTENTION_CALLS_PER_UNET * steps
+    print(f"[generator] ImageGenerator bf16, set_attention_tuning(heads_per_program="
+          f"{g_star}, fast_math=True), DDIM {CLI_STEPS}, batch {CLI_BATCH}: "
+          f"{GEN_IMAGES} PNGs, sidecars and CSV rows in {wall:.3f} s cold "
+          f"({GEN_IMAGES / wall:.2f} images/s; model load and first-call set-up "
+          f"included); launches {launches} (want {want} fast-math, 0 exact, "
+          f"{want if g_star > 1 else 0} grouped)", flush=True)
+    check(launches[attention.FAST_KERNEL] == want and launches[attention.KERNEL] == 0
+          and launches[attention.GROUPED_KERNEL] == (want if g_star > 1 else 0),
+          f"generator launched {launches}")
+
+    # the same call again on the warm generator, and its sampler alone
+    warm_out = base / "generated_warm"
+    _, warm, warm_launches = run(warm_out)
+    check(warm_launches == launches, f"warm run launched {warm_launches}")
+    same = all(a.read_bytes() == b.read_bytes() for a, b in
+               zip(pngs, sorted((warm_out / "MEL").glob("ISIC_*.png"))))
+    seeds = np.asarray(sidecars[0]["block"]["seeds"], np.uint32)
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        gen._sample_block(["MEL"] * CLI_BATCH, seeds, False)
+        torch.cuda.synchronize()
+        runs.append(time.time() - t0)
+    block_s = sorted(runs)[1]
+    blocks = GEN_IMAGES // CLI_BATCH
+    print(f"[generator] warm (same ImageGenerator): {warm:.3f} s, {GEN_IMAGES / warm:.2f} "
+          f"images/s on {card}; PNGs byte-identical to the cold run: {same}; the "
+          f"sampler alone, one block, median of 3 ({', '.join(f'{r:.4f}' for r in runs)} "
+          f"s): {block_s / CLI_STEPS:.5f} s/step, {CLI_BATCH / block_s:.2f} images/s, so "
+          f"{blocks} blocks sample in {blocks * block_s:.3f} s of the {warm:.3f} s and "
+          f"the rest is PNG, sidecar and CSV writes", flush=True)
+    check(same, "the same generate_images call wrote other bytes the second time")
+    return dict(launches=launches, wall_s=wall, warm_s=warm, block_s=block_s,
+                out=out, ckpt=ckpt)
+
+
+def run_cli_process(argv) -> tuple:
+    """`python -m synt_isic_tpu_torch.cli ARGV` in a fresh process, plus the
+    launch counts it ends with. Returns (rc, launches, output)."""
+    code = ("import json, runpy, sys\n"
+            "from synt_isic_tpu_torch.ops import attention\n"
+            "sys.argv = ['synt_isic_tpu_torch.cli'] + sys.argv[1:]\n"
+            "try:\n"
+            "    runpy.run_module('synt_isic_tpu_torch.cli', run_name='__main__')\n"
+            "    rc = 0\n"
+            "except SystemExit as exc:\n"
+            "    rc = exc.code or 0\n"
+            "print('LAUNCHES ' + json.dumps(attention.LAUNCHES), flush=True)\n"
+            "sys.exit(rc)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code, *argv], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    found = re.findall(r"^LAUNCHES (.*)$", proc.stdout, re.M)
+    check(bool(found), f"no launch counts from the CLI process:\n{proc.stdout}\n{proc.stderr}")
+    return proc.returncode, json.loads(found[-1]), (proc.stdout + proc.stderr).strip()
+
+
+def _max_pixel_diff(a: Path, b: Path) -> int:
+    x, y = (np.asarray(Image.open(p)).astype(np.int16) for p in (a, b))
+    return int(np.abs(x - y).max())
+
+
+def phase_reproduce(gen: dict, cli_base: Path) -> dict:
+    want = ATTENTION_CALLS_PER_UNET * CLI_STEPS
+    report = {}
+    second_block = gen["out"] / "MEL" / f"ISIC_{CLI_BATCH + 4:07d}.json"
+    jpeg = sorted((cli_base / "ISIC2018_Task3_synt").glob("ISIC_*.json"))[2]
+    cases = [("generator PNG, fast math, block 2", second_block, gen["ckpt"],
+              attention.FAST_KERNEL),
+             ("console JPEG, f32, exact", jpeg, cli_base / "checkpoints",
+              attention.KERNEL)]
+    for label, sidecar, ckpt, kernel in cases:
+        meta = json.loads(sidecar.read_text())
+        t0 = time.time()
+        rc, launches, output = run_cli_process(
+            ["--reproduce", str(sidecar), "--checkpoints", str(ckpt), "--device", "cuda"])
+        wall = time.time() - t0
+        original = sidecar.with_name(meta["filename"])
+        redo = sidecar.with_name(f"{original.stem}_reproduced{original.suffix}")
+        identical = redo.exists() and redo.read_bytes() == original.read_bytes()
+        diff = _max_pixel_diff(original, redo) if redo.exists() else None
+        said = [line for line in output.splitlines() if line.startswith("reproduced")]
+        print(f"[reproduce] {label}: {sidecar.name} -> rc {rc}, byte-identical "
+              f"{identical} (max pixel difference {diff}), launches {launches} "
+              f"(want {want} {kernel}), {wall:.1f} s in a fresh process; "
+              f"{said[-1] if said else output}", flush=True)
+        check(rc == 0 and identical, f"--reproduce of {label}: rc {rc}\n{output}")
+        others = sum(n for key, n in launches.items()
+                     if key not in (kernel, attention.BWD_KERNEL, attention.GROUPED_KERNEL))
+        check(launches[kernel] == want and others == 0 and launches[attention.GROUPED_KERNEL] == 0,
+              f"--reproduce of {label} launched {launches}")
+        report[label] = launches
+
+    # the same fast-math image, with the flag taken out of its sidecar
+    off = gen["out"] / "fast_math_off"
+    off.mkdir()
+    meta = json.loads(second_block.read_text())
+    del meta["scheduler"]["attention_fast_math"]
+    sidecar = off / second_block.name
+    sidecar.write_text(json.dumps(meta, indent=2))
+    shutil.copy(second_block.with_name(meta["filename"]), off / meta["filename"])
+    rc, launches, output = run_cli_process(
+        ["--reproduce", str(sidecar), "--checkpoints", str(gen["ckpt"]), "--device", "cuda"])
+    redo = off / f"{Path(meta['filename']).stem}_reproduced.png"
+    diff = _max_pixel_diff(off / meta["filename"], redo) if redo.exists() else None
+    print(f"[reproduce] the same image with attention_fast_math taken out of its sidecar: "
+          f"rc {rc} (want 1, bytes differ), max pixel difference {diff}, launches "
+          f"{launches} (want {want} {attention.KERNEL})", flush=True)
+    check(rc == 1 and "DIFFER" in output and diff is not None and diff > 0,
+          f"fast math switched off still reproduced the image: rc {rc}\n{output}")
+    check(launches[attention.KERNEL] == want and launches[attention.FAST_KERNEL] == 0,
+          f"--reproduce without fast math launched {launches}")
+    report["fast math off"] = launches
+    return report
+
+
 def phase_unet_grad() -> None:
     """One backward of the full-width UNet each way, f32 and bf16 compute on
     f32 parameters: every attention projection weight gets a non-zero
@@ -398,73 +727,71 @@ def phase_unet() -> dict:
     return state
 
 
-def phase_cli(state: dict, card: str) -> int:
-    with tempfile.TemporaryDirectory() as tmp:
-        base = Path(tmp)
-        (base / "checkpoints").mkdir()
-        torch.save(state, base / "checkpoints" / "unet_MEL_best.pth")
-        argv = ["--base-dir", str(base), "--class-counts", f"MEL:{CLI_BATCH}",
-                "--batch", str(CLI_BATCH), "--scheduler", "ddim",
-                "--steps", str(CLI_STEPS), "--seed", "0", "--device", "cuda"]
-        reset_launches()
-        t0 = time.time()
-        rc = cli.main(argv)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        launches = dict(attention.LAUNCHES)
-        check(rc == 0, f"cli.main returned {rc}")
-        out = base / "ISIC2018_Task3_synt"
-        jpgs = sorted(out.glob("ISIC_*.jpg"))
-        sidecars = sorted(out.glob("ISIC_*.json"))
-        rows = (base / "ISIC2018_Task3_GroundTruth_synt.csv").read_text().splitlines()[1:]
-        check(len(jpgs) == CLI_BATCH and len(sidecars) == CLI_BATCH
-              and len(rows) == CLI_BATCH,
-              f"CLI wrote {len(jpgs)} images, {len(sidecars)} sidecars, {len(rows)} rows")
-        for p in jpgs:
-            arr = np.asarray(Image.open(p))
-            check(arr.shape == (128, 128, 3), f"{p.name} has shape {arr.shape}")
-        meta = json.loads(sidecars[0].read_text())
-        check(meta["scheduler"]["kind"] == "ddim" and meta["device"].startswith("cuda"),
-              f"sidecar {meta}")
-        want = ATTENTION_CALLS_PER_UNET * CLI_STEPS
-        print(f"[cli] wrote {len(jpgs)} JPEGs, sidecars and CSV rows in {wall:.3f} s "
-              f"(cold: model load, first-call set-up, JPEG writes included); "
-              f"attention_fwd launches {launches[attention.KERNEL]} (want {want})",
-              flush=True)
-        check(launches[attention.KERNEL] == want,
-              f"main path launched attention_fwd {launches[attention.KERNEL]} times, "
-              f"not {want}")
+def phase_cli(state: dict, card: str, base: Path) -> int:
+    """The console CLI into `base`; `[reproduce]` reads its sidecars later."""
+    (base / "checkpoints").mkdir(parents=True)
+    torch.save(state, base / "checkpoints" / "unet_MEL_best.pth")
+    argv = ["--base-dir", str(base), "--class-counts", f"MEL:{CLI_BATCH}",
+            "--batch", str(CLI_BATCH), "--scheduler", "ddim",
+            "--steps", str(CLI_STEPS), "--seed", "0", "--device", "cuda"]
+    reset_launches()
+    t0 = time.time()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(attention.LAUNCHES)
+    check(rc == 0, f"cli.main returned {rc}")
+    out = base / "ISIC2018_Task3_synt"
+    jpgs = sorted(out.glob("ISIC_*.jpg"))
+    sidecars = sorted(out.glob("ISIC_*.json"))
+    rows = (base / "ISIC2018_Task3_GroundTruth_synt.csv").read_text().splitlines()[1:]
+    check(len(jpgs) == CLI_BATCH and len(sidecars) == CLI_BATCH
+          and len(rows) == CLI_BATCH,
+          f"CLI wrote {len(jpgs)} images, {len(sidecars)} sidecars, {len(rows)} rows")
+    for p in jpgs:
+        arr = np.asarray(Image.open(p))
+        check(arr.shape == (128, 128, 3), f"{p.name} has shape {arr.shape}")
+    meta = json.loads(sidecars[0].read_text())
+    check(meta["scheduler"]["kind"] == "ddim" and meta["device"].startswith("cuda"),
+          f"sidecar {meta}")
+    want = ATTENTION_CALLS_PER_UNET * CLI_STEPS
+    print(f"[cli] wrote {len(jpgs)} JPEGs, sidecars and CSV rows in {wall:.3f} s "
+          f"(cold: model load, first-call set-up, JPEG writes included); "
+          f"attention_fwd launches {launches[attention.KERNEL]} (want {want})",
+          flush=True)
+    check(launches[attention.KERNEL] == want and launches[attention.FAST_KERNEL] == 0,
+          f"main path launched {launches}, not {want} exact attention_fwd")
 
-        # the same sampler, warm, timed alone; and its output against the
-        # plain attention on the same seeds
-        mm = ModelManager(checkpoints_dir=str(base / "checkpoints"), device="cuda")
-        check(mm.load_model("MEL"), "ModelManager.load_model")
-        sampler = mm.create_sampler(CLI_STEPS, scheduler="ddim")
-        seeds = np.arange(CLI_BATCH, dtype=np.uint32)
+    # the same sampler, warm, timed alone; and its output against the
+    # plain attention on the same seeds
+    mm = ModelManager(checkpoints_dir=str(base / "checkpoints"), device="cuda")
+    check(mm.load_model("MEL"), "ModelManager.load_model")
+    sampler = mm.create_sampler(CLI_STEPS, scheduler="ddim")
+    seeds = np.arange(CLI_BATCH, dtype=np.uint32)
+    sampler.sample(mm.loaded_models["MEL"], seeds)
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
         sampler.sample(mm.loaded_models["MEL"], seeds)
-        runs = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            sampler.sample(mm.loaded_models["MEL"], seeds)
-            torch.cuda.synchronize()
-            runs.append(time.time() - t0)
-        sample_s = sorted(runs)[1]
-        plain_model = UNet2D(mm.config, dtype=mm.dtype, use_fused_attention=False,
-                             fast_norm=mm.fast_norm)
-        plain_model.load_state_dict(state)
-        with full_f32_convolutions():
-            fused = sampler.sample(mm.loaded_models["MEL"], seeds)["images"]
-            plain = sampler.sample(plain_model.cuda().eval(), seeds)["images"]
-        check(bool(torch.isfinite(fused).all()), "sampled images not finite")
-        check(fused.shape == (CLI_BATCH, 128, 128, 3), f"images shape {fused.shape}")
-        err = (fused - plain).abs().max().item()
-        print(f"[cli] DDIM {CLI_STEPS} steps, batch {CLI_BATCH}, f32, warm, median of "
-              f"3 ({', '.join(f'{r:.4f}' for r in runs)} s): "
-              f"{sample_s / CLI_STEPS:.5f} s/step, {CLI_BATCH / sample_s:.2f} images/s "
-              f"on {card}; images kernel vs plain attention (full-f32 convolutions) "
-              f"max_abs_err {err:.3e}", flush=True)
-        check(err <= 1e-3, "sampled images, kernel vs plain attention")
+        torch.cuda.synchronize()
+        runs.append(time.time() - t0)
+    sample_s = sorted(runs)[1]
+    plain_model = UNet2D(mm.config, dtype=mm.dtype, use_fused_attention=False,
+                         fast_norm=mm.fast_norm)
+    plain_model.load_state_dict(state)
+    with full_f32_convolutions():
+        fused = sampler.sample(mm.loaded_models["MEL"], seeds)["images"]
+        plain = sampler.sample(plain_model.cuda().eval(), seeds)["images"]
+    check(bool(torch.isfinite(fused).all()), "sampled images not finite")
+    check(fused.shape == (CLI_BATCH, 128, 128, 3), f"images shape {fused.shape}")
+    err = (fused - plain).abs().max().item()
+    print(f"[cli] DDIM {CLI_STEPS} steps, batch {CLI_BATCH}, f32, warm, median of "
+          f"3 ({', '.join(f'{r:.4f}' for r in runs)} s): "
+          f"{sample_s / CLI_STEPS:.5f} s/step, {CLI_BATCH / sample_s:.2f} images/s "
+          f"on {card}; images kernel vs plain attention (full-f32 convolutions) "
+          f"max_abs_err {err:.3e}", flush=True)
+    check(err <= 1e-3, "sampled images, kernel vs plain attention")
     return launches[attention.KERNEL]
 
 
@@ -543,9 +870,15 @@ def main() -> int:
     phase_build()
     kernel_report = phase_kernel()
     bwd_report = phase_kernel_bwd()
+    fast_report = phase_kernel_fast()
+    group_report = phase_kernel_group()
     state = phase_unet()
     phase_unet_grad()
-    launches = phase_cli(state, card["card"])
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = phase_cli(state, card["card"], Path(tmp) / "cli")
+        gen = phase_generator(state, card["card"], Path(tmp) / "library",
+                              group_report["g_star"])
+        phase_reproduce(gen, Path(tmp) / "cli")
     train_launches = phase_train(card["card"])
     phase_bench(card["card"])
 
@@ -553,6 +886,9 @@ def main() -> int:
     timing = kernel_report[(shape, dtype, "time")]
     bwd_shape = TRAIN_SHAPES[0]
     bwd_timing = bwd_report[(bwd_shape, dtype, "time")]
+    fast_timing = fast_report[(MAIN_SHAPES[0], torch.bfloat16, "time")]
+    g_star = group_report["g_star"]
+    group_bound, group_bound_by, _ = attention_bound_ms(GROUP_SHAPE, torch.bfloat16)
     line = {"kernels": [{
         "name": "attention_fwd",
         "route": "cuda",
@@ -585,6 +921,46 @@ def main() -> int:
         "fwd_bwd_ms": bwd_timing["fwd_bwd_ms"],
         "shape": list(bwd_shape),
         "dtype": "float32",
+    }, {
+        "name": "attention_fwd_fast_math",
+        "route": "cuda",
+        "source": "synt_isic_tpu_torch/csrc/attention_fwd.cu",
+        "replaces": "synt_isic_tpu/ops/pallas/attention.py:43",
+        "launches": gen["launches"][attention.FAST_KERNEL],
+        "max_abs_err": fast_report[(MAIN_SHAPES[0], torch.bfloat16, "BTC")],
+        "max_abs_err_kernel_order": fast_report[(MAIN_SHAPES[0], torch.bfloat16, "BTC",
+                                                 "order")],
+        "ms": fast_timing["ms"],
+        "plain_ms": fast_timing["plain_ms"],
+        "bound_ms": fast_timing["bound_ms"],
+        "bound_by": fast_timing["bound_by"],
+        "library_ms": fast_timing["library_ms"],
+        "exact_ms": fast_timing["exact_ms"],
+        "shape": list(MAIN_SHAPES[0]),
+        "dtype": "bfloat16",
+    }, {
+        "name": "attention_fwd_grouped",
+        "route": "cuda",
+        "source": "synt_isic_tpu_torch/csrc/attention_fwd.cu",
+        "replaces": "scripts/profile_attn_grouped.py:25",
+        # the variant the launches counted: fast math at G* in bf16
+        "launches": gen["launches"][attention.GROUPED_KERNEL],
+        "max_abs_err": group_report["max_abs_err"],
+        "max_abs_err_kernel_order": group_report["max_abs_err_kernel_order"],
+        "ms": group_report[(torch.bfloat16, "fast")][g_star],
+        "plain_ms": group_report["plain_ms"],
+        "bound_ms": group_bound,
+        "bound_by": group_bound_by,
+        "library_ms": group_report["library_ms"],
+        "heads_per_program": g_star,
+        "fast_math": True,
+        "fast_ms_by_heads_per_program": {str(grp): ms for grp, ms in
+                                         group_report[(torch.bfloat16, "fast")].items()},
+        # exact maths, as grouped_attention computes it (the K5 row)
+        "ms_by_heads_per_program": {str(grp): ms for grp, ms in
+                                    group_report[(torch.bfloat16, "exact")].items()},
+        "shape": list(GROUP_SHAPE),
+        "dtype": "bfloat16",
     }]}
     print(json.dumps(line), flush=True)
     print(card["card"], flush=True)

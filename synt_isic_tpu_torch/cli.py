@@ -8,24 +8,30 @@ The port of `synt_isic_tpu/cli.py` for batch generation: the same flags
 `ISIC_%07d.jpg` continuing from the original dataset's last id 34320, one
 sidecar JSON per image, the one-hot ground-truth CSV appended across runs,
 mean-shift colour postprocessing — plus `--device {cuda,cpu}` (default
-cuda).
+cuda), and `--reproduce SIDECAR_JSON`, which regenerates the image a
+sidecar records (console JPEGs, and the generator's PNGs of one image or of
+a device block) and checks it byte for byte against the original.
 
 Usage:
     python -m synt_isic_tpu_torch.cli --checkpoints DIR --class-counts MEL:8 \
         --scheduler ddim --steps 50
+    python -m synt_isic_tpu_torch.cli --checkpoints DIR --reproduce OUT/MEL/ISIC_0000001.json
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 from PIL import Image
 
-from .diffusion.sampler import to_uint8_images
+from .diffusion.sampler import noise_hash, to_uint8_images
+from .generator import ImageGenerator, dtype_name
 from .io.color_stats import apply_mean_shift_postprocessing, load_color_statistics
 from .io.csv_io import append_groundtruth_row, initialize_groundtruth_csv
 from .io.images import save_image, write_sidecar_metadata
@@ -128,8 +134,10 @@ class ConsoleGenerator:
                             "kind": self.scheduler,
                             "ddim_eta": 0.0,
                             "timestep_spacing": self.timestep_spacing,
-                            "dtype": str(mm.dtype).removeprefix("torch."),
+                            "dtype": dtype_name(mm.dtype),
                             "model_variant": mm.variant,
+                            **({"attention_fast_math": True}
+                               if mm.attention_fast_math else {}),
                         },
                         extra={
                             "artifact": {
@@ -147,6 +155,168 @@ class ConsoleGenerator:
                       f"(total {done}/{total}, {time.time() - t_start:.1f}s)")
             produced[class_name] = n
         return produced
+
+
+def _reproduce_console_jpeg(gen: ImageGenerator, meta: dict, out_path: str) -> bool:
+    """Regenerate a ConsoleGenerator JPEG: the recorded device block through
+    the recorded sampler, mean-shift colour postprocessing when it was
+    applied, then the JPEG encode at the recorded quality. Writes a sidecar
+    next to the output."""
+    art = meta["artifact"]
+    cls = meta["class"]
+    blk = meta.get("block") or {"seeds": [int(meta["seed"])], "index": 0}
+    idx = int(blk["index"])
+    seeds = np.asarray(blk["seeds"], np.uint32)
+    out = gen._sample_block([cls] * len(seeds), seeds, False)
+    if out is None:
+        return False
+    img = to_uint8_images(out["images"][idx:idx + 1])[0]
+    if art.get("postprocess") == "mean_shift":
+        stats = load_color_statistics(
+            Path(gen.model_manager.checkpoints_dir) / "color_statistics.json")
+        img = apply_mean_shift_postprocessing(img, stats.get(cls) if stats else None)
+    save_image(Image.fromarray(img), out_path, quality=int(art.get("quality", 95)))
+    write_sidecar_metadata(out_path, class_name=cls, seed=int(seeds[idx]),
+                           inference_steps=int(meta["inference_steps"]),
+                           device=str(gen.model_manager.device),
+                           noise_hash=out["noise_hashes"][idx],
+                           scheduler=meta.get("scheduler"),
+                           extra={"artifact": art,
+                                  **({"block": blk} if len(seeds) > 1 else {})})
+    return True
+
+
+def _output_path(sidecar_path: str, meta: dict, output: Optional[str]) -> str:
+    """Where the regenerated image goes: next to the sidecar, a file (its
+    extension corrected to the recorded format, since the encoder follows
+    the extension), or a directory."""
+    ext = ".jpg" if (meta.get("artifact") or {}).get("format") == "jpeg" else ".png"
+    name = Path(meta["filename"]).stem + "_reproduced" + ext
+    if output is None:
+        return str(Path(sidecar_path).with_name(name))
+    if output.lower().endswith((".png", ".jpg", ".jpeg")):
+        same = (output.lower().endswith((".jpg", ".jpeg")) if ext == ".jpg"
+                else output.lower().endswith(".png"))
+        if not same:
+            corrected = str(Path(output).with_suffix(ext))
+            print(f"warning: --output extension {Path(output).suffix!r} does not "
+                  f"match the recorded artifact format; writing {corrected}",
+                  file=sys.stderr)
+            return corrected
+        return output
+    Path(output).mkdir(parents=True, exist_ok=True)
+    return str(Path(output) / name)
+
+
+def reproduce_from_sidecar(sidecar_path: str, checkpoints_dir: Optional[str],
+                           output: Optional[str] = None,
+                           postprocess: bool = True,
+                           model_config=None,
+                           device: Optional[str] = None) -> int:
+    """Regenerate the image a sidecar JSON records with everything it pins
+    (seed and block, steps, scheduler kind, eta, spacing, compute dtype,
+    checkpoint variant, `attention_fast_math`, `png_compress_level`) and
+    compare it byte for byte with the original when that is next to the
+    sidecar. 0 = reproduced (and identical where the original was there),
+    1 = failure or different bytes, 2 = a sidecar this slice cannot
+    reproduce, or one whose sampler or dtype had to be assumed and could
+    not be checked.
+
+    The initial noise of the recorded seed is hashed before anything is
+    written: a sidecar from another noise stream (the JAX package's, or
+    the other device's generator) is refused, never regenerated into a
+    different image."""
+    meta = json.loads(Path(sidecar_path).read_text(encoding="utf-8"))
+    cls, seed = meta["class"], meta["seed"]
+    if seed is None:
+        print("sidecar records no seed — cannot reproduce", file=sys.stderr)
+        return 1
+    sched = meta.get("scheduler") or {}
+    later = [(meta.get("img2img"), "an img2img run (ROADMAP A1)"),
+             (sched.get("conditional"), "a conditional checkpoint (ROADMAP A1)"),
+             ((meta.get("block") or {}).get("dp_mesh"),
+              "a block sampled over a device mesh (ROADMAP A8)")]
+    for recorded, what in later:
+        if recorded:
+            print(f"sidecar records {what}, which is not ported yet", file=sys.stderr)
+            return 2
+    # sidecars that predate dtype recording came from f32 or bf16 runs:
+    # try f32, then bf16, against the original's bytes
+    dtype_recorded = "dtype" in sched
+    names = [sched["dtype"]] if dtype_recorded else ["float32", "bfloat16"]
+    candidates = [getattr(torch, n) for n in names]
+    kind_recorded = "kind" in sched
+    if not kind_recorded:
+        print("warning: sidecar predates sampler-kind recording — assuming "
+              "the DDPM ancestral sampler", file=sys.stderr)
+    art = meta.get("artifact") or {}
+    out_path = _output_path(sidecar_path, meta, output)
+    original = Path(sidecar_path).with_name(meta["filename"])
+    block = meta.get("block")
+    seeds = np.asarray(block["seeds"] if block else [seed], np.uint32)
+
+    for i, compute_dtype in enumerate(candidates):
+        gen = ImageGenerator(checkpoints_dir=checkpoints_dir,
+                             model_config=model_config, device=device,
+                             compute_dtype=compute_dtype,
+                             model_variant=sched.get("model_variant", "best"))
+        gen.set_inference_steps(int(meta["inference_steps"]))
+        gen.scheduler_kind = sched.get("kind", "ddpm")
+        gen.ddim_eta = float(sched.get("ddim_eta", 0.0))
+        gen.timestep_spacing = sched.get("timestep_spacing", "leading")
+        if sched.get("attention_fast_math"):
+            gen.model_manager.set_attention_tuning(fast_math=True)
+        if sched.get("png_compress_level") is not None:
+            gen.png_compress_level = int(sched["png_compress_level"])
+        if i == 0 and meta.get("noise_hash"):
+            index = int(block["index"]) if block else 0
+            mine = noise_hash(gen._sampler().initial_noise(seeds[index:index + 1])[0]
+                              .cpu().numpy())
+            if mine != meta["noise_hash"]:
+                print(f"initial-noise hash MISMATCH: seed {int(seeds[index])} gives "
+                      f"{mine} on {gen.model_manager.device}, the sidecar records "
+                      f"{meta['noise_hash']} (device {meta.get('device')!r}): it was "
+                      f"written by another noise stream (the JAX package, or the "
+                      f"other device's generator); nothing regenerated",
+                      file=sys.stderr)
+                return 1
+        if art.get("format") == "jpeg":
+            ok = _reproduce_console_jpeg(gen, meta, out_path)
+        elif block:
+            ok = gen.regenerate_block_image(cls, out_path, postprocess=postprocess,
+                                            block=block)
+        else:
+            ok, _ = gen.generate_single_image(cls, out_path, postprocess=postprocess,
+                                              seed=int(seed))
+        if not ok:
+            print(f"generation failed for class {cls}", file=sys.stderr)
+            return 1
+        if original.exists():
+            if original.read_bytes() == Path(out_path).read_bytes():
+                suffix = ("" if dtype_recorded else
+                          f" (legacy sidecar; compute dtype {names[i]})")
+                print(f"reproduced {meta['filename']} -> {out_path} "
+                      f"(byte-identical to the original){suffix}")
+                return 0
+            if i + 1 < len(candidates):
+                print(f"bytes differ with {names[i]}; sidecar predates dtype "
+                      f"recording — retrying with {names[i + 1]}", file=sys.stderr)
+                continue
+            print(f"reproduced {meta['filename']} -> {out_path}, but bytes DIFFER "
+                  f"from the original (tried dtype {'/'.join(names)}; different "
+                  f"checkpoint, or postprocess mismatch — try --no-postprocess)",
+                  file=sys.stderr)
+            return 1
+        print(f"reproduced {meta['filename']} -> {out_path} (initial-noise hash "
+              f"verified; original not present for byte comparison)")
+        if not (kind_recorded and dtype_recorded):
+            assumed = [what for what, ok in (("sampler kind", kind_recorded),
+                                             ("compute dtype", dtype_recorded)) if not ok]
+            print(f"UNVERIFIED: {' and '.join(assumed)} assumed and the original "
+                  f"image is not available to compare against", file=sys.stderr)
+            return 2
+        return 0
+    return 1
 
 
 def _parse_class_counts(spec: str) -> Dict[str, int]:
@@ -192,11 +362,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device to sample on (cuda runs the hand-written "
                         "attention kernel; cpu runs its plain version)")
+    p.add_argument("--reproduce", type=str, metavar="SIDECAR_JSON",
+                   help="regenerate the exact image a per-image sidecar JSON "
+                        "records (verified by the initial-noise hash, and "
+                        "byte for byte against the original next to it). "
+                        "Use --no-postprocess if the original was generated "
+                        "without colour postprocessing")
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.reproduce:
+        return reproduce_from_sidecar(args.reproduce, args.checkpoints,
+                                      output=args.output,
+                                      postprocess=not args.no_postprocess,
+                                      device=args.device)
     gen = ConsoleGenerator(base_dir=args.base_dir, checkpoints_dir=args.checkpoints,
                            inference_steps=args.steps, batch_size=args.batch,
                            scheduler=args.scheduler, seed=args.seed,

@@ -1,0 +1,486 @@
+"""ImageGenerator: the library generation engine and public facade, on a
+CUDA device.
+
+The port of `synt_isic_tpu/generator.py` for per-class (unconditional)
+models: `set_progress_callback`, `set_log_callback`, `set_generation_seed`,
+`set_inference_steps`, `set_save_trajectory`, `get_available_classes`, `validate_models`, `generate_single_image`,
+`regenerate_block_image`, `generate_images`, `generate_batch_images`,
+`stop_generation`, `get_generation_status`, `cleanup`.
+
+The same contract as the JAX package:
+  * seed bookkeeping: per-class offset = MD5(class)[:8] & 0x7fffffff,
+    per-image seed = (base + offset + i) & 0x7fffffff; random mode draws a
+    recorded seed with `secrets.randbelow(0x7fffffff)`;
+  * artifacts: `<output>/<class>/ISIC_%07d.png` per-class numbering, a
+    sidecar JSON per image with the same fields (the SHA-256 noise hash,
+    the sampler actually used, the compute dtype by its JAX name, the
+    checkpoint variant, and `attention_fast_math` / `png_compress_level`
+    only when set), `synthetic_dataset.csv` rows, per-class colour
+    postprocessing, cooperative `stop_generation`, a `between_blocks_hook`;
+  * images go through the sampler in device blocks of `batch_size` seeds of
+    one class; a multi-image block records its seeds and the image's index
+    in the sidecar, so `--reproduce` can rebuild the same block.
+
+The noise streams are the port's own (`diffusion/sampler.py`), so a seed
+gives other images here than in the JAX package. `sample()` waits for its
+block (the noise hash is read back after the walk), so the JAX package's
+overlap of one block's file writes with the next block's sampling has no
+counterpart here: blocks run one after the other.
+
+Left for later slices, and raising `NotImplementedError`: the conditional
+single checkpoint and classifier-free guidance (`conditional`,
+`guidance_scale`, `guidance_map`; ROADMAP A1), img2img
+(`augment_single_image`; A1), data-parallel sampling (`set_mesh`; A8) and
+the XAI hooks (`set_xai_hook`, `set_xai_analyzer`, `set_xai_frequency`;
+A7).
+"""
+from __future__ import annotations
+
+import hashlib
+import secrets
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from PIL import Image
+
+from .cache import CacheManager
+from .diffusion.sampler import to_uint8_images
+from .io.color_stats import apply_color_postprocessing, load_color_statistics
+from .io.csv_io import append_synthetic_row, initialize_synthetic_csv
+from .io.images import save_image, write_sidecar_metadata
+from .model_manager import ModelManager
+from .utils.config import ConfigManager
+from .utils.logging import Logger
+from .utils.paths import PathManager
+
+
+def parse_guidance_map(spec: Optional[str]) -> Optional[Dict[str, float]]:
+    """Parse a CLI per-class guidance spec: 'MEL=2.5,NV=2' -> {...}.
+
+    Empty/None -> None (scalar guidance path). Raises ValueError on
+    malformed entries so surfaces fail loudly at argument time."""
+    if not spec:
+        return None
+    out: Dict[str, float] = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(f"guidance-map entry {part!r} is not CLASS=G")
+        name, val = part.split("=", 1)
+        g = float(val)
+        if g < 0.0:
+            raise ValueError(f"guidance must be >= 0, got {part!r}")
+        out[name.strip()] = g
+    return out or None
+
+
+def class_seed_offset(class_name: str) -> int:
+    """MD5-derived 31-bit per-class offset (`image_generator.py:586-592`)."""
+    h = hashlib.md5(class_name.encode("utf-8")).hexdigest()
+    return int(h[:8], 16) & 0x7FFFFFFF
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The sidecar name of a compute dtype: "float32" / "bfloat16", the
+    names the JAX package writes."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _later(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+class ImageGenerator:
+    def __init__(self, config: Optional[ConfigManager] = None,
+                 checkpoints_dir: Optional[str] = None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 compute_dtype: torch.dtype = torch.float32,
+                 model_config=None,
+                 model_variant: str = "best",
+                 conditional: Optional[bool] = None,
+                 guidance_scale: Optional[float] = None,
+                 guidance_map: Optional[Dict[str, float]] = None):
+        self.config = config
+        if conditional is None and config is not None:
+            conditional = bool(config.get("compute.conditional", False))
+        if guidance_scale is None and config is not None:
+            guidance_scale = float(config.get("compute.guidance_scale", 0.0))
+        if guidance_map is None and config is not None:
+            guidance_map = config.get("compute.guidance_map", None)
+        if conditional or guidance_scale or guidance_map:
+            raise _later("conditional sampling and classifier-free guidance", "A1")
+        project_root = config.project_root if config else None
+        self.path_manager = PathManager(project_root)
+        log_dir = config.get_path("logs") if config else None
+        self.logger = Logger("image_generator", log_dir=log_dir)
+        cache_dir = config.get_path("cache") if config else None
+        self.cache_manager = CacheManager(cache_dir) if cache_dir else None
+        ckpt_dir = checkpoints_dir or (config.get_path("checkpoints") if config
+                                       else str(self.path_manager.get_checkpoints_dir()))
+        self.model_manager = ModelManager(
+            checkpoints_dir=ckpt_dir, cache_manager=self.cache_manager,
+            logger=self.logger, device=device, dtype=compute_dtype,
+            model_config=model_config, variant=model_variant)
+        # PNG zlib level (None = PIL default): changes the file's bytes, not
+        # its pixels, so it is recorded in sidecars and honoured by --reproduce
+        self.png_compress_level: Optional[int] = (
+            config.get("compute.png_compress_level", None) if config else None)
+
+        self.inference_steps = int(config.get_generation_param("inference_timesteps")) \
+            if config else 50
+        self.inference_steps = max(1, min(1000, self.inference_steps))
+        self.batch_size = int(config.get("generation.batch_size", 1)) if config else 1
+        self.scheduler_kind = (config.get("compute.scheduler", "ddpm")
+                               if config else "ddpm")
+        self.ddim_eta = float(config.get("compute.ddim_eta", 0.0)) if config else 0.0
+        # 'leading' = reference parity; 'trailing' = few-step quality fix
+        self.timestep_spacing = (config.get("compute.timestep_spacing", "leading")
+                                 if config else "leading")
+
+        self.color_statistics = load_color_statistics(
+            Path(ckpt_dir) / "color_statistics.json")
+
+        self.base_seed: Optional[int] = None
+        self.save_trajectory = True
+
+        self.progress_callback: Optional[Callable[[int, int, str], None]] = None
+        self.log_callback: Optional[Callable[[str, str], None]] = None
+
+        self.is_generating = False
+        self.stop_requested = False
+        # called between device blocks of a generate_images run (same
+        # thread): a caller can slip other work in ahead of the rest
+        self.between_blocks_hook: Optional[Callable[[], None]] = None
+
+    # -- wiring ----------------------------------------------------------------------
+    def set_progress_callback(self, cb: Callable[[int, int, str], None]) -> None:
+        self.progress_callback = cb
+
+    def set_log_callback(self, cb: Callable[[str, str], None]) -> None:
+        self.log_callback = cb
+
+    def set_xai_hook(self, hook: Callable, every_n: int = 10) -> None:
+        raise _later("the XAI hook", "A7")
+
+    def set_xai_analyzer(self, analyzer) -> None:
+        raise _later("integrated XAI", "A7")
+
+    def set_xai_frequency(self, n: int) -> None:
+        raise _later("integrated XAI", "A7")
+
+    def set_save_trajectory(self, flag: bool) -> None:
+        self.save_trajectory = bool(flag)
+
+    def set_generation_seed(self, seed: Optional[int]) -> None:
+        self.base_seed = None if seed is None else int(seed)
+
+    def set_inference_steps(self, steps: int) -> None:
+        self.inference_steps = max(1, min(1000, int(steps)))
+
+    def set_mesh(self, mesh) -> None:
+        raise _later("data-parallel sampling over a mesh", "A8")
+
+    # -- logging / progress ----------------------------------------------------------
+    def _log(self, msg: str, level: str = "info") -> None:
+        getattr(self.logger, f"log_{level}", self.logger.log_info)(msg)
+        if self.log_callback:
+            try:
+                self.log_callback(msg, level)
+            except Exception:  # a broken UI callback must not stop generation
+                pass
+
+    def _progress(self, done: int, total: int, msg: str) -> None:
+        if self.progress_callback:
+            try:
+                self.progress_callback(done, total, msg)
+            except Exception:  # a broken UI callback must not stop generation
+                pass
+
+    # -- discovery / validation ---------------------------------------------------------
+    def get_available_classes(self) -> List[str]:
+        return self.model_manager.get_available_classes()
+
+    def validate_models(self, class_names: Optional[List[str]] = None) -> Dict[str, bool]:
+        class_names = class_names or self.get_available_classes()
+        results = {}
+        for cls in class_names:
+            ok = self.model_manager.load_model(cls)
+            results[cls] = bool(ok and self.model_manager.validate_model(cls))
+        return results
+
+    # -- seed plumbing ---------------------------------------------------------------------
+    def _seed_for(self, class_name: str, index: int,
+                  offsets: Dict[str, int]) -> int:
+        if self.base_seed is not None:
+            return (int(self.base_seed) + offsets.get(class_name, 0) + index) & 0x7FFFFFFF
+        return secrets.randbelow(0x7FFFFFFF)
+
+    # -- core generation --------------------------------------------------------------------
+    def _sampler(self):
+        return self.model_manager.create_sampler(
+            self.inference_steps, scheduler=self.scheduler_kind,
+            ddim_eta=self.ddim_eta, timestep_spacing=self.timestep_spacing)
+
+    def _sample_batch(self, class_name: str, seeds: np.ndarray,
+                      capture_trajectory: bool) -> Optional[Dict[str, Any]]:
+        return self._sample_block([class_name] * len(seeds), seeds,
+                                  capture_trajectory)
+
+    def _sample_block(self, classes: List[str], seeds: np.ndarray,
+                      capture_trajectory: bool) -> Optional[Dict[str, Any]]:
+        """One device batch of one class; `classes[j]` is image j's class.
+        None when the class's model does not load."""
+        if len(set(classes)) > 1:
+            raise ValueError("mixed-class block requires conditional mode")
+        mm = self.model_manager
+        if not mm.load_model(classes[0]):
+            return None
+        return self._sampler().sample(mm.loaded_models[classes[0]], seeds,
+                                      capture_trajectory=capture_trajectory)
+
+    def generate_single_image(self, class_name: str, output_path: str,
+                              postprocess: bool = True,
+                              seed: Optional[int] = None
+                              ) -> Tuple[bool, Optional[np.ndarray]]:
+        """One image end to end. Returns (success, trajectory or None); the
+        trajectory is (S, H, W, C) float32, every denoise step."""
+        if self.stop_requested:
+            return False, None
+        try:
+            seed = int(seed) if seed is not None else secrets.randbelow(0x7FFFFFFF)
+            out = self._sample_batch(class_name, np.asarray([seed], np.uint32),
+                                     self.save_trajectory)
+            if out is None:
+                return False, None
+            self._write_image_artifacts(out, 0, class_name, output_path,
+                                        postprocess, seed)
+            traj = (out["trajectory"][:, 0].cpu().numpy()
+                    if self.save_trajectory else None)
+            self._log(f"image generated for class {class_name}: {output_path}")
+            return True, traj
+        except Exception as exc:  # reported through the log and the result
+            self._log(f"generation failed for {class_name}: {exc}", "error")
+            return False, None
+
+    def regenerate_block_image(self, class_name: str, output_path: str,
+                               postprocess: bool,
+                               block: Dict[str, Any]) -> bool:
+        """Rebuild the device block a sidecar's `block` field records (the
+        same seeds in the same order) and write one image from it: the
+        batch size changes the convolution algorithms and so the last bits
+        of the images, so byte identity needs the original block."""
+        seeds = np.asarray(block["seeds"], np.uint32)
+        idx = int(block["index"])
+        classes = list(block.get("classes") or [class_name] * len(seeds))
+        if not (0 <= idx < len(seeds)) or classes[idx] != class_name:
+            self._log(f"sidecar block is inconsistent (index {idx}, "
+                      f"{len(seeds)} seeds, classes {classes})", "error")
+            return False
+        out = self._sample_block(classes, seeds, False)
+        if out is None:
+            return False
+        self._write_image_artifacts(
+            out, idx, class_name, output_path, postprocess, int(seeds[idx]),
+            extra={"block": {"seeds": [int(s) for s in seeds], "index": idx}})
+        self._log(f"image regenerated from its recorded device block "
+                  f"(size {len(seeds)}, index {idx}): {output_path}")
+        return True
+
+    def augment_single_image(self, class_name: str, source_image,
+                             output_path: str, strength: float = 0.6,
+                             mask=None, postprocess: bool = False,
+                             seed: Optional[int] = None):
+        raise _later("img2img and inpainting", "A1")
+
+    def sidecar_scheduler(self) -> Dict[str, Any]:
+        """The sidecar's `scheduler` block: the reference's static fields,
+        then the sampler actually used and every setting that changes the
+        output bytes (`attention_fast_math` and `png_compress_level` only
+        when set, so other sidecars keep their old field set)."""
+        mm = self.model_manager
+        return {
+            "num_train_timesteps": 1000,
+            "beta_schedule": "squaredcos_cap_v2",
+            "prediction_type": "epsilon",
+            "kind": self.scheduler_kind,
+            "ddim_eta": self.ddim_eta,
+            "timestep_spacing": self.timestep_spacing,
+            "dtype": dtype_name(mm.dtype),
+            "model_variant": mm.variant,
+            **({"attention_fast_math": True} if mm.attention_fast_math else {}),
+            **({"png_compress_level": int(self.png_compress_level)}
+               if self.png_compress_level is not None else {}),
+        }
+
+    def _write_image_artifacts(self, sample_out: Dict[str, Any], idx: int,
+                               class_name: str, output_path: str,
+                               postprocess: bool, seed: int,
+                               extra: Optional[Dict[str, Any]] = None) -> None:
+        arr = to_uint8_images(sample_out["images"][idx:idx + 1])[0]
+        if postprocess:
+            arr = apply_color_postprocessing(
+                arr, self.color_statistics.get(class_name))
+        save_image(Image.fromarray(arr), output_path,
+                   png_compress_level=self.png_compress_level)
+        write_sidecar_metadata(
+            output_path, class_name=class_name, seed=seed,
+            inference_steps=self.inference_steps,
+            model_metadata=self.model_manager.model_metadata.get(class_name, {}),
+            device=str(self.model_manager.device),
+            noise_hash=sample_out["noise_hashes"][idx],
+            scheduler=self.sidecar_scheduler(),
+            extra=extra)
+
+    def generate_images(self, class_configs: List[Tuple[str, int]],
+                        output_dir: str, postprocess: bool = True) -> Dict[str, Any]:
+        """Batch generation: every (class, count) in order, in device blocks of
+        up to `batch_size` images of one class."""
+        if self.is_generating:
+            self._log("generation already running", "warning")
+            return {"error": "generation already running"}
+        self.is_generating = True
+        self.stop_requested = False
+        t_start = time.time()
+        try:
+            output_path = Path(output_dir)
+            output_path.mkdir(parents=True, exist_ok=True)
+            csv_path = output_path / "synthetic_dataset.csv"
+            initialize_synthetic_csv(csv_path)
+
+            offsets = {cls: class_seed_offset(cls) for cls, _ in class_configs} \
+                if self.base_seed is not None else {}
+            total_images = sum(count for _, count in class_configs)
+            generated = 0
+            self._log(f"starting generation of {total_images} images")
+
+            # flat work list: (class, per-class image index); the index
+            # continues across repeated entries of one class, so a fixed
+            # base seed never hands out the same seed twice
+            items: List[Tuple[str, int]] = []
+            next_idx: Dict[str, int] = {}
+            for cls, count in class_configs:
+                start = next_idx.get(cls, 0)
+                items.extend((cls, start + i) for i in range(count))
+                next_idx[cls] = start + count
+            class_totals: Dict[str, int] = {}
+            for cls, count in class_configs:
+                class_totals[cls] = class_totals.get(cls, 0) + count
+            class_counts: Dict[str, int] = {}  # ISIC numbering per class
+            dead: set = set()                  # classes whose model failed to load
+            announced: set = set()
+
+            index = 0
+            while index < len(items) and not self.stop_requested:
+                if self.between_blocks_hook is not None:
+                    try:
+                        self.between_blocks_hook()
+                    except Exception as exc:  # the caller's hook must not stop the run
+                        self._log(f"between-blocks hook failed: {exc}", "warning")
+                    if self.stop_requested:
+                        break
+                if items[index][0] in dead:
+                    index += 1
+                    continue
+                # a block: up to batch_size items, all of one class
+                cls0 = items[index][0]
+                run = 1
+                while (run < self.batch_size and index + run < len(items)
+                       and items[index + run][0] == cls0):
+                    run += 1
+                blk = items[index:index + run]
+                if cls0 not in announced:
+                    announced.add(cls0)
+                    self._log(f"generating {class_totals[cls0]} images for class {cls0}")
+                    (output_path / cls0).mkdir(exist_ok=True)
+                seeds = np.asarray([self._seed_for(cls, i, offsets) for cls, i in blk],
+                                   dtype=np.uint32)
+                out = self._sample_block([cls0] * len(blk), seeds, False)
+                if out is None:
+                    self._log(f"model unavailable for {cls0}", "error")
+                    dead.add(cls0)
+                    continue
+                index += len(blk)
+                # one device->host copy for the whole block
+                out = dict(out, images=out["images"].cpu().numpy())
+                for j, (class_name, _) in enumerate(blk):
+                    if self.stop_requested:
+                        break
+                    class_counts[class_name] = class_counts.get(class_name, 0) + 1
+                    isic_number = class_counts[class_name]
+                    filename = self.path_manager.get_isic_filename(isic_number)
+                    file_path = output_path / class_name / filename
+                    # a multi-image block records its layout, so
+                    # --reproduce can rebuild the same block
+                    block_extra = ({"block": {"seeds": [int(s) for s in seeds],
+                                              "index": j}}
+                                   if len(blk) > 1 else None)
+                    self._write_image_artifacts(out, j, class_name, str(file_path),
+                                                postprocess, int(seeds[j]),
+                                                extra=block_extra)
+                    append_synthetic_row(csv_path, {
+                        "filename": filename,
+                        "class": class_name,
+                        "isic_number": isic_number,
+                        "source": "synthetic",
+                        "generated_at": str(file_path.stat().st_mtime),
+                    })
+                    generated += 1
+                    # progress in denoise-step units (the reference's scale)
+                    self._progress(generated * self.inference_steps,
+                                   total_images * self.inference_steps,
+                                   f"generated {generated}/{total_images}")
+
+            elapsed = time.time() - t_start
+            result = {
+                "generated": generated,
+                "requested": total_images,
+                "elapsed_seconds": round(elapsed, 2),
+                "images_per_second": round(generated / elapsed, 3) if elapsed > 0 else 0,
+                "stopped": self.stop_requested,
+                "output_dir": str(output_path),
+            }
+            self._log(f"generation finished: {result}")
+            return result
+        except Exception as exc:  # reported to the caller in the result
+            self._log(f"generation error: {exc}", "error")
+            return {"error": str(exc)}
+        finally:
+            self.is_generating = False
+
+    def generate_batch_images(self, class_name: str, output_dir: str,
+                              count: int, batch_size: Optional[int] = None,
+                              postprocess: bool = True) -> Dict[str, Any]:
+        """One class with an explicit device batch size."""
+        if batch_size is not None:
+            old, self.batch_size = self.batch_size, max(1, int(batch_size))
+            try:
+                return self.generate_images([(class_name, count)], output_dir,
+                                            postprocess)
+            finally:
+                self.batch_size = old
+        return self.generate_images([(class_name, count)], output_dir, postprocess)
+
+    # -- control ---------------------------------------------------------------------------
+    def stop_generation(self) -> None:
+        self.stop_requested = True
+        self._log("stop requested")
+
+    def get_generation_status(self) -> Dict[str, Any]:
+        return {
+            "is_generating": self.is_generating,
+            "stop_requested": self.stop_requested,
+            "loaded_models": list(self.model_manager.loaded_models.keys()),
+            "device": str(self.model_manager.device),
+        }
+
+    def cleanup(self) -> None:
+        self.stop_generation()
+        self.model_manager.cleanup()
+        if self.cache_manager:
+            self.cache_manager.cleanup_temp_files()
+        self._log("ImageGenerator cleaned up")

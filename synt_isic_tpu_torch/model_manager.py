@@ -1,14 +1,19 @@
 """Model registry: per-class UNet checkpoints -> UNet2D modules on a device.
 
 The port of `synt_isic_tpu/model_manager.py` for the per-class
-(unconditional) models without a conversion cache: class discovery from
-`unet_<CLASS>_<variant>.pth`, `load_model` with full manifest validation,
-`create_sampler` with the training schedule.
+(unconditional) models: class discovery from `unet_<CLASS>_<variant>.pth`,
+`load_model` with full manifest validation (and, with a `CacheManager`, a
+raw copy of the checkpoint under its content hash; the port loads the
+`.pth` natively, so there is no converted-array cache), `create_sampler`
+with the training schedule, the attention tuning knobs, validation, info,
+`change_device` and unloading.
 
 The device is CUDA unless the caller names another; there is no silent
 drop to the CPU. On CUDA the sampling model runs the hand-written attention
 kernel, and for a compute dtype below f32 also the f32-statistics GroupNorm
-(`ops/norms.py`) — the same switch the JAX package makes on a TPU.
+(`ops/norms.py`) — the same switch the JAX package makes on a TPU. The
+attention knobs (`set_attention_tuning`) likewise act only where the kernel
+runs.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import torch
 
+from .cache import CacheManager
 from .diffusion import DiffusionSampler, DiffusionSchedule, SamplerConfig
 from .io.manifest import expected_unet2d_state_shapes, normalize_key, validate_state_dict
 from .io.pth import load_checkpoint
@@ -38,28 +44,50 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
 
 class ModelManager:
     def __init__(self, checkpoints_dir: Optional[str] = None,
+                 cache_manager: Optional[CacheManager] = None,
                  logger: Optional[Logger] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  model_config: Optional[UNet2DConfig] = None,
                  dtype: torch.dtype = torch.float32,
                  variant: str = "best"):
-        self.device = resolve_device(device)
         self.path_manager = PathManager()
         self.checkpoints_dir = Path(checkpoints_dir) if checkpoints_dir \
             else self.path_manager.get_checkpoints_dir()
         # 'best' = reference naming unet_<CLASS>_best.pth; other variants are
         # same-architecture files unet_<CLASS>_<variant>.pth
         self.variant = variant
+        self.cache = cache_manager
         self.logger = logger or Logger("model_manager")
         self.config = model_config or UNet2DConfig()
         self.dtype = dtype  # compute dtype; recorded in sidecars
-        on_cuda = self.device.type == "cuda"
-        self.use_fused_attention = on_cuda
-        self.fast_norm = on_cuda and dtype != torch.float32
+        self._set_device(device)
+        # attention kernel knobs: heads per block (identical results) and
+        # bf16 exponentials (changes output bytes, so generators record it
+        # in sidecars and --reproduce sets it again)
+        self.attention_heads_per_program = 1
+        self.attention_fast_math = False
         self.schedule = DiffusionSchedule.create()
         self.loaded_models: Dict[str, UNet2D] = {}
         self.model_metadata: Dict[str, Dict[str, Any]] = {}
         self._samplers: Dict[tuple, DiffusionSampler] = {}
+
+    def _set_device(self, device: Optional[Union[str, torch.device]]) -> None:
+        """Take `device` and the kernel switches that follow from it: the
+        attention kernel on CUDA, and there the f32-statistics GroupNorm for
+        a compute dtype below f32."""
+        self.device = resolve_device(device)
+        on_cuda = self.device.type == "cuda"
+        self.use_fused_attention = on_cuda
+        self.fast_norm = on_cuda and self.dtype != torch.float32
+
+    def _rebuild(self) -> None:
+        """Rebuild every loaded model through `sample_model` on this
+        manager's device, with the same weights, and drop the samplers."""
+        for cls, old in self.loaded_models.items():
+            model = self.sample_model().to(self.device)
+            model.load_state_dict(old.state_dict(), strict=True)
+            self.loaded_models[cls] = model.eval()
+        self._samplers.clear()
 
     # -- discovery ----------------------------------------------------------------
     def get_available_classes(self) -> List[str]:
@@ -79,7 +107,9 @@ class ModelManager:
         """A fresh sampling UNet2D for this manager's device and dtype."""
         return UNet2D(self.config, dtype=self.dtype,
                       use_fused_attention=self.use_fused_attention,
-                      fast_norm=self.fast_norm)
+                      fast_norm=self.fast_norm,
+                      fused_heads_per_program=self.attention_heads_per_program,
+                      fused_fast_math=self.attention_fast_math)
 
     def load_model(self, class_name: str,
                    checkpoint_path: Optional[str] = None) -> bool:
@@ -111,6 +141,8 @@ class ModelManager:
         model = self.sample_model()
         model.load_state_dict(state, strict=True)
         self.loaded_models[class_name] = model.to(self.device).eval()
+        if self.cache is not None:
+            self.cache.cache_model(class_name, str(path))
         self.model_metadata[class_name] = {
             "model_path": str(path),
             "loaded_at": time.time(),
@@ -137,3 +169,81 @@ class ModelManager:
                                 channels=self.config.in_channels, dtype=dtype)
             self._samplers[key] = DiffusionSampler(self.schedule, cfg, self.device)
         return self._samplers[key]
+
+    def set_attention_tuning(self, heads_per_program: Optional[int] = None,
+                             fast_math: Optional[bool] = None) -> None:
+        """Rebuild the sampling models with the attention kernel's knobs.
+
+        `heads_per_program` runs G heads per block: identical results.
+        `fast_math` takes the softmax exponentials in bf16: the output
+        changes at bf16 level, so it is recorded in sidecars and honoured by
+        `--reproduce`. On a device other than CUDA the sampling model has no
+        kernel and the knobs change nothing but the record. Clears the
+        sampler cache, as the JAX package does."""
+        if heads_per_program is not None:
+            self.attention_heads_per_program = int(heads_per_program)
+        if fast_math is not None:
+            self.attention_fast_math = bool(fast_math)
+        self._rebuild()
+
+    # -- unload -------------------------------------------------------------------------
+    def unload_model(self, class_name: str) -> bool:
+        if class_name not in self.loaded_models:
+            return False
+        del self.loaded_models[class_name]
+        self.model_metadata.pop(class_name, None)
+        self.logger.log_info(f"model unloaded for class {class_name}")
+        return True
+
+    def unload_all_models(self) -> bool:
+        for cls in list(self.loaded_models):
+            self.unload_model(cls)
+        return True
+
+    # -- validation / info ------------------------------------------------------------
+    def validate_model(self, class_name: str) -> bool:
+        """The model is loaded, every parameter lies on this manager's
+        device, and `conv_in` has the configured shape."""
+        model = self.loaded_models.get(class_name)
+        if model is None:
+            self.logger.log_warning(f"model for {class_name} not loaded")
+            return False
+        devices = {p.device for p in model.parameters()}
+        # "cuda" names the current card, whose parameters say "cuda:0"
+        want = self.device
+        if want.type == "cuda" and want.index is None:
+            want = torch.device("cuda", torch.cuda.current_device())
+        if devices != {want}:
+            self.logger.log_warning(
+                f"model {class_name} on wrong device(s): {devices} != {self.device}")
+            return False
+        cfg = self.config
+        return tuple(model.conv_in.weight.shape) == (
+            cfg.block_out_channels[0], cfg.in_channels, 3, 3)
+
+    def get_loaded_models_info(self) -> Dict[str, Dict[str, Any]]:
+        info = {}
+        for cls, model in self.loaded_models.items():
+            n_params = sum(p.numel() for p in model.parameters())
+            info[cls] = {
+                "parameters": n_params,
+                "parameters_millions": round(n_params / 1e6, 2),
+                **self.model_metadata.get(cls, {}),
+            }
+        return info
+
+    def change_device(self, device: Union[str, torch.device]) -> bool:
+        """Move every loaded model to another device. The models are rebuilt
+        with the kernel switches of the new device (the attention kernel and
+        the f32-statistics GroupNorm on CUDA, the plain versions elsewhere),
+        and the samplers, which hold device tables, are dropped and rebuilt
+        on demand."""
+        self._set_device(device)
+        self._rebuild()
+        for cls in self.loaded_models:
+            self.model_metadata[cls]["device"] = str(self.device)
+        return True
+
+    def cleanup(self) -> None:
+        self.unload_all_models()
+        self._samplers.clear()

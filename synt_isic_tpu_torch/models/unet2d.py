@@ -21,7 +21,10 @@ Tensors are NCHW, PyTorch's habit. The numerics follow the JAX model:
     hand-written CUDA kernels on a CUDA device: `fused_attention` (forward
     only) when no gradient is taken, `fused_attention_trainable` (forward
     and backward kernels) when one is; otherwise it runs the plain einsum
-    path.
+    path. `fused_heads_per_program` and `fused_fast_math` are the kernel's
+    knobs (JAX `unet2d.py:185-186`): heads per block (identical results)
+    and bf16 exponentials (bf16-level deviation); the einsum path ignores
+    them, as in the JAX model.
 """
 from __future__ import annotations
 
@@ -185,10 +188,13 @@ class AttentionBlock(nn.Module):
     def __init__(self, channels: int, head_dim: int = 8, groups: int = 32,
                  eps: float = 1e-5, dtype: torch.dtype = torch.float32,
                  use_fused: bool = False, fast_norm: bool = False,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 fused_heads_per_program: int = 1, fused_fast_math: bool = False):
         super().__init__()
         self.head_dim, self.groups, self.eps = head_dim, groups, eps
         self.dtype, self.use_fused, self.fast_norm = dtype, use_fused, fast_norm
+        self.fused_heads_per_program = fused_heads_per_program
+        self.fused_fast_math = fused_fast_math
         kw = dict(dtype=dtype, param_dtype=param_dtype)
         self.group_norm = nn.GroupNorm(groups, channels, eps=eps)
         self.to_q = Linear(channels, channels, **kw)
@@ -212,13 +218,13 @@ class AttentionBlock(nn.Module):
 
         q, k, v = split(self.to_q(y)), split(self.to_k(y)), split(self.to_v(y))
         if not self.use_fused:
-            attention = attention_reference
-        elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                          or v.requires_grad):
-            attention = fused_attention_trainable
+            out = attention_reference(q, k, v)
         else:
-            attention = fused_attention
-        out = attention(q, k, v).to(self.dtype)
+            trainable = torch.is_grad_enabled() and (
+                q.requires_grad or k.requires_grad or v.requires_grad)
+            attention = fused_attention_trainable if trainable else fused_attention
+            out = attention(q, k, v, self.fused_fast_math, self.fused_heads_per_program)
+        out = out.to(self.dtype)
         out = self.to_out[0](out.transpose(1, 2).reshape(b, h * w, c))
         return x + out.transpose(1, 2).reshape(b, c, h, w)
 
@@ -257,6 +263,8 @@ class _Layers:
     head_dim: int
     use_fused_attention: bool
     param_dtype: torch.dtype
+    fused_heads_per_program: int
+    fused_fast_math: bool
 
     def resnet(self, in_channels: int, out_channels: int) -> ResnetBlock2D:
         return ResnetBlock2D(in_channels, out_channels, self.temb_channels,
@@ -272,7 +280,8 @@ class _Layers:
     def attention(self, channels: int) -> AttentionBlock:
         return AttentionBlock(channels, self.head_dim, self.groups, self.eps,
                               self.dtype, self.use_fused_attention, self.fast_norm,
-                              self.param_dtype)
+                              self.param_dtype, self.fused_heads_per_program,
+                              self.fused_fast_math)
 
 
 class DownBlock2D(nn.Module):
@@ -354,7 +363,8 @@ class UNet2D(nn.Module):
     def __init__(self, config: UNet2DConfig = UNet2DConfig(),
                  dtype: torch.dtype = torch.float32,
                  use_fused_attention: bool = False, fast_norm: bool = False,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 fused_heads_per_program: int = 1, fused_fast_math: bool = False):
         super().__init__()
         cfg = self.config = config
         self.dtype = dtype
@@ -362,7 +372,8 @@ class UNet2D(nn.Module):
         temb = cfg.time_embed_dim
         last = len(cfg.block_out_channels) - 1
         layers = _Layers(temb, cfg.norm_num_groups, cfg.norm_eps, dtype, fast_norm,
-                         cfg.attention_head_dim, use_fused_attention, param_dtype)
+                         cfg.attention_head_dim, use_fused_attention, param_dtype,
+                         fused_heads_per_program, fused_fast_math)
         kw = dict(dtype=dtype, param_dtype=param_dtype)
 
         self.conv_in = Conv2d(cfg.in_channels, cfg.block_out_channels[0], 3,

@@ -2,7 +2,8 @@
 forward, backward and the autograd Function that binds them.
 
 The port of synt_isic_tpu/ops/pallas/attention.py:
-  * `fused_attention` (both Pallas layouts) launches the hand-written kernel
+  * `fused_attention` (both Pallas layouts, with the knobs `fast_math` and
+    `heads_per_program`) launches the hand-written kernel
     `csrc/attention_fwd.cu` for a CUDA tensor; it has no gradient, so under
     grad mode it refuses CUDA inputs that require grad;
   * `fused_attention_bwd` (the Pallas recompute backward) launches
@@ -11,8 +12,14 @@ The port of synt_isic_tpu/ops/pallas/attention.py:
     Function `FusedAttention`: forward kernel, backward kernel.
 For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it runs the plain PyTorch version (`attention_reference`,
-`attention_bwd_reference`), which the tests and `chip_smoke.py` hold the
-kernels against. There is no other route.
+`attention_fast_math_reference`, `attention_bwd_reference`), which the
+tests and `chip_smoke.py` hold the kernels against; the fast-math kernel is
+also held to `attention_fast_math_kernel_order`, the same maths rounded
+where the kernel rounds. There is no other route.
+
+`heads_per_program` = G runs G heads per block with bit-identical maths; as
+in the JAX package, a G that does not divide the head count means G = 1.
+The kernel takes G in (1, 2, 4, 8). On a CPU tensor G has no effect.
 
 q, k, v (and do) are (B, H, T, D) tensors of any strides, so a view of a
 (B, T, C) projection output (`z.view(B, T, H, D).transpose(1, 2)`) goes in
@@ -32,12 +39,19 @@ from . import native
 
 KERNEL = "attention_fwd"
 BWD_KERNEL = "attention_bwd"
+# counters of the forward kernel's variants (one source, `attention_fwd.cu`)
+FAST_KERNEL = "attention_fwd_fast_math"
+GROUPED_KERNEL = "attention_fwd_grouped"
 HEAD_DIMS = (4, 8)
+HEADS_PER_PROGRAM = (1, 2, 4, 8)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of each hand-written kernel, counted where the wrapper launches it
 # and nowhere else, so a run can show that its main path went through them.
-LAUNCHES = {KERNEL: 0, BWD_KERNEL: 0}
+# A forward launch counts under KERNEL (exact softmax) or FAST_KERNEL
+# (fast_math), and under GROUPED_KERNEL too when it runs G > 1 heads per
+# block.
+LAUNCHES = {KERNEL: 0, FAST_KERNEL: 0, GROUPED_KERNEL: 0, BWD_KERNEL: 0}
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -49,6 +63,45 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor,
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(probs.float(), v.float()).to(q.dtype)
+
+
+def attention_fast_math_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor) -> torch.Tensor:
+    """The Pallas kernel's `fast_math` branch step by step: f32 logits minus
+    the row max, cast to bf16 and exponentiated in bf16; the row sum in
+    f32; the weights cast to v's dtype; f32 P.V; then the division; the
+    result in q's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = logits - logits.amax(dim=-1, keepdim=True)
+    exp = torch.exp(logits.to(torch.bfloat16))
+    denom = exp.float().sum(dim=-1, keepdim=True)
+    pv = torch.matmul(exp.to(v.dtype).float(), v.float())
+    return (pv / denom).to(q.dtype)
+
+
+def attention_fast_math_kernel_order(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel's fast-math rounding in plain PyTorch, to hold the
+    kernel to a limit that exact attention does not meet. Where the Pallas
+    branch (`attention_fast_math_reference`) rounds the natural-log logit
+    minus the row's max, the kernel rounds the base-2 logit (log2(e) folded
+    into the scale, in f32) minus the running max over the key pairs seen so
+    far, and takes `exp2` of that bf16 value in bf16. Here, as there, the
+    weights are brought onto the row's max in f32, summed and multiplied
+    into v in f32, and the division comes last; the result is in q's
+    dtype."""
+    t = q.shape[-2]
+    scale_log2 = (torch.tensor(1.0 / math.sqrt(q.shape[-1]))
+                  * torch.tensor(1.4426950408889634)).item()
+    logits = torch.matmul(q.float() * scale_log2, k.float().transpose(-1, -2))
+    pairs = torch.nn.functional.pad(logits, (0, t % 2), value=-math.inf)
+    pair_max = pairs.unflatten(-1, (-1, 2)).amax(dim=-1)
+    run_max = pair_max.cummax(dim=-1).values.repeat_interleave(2, dim=-1)[..., :t]
+    exp = torch.exp2((logits - run_max).to(torch.bfloat16)).float()
+    weights = exp * torch.exp2(run_max - run_max[..., -1:])
+    pv = torch.matmul(weights, v.float())
+    return (pv / weights.sum(dim=-1, keepdim=True)).to(q.dtype)
 
 
 def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,7 +149,8 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = native.load(name)
     if name == KERNEL:
         lib.attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p]
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
         lib.attention_fwd.restype = ctypes.c_int
     else:
         lib.attention_bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
@@ -110,11 +164,26 @@ def _strides(*tensors: torch.Tensor):
         *(s for z in tensors for s in z.stride()))
 
 
-def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _group(heads: int, heads_per_program: int) -> int:
+    """G as the Pallas wrapper takes it: a G that does not divide the head
+    count means 1."""
+    g = int(heads_per_program)
+    if g < 1:
+        raise ValueError(f"heads_per_program must be >= 1, got {g}")
+    return g if heads % g == 0 else 1
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             fast_math: bool = False, heads_per_program: int = 1) -> torch.Tensor:
     """The forward on the tensors' device, no gradient: the kernel on CUDA,
     the plain version on the CPU."""
-    if _check(q, k, v) == "cpu":
-        return attention_reference(q, k, v)
+    device = _check(q, k, v)
+    group = _group(q.shape[1], heads_per_program)
+    if device == "cpu":
+        return (attention_fast_math_reference if fast_math else attention_reference)(q, k, v)
+    if group not in HEADS_PER_PROGRAM:
+        raise ValueError(f"kernel takes heads_per_program in {HEADS_PER_PROGRAM}, "
+                         f"got {group}")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -123,26 +192,30 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         err = _lib(KERNEL).attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, t, d, _DTYPE_CODES[q.dtype], _strides(q, k, v, out),
-            1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+            1.0 / math.sqrt(d), group, int(bool(fast_math)),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
-    LAUNCHES[KERNEL] += 1
+    LAUNCHES[FAST_KERNEL if fast_math else KERNEL] += 1
+    if group > 1:
+        LAUNCHES[GROUPED_KERNEL] += 1
     return out
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    fast_math: bool = False) -> torch.Tensor:
+                    fast_math: bool = False,
+                    heads_per_program: int = 1) -> torch.Tensor:
     """softmax(q k^T / sqrt(D)) v over (B, H, T, D) tensors, in q's dtype
-    (on CUDA with q's strides where q is dense). The CUDA kernel has no
-    gradient: under grad mode, CUDA inputs that require grad raise (use
-    `fused_attention_trainable`)."""
-    if fast_math:
-        raise NotImplementedError("fast_math (bf16 exponentials) is not ported yet")
+    (on CUDA with q's strides where q is dense). `fast_math` takes the
+    exponentials in bf16 (bf16-level deviation from the exact result);
+    `heads_per_program` groups heads per block (identical results). The
+    CUDA kernel has no gradient: under grad mode, CUDA inputs that require
+    grad raise (use `fused_attention_trainable`)."""
     if (q.device.type == "cuda" and torch.is_grad_enabled()
             and any(z.requires_grad for z in (q, k, v))):
         raise RuntimeError("fused_attention has no gradient on CUDA; call "
                            "fused_attention_trainable for inputs that require grad")
-    return _forward(q, k, v)
+    return _forward(q, k, v, fast_math, heads_per_program)
 
 
 def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -179,19 +252,23 @@ class FusedAttention(torch.autograd.Function):
     only (views of the projections, no copy); nothing of size T^2."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
+    def forward(ctx, q, k, v, fast_math=False, heads_per_program=1):
         ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v)
+        return _forward(q, k, v, fast_math, heads_per_program)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        return fused_attention_bwd(q, k, v, do.to(q.dtype))
+        return (*fused_attention_bwd(q, k, v, do.to(q.dtype)), None, None)
 
 
-def fused_attention_trainable(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor) -> torch.Tensor:
+def fused_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              fast_math: bool = False,
+                              heads_per_program: int = 1) -> torch.Tensor:
     """`fused_attention` with a gradient: the same primal, and a backward
     that is the recompute kernel (the exact derivative of the f32-softmax
-    forward, up to rounding)."""
-    return FusedAttention.apply(q, k, v)
+    forward, up to rounding). With `fast_math` the primal takes bf16
+    exponentials while the backward keeps the f32-softmax derivative, as
+    the Pallas custom VJP does; the backward runs one head per block
+    whatever `heads_per_program` says (grouping K3 is still to port)."""
+    return FusedAttention.apply(q, k, v, fast_math, heads_per_program)

@@ -67,8 +67,11 @@ def test_cpu_tensors_do_not_count_launches():
 
 def test_rejects_what_it_does_not_take():
     q = torch.zeros(1, 2, 16, 8)
-    with pytest.raises(NotImplementedError):
-        attention.fused_attention(q, q, q, fast_math=True)
+    # fast_math is ported: on a CPU tensor it runs its plain version
+    assert torch.equal(attention.fused_attention(q, q, q, fast_math=True),
+                       attention.attention_fast_math_reference(q, q, q))
+    with pytest.raises(ValueError):
+        attention.fused_attention(q, q, q, heads_per_program=0)
     with pytest.raises(ValueError):
         attention.fused_attention(q, q, torch.zeros(1, 2, 8, 8))
     with pytest.raises(ValueError):

@@ -10,17 +10,25 @@ Tolerances: f32 as the Pallas kernels are held to their einsum reference
 (`tests/test_pallas_ops.py`: 2e-5 for the forward, 5e-5 * max|g| for the
 backward); bf16 one bf16 ulp of the forward's output, 2^-6 at |x| < 4, and
 2e-2 * max|g| for the backward (the whole-UNet gradient tolerance there),
-since the kernels and the plain versions round at different points.
+since the kernels and the plain versions round at different points. The
+fast-math forward: within 1e-2 of its plain version (both take bf16
+exponentials, relative to different maxima), within the JAX package's
+fast-math tolerance of exact attention (rtol 0.05, atol 0.02), and within
+FAST_ORDER_TOL of the plain version of its own rounding order (in f32 5e-6,
+a limit that the exact kernel misses; in bf16 one bf16 ulp, as TOL). Head
+grouping: bit-identical to one head per block.
 """
 import pytest
 import torch
 
+from synt_isic_tpu_torch.model_manager import ModelManager
 from synt_isic_tpu_torch.models.unet2d import UNet2D, UNet2DConfig
 from synt_isic_tpu_torch.ops import attention
 
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
+FAST_ORDER_TOL = {torch.float32: 5e-6, torch.bfloat16: 2.0 ** -6}
 
 
 @pytest.fixture
@@ -152,3 +160,74 @@ def test_unet_gradients_through_the_kernels(cuda, monkeypatch):
         w = grads[False][name]
         scale = largest if name.endswith("to_k.bias") else w.abs().max().item()
         torch.testing.assert_close(g, w, rtol=0, atol=1e-3 * scale, msg=name)
+
+
+@pytest.mark.parametrize("layout", ["BHTD", "BTC"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 32, 1024, 8), (8, 32, 256, 8), (1, 2, 101, 4)])
+def test_fast_math_kernel_matches_plain(cuda, shape, dtype, layout):
+    b, h, t, d = shape
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(3))
+    args = (q, k, v)
+    if layout == "BTC":
+        args = [z.transpose(1, 2).reshape(b, t, h * d).view(b, t, h, d).transpose(1, 2)
+                for z in args]
+    before = dict(attention.LAUNCHES)
+    got = attention.fused_attention(*args, fast_math=True)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES[attention.FAST_KERNEL] == before[attention.FAST_KERNEL] + 1
+    assert attention.LAUNCHES[attention.KERNEL] == before[attention.KERNEL]
+    assert got.dtype == dtype and got.stride() == args[0].stride()
+    plain = attention.attention_fast_math_reference(q, k, v).float()
+    assert (got.float() - plain).abs().max().item() <= 1e-2
+    exact = attention.attention_reference(q, k, v).float()
+    torch.testing.assert_close(got.float(), exact, rtol=0.05, atol=0.02)
+    order = attention.attention_fast_math_kernel_order(q, k, v).float()
+    assert (got.float() - order).abs().max().item() <= FAST_ORDER_TOL[dtype]
+    if dtype == torch.float32:
+        exact_kernel = attention.fused_attention(*args).float()
+        assert (exact_kernel - order).abs().max().item() > FAST_ORDER_TOL[dtype]
+
+
+@pytest.mark.parametrize("fast_math", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_kernel_is_bit_identical(cuda, dtype, fast_math):
+    b, h, t, d = 2, 32, 1024, 8
+    g = torch.Generator(device=cuda).manual_seed(6)
+    btc = [torch.randn(b, t, h * d, generator=g, device=cuda).to(dtype) for _ in range(3)]
+    views = [z.view(b, t, h, d).transpose(1, 2) for z in btc]
+    base = attention.fused_attention(*views, fast_math=fast_math)
+    for group in (2, 4, 8, 3):      # 3 does not divide 32 heads: it means 1
+        before = attention.LAUNCHES[attention.GROUPED_KERNEL]
+        got = attention.fused_attention(*views, fast_math=fast_math,
+                                        heads_per_program=group)
+        torch.cuda.synchronize()
+        assert attention.LAUNCHES[attention.GROUPED_KERNEL] == before + (group != 3)
+        assert torch.equal(got, base), group
+    q = torch.zeros(1, 32, 16, 8, device=cuda)
+    with pytest.raises(ValueError):
+        attention.fused_attention(q, q, q, heads_per_program=16)
+
+
+def test_model_manager_moved_to_cuda_runs_the_kernels(cuda, tmp_path):
+    cfg = UNet2DConfig(sample_size=32, block_out_channels=(32, 64, 64, 64))
+    torch.manual_seed(0)
+    torch.save(UNet2D(cfg).state_dict(), tmp_path / "unet_MEL_best.pth")
+    mm = ModelManager(str(tmp_path), device="cpu", model_config=cfg,
+                      dtype=torch.bfloat16)
+    assert mm.load_model("MEL")
+    mm.set_attention_tuning(heads_per_program=2, fast_math=True)
+    assert mm.change_device("cuda") and mm.validate_model("MEL")
+    assert mm.use_fused_attention and mm.fast_norm
+    blocks = [m for m in mm.loaded_models["MEL"].modules()
+              if type(m).__name__ == "AttentionBlock"]
+    assert blocks and all(b.use_fused and b.fused_fast_math
+                          and b.fused_heads_per_program == 2 for b in blocks)
+    before = dict(attention.LAUNCHES)
+    out = mm.create_sampler(2, scheduler="ddim").sample(mm.loaded_models["MEL"], [1, 2])
+    torch.cuda.synchronize()
+    assert torch.isfinite(out["images"]).all()
+    got = {key: attention.LAUNCHES[key] - before[key] for key in before}
+    assert got[attention.FAST_KERNEL] == got[attention.GROUPED_KERNEL] == 2 * 6
+    assert got[attention.KERNEL] == 0
