@@ -12,8 +12,9 @@ Phases, each of which exits non-zero on failure:
   2. build every hand-written kernel from the sources in the checkout, all
      `nvcc`s at once;
   3. the attention forward against its plain PyTorch version at the
-     sampling path's shapes, in both layouts, then timed beside its bound,
-     the plain version and `scaled_dot_product_attention`;
+     sampling path's shapes (and at batch 16, the guided sampler's and the
+     trainer's), in both layouts, then timed beside its bound, the plain
+     version and `scaled_dot_product_attention`;
   4. the attention backward likewise at the training path's shapes; its
      forward+backward timed beside `scaled_dot_product_attention`'s through
      autograd;
@@ -59,7 +60,32 @@ Phases, each of which exits non-zero on failure:
      each byte-identical to its original; and the fast-math image with the
      flag taken out of its sidecar, which must come out different (60 exact
      launches);
- 13. a JSON line of per-kernel numbers, then as the last line
+ 13. [kernel-bwd-group] the backward kernel at heads_per_program G in
+     {1, 2, 4, 8} at the training shapes, f32 and bf16, in both layouts:
+     every G > 1 torch.equal to G = 1 for dq, dk and dv, the grouped
+     launches counted, a time for each G beside the bound;
+ 14. [train-conditional] the conditional training entry point in a fresh
+     process, `python -m synt_isic_tpu_torch.train --conditional` on the
+     seven classes x 16 procedural images, 1 epoch of batch 16 with the eval
+     probe: exactly 6 forward and 6 backward launches per step plus 6 x 8
+     forward launches of the probe; it writes `unet_conditional_best.pth`
+     and its `.json`. Then `train_conditional` as a library call with a
+     full-width conditional UNet at heads_per_program = 2 (bf16 compute,
+     f32 parameters): `attention_bwd_grouped` = `attention_bwd` = 6 per
+     step; and one training step's gradients at G = 2 torch.equal to those
+     at G = 1 (same injected t, eps and dropout mask, cuDNN deterministic);
+ 15. [conditional] `ImageGenerator(conditional=True, guidance_scale=3.0,
+     guidance_map={"MEL": 2.5, "NV": 1.0})` on that checkpoint, f32, exact
+     kernel, DDIM 10, batch 8: MEL:6, NV:6, VASC:4 in two mixed-class
+     blocks, exactly 120 attention_fwd launches (one 2B-batched forward per
+     step); 16 PNGs with conditional sidecars and CSV rows; one guided
+     prediction (2B forward and the CFG combine) on a mixed-label batch of
+     8, kernel vs plain attention, within UNET_TOL; warm s/step and
+     images/s;
+ 16. [reproduce-conditional] `cli --reproduce` in a fresh process of a
+     sidecar of the second mixed block: byte-identical, exactly 60
+     launches;
+ 17. a JSON line of per-kernel numbers, then as the last line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA device; exits
@@ -90,8 +116,12 @@ from synt_isic_tpu_torch.generator import ImageGenerator
 from synt_isic_tpu_torch.model_manager import ModelManager
 from synt_isic_tpu_torch.models.unet2d import UNet2D, UNet2DConfig
 from synt_isic_tpu_torch.ops import attention, native
+from synt_isic_tpu_torch.diffusion.schedules import DiffusionSchedule
 from synt_isic_tpu_torch.train import __main__ as train_entry
 from synt_isic_tpu_torch.train.benchmark import measure_train_step
+from synt_isic_tpu_torch.train.procedural import ProceduralDataset
+from synt_isic_tpu_torch.train.train_conditional import LabeledMixtureDataset, train_conditional
+from synt_isic_tpu_torch.train.train_ddpm import TrainConfig, create_train_state, make_train_step
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -151,6 +181,15 @@ GROUP_SHAPE = (8, 32, 1024, 8)       # grouped_attention's own shape
 GROUPS = (1, 2, 4, 8)
 GEN_IMAGES, GEN_SEED = 16, 1234
 REPO = Path(__file__).resolve().parent
+# the class-conditional family: the seven ISIC classes plus the null row
+COND_CLASSES = ("MEL", "NV", "BCC", "AKIEC", "BKL", "DF", "VASC")
+COND_IMAGES = 16                      # procedural images per class, entry-point run
+COND_STEPS = len(COND_CLASSES) * COND_IMAGES // TRAIN_BATCH
+EVAL_T_POINTS = 8                     # TrainConfig.eval_t_points: probe forwards
+COND_LIB_IMAGES = 5                   # per class: 35 images, 2 steps of 16 at G = 2
+COND_GROUP = 2
+COND_REQUEST = [("MEL", 6), ("NV", 6), ("VASC", 4)]
+COND_GUIDANCE, COND_MAP = 3.0, {"MEL": 2.5, "NV": 1.0}
 
 
 def fail(msg: str) -> None:
@@ -245,7 +284,8 @@ def phase_build() -> None:
 
 def phase_kernel() -> dict:
     g = torch.Generator(device="cuda").manual_seed(0)
-    shapes = MAIN_SHAPES + [(2, 4, 64, 4)]
+    # the CFG sampler's 2B-batched forward gives batch 16 (checked, not timed)
+    shapes = MAIN_SHAPES + TRAIN_SHAPES + [(2, 4, 64, 4)]
     report = {}
     for shape in shapes:
         b, h, t, d = shape
@@ -541,14 +581,14 @@ def phase_generator(state: dict, card: str, base: Path, g_star: int) -> dict:
                 out=out, ckpt=ckpt)
 
 
-def run_cli_process(argv) -> tuple:
-    """`python -m synt_isic_tpu_torch.cli ARGV` in a fresh process, plus the
-    launch counts it ends with. Returns (rc, launches, output)."""
+def run_cli_process(argv, module: str = "synt_isic_tpu_torch.cli") -> tuple:
+    """`python -m MODULE ARGV` in a fresh process, plus the launch counts it
+    ends with. Returns (rc, launches, output)."""
     code = ("import json, runpy, sys\n"
             "from synt_isic_tpu_torch.ops import attention\n"
-            "sys.argv = ['synt_isic_tpu_torch.cli'] + sys.argv[1:]\n"
+            f"sys.argv = ['{module}'] + sys.argv[1:]\n"
             "try:\n"
-            "    runpy.run_module('synt_isic_tpu_torch.cli', run_name='__main__')\n"
+            f"    runpy.run_module('{module}', run_name='__main__')\n"
             "    rc = 0\n"
             "except SystemExit as exc:\n"
             "    rc = exc.code or 0\n"
@@ -865,6 +905,296 @@ def phase_bench(card: str) -> dict:
     return r
 
 
+def phase_kernel_bwd_group() -> dict:
+    """K3 at G heads per block: bit-identical to G = 1, timed per G."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    report = {}
+    for shape in TRAIN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(4)]
+            views = _btc_views(*args)
+            for layout, a in (("BHTD", args), ("BTC", views)):
+                base = attention.fused_attention_bwd(*a)
+                for group in GROUPS[1:]:
+                    before = dict(attention.LAUNCHES)
+                    got = attention.fused_attention_bwd(*a, heads_per_program=group)
+                    torch.cuda.synchronize()
+                    check(attention.LAUNCHES[attention.BWD_KERNEL]
+                          == before[attention.BWD_KERNEL] + 1
+                          and attention.LAUNCHES[attention.BWD_GROUPED_KERNEL]
+                          == before[attention.BWD_GROUPED_KERNEL] + 1,
+                          "grouped backward launch not counted")
+                    for name, x, y in zip(("dq", "dk", "dv"), got, base):
+                        check(torch.equal(x, y), f"backward G={group} {shape} {dtype} "
+                                                 f"{layout} {name}: not bit-identical to G=1")
+            want = attention.attention_bwd_reference(*args)
+            got = attention.fused_attention_bwd(*views, heads_per_program=COND_GROUP)
+            err = max((x.float() - w.float()).abs().max().item() for x, w in zip(got, want))
+            times = {grp: cuda_ms(lambda: attention.fused_attention_bwd(
+                *views, heads_per_program=grp)) for grp in GROUPS}
+            bound, bound_by, _ = attention_bwd_bound_ms(shape, dtype)
+            report[(shape, dtype)] = dict(times=times, max_abs_err=err, bound_ms=bound,
+                                          bound_by=bound_by)
+            print(f"[kernel-bwd-group] {shape} {str(dtype)[6:]:8s}: G in {GROUPS[1:]} "
+                  f"torch.equal to G=1 for dq, dk, dv in both layouts; G={COND_GROUP} vs "
+                  f"plain max_abs_err {err:.3e}; kernel ms "
+                  + ", ".join(f"G={grp} {ms:.4f}" for grp, ms in times.items())
+                  + f"; bound {bound:.4f} ms ({bound_by})", flush=True)
+            del args, views, base, got, want
+    shape = TRAIN_SHAPES[0]
+    args = [torch.randn(shape, generator=g, device="cuda") for _ in range(4)]
+    report["plain_ms"] = cuda_ms(lambda: attention.attention_bwd_reference(*args), iters=5)
+    return report
+
+
+def _cond_datasets(per_class: int) -> dict:
+    return {c: ProceduralDataset(c, per_class, 128, seed=0, device="cuda")
+            for c in COND_CLASSES}
+
+
+def _cond_model(group: int) -> UNet2D:
+    """The trainer's full-width conditional UNet: bf16 compute on f32
+    parameters, the kernels, f32-statistics GroupNorm, G heads per block."""
+    return UNet2D(UNet2DConfig(num_class_embeds=len(COND_CLASSES) + 1),
+                  dtype=torch.bfloat16, param_dtype=torch.float32,
+                  use_fused_attention=True, fast_norm=True,
+                  fused_heads_per_program=group).cuda()
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+
+
+def phase_train_conditional(card: str, ckpt: Path) -> dict:
+    """The conditional training entry point in a fresh process (its
+    checkpoint goes to `ckpt` for [conditional]), then the library call at
+    G = 2, then G = 2 against G = 1 gradients on one step."""
+    argv = ["--conditional", "--classes", ",".join(COND_CLASSES), "--procedural",
+            str(COND_IMAGES), "--epochs", "1", "--batch", str(TRAIN_BATCH),
+            "--eval-every", "1", "--checkpoints", str(ckpt), "--seed", "0",
+            "--device", "cuda"]
+    t0 = time.time()
+    rc, launches, output = run_cli_process(argv, "synt_isic_tpu_torch.train")
+    wall = time.time() - t0
+    check(rc == 0, f"train --conditional exited {rc}:\n{output}")
+    losses = [float(m) for m in re.findall(r"\[train:conditional\] epoch \d+/\d+ loss=(\S+)",
+                                           output)]
+    check(len(losses) == 1 and math.isfinite(losses[0]), f"loss history {losses}")
+    probe = ATTENTION_CALLS_PER_UNET * EVAL_T_POINTS
+    want_fwd = ATTENTION_CALLS_PER_UNET * COND_STEPS + probe
+    want_bwd = ATTENTION_CALLS_PER_UNET * COND_STEPS
+    meta = json.loads((ckpt / "unet_conditional_best.json").read_text())
+    print(f"[train-conditional] python -m synt_isic_tpu_torch.train {' '.join(argv[:8])} "
+          f"...: {COND_STEPS} steps of batch {TRAIN_BATCH} (bf16 compute, f32 parameters) "
+          f"and one probe evaluation in {wall:.1f} s in a fresh process (start-up, "
+          f"model build and checkpoint writes included); loss {losses[0]}; launches "
+          f"attention_fwd {launches[attention.KERNEL]} (want {want_fwd}: "
+          f"{ATTENTION_CALLS_PER_UNET} x {COND_STEPS} steps + {probe} of the probe), "
+          f"attention_bwd {launches[attention.BWD_KERNEL]} (want {want_bwd}); metadata "
+          f"{meta}", flush=True)
+    check(launches[attention.KERNEL] == want_fwd and launches[attention.BWD_KERNEL] == want_bwd
+          and launches[attention.GROUPED_KERNEL] == launches[attention.BWD_GROUPED_KERNEL] == 0
+          and launches[attention.FAST_KERNEL] == 0,
+          f"train --conditional launched {launches}")
+    check((ckpt / "unet_conditional_best.pth").exists()
+          and meta["classes"] == list(COND_CLASSES)
+          and meta["num_class_embeds"] == len(COND_CLASSES) + 1,
+          "train --conditional wrote no checkpoint or wrong metadata")
+
+    # the library call with a G = 2 model
+    cfg = TrainConfig(image_size=128, batch_size=TRAIN_BATCH, epochs=1, seed=0)
+    datasets = _cond_datasets(COND_LIB_IMAGES)
+    lib_steps = len(COND_CLASSES) * COND_LIB_IMAGES // TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.manual_seed(0)
+        model = _cond_model(COND_GROUP)
+        reset_launches()
+        t0 = time.time()
+        result = train_conditional(datasets, tmp, cfg, model=model, device="cuda",
+                                   log=lambda msg: None)
+        torch.cuda.synchronize()
+        lib_wall = time.time() - t0
+        lib = dict(attention.LAUNCHES)
+    want = ATTENTION_CALLS_PER_UNET * lib_steps
+    print(f"[train-conditional] train_conditional(model=UNet2D(full width, num_class_embeds="
+          f"{len(COND_CLASSES) + 1}, bf16 on f32, fused_heads_per_program={COND_GROUP})): "
+          f"{result['steps']} steps in {lib_wall:.2f} s; launches {lib} (want {want} "
+          f"attention_bwd = attention_bwd_grouped, {want} attention_fwd = "
+          f"attention_fwd_grouped)", flush=True)
+    check(result["steps"] == lib_steps and math.isfinite(result["best_loss"])
+          and lib[attention.BWD_KERNEL] == lib[attention.BWD_GROUPED_KERNEL] == want
+          and lib[attention.KERNEL] == lib[attention.GROUPED_KERNEL] == want,
+          f"train_conditional at G={COND_GROUP} launched {lib}")
+
+    # one step's gradients at G = 2 against G = 1, with the same draws
+    mix = LabeledMixtureDataset(datasets)
+    images, labels = (torch.as_tensor(z).cuda() for z in
+                      next(mix.batches(TRAIN_BATCH, np.random.default_rng(1))))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    t = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device="cuda")
+    eps = torch.randn(images.shape, generator=gen, device="cuda")
+    drop = torch.rand(TRAIN_BATCH, generator=gen, device="cuda") < 0.5
+    torch.manual_seed(3)
+    state = _cond_model(1).state_dict()
+    step = make_train_step(DiffusionSchedule.create(), cfg)
+    grads, params, counts = {}, {}, {}
+    with deterministic_cudnn():
+        for group in (1, COND_GROUP):
+            model = _cond_model(group)
+            model.load_state_dict(state)
+            train_state = create_train_state(model, cfg)
+            reset_launches()
+            step(train_state, (images, labels), t=t, eps=eps, drop=drop)
+            torch.cuda.synchronize()
+            counts[group] = dict(attention.LAUNCHES)
+            grads[group] = {n: q.grad for n, q in model.named_parameters()}
+            params[group] = {n: q.detach() for n, q in model.named_parameters()}
+    unequal = [n for n in grads[1] if not torch.equal(grads[1][n], grads[COND_GROUP][n])]
+    moved = [n for n in params[1] if not torch.equal(params[1][n], params[COND_GROUP][n])]
+    print(f"[train-conditional] one step at G=1 and G={COND_GROUP}, same t/eps/drop, "
+          f"cudnn.deterministic: {len(grads[1]) - len(unequal)}/{len(grads[1])} parameter "
+          f"gradients torch.equal, {len(params[1]) - len(moved)}/{len(params[1])} updated "
+          f"parameters torch.equal; launches G=1 {counts[1]}, G={COND_GROUP} "
+          f"{counts[COND_GROUP]}", flush=True)
+    check(not unequal and not moved, f"G={COND_GROUP} vs G=1 gradients differ: {unequal[:5]}")
+    check(counts[COND_GROUP][attention.BWD_GROUPED_KERNEL] == ATTENTION_CALLS_PER_UNET
+          and counts[1][attention.BWD_GROUPED_KERNEL] == 0,
+          "gradient comparison did not run the grouped backward")
+    return dict(entry=launches, lib=lib, wall_s=wall)
+
+
+def phase_conditional(card: str, ckpt: Path, base: Path) -> dict:
+    """Mixed-class guided generation through ImageGenerator on the
+    checkpoint [train-conditional] wrote."""
+    gen = ImageGenerator(checkpoints_dir=str(ckpt), conditional=True,
+                         guidance_scale=COND_GUIDANCE, guidance_map=COND_MAP)
+    gen.scheduler_kind = "ddim"
+    gen.set_inference_steps(CLI_STEPS)
+    gen.batch_size = CLI_BATCH
+    gen.set_generation_seed(GEN_SEED)
+    total = sum(n for _, n in COND_REQUEST)
+
+    def run(out: Path) -> tuple:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        result = gen.generate_images(COND_REQUEST, str(out))
+        torch.cuda.synchronize()
+        return result, time.time() - t0, dict(attention.LAUNCHES)
+
+    out = base / "generated"
+    result, wall, launches = run(out)
+    check(result.get("generated") == total, f"generate_images returned {result}")
+    want = ATTENTION_CALLS_PER_UNET * CLI_STEPS * (total // CLI_BATCH)
+    pngs = sorted(out.rglob("ISIC_*.png"))
+    rows = (out / "synthetic_dataset.csv").read_text().splitlines()[1:]
+    metas = [json.loads(q.with_suffix(".json").read_text()) for q in pngs]
+    blocks = {tuple(m["block"]["seeds"]): m["block"]["classes"] for m in metas}
+    print(f"[conditional] ImageGenerator(conditional=True, guidance_scale={COND_GUIDANCE}, "
+          f"guidance_map={COND_MAP}), f32, exact kernel, DDIM {CLI_STEPS}, batch "
+          f"{CLI_BATCH}, {COND_REQUEST}: {len(pngs)} PNGs, {len(rows)} CSV rows in "
+          f"{wall:.3f} s cold; blocks {list(blocks.values())}; launches {launches} (want "
+          f"{want} attention_fwd: one 2B-batched forward of 6 calls per step)", flush=True)
+    check(len(pngs) == total and len(rows) == total, "conditional generator outputs")
+    check(launches[attention.KERNEL] == want
+          and sum(launches.values()) == launches[attention.KERNEL],
+          f"conditional generator launched {launches}, not {want} attention_fwd")
+    check(len(blocks) == total // CLI_BATCH
+          and all(len(set(classes)) > 1 for classes in blocks.values()),
+          f"blocks {blocks}")
+    for meta in metas:
+        sched = meta["scheduler"]
+        check(sched.get("conditional") is True and sched.get("guidance_map") == COND_MAP
+              and sched["guidance_scale"] == COND_MAP.get(meta["class"], COND_GUIDANCE)
+              and meta["device"].startswith("cuda"), f"sidecar {meta}")
+    arrays = _png_arrays(pngs)
+    check(all(a.shape == (128, 128, 3) for a in arrays)
+          and len({a.tobytes() for a in arrays}) == total, "conditional PNGs")
+
+    # warm: the same call again, and the sampler alone on one block
+    _, warm, warm_launches = run(base / "generated_warm")
+    check(warm_launches == launches, f"warm run launched {warm_launches}")
+    mm = gen.model_manager
+    classes = [c for c, n in COND_REQUEST for _ in range(n)][:CLI_BATCH]
+    seeds = np.arange(CLI_BATCH, dtype=np.uint32)
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        gen._sample_block(classes, seeds, False)
+        torch.cuda.synchronize()
+        runs.append(time.time() - t0)
+    block_s = sorted(runs)[1]
+    print(f"[conditional] warm (same ImageGenerator): {warm:.3f} s, {total / warm:.2f} "
+          f"images/s on {card}; the sampler alone, one guided block of {CLI_BATCH} (batch "
+          f"{2 * CLI_BATCH} forwards), median of 3 ({', '.join(f'{r:.4f}' for r in runs)} "
+          f"s): {block_s / CLI_STEPS:.5f} s/step, {CLI_BATCH / block_s:.2f} images/s",
+          flush=True)
+
+    # one guided prediction on a mixed-label batch, kernel vs plain attention
+    sampler = gen._sampler()
+    labels = torch.tensor([mm.class_id(c) for c in classes], device="cuda")
+    predict = sampler._make_predict(labels)
+    kernel_model = mm.loaded_models[classes[0]]
+    plain_model = UNet2D(mm.config, dtype=mm.dtype, use_fused_attention=False,
+                         fast_norm=mm.fast_norm)
+    plain_model.load_state_dict(kernel_model.state_dict())
+    plain_model = plain_model.cuda().eval()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn(CLI_BATCH, 3, 128, 128, generator=g, device="cuda")
+    t = sampler.params.timesteps[CLI_STEPS // 2].expand(CLI_BATCH)
+    before = attention.LAUNCHES[attention.KERNEL]
+    with torch.inference_mode(), full_f32_convolutions():
+        eps_kernel = predict(kernel_model, x, t)
+        eps_plain = predict(plain_model, x, t)
+    torch.cuda.synchronize()
+    check(attention.LAUNCHES[attention.KERNEL] - before == ATTENTION_CALLS_PER_UNET,
+          "guided prediction did not run one forward")
+    err = (eps_kernel - eps_plain).abs().max().item()
+    scale = eps_plain.abs().max().item()
+    print(f"[conditional] one guided prediction (2B forward + CFG combine, labels "
+          f"{labels.tolist()}), full-f32 convolutions: kernel vs plain attention "
+          f"max_abs_err {err:.3e} (max |eps| {scale:.3f}; allowed "
+          f"{UNET_TOL[torch.float32]:.0e} x max |eps|)", flush=True)
+    check(bool(torch.isfinite(eps_kernel).all()) and err <= UNET_TOL[torch.float32] * scale,
+          "guided prediction, kernel vs plain")
+    return dict(launches=launches, wall_s=wall, warm_s=warm, block_s=block_s, out=out,
+                err=err)
+
+
+def phase_reproduce_conditional(cond: dict, ckpt: Path) -> dict:
+    """A sidecar of the second mixed block regenerated in a fresh process:
+    the first VASC image (items 12-15 of the request are VASC)."""
+    want = ATTENTION_CALLS_PER_UNET * CLI_STEPS
+    sidecar = cond["out"] / "VASC" / "ISIC_0000001.json"
+    meta = json.loads(sidecar.read_text())
+    first = json.loads((cond["out"] / "MEL" / "ISIC_0000001.json").read_text())
+    check(meta["block"]["seeds"] != first["block"]["seeds"], "VASC is not in block 2")
+    t0 = time.time()
+    rc, launches, output = run_cli_process(
+        ["--reproduce", str(sidecar), "--checkpoints", str(ckpt), "--device", "cuda"])
+    wall = time.time() - t0
+    original = sidecar.with_name(meta["filename"])
+    redo = sidecar.with_name(f"{original.stem}_reproduced{original.suffix}")
+    identical = redo.exists() and redo.read_bytes() == original.read_bytes()
+    said = [line for line in output.splitlines() if line.startswith("reproduced")]
+    print(f"[reproduce-conditional] {sidecar.parent.name}/{sidecar.name} (block classes "
+          f"{meta['block']['classes']}, index {meta['block']['index']}): rc {rc}, "
+          f"byte-identical {identical}, launches {launches} (want {want} attention_fwd), "
+          f"{wall:.1f} s in a fresh process; {said[-1] if said else output}", flush=True)
+    check(rc == 0 and identical, f"--reproduce of a conditional sidecar: rc {rc}\n{output}")
+    check(launches[attention.KERNEL] == want
+          and sum(launches.values()) == launches[attention.KERNEL],
+          f"--reproduce of a conditional sidecar launched {launches}")
+    return launches
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -872,6 +1202,7 @@ def main() -> int:
     bwd_report = phase_kernel_bwd()
     fast_report = phase_kernel_fast()
     group_report = phase_kernel_group()
+    bwd_group_report = phase_kernel_bwd_group()
     state = phase_unet()
     phase_unet_grad()
     with tempfile.TemporaryDirectory() as tmp:
@@ -881,11 +1212,18 @@ def main() -> int:
         phase_reproduce(gen, Path(tmp) / "cli")
     train_launches = phase_train(card["card"])
     phase_bench(card["card"])
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "checkpoints"
+        cond_train = phase_train_conditional(card["card"], ckpt)
+        cond = phase_conditional(card["card"], ckpt, Path(tmp) / "conditional")
+        cond_redo = phase_reproduce_conditional(cond, ckpt)
 
     shape, dtype = MAIN_SHAPES[0], torch.float32
     timing = kernel_report[(shape, dtype, "time")]
     bwd_shape = TRAIN_SHAPES[0]
     bwd_timing = bwd_report[(bwd_shape, dtype, "time")]
+    bwd_bf16 = bwd_report[(bwd_shape, torch.bfloat16, "time")]
+    bwd_group_bf16 = bwd_group_report[(bwd_shape, torch.bfloat16)]
     fast_timing = fast_report[(MAIN_SHAPES[0], torch.bfloat16, "time")]
     g_star = group_report["g_star"]
     group_bound, group_bound_by, _ = attention_bound_ms(GROUP_SHAPE, torch.bfloat16)
@@ -896,6 +1234,9 @@ def main() -> int:
         "replaces": "synt_isic_tpu/ops/pallas/attention.py:28",
         "launches": launches,
         "launches_train": train_launches[attention.KERNEL],
+        "launches_conditional": cond["launches"][attention.KERNEL],
+        "launches_reproduce_conditional": cond_redo[attention.KERNEL],
+        "launches_train_conditional": cond_train["entry"][attention.KERNEL],
         "max_abs_err": kernel_report[(shape, dtype, "BTC")],
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -919,8 +1260,34 @@ def main() -> int:
         # beside the kernels' forward+backward (fwd_bwd_ms)
         "library_ms": bwd_timing["library_ms"],
         "fwd_bwd_ms": bwd_timing["fwd_bwd_ms"],
+        # bf16, the trainer's type: K4 (kernels) and SDPA forward+backward
+        "fwd_bwd_ms_bf16": bwd_bf16["fwd_bwd_ms"],
+        "library_ms_bf16": bwd_bf16["library_ms"],
+        "ms_bf16": bwd_bf16["ms"],
+        "launches_train_conditional": cond_train["entry"][attention.BWD_KERNEL],
         "shape": list(bwd_shape),
         "dtype": "float32",
+    }, {
+        "name": "attention_bwd_grouped",
+        "route": "cuda",
+        "source": "synt_isic_tpu_torch/csrc/attention_bwd.cu",
+        "replaces": "synt_isic_tpu/ops/pallas/attention.py:149",
+        # the G = 2 conditional training run's launches
+        "launches": cond_train["lib"][attention.BWD_GROUPED_KERNEL],
+        "max_abs_err": bwd_group_bf16["max_abs_err"],
+        "ms": bwd_group_bf16["times"][COND_GROUP],
+        "plain_ms": bwd_group_report["plain_ms"],
+        "bound_ms": bwd_group_bf16["bound_ms"],
+        "bound_by": bwd_group_bf16["bound_by"],
+        # no PyTorch call computes the backward alone
+        "library_ms": None,
+        "heads_per_program": COND_GROUP,
+        "ms_by_heads_per_program": {str(grp): ms for grp, ms in
+                                    bwd_group_bf16["times"].items()},
+        "f32_ms_by_heads_per_program": {str(grp): ms for grp, ms in
+                                        bwd_group_report[(bwd_shape, dtype)]["times"].items()},
+        "shape": list(bwd_shape),
+        "dtype": "bfloat16",
     }, {
         "name": "attention_fwd_fast_math",
         "route": "cuda",

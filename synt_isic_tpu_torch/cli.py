@@ -4,7 +4,8 @@ datasets, on a CUDA device.
 The port of `synt_isic_tpu/cli.py` for batch generation: the same flags
 (`--classes/--count/--class-counts/--output/--no-postprocess/--list-classes/
 --base-dir/--checkpoints/--steps/--batch/--scheduler/--timestep-spacing/
---seed/--model-variant`), the same artifacts — JPEG quality 95 named
+--seed/--model-variant/--conditional/--guidance-scale/--guidance-map`), the
+same artifacts — JPEG quality 95 named
 `ISIC_%07d.jpg` continuing from the original dataset's last id 34320, one
 sidecar JSON per image, the one-hot ground-truth CSV appended across runs,
 mean-shift colour postprocessing — plus `--device {cuda,cpu}` (default
@@ -15,6 +16,8 @@ a device block) and checks it byte for byte against the original.
 Usage:
     python -m synt_isic_tpu_torch.cli --checkpoints DIR --class-counts MEL:8 \
         --scheduler ddim --steps 50
+    python -m synt_isic_tpu_torch.cli --checkpoints DIR --conditional \
+        --class-counts MEL:8,NV:8 --guidance-scale 3 --scheduler ddim --steps 50
     python -m synt_isic_tpu_torch.cli --checkpoints DIR --reproduce OUT/MEL/ISIC_0000001.json
 """
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch
 from PIL import Image
 
 from .diffusion.sampler import noise_hash, to_uint8_images
-from .generator import ImageGenerator, dtype_name
+from .generator import ImageGenerator, dtype_name, parse_guidance_map
 from .io.color_stats import apply_mean_shift_postprocessing, load_color_statistics
 from .io.csv_io import append_groundtruth_row, initialize_groundtruth_csv
 from .io.images import save_image, write_sidecar_metadata
@@ -50,13 +53,21 @@ class ConsoleGenerator:
                  seed: Optional[int] = None,
                  model_config=None,
                  model_variant: str = "best",
-                 device: Optional[str] = None):
+                 device: Optional[str] = None,
+                 conditional: bool = False,
+                 guidance_scale: float = 0.0,
+                 guidance_map=None):
         self.base_dir = Path(base_dir) if base_dir else Path.cwd()
         ckpt = Path(checkpoints_dir) if checkpoints_dir else self.base_dir / "checkpoints"
         self.model_manager = ModelManager(checkpoints_dir=str(ckpt),
                                           model_config=model_config,
                                           variant=model_variant,
-                                          device=device)
+                                          device=device,
+                                          conditional=conditional)
+        self.guidance_scale = float(guidance_scale)
+        # per-class guidance {class: g}; the console samples one class per
+        # sampler call, so the map resolves to one scalar per class
+        self.guidance_map = dict(guidance_map) if guidance_map else None
         self.inference_steps = max(1, min(1000, inference_steps))
         self.batch_size = max(1, batch_size)
         self.scheduler = scheduler
@@ -99,15 +110,19 @@ class ConsoleGenerator:
                 print(f"!! no checkpoint for class {class_name}, skipping")
                 produced[class_name] = 0
                 continue
+            g_class = (self.guidance_map.get(class_name, self.guidance_scale)
+                       if self.guidance_map else self.guidance_scale)
             sampler = mm.create_sampler(self.inference_steps, scheduler=self.scheduler,
-                                        timestep_spacing=self.timestep_spacing)
+                                        timestep_spacing=self.timestep_spacing,
+                                        guidance_scale=g_class)
             model = mm.loaded_models[class_name]
+            labels = mm.class_id(class_name) if mm.conditional else None
             n = 0
             while n < count:
                 block = min(self.batch_size, count - n)
                 seeds = rng.integers(0, 0x7FFFFFFF, size=block, dtype=np.int64) \
                     .astype(np.uint32)
-                out = sampler.sample(model, seeds)
+                out = sampler.sample(model, seeds, class_labels=labels)
                 images = to_uint8_images(out["images"])
                 for j in range(block):
                     arr = images[j]
@@ -138,6 +153,10 @@ class ConsoleGenerator:
                             "model_variant": mm.variant,
                             **({"attention_fast_math": True}
                                if mm.attention_fast_math else {}),
+                            # the class's effective weight: one class per
+                            # sampler call, so the scalar pins the walk
+                            **({"conditional": True, "guidance_scale": g_class}
+                               if mm.conditional else {}),
                         },
                         extra={
                             "artifact": {
@@ -215,7 +234,8 @@ def reproduce_from_sidecar(sidecar_path: str, checkpoints_dir: Optional[str],
                            device: Optional[str] = None) -> int:
     """Regenerate the image a sidecar JSON records with everything it pins
     (seed and block, steps, scheduler kind, eta, spacing, compute dtype,
-    checkpoint variant, `attention_fast_math`, `png_compress_level`) and
+    checkpoint variant, `attention_fast_math`, `png_compress_level`, and
+    for the conditional checkpoint its guidance and the block's classes) and
     compare it byte for byte with the original when that is next to the
     sidecar. 0 = reproduced (and identical where the original was there),
     1 = failure or different bytes, 2 = a sidecar this slice cannot
@@ -233,7 +253,6 @@ def reproduce_from_sidecar(sidecar_path: str, checkpoints_dir: Optional[str],
         return 1
     sched = meta.get("scheduler") or {}
     later = [(meta.get("img2img"), "an img2img run (ROADMAP A1)"),
-             (sched.get("conditional"), "a conditional checkpoint (ROADMAP A1)"),
              ((meta.get("block") or {}).get("dp_mesh"),
               "a block sampled over a device mesh (ROADMAP A8)")]
     for recorded, what in later:
@@ -259,7 +278,16 @@ def reproduce_from_sidecar(sidecar_path: str, checkpoints_dir: Optional[str],
         gen = ImageGenerator(checkpoints_dir=checkpoints_dir,
                              model_config=model_config, device=device,
                              compute_dtype=compute_dtype,
-                             model_variant=sched.get("model_variant", "best"))
+                             model_variant=sched.get("model_variant", "best"),
+                             # the class id comes again from the class name
+                             # and the checkpoint's metadata; a recorded
+                             # guidance map is rebuilt whole with the scalar
+                             # of its absent classes, since a mixed block's
+                             # table depends on every row
+                             conditional=bool(sched.get("conditional", False)),
+                             guidance_scale=float(sched.get(
+                                 "guidance_default", sched.get("guidance_scale", 0.0))),
+                             guidance_map=sched.get("guidance_map"))
         gen.set_inference_steps(int(meta["inference_steps"]))
         gen.scheduler_kind = sched.get("kind", "ddpm")
         gen.ddim_eta = float(sched.get("ddim_eta", 0.0))
@@ -359,6 +387,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-variant", default="best", metavar="V",
                    help="checkpoint variant to sample: 'best' = reference "
                         "naming unet_<CLASS>_best.pth. Recorded in sidecars")
+    p.add_argument("--conditional", action="store_true",
+                   help="sample the one class-conditional checkpoint "
+                        "(unet_conditional_<variant>.pth and its .json "
+                        "metadata, written by the conditional trainer) "
+                        "instead of per-class checkpoints")
+    p.add_argument("--guidance-scale", type=float, default=0.0, metavar="S",
+                   help="classifier-free guidance weight for --conditional "
+                        "(0/1 = plain conditional; > 1 = guided, one "
+                        "2B-batched UNet forward per step). Recorded in sidecars")
+    p.add_argument("--guidance-map", default=None, metavar="SPEC",
+                   help="per-class guidance for --conditional, e.g. "
+                        "'MEL=2.5,NV=2' (absent classes use --guidance-scale; "
+                        "weights <= 1 mean no guidance)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device to sample on (cuda runs the hand-written "
                         "attention kernel; cpu runs its plain version)")
@@ -382,7 +423,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                            inference_steps=args.steps, batch_size=args.batch,
                            scheduler=args.scheduler, seed=args.seed,
                            timestep_spacing=args.timestep_spacing,
-                           model_variant=args.model_variant, device=args.device)
+                           model_variant=args.model_variant, device=args.device,
+                           conditional=args.conditional,
+                           guidance_scale=args.guidance_scale,
+                           guidance_map=parse_guidance_map(args.guidance_map))
     if args.list_classes:
         classes = gen.list_classes()
         if not classes:

@@ -25,6 +25,17 @@
 //   2. dk, dv: one thread per key row j. It walks the queries with their q,
 //      do, lse and delta in shared memory: dv_j += p do_i and
 //      dk_j += p (dp - delta_i) q_i.
+// Head grouping (`heads_per_program` = G, the TPU kernel's G heads per grid
+// program, attention.py:149-151, 158, 190-218): both launches run blocks of
+// kBlock * G threads, one per (row, head), and stage the other side's tiles
+// of all G heads at once; in the (B, T, C) layout the G * D channels of one
+// token are contiguous, so the staging loads are runs of G * D elements
+// instead of D. As in the forward (`attention_fwd.cu`), every thread keeps
+// exactly the G = 1 arithmetic for its (row, head), key (or query) by key in
+// the same order, so dq, dk and dv are bit-identical for every G. The tile
+// holds kTile keys, fewer at large G so the f32 tiles stay within 32 KB of
+// static shared memory; each key's step depends on no tile boundary, so the
+// results do not depend on the tile size.
 // Everything is f32 inside whatever the input type. Deviation from the TPU
 // kernel: there P is rounded to the primal dtype before dv and ds, and ds
 // before dq and dk; here nothing is rounded until the stores. In f32 only the
@@ -48,9 +59,15 @@
 
 namespace {
 
-constexpr int kBlock = 128;  // rows per block, one per thread
-constexpr int kTile = 128;   // rows of the other side staged per tile
+constexpr int kBlock = 128;  // rows per block and head, one thread per (row, head)
 constexpr float kLog2e = 1.4426950408889634f;
+
+// rows of the other side per staged tile: 128, or fewer so that the two f32
+// tiles of G heads stay within 32 KB of static shared memory
+template <int D, int G>
+struct TileRows {
+  static constexpr int value = 4096 / (G * D) < 128 ? 4096 / (G * D) : 128;
+};
 
 struct Strides {
   int64_t b, h, t, d;
@@ -68,25 +85,47 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// Stage rows [r0, r0 + n) of G heads of x and y (from head h0 on) as f32:
+// tile[r][g * D + d].
+template <int D, int G, typename T>
+__device__ __forceinline__ void stage(float* xt, float* yt, const T* xb, const T* yb,
+                                      Strides sx, Strides sy, int r0, int n) {
+  constexpr int kWidth = G * D;
+  for (int i = threadIdx.x; i < n * kWidth; i += kBlock * G) {
+    const int64_t r = i / kWidth;
+    const int64_t c = i % kWidth;
+    const int64_t gh = c / D;
+    const int64_t d = c % D;
+    xt[i] = to_f32(xb[(r0 + r) * sx.t + gh * sx.h + d * sx.d]);
+    yt[i] = to_f32(yb[(r0 + r) * sy.t + gh * sy.h + d * sy.d]);
+  }
+}
+
 // Launch 1: dq, and each query row's base-2 log-sum-exp and delta.
-template <int D, typename T>
-__global__ void __launch_bounds__(kBlock)
+template <int D, typename T, int G>
+__global__ void __launch_bounds__(kBlock * G)
 attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         T* __restrict__ dq, float* __restrict__ lse,
-                        float* __restrict__ delta, int seq_len, Strides sq,
-                        Strides sk, Strides sv, Strides sdo, Strides sdq,
-                        float scale, float scale_log2) {
-  __shared__ float k_tile[kTile][D];
-  __shared__ float v_tile[kTile][D];
+                        float* __restrict__ delta, int heads, int seq_len,
+                        Strides sq, Strides sk, Strides sv, Strides sdo,
+                        Strides sdq, float scale, float scale_log2) {
+  constexpr int kTile = TileRows<D, G>::value;
+  constexpr int kWidth = G * D;  // staged channels per key: G heads of D
+  __shared__ float k_tile[kTile][kWidth];
+  __shared__ float v_tile[kTile][kWidth];
 
   const int64_t b = blockIdx.z;
-  const int64_t h = blockIdx.y;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
+  const int64_t h0 = static_cast<int64_t>(blockIdx.y) * G;
+  // this thread's head within the group (0 at compile time for G = 1)
+  const int g = G == 1 ? 0 : threadIdx.x / kBlock;
+  const int64_t h = h0 + g;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kBlock
+                      + (G == 1 ? threadIdx.x : threadIdx.x % kBlock);
   const bool active = row < seq_len;
 
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
+  const T* kb = k + b * sk.b + h0 * sk.h;
+  const T* vb = v + b * sv.b + h0 * sv.h;
 
   // logits in base 2: (q . k) * scale * log2(e), so exp(x) becomes exp2(x)
   float qr[D];
@@ -111,18 +150,15 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < seq_len; k0 += kTile) {
     const int n = min(kTile, seq_len - k0);
     __syncthreads();
-    for (int i = threadIdx.x; i < n * D; i += kBlock) {
-      const int64_t j = i / D;
-      const int64_t d = i % D;
-      k_tile[j][d] = to_f32(kb[(k0 + j) * sk.t + d * sk.d]);
-      v_tile[j][d] = to_f32(vb[(k0 + j) * sv.t + d * sv.d]);
-    }
+    stage<D, G>(&k_tile[0][0], &v_tile[0][0], kb, vb, sk, sv, k0, n);
     __syncthreads();
     if (active) {
       for (int j = 0; j < n; ++j) {
+        const float* kj = &k_tile[j][g * D];
+        const float* vj = &v_tile[j][g * D];
         float s = 0.f;
 #pragma unroll
-        for (int d = 0; d < D; ++d) s = fmaf(qr[d], k_tile[j][d], s);
+        for (int d = 0; d < D; ++d) s = fmaf(qr[d], kj[d], s);
         if (s > m) {
           const float c = exp2f(m - s);
           l *= c;
@@ -133,7 +169,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float p = exp2f(s - m);
         l += p;
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] = fmaf(p, v_tile[j][d], acc[d]);
+        for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vj[d], acc[d]);
       }
     }
   }
@@ -155,25 +191,22 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < seq_len; k0 += kTile) {
     const int n = min(kTile, seq_len - k0);
     __syncthreads();
-    for (int i = threadIdx.x; i < n * D; i += kBlock) {
-      const int64_t j = i / D;
-      const int64_t d = i % D;
-      k_tile[j][d] = to_f32(kb[(k0 + j) * sk.t + d * sk.d]);
-      v_tile[j][d] = to_f32(vb[(k0 + j) * sv.t + d * sv.d]);
-    }
+    stage<D, G>(&k_tile[0][0], &v_tile[0][0], kb, vb, sk, sv, k0, n);
     __syncthreads();
     if (active) {
       for (int j = 0; j < n; ++j) {
+        const float* kj = &k_tile[j][g * D];
+        const float* vj = &v_tile[j][g * D];
         float s = 0.f;
         float dp = 0.f;
 #pragma unroll
         for (int d = 0; d < D; ++d) {
-          s = fmaf(qr[d], k_tile[j][d], s);
-          dp = fmaf(dor[d], v_tile[j][d], dp);
+          s = fmaf(qr[d], kj[d], s);
+          dp = fmaf(dor[d], vj[d], dp);
         }
         const float ds = exp2f(s - lse2) * (dp - dl);
 #pragma unroll
-        for (int d = 0; d < D; ++d) dqa[d] = fmaf(ds, k_tile[j][d], dqa[d]);
+        for (int d = 0; d < D; ++d) dqa[d] = fmaf(ds, kj[d], dqa[d]);
       }
     }
   }
@@ -182,37 +215,43 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* dqrow = dq + b * sdq.b + h * sdq.h + row * sdq.t;
 #pragma unroll
     for (int d = 0; d < D; ++d) dqrow[d * sdq.d] = from_f32<T>(dqa[d] * scale);
-    const int64_t r = (b * gridDim.y + h) * seq_len + row;
+    const int64_t r = (b * heads + h) * seq_len + row;
     lse[r] = lse2;
     delta[r] = dl;
   }
 }
 
-// Launch 2: dk and dv, one thread per key row.
-template <int D, typename T>
-__global__ void __launch_bounds__(kBlock)
+// Launch 2: dk and dv, one thread per (key row, head).
+template <int D, typename T, int G>
+__global__ void __launch_bounds__(kBlock * G)
 attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
                           T* __restrict__ dk, T* __restrict__ dv,
                           const float* __restrict__ lse,
-                          const float* __restrict__ delta, int seq_len,
-                          Strides sq, Strides sk, Strides sv, Strides sdo,
-                          Strides sdk, Strides sdv, float scale,
+                          const float* __restrict__ delta, int heads,
+                          int seq_len, Strides sq, Strides sk, Strides sv,
+                          Strides sdo, Strides sdk, Strides sdv, float scale,
                           float scale_log2) {
-  __shared__ float q_tile[kTile][D];
-  __shared__ float do_tile[kTile][D];
-  __shared__ float lse_tile[kTile];
-  __shared__ float delta_tile[kTile];
+  constexpr int kTile = TileRows<D, G>::value;
+  constexpr int kWidth = G * D;
+  __shared__ float q_tile[kTile][kWidth];
+  __shared__ float do_tile[kTile][kWidth];
+  __shared__ float lse_tile[G][kTile];
+  __shared__ float delta_tile[G][kTile];
 
   const int64_t b = blockIdx.z;
-  const int64_t h = blockIdx.y;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
+  const int64_t h0 = static_cast<int64_t>(blockIdx.y) * G;
+  // this thread's head within the group (0 at compile time for G = 1)
+  const int g = G == 1 ? 0 : threadIdx.x / kBlock;
+  const int64_t h = h0 + g;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kBlock
+                      + (G == 1 ? threadIdx.x : threadIdx.x % kBlock);
   const bool active = row < seq_len;
 
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* dob = dout + b * sdo.b + h * sdo.h;
-  const float* lseb = lse + (b * gridDim.y + h) * seq_len;
-  const float* deltab = delta + (b * gridDim.y + h) * seq_len;
+  const T* qb = q + b * sq.b + h0 * sq.h;
+  const T* dob = dout + b * sdo.b + h0 * sdo.h;
+  const float* lseb = lse + (b * heads + h0) * seq_len;    // G heads' rows follow
+  const float* deltab = delta + (b * heads + h0) * seq_len;
 
   // the key row carries the base-2 logit scale, the staged q rows do not
   float kr[D];
@@ -238,32 +277,31 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int q0 = 0; q0 < seq_len; q0 += kTile) {
     const int n = min(kTile, seq_len - q0);
     __syncthreads();
-    for (int i = threadIdx.x; i < n * D; i += kBlock) {
-      const int64_t r = i / D;
-      const int64_t d = i % D;
-      q_tile[r][d] = to_f32(qb[(q0 + r) * sq.t + d * sq.d]);
-      do_tile[r][d] = to_f32(dob[(q0 + r) * sdo.t + d * sdo.d]);
-    }
-    for (int i = threadIdx.x; i < n; i += kBlock) {
-      lse_tile[i] = lseb[q0 + i];
-      delta_tile[i] = deltab[q0 + i];
+    stage<D, G>(&q_tile[0][0], &do_tile[0][0], qb, dob, sq, sdo, q0, n);
+    for (int i = threadIdx.x; i < n * G; i += kBlock * G) {
+      const int gh = i / n;
+      const int r = i % n;
+      lse_tile[gh][r] = lseb[gh * seq_len + q0 + r];
+      delta_tile[gh][r] = deltab[gh * seq_len + q0 + r];
     }
     __syncthreads();
     if (active) {
       for (int i = 0; i < n; ++i) {
+        const float* qi = &q_tile[i][g * D];
+        const float* doi = &do_tile[i][g * D];
         float s = 0.f;
         float dp = 0.f;
 #pragma unroll
         for (int d = 0; d < D; ++d) {
-          s = fmaf(q_tile[i][d], kr[d], s);
-          dp = fmaf(do_tile[i][d], vr[d], dp);
+          s = fmaf(qi[d], kr[d], s);
+          dp = fmaf(doi[d], vr[d], dp);
         }
-        const float p = exp2f(s - lse_tile[i]);
-        const float ds = p * (dp - delta_tile[i]);
+        const float p = exp2f(s - lse_tile[g][i]);
+        const float ds = p * (dp - delta_tile[g][i]);
 #pragma unroll
         for (int d = 0; d < D; ++d) {
-          dva[d] = fmaf(p, do_tile[i][d], dva[d]);
-          dka[d] = fmaf(ds, q_tile[i][d], dka[d]);
+          dva[d] = fmaf(p, doi[d], dva[d]);
+          dka[d] = fmaf(ds, qi[d], dka[d]);
         }
       }
     }
@@ -280,7 +318,7 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D, typename T>
+template <int D, typename T, int G>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, void* dq, void* dk, void* dv, float* lse,
                    float* delta, int batch, int heads, int seq_len,
@@ -292,21 +330,36 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const Strides sdq{st[16], st[17], st[18], st[19]};
   const Strides sdk{st[20], st[21], st[22], st[23]};
   const Strides sdv{st[24], st[25], st[26], st[27]};
-  const dim3 grid((seq_len + kBlock - 1) / kBlock, heads, batch);
+  const dim3 grid((seq_len + kBlock - 1) / kBlock, heads / G, batch);
   const float scale_log2 = scale * kLog2e;
-  attention_bwd_dq_kernel<D, T><<<grid, kBlock, 0, stream>>>(
+  attention_bwd_dq_kernel<D, T, G><<<grid, kBlock * G, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<T*>(dq), lse, delta, seq_len, sq, sk, sv, sdo, sdq, scale,
-      scale_log2);
+      static_cast<T*>(dq), lse, delta, heads, seq_len, sq, sk, sv, sdo, sdq,
+      scale, scale_log2);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_dkdv_kernel<D, T><<<grid, kBlock, 0, stream>>>(
+  attention_bwd_dkdv_kernel<D, T, G><<<grid, kBlock * G, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<T*>(dk), static_cast<T*>(dv), lse, delta, seq_len, sq, sk,
-      sv, sdo, sdk, sdv, scale, scale_log2);
+      static_cast<T*>(dk), static_cast<T*>(dv), lse, delta, heads, seq_len,
+      sq, sk, sv, sdo, sdk, sdv, scale, scale_log2);
   return cudaGetLastError();
+}
+
+template <int D, typename T>
+cudaError_t launch_group(int group, const void* q, const void* k, const void* v,
+                         const void* dout, void* dq, void* dk, void* dv,
+                         float* lse, float* delta, int batch, int heads,
+                         int seq_len, const int64_t* st, float scale,
+                         cudaStream_t s) {
+  switch (group) {
+    case 1: return launch<D, T, 1>(q, k, v, dout, dq, dk, dv, lse, delta, batch, heads, seq_len, st, scale, s);
+    case 2: return launch<D, T, 2>(q, k, v, dout, dq, dk, dv, lse, delta, batch, heads, seq_len, st, scale, s);
+    case 4: return launch<D, T, 4>(q, k, v, dout, dq, dk, dv, lse, delta, batch, heads, seq_len, st, scale, s);
+    case 8: return launch<D, T, 8>(q, k, v, dout, dq, dk, dv, lse, delta, batch, heads, seq_len, st, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -314,27 +367,32 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16. strides: 28 element strides, (b, h, t, d)
 // for q, k, v, dout, dq, dk and dv in that order. lse and delta: f32 scratch
 // of batch*heads*seq_len each, written by the first launch and read by the
-// second. Returns a cudaError_t; an unsupported head_dim or dtype returns
+// second. heads_per_program: 1, 2, 4 or 8, and it must divide heads. Returns
+// a cudaError_t; an unsupported head_dim, dtype or group returns
 // cudaErrorInvalidValue without launching.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v,
                              const void* dout, void* dq, void* dk, void* dv,
                              float* lse, float* delta, int batch, int heads,
                              int seq_len, int head_dim, int dtype,
                              const int64_t* strides, float scale,
-                             void* stream) {
+                             int heads_per_program, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (seq_len <= 0 || batch <= 0 || heads <= 0) return cudaErrorInvalidValue;
+  const int g = heads_per_program;
+  if (seq_len <= 0 || batch <= 0 || heads <= 0 || g <= 0 || heads % g != 0)
+    return cudaErrorInvalidValue;
   if (dtype == 0 && head_dim == 8)
-    return launch<8, float>(q, k, v, dout, dq, dk, dv, lse, delta, batch,
-                            heads, seq_len, strides, scale, s);
+    return launch_group<8, float>(g, q, k, v, dout, dq, dk, dv, lse, delta,
+                                  batch, heads, seq_len, strides, scale, s);
   if (dtype == 1 && head_dim == 8)
-    return launch<8, __nv_bfloat16>(q, k, v, dout, dq, dk, dv, lse, delta,
-                                    batch, heads, seq_len, strides, scale, s);
+    return launch_group<8, __nv_bfloat16>(g, q, k, v, dout, dq, dk, dv, lse,
+                                          delta, batch, heads, seq_len,
+                                          strides, scale, s);
   if (dtype == 0 && head_dim == 4)
-    return launch<4, float>(q, k, v, dout, dq, dk, dv, lse, delta, batch,
-                            heads, seq_len, strides, scale, s);
+    return launch_group<4, float>(g, q, k, v, dout, dq, dk, dv, lse, delta,
+                                  batch, heads, seq_len, strides, scale, s);
   if (dtype == 1 && head_dim == 4)
-    return launch<4, __nv_bfloat16>(q, k, v, dout, dq, dk, dv, lse, delta,
-                                    batch, heads, seq_len, strides, scale, s);
+    return launch_group<4, __nv_bfloat16>(g, q, k, v, dout, dq, dk, dv, lse,
+                                          delta, batch, heads, seq_len,
+                                          strides, scale, s);
   return cudaErrorInvalidValue;
 }

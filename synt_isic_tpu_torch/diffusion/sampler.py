@@ -1,7 +1,8 @@
 """DDPM/DDIM sampler: the reverse walk as a loop of device work.
 
 The port of `synt_isic_tpu/diffusion/sampler.py` for the single-state
-schedulers (`ddpm`, `ddim`). The JAX sampler compiles the walk into one
+schedulers (`ddpm`, `ddim`), unconditional and class-conditional with
+classifier-free guidance (CFG). The JAX sampler compiles the walk into one
 `lax.scan`; here it is a Python loop over steps whose timesteps and
 coefficients are device tables read by index, so the loop issues work to
 the device and never waits for it (no `.item()`, no host sync per step).
@@ -22,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,12 +46,30 @@ class SamplerConfig:
                                            # (golden tests / mean-path mode)
     # 'leading' = reference scheduler parity; 'trailing' always visits t = T-1
     timestep_spacing: str = "leading"
+    # CFG weight of a conditional sampler: eps = eps_u + g (eps_c - eps_u).
+    # g <= 1 runs one plain conditional forward per step; g > 1 runs the
+    # conditional and null branches as ONE 2B-batched forward. Ignored by
+    # unconditional samplers.
+    guidance_scale: float = 0.0
+    # per-class weights indexed by class id; on a conditional sampler it
+    # overrides guidance_scale: every step runs the 2B-batched forward and
+    # each sample combines with g = table[label]
+    guidance_table: Optional[Tuple[float, ...]] = None
 
     def __post_init__(self):
         if self.scheduler not in ("ddpm", "ddim"):
             raise ValueError(f"unknown scheduler: {self.scheduler}")
         if self.timestep_spacing not in ("leading", "trailing"):
             raise ValueError(f"unknown timestep_spacing: {self.timestep_spacing!r}")
+        if self.guidance_scale < 0.0:
+            raise ValueError(f"guidance_scale must be >= 0, got {self.guidance_scale}")
+        if self.guidance_table is not None:
+            # frozen dataclass: normalise through object.__setattr__
+            object.__setattr__(self, "guidance_table",
+                               tuple(float(g) for g in self.guidance_table))
+            if any(g < 0.0 for g in self.guidance_table):
+                raise ValueError("guidance_table entries must be >= 0, got "
+                                 f"{self.guidance_table}")
 
 
 def save_indices(num_steps: int, save_every: int,
@@ -93,14 +112,27 @@ class DiffusionSampler:
 
     `sample(model, seeds)` calls `model(x_nchw, t_batch) -> eps` once per
     step; any `nn.Module` with that contract will do (the port's `UNet2D`).
+    `conditional=True` calls `model(x_nchw, t_batch, class_labels)` instead;
+    `sample()` then requires `class_labels`, and guidance (`guidance_scale`
+    > 1 or a `guidance_table`) runs against `null_label`, the checkpoint's
+    unconditional embedding row.
     """
 
     def __init__(self, schedule: DiffusionSchedule,
                  config: SamplerConfig = SamplerConfig(),
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 conditional: bool = False,
+                 null_label: Optional[int] = None):
         self.schedule = schedule
         self.config = config
         self.device = torch.device(device)
+        self.conditional = bool(conditional)
+        self.null_label = null_label
+        if (self.conditional and null_label is None
+                and (config.guidance_scale > 1.0 or config.guidance_table is not None)):
+            raise ValueError("guided sampling (guidance_scale > 1 or a "
+                             "guidance_table) requires null_label "
+                             "(the unconditional embedding index)")
         if config.scheduler == "ddpm":
             self.params = DDPMParams.create(
                 schedule, config.num_inference_steps,
@@ -143,11 +175,51 @@ class DiffusionSampler:
         return save_indices(steps, int(capture), self.timesteps,
                             self.schedule.num_train_timesteps)
 
+    # -- epsilon predictor (conditional / CFG dispatch) ---------------------------
+    def _make_predict(self, labels: Optional[torch.Tensor]) -> Callable:
+        """(model, x, t_batch) -> eps in the compute dtype, for a batch whose
+        class ids are `labels` (None for an unconditional sampler). Guided
+        sampling runs ONE forward over [x, x], [t, t], [labels, null] at
+        batch 2B and combines eps_u + g (eps_c - eps_u) in the compute
+        dtype; a guidance table gathers each sample's g by its label."""
+        cfg = self.config
+        if not self.conditional:
+            return lambda model, x, t: model(x, t).to(cfg.dtype)
+        g = float(cfg.guidance_scale)
+        if cfg.guidance_table is None and g <= 1.0:
+            return lambda model, x, t: model(x, t, labels).to(cfg.dtype)
+        b = labels.shape[0]
+        labels2 = torch.cat([labels, torch.full_like(labels, int(self.null_label))])
+        if cfg.guidance_table is not None:
+            table = torch.tensor(cfg.guidance_table, dtype=torch.float32,
+                                 device=self.device)
+            g = table[labels].to(cfg.dtype).reshape(b, 1, 1, 1)
+
+        def predict(model, x, t):
+            eps2 = model(torch.cat([x, x]), torch.cat([t, t]), labels2).to(cfg.dtype)
+            return eps2[b:] + g * (eps2[:b] - eps2[b:])
+
+        return predict
+
+    def _labels(self, class_labels, batch: int) -> Optional[torch.Tensor]:
+        """(B,) int64 class ids on the device; a scalar broadcasts. Required
+        by a conditional sampler, refused by an unconditional one."""
+        if not self.conditional:
+            if class_labels is not None:
+                raise ValueError("class_labels passed to an unconditional sampler")
+            return None
+        if class_labels is None:
+            raise ValueError("conditional sampler requires class_labels")
+        labels = torch.as_tensor(np.asarray(class_labels, np.int64).reshape(-1))
+        return labels.expand(batch).to(self.device)
+
     # -- public API ------------------------------------------------------------------
     def sample(self, model: torch.nn.Module, seeds: Union[int, np.ndarray],
                capture_trajectory: Union[bool, int] = False,
                initial_noise: Optional[Any] = None,
-               step_noise: Optional[Any] = None) -> Dict[str, Any]:
+               step_noise: Optional[Any] = None,
+               class_labels: Optional[Union[int, np.ndarray]] = None
+               ) -> Dict[str, Any]:
         """Denoise from seed(s). Returns final images (B, H, W, C) f32 in
         about [-1, 1] on the device, plus the trajectory when requested:
         `True` keeps every step ((S, B, H, W, C)); an int n keeps only the
@@ -157,10 +229,14 @@ class DiffusionSampler:
         `step_noise` ((S, B, H, W, C)) the seed-derived posterior noise:
         injected noise lets tests hold the walk against another
         implementation.
+
+        `class_labels` (a scalar or (B,) int ids) is required for a
+        conditional sampler and refused otherwise; a scalar broadcasts.
         """
         cfg = self.config
         seeds_arr = np.atleast_1d(np.asarray(seeds, dtype=np.uint32))
         batch = int(seeds_arr.shape[0])
+        predict = self._make_predict(self._labels(class_labels, batch))
         noise = (self.initial_noise(seeds_arr) if initial_noise is None
                  else torch.as_tensor(initial_noise, dtype=torch.float32,
                                       device=self.device))
@@ -174,7 +250,7 @@ class DiffusionSampler:
         with torch.inference_mode():
             for k in range(cfg.num_inference_steps):
                 t = self.params.timesteps[k].expand(batch)
-                eps = model(x, t).to(cfg.dtype)
+                eps = predict(model, x, t)
                 if step_noise is not None:
                     z = step_noise[k].permute(0, 3, 1, 2).to(cfg.dtype)
                 elif stochastic:

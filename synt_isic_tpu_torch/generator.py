@@ -1,9 +1,10 @@
 """ImageGenerator: the library generation engine and public facade, on a
 CUDA device.
 
-The port of `synt_isic_tpu/generator.py` for per-class (unconditional)
-models: `set_progress_callback`, `set_log_callback`, `set_generation_seed`,
-`set_inference_steps`, `set_save_trajectory`, `get_available_classes`, `validate_models`, `generate_single_image`,
+The port of `synt_isic_tpu/generator.py`, for per-class models and for the
+one class-conditional checkpoint with classifier-free guidance
+(`conditional`, `guidance_scale`, `guidance_map`): `set_progress_callback`,
+`set_log_callback`, `set_generation_seed`, `set_inference_steps`, `set_save_trajectory`, `get_available_classes`, `validate_models`, `generate_single_image`,
 `regenerate_block_image`, `generate_images`, `generate_batch_images`,
 `stop_generation`, `get_generation_status`, `cleanup`.
 
@@ -17,9 +18,18 @@ The same contract as the JAX package:
     checkpoint variant, and `attention_fast_math` / `png_compress_level`
     only when set), `synthetic_dataset.csv` rows, per-class colour
     postprocessing, cooperative `stop_generation`, a `between_blocks_hook`;
-  * images go through the sampler in device blocks of `batch_size` seeds of
-    one class; a multi-image block records its seeds and the image's index
-    in the sidecar, so `--reproduce` can rebuild the same block.
+  * images go through the sampler in device blocks of `batch_size` seeds:
+    of one class with per-class models; spanning classes with the
+    conditional checkpoint, which takes a label per image. A multi-image
+    block records its seeds and the image's index (and, conditional, every
+    image's class) in the sidecar, so `--reproduce` can rebuild the same
+    block. A class whose model does not load is dropped without its
+    block-mates;
+  * conditional sidecars record `conditional`, the image's effective
+    `guidance_scale` and, when set, the whole `guidance_map` with the
+    generator's own scalar beside it (`guidance_default`, which the JAX
+    package does not record: without it `--reproduce` cannot rebuild the
+    rows of classes absent from the map, see ROADMAP C5).
 
 The noise streams are the port's own (`diffusion/sampler.py`), so a seed
 gives other images here than in the JAX package. `sample()` waits for its
@@ -27,12 +37,10 @@ block (the noise hash is read back after the walk), so the JAX package's
 overlap of one block's file writes with the next block's sampling has no
 counterpart here: blocks run one after the other.
 
-Left for later slices, and raising `NotImplementedError`: the conditional
-single checkpoint and classifier-free guidance (`conditional`,
-`guidance_scale`, `guidance_map`; ROADMAP A1), img2img
-(`augment_single_image`; A1), data-parallel sampling (`set_mesh`; A8) and
-the XAI hooks (`set_xai_hook`, `set_xai_analyzer`, `set_xai_frequency`;
-A7).
+Left for later slices, and raising `NotImplementedError`: img2img
+(`augment_single_image`; ROADMAP A1), data-parallel sampling (`set_mesh`;
+A8) and the XAI hooks (`set_xai_hook`, `set_xai_analyzer`,
+`set_xai_frequency`; A7).
 """
 from __future__ import annotations
 
@@ -106,14 +114,21 @@ class ImageGenerator:
                  guidance_scale: Optional[float] = None,
                  guidance_map: Optional[Dict[str, float]] = None):
         self.config = config
-        if conditional is None and config is not None:
-            conditional = bool(config.get("compute.conditional", False))
-        if guidance_scale is None and config is not None:
-            guidance_scale = float(config.get("compute.guidance_scale", 0.0))
+        # an explicit argument wins, False and 0.0 included; None defers to
+        # the config's compute section (off by default)
+        if conditional is None:
+            conditional = bool(config.get("compute.conditional", False)) \
+                if config is not None else False
+        if guidance_scale is None:
+            guidance_scale = float(config.get("compute.guidance_scale", 0.0)) \
+                if config is not None else 0.0
+        self.guidance_scale = float(guidance_scale)
+        # per-class guidance {class: g} (conditional mode); classes not in
+        # the map take guidance_scale
         if guidance_map is None and config is not None:
             guidance_map = config.get("compute.guidance_map", None)
-        if conditional or guidance_scale or guidance_map:
-            raise _later("conditional sampling and classifier-free guidance", "A1")
+        self.guidance_map = ({str(k): float(v) for k, v in guidance_map.items()}
+                             if guidance_map else None)
         project_root = config.project_root if config else None
         self.path_manager = PathManager(project_root)
         log_dir = config.get_path("logs") if config else None
@@ -125,7 +140,8 @@ class ImageGenerator:
         self.model_manager = ModelManager(
             checkpoints_dir=ckpt_dir, cache_manager=self.cache_manager,
             logger=self.logger, device=device, dtype=compute_dtype,
-            model_config=model_config, variant=model_variant)
+            model_config=model_config, variant=model_variant,
+            conditional=conditional)
         # PNG zlib level (None = PIL default): changes the file's bytes, not
         # its pixels, so it is recorded in sidecars and honoured by --reproduce
         self.png_compress_level: Optional[int] = (
@@ -220,11 +236,39 @@ class ImageGenerator:
             return (int(self.base_seed) + offsets.get(class_name, 0) + index) & 0x7FFFFFFF
         return secrets.randbelow(0x7FFFFFFF)
 
+    def _guidance_table(self) -> Optional[Tuple[float, ...]]:
+        """The per-class-id guidance tuple of a conditional generator with a
+        `guidance_map`; None otherwise, which keeps the scalar path.
+
+        As everywhere in the package, g <= 1 means no guidance, so such
+        entries (the default guidance_scale 0.0 of classes absent from the
+        map included) become a combine weight of 1.0, never a raw 0.0 that
+        would sample the class unconditionally. A table whose every row is
+        1.0 collapses to None: the single-forward path, same prediction,
+        half the work. A pure function of (map, guidance_scale), so
+        `--reproduce` rebuilds the same table."""
+        mm = self.model_manager
+        if not (mm.conditional and self.guidance_map):
+            return None
+
+        def effective(g: float) -> float:
+            return float(g) if float(g) > 1.0 else 1.0
+
+        table = [effective(self.guidance_scale)] * int(mm.config.num_class_embeds)
+        for cname in mm.get_available_classes():
+            table[mm.class_id(cname)] = effective(
+                self.guidance_map.get(cname, self.guidance_scale))
+        if all(g == 1.0 for g in table):
+            return None
+        return tuple(table)
+
     # -- core generation --------------------------------------------------------------------
     def _sampler(self):
         return self.model_manager.create_sampler(
             self.inference_steps, scheduler=self.scheduler_kind,
-            ddim_eta=self.ddim_eta, timestep_spacing=self.timestep_spacing)
+            ddim_eta=self.ddim_eta, timestep_spacing=self.timestep_spacing,
+            guidance_scale=self.guidance_scale,
+            guidance_table=self._guidance_table())
 
     def _sample_batch(self, class_name: str, seeds: np.ndarray,
                       capture_trajectory: bool) -> Optional[Dict[str, Any]]:
@@ -233,15 +277,21 @@ class ImageGenerator:
 
     def _sample_block(self, classes: List[str], seeds: np.ndarray,
                       capture_trajectory: bool) -> Optional[Dict[str, Any]]:
-        """One device batch of one class; `classes[j]` is image j's class.
-        None when the class's model does not load."""
-        if len(set(classes)) > 1:
-            raise ValueError("mixed-class block requires conditional mode")
+        """One device batch; `classes[j]` is image j's class. Per-class
+        models take a block of one class; the conditional model takes a
+        label per image, so its blocks may mix classes. None when a class's
+        model does not load."""
         mm = self.model_manager
-        if not mm.load_model(classes[0]):
-            return None
+        if not mm.conditional and len(set(classes)) > 1:
+            raise ValueError("mixed-class block requires conditional mode")
+        for cls in dict.fromkeys(classes):
+            if not mm.load_model(cls):
+                return None
+        labels = (np.asarray([mm.class_id(c) for c in classes], np.int64)
+                  if mm.conditional else None)
         return self._sampler().sample(mm.loaded_models[classes[0]], seeds,
-                                      capture_trajectory=capture_trajectory)
+                                      capture_trajectory=capture_trajectory,
+                                      class_labels=labels)
 
     def generate_single_image(self, class_name: str, output_path: str,
                               postprocess: bool = True,
@@ -286,7 +336,9 @@ class ImageGenerator:
             return False
         self._write_image_artifacts(
             out, idx, class_name, output_path, postprocess, int(seeds[idx]),
-            extra={"block": {"seeds": [int(s) for s in seeds], "index": idx}})
+            extra={"block": {"seeds": [int(s) for s in seeds], "index": idx,
+                             **({"classes": classes}
+                                if self.model_manager.conditional else {})}})
         self._log(f"image regenerated from its recorded device block "
                   f"(size {len(seeds)}, index {idx}): {output_path}")
         return True
@@ -297,12 +349,18 @@ class ImageGenerator:
                              seed: Optional[int] = None):
         raise _later("img2img and inpainting", "A1")
 
-    def sidecar_scheduler(self) -> Dict[str, Any]:
+    def sidecar_scheduler(self, class_name: Optional[str] = None) -> Dict[str, Any]:
         """The sidecar's `scheduler` block: the reference's static fields,
         then the sampler actually used and every setting that changes the
         output bytes (`attention_fast_math` and `png_compress_level` only
-        when set, so other sidecars keep their old field set)."""
+        when set, so other sidecars keep their old field set; the
+        conditional fields only in conditional mode: `guidance_scale` is
+        `class_name`'s effective weight, and a `guidance_map` is recorded
+        whole with the scalar its absent classes take, since a mixed-class
+        block's table depends on every row)."""
         mm = self.model_manager
+        g = (self.guidance_map.get(class_name, self.guidance_scale)
+             if self.guidance_map else self.guidance_scale)
         return {
             "num_train_timesteps": 1000,
             "beta_schedule": "squaredcos_cap_v2",
@@ -313,6 +371,11 @@ class ImageGenerator:
             "dtype": dtype_name(mm.dtype),
             "model_variant": mm.variant,
             **({"attention_fast_math": True} if mm.attention_fast_math else {}),
+            **({"conditional": True, "guidance_scale": g,
+                **({"guidance_map": dict(self.guidance_map),
+                    "guidance_default": self.guidance_scale}
+                   if self.guidance_map else {})}
+               if mm.conditional else {}),
             **({"png_compress_level": int(self.png_compress_level)}
                if self.png_compress_level is not None else {}),
         }
@@ -333,13 +396,15 @@ class ImageGenerator:
             model_metadata=self.model_manager.model_metadata.get(class_name, {}),
             device=str(self.model_manager.device),
             noise_hash=sample_out["noise_hashes"][idx],
-            scheduler=self.sidecar_scheduler(),
+            scheduler=self.sidecar_scheduler(class_name),
             extra=extra)
 
     def generate_images(self, class_configs: List[Tuple[str, int]],
                         output_dir: str, postprocess: bool = True) -> Dict[str, Any]:
         """Batch generation: every (class, count) in order, in device blocks of
-        up to `batch_size` images of one class."""
+        up to `batch_size` images: of one class with per-class models,
+        spanning classes with the conditional checkpoint (a [(MEL, 3),
+        (NV, 3), (VASC, 2)] request is one block of 8)."""
         if self.is_generating:
             self._log("generation already running", "warning")
             return {"error": "generation already running"}
@@ -373,6 +438,24 @@ class ImageGenerator:
             class_counts: Dict[str, int] = {}  # ISIC numbering per class
             dead: set = set()                  # classes whose model failed to load
             announced: set = set()
+            mm = self.model_manager
+            mixed = mm.conditional
+
+            def block_at(start: int) -> List[Tuple[str, int]]:
+                """Up to batch_size items from `start`: one class's run with
+                per-class models, any classes with the conditional one; cut
+                before the first item of a class known to be dead."""
+                end = min(start + self.batch_size, len(items))
+                if not mixed:
+                    run = start + 1
+                    while run < end and items[run][0] == items[start][0]:
+                        run += 1
+                    end = run
+                blk = items[start:end]
+                for k, (cls, _) in enumerate(blk):
+                    if cls in dead:
+                        return blk[:k]
+                return blk
 
             index = 0
             while index < len(items) and not self.stop_requested:
@@ -386,24 +469,25 @@ class ImageGenerator:
                 if items[index][0] in dead:
                     index += 1
                     continue
-                # a block: up to batch_size items, all of one class
-                cls0 = items[index][0]
-                run = 1
-                while (run < self.batch_size and index + run < len(items)
-                       and items[index + run][0] == cls0):
-                    run += 1
-                blk = items[index:index + run]
-                if cls0 not in announced:
-                    announced.add(cls0)
-                    self._log(f"generating {class_totals[cls0]} images for class {cls0}")
-                    (output_path / cls0).mkdir(exist_ok=True)
+                blk = block_at(index)
+                block_classes = list(dict.fromkeys(cls for cls, _ in blk))
+                for cls in block_classes:
+                    if cls not in announced:
+                        announced.add(cls)
+                        self._log(f"generating {class_totals[cls]} images for class {cls}")
+                        (output_path / cls).mkdir(exist_ok=True)
+                # drop only the classes that do not load: in a mixed block
+                # one unknown class must not take its block-mates with it;
+                # the rest are blocked again in the next round
+                failed = [cls for cls in block_classes if not mm.load_model(cls)]
+                if failed:
+                    for cls in failed:
+                        self._log(f"model unavailable for {cls}", "error")
+                    dead.update(failed)
+                    continue
                 seeds = np.asarray([self._seed_for(cls, i, offsets) for cls, i in blk],
                                    dtype=np.uint32)
-                out = self._sample_block([cls0] * len(blk), seeds, False)
-                if out is None:
-                    self._log(f"model unavailable for {cls0}", "error")
-                    dead.add(cls0)
-                    continue
+                out = self._sample_block([cls for cls, _ in blk], seeds, False)
                 index += len(blk)
                 # one device->host copy for the whole block
                 out = dict(out, images=out["images"].cpu().numpy())
@@ -417,7 +501,9 @@ class ImageGenerator:
                     # a multi-image block records its layout, so
                     # --reproduce can rebuild the same block
                     block_extra = ({"block": {"seeds": [int(s) for s in seeds],
-                                              "index": j}}
+                                              "index": j,
+                                              **({"classes": [c for c, _ in blk]}
+                                                 if mixed else {})}}
                                    if len(blk) > 1 else None)
                     self._write_image_artifacts(out, j, class_name, str(file_path),
                                                 postprocess, int(seeds[j]),

@@ -1,12 +1,18 @@
 """Model registry: per-class UNet checkpoints -> UNet2D modules on a device.
 
-The port of `synt_isic_tpu/model_manager.py` for the per-class
-(unconditional) models: class discovery from `unet_<CLASS>_<variant>.pth`,
-`load_model` with full manifest validation (and, with a `CacheManager`, a
-raw copy of the checkpoint under its content hash; the port loads the
-`.pth` natively, so there is no converted-array cache), `create_sampler`
-with the training schedule, the attention tuning knobs, validation, info,
-`change_device` and unloading.
+The port of `synt_isic_tpu/model_manager.py`: class discovery from
+`unet_<CLASS>_<variant>.pth`, `load_model` with full manifest validation
+(and, with a `CacheManager`, a raw copy of the checkpoint under its content
+hash; the port loads the `.pth` natively, so there is no converted-array
+cache), `create_sampler` with the training schedule, the attention tuning
+knobs, validation, info, `change_device` and unloading.
+
+Conditional mode (`conditional=True`): ONE class-conditional checkpoint,
+`unet_conditional_<variant>.pth` with the `.json` metadata that lists its
+classes (written by `train/train_conditional.py`), serves every class.
+`load_model(<class>)` aliases the one resident model under each class key,
+so no second copy of the weights reaches the device, and the samplers take
+per-image class labels and classifier-free guidance.
 
 The device is CUDA unless the caller names another; there is no silent
 drop to the CPU. On CUDA the sampling model runs the hand-written attention
@@ -18,6 +24,7 @@ runs.
 from __future__ import annotations
 
 import dataclasses
+import json
 import pickle
 import time
 from pathlib import Path
@@ -49,7 +56,8 @@ class ModelManager:
                  device: Optional[Union[str, torch.device]] = None,
                  model_config: Optional[UNet2DConfig] = None,
                  dtype: torch.dtype = torch.float32,
-                 variant: str = "best"):
+                 variant: str = "best",
+                 conditional: bool = False):
         self.path_manager = PathManager()
         self.checkpoints_dir = Path(checkpoints_dir) if checkpoints_dir \
             else self.path_manager.get_checkpoints_dir()
@@ -59,6 +67,14 @@ class ModelManager:
         self.cache = cache_manager
         self.logger = logger or Logger("model_manager")
         self.config = model_config or UNet2DConfig()
+        self.conditional = bool(conditional)
+        self._cond_classes: List[str] = []
+        if self.conditional:
+            meta = self._read_conditional_metadata()
+            self._cond_classes = list(meta["classes"])
+            self.config = dataclasses.replace(
+                self.config, num_class_embeds=int(meta.get(
+                    "num_class_embeds", len(self._cond_classes) + 1)))
         self.dtype = dtype  # compute dtype; recorded in sidecars
         self._set_device(device)
         # attention kernel knobs: heads per block (identical results) and
@@ -82,18 +98,55 @@ class ModelManager:
 
     def _rebuild(self) -> None:
         """Rebuild every loaded model through `sample_model` on this
-        manager's device, with the same weights, and drop the samplers."""
-        for cls, old in self.loaded_models.items():
-            model = self.sample_model().to(self.device)
-            model.load_state_dict(old.state_dict(), strict=True)
-            self.loaded_models[cls] = model.eval()
+        manager's device, with the same weights, and drop the samplers.
+        Class keys that alias one model (conditional mode) keep sharing
+        one rebuilt model."""
+        old_models = dict(self.loaded_models)
+        rebuilt: Dict[int, UNet2D] = {}
+        for cls, old in old_models.items():
+            if id(old) not in rebuilt:
+                model = self.sample_model().to(self.device)
+                model.load_state_dict(old.state_dict(), strict=True)
+                rebuilt[id(old)] = model.eval()
+            self.loaded_models[cls] = rebuilt[id(old)]
         self._samplers.clear()
+
+    # -- conditional mode -----------------------------------------------------------
+    def _conditional_checkpoint_path(self) -> Path:
+        return self.checkpoints_dir / f"unet_conditional_{self.variant}.pth"
+
+    def _read_conditional_metadata(self) -> Dict[str, Any]:
+        """The class list and embedding-table size of the conditional
+        checkpoint, from the JSON beside it. Raises without it: class ids
+        mean nothing without the list."""
+        meta_path = self._conditional_checkpoint_path().with_suffix(".json")
+        if not meta_path.exists():
+            raise FileNotFoundError(
+                f"conditional checkpoint metadata not found: {meta_path} "
+                "(train/train_conditional.py writes it next to the .pth)")
+        meta = json.loads(meta_path.read_text(encoding="utf-8"))
+        if not meta.get("classes"):
+            raise ValueError(f"no classes listed in {meta_path}")
+        return meta
+
+    def class_id(self, class_name: str) -> int:
+        """The embedding row of a class (conditional mode)."""
+        return self._cond_classes.index(class_name)
+
+    @property
+    def null_label(self) -> int:
+        """The unconditional (CFG dropout) embedding row: the last one."""
+        return int(self.config.num_class_embeds) - 1
 
     # -- discovery ----------------------------------------------------------------
     def get_available_classes(self) -> List[str]:
+        if self.conditional:
+            return list(self._cond_classes)
         return self.path_manager.get_available_classes(str(self.checkpoints_dir))
 
     def checkpoint_path(self, class_name: str) -> Path:
+        if self.conditional:
+            return self._conditional_checkpoint_path()
         return self.checkpoints_dir / f"unet_{class_name}_{self.variant}.pth"
 
     def available_variants(self, class_name: str) -> List[str]:
@@ -115,6 +168,17 @@ class ModelManager:
                    checkpoint_path: Optional[str] = None) -> bool:
         if class_name in self.loaded_models:
             return True
+        if self.conditional:
+            if class_name not in self._cond_classes:
+                self.logger.log_error(
+                    f"class {class_name} not in the conditional checkpoint's "
+                    f"classes {self._cond_classes}")
+                return False
+            # the one model may already be resident under another class key
+            for other, model in self.loaded_models.items():
+                self.loaded_models[class_name] = model
+                self.model_metadata[class_name] = dict(self.model_metadata[other])
+                return True
         path = Path(checkpoint_path) if checkpoint_path else self.checkpoint_path(class_name)
         if not path.exists():
             self.logger.log_error(f"checkpoint not found for {class_name}: {path}")
@@ -142,7 +206,9 @@ class ModelManager:
         model.load_state_dict(state, strict=True)
         self.loaded_models[class_name] = model.to(self.device).eval()
         if self.cache is not None:
-            self.cache.cache_model(class_name, str(path))
+            # one cache entry for the shared conditional checkpoint
+            self.cache.cache_model("conditional" if self.conditional else class_name,
+                                   str(path))
         self.model_metadata[class_name] = {
             "model_path": str(path),
             "loaded_at": time.time(),
@@ -156,18 +222,32 @@ class ModelManager:
     # -- samplers -------------------------------------------------------------------------
     def create_sampler(self, inference_steps: int = 50, scheduler: str = "ddpm",
                        ddim_eta: float = 0.0, dtype: torch.dtype = torch.float32,
-                       timestep_spacing: str = "leading") -> DiffusionSampler:
+                       timestep_spacing: str = "leading",
+                       guidance_scale: float = 0.0,
+                       guidance_table=None) -> DiffusionSampler:
         """Sampler with the training schedule (T=1000, squaredcos_cap_v2,
         epsilon) and inference steps clamped to [1, 1000]. Cached per
-        setting."""
+        setting.
+
+        In conditional mode the sampler takes per-image `class_labels`;
+        `guidance_scale` > 1 runs classifier-free guidance against the
+        checkpoint's null row, and `guidance_table` (a tuple indexed by
+        class id) gives every class its own weight. Both are ignored by an
+        unconditional manager."""
         steps = max(1, min(1000, int(inference_steps)))
-        key = (steps, scheduler, ddim_eta, dtype, timestep_spacing)
+        table = (tuple(float(g) for g in guidance_table)
+                 if (guidance_table is not None and self.conditional) else None)
+        scale = float(guidance_scale) if self.conditional else 0.0
+        key = (steps, scheduler, ddim_eta, dtype, timestep_spacing, scale, table)
         if key not in self._samplers:
             cfg = SamplerConfig(num_inference_steps=steps, scheduler=scheduler,
                                 ddim_eta=ddim_eta, timestep_spacing=timestep_spacing,
                                 image_size=self.config.sample_size,
-                                channels=self.config.in_channels, dtype=dtype)
-            self._samplers[key] = DiffusionSampler(self.schedule, cfg, self.device)
+                                channels=self.config.in_channels, dtype=dtype,
+                                guidance_scale=scale, guidance_table=table)
+            self._samplers[key] = DiffusionSampler(
+                self.schedule, cfg, self.device, conditional=self.conditional,
+                null_label=self.null_label if self.conditional else None)
         return self._samplers[key]
 
     def set_attention_tuning(self, heads_per_program: Optional[int] = None,

@@ -6,8 +6,8 @@ The port of synt_isic_tpu/ops/pallas/attention.py:
     `heads_per_program`) launches the hand-written kernel
     `csrc/attention_fwd.cu` for a CUDA tensor; it has no gradient, so under
     grad mode it refuses CUDA inputs that require grad;
-  * `fused_attention_bwd` (the Pallas recompute backward) launches
-    `csrc/attention_bwd.cu`;
+  * `fused_attention_bwd` (the Pallas recompute backward, with its knob
+    `heads_per_program`) launches `csrc/attention_bwd.cu`;
   * `fused_attention_trainable` (the Pallas `custom_vjp`) is the autograd
     Function `FusedAttention`: forward kernel, backward kernel.
 For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
@@ -17,9 +17,10 @@ tests and `chip_smoke.py` hold the kernels against; the fast-math kernel is
 also held to `attention_fast_math_kernel_order`, the same maths rounded
 where the kernel rounds. There is no other route.
 
-`heads_per_program` = G runs G heads per block with bit-identical maths; as
-in the JAX package, a G that does not divide the head count means G = 1.
-The kernel takes G in (1, 2, 4, 8). On a CPU tensor G has no effect.
+`heads_per_program` = G runs G heads per block with bit-identical maths,
+in the forward and the backward alike; as in the JAX package, a G that does
+not divide the head count means G = 1. The kernels take G in (1, 2, 4, 8).
+On a CPU tensor G has no effect.
 
 q, k, v (and do) are (B, H, T, D) tensors of any strides, so a view of a
 (B, T, C) projection output (`z.view(B, T, H, D).transpose(1, 2)`) goes in
@@ -42,6 +43,8 @@ BWD_KERNEL = "attention_bwd"
 # counters of the forward kernel's variants (one source, `attention_fwd.cu`)
 FAST_KERNEL = "attention_fwd_fast_math"
 GROUPED_KERNEL = "attention_fwd_grouped"
+# counter of the backward kernel's grouped variant (one source, `attention_bwd.cu`)
+BWD_GROUPED_KERNEL = "attention_bwd_grouped"
 HEAD_DIMS = (4, 8)
 HEADS_PER_PROGRAM = (1, 2, 4, 8)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,8 +53,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # and nowhere else, so a run can show that its main path went through them.
 # A forward launch counts under KERNEL (exact softmax) or FAST_KERNEL
 # (fast_math), and under GROUPED_KERNEL too when it runs G > 1 heads per
-# block.
-LAUNCHES = {KERNEL: 0, FAST_KERNEL: 0, GROUPED_KERNEL: 0, BWD_KERNEL: 0}
+# block. A backward launch counts under BWD_KERNEL, and under
+# BWD_GROUPED_KERNEL too when it runs G > 1 heads per block.
+LAUNCHES = {KERNEL: 0, FAST_KERNEL: 0, GROUPED_KERNEL: 0, BWD_KERNEL: 0,
+            BWD_GROUPED_KERNEL: 0}
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -154,7 +159,8 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.attention_fwd.restype = ctypes.c_int
     else:
         lib.attention_bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p]
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int,
+            ctypes.c_void_p]
         lib.attention_bwd.restype = ctypes.c_int
     return lib
 
@@ -164,13 +170,17 @@ def _strides(*tensors: torch.Tensor):
         *(s for z in tensors for s in z.stride()))
 
 
-def _group(heads: int, heads_per_program: int) -> int:
+def _group(heads: int, heads_per_program: int, device: str) -> int:
     """G as the Pallas wrapper takes it: a G that does not divide the head
-    count means 1."""
+    count means 1. On CUDA, a G the kernels do not take raises."""
     g = int(heads_per_program)
     if g < 1:
         raise ValueError(f"heads_per_program must be >= 1, got {g}")
-    return g if heads % g == 0 else 1
+    g = g if heads % g == 0 else 1
+    if device == "cuda" and g not in HEADS_PER_PROGRAM:
+        raise ValueError(f"kernel takes heads_per_program in {HEADS_PER_PROGRAM}, "
+                         f"got {g}")
+    return g
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -178,12 +188,9 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The forward on the tensors' device, no gradient: the kernel on CUDA,
     the plain version on the CPU."""
     device = _check(q, k, v)
-    group = _group(q.shape[1], heads_per_program)
+    group = _group(q.shape[1], heads_per_program, device)
     if device == "cpu":
         return (attention_fast_math_reference if fast_math else attention_reference)(q, k, v)
-    if group not in HEADS_PER_PROGRAM:
-        raise ValueError(f"kernel takes heads_per_program in {HEADS_PER_PROGRAM}, "
-                         f"got {group}")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -219,12 +226,15 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        do: torch.Tensor
+                        do: torch.Tensor, heads_per_program: int = 1
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of softmax(q k^T / sqrt(D)) v for the output gradient
     `do`, in q's dtype, with the strides of q, k and v where they are dense.
-    One call launches the kernel's two passes and counts one launch."""
-    if _check(q, k, v, do) == "cpu":
+    `heads_per_program` groups heads per block (identical results). One
+    call launches the kernel's two passes and counts one launch."""
+    device = _check(q, k, v, do)
+    group = _group(q.shape[1], heads_per_program, device)
+    if device == "cpu":
         return attention_bwd_reference(q, k, v, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
@@ -238,11 +248,13 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), b, h, t, d, _DTYPE_CODES[q.dtype],
-            _strides(q, k, v, do, dq, dk, dv), 1.0 / math.sqrt(d),
+            _strides(q, k, v, do, dq, dk, dv), 1.0 / math.sqrt(d), group,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{BWD_KERNEL} launch failed: cudaError {err}")
     LAUNCHES[BWD_KERNEL] += 1
+    if group > 1:
+        LAUNCHES[BWD_GROUPED_KERNEL] += 1
     return dq, dk, dv
 
 
@@ -254,12 +266,14 @@ class FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, fast_math=False, heads_per_program=1):
         ctx.save_for_backward(q, k, v)
+        ctx.heads_per_program = heads_per_program
         return _forward(q, k, v, fast_math, heads_per_program)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        return (*fused_attention_bwd(q, k, v, do.to(q.dtype)), None, None)
+        return (*fused_attention_bwd(q, k, v, do.to(q.dtype), ctx.heads_per_program),
+                None, None)
 
 
 def fused_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -269,6 +283,6 @@ def fused_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     that is the recompute kernel (the exact derivative of the f32-softmax
     forward, up to rounding). With `fast_math` the primal takes bf16
     exponentials while the backward keeps the f32-softmax derivative, as
-    the Pallas custom VJP does; the backward runs one head per block
-    whatever `heads_per_program` says (grouping K3 is still to port)."""
+    the Pallas custom VJP does; `heads_per_program` groups the heads of
+    both kernels (identical results)."""
     return FusedAttention.apply(q, k, v, fast_math, heads_per_program)

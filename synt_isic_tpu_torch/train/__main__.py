@@ -1,16 +1,21 @@
 """Training entry point: `python -m synt_isic_tpu_torch.train`.
 
-The port of `python -m synt_isic_tpu.train` for per-class DDPM training:
-the same flags (interactive class menu when `--classes` is omitted), plus
-`--device` (default cuda; raises without CUDA unless `--device cpu`). On
-CUDA the model runs bf16 compute on f32 parameters (unless `--no-bf16`)
-with the hand-written attention kernels and the f32-statistics GroupNorm.
+The port of `python -m synt_isic_tpu.train` for per-class DDPM training
+and, with `--conditional`, for the one class-conditional model: the same
+flags (interactive class menu when `--classes` is omitted; class names may
+also be given comma-separated), plus `--device` (default cuda; raises
+without CUDA unless `--device cpu`). On CUDA the model runs bf16 compute on
+f32 parameters (unless `--no-bf16`) with the hand-written attention kernels
+and the f32-statistics GroupNorm.
 
     python -m synt_isic_tpu_torch.train --classes MEL --procedural 64 \
         --epochs 2 --batch 16 --checkpoints DIR
+    python -m synt_isic_tpu_torch.train --conditional \
+        --classes MEL,NV,BCC,AKIEC,BKL,DF,VASC --procedural 16 --epochs 1 \
+        --batch 16 --checkpoints DIR
 
-`--train-classifier`, `--distill-from`, `--conditional` and `--dp-mesh` are
-not ported yet and exit with status 2.
+`--train-classifier`, `--distill-from` and `--dp-mesh` are not ported yet
+and exit with status 2.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from ..model_manager import resolve_device
 from ..utils.config import CLASS_NAMES
 from .train_ddpm import TrainConfig, train_class
 
-NOT_PORTED = ("train_classifier", "distill_from", "conditional", "dp_mesh")
+NOT_PORTED = ("train_classifier", "distill_from", "dp_mesh")
 
 
 def select_classes_interactive() -> List[str]:
@@ -80,11 +85,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device to train on (cuda runs the hand-written "
                         "attention kernels; cpu runs their plain versions)")
+    p.add_argument("--conditional", action="store_true",
+                   help="train ONE class-conditional model on the selected "
+                        "classes' mixed stream (CFG label dropout; writes "
+                        "unet_conditional_best.pth and its .json metadata) "
+                        "instead of per-class models")
+    p.add_argument("--cond-dropout", type=float, default=0.1, metavar="P",
+                   help="CFG label-dropout probability for --conditional")
     not_ported = p.add_argument_group("not ported yet (exit with status 2)")
     not_ported.add_argument("--dp-mesh", action="store_true")
     not_ported.add_argument("--train-classifier", action="store_true")
-    not_ported.add_argument("--conditional", action="store_true")
-    not_ported.add_argument("--cond-dropout", type=float, default=0.1, metavar="P")
     not_ported.add_argument("--distill-from", metavar="CKPT")
     not_ported.add_argument("--distill-start", type=int, default=64, metavar="N")
     not_ported.add_argument("--distill-end", type=int, default=4, metavar="N")
@@ -102,7 +112,8 @@ def main(argv=None) -> int:
             return 2
     device = resolve_device(args.device)
 
-    classes = args.classes or select_classes_interactive()
+    classes = ([c for tok in args.classes for c in tok.split(",") if c]
+               if args.classes else select_classes_interactive())
     if not classes:
         print("no classes selected")
         return 1
@@ -117,20 +128,37 @@ def main(argv=None) -> int:
                       min_snr_gamma=args.min_snr, eval_every=args.eval_every,
                       cond_dropout=args.cond_dropout, **explicit)
 
-    for cls in classes:
+    def dataset_for(cls: str):
         if args.procedural:
             from .procedural import ProceduralDataset
 
-            dataset = ProceduralDataset(cls, args.procedural,
-                                        image_size=args.image_size,
-                                        seed=args.seed, device=device)
-        else:
-            from .data import SingleClassDataset
+            return ProceduralDataset(cls, args.procedural, image_size=args.image_size,
+                                     seed=args.seed, device=device)
+        from .data import SingleClassDataset
 
-            dataset = SingleClassDataset(args.data_dir, args.csv,
-                                         CLASS_NAMES.index(cls),
-                                         image_size=args.image_size,
-                                         max_samples=args.max_samples)
+        return SingleClassDataset(args.data_dir, args.csv, CLASS_NAMES.index(cls),
+                                  image_size=args.image_size,
+                                  max_samples=args.max_samples)
+
+    if args.conditional:
+        from .train_conditional import train_conditional
+
+        datasets = {cls: dataset_for(cls) for cls in classes}
+        datasets = {c: d for c, d in datasets.items() if len(d) > 0}
+        if not datasets:
+            print("no training data found for any selected class")
+            return 1
+        total = sum(len(d) for d in datasets.values())
+        print(f"== training conditional model on {list(datasets)}: {total} "
+              f"images on {device} ==")
+        result = train_conditional(datasets, args.checkpoints, cfg,
+                                   resume=args.resume, device=device)
+        print(f"== conditional done: best_loss={result['best_loss']:.5f} "
+              f"-> {result['checkpoint']} ==")
+        return 0
+
+    for cls in classes:
+        dataset = dataset_for(cls)
         if len(dataset) == 0:
             print(f"!! no data for {cls}, skipping")
             continue

@@ -18,11 +18,13 @@ What differs from the JAX trainer, and why:
     async writer (best checkpoint on improvement, coalesced);
   * random numbers come from a `torch.Generator` seeded from
     `config.seed`, not from threefry keys, so draws differ from the JAX
-    package's; `train_step` takes injected `t` and `eps` so a test can feed
-    it the JAX draws;
+    package's; `train_step` takes injected `t`, `eps` and CFG dropout mask
+    `drop` so a test can feed it the JAX draws;
   * the resume state keeps `best_loss`, and a run resumed after its last
     epoch runs no further epoch (the JAX trainer re-runs the last one).
-Data-parallel training (`mesh`) is not ported yet.
+Labelled batches, `(images, labels)` tuples (`train_conditional.py`),
+train the class-conditional UNet through the same loop. Data-parallel
+training (`mesh`) is not ported yet.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import math
 import os
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -174,14 +176,16 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 
 def make_train_step(schedule: DiffusionSchedule, config: TrainConfig) -> Callable:
-    """The train step: (state, batch_nhwc, generator=None, t=None, eps=None,
-    labels=None) -> loss, a 0-d f32 tensor on the batch's device (no host
-    sync). Updates `state` in place.
+    """The train step: (state, batch, generator=None, t=None, eps=None,
+    labels=None, drop=None) -> loss, a 0-d f32 tensor on the batch's device
+    (no host sync). Updates `state` in place.
 
-    `t` ((B,) ints) and `eps` (the batch's shape, offset noise included)
-    are drawn from `generator` unless given. `labels` ((B,) class ids)
-    train a conditional UNet, with `cond_dropout` of them replaced by the
-    null class (the last embedding row)."""
+    `batch` is NHWC images, or an `(images, labels)` tuple. `t` ((B,) ints)
+    and `eps` (the images' shape, offset noise included) are drawn from
+    `generator` unless given. `labels` ((B,) class ids) train a conditional
+    UNet; where the (B,) bool mask `drop` is set, a label is replaced by
+    the null class (the last embedding row). Unless given, `drop` is drawn
+    with probability `cond_dropout` (after t and eps)."""
     tables: Dict[torch.device, torch.Tensor] = {}
     T = schedule.num_train_timesteps
 
@@ -189,7 +193,10 @@ def make_train_step(schedule: DiffusionSchedule, config: TrainConfig) -> Callabl
                    generator: Optional[torch.Generator] = None,
                    t: Optional[torch.Tensor] = None,
                    eps: Optional[torch.Tensor] = None,
-                   labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   labels: Optional[torch.Tensor] = None,
+                   drop: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if isinstance(batch, (tuple, list)):
+            batch, labels = batch
         dev = batch.device
         if dev not in tables:
             tables[dev] = device_table(schedule.alphas_cumprod, dev)
@@ -207,10 +214,11 @@ def make_train_step(schedule: DiffusionSchedule, config: TrainConfig) -> Callabl
         noisy = torch.sqrt(ab_t) * x0 + torch.sqrt(1.0 - ab_t) * eps
         if labels is not None:
             labels = labels.to(dev).long()
-            if config.cond_dropout > 0.0:
-                null = state.model.config.num_class_embeds - 1
+            if drop is None and config.cond_dropout > 0.0:
                 drop = torch.rand(b, generator=generator, device=dev) < config.cond_dropout
-                labels = torch.where(drop, torch.full_like(labels, null), labels)
+            if drop is not None:
+                null = state.model.config.num_class_embeds - 1
+                labels = torch.where(drop.to(dev), torch.full_like(labels, null), labels)
         pred = state.model(noisy, t, labels)
         err = torch.mean((pred.float() - eps) ** 2, dim=(1, 2, 3))
         if config.min_snr_gamma > 0.0:
@@ -233,14 +241,16 @@ def make_train_step(schedule: DiffusionSchedule, config: TrainConfig) -> Callabl
 
 
 def make_eval_fn(model: UNet2D, schedule: DiffusionSchedule,
-                 config: TrainConfig, probe_images: torch.Tensor) -> Callable:
+                 config: TrainConfig, probe_images: torch.Tensor,
+                 probe_labels: Optional[torch.Tensor] = None) -> Callable:
     """Deterministic validation loss: params -> float.
 
     Unweighted epsilon-MSE on a fixed probe: the `probe_images` (NHWC, on
     the model's device) x `eval_t_points` timesteps stratified over [0, T)
     x noise fixed from a generator seeded with seed + 0x5EED. `params` (a
     state dict, e.g. the EMA) is run through the model's graph without
-    touching the model's own weights."""
+    touching the model's own weights. `probe_labels` ((n_img,) class ids)
+    score a conditional model."""
     dev = probe_images.device
     ab = device_table(schedule.alphas_cumprod, dev)
     T = schedule.num_train_timesteps
@@ -258,7 +268,8 @@ def make_eval_fn(model: UNet2D, schedule: DiffusionSchedule,
             e = _nchw(eps[i])
             noisy = torch.sqrt(ab_t) * x0 + torch.sqrt(1.0 - ab_t) * e
             t_b = t_grid[i].expand(n_img)
-            pred = torch.func.functional_call(model, dict(params), (noisy, t_b))
+            args = (noisy, t_b) if probe_labels is None else (noisy, t_b, probe_labels)
+            pred = torch.func.functional_call(model, dict(params), args)
             losses.append(torch.mean((pred.float() - e) ** 2))
         return float(torch.stack(losses).mean())
 
@@ -328,51 +339,81 @@ def dataset_color_statistics(dataset, max_images: int = 256):
 save_checkpoint_torch_format = save_checkpoint
 
 
-def default_model(config: TrainConfig, device: torch.device) -> UNet2D:
+def default_model(config: TrainConfig, device: torch.device,
+                  num_class_embeds: Optional[int] = None) -> UNet2D:
     """The flagship UNet the trainer builds: bf16 compute (unless
     `bf16_compute` is off) on f32 parameters, and on CUDA the hand-written
     attention kernels and the f32-statistics GroupNorm; the CPU keeps the
-    f32 GroupNorm. Weights are initialised from `config.seed`."""
+    f32 GroupNorm. Weights are initialised from `config.seed`.
+    `num_class_embeds` makes it class-conditional."""
     on_cuda = device.type == "cuda"
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(config.seed)
-        return UNet2D(UNet2DConfig(sample_size=config.image_size),
+        return UNet2D(UNet2DConfig(sample_size=config.image_size,
+                                   num_class_embeds=num_class_embeds),
                       dtype=torch.bfloat16 if config.bf16_compute else torch.float32,
                       param_dtype=torch.float32, use_fused_attention=on_cuda,
                       fast_norm=on_cuda)
 
 
-def _probe(dataset, config: TrainConfig, device: torch.device) -> torch.Tensor:
-    """The fixed eval probe: the first `eval_probe_images` of a materialized
-    dataset, else the first batches drawn from a dedicated rng."""
+def _probe(dataset, config: TrainConfig, device: torch.device,
+           conditional: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The fixed eval probe, (images, labels or None): the first
+    `eval_probe_images` of a materialized dataset, else the first batches
+    drawn from a dedicated rng. A conditional model's probe takes labels: a
+    labelled pool is class-concatenated, so its probe is evenly spaced
+    indices over the pool (a prefix would probe the first class only); lazy
+    labelled batches give their own labels."""
     n_probe = config.eval_probe_images
     imgs = getattr(dataset, "images", None)
+    labels = None
     if imgs is not None:
-        probe = np.asarray(imgs[:n_probe])
+        labs = getattr(dataset, "labels", None)
+        if labs is not None and conditional:
+            idx = np.unique(np.linspace(0, len(labs) - 1, n_probe).astype(np.int64))
+            probe = np.asarray(imgs)[idx]
+            labels = np.asarray(labs, np.int64)[idx]
+        else:
+            probe = np.asarray(imgs[:n_probe])
     else:
         rng = np.random.default_rng(config.seed + 1)
-        chunks, have = [], 0
+        chunks, label_chunks, have = [], [], 0
         for b in dataset.batches(min(n_probe, config.batch_size), rng):
+            if isinstance(b, (tuple, list)):
+                b, lab = b
+                label_chunks.append(np.asarray(lab, np.int64))
             chunks.append(np.asarray(b))
             have += len(chunks[-1])
             if have >= n_probe:
                 break
         probe = np.concatenate(chunks)[:n_probe]
-    return torch.as_tensor(probe, dtype=torch.float32).to(device)
+        if label_chunks and conditional:
+            labels = np.concatenate(label_chunks)[:n_probe]
+    return (torch.as_tensor(probe, dtype=torch.float32).to(device),
+            None if labels is None else torch.as_tensor(labels).to(device))
+
+
+def _to_device(batch, device: torch.device):
+    """A batch (array, tensor, or an (images, labels) tuple) on `device`."""
+    if isinstance(batch, (tuple, list)):
+        return tuple(torch.as_tensor(z).to(device) for z in batch)
+    return torch.as_tensor(batch).to(device)
 
 
 def _epoch_batches(dataset, batch_size: int, rng: np.random.Generator,
                    device: torch.device):
-    """One epoch of NHWC f32 batches on `device`: one gather for datasets
-    with `epoch_batches` (device-resident ones gather on the device), else
-    host batches prepared in the background (`prefetch`) and copied over."""
+    """One epoch of batches on `device` (NHWC f32 images, or (images,
+    labels) tuples): one gather for datasets with `epoch_batches`
+    (device-resident ones gather on the device), else host batches prepared
+    in the background (`prefetch`) and copied over."""
     from .data import prefetch
 
     if hasattr(dataset, "epoch_batches"):
-        yield from torch.as_tensor(dataset.epoch_batches(batch_size, rng)).to(device)
+        stacked = _to_device(dataset.epoch_batches(batch_size, rng), device)
+        yield from (zip(*stacked) if isinstance(stacked, tuple) else stacked)
         return
     for batch in prefetch(dataset.batches(batch_size, rng)):
-        yield torch.as_tensor(batch).to(device)
+        yield _to_device(batch, device)
 
 
 def train_class(class_name: str, dataset, checkpoint_dir: str,
@@ -424,7 +465,9 @@ def train_class(class_name: str, dataset, checkpoint_dir: str,
 
     eval_fn = None
     if config.eval_every > 0:
-        eval_fn = make_eval_fn(model, schedule, config, _probe(dataset, config, device))
+        conditional = bool(model.config.num_class_embeds)
+        eval_fn = make_eval_fn(model, schedule, config,
+                               *_probe(dataset, config, device, conditional))
 
     def select_best(epoch: int, improved_train: bool) -> bool:
         """True when the export weights should become the best checkpoint."""

@@ -5,7 +5,8 @@ package's Pallas backward (`fused_attention_bwd`) and custom VJP
 On the CPU the port's wrappers run their plain PyTorch versions; the JAX
 kernels run in interpret mode, as the JAX package's own tests run them.
 Tolerance: `atol = 5e-5 * max|g|` per gradient, the one
-`tests/test_pallas_ops.py` holds the Pallas backward to. The CUDA kernel
+`tests/test_pallas_ops.py` holds the Pallas backward to, at one head per
+program and at `heads_per_program=2`. The CUDA kernel
 itself runs only on a GPU: `tests/test_torch_gpu.py` holds it against the
 plain version here.
 """
@@ -104,3 +105,44 @@ def test_bwd_rejects_what_it_does_not_take():
         attention.fused_attention_bwd(q, q, q, torch.zeros(1, 2, 8, 8))
     with pytest.raises(ValueError):
         attention.fused_attention_bwd(*(q.to("meta") for _ in range(4)))
+
+
+def test_grouped_bwd_matches_pallas_grouped_kernel():
+    """`heads_per_program=2` on both sides: the Pallas kernel runs two heads
+    per program in interpret mode, the port's plain version is the same
+    function whatever G is."""
+    shape = (1, 4, 16, 8)
+    q, k, v, do = _arrays(shape, 4, seed=6)
+    want = jax_attention_bwd(*(jnp.asarray(z) for z in (q, k, v, do)), interpret=True,
+                             heads_per_program=2)
+    got = attention.fused_attention_bwd(*(torch.from_numpy(z) for z in (q, k, v, do)),
+                                        heads_per_program=2)
+    _assert_grads_close([g.numpy() for g in got], want)
+
+
+def test_bwd_heads_per_program_rule():
+    """As in the JAX wrapper, a G that does not divide the head count means
+    1; G < 1 raises."""
+    q, k, v, do = (torch.from_numpy(z) for z in _arrays((1, 4, 16, 8), 4, seed=7))
+    base = attention.fused_attention_bwd(q, k, v, do)
+    for group in (3, 4, 8):
+        for g, w in zip(attention.fused_attention_bwd(q, k, v, do, heads_per_program=group),
+                        base):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    for group in (0, -2):
+        with pytest.raises(ValueError):
+            attention.fused_attention_bwd(q, k, v, do, heads_per_program=group)
+
+
+def test_trainable_passes_heads_per_program_to_the_backward(monkeypatch):
+    seen = []
+    bwd = attention.fused_attention_bwd
+
+    def spy(*args, **kwargs):
+        seen.append(args[4:] + tuple(kwargs.values()))
+        return bwd(*args, **kwargs)
+
+    monkeypatch.setattr(attention, "fused_attention_bwd", spy)
+    q, k, v = (torch.from_numpy(z).requires_grad_() for z in _arrays((1, 4, 16, 8), 3))
+    attention.fused_attention_trainable(q, k, v, heads_per_program=2).sum().backward()
+    assert seen == [(2,)]

@@ -16,11 +16,14 @@ exponentials, relative to different maxima), within the JAX package's
 fast-math tolerance of exact attention (rtol 0.05, atol 0.02), and within
 FAST_ORDER_TOL of the plain version of its own rounding order (in f32 5e-6,
 a limit that the exact kernel misses; in bf16 one bf16 ulp, as TOL). Head
-grouping: bit-identical to one head per block.
+grouping, forward and backward: bit-identical to one head per block.
 """
+import json
+
 import pytest
 import torch
 
+from synt_isic_tpu_torch.generator import ImageGenerator
 from synt_isic_tpu_torch.model_manager import ModelManager
 from synt_isic_tpu_torch.models.unet2d import UNet2D, UNet2DConfig
 from synt_isic_tpu_torch.ops import attention
@@ -231,3 +234,55 @@ def test_model_manager_moved_to_cuda_runs_the_kernels(cuda, tmp_path):
     got = {key: attention.LAUNCHES[key] - before[key] for key in before}
     assert got[attention.FAST_KERNEL] == got[attention.GROUPED_KERNEL] == 2 * 6
     assert got[attention.KERNEL] == 0
+
+
+@pytest.mark.parametrize("layout", ["BHTD", "BTC"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_bwd_kernel_is_bit_identical(cuda, dtype, layout):
+    """The backward at G heads per block gives dq, dk and dv equal to G = 1
+    bit for bit, and counts a grouped launch beside the backward's."""
+    b, h, t, d = 2, 32, 1024, 8
+    g = torch.Generator(device=cuda).manual_seed(7)
+    args = [torch.randn(b, h, t, d, generator=g, device=cuda).to(dtype) for _ in range(4)]
+    if layout == "BTC":
+        args = [z.transpose(1, 2).reshape(b, t, h * d).view(b, t, h, d).transpose(1, 2)
+                for z in args]
+    base = attention.fused_attention_bwd(*args)
+    for group in (2, 4, 8, 3):      # 3 does not divide 32 heads: it means 1
+        before = dict(attention.LAUNCHES)
+        got = attention.fused_attention_bwd(*args, heads_per_program=group)
+        torch.cuda.synchronize()
+        assert attention.LAUNCHES[attention.BWD_KERNEL] == before[attention.BWD_KERNEL] + 1
+        assert (attention.LAUNCHES[attention.BWD_GROUPED_KERNEL]
+                == before[attention.BWD_GROUPED_KERNEL] + (group != 3))
+        for name, a, w in zip(("dq", "dk", "dv"), got, base):
+            assert torch.equal(a, w), (group, name)
+    q = torch.zeros(1, 32, 16, 8, device=cuda)
+    with pytest.raises(ValueError):
+        attention.fused_attention_bwd(q, q, q, q, heads_per_program=16)
+
+
+def test_conditional_generator_runs_one_forward_per_step(cuda, tmp_path):
+    """Guided sampling runs ONE 2B-batched forward per step: a mixed block
+    of 4 images over 2 DDIM steps launches the forward kernel 2 x 6 times,
+    guided or not (two forwards per step would read 24)."""
+    cfg = UNet2DConfig(sample_size=32, block_out_channels=(32, 64, 64, 64),
+                       num_class_embeds=3)
+    torch.manual_seed(0)
+    torch.save(UNet2D(cfg).state_dict(), tmp_path / "unet_conditional_best.pth")
+    (tmp_path / "unet_conditional_best.json").write_text(json.dumps(
+        {"classes": ["MEL", "NV"], "num_class_embeds": 3, "null_label": 2}))
+    for scale in (0.0, 3.0):
+        gen = ImageGenerator(checkpoints_dir=str(tmp_path), device=cuda,
+                             model_config=UNet2DConfig(sample_size=32,
+                                                       block_out_channels=(32, 64, 64, 64)),
+                             conditional=True, guidance_scale=scale)
+        gen.scheduler_kind, gen.batch_size = "ddim", 4
+        gen.set_inference_steps(2)
+        gen.set_generation_seed(1)
+        before = dict(attention.LAUNCHES)
+        result = gen.generate_images([("MEL", 2), ("NV", 2)], str(tmp_path / f"out{scale}"))
+        torch.cuda.synchronize()
+        assert result["generated"] == 4
+        got = {key: attention.LAUNCHES[key] - before[key] for key in before}
+        assert got[attention.KERNEL] == 2 * 6 and got[attention.FAST_KERNEL] == 0

@@ -31,6 +31,6 @@ def test_every_ported_module_is_checked():
     for module in ("ops/attention.py", "models/unet2d.py", "io/pth.py",
                    "train/__init__.py", "train/__main__.py", "train/async_ckpt.py",
                    "train/benchmark.py", "train/data.py", "train/procedural.py",
-                   "train/train_ddpm.py", "generator.py", "cache.py",
-                   "utils/config.py", "model_manager.py", "cli.py"):
+                   "train/train_ddpm.py", "train/train_conditional.py", "generator.py",
+                   "cache.py", "utils/config.py", "model_manager.py", "cli.py"):
         assert f"synt_isic_tpu_torch/{module}" in names, module

@@ -163,8 +163,10 @@ def test_attention_fast_math_is_pinned(tmp_path, ckpt_dir, monkeypatch):
 @pytest.mark.parametrize("field", ["conditional", "img2img", "dp_mesh"])
 def test_later_slices_exit_2(tmp_path, ckpt_dir, field, capsys):
     sidecar = _generate(tmp_path, ckpt_dir, count=2, batch=2)[0]
-    change = {"conditional": lambda m: m["scheduler"].update(conditional=True,
-                                                             guidance_scale=2.0),
+    # conditional sidecars are ported; a conditional img2img one is not
+    change = {"conditional": lambda m: (m["scheduler"].update(conditional=True,
+                                                              guidance_scale=2.0),
+                                        m.update(img2img={"strength": 0.5})),
               "img2img": lambda m: m.update(img2img={"strength": 0.5}),
               "dp_mesh": lambda m: m["block"].update(dp_mesh=4)}[field]
     edited = _edit(sidecar, tmp_path, change)

@@ -320,8 +320,7 @@ def test_entry_point_refuses_what_it_cannot_do(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_main.main(["--classes", "MEL", "--procedural", "4",
                          "--checkpoints", str(tmp_path)])
-    for flag in (["--dp-mesh"], ["--conditional"], ["--train-classifier"],
-                 ["--distill-from", "x.pth"]):
+    for flag in (["--dp-mesh"], ["--train-classifier"], ["--distill-from", "x.pth"]):
         assert train_main.main(["--classes", "MEL", "--device", "cpu", *flag]) == 2
     with pytest.raises(NotImplementedError):
         train_ddpm.train_class("MEL", procedural.ProceduralDataset("MEL", 2, 16),

@@ -1,5 +1,6 @@
 """Shared inputs for the tests that hold the PyTorch port against the JAX
-package: the tiny UNet config in both packages, and a seeded random
+package: the tiny UNet config in both packages (unconditional, and
+class-conditional with three classes plus the null row), and a seeded random
 parameter set in the JAX package's own tree layout (shapes from
 `jax.eval_shape` of its `init_unet_params`, values from numpy, so no
 compile is spent on initialisation)."""
@@ -21,6 +22,9 @@ _TINY = {k: v for k, v in tiny_config().items()
          if k not in ("in_channels", "out_channels")}
 TINY_JAX = JaxUNet2DConfig(**_TINY)
 TINY = UNet2DConfig(**_TINY)
+COND_CLASSES = ("MEL", "NV", "VASC")
+TINY_COND_JAX = JaxUNet2DConfig(**_TINY, num_class_embeds=len(COND_CLASSES) + 1)
+TINY_COND = UNet2DConfig(**_TINY, num_class_embeds=len(COND_CLASSES) + 1)
 
 
 def jax_params(config: JaxUNet2DConfig = TINY_JAX, seed: int = 0):
