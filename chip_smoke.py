@@ -10,14 +10,23 @@ Phases, each of which exits non-zero on failure:
      both sides, since under TF32 a 1e-6 change in an attention output can
      flip a TF32 rounding (2^-11 relative) downstream;
   2. build every hand-written kernel from the sources in the checkout, all
-     `nvcc`s at once;
+     `nvcc`s at once, with each kernel's registers and spills, and the
+     SASS count of HMMA (tensor-core) and MUFU.EX2 instructions in the bf16
+     backward's two kernels, which must hold HMMA;
   3. the attention forward against its plain PyTorch version at the
      sampling path's shapes (and at batch 16, the guided sampler's and the
-     trainer's), in both layouts, then timed beside its bound, the plain
-     version and `scaled_dot_product_attention`;
-  4. the attention backward likewise at the training path's shapes; its
-     forward+backward timed beside `scaled_dot_product_attention`'s through
-     autograd;
+     trainer's), in both layouts, then timed beside its bound (the largest
+     of bytes, products and one pass of exponentials), the plain version
+     and `scaled_dot_product_attention`;
+  4. the attention backward likewise at the training path's shapes; in
+     bf16 (the tensor-core kernels) also from the exact forward's saved
+     output and log-sum-exp: the output torch.equal with and without the
+     log-sum-exp, the log-sum-exp against `attention_lse_reference`, the
+     gradients against `attention_bwd_kernel_order` (BWD_ORDER_TOL), two
+     calls and the standalone call (with its statistics launch)
+     torch.equal; timed from saved statistics, standalone, beside SDPA's
+     backward alone, and its forward+backward beside the plain path's and
+     `scaled_dot_product_attention`'s through autograd;
   5. the full-width UNet2D (random weights from a seed): one forward with
      the kernel and one with the plain attention, f32 and bf16; then one
      backward each way at batch 4, f32 and bf16 compute on f32 parameters:
@@ -31,10 +40,14 @@ Phases, each of which exits non-zero on failure:
   7. the training path through its entry point:
      `synt_isic_tpu_torch.train.__main__.main` on 64 procedural MEL images,
      2 epochs of batch 16 (8 steps, bf16 compute, f32 parameters); the
-     launch counts must read exactly 6 forward and 6 backward per step; the
+     launch counts must read exactly 6 forward and 6 backward per step and
+     no statistics launch (the backward reads the forward's); the
      checkpoint it writes is then loaded by `ModelManager` and sampled
      (DDIM 10, 8 images);
-  8. `measure_train_step` at batch 32;
+  8. `measure_train_step` at batch 32, then 3 more steps under
+     `torch.profiler`: the device's busy time per step, its idle share and
+     the attention kernels' part (or "not measured" where the profiler
+     records no device time);
   9. [kernel-fast] the forward kernel's fast-math variant (bf16
      exponentials) at the sampling path's shapes, f32 and bf16, in both
      layouts: within 1e-2 of its plain version, within the JAX package's
@@ -62,13 +75,15 @@ Phases, each of which exits non-zero on failure:
      launches);
  13. [kernel-bwd-group] the backward kernel at heads_per_program G in
      {1, 2, 4, 8} at the training shapes, f32 and bf16, in both layouts:
-     every G > 1 torch.equal to G = 1 for dq, dk and dv, the grouped
-     launches counted, a time for each G beside the bound;
+     every G > 1 torch.equal to G = 1 for dq, dk and dv, standalone and
+     from saved statistics, the grouped launches counted, a time for each
+     G (from saved statistics) beside the bound;
  14. [train-conditional] the conditional training entry point in a fresh
      process, `python -m synt_isic_tpu_torch.train --conditional` on the
      seven classes x 16 procedural images, 1 epoch of batch 16 with the eval
      probe: exactly 6 forward and 6 backward launches per step plus 6 x 8
-     forward launches of the probe; it writes `unet_conditional_best.pth`
+     forward launches of the probe, no statistics launch; it writes
+     `unet_conditional_best.pth`
      and its `.json`. Then `train_conditional` as a library call with a
      full-width conditional UNet at heads_per_program = 2 (bf16 compute,
      f32 parameters): `attention_bwd_grouped` = `attention_bwd` = 6 per
@@ -118,7 +133,7 @@ from synt_isic_tpu_torch.models.unet2d import UNet2D, UNet2DConfig
 from synt_isic_tpu_torch.ops import attention, native
 from synt_isic_tpu_torch.diffusion.schedules import DiffusionSchedule
 from synt_isic_tpu_torch.train import __main__ as train_entry
-from synt_isic_tpu_torch.train.benchmark import measure_train_step
+from synt_isic_tpu_torch.train.benchmark import PROFILE_STEPS, measure_train_step
 from synt_isic_tpu_torch.train.procedural import ProceduralDataset
 from synt_isic_tpu_torch.train.train_conditional import LabeledMixtureDataset, train_conditional
 from synt_isic_tpu_torch.train.train_ddpm import TrainConfig, create_train_state, make_train_step
@@ -149,6 +164,16 @@ ATTENTION_CALLS_PER_UNET = 6
 # (tests/test_pallas_ops.py); bf16 the whole-UNet gradient tolerance there:
 # the kernel keeps f32 where the plain version rounds P and ds to bf16.
 BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+# the bf16 tensor-core backward against `attention_bwd_kernel_order`, the
+# same maths rounded at the same points, as max|diff| / max|g| per
+# gradient: both round the f32 results to bf16, so they may differ by one
+# bf16 ulp of the largest gradient (2^-7 = 7.8e-3 of it); the rest, 2.2e-3,
+# covers f32 summation order and the rare one-ulp bf16 flips of P or dS
+# where the two f32 values straddle a rounding point
+BWD_ORDER_TOL = 1e-2
+# the forward's base-2 log-sum-exp against its plain version: f32 sums of up
+# to T = 1024 terms in another order, T * 2^-24 / ln 2 = 8.8e-5 at worst
+LSE_TOL = 1e-4
 # whole-UNet parameter gradients, per parameter as max|diff| / max|g|. f32
 # (full-f32 convolutions): kernel path vs plain attention within 1e-3. bf16
 # compute on f32 parameters: every layer rounds to 8 bits of mantissa, and
@@ -227,28 +252,39 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(shape, dtype) -> tuple[float, str, float]:
-    """(bound ms, what sets it, exponential ms) for one attention call:
-    q, k, v read once and out written once, against 2 contractions of
-    2*B*H*T^2*D flops each at the dtype's peak."""
-    b, h, t, d = shape
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    bytes_ms = 4 * b * h * t * d * itemsize / PEAK_BYTES_PER_S * 1e3
-    ops_ms = 4 * b * h * t * t * d / PEAK_FLOPS[dtype] * 1e3
-    exp_ms = b * h * t * t / SFU_EXP_PER_S * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), exp_ms
+def _largest_bound(bytes_ms: float, ops_ms: float, exp_ms: float) -> tuple[float, str, str]:
+    """(bound ms, "bytes" or "operations", what sets it): the largest of
+    the bytes over the memory rate, the products over the dtype's peak and
+    one exponential per (i, j) on the special-function units."""
+    bound, unit = max((bytes_ms, "bytes"), (ops_ms, "products"), (exp_ms, "exponentials"))
+    return bound, ("bytes" if unit == "bytes" else "operations"), unit
 
 
-def attention_bwd_bound_ms(shape, dtype) -> tuple[float, str, float]:
-    """(bound ms, what sets it, exponential ms) for one backward call: q, k,
-    v, do read once and dq, dk, dv written once, against the 5 T x T
-    contractions of 2*B*H*T^2*D flops each at the dtype's peak."""
+def attention_bound_ms(shape, dtype) -> tuple[float, str, float, str]:
+    """(bound ms, "bytes" or "operations", exponential ms, what sets the
+    bound) for one attention call: q, k, v read once and out written once;
+    2 contractions of 2*B*H*T^2*D flops each at the dtype's peak; B*H*T^2
+    exponentials."""
     b, h, t, d = shape
     itemsize = torch.empty((), dtype=dtype).element_size()
-    bytes_ms = 7 * b * h * t * d * itemsize / PEAK_BYTES_PER_S * 1e3
-    ops_ms = 10 * b * h * t * t * d / PEAK_FLOPS[dtype] * 1e3
     exp_ms = b * h * t * t / SFU_EXP_PER_S * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), exp_ms
+    bound, bound_by, unit = _largest_bound(4 * b * h * t * d * itemsize / PEAK_BYTES_PER_S * 1e3,
+                                           4 * b * h * t * t * d / PEAK_FLOPS[dtype] * 1e3, exp_ms)
+    return bound, bound_by, exp_ms, unit
+
+
+def attention_bwd_bound_ms(shape, dtype) -> tuple[float, str, float, str]:
+    """(bound ms, "bytes" or "operations", exponential ms, what sets the
+    bound) for one backward call: q, k, v, do read once and dq, dk, dv
+    written once; the 5 T x T contractions of 2*B*H*T^2*D flops each at the
+    dtype's peak; one pass of B*H*T^2 exponentials (the probabilities must
+    be rebuilt at least once; the bf16 kernels take two passes)."""
+    b, h, t, d = shape
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    exp_ms = b * h * t * t / SFU_EXP_PER_S * 1e3
+    bound, bound_by, unit = _largest_bound(7 * b * h * t * d * itemsize / PEAK_BYTES_PER_S * 1e3,
+                                           10 * b * h * t * t * d / PEAK_FLOPS[dtype] * 1e3, exp_ms)
+    return bound, bound_by, exp_ms, unit
 
 
 def reset_launches() -> None:
@@ -277,9 +313,33 @@ def phase_build() -> None:
     logs = native.build(names)
     print(f"[build] {', '.join(names)} in {time.time() - t0:.1f} s", flush=True)
     for name in names:
+        kernel = ""
         for line in logs.get(name, "").splitlines():
+            entry = re.search(r"(attention_[a-z_]+_kernel)I", line)
+            if "Compiling entry function" in line and entry:
+                kernel = f"{entry.group(1)}: "
             if "registers" in line or "spill" in line:
-                print(f"[build]   {name}: {line.strip()}", flush=True)
+                print(f"[build]   {name}: {kernel}{line.strip()}", flush=True)
+    # the bf16 backward's two kernels run their products on the tensor cores
+    cuobjdump = Path(native._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(native.library_path(attention.BWD_KERNEL))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :")[1].strip()
+            counts[kernel] = {"HMMA": 0, "MUFU.EX2": 0}
+        elif kernel is not None:
+            for op in counts[kernel]:
+                counts[kernel][op] += op in line
+    for label in ("attention_bwd_dq_tc_kernel", "attention_bwd_dkdv_tc_kernel"):
+        found = {k: c for k, c in counts.items() if label in k}
+        check(len(found) == len(GROUPS) and all(c["HMMA"] > 0 for c in found.values()),
+              f"[build] no HMMA in {label}: {found}")
+        for k, c in sorted(found.items()):
+            group = re.search(r"ILi(\d+)E", k).group(1)
+            print(f"[build]   SASS of {label}<G={group}>: {c['HMMA']} HMMA, "
+                  f"{c['MUFU.EX2']} MUFU.EX2", flush=True)
 
 
 def phase_kernel() -> dict:
@@ -315,10 +375,10 @@ def phase_kernel() -> dict:
                 kernel_ms = cuda_ms(lambda: attention.fused_attention(*views))
                 plain_ms = cuda_ms(lambda: attention.attention_reference(q, k, v))
                 library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-                bound, bound_by, exp_ms = attention_bound_ms(shape, dtype)
+                bound, bound_by, exp_ms, unit = attention_bound_ms(shape, dtype)
                 print(f"[time] attention {shape} {str(dtype)[6:]}: kernel {kernel_ms:.4f} ms, "
                       f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-                      f"{bound:.4f} ms ({bound_by}), exponentials on the SFUs "
+                      f"{bound:.4f} ms ({unit}), exponentials on the SFUs "
                       f"{exp_ms:.4f} ms", flush=True)
                 report[(shape, dtype, "time")] = dict(
                     ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -337,6 +397,7 @@ def phase_kernel_bwd() -> dict:
             want = attention.attention_bwd_reference(q, k, v, do)
             views = [z.transpose(1, 2).reshape(b, t, h * d).view(b, t, h, d).transpose(1, 2)
                      for z in (q, k, v, do)]
+            tensor_cores = dtype == torch.bfloat16 and d == 8
             for layout, args in (("BHTD", (q, k, v, do)), ("BTC", views)):
                 got = attention.fused_attention_bwd(*args)
                 torch.cuda.synchronize()
@@ -353,6 +414,8 @@ def phase_kernel_bwd() -> dict:
                 check(ok, f"attention backward kernel disagrees with plain at "
                           f"{shape} {dtype} {layout}")
                 report[(shape, dtype, layout)] = max_abs
+                if tensor_cores:
+                    report[(shape, dtype, layout, "order")] = check_bwd_from_stats(shape, args)
             if shape in TRAIN_SHAPES:
                 kernel_ms = cuda_ms(lambda: attention.fused_attention_bwd(*views))
                 plain_ms = cuda_ms(lambda: attention.attention_bwd_reference(q, k, v, do),
@@ -364,17 +427,71 @@ def phase_kernel_bwd() -> dict:
 
                 pair_ms = cuda_ms(fwd_bwd(attention.fused_attention_trainable))
                 library_ms = cuda_ms(fwd_bwd(F.scaled_dot_product_attention), iters=5)
-                bound, bound_by, exp_ms = attention_bwd_bound_ms(shape, dtype)
-                print(f"[time] attention backward {shape} {str(dtype)[6:]}: kernel "
-                      f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-                      f"({bound_by}), exponentials on the SFUs {exp_ms:.4f} ms; forward+"
-                      f"backward through autograd: kernels {pair_ms:.4f} ms, sdpa "
-                      f"{library_ms:.4f} ms", flush=True)
-                report[(shape, dtype, "time")] = dict(
-                    ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                    fwd_bwd_ms=pair_ms, bound_ms=bound, bound_by=bound_by)
+                plain_pair_ms = cuda_ms(fwd_bwd(attention.attention_reference), iters=5)
+                # SDPA's backward alone, on a prebuilt forward
+                out = F.scaled_dot_product_attention(*leaves)
+                library_bwd_ms = cuda_ms(
+                    lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=5)
+                bound, bound_by, exp_ms, unit = attention_bwd_bound_ms(shape, dtype)
+                times = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                             fwd_bwd_ms=pair_ms, plain_fwd_bwd_ms=plain_pair_ms,
+                             library_bwd_ms=library_bwd_ms, bound_ms=bound,
+                             bound_by=bound_by, exp_ms=exp_ms)
+                extra = ""
+                if tensor_cores:
+                    # the two launches K4 runs, from the forward's statistics
+                    o, lse = attention.fused_attention(*views[:3], with_lse=True)
+                    times["from_stats_ms"] = cuda_ms(
+                        lambda: attention.fused_attention_bwd(*views, o=o, lse=lse))
+                    extra = (f"from saved statistics {times['from_stats_ms']:.4f} ms, "
+                             f"standalone (with its statistics launch) ")
+                print(f"[time] attention backward {shape} {str(dtype)[6:]}: kernel {extra}"
+                      f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward alone "
+                      f"{library_bwd_ms:.4f} ms, bound {bound:.4f} ms ({unit}), one pass "
+                      f"of exponentials on the SFUs {exp_ms:.4f} ms; forward+backward "
+                      f"through autograd: kernels {pair_ms:.4f} ms, plain "
+                      f"{plain_pair_ms:.4f} ms, sdpa {library_ms:.4f} ms", flush=True)
+                report[(shape, dtype, "time")] = times
+                del leaves, out
             del q, k, v, do, want, views
     return report
+
+
+def check_bwd_from_stats(shape, args) -> float:
+    """The bf16 tensor-core backward from the exact forward's statistics:
+    the output torch.equal with and without the log-sum-exp, the
+    log-sum-exp against its plain version, the gradients against the plain
+    version of the kernel's own rounding, two calls torch.equal, and the
+    standalone call (its own statistics launch) torch.equal to them.
+    Returns the largest difference from the kernel order."""
+    q, k, v, do = args
+    o, lse = attention.fused_attention(q, k, v, with_lse=True)
+    alone = attention.fused_attention(q, k, v)
+    got = attention.fused_attention_bwd(*args, o=o, lse=lse)
+    again = attention.fused_attention_bwd(*args, o=o, lse=lse)
+    before = attention.LAUNCHES[attention.STATS_KERNEL]
+    standalone = attention.fused_attention_bwd(*args)
+    torch.cuda.synchronize()
+    check(attention.LAUNCHES[attention.STATS_KERNEL] == before + 1,
+          "standalone bf16 backward did not count its statistics launch")
+    check(torch.equal(o, alone), f"forward output changes with the lse output at {shape}")
+    lse_err = (lse - attention.attention_lse_reference(q, k)).abs().max().item()
+    check(lse_err <= LSE_TOL, f"forward lse {lse_err:.3e} from plain at {shape}")
+    order = attention.attention_bwd_kernel_order(q, k, v, do, o, lse)
+    worst, max_abs = 0.0, 0.0
+    for name, a, w, a2, a3 in zip(("dq", "dk", "dv"), got, order, again, standalone):
+        check(torch.equal(a, a2) and torch.equal(a, a3),
+              f"bf16 backward {name} at {shape}: two calls, or saved and standalone "
+              f"statistics, differ")
+        err = (a.float() - w.float()).abs().max().item()
+        worst = max(worst, err / w.float().abs().max().item())
+        max_abs = max(max_abs, err)
+    print(f"[kernel-bwd]   from the forward's statistics: output torch.equal with and "
+          f"without lse, lse max_abs_err {lse_err:.3e} (allowed {LSE_TOL:.0e}); vs its own "
+          f"rounding order worst max|diff|/max|g| {worst:.3e} (allowed {BWD_ORDER_TOL:.0e}); "
+          f"two calls and the standalone call torch.equal", flush=True)
+    check(worst <= BWD_ORDER_TOL, f"bf16 backward vs attention_bwd_kernel_order at {shape}")
+    return max_abs
 
 
 def _btc_views(*tensors):
@@ -437,11 +554,11 @@ def phase_kernel_fast() -> dict:
             plain_ms = cuda_ms(lambda: attention.attention_fast_math_reference(q, k, v),
                                iters=5)
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-            bound, bound_by, exp_ms = attention_bound_ms(shape, dtype)
+            bound, bound_by, exp_ms, unit = attention_bound_ms(shape, dtype)
             print(f"[time] attention fast math {shape} {str(dtype)[6:]}: kernel "
                   f"{fast_ms:.4f} / {fast_ms2:.4f} ms, exact kernel {exact_ms:.4f} / "
                   f"{exact_ms2:.4f} ms (in turns), plain {plain_ms:.4f} ms, sdpa "
-                  f"{library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), "
+                  f"{library_ms:.4f} ms, bound {bound:.4f} ms ({unit}), "
                   f"exponentials on the SFUs {exp_ms:.4f} ms", flush=True)
             report[(shape, dtype, "time")] = dict(
                 ms=min(fast_ms, fast_ms2), exact_ms=min(exact_ms, exact_ms2),
@@ -872,9 +989,13 @@ def phase_train(card: str) -> dict:
               f"parameters) in {wall:.3f} s (cold: model build, first-call set-up and "
               f"checkpoint writes included); losses {losses}; launches attention_fwd "
               f"{launches[attention.KERNEL]}, attention_bwd {launches[attention.BWD_KERNEL]} "
-              f"(want {want} each)", flush=True)
-        check(launches[attention.KERNEL] == want and launches[attention.BWD_KERNEL] == want,
-              f"training launched {launches}, not {want} of each kernel")
+              f"(want {want} each), attention_bwd_stats "
+              f"{launches[attention.STATS_KERNEL]} (want 0: the backward reads the "
+              f"forward's saved statistics)", flush=True)
+        check(launches[attention.KERNEL] == want and launches[attention.BWD_KERNEL] == want
+              and launches[attention.STATS_KERNEL] == 0,
+              f"training launched {launches}, not {want} of each kernel and no statistics "
+              f"launch")
         best = Path(tmp) / "unet_MEL_best.pth"
         resume = Path(tmp) / "train_state_MEL.pt"
         check(best.exists() and resume.exists(), "training wrote no best checkpoint or resume state")
@@ -902,6 +1023,16 @@ def phase_bench(card: str) -> dict:
           f"fused attention, fast_norm, {r['steps']} warm steps: {r['sec_per_step']:.5f} "
           f"s/step, {r['img_per_s']:.2f} images/s, peak device memory "
           f"{r['peak_bytes'] / 2**30:.3f} GiB, on {card}", flush=True)
+    if r["device_busy_s_per_step"] is None:
+        print("[bench] torch.profiler recorded no device time: busy time and idle share "
+              "not measured", flush=True)
+    else:
+        print(f"[bench] torch.profiler over {PROFILE_STEPS} more steps: device busy "
+              f"{r['device_busy_s_per_step']:.5f} s/step (idle share {r['idle_share']:.3f} of "
+              f"the timed step), of which the attention kernels "
+              f"{r['attention_s_per_step']:.5f} s/step "
+              f"({r['attention_s_per_step'] / r['device_busy_s_per_step']:.3f} of busy)",
+              flush=True)
     return r
 
 
@@ -927,20 +1058,32 @@ def phase_kernel_bwd_group() -> dict:
                     for name, x, y in zip(("dq", "dk", "dv"), got, base):
                         check(torch.equal(x, y), f"backward G={group} {shape} {dtype} "
                                                  f"{layout} {name}: not bit-identical to G=1")
+            # as the trainer runs it: from the forward's statistics (read in
+            # bf16 only), checked against G = 1 and timed per G
+            o, lse = attention.fused_attention(*views[:3], with_lse=True)
+            base = attention.fused_attention_bwd(*views, o=o, lse=lse)
+            for group in GROUPS[1:]:
+                got = attention.fused_attention_bwd(*views, heads_per_program=group, o=o,
+                                                    lse=lse)
+                check(all(torch.equal(x, y) for x, y in zip(got, base)),
+                      f"backward from saved statistics at G={group} {shape} {dtype}: not "
+                      f"bit-identical to G=1")
             want = attention.attention_bwd_reference(*args)
-            got = attention.fused_attention_bwd(*views, heads_per_program=COND_GROUP)
+            got = attention.fused_attention_bwd(*views, heads_per_program=COND_GROUP, o=o,
+                                                lse=lse)
             err = max((x.float() - w.float()).abs().max().item() for x, w in zip(got, want))
             times = {grp: cuda_ms(lambda: attention.fused_attention_bwd(
-                *views, heads_per_program=grp)) for grp in GROUPS}
-            bound, bound_by, _ = attention_bwd_bound_ms(shape, dtype)
+                *views, heads_per_program=grp, o=o, lse=lse)) for grp in GROUPS}
+            bound, bound_by, _, unit = attention_bwd_bound_ms(shape, dtype)
             report[(shape, dtype)] = dict(times=times, max_abs_err=err, bound_ms=bound,
                                           bound_by=bound_by)
             print(f"[kernel-bwd-group] {shape} {str(dtype)[6:]:8s}: G in {GROUPS[1:]} "
-                  f"torch.equal to G=1 for dq, dk, dv in both layouts; G={COND_GROUP} vs "
+                  f"torch.equal to G=1 for dq, dk, dv in both layouts, standalone and from "
+                  f"saved statistics; G={COND_GROUP} vs "
                   f"plain max_abs_err {err:.3e}; kernel ms "
                   + ", ".join(f"G={grp} {ms:.4f}" for grp, ms in times.items())
-                  + f"; bound {bound:.4f} ms ({bound_by})", flush=True)
-            del args, views, base, got, want
+                  + f"; bound {bound:.4f} ms ({unit})", flush=True)
+            del args, views, base, got, want, o, lse
     shape = TRAIN_SHAPES[0]
     args = [torch.randn(shape, generator=g, device="cuda") for _ in range(4)]
     report["plain_ms"] = cuda_ms(lambda: attention.attention_bwd_reference(*args), iters=5)
@@ -996,11 +1139,12 @@ def phase_train_conditional(card: str, ckpt: Path) -> dict:
           f"model build and checkpoint writes included); loss {losses[0]}; launches "
           f"attention_fwd {launches[attention.KERNEL]} (want {want_fwd}: "
           f"{ATTENTION_CALLS_PER_UNET} x {COND_STEPS} steps + {probe} of the probe), "
-          f"attention_bwd {launches[attention.BWD_KERNEL]} (want {want_bwd}); metadata "
+          f"attention_bwd {launches[attention.BWD_KERNEL]} (want {want_bwd}), "
+          f"attention_bwd_stats {launches[attention.STATS_KERNEL]} (want 0); metadata "
           f"{meta}", flush=True)
     check(launches[attention.KERNEL] == want_fwd and launches[attention.BWD_KERNEL] == want_bwd
           and launches[attention.GROUPED_KERNEL] == launches[attention.BWD_GROUPED_KERNEL] == 0
-          and launches[attention.FAST_KERNEL] == 0,
+          and launches[attention.FAST_KERNEL] == launches[attention.STATS_KERNEL] == 0,
           f"train --conditional launched {launches}")
     check((ckpt / "unet_conditional_best.pth").exists()
           and meta["classes"] == list(COND_CLASSES)
@@ -1026,10 +1170,11 @@ def phase_train_conditional(card: str, ckpt: Path) -> dict:
           f"{len(COND_CLASSES) + 1}, bf16 on f32, fused_heads_per_program={COND_GROUP})): "
           f"{result['steps']} steps in {lib_wall:.2f} s; launches {lib} (want {want} "
           f"attention_bwd = attention_bwd_grouped, {want} attention_fwd = "
-          f"attention_fwd_grouped)", flush=True)
+          f"attention_fwd_grouped, 0 attention_bwd_stats)", flush=True)
     check(result["steps"] == lib_steps and math.isfinite(result["best_loss"])
           and lib[attention.BWD_KERNEL] == lib[attention.BWD_GROUPED_KERNEL] == want
-          and lib[attention.KERNEL] == lib[attention.GROUPED_KERNEL] == want,
+          and lib[attention.KERNEL] == lib[attention.GROUPED_KERNEL] == want
+          and lib[attention.STATS_KERNEL] == 0,
           f"train_conditional at G={COND_GROUP} launched {lib}")
 
     # one step's gradients at G = 2 against G = 1, with the same draws
@@ -1064,7 +1209,8 @@ def phase_train_conditional(card: str, ckpt: Path) -> dict:
           f"{counts[COND_GROUP]}", flush=True)
     check(not unequal and not moved, f"G={COND_GROUP} vs G=1 gradients differ: {unequal[:5]}")
     check(counts[COND_GROUP][attention.BWD_GROUPED_KERNEL] == ATTENTION_CALLS_PER_UNET
-          and counts[1][attention.BWD_GROUPED_KERNEL] == 0,
+          and counts[1][attention.BWD_GROUPED_KERNEL] == 0
+          and counts[1][attention.STATS_KERNEL] == counts[COND_GROUP][attention.STATS_KERNEL] == 0,
           "gradient comparison did not run the grouped backward")
     return dict(entry=launches, lib=lib, wall_s=wall)
 
@@ -1226,7 +1372,7 @@ def main() -> int:
     bwd_group_bf16 = bwd_group_report[(bwd_shape, torch.bfloat16)]
     fast_timing = fast_report[(MAIN_SHAPES[0], torch.bfloat16, "time")]
     g_star = group_report["g_star"]
-    group_bound, group_bound_by, _ = attention_bound_ms(GROUP_SHAPE, torch.bfloat16)
+    group_bound, group_bound_by, _, _ = attention_bound_ms(GROUP_SHAPE, torch.bfloat16)
     line = {"kernels": [{
         "name": "attention_fwd",
         "route": "cuda",
@@ -1260,10 +1406,28 @@ def main() -> int:
         # beside the kernels' forward+backward (fwd_bwd_ms)
         "library_ms": bwd_timing["library_ms"],
         "fwd_bwd_ms": bwd_timing["fwd_bwd_ms"],
-        # bf16, the trainer's type: K4 (kernels) and SDPA forward+backward
+        "plain_fwd_bwd_ms": bwd_timing["plain_fwd_bwd_ms"],
+        "library_bwd_ms": bwd_timing["library_bwd_ms"],
+        # bf16, the trainer's type: K4 (kernels), the plain path and SDPA
+        # forward+backward through autograd
         "fwd_bwd_ms_bf16": bwd_bf16["fwd_bwd_ms"],
+        "plain_fwd_bwd_ms_bf16": bwd_bf16["plain_fwd_bwd_ms"],
         "library_ms_bf16": bwd_bf16["library_ms"],
-        "ms_bf16": bwd_bf16["ms"],
+        # K3 in bf16 (the tensor-core kernels): from the forward's saved
+        # statistics, as K4 runs it, and standalone with its statistics
+        # launch; SDPA's backward alone on a prebuilt forward
+        "ms_bf16": bwd_bf16["from_stats_ms"],
+        "ms_bf16_from_stats": bwd_bf16["from_stats_ms"],
+        "ms_bf16_standalone": bwd_bf16["ms"],
+        "plain_ms_bf16": bwd_bf16["plain_ms"],
+        "library_bwd_ms_bf16": bwd_bf16["library_bwd_ms"],
+        "bound_ms_bf16": bwd_bf16["bound_ms"],
+        # one pass of B*H*T^2 exponentials on the special-function units
+        "exp_bound_ms": bwd_bf16["exp_ms"],
+        "max_abs_err_bf16_kernel_order": bwd_report[(bwd_shape, torch.bfloat16, "BTC",
+                                                     "order")],
+        "launches_stats_train": train_launches[attention.STATS_KERNEL],
+        "launches_stats_train_conditional": cond_train["entry"][attention.STATS_KERNEL],
         "launches_train_conditional": cond_train["entry"][attention.BWD_KERNEL],
         "shape": list(bwd_shape),
         "dtype": "float32",
@@ -1279,8 +1443,8 @@ def main() -> int:
         "plain_ms": bwd_group_report["plain_ms"],
         "bound_ms": bwd_group_bf16["bound_ms"],
         "bound_by": bwd_group_bf16["bound_by"],
-        # no PyTorch call computes the backward alone
-        "library_ms": None,
+        # SDPA's backward alone, on a prebuilt forward, at this shape in bf16
+        "library_ms": bwd_bf16["library_bwd_ms"],
         "heads_per_program": COND_GROUP,
         "ms_by_heads_per_program": {str(grp): ms for grp, ms in
                                     bwd_group_bf16["times"].items()},

@@ -34,7 +34,8 @@ import torch
 from PIL import Image
 
 from .diffusion.sampler import noise_hash, to_uint8_images
-from .generator import ImageGenerator, dtype_name, parse_guidance_map
+from .generator import (ImageGenerator, dtype_name, parse_guidance_map, tf32_as_recorded,
+                        tf32_state)
 from .io.color_stats import apply_mean_shift_postprocessing, load_color_statistics
 from .io.csv_io import append_groundtruth_row, initialize_groundtruth_csv
 from .io.images import save_image, write_sidecar_metadata
@@ -153,6 +154,7 @@ class ConsoleGenerator:
                             "model_variant": mm.variant,
                             **({"attention_fast_math": True}
                                if mm.attention_fast_math else {}),
+                            **tf32_state(mm.device, mm.dtype),
                             # the class's effective weight: one class per
                             # sampler call, so the scalar pins the walk
                             **({"conditional": True, "guidance_scale": g_class}
@@ -234,7 +236,8 @@ def reproduce_from_sidecar(sidecar_path: str, checkpoints_dir: Optional[str],
                            device: Optional[str] = None) -> int:
     """Regenerate the image a sidecar JSON records with everything it pins
     (seed and block, steps, scheduler kind, eta, spacing, compute dtype,
-    checkpoint variant, `attention_fast_math`, `png_compress_level`, and
+    checkpoint variant, `attention_fast_math`, `png_compress_level`, the
+    TF32 switches of an f32 run on CUDA (set for the regeneration only), and
     for the conditional checkpoint its guidance and the block's classes) and
     compare it byte for byte with the original when that is next to the
     sidecar. 0 = reproduced (and identical where the original was there),
@@ -274,76 +277,77 @@ def reproduce_from_sidecar(sidecar_path: str, checkpoints_dir: Optional[str],
     block = meta.get("block")
     seeds = np.asarray(block["seeds"] if block else [seed], np.uint32)
 
-    for i, compute_dtype in enumerate(candidates):
-        gen = ImageGenerator(checkpoints_dir=checkpoints_dir,
-                             model_config=model_config, device=device,
-                             compute_dtype=compute_dtype,
-                             model_variant=sched.get("model_variant", "best"),
-                             # the class id comes again from the class name
-                             # and the checkpoint's metadata; a recorded
-                             # guidance map is rebuilt whole with the scalar
-                             # of its absent classes, since a mixed block's
-                             # table depends on every row
-                             conditional=bool(sched.get("conditional", False)),
-                             guidance_scale=float(sched.get(
-                                 "guidance_default", sched.get("guidance_scale", 0.0))),
-                             guidance_map=sched.get("guidance_map"))
-        gen.set_inference_steps(int(meta["inference_steps"]))
-        gen.scheduler_kind = sched.get("kind", "ddpm")
-        gen.ddim_eta = float(sched.get("ddim_eta", 0.0))
-        gen.timestep_spacing = sched.get("timestep_spacing", "leading")
-        if sched.get("attention_fast_math"):
-            gen.model_manager.set_attention_tuning(fast_math=True)
-        if sched.get("png_compress_level") is not None:
-            gen.png_compress_level = int(sched["png_compress_level"])
-        if i == 0 and meta.get("noise_hash"):
-            index = int(block["index"]) if block else 0
-            mine = noise_hash(gen._sampler().initial_noise(seeds[index:index + 1])[0]
-                              .cpu().numpy())
-            if mine != meta["noise_hash"]:
-                print(f"initial-noise hash MISMATCH: seed {int(seeds[index])} gives "
-                      f"{mine} on {gen.model_manager.device}, the sidecar records "
-                      f"{meta['noise_hash']} (device {meta.get('device')!r}): it was "
-                      f"written by another noise stream (the JAX package, or the "
-                      f"other device's generator); nothing regenerated",
+    with tf32_as_recorded(sched):
+        for i, compute_dtype in enumerate(candidates):
+            gen = ImageGenerator(checkpoints_dir=checkpoints_dir,
+                                 model_config=model_config, device=device,
+                                 compute_dtype=compute_dtype,
+                                 model_variant=sched.get("model_variant", "best"),
+                                 # the class id comes again from the class name
+                                 # and the checkpoint's metadata; a recorded
+                                 # guidance map is rebuilt whole with the scalar
+                                 # of its absent classes, since a mixed block's
+                                 # table depends on every row
+                                 conditional=bool(sched.get("conditional", False)),
+                                 guidance_scale=float(sched.get(
+                                     "guidance_default", sched.get("guidance_scale", 0.0))),
+                                 guidance_map=sched.get("guidance_map"))
+            gen.set_inference_steps(int(meta["inference_steps"]))
+            gen.scheduler_kind = sched.get("kind", "ddpm")
+            gen.ddim_eta = float(sched.get("ddim_eta", 0.0))
+            gen.timestep_spacing = sched.get("timestep_spacing", "leading")
+            if sched.get("attention_fast_math"):
+                gen.model_manager.set_attention_tuning(fast_math=True)
+            if sched.get("png_compress_level") is not None:
+                gen.png_compress_level = int(sched["png_compress_level"])
+            if i == 0 and meta.get("noise_hash"):
+                index = int(block["index"]) if block else 0
+                mine = noise_hash(gen._sampler().initial_noise(seeds[index:index + 1])[0]
+                                  .cpu().numpy())
+                if mine != meta["noise_hash"]:
+                    print(f"initial-noise hash MISMATCH: seed {int(seeds[index])} gives "
+                          f"{mine} on {gen.model_manager.device}, the sidecar records "
+                          f"{meta['noise_hash']} (device {meta.get('device')!r}): it was "
+                          f"written by another noise stream (the JAX package, or the "
+                          f"other device's generator); nothing regenerated",
+                          file=sys.stderr)
+                    return 1
+            if art.get("format") == "jpeg":
+                ok = _reproduce_console_jpeg(gen, meta, out_path)
+            elif block:
+                ok = gen.regenerate_block_image(cls, out_path, postprocess=postprocess,
+                                                block=block)
+            else:
+                ok, _ = gen.generate_single_image(cls, out_path, postprocess=postprocess,
+                                                  seed=int(seed))
+            if not ok:
+                print(f"generation failed for class {cls}", file=sys.stderr)
+                return 1
+            if original.exists():
+                if original.read_bytes() == Path(out_path).read_bytes():
+                    suffix = ("" if dtype_recorded else
+                              f" (legacy sidecar; compute dtype {names[i]})")
+                    print(f"reproduced {meta['filename']} -> {out_path} "
+                          f"(byte-identical to the original){suffix}")
+                    return 0
+                if i + 1 < len(candidates):
+                    print(f"bytes differ with {names[i]}; sidecar predates dtype "
+                          f"recording — retrying with {names[i + 1]}", file=sys.stderr)
+                    continue
+                print(f"reproduced {meta['filename']} -> {out_path}, but bytes DIFFER "
+                      f"from the original (tried dtype {'/'.join(names)}; different "
+                      f"checkpoint, or postprocess mismatch — try --no-postprocess)",
                       file=sys.stderr)
                 return 1
-        if art.get("format") == "jpeg":
-            ok = _reproduce_console_jpeg(gen, meta, out_path)
-        elif block:
-            ok = gen.regenerate_block_image(cls, out_path, postprocess=postprocess,
-                                            block=block)
-        else:
-            ok, _ = gen.generate_single_image(cls, out_path, postprocess=postprocess,
-                                              seed=int(seed))
-        if not ok:
-            print(f"generation failed for class {cls}", file=sys.stderr)
-            return 1
-        if original.exists():
-            if original.read_bytes() == Path(out_path).read_bytes():
-                suffix = ("" if dtype_recorded else
-                          f" (legacy sidecar; compute dtype {names[i]})")
-                print(f"reproduced {meta['filename']} -> {out_path} "
-                      f"(byte-identical to the original){suffix}")
-                return 0
-            if i + 1 < len(candidates):
-                print(f"bytes differ with {names[i]}; sidecar predates dtype "
-                      f"recording — retrying with {names[i + 1]}", file=sys.stderr)
-                continue
-            print(f"reproduced {meta['filename']} -> {out_path}, but bytes DIFFER "
-                  f"from the original (tried dtype {'/'.join(names)}; different "
-                  f"checkpoint, or postprocess mismatch — try --no-postprocess)",
-                  file=sys.stderr)
-            return 1
-        print(f"reproduced {meta['filename']} -> {out_path} (initial-noise hash "
-              f"verified; original not present for byte comparison)")
-        if not (kind_recorded and dtype_recorded):
-            assumed = [what for what, ok in (("sampler kind", kind_recorded),
-                                             ("compute dtype", dtype_recorded)) if not ok]
-            print(f"UNVERIFIED: {' and '.join(assumed)} assumed and the original "
-                  f"image is not available to compare against", file=sys.stderr)
-            return 2
-        return 0
+            print(f"reproduced {meta['filename']} -> {out_path} (initial-noise hash "
+                  f"verified; original not present for byte comparison)")
+            if not (kind_recorded and dtype_recorded):
+                assumed = [what for what, ok in (("sampler kind", kind_recorded),
+                                                 ("compute dtype", dtype_recorded)) if not ok]
+                print(f"UNVERIFIED: {' and '.join(assumed)} assumed and the original "
+                      f"image is not available to compare against", file=sys.stderr)
+                return 2
+            return 0
     return 1
 
 

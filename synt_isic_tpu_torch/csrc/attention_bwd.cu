@@ -9,48 +9,83 @@
 // (b, h, t, d) element strides, so the UNet's (B, T, C) projection views go in
 // and the gradients land in (B, T, C) views without a copy.
 //
-// Design. The TPU kernel holds the (T, T) probs, dp and ds of one head in
-// VMEM (about 10 MB at T=1024); a Hopper block has at most 227 KB of shared
-// memory. So this is the FlashAttention-2 split into two launches, each one
-// thread per row, walking the other side in tiles staged (as f32) in shared
-// memory. Neither uses atomics, so the result is deterministic.
-//   1. dq: one thread per query row i. A first sweep over the keys is the
-//      forward's online softmax: it gives the row's log-sum-exp and its f32
-//      output o_i, and from them delta_i = do_i . o_i, which equals the TPU
-//      kernel's row term rowsum(dp * P) in exact arithmetic (the saved,
-//      primal-dtype output is not used, so no bf16 rounding enters delta).
-//      A second sweep forms p = exp(s - lse), dp = do_i . v_j and
-//      dq_i += p (dp - delta_i) k_j. The row's lse and delta go to an f32
-//      scratch of B*H*T each.
-//   2. dk, dv: one thread per key row j. It walks the queries with their q,
-//      do, lse and delta in shared memory: dv_j += p do_i and
-//      dk_j += p (dp - delta_i) q_i.
-// Head grouping (`heads_per_program` = G, the TPU kernel's G heads per grid
-// program, attention.py:149-151, 158, 190-218): both launches run blocks of
-// kBlock * G threads, one per (row, head), and stage the other side's tiles
-// of all G heads at once; in the (B, T, C) layout the G * D channels of one
-// token are contiguous, so the staging loads are runs of G * D elements
-// instead of D. As in the forward (`attention_fwd.cu`), every thread keeps
-// exactly the G = 1 arithmetic for its (row, head), key (or query) by key in
-// the same order, so dq, dk and dv are bit-identical for every G. The tile
-// holds kTile keys, fewer at large G so the f32 tiles stay within 32 KB of
-// static shared memory; each key's step depends on no tile boundary, so the
-// results do not depend on the tile size.
-// Everything is f32 inside whatever the input type. Deviation from the TPU
-// kernel: there P is rounded to the primal dtype before dv and ds, and ds
-// before dq and dk; here nothing is rounded until the stores. In f32 only the
-// order of summation differs; in bf16 the results differ by that rounding.
+// The TPU kernel holds the (T, T) probs, dp and ds of one head in VMEM (about
+// 10 MB at T=1024); a Hopper block has at most 227 KB of shared memory. So
+// both versions below are the FlashAttention-2 split into two launches, a dq
+// launch over query rows and a dk/dv launch over key rows, each walking the
+// other side in tiles staged in shared memory. Neither uses atomics, so the
+// result is deterministic. Head grouping (`heads_per_program` = G, the TPU
+// kernel's G heads per grid program, attention.py:149-151, 158, 190-218)
+// changes only which heads a block covers and stages the other side's rows
+// of all G heads at once (in the (B, T, C) layout the G * D channels of one
+// token are contiguous); each head's arithmetic is the G = 1 sequence, so dq,
+// dk and dv are bit-identical for every G, and no result depends on the tile
+// size.
 //
-// Bound on the H100 at the training path's largest call, B=8, H=32, T=1024,
-// D=8 (scale by B): the five T x T contractions are 10*B*H*T^2*D = 21.5 GFLOP,
-// 0.320 ms in f32 on the CUDA cores (67 TFLOP/s) and 0.022 ms in bf16 on the
+// bf16, head_dim 8: the tensor-core kernels (the trainer's configuration).
+//   Inputs besides q, k, v, do: the exact forward's output o (bf16) and each
+//   query row's base-2 log-sum-exp lse (f32), which `attention_fwd.cu` writes
+//   on request and `FusedAttention` saves; so each (i, j) pair takes two
+//   exponentials in all (one per launch) instead of three.
+//   Fragments: one warp owns 16 rows; `mma.sync` bf16 products with f32
+//   accumulation. With K = D = 8, m16n8k8 computes S = Q K^T and dP = dO V^T
+//   (dq launch) or S^T = K Q^T and dP^T = V dO^T (dk/dv launch) unpadded;
+//   with N = D = 8, m16n8k16 computes dQ += dS K, dV += P^T dO and
+//   dK += dS^T Q, the k16 A fragment being two adjacent n8 accumulator
+//   fragments rounded to bf16 in registers, as in FlashAttention-2. The B
+//   operands come from the staged tiles by `ldmatrix` (`.trans` where the
+//   product needs the transposed layout). Tiles of 64 rows per head are
+//   staged by `cp.async`, double-buffered, 16 bytes (one row of one head) per
+//   copy, so each row of q, k, v and do must start on 16 bytes with its 8
+//   channels contiguous (the wrapper copies any other layout first).
+//   1. dq (16 query rows per warp): delta_i = do_i . o_i from the saved
+//      output, written to an f32 scratch; then per key tile
+//      p = 2^(s * scale * log2(e) - lse_i), ds = p (dp - delta_i) scale,
+//      dq += ds k. Keys past T are masked on the last tile only.
+//   2. dk, dv (16 key rows per warp): per query tile (q, do, lse, delta
+//      staged; past T lse = +inf, so p = 0), the same p and ds, transposed,
+//      then dv += p do and dk += ds q.
+//   Rounding points, as on the TPU where the tensor cores make it natural:
+//   P is rounded to bf16 before dv and before ds is formed
+//   (attention.py:168, 175-177); ds is rounded to bf16 before dq and dk
+//   (:178-183), with the scale applied before that rounding, as there;
+//   products accumulate in f32 and dq, dk, dv are rounded to bf16 once.
+//   Deviations, each changing rounding only (`attention_bwd_kernel_order` in
+//   ops/attention.py is this order in plain PyTorch): (1) P comes from the
+//   forward's log-sum-exp in base 2 (log2(e) folded into the scale in f32,
+//   the shift fused into one f32 fma, `ex2.approx.ftz.f32` with relative
+//   error about 2^-22) instead of a normalised f32 softmax; (2) the row term
+//   is FlashAttention-2's delta_i = do_i . o_i from the bf16 output, equal
+//   to the TPU's rowsum(dp * P) in exact arithmetic; (3) ds is
+//   P * fma(dp, scale, -delta * scale), where the TPU forms
+//   P * (dp - row) * scale.
+//   Occupancy: 4 warps per head and block, at most 64 registers a thread
+//   (`__launch_bounds__`), so 32 warps per SM hide the special-function
+//   units' latency.
+//
+// f32 (any head_dim) and bf16 at head_dim 4: the CUDA-core kernels, one
+// thread per (row, head), everything f32 inside. The dq launch first sweeps
+// the keys with the forward's online softmax for the row's log-sum-exp and
+// its f32 output o_i, and so delta_i = do_i . o_i (no bf16 rounding enters
+// delta); a second sweep forms p = exp2(s - lse), dp = do_i . v_j and
+// dq_i += p (dp - delta_i) k_j; the row's lse and delta go to an f32 scratch.
+// The dk/dv launch walks the queries with their q, do, lse and delta:
+// dv_j += p do_i and dk_j += p (dp - delta_i) q_i. The tile holds 128 rows,
+// fewer at large G so the f32 tiles stay within 32 KB of static shared
+// memory. Deviation from the TPU kernel: there P is rounded to the primal
+// dtype before dv and ds, and ds before dq and dk; here nothing is rounded
+// until the stores. In f32 only the order of summation differs. These
+// instances ignore o and the caller's lse.
+//
+// Bound on the H100 at the training path's largest call, B=16, H=32,
+// T=1024, D=8: the five T x T contractions are 10*B*H*T^2*D = 43 GFLOP,
+// 0.641 ms in f32 on the CUDA cores (67 TFLOP/s) and 0.043 ms in bf16 on the
 // tensor cores (989 TFLOP/s); q, k, v, do read once and dq, dk, dv written
-// once are 58.7 MB in f32 (0.018 ms at 3.35 TB/s). The B*H*T^2 recomputed
-// exponentials take 0.064 ms on the special-function units. This version
-// runs everything on the CUDA cores in f32 and recomputes each exponential
-// three times (two sweeps in launch 1, one in launch 2), so it sits well
-// above that bound; tensor-core MMA (D padded to 16 in registers) and one
-// exponential per (i, j) are later work.
+// once are 58.7 MB in bf16 (0.018 ms at 3.35 TB/s), twice that in f32. One pass of
+// the B*H*T^2 = 5.4e8 recomputed exponentials takes 0.128 ms on the
+// special-function units (16 per clock per SM): in bf16 that is the floor,
+// and the tensor-core kernels take two passes (0.257 ms); the f32 kernels
+// take three.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -362,18 +397,446 @@ cudaError_t launch_group(int group, const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, D = 8: the tensor-core kernels (see the top of the file)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcWarps = 4;              // warps per head and block, 16 rows each
+constexpr int kTcRows = 16 * kTcWarps;   // rows per block and head
+constexpr int kTcTile = 64;              // rows of the other side per staged tile
+// blocks per SM at G = 1 (G heads per block: 1/G of them), so that 32 warps
+// per SM hide the special-function units' latency; it caps registers at 64
+constexpr int kTcBlocksPerSM = 8;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Two 8x8 bf16 matrices from shared memory, their rows addressed by lanes
+// 0-7 and 8-15: as stored (each lane gets row lane/4, columns 2(lane%4) and
+// +1), or transposed (column lane/4, rows 2(lane%4) and +1).
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
+}
+
+// c += a b on the tensor cores, bf16 in, f32 accumulated: a 16 x 8 (k8) or
+// 16 x 16 (k16) row-major A fragment, an 8 x 8 or 16 x 8 B fragment
+__device__ __forceinline__ void mma_k8(float* c, const uint32_t* a, uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+__device__ __forceinline__ void mma_k16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two f32 values rounded to bf16 (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float lo_f32(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_f32(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+
+// 2^x on the special-function unit (relative error about 2^-22; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// channels (d, d + 1) of one row as a bf16 pair, zeros for a row past the end
+__device__ __forceinline__ uint32_t load_pair(const bf16* base, Strides s, int row,
+                                              int d, bool ok) {
+  if (!ok) return 0u;
+  const bf16* p = base + row * s.t + d * s.d;
+  __nv_bfloat162 v;
+  v.x = p[0];
+  v.y = p[s.d];
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Stage rows [r0, r0 + kTcTile) of G heads (from head h0 on, at xb and yb)
+// of x and y into xt[g * kTcTile + r] and yt[...], 16 bytes (one row of one
+// head) per cp.async, one per thread; rows past seq_len are zeros.
+template <int G>
+__device__ __forceinline__ void stage_rows(uint4* xt, uint4* yt, const bf16* xb,
+                                           const bf16* yb, Strides sx, Strides sy,
+                                           int r0, int seq_len) {
+  constexpr int kChunks = G * kTcTile;
+  static_assert(2 * kChunks == 32 * kTcWarps * G, "one chunk per thread");
+  const bool second = threadIdx.x >= kChunks;
+  const int c = second ? threadIdx.x - kChunks : threadIdx.x;
+  const int64_t gh = c / kTcTile;
+  const int row = r0 + c % kTcTile;
+  uint4* dst = (second ? yt : xt) + c;
+  if (row < seq_len) {
+    cp_async16(dst, second ? yb + row * sy.t + gh * sy.h : xb + row * sx.t + gh * sx.h);
+  } else {
+    *dst = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Stage the lse and delta of query rows [r0, r0 + kTcTile) of G heads into
+// lt[g * kTcTile + r] and dt[...]; past seq_len lse = +inf (so p = 0) and
+// delta = 0.
+template <int G>
+__device__ __forceinline__ void stage_stats(float* lt, float* dt, const float* lseb,
+                                            const float* deltab, int r0, int seq_len) {
+  constexpr int kChunks = G * kTcTile;
+  const bool second = threadIdx.x >= kChunks;
+  const int c = second ? threadIdx.x - kChunks : threadIdx.x;
+  const int64_t gh = c / kTcTile;
+  const int row = r0 + c % kTcTile;
+  float* dst = (second ? dt : lt) + c;
+  if (row < seq_len) {
+    cp_async4(dst, (second ? deltab : lseb) + gh * seq_len + row);
+  } else {
+    *dst = second ? 0.f : INFINITY;
+  }
+}
+
+// One staged key tile for one warp's 16 query rows: 16 keys a step, S and
+// dP in two n8 halves, dS then dQ += dS K. Row a is the lane's row lane/4,
+// row b the one 8 below; `dsa` and `dsb` are their delta * scale.
+template <bool Mask>
+__device__ __forceinline__ void dq_tile(const uint4* kt, const uint4* vt,
+                                        const uint32_t* qa, const uint32_t* da,
+                                        float lsea, float lseb, float dsa, float dsb,
+                                        float scale, float scale_log2, int keys,
+                                        float* acc) {
+  const int lane = threadIdx.x % 32;
+  const int tig = lane % 4;
+#pragma unroll
+  for (int s = 0; s < kTcTile / 16; ++s) {
+    uint32_t kb[2], vb[2], kT[2], ds[4];
+    ldsm_x2(kb, kt + s * 16 + lane % 16);
+    ldsm_x2(vb, vt + s * 16 + lane % 16);
+    ldsm_x2_trans(kT, kt + s * 16 + lane % 16);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float sc[4] = {0.f, 0.f, 0.f, 0.f};
+      float dp[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_k8(sc, qa, kb[c]);   // S = Q K^T, 16 rows x 8 keys
+      mma_k8(dp, da, vb[c]);   // dP = dO V^T
+      float p[4] = {ex2(fmaf(sc[0], scale_log2, -lsea)), ex2(fmaf(sc[1], scale_log2, -lsea)),
+                    ex2(fmaf(sc[2], scale_log2, -lseb)), ex2(fmaf(sc[3], scale_log2, -lseb))};
+      if (Mask) {
+        const int key = s * 16 + c * 8 + 2 * tig;
+        if (key >= keys) p[0] = p[2] = 0.f;
+        if (key + 1 >= keys) p[1] = p[3] = 0.f;
+      }
+      const uint32_t pa = pack_bf16(p[0], p[1]);
+      const uint32_t pb = pack_bf16(p[2], p[3]);
+      ds[2 * c] = pack_bf16(lo_f32(pa) * fmaf(dp[0], scale, -dsa),
+                            hi_f32(pa) * fmaf(dp[1], scale, -dsa));
+      ds[2 * c + 1] = pack_bf16(lo_f32(pb) * fmaf(dp[2], scale, -dsb),
+                                hi_f32(pb) * fmaf(dp[3], scale, -dsb));
+    }
+    mma_k16(acc, ds, kT);      // dQ += dS K
+  }
+}
+
+// Launch 1 (bf16, D = 8): dq, and each query row's delta = do . o.
+template <int G>
+__global__ void __launch_bounds__(32 * kTcWarps * G, kTcBlocksPerSM / G)
+attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                           const bf16* __restrict__ o, const float* __restrict__ lse,
+                           bf16* __restrict__ dq, float* __restrict__ delta, int heads,
+                           int seq_len, Strides sq, Strides sk, Strides sv, Strides sdo,
+                           Strides so, Strides sdq, float scale, float scale_log2) {
+  __shared__ uint4 k_tile[2][G * kTcTile];
+  __shared__ uint4 v_tile[2][G * kTcTile];
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = warp / kTcWarps;          // this warp's head within the group
+  const int tig = lane % 4;
+  const int64_t b = blockIdx.z;
+  const int64_t h0 = static_cast<int64_t>(blockIdx.y) * G;
+  const int64_t h = h0 + g;
+  const int ra = blockIdx.x * kTcRows + (warp % kTcWarps) * 16 + lane / 4;
+  const int rb = ra + 8;
+  const bool oka = ra < seq_len;
+  const bool okb = rb < seq_len;
+
+  // A fragments of q and do (rows a and b, channels 2 tig and +1), and o
+  const bf16* qh = q + b * sq.b + h * sq.h;
+  const bf16* doh = dout + b * sdo.b + h * sdo.h;
+  const bf16* oh = o + b * so.b + h * so.h;
+  const uint32_t qa[2] = {load_pair(qh, sq, ra, 2 * tig, oka), load_pair(qh, sq, rb, 2 * tig, okb)};
+  const uint32_t da[2] = {load_pair(doh, sdo, ra, 2 * tig, oka),
+                          load_pair(doh, sdo, rb, 2 * tig, okb)};
+  const uint32_t oa[2] = {load_pair(oh, so, ra, 2 * tig, oka), load_pair(oh, so, rb, 2 * tig, okb)};
+
+  // delta = do . o over the row's 8 channels: 2 here, then the row's 4 lanes
+  float dla = fmaf(hi_f32(da[0]), hi_f32(oa[0]), lo_f32(da[0]) * lo_f32(oa[0]));
+  float dlb = fmaf(hi_f32(da[1]), hi_f32(oa[1]), lo_f32(da[1]) * lo_f32(oa[1]));
+#pragma unroll
+  for (int m = 1; m < 4; m *= 2) {
+    dla += __shfl_xor_sync(0xffffffffu, dla, m);
+    dlb += __shfl_xor_sync(0xffffffffu, dlb, m);
+  }
+  const int64_t stat = (b * heads + h) * seq_len;
+  const float lsea = oka ? lse[stat + ra] : 0.f;
+  const float lseb = okb ? lse[stat + rb] : 0.f;
+  if (tig == 0) {
+    if (oka) delta[stat + ra] = dla;
+    if (okb) delta[stat + rb] = dlb;
+  }
+
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  const bf16* kb = k + b * sk.b + h0 * sk.h;
+  const bf16* vb = v + b * sv.b + h0 * sv.h;
+  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
+  stage_rows<G>(k_tile[0], v_tile[0], kb, vb, sk, sv, 0, seq_len);
+  cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {   // the next tile streams in while this one is used
+      stage_rows<G>(k_tile[buf ^ 1], v_tile[buf ^ 1], kb, vb, sk, sv, (t + 1) * kTcTile,
+                    seq_len);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int keys = seq_len - t * kTcTile;
+    if (keys >= kTcTile) {
+      dq_tile<false>(&k_tile[buf][g * kTcTile], &v_tile[buf][g * kTcTile], qa, da, lsea,
+                     lseb, dla * scale, dlb * scale, scale, scale_log2, keys, acc);
+    } else {
+      dq_tile<true>(&k_tile[buf][g * kTcTile], &v_tile[buf][g * kTcTile], qa, da, lsea,
+                    lseb, dla * scale, dlb * scale, scale, scale_log2, keys, acc);
+    }
+    __syncthreads();       // every warp is done with buf before it is refilled
+  }
+
+  bf16* dqh = dq + b * sdq.b + h * sdq.h;
+  if (oka) {
+    dqh[ra * sdq.t + 2 * tig * sdq.d] = __float2bfloat16(acc[0]);
+    dqh[ra * sdq.t + (2 * tig + 1) * sdq.d] = __float2bfloat16(acc[1]);
+  }
+  if (okb) {
+    dqh[rb * sdq.t + 2 * tig * sdq.d] = __float2bfloat16(acc[2]);
+    dqh[rb * sdq.t + (2 * tig + 1) * sdq.d] = __float2bfloat16(acc[3]);
+  }
+}
+
+// Launch 2 (bf16, D = 8): dk and dv. Each warp holds 16 key rows and walks
+// the query tiles (q, do, lse, delta), 16 queries a step: S^T = K Q^T and
+// dP^T = V dO^T land as the A fragments of dV += P^T dO and dK += dS^T Q.
+template <int G>
+__global__ void __launch_bounds__(32 * kTcWarps * G, kTcBlocksPerSM / G)
+attention_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta, bf16* __restrict__ dk,
+                             bf16* __restrict__ dv, int heads, int seq_len, Strides sq,
+                             Strides sk, Strides sv, Strides sdo, Strides sdk,
+                             Strides sdv, float scale, float scale_log2) {
+  __shared__ uint4 q_tile[2][G * kTcTile];
+  __shared__ uint4 do_tile[2][G * kTcTile];
+  __shared__ __align__(8) float l_tile[2][G * kTcTile];
+  __shared__ __align__(8) float d_tile[2][G * kTcTile];
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = warp / kTcWarps;
+  const int tig = lane % 4;
+  const int64_t b = blockIdx.z;
+  const int64_t h0 = static_cast<int64_t>(blockIdx.y) * G;
+  const int64_t h = h0 + g;
+  const int ja = blockIdx.x * kTcRows + (warp % kTcWarps) * 16 + lane / 4;
+  const int jb = ja + 8;
+  const bool oka = ja < seq_len;
+  const bool okb = jb < seq_len;
+
+  const bf16* kh = k + b * sk.b + h * sk.h;
+  const bf16* vh = v + b * sv.b + h * sv.h;
+  const uint32_t ka[2] = {load_pair(kh, sk, ja, 2 * tig, oka), load_pair(kh, sk, jb, 2 * tig, okb)};
+  const uint32_t va[2] = {load_pair(vh, sv, ja, 2 * tig, oka), load_pair(vh, sv, jb, 2 * tig, okb)};
+
+  float dka[4] = {0.f, 0.f, 0.f, 0.f};
+  float dva[4] = {0.f, 0.f, 0.f, 0.f};
+  const bf16* qb = q + b * sq.b + h0 * sq.h;
+  const bf16* dob = dout + b * sdo.b + h0 * sdo.h;
+  const float* lseb = lse + (b * heads + h0) * seq_len;   // G heads' rows follow
+  const float* deltab = delta + (b * heads + h0) * seq_len;
+  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
+  stage_rows<G>(q_tile[0], do_tile[0], qb, dob, sq, sdo, 0, seq_len);
+  stage_stats<G>(l_tile[0], d_tile[0], lseb, deltab, 0, seq_len);
+  cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {
+      stage_rows<G>(q_tile[buf ^ 1], do_tile[buf ^ 1], qb, dob, sq, sdo, (t + 1) * kTcTile,
+                    seq_len);
+      stage_stats<G>(l_tile[buf ^ 1], d_tile[buf ^ 1], lseb, deltab, (t + 1) * kTcTile,
+                     seq_len);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint4* qt = &q_tile[buf][g * kTcTile];
+    const uint4* dt = &do_tile[buf][g * kTcTile];
+    const float* lt = &l_tile[buf][g * kTcTile];
+    const float* dlt = &d_tile[buf][g * kTcTile];
+#pragma unroll
+    for (int s = 0; s < kTcTile / 16; ++s) {
+      uint32_t qb2[2], db2[2], qT[2], dT[2], pt[4], ds[4];
+      ldsm_x2(qb2, qt + s * 16 + lane % 16);
+      ldsm_x2(db2, dt + s * 16 + lane % 16);
+      ldsm_x2_trans(qT, qt + s * 16 + lane % 16);
+      ldsm_x2_trans(dT, dt + s * 16 + lane % 16);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float st[4] = {0.f, 0.f, 0.f, 0.f};
+        float dpt[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_k8(st, ka, qb2[c]);    // S^T = K Q^T, 16 keys x 8 queries
+        mma_k8(dpt, va, db2[c]);   // dP^T = V dO^T
+        const int col = s * 16 + c * 8 + 2 * tig;   // this lane's two queries
+        const float2 l = *reinterpret_cast<const float2*>(lt + col);
+        const float2 dl = *reinterpret_cast<const float2*>(dlt + col);
+        const float dsx = dl.x * scale;
+        const float dsy = dl.y * scale;
+        pt[2 * c] = pack_bf16(ex2(fmaf(st[0], scale_log2, -l.x)),
+                              ex2(fmaf(st[1], scale_log2, -l.y)));
+        pt[2 * c + 1] = pack_bf16(ex2(fmaf(st[2], scale_log2, -l.x)),
+                                  ex2(fmaf(st[3], scale_log2, -l.y)));
+        ds[2 * c] = pack_bf16(lo_f32(pt[2 * c]) * fmaf(dpt[0], scale, -dsx),
+                              hi_f32(pt[2 * c]) * fmaf(dpt[1], scale, -dsy));
+        ds[2 * c + 1] = pack_bf16(lo_f32(pt[2 * c + 1]) * fmaf(dpt[2], scale, -dsx),
+                                  hi_f32(pt[2 * c + 1]) * fmaf(dpt[3], scale, -dsy));
+      }
+      mma_k16(dva, pt, dT);   // dV += P^T dO
+      mma_k16(dka, ds, qT);   // dK += dS^T Q
+    }
+    __syncthreads();
+  }
+
+  bf16* dkh = dk + b * sdk.b + h * sdk.h;
+  bf16* dvh = dv + b * sdv.b + h * sdv.h;
+  if (oka) {
+    dkh[ja * sdk.t + 2 * tig * sdk.d] = __float2bfloat16(dka[0]);
+    dkh[ja * sdk.t + (2 * tig + 1) * sdk.d] = __float2bfloat16(dka[1]);
+    dvh[ja * sdv.t + 2 * tig * sdv.d] = __float2bfloat16(dva[0]);
+    dvh[ja * sdv.t + (2 * tig + 1) * sdv.d] = __float2bfloat16(dva[1]);
+  }
+  if (okb) {
+    dkh[jb * sdk.t + 2 * tig * sdk.d] = __float2bfloat16(dka[2]);
+    dkh[jb * sdk.t + (2 * tig + 1) * sdk.d] = __float2bfloat16(dka[3]);
+    dvh[jb * sdv.t + 2 * tig * sdv.d] = __float2bfloat16(dva[2]);
+    dvh[jb * sdv.t + (2 * tig + 1) * sdv.d] = __float2bfloat16(dva[3]);
+  }
+}
+
+// cp.async stages 16-byte rows: each row of x must start on 16 bytes with
+// its 8 channels contiguous
+bool rows16(const void* x, const Strides& s) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && s.d == 1 && s.t % 8 == 0
+         && s.h % 8 == 0 && s.b % 8 == 0;
+}
+
+template <int G>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* dout,
+                      const void* o, void* dq, void* dk, void* dv, const float* lse,
+                      float* delta, int batch, int heads, int seq_len, const int64_t* st,
+                      float scale, cudaStream_t stream) {
+  const Strides sq{st[0], st[1], st[2], st[3]};
+  const Strides sk{st[4], st[5], st[6], st[7]};
+  const Strides sv{st[8], st[9], st[10], st[11]};
+  const Strides sdo{st[12], st[13], st[14], st[15]};
+  const Strides sdq{st[16], st[17], st[18], st[19]};
+  const Strides sdk{st[20], st[21], st[22], st[23]};
+  const Strides sdv{st[24], st[25], st[26], st[27]};
+  const Strides so{st[28], st[29], st[30], st[31]};
+  if (!rows16(q, sq) || !rows16(k, sk) || !rows16(v, sv) || !rows16(dout, sdo)
+      || o == nullptr || lse == nullptr)
+    return cudaErrorInvalidValue;
+  const dim3 grid((seq_len + kTcRows - 1) / kTcRows, heads / G, batch);
+  const float scale_log2 = scale * kLog2e;
+  attention_bwd_dq_tc_kernel<G><<<grid, 32 * kTcWarps * G, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const bf16*>(o), lse, static_cast<bf16*>(dq), delta, heads, seq_len,
+      sq, sk, sv, sdo, so, sdq, scale, scale_log2);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_dkdv_tc_kernel<G><<<grid, 32 * kTcWarps * G, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, seq_len, sq, sk, sv, sdo,
+      sdk, sdv, scale, scale_log2);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tc_group(int group, const void* q, const void* k, const void* v,
+                            const void* dout, const void* o, void* dq, void* dk, void* dv,
+                            const float* lse, float* delta, int batch, int heads,
+                            int seq_len, const int64_t* st, float scale, cudaStream_t s) {
+  switch (group) {
+    case 1: return launch_tc<1>(q, k, v, dout, o, dq, dk, dv, lse, delta, batch, heads, seq_len, st, scale, s);
+    case 2: return launch_tc<2>(q, k, v, dout, o, dq, dk, dv, lse, delta, batch, heads, seq_len, st, scale, s);
+    case 4: return launch_tc<4>(q, k, v, dout, o, dq, dk, dv, lse, delta, batch, heads, seq_len, st, scale, s);
+    case 8: return launch_tc<8>(q, k, v, dout, o, dq, dk, dv, lse, delta, batch, heads, seq_len, st, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. strides: 28 element strides, (b, h, t, d)
-// for q, k, v, dout, dq, dk and dv in that order. lse and delta: f32 scratch
-// of batch*heads*seq_len each, written by the first launch and read by the
-// second. heads_per_program: 1, 2, 4 or 8, and it must divide heads. Returns
-// a cudaError_t; an unsupported head_dim, dtype or group returns
-// cudaErrorInvalidValue without launching.
+// dtype: 0 = float32, 1 = bfloat16. strides: 32 element strides, (b, h, t, d)
+// for q, k, v, dout, dq, dk, dv and o in that order. lse and delta: f32
+// (batch, heads, seq_len), contiguous. bf16 with head_dim 8 (the tensor-core
+// kernels): o is the forward's output and lse its base-2 log-sum-exp, both
+// read; delta is scratch, written by the first launch and read by the
+// second; the rows of q, k, v and dout must start on 16 bytes with their
+// channels contiguous. Every other instance ignores o and uses lse and delta
+// as scratch of its own. heads_per_program: 1, 2, 4 or 8, and it must divide
+// heads. Returns a cudaError_t; an unsupported head_dim, dtype, group or
+// layout returns cudaErrorInvalidValue without launching.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v,
-                             const void* dout, void* dq, void* dk, void* dv,
-                             float* lse, float* delta, int batch, int heads,
-                             int seq_len, int head_dim, int dtype,
+                             const void* dout, const void* o, void* dq, void* dk,
+                             void* dv, float* lse, float* delta, int batch,
+                             int heads, int seq_len, int head_dim, int dtype,
                              const int64_t* strides, float scale,
                              int heads_per_program, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -384,9 +847,8 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v,
     return launch_group<8, float>(g, q, k, v, dout, dq, dk, dv, lse, delta,
                                   batch, heads, seq_len, strides, scale, s);
   if (dtype == 1 && head_dim == 8)
-    return launch_group<8, __nv_bfloat16>(g, q, k, v, dout, dq, dk, dv, lse,
-                                          delta, batch, heads, seq_len,
-                                          strides, scale, s);
+    return launch_tc_group(g, q, k, v, dout, o, dq, dk, dv, lse, delta, batch,
+                           heads, seq_len, strides, scale, s);
   if (dtype == 0 && head_dim == 4)
     return launch_group<4, float>(g, q, k, v, dout, dq, dk, dv, lse, delta,
                                   batch, heads, seq_len, strides, scale, s);

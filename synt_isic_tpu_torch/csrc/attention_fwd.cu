@@ -32,7 +32,10 @@
 // Exact path. Deviation from the TPU kernel: there the normalised
 // probabilities are cast to v's dtype before P.V; here unnormalised f32
 // weights multiply v and the normalisation comes last. Only rounding
-// changes: about 1e-6 in f32 and bf16-level in bf16.
+// changes: about 1e-6 in f32 and bf16-level in bf16. On request (a non-null
+// `lse`) it also writes each row's base-2 log-sum-exp m + log2(l), f32 in
+// (B, H, T), which the bf16 backward (`attention_bwd.cu`) reads in place of
+// recomputing it; the output does not depend on whether it is written.
 //
 // Fast-math path (`fast_math`, attention.py:43-49 and :74-80): the shifted
 // logit is rounded to bf16 and exponentiated in bf16, the bf16 weights are
@@ -149,7 +152,8 @@ __device__ __forceinline__ void fast_math_step(const float* qr, const float* k0,
 template <int D, typename T, int G, bool FastMath>
 __global__ void __launch_bounds__(kBlockQ * G)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int seq_len,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int heads, int seq_len,
                      Strides sq, Strides sk, Strides sv, Strides so,
                      float scale_log2) {
   constexpr int kTileK = TileKeys<D, G>::value;
@@ -237,14 +241,15 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float inv = 1.f / l;
 #pragma unroll
       for (int d = 0; d < D; ++d) ob[d * so.d] = from_f32<T>(acc[d] * inv);
+      if (lse != nullptr) lse[(b * heads + h) * seq_len + row] = m + log2f(l);
     }
   }
 }
 
 template <int D, typename T, int G, bool FastMath>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int batch, int heads, int seq_len, const int64_t* st,
-                   float scale, cudaStream_t stream) {
+                   float* lse, int batch, int heads, int seq_len,
+                   const int64_t* st, float scale, cudaStream_t stream) {
   const Strides sq{st[0], st[1], st[2], st[3]};
   const Strides sk{st[4], st[5], st[6], st[7]};
   const Strides sv{st[8], st[9], st[10], st[11]};
@@ -252,29 +257,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((seq_len + kBlockQ - 1) / kBlockQ, heads / G, batch);
   attention_fwd_kernel<D, T, G, FastMath><<<grid, kBlockQ * G, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), seq_len, sq, sk, sv, so,
-      scale * kLog2e);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, heads, seq_len, sq,
+      sk, sv, so, scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <int D, typename T, int G>
 cudaError_t launch_math(bool fast_math, const void* q, const void* k, const void* v,
-                        void* o, int batch, int heads, int seq_len,
+                        void* o, float* lse, int batch, int heads, int seq_len,
                         const int64_t* st, float scale, cudaStream_t s) {
   return fast_math
-      ? launch<D, T, G, true>(q, k, v, o, batch, heads, seq_len, st, scale, s)
-      : launch<D, T, G, false>(q, k, v, o, batch, heads, seq_len, st, scale, s);
+      ? launch<D, T, G, true>(q, k, v, o, nullptr, batch, heads, seq_len, st, scale, s)
+      : launch<D, T, G, false>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
 }
 
 template <int D, typename T>
 cudaError_t launch_group(int group, bool fast_math, const void* q, const void* k,
-                         const void* v, void* o, int batch, int heads, int seq_len,
-                         const int64_t* st, float scale, cudaStream_t s) {
+                         const void* v, void* o, float* lse, int batch, int heads,
+                         int seq_len, const int64_t* st, float scale, cudaStream_t s) {
   switch (group) {
-    case 1: return launch_math<D, T, 1>(fast_math, q, k, v, o, batch, heads, seq_len, st, scale, s);
-    case 2: return launch_math<D, T, 2>(fast_math, q, k, v, o, batch, heads, seq_len, st, scale, s);
-    case 4: return launch_math<D, T, 4>(fast_math, q, k, v, o, batch, heads, seq_len, st, scale, s);
-    case 8: return launch_math<D, T, 8>(fast_math, q, k, v, o, batch, heads, seq_len, st, scale, s);
+    case 1: return launch_math<D, T, 1>(fast_math, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    case 2: return launch_math<D, T, 2>(fast_math, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    case 4: return launch_math<D, T, 4>(fast_math, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    case 8: return launch_math<D, T, 8>(fast_math, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -283,26 +288,30 @@ cudaError_t launch_group(int group, bool fast_math, const void* q, const void* k
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 16 element strides, (b, h, t, d)
 // for q, k, v and out in that order. heads_per_program: 1, 2, 4 or 8, and it
-// must divide heads. fast_math: 0 or 1. Returns a cudaError_t; an
-// unsupported head_dim, dtype or group returns cudaErrorInvalidValue
-// without launching.
+// must divide heads. fast_math: 0 or 1. lse: null, or (exact path only) a
+// contiguous f32 (batch, heads, seq_len) output for each row's base-2
+// log-sum-exp. Returns a cudaError_t; an unsupported head_dim, dtype or
+// group, or lse with fast_math, returns cudaErrorInvalidValue without
+// launching.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
-                             void* o, int batch, int heads, int seq_len,
-                             int head_dim, int dtype, const int64_t* strides,
-                             float scale, int heads_per_program, int fast_math,
+                             void* o, float* lse, int batch, int heads,
+                             int seq_len, int head_dim, int dtype,
+                             const int64_t* strides, float scale,
+                             int heads_per_program, int fast_math,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int g = heads_per_program;
   if (seq_len <= 0 || batch <= 0 || heads <= 0 || g <= 0 || heads % g != 0)
     return cudaErrorInvalidValue;
   const bool fm = fast_math != 0;
+  if (fm && lse != nullptr) return cudaErrorInvalidValue;
   if (dtype == 0 && head_dim == 8)
-    return launch_group<8, float>(g, fm, q, k, v, o, batch, heads, seq_len, strides, scale, s);
+    return launch_group<8, float>(g, fm, q, k, v, o, lse, batch, heads, seq_len, strides, scale, s);
   if (dtype == 1 && head_dim == 8)
-    return launch_group<8, __nv_bfloat16>(g, fm, q, k, v, o, batch, heads, seq_len, strides, scale, s);
+    return launch_group<8, __nv_bfloat16>(g, fm, q, k, v, o, lse, batch, heads, seq_len, strides, scale, s);
   if (dtype == 0 && head_dim == 4)
-    return launch_group<4, float>(g, fm, q, k, v, o, batch, heads, seq_len, strides, scale, s);
+    return launch_group<4, float>(g, fm, q, k, v, o, lse, batch, heads, seq_len, strides, scale, s);
   if (dtype == 1 && head_dim == 4)
-    return launch_group<4, __nv_bfloat16>(g, fm, q, k, v, o, batch, heads, seq_len, strides, scale, s);
+    return launch_group<4, __nv_bfloat16>(g, fm, q, k, v, o, lse, batch, heads, seq_len, strides, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -44,6 +44,7 @@ A8) and the XAI hooks (`set_xai_hook`, `set_xai_analyzer`,
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import secrets
 import time
@@ -97,6 +98,35 @@ def dtype_name(dtype: torch.dtype) -> str:
     """The sidecar name of a compute dtype: "float32" / "bfloat16", the
     names the JAX package writes."""
     return str(dtype).removeprefix("torch.")
+
+
+def tf32_state(device: torch.device, dtype: torch.dtype) -> Dict[str, Any]:
+    """The sidecar's `tf32` field for an f32 run on CUDA: whether cuDNN's
+    convolutions and the matrix products ran in TF32. Both are process-wide
+    switches that change an f32 image's bytes there. Nothing for other
+    runs, which they do not touch."""
+    if torch.device(device).type != "cuda" or dtype != torch.float32:
+        return {}
+    return {"tf32": {"cudnn": bool(torch.backends.cudnn.allow_tf32),
+                     "matmul": bool(torch.backends.cuda.matmul.allow_tf32)}}
+
+
+@contextlib.contextmanager
+def tf32_as_recorded(scheduler: Dict[str, Any]):
+    """Inside the block, the TF32 switches as a sidecar's `scheduler`
+    records them; restored afterwards. A sidecar without the field leaves
+    them as they are (PyTorch's defaults unless the caller changed them)."""
+    recorded = scheduler.get("tf32")
+    if recorded is None:
+        yield
+        return
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = bool(recorded["cudnn"])
+    torch.backends.cuda.matmul.allow_tf32 = bool(recorded["matmul"])
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
 
 
 def _later(what: str, item: str) -> NotImplementedError:
@@ -357,7 +387,7 @@ class ImageGenerator:
         conditional fields only in conditional mode: `guidance_scale` is
         `class_name`'s effective weight, and a `guidance_map` is recorded
         whole with the scalar its absent classes take, since a mixed-class
-        block's table depends on every row)."""
+        block's table depends on every row; `tf32` for f32 runs on CUDA)."""
         mm = self.model_manager
         g = (self.guidance_map.get(class_name, self.guidance_scale)
              if self.guidance_map else self.guidance_scale)
@@ -371,6 +401,7 @@ class ImageGenerator:
             "dtype": dtype_name(mm.dtype),
             "model_variant": mm.variant,
             **({"attention_fast_math": True} if mm.attention_fast_math else {}),
+            **tf32_state(mm.device, mm.dtype),
             **({"conditional": True, "guidance_scale": g,
                 **({"guidance_map": dict(self.guidance_map),
                     "guidance_default": self.guidance_scale}

@@ -9,13 +9,17 @@ The port of synt_isic_tpu/ops/pallas/attention.py:
   * `fused_attention_bwd` (the Pallas recompute backward, with its knob
     `heads_per_program`) launches `csrc/attention_bwd.cu`;
   * `fused_attention_trainable` (the Pallas `custom_vjp`) is the autograd
-    Function `FusedAttention`: forward kernel, backward kernel.
+    Function `FusedAttention`: forward kernel, backward kernel. In bf16 at
+    head_dim 8 its exact forward also writes each row's base-2 log-sum-exp,
+    and it saves that and its output for the backward's tensor-core kernels.
 For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it runs the plain PyTorch version (`attention_reference`,
 `attention_fast_math_reference`, `attention_bwd_reference`), which the
 tests and `chip_smoke.py` hold the kernels against; the fast-math kernel is
-also held to `attention_fast_math_kernel_order`, the same maths rounded
-where the kernel rounds. There is no other route.
+also held to `attention_fast_math_kernel_order` and the bf16 backward to
+`attention_bwd_kernel_order`, the same maths rounded where the kernel
+rounds, and the forward's log-sum-exp to `attention_lse_reference`. There
+is no other route.
 
 `heads_per_program` = G runs G heads per block with bit-identical maths,
 in the forward and the backward alike; as in the JAX package, a G that does
@@ -45,6 +49,9 @@ FAST_KERNEL = "attention_fwd_fast_math"
 GROUPED_KERNEL = "attention_fwd_grouped"
 # counter of the backward kernel's grouped variant (one source, `attention_bwd.cu`)
 BWD_GROUPED_KERNEL = "attention_bwd_grouped"
+# counter of the exact forward launches that a bf16 backward without saved
+# statistics runs first for its o and log-sum-exp (`attention_fwd.cu`)
+STATS_KERNEL = "attention_bwd_stats"
 HEAD_DIMS = (4, 8)
 HEADS_PER_PROGRAM = (1, 2, 4, 8)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -54,9 +61,17 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # A forward launch counts under KERNEL (exact softmax) or FAST_KERNEL
 # (fast_math), and under GROUPED_KERNEL too when it runs G > 1 heads per
 # block. A backward launch counts under BWD_KERNEL, and under
-# BWD_GROUPED_KERNEL too when it runs G > 1 heads per block.
+# BWD_GROUPED_KERNEL too when it runs G > 1 heads per block. The forward
+# launch that gives such a backward its statistics counts under STATS_KERNEL
+# only.
 LAUNCHES = {KERNEL: 0, FAST_KERNEL: 0, GROUPED_KERNEL: 0, BWD_KERNEL: 0,
-            BWD_GROUPED_KERNEL: 0}
+            BWD_GROUPED_KERNEL: 0, STATS_KERNEL: 0}
+LOG2E = 1.4426950408889634
+
+
+def _scale_log2(head_dim: int) -> float:
+    """The kernels' base-2 logit scale, 1/sqrt(D) * log2(e) in f32."""
+    return (torch.tensor(1.0 / math.sqrt(head_dim)) * torch.tensor(LOG2E)).item()
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -97,9 +112,7 @@ def attention_fast_math_kernel_order(q: torch.Tensor, k: torch.Tensor,
     into v in f32, and the division comes last; the result is in q's
     dtype."""
     t = q.shape[-2]
-    scale_log2 = (torch.tensor(1.0 / math.sqrt(q.shape[-1]))
-                  * torch.tensor(1.4426950408889634)).item()
-    logits = torch.matmul(q.float() * scale_log2, k.float().transpose(-1, -2))
+    logits = torch.matmul(q.float() * _scale_log2(q.shape[-1]), k.float().transpose(-1, -2))
     pairs = torch.nn.functional.pad(logits, (0, t % 2), value=-math.inf)
     pair_max = pairs.unflatten(-1, (-1, 2)).amax(dim=-1)
     run_max = pair_max.cummax(dim=-1).values.repeat_interleave(2, dim=-1)[..., :t]
@@ -130,6 +143,37 @@ def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def attention_lse_reference(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Each query row's base-2 log-sum-exp, log2 sum_j 2^(s_ij) with the
+    base-2 logits s = q k^T / sqrt(D) * log2(e), in f32, (B, H, T): what
+    the exact forward kernel writes for the backward."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * _scale_log2(q.shape[-1])
+    peak = logits.amax(dim=-1, keepdim=True)
+    return (peak + torch.log2(torch.exp2(logits - peak).sum(dim=-1, keepdim=True))).squeeze(-1)
+
+
+def attention_bwd_kernel_order(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               do: torch.Tensor, o: torch.Tensor, lse: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 backward kernel's rounding in plain PyTorch, step for step,
+    from the forward's output `o` (primal dtype) and base-2 log-sum-exp
+    `lse`: P = 2^(q k^T * scale * log2(e) - lse) in f32, rounded to v's
+    dtype; dv = P^T do and dp = do v^T in f32; delta = do . o in f32;
+    ds = P (dp scale - delta scale) rounded to q's dtype; dq = ds k and
+    dk = ds^T q in f32; results in q's dtype."""
+    scale = torch.tensor(1.0 / math.sqrt(q.shape[-1])).item()
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    probs = torch.exp2(logits * _scale_log2(q.shape[-1]) - lse.float()[..., None])
+    probs = probs.to(v.dtype).float()
+    dv = torch.matmul(probs.transpose(-1, -2), do.float())
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    ds = (probs * (dp * scale - delta * scale)).to(q.dtype).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 def _check(*tensors: torch.Tensor) -> str:
     """Validate one (B, H, T, D) call; returns the device type."""
     q = tensors[0]
@@ -153,12 +197,12 @@ def _check(*tensors: torch.Tensor) -> str:
 def _lib(name: str) -> ctypes.CDLL:
     lib = native.load(name)
     if name == KERNEL:
-        lib.attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        lib.attention_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p]
         lib.attention_fwd.restype = ctypes.c_int
     else:
-        lib.attention_bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+        lib.attention_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
             ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int,
             ctypes.c_void_p]
         lib.attention_bwd.restype = ctypes.c_int
@@ -183,55 +227,96 @@ def _group(heads: int, heads_per_program: int, device: str) -> int:
     return g
 
 
-def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             fast_math: bool = False, heads_per_program: int = 1) -> torch.Tensor:
-    """The forward on the tensors' device, no gradient: the kernel on CUDA,
-    the plain version on the CPU."""
-    device = _check(q, k, v)
-    group = _group(q.shape[1], heads_per_program, device)
-    if device == "cpu":
-        return (attention_fast_math_reference if fast_math else attention_reference)(q, k, v)
+def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, fast_math: bool,
+                    group: int, with_lse: bool):
+    """One forward kernel launch on CUDA tensors, counted by the caller:
+    (out, lse), lse the f32 (B, H, T) base-2 log-sum-exp when asked for
+    (exact maths only), else None."""
     out = torch.empty_like(q)
-    if q.numel() == 0:
-        return out
     b, h, t, d = q.shape
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
         err = _lib(KERNEL).attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, t, d, _DTYPE_CODES[q.dtype], _strides(q, k, v, out),
-            1.0 / math.sqrt(d), group, int(bool(fast_math)),
+            lse.data_ptr() if with_lse else None, b, h, t, d, _DTYPE_CODES[q.dtype],
+            _strides(q, k, v, out), 1.0 / math.sqrt(d), group, int(bool(fast_math)),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
+    return out, lse
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             fast_math: bool = False, heads_per_program: int = 1,
+             with_lse: bool = False):
+    """The forward on the tensors' device, no gradient: the kernel on CUDA,
+    the plain version on the CPU. `with_lse` (CUDA, exact maths) returns
+    (out, lse) with each row's base-2 log-sum-exp."""
+    device = _check(q, k, v)
+    group = _group(q.shape[1], heads_per_program, device)
+    if with_lse and (device != "cuda" or fast_math):
+        raise ValueError("the log-sum-exp comes from the exact CUDA kernel only")
+    if device == "cpu":
+        return (attention_fast_math_reference if fast_math else attention_reference)(q, k, v)
+    if q.numel() == 0:
+        out = torch.empty_like(q)
+        return (out, torch.empty(q.shape[:3], device=q.device)) if with_lse else out
+    out, lse = _launch_forward(q, k, v, fast_math, group, with_lse)
     LAUNCHES[FAST_KERNEL if fast_math else KERNEL] += 1
     if group > 1:
         LAUNCHES[GROUPED_KERNEL] += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _tensor_cores(q: torch.Tensor) -> bool:
+    """Whether the backward of these CUDA tensors runs the tensor-core
+    kernels, which read the forward's output and log-sum-exp."""
+    return q.device.type == "cuda" and q.dtype == torch.bfloat16 and q.shape[-1] == 8
+
+
+def _rows16(z: torch.Tensor) -> torch.Tensor:
+    """z itself where each (b, h, t) row starts on 16 bytes with its channels
+    contiguous, as the tensor-core kernels stage them, else a contiguous
+    copy (only for unusual layouts: the UNet's views and dense tensors
+    pass)."""
+    aligned = (z.stride(-1) == 1 and all(st % 8 == 0 for st in z.stride()[:3])
+               and z.data_ptr() % 16 == 0)
+    return z if aligned else z.contiguous()
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    fast_math: bool = False,
-                    heads_per_program: int = 1) -> torch.Tensor:
+                    fast_math: bool = False, heads_per_program: int = 1,
+                    with_lse: bool = False):
     """softmax(q k^T / sqrt(D)) v over (B, H, T, D) tensors, in q's dtype
     (on CUDA with q's strides where q is dense). `fast_math` takes the
     exponentials in bf16 (bf16-level deviation from the exact result);
-    `heads_per_program` groups heads per block (identical results). The
-    CUDA kernel has no gradient: under grad mode, CUDA inputs that require
-    grad raise (use `fused_attention_trainable`)."""
+    `heads_per_program` groups heads per block (identical results).
+    `with_lse` (CUDA, exact maths) returns (out, lse) with each row's f32
+    base-2 log-sum-exp, the statistics `fused_attention_bwd` reads; the
+    output is the same either way. The CUDA kernel has no gradient: under
+    grad mode, CUDA inputs that require grad raise (use
+    `fused_attention_trainable`)."""
     if (q.device.type == "cuda" and torch.is_grad_enabled()
             and any(z.requires_grad for z in (q, k, v))):
         raise RuntimeError("fused_attention has no gradient on CUDA; call "
                            "fused_attention_trainable for inputs that require grad")
-    return _forward(q, k, v, fast_math, heads_per_program)
+    return _forward(q, k, v, fast_math, heads_per_program, with_lse)
 
 
 def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        do: torch.Tensor, heads_per_program: int = 1
+                        do: torch.Tensor, heads_per_program: int = 1,
+                        o: torch.Tensor = None, lse: torch.Tensor = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of softmax(q k^T / sqrt(D)) v for the output gradient
     `do`, in q's dtype, with the strides of q, k and v where they are dense.
     `heads_per_program` groups heads per block (identical results). One
-    call launches the kernel's two passes and counts one launch."""
+    call launches the kernel's two passes and counts one launch.
+
+    On CUDA in bf16 at head_dim 8 the kernels read the exact forward's
+    output `o` and base-2 log-sum-exp `lse` (f32, (B, H, T)), as
+    `FusedAttention` saves them; without them one exact forward launch
+    (counted under STATS_KERNEL) computes both first. Elsewhere they are
+    not used."""
     device = _check(q, k, v, do)
     group = _group(q.shape[1], heads_per_program, device)
     if device == "cpu":
@@ -240,15 +325,26 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return dq, dk, dv
     b, h, t, d = q.shape
-    # per query row: the base-2 log-sum-exp and delta = do . o (f32 scratch)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    if _tensor_cores(q):
+        if o is None or lse is None:
+            o, lse = _launch_forward(q, k, v, False, 1, True)
+            LAUNCHES[STATS_KERNEL] += 1
+        _check(q, o)
+        if lse.shape != (b, h, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
+            raise ValueError(f"lse must be a contiguous float32 {(b, h, t)} tensor, got "
+                             f"{lse.dtype} {tuple(lse.shape)}")
+        q, k, v, do = (_rows16(z) for z in (q, k, v, do))
+    else:
+        # the row's base-2 log-sum-exp, computed by the first launch (f32 scratch)
+        o, lse = q, torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    # per query row: delta = do . o (f32 scratch)
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _lib(BWD_KERNEL).attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), b, h, t, d, _DTYPE_CODES[q.dtype],
-            _strides(q, k, v, do, dq, dk, dv), 1.0 / math.sqrt(d), group,
+            _strides(q, k, v, do, dq, dk, dv, o), 1.0 / math.sqrt(d), group,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{BWD_KERNEL} launch failed: cudaError {err}")
@@ -261,18 +357,25 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class FusedAttention(torch.autograd.Function):
     """The Pallas `fused_attention_trainable` custom VJP: the forward kernel
     as the primal, the recompute backward kernel as the VJP. Saves q, k, v
-    only (views of the projections, no copy); nothing of size T^2."""
+    (views of the projections, no copy) and, where the backward reads them
+    (CUDA, bf16, head_dim 8, exact maths), the output and each row's f32
+    log-sum-exp (B*H*T*4 bytes); nothing of size T^2."""
 
     @staticmethod
     def forward(ctx, q, k, v, fast_math=False, heads_per_program=1):
-        ctx.save_for_backward(q, k, v)
         ctx.heads_per_program = heads_per_program
+        if _tensor_cores(q) and not fast_math:
+            out, lse = _forward(q, k, v, False, heads_per_program, with_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+        ctx.save_for_backward(q, k, v)
         return _forward(q, k, v, fast_math, heads_per_program)
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        return (*fused_attention_bwd(q, k, v, do.to(q.dtype), ctx.heads_per_program),
+        q, k, v, *stats = ctx.saved_tensors
+        saved = dict(zip(("o", "lse"), stats))
+        return (*fused_attention_bwd(q, k, v, do.to(q.dtype), ctx.heads_per_program, **saved),
                 None, None)
 
 

@@ -5,7 +5,10 @@ yet): the flagship UNet at bf16 compute on f32 parameters, the hand-written
 attention forward and backward kernels and the f32-statistics GroupNorm,
 reference-parity TrainConfig (constant lr, no EMA); device-resident inputs
 whose contents vary per step; timed after one warm-up step, on the host
-clock between two `torch.cuda.synchronize()`.
+clock between two `torch.cuda.synchronize()`. Then PROFILE_STEPS more
+steps run under `torch.profiler`, whose device-side times give the device's
+busy time per step, its idle share of the timed step and the attention
+kernels' part.
 """
 from __future__ import annotations
 
@@ -16,13 +19,33 @@ import torch
 
 __all__ = ["measure_train_step"]
 
+PROFILE_STEPS = 3
+
+
+def _device_seconds(prof) -> tuple:
+    """(all, attention) seconds of device activity in a profiler window:
+    the device-side events (kernels, copies, sets), and those of the
+    hand-written attention kernels."""
+    from torch.autograd import DeviceType
+
+    busy = attention = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            busy += evt.self_device_time_total * 1e-6
+            if "attention_" in evt.key:
+                attention += evt.self_device_time_total * 1e-6
+    return busy, attention
+
 
 def measure_train_step(batch: int = 32, steps: int = 30, size: int = 128,
                        device: str = "cuda") -> Dict[str, Any]:
     """Time the flagship training step; returns raw (unrounded) metrics:
     sec_per_step, img_per_s, loss (of the last step), batch, steps,
     peak_bytes (the step's peak allocated device memory) and device (the
-    card's name). Raises without CUDA: a CPU time is not this number."""
+    card's name); from the PROFILE_STEPS steps under `torch.profiler`,
+    device_busy_s_per_step, idle_share (1 - busy / sec_per_step) and
+    attention_s_per_step, each None where the profiler recorded no device
+    time. Raises without CUDA: a CPU time is not this number."""
     from ..diffusion.schedules import DiffusionSchedule
     from ..model_manager import resolve_device
     from .train_ddpm import (TrainConfig, create_train_state, default_model,
@@ -46,7 +69,19 @@ def measure_train_step(batch: int = 32, steps: int = 30, size: int = 128,
         loss = step_fn(state, base * (1.0 + 1e-4 * i), gen)
     torch.cuda.synchronize(dev)
     sec = (time.perf_counter() - t0) / steps
-    return {"batch": batch, "steps": steps, "sec_per_step": sec,
-            "img_per_s": batch / sec, "loss": float(loss),
-            "peak_bytes": torch.cuda.max_memory_allocated(dev),
-            "device": torch.cuda.get_device_name(dev)}
+    result = {"batch": batch, "steps": steps, "sec_per_step": sec,
+              "img_per_s": batch / sec, "loss": float(loss),
+              "peak_bytes": torch.cuda.max_memory_allocated(dev),
+              "device": torch.cuda.get_device_name(dev)}
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(PROFILE_STEPS):
+            step_fn(state, base * (1.0 - 1e-4 * (i + 1)), gen)
+        torch.cuda.synchronize(dev)
+    busy, attention = (s / PROFILE_STEPS for s in _device_seconds(prof))
+    seen = busy > 0
+    result.update(device_busy_s_per_step=busy if seen else None,
+                  idle_share=1.0 - busy / sec if seen else None,
+                  attention_s_per_step=attention if seen else None)
+    return result

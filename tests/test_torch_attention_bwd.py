@@ -146,3 +146,66 @@ def test_trainable_passes_heads_per_program_to_the_backward(monkeypatch):
     q, k, v = (torch.from_numpy(z).requires_grad_() for z in _arrays((1, 4, 16, 8), 3))
     attention.fused_attention_trainable(q, k, v, heads_per_program=2).sum().backward()
     assert seen == [(2,)]
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 16, 8), (2, 4, 64, 8)])
+def test_lse_reference_matches_jax_logsumexp(shape):
+    """The forward's base-2 log-sum-exp: log2(e) times the natural one of
+    the reference logits q k^T / sqrt(D). Both in f32 with the scale
+    applied at different points: agreement to a few f32 ulps of values
+    near log2(T), 1e-5."""
+    q, k = _arrays(shape, 2, seed=8)
+    logits = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q), jnp.asarray(k),
+                        precision="highest") / np.sqrt(shape[-1])
+    want = np.asarray(jax.nn.logsumexp(logits, axis=-1)) * np.log2(np.e)
+    got = attention.attention_lse_reference(torch.from_numpy(q), torch.from_numpy(k))
+    assert got.dtype == torch.float32 and got.shape == shape[:3]
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+def _kernel_order_inputs(shape, seed, dtype):
+    q, k, v, do = (torch.from_numpy(z).to(dtype) for z in _arrays(shape, 4, seed=seed))
+    o = attention.attention_reference(q, k, v)
+    return q, k, v, do, o, attention.attention_lse_reference(q, k)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 16, 8), (2, 4, 64, 8)])
+def test_bwd_kernel_order_matches_pallas_bf16(shape):
+    """The bf16 backward kernel's rounding order, fed the plain forward's
+    bf16 output and log-sum-exp, against the Pallas backward in bf16
+    (interpret mode): P from the log-sum-exp instead of a normalised
+    softmax, and delta = do . o from the bf16 output instead of
+    rowsum(dp P), change bf16 rounding only: 2^-7 relative to max|g|, as
+    `test_bf16_bwd_reference_keeps_the_rounding_points`."""
+    q, k, v, do, o, lse = _kernel_order_inputs(shape, 9, torch.bfloat16)
+    want = jax_attention_bwd(*(jnp.asarray(z.float().numpy(), jnp.bfloat16)
+                               for z in (q, k, v, do)), interpret=True)
+    got = attention.attention_bwd_kernel_order(q, k, v, do, o, lse)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
+                                   atol=2 ** -7 * np.abs(w).max(), err_msg=name)
+
+
+def test_bwd_kernel_order_is_the_gradient_in_f32():
+    """In f32 the kernel's order is the same gradient as the Pallas one: P
+    from the log-sum-exp and delta = do . o equal the normalised softmax
+    and rowsum(dp P) in exact arithmetic; 5e-5 * max|g| as above."""
+    shape = (2, 4, 64, 8)
+    q, k, v, do, o, lse = _kernel_order_inputs(shape, 10, torch.float32)
+    want = jax_attention_bwd(*(jnp.asarray(z.numpy()) for z in (q, k, v, do)), interpret=True)
+    got = attention.attention_bwd_kernel_order(q, k, v, do, o, lse)
+    _assert_grads_close([g.numpy() for g in got], want)
+
+
+def test_statistics_come_from_the_cuda_kernel_only():
+    """On the CPU the forward has no log-sum-exp output, and the backward
+    is the plain version whatever statistics it is handed."""
+    q, k, v, do = (torch.from_numpy(z) for z in _arrays((1, 2, 16, 8), 4, seed=11))
+    with pytest.raises(ValueError):
+        attention.fused_attention(q, k, v, with_lse=True)
+    o, lse = attention.attention_reference(q, k, v), attention.attention_lse_reference(q, k)
+    for g, w in zip(attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse),
+                    attention.attention_bwd_reference(q, k, v, do)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)

@@ -286,3 +286,143 @@ def test_conditional_generator_runs_one_forward_per_step(cuda, tmp_path):
         assert result["generated"] == 4
         got = {key: attention.LAUNCHES[key] - before[key] for key in before}
         assert got[attention.KERNEL] == 2 * 6 and got[attention.FAST_KERNEL] == 0
+
+
+def test_f32_sidecar_written_without_tf32_reproduces(cuda, tmp_path, monkeypatch):
+    """An f32 image written on CUDA with cuDNN's TF32 off records that, and
+    `--reproduce` from a process with PyTorch's default (TF32 on) switches
+    it off for the regeneration: byte for byte."""
+    from synt_isic_tpu_torch.cli import reproduce_from_sidecar
+
+    cfg = UNet2DConfig(sample_size=32, block_out_channels=(32, 64, 64, 64))
+    torch.manual_seed(0)
+    torch.save(UNet2D(cfg).state_dict(), tmp_path / "unet_MEL_best.pth")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    gen = ImageGenerator(checkpoints_dir=str(tmp_path), device=cuda, model_config=cfg)
+    gen.scheduler_kind = "ddim"
+    gen.set_inference_steps(3)
+    gen.set_generation_seed(5)
+    assert gen.generate_images([("MEL", 1)], str(tmp_path / "out"))["generated"] == 1
+    sidecar = next((tmp_path / "out" / "MEL").glob("*.json"))
+    meta = json.loads(sidecar.read_text())
+    assert meta["scheduler"]["tf32"] == {
+        "cudnn": False, "matmul": torch.backends.cuda.matmul.allow_tf32}
+    torch.backends.cudnn.allow_tf32 = True
+    assert reproduce_from_sidecar(str(sidecar), str(tmp_path), model_config=cfg,
+                                  device="cuda") == 0
+    assert torch.backends.cudnn.allow_tf32 is True
+
+
+BWD_ORDER_TOL = 1e-2   # one bf16 ulp of max|g| (2^-7) plus f32 order and rare flips
+LSE_TOL = 1e-4         # f32 sums of up to 1024 terms in another order
+
+
+def _bf16_args(cuda, shape, layout, seed):
+    b, h, t, d = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    args = [torch.randn(shape, generator=g, device=cuda).bfloat16() for _ in range(4)]
+    if layout == "BTC":
+        args = [z.transpose(1, 2).reshape(b, t, h * d).view(b, t, h, d).transpose(1, 2)
+                for z in args]
+    return args
+
+
+@pytest.mark.parametrize("layout", ["BHTD", "BTC"])
+@pytest.mark.parametrize("shape", [(2, 32, 1024, 8), (8, 32, 256, 8), (1, 2, 101, 8)])
+def test_bf16_bwd_from_saved_statistics(cuda, shape, layout):
+    """The tensor-core backward from the exact forward's output and
+    log-sum-exp: within BWD_TOL of the plain version, within BWD_ORDER_TOL
+    of the plain version of its own rounding, two calls torch.equal, and no
+    statistics launch."""
+    q, k, v, do = _bf16_args(cuda, shape, layout, 11)
+    o, lse = attention.fused_attention(q, k, v, with_lse=True)
+    before = dict(attention.LAUNCHES)
+    got = attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse)
+    again = attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES[attention.BWD_KERNEL] == before[attention.BWD_KERNEL] + 2
+    assert attention.LAUNCHES[attention.STATS_KERNEL] == before[attention.STATS_KERNEL]
+    want = attention.attention_bwd_reference(q, k, v, do)
+    order = attention.attention_bwd_kernel_order(q, k, v, do, o, lse)
+    for name, a, w, r, a2 in zip(("dq", "dk", "dv"), got, want, order, again):
+        assert torch.equal(a, a2), name
+        for ref, tol in ((w, BWD_TOL[torch.bfloat16]), (r, BWD_ORDER_TOL)):
+            torch.testing.assert_close(a.float(), ref.float(), rtol=0,
+                                       atol=tol * ref.float().abs().max().item(), msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["BHTD", "BTC"])
+def test_forward_lse_leaves_the_output_unchanged(cuda, dtype, layout):
+    """The exact forward's output is torch.equal with and without the
+    log-sum-exp output, at every G, and the log-sum-exp matches its plain
+    version."""
+    q, k, v, _ = (z.to(dtype) for z in _bf16_args(cuda, (2, 32, 256, 8), layout, 12))
+    want = attention.attention_lse_reference(q, k)
+    for group in (1, 2, 4, 8):
+        out, lse = attention.fused_attention(q, k, v, heads_per_program=group, with_lse=True)
+        assert torch.equal(out, attention.fused_attention(q, k, v, heads_per_program=group))
+        assert lse.dtype == torch.float32 and lse.shape == q.shape[:3]
+        torch.testing.assert_close(lse, want, rtol=0, atol=LSE_TOL)
+    with pytest.raises(ValueError):
+        attention.fused_attention(q, k, v, fast_math=True, with_lse=True)
+
+
+@pytest.mark.parametrize("layout", ["BHTD", "BTC"])
+def test_bf16_bwd_from_saved_statistics_grouped_is_bit_identical(cuda, layout):
+    q, k, v, do = _bf16_args(cuda, (2, 32, 1024, 8), layout, 13)
+    o, lse = attention.fused_attention(q, k, v, with_lse=True)
+    base = attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse)
+    for group in (2, 4, 8):
+        got = attention.fused_attention_bwd(q, k, v, do, group, o=o, lse=lse)
+        for name, a, w in zip(("dq", "dk", "dv"), got, base):
+            assert torch.equal(a, w), (group, name)
+
+
+def test_exact_trainable_reads_its_saved_statistics(cuda):
+    """K4 in bf16 at head_dim 8, exact maths: one forward and one backward
+    launch, no statistics launch; the same gradients as the backward from
+    the forward's statistics."""
+    q, k, v, do = _bf16_args(cuda, (2, 32, 1024, 8), "BTC", 14)
+    leaves = [z.detach().requires_grad_() for z in (q, k, v)]
+    before = dict(attention.LAUNCHES)
+    got = torch.autograd.grad(attention.fused_attention_trainable(*leaves), leaves, do)
+    torch.cuda.synchronize()
+    launched = {key: attention.LAUNCHES[key] - before[key] for key in before}
+    assert launched[attention.KERNEL] == launched[attention.BWD_KERNEL] == 1
+    assert launched[attention.STATS_KERNEL] == 0
+    o, lse = attention.fused_attention(q, k, v, with_lse=True)
+    for a, w in zip(got, attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse)):
+        assert torch.equal(a, w)
+
+
+def test_fast_math_trainable_runs_one_statistics_launch(cuda):
+    """K4 with fast math keeps the exact softmax's derivative: its backward
+    runs one exact statistics launch first, and its gradients are
+    torch.equal to the standalone backward's."""
+    q, k, v, do = _bf16_args(cuda, (2, 32, 1024, 8), "BTC", 15)
+    leaves = [z.detach().requires_grad_() for z in (q, k, v)]
+    before = dict(attention.LAUNCHES)
+    got = torch.autograd.grad(attention.fused_attention_trainable(*leaves, True), leaves, do)
+    torch.cuda.synchronize()
+    launched = {key: attention.LAUNCHES[key] - before[key] for key in before}
+    assert launched[attention.FAST_KERNEL] == launched[attention.BWD_KERNEL] == 1
+    assert launched[attention.STATS_KERNEL] == 1 and launched[attention.KERNEL] == 0
+    for a, w in zip(got, attention.fused_attention_bwd(q, k, v, do)):
+        assert torch.equal(a, w)
+
+
+def test_bf16_bwd_takes_any_layout(cuda):
+    """Rows the tensor-core kernels cannot stage by 16-byte copies (a
+    broadcast output gradient, as `out.sum()` gives, and channels that are
+    not contiguous) are copied first: the same gradients, bit for bit, as
+    from dense tensors."""
+    q, k, v, _ = _bf16_args(cuda, (2, 32, 256, 8), "BHTD", 16)
+    do = torch.ones((), device=cuda, dtype=torch.bfloat16).expand(q.shape)
+    q_strided = q.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert do.stride() == (0, 0, 0, 0) and q_strided.stride(-1) != 1
+    o, lse = attention.fused_attention(q, k, v, with_lse=True)
+    want = attention.fused_attention_bwd(q, k, v, do.contiguous(), o=o, lse=lse)
+    got = attention.fused_attention_bwd(q_strided, k, v, do, o=o, lse=lse)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.equal(a, w), name

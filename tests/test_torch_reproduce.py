@@ -13,7 +13,7 @@ from synt_isic_tpu.io.convert import flax_to_torch
 from synt_isic_tpu.io.pth import save_pth
 from synt_isic_tpu_torch import cli
 from synt_isic_tpu_torch.cli import ConsoleGenerator, reproduce_from_sidecar
-from synt_isic_tpu_torch.generator import ImageGenerator
+from synt_isic_tpu_torch.generator import ImageGenerator, tf32_state
 
 from tests.torch_port_fixtures import TINY, TINY_JAX, jax_params
 
@@ -158,6 +158,46 @@ def test_attention_fast_math_is_pinned(tmp_path, ckpt_dir, monkeypatch):
     redo = _assert_reproduces(sidecar, ckpt_dir)
     assert redo["scheduler"]["attention_fast_math"] is True
     assert tuned[-1].attention_fast_math and tuned[-1].attention_heads_per_program == 1
+
+
+def test_tf32_is_recorded_for_f32_on_cuda_only(tmp_path, ckpt_dir, monkeypatch):
+    """The TF32 switches change an f32 image's bytes on CUDA only: they are
+    recorded there (whatever they are set to), and nowhere else."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    assert tf32_state(torch.device("cuda"), torch.float32) == {
+        "tf32": {"cudnn": False, "matmul": True}}
+    assert tf32_state(torch.device("cuda"), torch.bfloat16) == {}
+    assert tf32_state(torch.device("cpu"), torch.float32) == {}
+    sidecar = _generate(tmp_path, ckpt_dir)[0]
+    assert "tf32" not in json.loads(sidecar.read_text())["scheduler"]
+
+
+def test_recorded_tf32_is_set_for_the_regeneration_only(tmp_path, ckpt_dir, monkeypatch):
+    """A sidecar's `tf32` switches are in force while its image is
+    regenerated and restored afterwards; a sidecar without them leaves the
+    process's switches as they are."""
+    sidecar = _generate(tmp_path, ckpt_dir)[0]
+    seen = []
+    regenerate = ImageGenerator.regenerate_block_image
+    single = ImageGenerator.generate_single_image
+
+    def flags():
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+
+    monkeypatch.setattr(ImageGenerator, "regenerate_block_image",
+                        lambda self, *a, **kw: (flags(), regenerate(self, *a, **kw))[1])
+    monkeypatch.setattr(ImageGenerator, "generate_single_image",
+                        lambda self, *a, **kw: (flags(), single(self, *a, **kw))[1])
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    recorded = (not before[0], not before[1])
+    edited = _edit(sidecar, tmp_path, lambda m: m["scheduler"].update(
+        tf32={"cudnn": recorded[0], "matmul": recorded[1]}))
+    _assert_reproduces(edited, ckpt_dir)
+    assert seen == [recorded]
+    assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == before
+    _assert_reproduces(sidecar, ckpt_dir)
+    assert seen == [recorded, before]
 
 
 @pytest.mark.parametrize("field", ["conditional", "img2img", "dp_mesh"])

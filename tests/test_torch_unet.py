@@ -61,13 +61,32 @@ def test_fused_flag_is_the_plain_path_on_cpu(params, inputs):
 
 
 def test_timestep_embedding_matches_jax():
+    """Both embeddings against a float64 evaluation of the same formula,
+    per element. Each side computes in f32 the exponent e = -ln(P) i / half
+    (two roundings, relative 2^-24 each), f = exp(e) (within one f32 ulp,
+    2^-23 relative), and the argument x = t f (half an ulp of x). So x is
+    within half an ulp of x plus |x| 2^-24 (2|e| + 2) of the exact t
+    exp(e); sin and cos have slope at most 1, and their f32 results add a
+    few ulps (4 x 2^-24 for values up to 1). At t = 999 the largest
+    argument is 999, where half an f32 ulp alone is 3.05e-5."""
     from synt_isic_tpu.models.unet2d import get_timestep_embedding as jax_embedding
 
     t = np.array([0, 1, 250, 999])
+    u = 2.0 ** -24
     for dim, flip in ((64, True), (33, False)):
-        want = np.asarray(jax_embedding(jnp.asarray(t), dim, flip_sin_to_cos=flip))
-        got = get_timestep_embedding(torch.from_numpy(t), dim, flip_sin_to_cos=flip)
-        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+        half = dim // 2
+        e = -np.log(10000.0) * np.arange(half) / half
+        x = t[:, None] * np.exp(e)[None, :]
+        want = np.concatenate([np.cos(x), np.sin(x)] if flip else [np.sin(x), np.cos(x)], -1)
+        bound = np.spacing(x.astype(np.float32)) / 2 + x * u * (2 * np.abs(e) + 2)
+        tol = np.concatenate([bound, bound], -1) + 4 * u
+        if dim % 2:
+            want, tol = (np.pad(z, ((0, 0), (0, 1))) for z in (want, tol))
+        for got in (np.asarray(jax_embedding(jnp.asarray(t), dim, flip_sin_to_cos=flip)),
+                    get_timestep_embedding(torch.from_numpy(t), dim,
+                                           flip_sin_to_cos=flip).numpy()):
+            assert got.shape == want.shape
+            assert np.all(np.abs(got - want) <= tol), (dim, np.abs(got - want).max())
 
 
 def test_full_width_state_dict_matches_manifest():
