@@ -12,12 +12,17 @@ Phases, each of which exits non-zero on failure:
   2. build every hand-written kernel from the sources in the checkout, all
      `nvcc`s at once, with each kernel's registers and spills, and the
      SASS count of HMMA (tensor-core) and MUFU.EX2 instructions in the bf16
-     backward's two kernels, which must hold HMMA;
+     head_dim-8 kernels (the forward's 8 instances, exact and fast math at
+     G 1/2/4/8, and the backward's two kernels at each G), each of which
+     must hold HMMA and spill nothing;
   3. the attention forward against its plain PyTorch version at the
      sampling path's shapes (and at batch 16, the guided sampler's and the
-     trainer's), in both layouts, then timed beside its bound (the largest
-     of bytes, products and one pass of exponentials), the plain version
-     and `scaled_dot_product_attention`;
+     trainer's, and at ragged T, 101 and 1000), in both layouts; in bf16 at
+     head_dim 8 also its log-sum-exp against `attention_lse_reference` and
+     the output torch.equal with and without it; then timed beside its
+     bound (the largest of bytes, products and one pass of exponentials),
+     the plain version and `scaled_dot_product_attention`, launched from
+     the host and, for the device time alone, replayed from a CUDA graph;
   4. the attention backward likewise at the training path's shapes; in
      bf16 (the tensor-core kernels) also from the exact forward's saved
      output and log-sum-exp: the output torch.equal with and without the
@@ -53,12 +58,15 @@ Phases, each of which exits non-zero on failure:
      layouts: within 1e-2 of its plain version, within the JAX package's
      fast-math tolerance (rtol 0.05, atol 0.02) of exact attention, and
      within 5e-6 in f32 (one bf16 ulp in bf16) of the plain version of its
-     own rounding order, a limit the exact kernel must miss in f32; timed
-     beside the exact kernel, its bound, the plain version and
-     `scaled_dot_product_attention`;
+     own rounding order (`attention_fast_math_kernel_order` at the kernel's
+     keys per max update: 2 in f32, 64 on the bf16 tensor-core kernel), a
+     limit the exact kernel must miss in f32; in bf16, at logits 8x wider,
+     the exact kernel's mean distance from that order must exceed the fast
+     kernel's FAST_SEPARATION times; timed beside the exact kernel, its
+     bound, the plain version and `scaled_dot_product_attention`;
  10. [kernel-group] heads_per_program G in {1, 2, 4, 8} at (8,32,1024,8), f32
-     and bf16, exact and fast math: every G torch.equal to G = 1, and a time
-     for each; G* is the fastest G > 1 for fast math in bf16, the variant
+     and bf16, exact and fast math: every G torch.equal to G = 1 (exact:
+     the log-sum-exp too), and a time for each; G* is the fastest G > 1 for fast math in bf16, the variant
      [generator] runs, whose error and time the `kernels` line reports;
  11. [generator] the library path: `ImageGenerator` (bf16 compute) on the
      full-width random checkpoint, `set_attention_tuning(G*, fast_math=True)`,
@@ -174,6 +182,9 @@ BWD_ORDER_TOL = 1e-2
 # the forward's base-2 log-sum-exp against its plain version: f32 sums of up
 # to T = 1024 terms in another order, T * 2^-24 / ln 2 = 8.8e-5 at worst
 LSE_TOL = 1e-4
+# ragged T (a short last key tile, a short last block of rows), checked in
+# both dtypes and in bf16 at head_dim 8 (the tensor-core kernel) with its lse
+RAGGED_SHAPES = [(2, 4, 101, 8), (2, 32, 1000, 8)]
 # whole-UNet parameter gradients, per parameter as max|diff| / max|g|. f32
 # (full-f32 convolutions): kernel path vs plain attention within 1e-3. bf16
 # compute on f32 parameters: every layer rounds to 8 bits of mantissa, and
@@ -197,11 +208,26 @@ BENCH_BATCH, BENCH_STEPS = 32, 10
 # (`attention_fast_math_kernel_order`). In f32 within 5e-6: the [kernel-fast]
 # lines on the H100 read under 1e-6 for the kernel there and over 1e-3 for
 # the exact kernel, which must miss it. In bf16 one bf16 ulp of the output,
-# as TOL, a limit both meet: the f32 check tells fast from exact for both
-# types, which share the kernel's code.
+# as TOL, a limit both meet. In bf16 at head_dim 8 the fast and exact paths
+# run the tensor-core kernel, which shares no code with the f32 one, so a
+# second check tells them apart there: at logits FAST_WIDE_Q times wider (q
+# scaled), where the bf16 rounding of the shifted logits weighs more, the
+# mean |diff| of each kernel from the fast-math rounding order. The fast
+# kernel differs from it only where an f32-level difference (summation
+# order, ex2.approx's 2^-22, the tensor cores' f32 accumulation) meets a
+# bf16 rounding point, a small fraction of the outputs; the exact kernel at
+# every weight by the bf16 rounding of its shifted logit (relative
+# 2^-9 |x| ln 2), which moves a large share of the outputs by one ulp. The
+# exact kernel must lie more than FAST_SEPARATION times as far as the fast
+# one. On the plain versions (tests/test_torch_attention_fast.py), where only
+# the f32 rounding of the rescale separates the kernel's walk from the order
+# function, the two are orders of magnitude apart; on the card the tensor
+# cores' f32 accumulation and ex2.approx add f32-level differences of their
+# own, and the factor 10 leaves room for them.
 FAST_TOL = 1e-2
 FAST_VS_EXACT = {"rtol": 0.05, "atol": 0.02}
 FAST_ORDER_TOL = {torch.float32: 5e-6, torch.bfloat16: 2.0 ** -6}
+FAST_WIDE_Q, FAST_SEPARATION = 8.0, 10.0
 GROUP_SHAPE = (8, 32, 1024, 8)       # grouped_attention's own shape
 GROUPS = (1, 2, 4, 8)
 GEN_IMAGES, GEN_SEED = 16, 1234
@@ -250,6 +276,25 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """Mean device time of one call of `fn`, `calls` calls captured in a
+    CUDA graph and replayed, so that no host work (the wrapper's checks,
+    allocation, the launch itself) sits between the kernels: the time the
+    card takes, where `cuda_ms` of a short kernel measures the host."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()                                 # warm-up off the default stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, iters=5, warmup=1) / calls
+    del graph
+    return ms
 
 
 def _largest_bound(bytes_ms: float, ops_ms: float, exp_ms: float) -> tuple[float, str, str]:
@@ -307,45 +352,64 @@ def phase_card() -> dict:
             "count": torch.cuda.device_count()}
 
 
+# the bf16 head_dim-8 kernels, on the tensor cores: instances per source
+TC_KERNELS = {attention.KERNEL: {"attention_fwd_tc_kernel": 2 * len(GROUPS)},
+              attention.BWD_KERNEL: {"attention_bwd_dq_tc_kernel": len(GROUPS),
+                                     "attention_bwd_dkdv_tc_kernel": len(GROUPS)}}
+_KERNEL_NAME = re.compile(r"(attention_[a-z_]+?_kernel)(I\w*?E)Ev")
+
+
+def _kernel_label(mangled: str) -> str:
+    """`name<args>` from a mangled kernel name, e.g. attention_fwd_tc_kernel<2, true>."""
+    found = _KERNEL_NAME.search(mangled)
+    if not found:
+        return mangled
+    args = re.findall(r"Li(\d+)E|Lb([01])E|13__nv_(bfloat16)|(f)", found.group(2)[1:-1])
+    words = [i or {"0": "false", "1": "true"}.get(b, "") or t or "float" for i, b, t, _ in args]
+    return f"{found.group(1)}<{', '.join(words)}>"
+
+
 def phase_build() -> None:
     t0 = time.time()
     names = [attention.KERNEL, attention.BWD_KERNEL]
     logs = native.build(names)
     print(f"[build] {', '.join(names)} in {time.time() - t0:.1f} s", flush=True)
+    cuobjdump = Path(native._nvcc()).with_name("cuobjdump")
     for name in names:
         kernel = ""
         for line in logs.get(name, "").splitlines():
-            entry = re.search(r"(attention_[a-z_]+_kernel)I", line)
-            if "Compiling entry function" in line and entry:
-                kernel = f"{entry.group(1)}: "
+            if "Compiling entry function" in line:
+                kernel = _kernel_label(line)
             if "registers" in line or "spill" in line:
-                print(f"[build]   {name}: {kernel}{line.strip()}", flush=True)
-    # the bf16 backward's two kernels run their products on the tensor cores
-    cuobjdump = Path(native._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(native.library_path(attention.BWD_KERNEL))],
-                          capture_output=True, text=True, check=True).stdout
-    counts, kernel = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            kernel = line.split("Function :")[1].strip()
-            counts[kernel] = {"HMMA": 0, "MUFU.EX2": 0}
-        elif kernel is not None:
-            for op in counts[kernel]:
-                counts[kernel][op] += op in line
-    for label in ("attention_bwd_dq_tc_kernel", "attention_bwd_dkdv_tc_kernel"):
-        found = {k: c for k, c in counts.items() if label in k}
-        check(len(found) == len(GROUPS) and all(c["HMMA"] > 0 for c in found.values()),
-              f"[build] no HMMA in {label}: {found}")
-        for k, c in sorted(found.items()):
-            group = re.search(r"ILi(\d+)E", k).group(1)
-            print(f"[build]   SASS of {label}<G={group}>: {c['HMMA']} HMMA, "
-                  f"{c['MUFU.EX2']} MUFU.EX2", flush=True)
+                print(f"[build]   {name}: {kernel}: {line.strip()}", flush=True)
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spills and "_tc_kernel" in kernel:
+                check(spills.group(1) == spills.group(2) == "0",
+                      f"[build] {kernel} spills: {line.strip()}")
+        # the bf16 head_dim-8 kernels run their products on the tensor cores
+        sass = subprocess.run([str(cuobjdump), "-sass", str(native.library_path(name))],
+                              capture_output=True, text=True, check=True).stdout
+        counts, kernel = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                kernel = _kernel_label(line.split("Function :")[1].strip())
+                counts[kernel] = {"HMMA": 0, "MUFU.EX2": 0}
+            elif kernel is not None:
+                for op in counts[kernel]:
+                    counts[kernel][op] += op in line
+        for label, want in TC_KERNELS[name].items():
+            found = {k: c for k, c in counts.items() if k.startswith(label + "<")}
+            check(len(found) == want and all(c["HMMA"] > 0 for c in found.values()),
+                  f"[build] HMMA missing in {label} (want {want} instances): {found}")
+            for k, c in sorted(found.items()):
+                print(f"[build]   SASS of {k}: {c['HMMA']} HMMA, {c['MUFU.EX2']} MUFU.EX2",
+                      flush=True)
 
 
 def phase_kernel() -> dict:
     g = torch.Generator(device="cuda").manual_seed(0)
     # the CFG sampler's 2B-batched forward gives batch 16 (checked, not timed)
-    shapes = MAIN_SHAPES + TRAIN_SHAPES + [(2, 4, 64, 4)]
+    shapes = MAIN_SHAPES + TRAIN_SHAPES + RAGGED_SHAPES + [(2, 4, 64, 4)]
     report = {}
     for shape in shapes:
         b, h, t, d = shape
@@ -371,17 +435,30 @@ def phase_kernel() -> dict:
                       f"{'ok' if ok else 'FAIL'}", flush=True)
                 check(ok, f"attention kernel disagrees with plain at {shape} {dtype} {layout}")
                 report[(shape, dtype, layout)] = max_abs
+                if dtype == torch.bfloat16 and d == 8:
+                    # the tensor-core kernel's log-sum-exp, and the output
+                    # unchanged by writing it
+                    out, lse = attention.fused_attention(*args, with_lse=True)
+                    lse_err = (lse - attention.attention_lse_reference(q, k)).abs().max().item()
+                    print(f"[kernel]   with lse: output torch.equal {torch.equal(out, got)}, "
+                          f"lse max_abs_err {lse_err:.3e} (allowed {LSE_TOL:.0e})", flush=True)
+                    check(torch.equal(out, got) and lse_err <= LSE_TOL,
+                          f"forward lse at {shape} {layout}")
             if shape in MAIN_SHAPES:
                 kernel_ms = cuda_ms(lambda: attention.fused_attention(*views))
+                device_ms = graph_ms(lambda: attention.fused_attention(*views))
                 plain_ms = cuda_ms(lambda: attention.attention_reference(q, k, v))
                 library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+                library_device_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
                 bound, bound_by, exp_ms, unit = attention_bound_ms(shape, dtype)
-                print(f"[time] attention {shape} {str(dtype)[6:]}: kernel {kernel_ms:.4f} ms, "
-                      f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-                      f"{bound:.4f} ms ({unit}), exponentials on the SFUs "
-                      f"{exp_ms:.4f} ms", flush=True)
+                print(f"[time] attention {shape} {str(dtype)[6:]}: kernel {kernel_ms:.4f} ms "
+                      f"({device_ms:.4f} ms on the device alone, from a CUDA graph), plain "
+                      f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms ({library_device_ms:.4f} "
+                      f"from a graph), bound {bound:.4f} ms ({unit}), exponentials on the "
+                      f"SFUs {exp_ms:.4f} ms", flush=True)
                 report[(shape, dtype, "time")] = dict(
-                    ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                    ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms,
+                    library_ms=library_ms, library_device_ms=library_device_ms,
                     bound_ms=bound, bound_by=bound_by)
     return report
 
@@ -510,7 +587,8 @@ def phase_kernel_fast() -> dict:
             q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
                        for _ in range(3))
             plain = attention.attention_fast_math_reference(q, k, v).float()
-            order = attention.attention_fast_math_kernel_order(q, k, v).float()
+            step = attention.fast_math_step(q)
+            order = attention.attention_fast_math_kernel_order(q, k, v, step).float()
             exact = attention.attention_reference(q, k, v).float()
             order_tol = FAST_ORDER_TOL[dtype]
             views = _btc_views(q, k, v)
@@ -529,8 +607,8 @@ def phase_kernel_fast() -> dict:
                 ok = err <= FAST_TOL and near and err_order <= order_tol
                 print(f"[kernel-fast] {shape} {str(dtype)[6:]:8s} {layout}: max_abs_err "
                       f"{err:.3e} vs its plain version (allowed {FAST_TOL:.0e}), "
-                      f"{err_order:.3e} vs its own rounding order (allowed "
-                      f"{order_tol:.2e}), {err_exact:.3e} vs exact attention (rtol "
+                      f"{err_order:.3e} vs its own rounding order at {step} keys per max "
+                      f"update (allowed {order_tol:.2e}), {err_exact:.3e} vs exact attention (rtol "
                       f"{FAST_VS_EXACT['rtol']}, atol {FAST_VS_EXACT['atol']}: "
                       f"{'within' if near else 'OUTSIDE'}) {'ok' if ok else 'FAIL'}",
                       flush=True)
@@ -541,31 +619,55 @@ def phase_kernel_fast() -> dict:
             exact_kernel = attention.fused_attention(*views).float()
             miss = (exact_kernel - order).abs().max().item()
             rule = (f"must exceed {order_tol:.2e}" if dtype == torch.float32
-                    else "not checked in bf16")
+                    else "not checked in bf16: see below")
             print(f"[kernel-fast] {shape} {str(dtype)[6:]:8s} exact kernel: max_abs_err "
                   f"{miss:.3e} vs the fast-math rounding order ({rule})", flush=True)
             check(dtype != torch.float32 or miss > order_tol,
                   f"the exact kernel passes the fast-math order check at {shape}")
+            if dtype == torch.bfloat16:
+                check_fast_separation(shape, q, k, v)
             # in turns: exact, fast, fast, exact
             exact_ms = cuda_ms(lambda: attention.fused_attention(*views))
             fast_ms = cuda_ms(lambda: attention.fused_attention(*views, fast_math=True))
             fast_ms2 = cuda_ms(lambda: attention.fused_attention(*views, fast_math=True))
             exact_ms2 = cuda_ms(lambda: attention.fused_attention(*views))
+            device_ms = graph_ms(lambda: attention.fused_attention(*views, fast_math=True))
             plain_ms = cuda_ms(lambda: attention.attention_fast_math_reference(q, k, v),
                                iters=5)
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
             bound, bound_by, exp_ms, unit = attention_bound_ms(shape, dtype)
             print(f"[time] attention fast math {shape} {str(dtype)[6:]}: kernel "
-                  f"{fast_ms:.4f} / {fast_ms2:.4f} ms, exact kernel {exact_ms:.4f} / "
+                  f"{fast_ms:.4f} / {fast_ms2:.4f} ms ({device_ms:.4f} ms on the device alone, "
+                  f"from a CUDA graph), exact kernel {exact_ms:.4f} / "
                   f"{exact_ms2:.4f} ms (in turns), plain {plain_ms:.4f} ms, sdpa "
                   f"{library_ms:.4f} ms, bound {bound:.4f} ms ({unit}), "
                   f"exponentials on the SFUs {exp_ms:.4f} ms", flush=True)
             report[(shape, dtype, "time")] = dict(
-                ms=min(fast_ms, fast_ms2), exact_ms=min(exact_ms, exact_ms2),
+                ms=min(fast_ms, fast_ms2), device_ms=device_ms,
+                exact_ms=min(exact_ms, exact_ms2),
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
                 bound_by=bound_by)
             del q, k, v, plain, order, exact, exact_kernel, views
     return report
+
+
+def check_fast_separation(shape, q, k, v) -> None:
+    """bf16: at logits FAST_WIDE_Q times wider, the exact kernel's mean
+    distance from the fast-math rounding order exceeds the fast kernel's
+    FAST_SEPARATION times (see FAST_SEPARATION)."""
+    wide = (q.float() * FAST_WIDE_Q).to(q.dtype)
+    views = _btc_views(wide, k, v)
+    order = attention.attention_fast_math_kernel_order(
+        wide, k, v, attention.fast_math_step(wide)).float()
+    fast = (attention.fused_attention(*views, fast_math=True).float() - order).abs()
+    exact = (attention.fused_attention(*views).float() - order).abs()
+    fast_mean, exact_mean = fast.mean().item(), exact.mean().item()
+    ok = exact_mean > FAST_SEPARATION * fast_mean
+    print(f"[kernel-fast] {shape} bfloat16, q x {FAST_WIDE_Q:g}: mean |diff| from the "
+          f"fast-math rounding order: fast kernel {fast_mean:.3e} (max {fast.max().item():.3e}), "
+          f"exact kernel {exact_mean:.3e}: {exact_mean / max(fast_mean, 1e-30):.1f}x (must "
+          f"exceed {FAST_SEPARATION:g}x) {'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"bf16 fast math not told from exact at {shape}")
 
 
 def phase_kernel_group() -> dict:
@@ -578,6 +680,8 @@ def phase_kernel_group() -> dict:
         for fast_math in (False, True):
             math_name = "fast" if fast_math else "exact"
             base = attention.fused_attention(*views, fast_math=fast_math)
+            if not fast_math:
+                _, base_lse = attention.fused_attention(*views, with_lse=True)
             times = {}
             for group in GROUPS:
                 before = attention.LAUNCHES[attention.GROUPED_KERNEL]
@@ -588,11 +692,17 @@ def phase_kernel_group() -> dict:
                       == before + (group > 1), "grouped launch not counted")
                 check(torch.equal(got, base),
                       f"G={group} {math_name} {dtype}: not bit-identical to G=1")
+                if not fast_math:
+                    _, lse = attention.fused_attention(*views, heads_per_program=group,
+                                                       with_lse=True)
+                    check(torch.equal(lse, base_lse),
+                          f"G={group} {dtype}: log-sum-exp not bit-identical to G=1")
                 times[group] = cuda_ms(lambda: attention.fused_attention(
                     *views, fast_math=fast_math, heads_per_program=group))
             report[(dtype, math_name)] = times
             print(f"[kernel-group] {GROUP_SHAPE} {str(dtype)[6:]:8s} {math_name}: "
-                  f"G in {GROUPS} torch.equal to G=1; kernel ms "
+                  f"G in {GROUPS} torch.equal to G=1"
+                  f"{'' if fast_math else ' (output and lse)'}; kernel ms "
                   + ", ".join(f"G={grp} {ms:.4f}" for grp, ms in times.items()),
                   flush=True)
         if dtype == torch.bfloat16:
@@ -602,7 +712,8 @@ def phase_kernel_group() -> dict:
             got = attention.fused_attention(*views, fast_math=True,
                                             heads_per_program=report["g_star"]).float()
             plain = attention.attention_fast_math_reference(q, k, v).float()
-            order = attention.attention_fast_math_kernel_order(q, k, v).float()
+            order = attention.attention_fast_math_kernel_order(
+                q, k, v, attention.fast_math_step(q)).float()
             report["max_abs_err"] = (got - plain).abs().max().item()
             report["max_abs_err_kernel_order"] = (got - order).abs().max().item()
             check(report["max_abs_err"] <= FAST_TOL
@@ -1366,6 +1477,7 @@ def main() -> int:
 
     shape, dtype = MAIN_SHAPES[0], torch.float32
     timing = kernel_report[(shape, dtype, "time")]
+    timing_bf16 = kernel_report[(shape, torch.bfloat16, "time")]
     bwd_shape = TRAIN_SHAPES[0]
     bwd_timing = bwd_report[(bwd_shape, dtype, "time")]
     bwd_bf16 = bwd_report[(bwd_shape, torch.bfloat16, "time")]
@@ -1389,6 +1501,18 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
+        "device_ms": timing["device_ms"],
+        "library_device_ms": timing["library_device_ms"],
+        # bf16 (the tensor-core kernel, which the training path's launches
+        # run): host-launched and from a CUDA graph, beside SDPA
+        "max_abs_err_bf16": kernel_report[(shape, torch.bfloat16, "BTC")],
+        "ms_bf16": timing_bf16["ms"],
+        "device_ms_bf16": timing_bf16["device_ms"],
+        "plain_ms_bf16": timing_bf16["plain_ms"],
+        "bound_ms_bf16": timing_bf16["bound_ms"],
+        "bound_by_bf16": timing_bf16["bound_by"],
+        "library_ms_bf16": timing_bf16["library_ms"],
+        "library_device_ms_bf16": timing_bf16["library_device_ms"],
         "shape": list(shape),
         "dtype": "float32",
     }, {
@@ -1467,6 +1591,7 @@ def main() -> int:
         "bound_by": fast_timing["bound_by"],
         "library_ms": fast_timing["library_ms"],
         "exact_ms": fast_timing["exact_ms"],
+        "device_ms": fast_timing["device_ms"],
         "shape": list(MAIN_SHAPES[0]),
         "dtype": "bfloat16",
     }, {

@@ -92,6 +92,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
 constexpr int kBlock = 128;  // rows per block and head, one thread per (row, head)
@@ -102,10 +104,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int D, int G>
 struct TileRows {
   static constexpr int value = 4096 / (G * D) < 128 ? 4096 / (G * D) : 128;
-};
-
-struct Strides {
-  int64_t b, h, t, d;
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -401,115 +399,6 @@ cudaError_t launch_group(int group, const void* q, const void* k, const void* v,
 // bf16, D = 8: the tensor-core kernels (see the top of the file)
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kTcWarps = 4;              // warps per head and block, 16 rows each
-constexpr int kTcRows = 16 * kTcWarps;   // rows per block and head
-constexpr int kTcTile = 64;              // rows of the other side per staged tile
-// blocks per SM at G = 1 (G heads per block: 1/G of them), so that 32 warps
-// per SM hide the special-function units' latency; it caps registers at 64
-constexpr int kTcBlocksPerSM = 8;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Two 8x8 bf16 matrices from shared memory, their rows addressed by lanes
-// 0-7 and 8-15: as stored (each lane gets row lane/4, columns 2(lane%4) and
-// +1), or transposed (column lane/4, rows 2(lane%4) and +1).
-__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
-}
-
-// c += a b on the tensor cores, bf16 in, f32 accumulated: a 16 x 8 (k8) or
-// 16 x 16 (k16) row-major A fragment, an 8 x 8 or 16 x 8 B fragment
-__device__ __forceinline__ void mma_k8(float* c, const uint32_t* a, uint32_t b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b));
-}
-
-__device__ __forceinline__ void mma_k16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two f32 values rounded to bf16 (round to nearest even), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float lo_f32(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float hi_f32(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
-
-// 2^x on the special-function unit (relative error about 2^-22; 2^-inf = 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// channels (d, d + 1) of one row as a bf16 pair, zeros for a row past the end
-__device__ __forceinline__ uint32_t load_pair(const bf16* base, Strides s, int row,
-                                              int d, bool ok) {
-  if (!ok) return 0u;
-  const bf16* p = base + row * s.t + d * s.d;
-  __nv_bfloat162 v;
-  v.x = p[0];
-  v.y = p[s.d];
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Stage rows [r0, r0 + kTcTile) of G heads (from head h0 on, at xb and yb)
-// of x and y into xt[g * kTcTile + r] and yt[...], 16 bytes (one row of one
-// head) per cp.async, one per thread; rows past seq_len are zeros.
-template <int G>
-__device__ __forceinline__ void stage_rows(uint4* xt, uint4* yt, const bf16* xb,
-                                           const bf16* yb, Strides sx, Strides sy,
-                                           int r0, int seq_len) {
-  constexpr int kChunks = G * kTcTile;
-  static_assert(2 * kChunks == 32 * kTcWarps * G, "one chunk per thread");
-  const bool second = threadIdx.x >= kChunks;
-  const int c = second ? threadIdx.x - kChunks : threadIdx.x;
-  const int64_t gh = c / kTcTile;
-  const int row = r0 + c % kTcTile;
-  uint4* dst = (second ? yt : xt) + c;
-  if (row < seq_len) {
-    cp_async16(dst, second ? yb + row * sy.t + gh * sy.h : xb + row * sx.t + gh * sx.h);
-  } else {
-    *dst = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
 // Stage the lse and delta of query rows [r0, r0 + kTcTile) of G heads into
 // lt[g * kTcTile + r] and dt[...]; past seq_len lse = +inf (so p = 0) and
 // delta = 0.
@@ -766,13 +655,6 @@ attention_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     dvh[jb * sdv.t + 2 * tig * sdv.d] = __float2bfloat16(dva[2]);
     dvh[jb * sdv.t + (2 * tig + 1) * sdv.d] = __float2bfloat16(dva[3]);
   }
-}
-
-// cp.async stages 16-byte rows: each row of x must start on 16 bytes with
-// its 8 channels contiguous
-bool rows16(const void* x, const Strides& s) {
-  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && s.d == 1 && s.t % 8 == 0
-         && s.h % 8 == 0 && s.b % 8 == 0;
 }
 
 template <int G>

@@ -10,69 +10,107 @@
 // projection outputs unchanged (the head split is pointer arithmetic) and
 // the result lands directly in (B, T, C).
 //
-// Design. The TPU kernel keeps the whole (T, T) f32 logits tile in VMEM
-// (4 MB at T=1024); a Hopper block has at most 227 KB of shared memory, so
-// this kernel never forms the tile. One block handles kBlockQ query rows of
-// G heads of one batch entry, one thread per (row, head): the thread keeps
-// its q row, an f32 accumulator of D values, a running max and a running
-// sum in registers, and walks the keys in tiles staged (as f32) in shared
-// memory, with an online softmax. The sum divides the accumulator at the
-// end. No size gate is needed: any T works.
+// The TPU kernel keeps the whole (T, T) f32 logits tile in VMEM (4 MB at
+// T=1024); a Hopper block has at most 227 KB of shared memory, so neither
+// kernel below forms the tile: both walk the keys in tiles staged in shared
+// memory with an online softmax (a running max m and sum l per row, the
+// accumulator rescaled in f32 when m moves, divided by l at the end), so
+// any T works. On request (a non-null `lse`, exact maths only) they also
+// write each row's base-2 log-sum-exp m + log2(l), f32 in (B, H, T), which
+// the bf16 backward (`attention_bwd.cu`) reads in place of recomputing it;
+// the output does not depend on whether it is written.
 //
 // Head grouping (`heads_per_program` = G, the TPU kernel's G heads per grid
-// program): the block has kBlockQ * G threads and stages the key/value tile
-// of all G heads at once. In the (B, T, C) layout the G * D channels of one
-// token are contiguous, so the tile loads are coalesced runs of G * D
-// elements instead of D. Every thread runs exactly the arithmetic of the
-// G = 1 kernel for its (row, head), key by key in the same order, so the
-// output is bit-identical for every G (the TPU's contract for the knob).
-// The tile holds kTileK keys, chosen so the tile stays at 32 KB or less;
-// the results do not depend on the tile size.
+// program): a block covers G heads and stages the key/value tile of all G at
+// once (in the (B, T, C) layout the G * D channels of one token are
+// contiguous). Every thread or warp runs exactly the arithmetic of the
+// G = 1 kernel for its rows and head, so the output and lse are
+// bit-identical for every G (the TPU's contract for the knob); no result
+// depends on the tile size the staging uses.
 //
-// Exact path. Deviation from the TPU kernel: there the normalised
-// probabilities are cast to v's dtype before P.V; here unnormalised f32
-// weights multiply v and the normalisation comes last. Only rounding
-// changes: about 1e-6 in f32 and bf16-level in bf16. On request (a non-null
-// `lse`) it also writes each row's base-2 log-sum-exp m + log2(l), f32 in
-// (B, H, T), which the bf16 backward (`attention_bwd.cu`) reads in place of
-// recomputing it; the output does not depend on whether it is written.
-//
-// Fast-math path (`fast_math`, attention.py:43-49 and :74-80): the shifted
-// logit is rounded to bf16 and exponentiated in bf16, the bf16 weights are
-// summed in f32 and multiply v in an f32 accumulator, and the division comes
-// after P.V, as on the TPU. Keys go in pairs, the two shifted logits rounded
-// to bf16 by one conversion. The bf16 exponential is the correctly rounded
-// one, as `jnp.exp` of a bf16 array computes it through f32: the f32
+// Fast math (`fast_math`, attention.py:43-49 and :74-80): the shifted logit
+// is rounded to bf16 and exponentiated in bf16, the bf16 weights are summed
+// in f32 and multiply v in an f32 accumulator, and the division comes after
+// P.V, as on the TPU. The bf16 exponential is the correctly rounded one, as
+// `jnp.exp` of a bf16 array computes it through f32: the f32
 // special-function exponential `ex2.approx.ftz.f32` (relative error about
 // 2^-22) of the bf16 value, with log2(e) folded into the scale, then one
 // round-to-nearest to bf16; it misses only for a value within 2^-22 of a
 // bf16 rounding midpoint. sm_90 also has `ex2.approx.ftz.bf16x2`, but its
 // maximum relative error is 2^-7 (PTX ISA), two bf16 ulps, which puts the
-// output farther from this rounding than exact attention is, and the SASS
-// of sm_90a runs it as two MUFU.EX2.BF16, one per half, so the
-// special-function units take one exponential per lane either way.
-// Deviations from the TPU kernel, which rounds the natural-log logit minus
-// the row's global max to bf16 and takes `exp` of it: (1) the value rounded
-// to bf16 is the base-2 logit (log2(e) folded into the scale in f32), so the
-// rounding falls on other values; (2) it is shifted by the running max (over
-// the pairs seen so far), not the row's global max, and the rescale factor
-// applied to the sum and accumulator when the max moves stays f32. Both
-// change bf16 rounding only. `attention_fast_math_kernel_order` in
-// ops/attention.py is the plain PyTorch version of this rounding.
+// output farther from this rounding than exact attention is, so it is not
+// used. Deviations from the TPU kernel, which rounds the natural-log logit
+// minus the row's global max to bf16 and takes `exp` of it: (1) the value
+// rounded to bf16 is the base-2 logit (log2(e) folded into the scale in
+// f32), so the rounding falls on other values; (2) it is shifted by the
+// running max, not the row's global max, and the rescale factor applied to
+// the sum and accumulator when the max moves stays f32. Both change bf16
+// rounding only. The running max moves once per group of keys: 2 keys on
+// the CUDA-core kernel, one staged tile of 64 on the tensor-core kernel.
+// `attention_fast_math_kernel_order(q, k, v, step)` in ops/attention.py is
+// the plain PyTorch version of this rounding, for either group size.
 //
-// Bound on the H100 at the main path's largest call, B=8, H=32, T=1024, D=8:
-// 2*2*B*H*T^2*D = 8.6 GFLOP (8.7 us at 989 TFLOP/s bf16) and 16.8 MB moved in
-// bf16 (5.0 us at 3.35 TB/s). It also takes B*H*T^2 = 2.7e8 exponentials,
-// about 64 us on the special-function units at one exponential per lane
-// (16 per clock per SM, bf16 or f32), so with D=8 the exponentials, not the
-// products, are the real limit. This version runs the dot products on the
-// CUDA cores, which is what its time is spent on; tensor-core MMA is later
-// work.
+// bf16, head_dim 8: the tensor-core kernel (the trainer's and the library
+// generator's configuration).
+//   Bound on the H100 at the main path's largest call, B=8, H=32, T=1024,
+//   D=8: the two T x T contractions are 4*B*H*T^2*D = 8.6 GFLOP, 8.7 us on
+//   the tensor cores (989 TFLOP/s bf16); q, k, v read once and out written
+//   once are 16.8 MB, 5.0 us at 3.35 TB/s; the B*H*T^2 = 2.7e8
+//   exponentials take 64 us on the special-function units (16 per clock per
+//   SM). So the exponentials are the limit, and the design keeps everything
+//   else off the special-function units' way: the products run on the
+//   tensor cores, and each (i, j) pair costs one MUFU.EX2 and a few f32
+//   instructions, with the 32 warps an SM holds keeping the units busy.
+//   Fragments, as B1's dq launch in `attention_bwd.cu` (helpers in
+//   tensor_core.cuh): one warp owns 16 query rows of one head, 4 warps per
+//   head, 64 rows x G heads per block, at most 64 registers a thread. K and
+//   V are staged in tiles of 64 keys by `cp.async`, double-buffered, 16 bytes
+//   (one row of one head) per copy, so each row of k and v must start on 16
+//   bytes with its 8 channels contiguous (the wrapper copies any other
+//   layout first; q is read from its own strides and out written to them).
+//   S = Q K^T is `mma.sync` m16n8k8 with D = 8 unpadded, q's A fragment from
+//   registers and K's B fragments by `ldmatrix`; O += P V is m16n8k16, the
+//   k16 A fragment being two adjacent n8 fragments of P rounded to bf16 in
+//   registers, V's B fragment by `ldmatrix.trans`.
+//   Per tile the kernel takes two passes over the staged keys: the first
+//   forms S only for each row's tile max (reduced over the row's 4 lanes),
+//   then m, l and the accumulator are rescaled once (one exponential per
+//   row and tile, which the row's 4 lanes each take: 2 per lane beside the
+//   tile's 32); the second forms S again (the tensor cores are idle enough
+//   that recomputing costs less than holding 64 keys of S, 32 registers, in
+//   a 64-register budget) and takes p = 2^(s * scale * log2(e) - m), one
+//   fma and one MUFU.EX2 per pair. Keys past T are masked (s = -inf) on the
+//   last tile only; rows past T are neither stored nor given an lse.
+//   Exact: l sums the f32 p values, not their bf16 roundings, so that
+//   m + log2(l) is the f32 softmax's log-sum-exp that the backward rebuilds
+//   its f32 probabilities from (within f32 summation order of
+//   `attention_lse_reference`); bf16 roundings would put up to 2^-9
+//   relative error into each term. Fast math: p is already bf16, and the
+//   row sums come from the tensor cores as P times a column of ones, in f32.
+//   Deviations, rounding only: P is rounded to bf16 before P.V, relative to
+//   the running max and unnormalised, and the division by l comes last; the
+//   TPU kernel rounds the normalised probabilities to bf16
+//   (attention.py:81-83); the products accumulate in f32 on the tensor
+//   cores.
+//
+// f32 (any head_dim) and bf16 at head_dim 4: the CUDA-core kernel, one
+// thread per (row, head), everything f32 inside. A block handles kBlockQ
+// query rows of G heads; the thread keeps its q row, an f32 accumulator of
+// D values, a running max and a running sum in registers, and walks the
+// keys in tiles staged as f32, at most 32 KB. Fast math takes keys in pairs,
+// the two shifted logits rounded to bf16 by one conversion. Deviation from
+// the TPU kernel on the exact path: unnormalised f32 weights multiply v and
+// the normalisation comes last; nothing is rounded until the store. Only
+// rounding changes: about 1e-6 in f32. Bound at (8, 32, 1024, 8) in f32:
+// 8.6 GFLOP, 0.128 ms at 67 TFLOP/s on the CUDA cores, which is what the
+// scalar dot products spend their time on.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -84,10 +122,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int D, int G>
 struct TileKeys {
   static constexpr int value = 4096 / (G * D) < 128 ? 4096 / (G * D) : 128;
-};
-
-struct Strides {
-  int64_t b, h, t, d;
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -284,6 +318,224 @@ cudaError_t launch_group(int group, bool fast_math, const void* q, const void* k
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, D = 8: the tensor-core kernel (see the top of the file)
+// ---------------------------------------------------------------------------
+
+// S = Q K^T for one warp's 16 rows and keys [16 s, 16 s + 16) of the staged
+// tile, as two C fragments: sc[0..3] keys +0..7, sc[4..7] keys +8..15. With
+// Mask, keys at or past `keys` get s = -inf, so their weight is 0.
+template <bool Mask>
+__device__ __forceinline__ void qk_step(const uint4* kt, int s, const uint32_t* qa,
+                                        int keys, float* sc) {
+  const int lane = threadIdx.x % 32;
+  uint32_t kb[2];
+  ldsm_x2(kb, kt + s * 16 + lane % 16);
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    float* f = sc + 4 * c;
+    f[0] = f[1] = f[2] = f[3] = 0.f;
+    mma_k8(f, qa, kb[c]);
+    if (Mask) {
+      const int key = s * 16 + c * 8 + 2 * (lane % 4);
+      if (key >= keys) f[0] = f[2] = -INFINITY;
+      if (key + 1 >= keys) f[1] = f[3] = -INFINITY;
+    }
+  }
+}
+
+// One staged key tile for one warp's 16 query rows (row a = lane/4 and row
+// b = row a + 8): the tile's max, the rescale, then P and O += P V, 16 keys
+// a step. m[r] is row r's running max of the base-2 logits; l and acc are C
+// fragments (l[0..1] and acc[0..1] row a, l[2..3] and acc[2..3] row b). On
+// the exact path l[i] is this lane's partial sum of its keys' f32 weights;
+// with fast math every column of l is the whole row's sum of the bf16
+// weights, from the tensor cores.
+template <bool FastMath, bool Mask>
+__device__ __forceinline__ void fwd_tile(const uint4* kt, const uint4* vt, const uint32_t* qa,
+                                         float scale_log2, int keys, float* m, float* l,
+                                         float* acc) {
+  const int lane = threadIdx.x % 32;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int s = 0; s < kTcTile / 16; ++s) {
+    float sc[8];
+    qk_step<Mask>(kt, s, qa, keys, sc);
+    mx[0] = fmaxf(mx[0], fmaxf(fmaxf(sc[0], sc[1]), fmaxf(sc[4], sc[5])));
+    mx[1] = fmaxf(mx[1], fmaxf(fmaxf(sc[2], sc[3]), fmaxf(sc[6], sc[7])));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // max(s) * scale = max(s * scale) exactly, the scale being positive
+    const float mnew = fmaxf(m[r], mx[r] * scale_log2);
+    // rescale what was summed under the old max; on the first tile
+    // m = -inf, so c = 0 and the zero-initialised state stays zero
+    const float c = mnew > m[r] ? ex2(m[r] - mnew) : 1.f;
+    m[r] = mnew;
+    // __fmul_rn is never contracted into an fma with the sums that follow,
+    // so the rounding does not depend on how the compiler unrolls and
+    // schedules each G instance (G = 1 and G > 1 must agree bit for bit)
+#pragma unroll
+    for (int i = 2 * r; i < 2 * r + 2; ++i) {
+      l[i] = __fmul_rn(l[i], c);
+      acc[i] = __fmul_rn(acc[i], c);
+    }
+  }
+  const uint32_t ones[2] = {0x3f803f80u, 0x3f803f80u};   // bf16 1.0 pairs
+  // two steps at a time: fully unrolled, the steps' fragments spill at the
+  // 64-register cap
+#pragma unroll 2
+  for (int s = 0; s < kTcTile / 16; ++s) {
+    float sc[8];
+    qk_step<Mask>(kt, s, qa, keys, sc);
+    uint32_t pa[4];   // P as the k16 A fragment: rows a, b at keys +0..7, then +8..15
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float* f = sc + 4 * c;
+      if (FastMath) {
+        // the shifted base-2 logits rounded to bf16, then their correctly
+        // rounded bf16 exponentials
+        const uint32_t xa = pack_bf16(fmaf(f[0], scale_log2, -m[0]), fmaf(f[1], scale_log2, -m[0]));
+        const uint32_t xb = pack_bf16(fmaf(f[2], scale_log2, -m[1]), fmaf(f[3], scale_log2, -m[1]));
+        pa[2 * c] = pack_bf16(ex2(lo_f32(xa)), ex2(hi_f32(xa)));
+        pa[2 * c + 1] = pack_bf16(ex2(lo_f32(xb)), ex2(hi_f32(xb)));
+      } else {
+        const float p[4] = {ex2(fmaf(f[0], scale_log2, -m[0])), ex2(fmaf(f[1], scale_log2, -m[0])),
+                            ex2(fmaf(f[2], scale_log2, -m[1])), ex2(fmaf(f[3], scale_log2, -m[1]))};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) l[i] += p[i];
+        pa[2 * c] = pack_bf16(p[0], p[1]);
+        pa[2 * c + 1] = pack_bf16(p[2], p[3]);
+      }
+    }
+    uint32_t vT[2];
+    ldsm_x2_trans(vT, vt + s * 16 + lane % 16);
+    mma_k16(acc, pa, vT);                // O += P V
+    if (FastMath) mma_k16(l, pa, ones);  // l += P 1
+  }
+}
+
+template <int G, bool FastMath>
+__global__ void __launch_bounds__(32 * kTcWarps * G, kTcBlocksPerSM / G)
+attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, bf16* __restrict__ o,
+                        float* __restrict__ lse, int heads, int seq_len, Strides sq,
+                        Strides sk, Strides sv, Strides so, float scale_log2) {
+  __shared__ uint4 k_tile[2][G * kTcTile];
+  __shared__ uint4 v_tile[2][G * kTcTile];
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = warp / kTcWarps;          // this warp's head within the group
+  const int tig = lane % 4;
+  const int64_t b = blockIdx.z;
+  const int64_t h0 = static_cast<int64_t>(blockIdx.y) * G;
+  const int64_t h = h0 + g;
+  const int ra = blockIdx.x * kTcRows + (warp % kTcWarps) * 16 + lane / 4;
+  const int rb = ra + 8;
+  const bool oka = ra < seq_len;
+  const bool okb = rb < seq_len;
+
+  // q's A fragment (rows a and b, channels 2 tig and +1)
+  const bf16* qh = q + b * sq.b + h * sq.h;
+  const uint32_t qa[2] = {load_pair(qh, sq, ra, 2 * tig, oka), load_pair(qh, sq, rb, 2 * tig, okb)};
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  const bf16* kb = k + b * sk.b + h0 * sk.h;
+  const bf16* vb = v + b * sv.b + h0 * sv.h;
+  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
+  stage_rows<G>(k_tile[0], v_tile[0], kb, vb, sk, sv, 0, seq_len);
+  cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {   // the next tile streams in while this one is used
+      stage_rows<G>(k_tile[buf ^ 1], v_tile[buf ^ 1], kb, vb, sk, sv, (t + 1) * kTcTile,
+                    seq_len);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int keys = seq_len - t * kTcTile;
+    if (keys >= kTcTile) {
+      fwd_tile<FastMath, false>(&k_tile[buf][g * kTcTile], &v_tile[buf][g * kTcTile], qa,
+                                scale_log2, keys, m, l, acc);
+    } else {
+      fwd_tile<FastMath, true>(&k_tile[buf][g * kTcTile], &v_tile[buf][g * kTcTile], qa,
+                               scale_log2, keys, m, l, acc);
+    }
+    __syncthreads();       // every warp is done with buf before it is refilled
+  }
+
+  float la = l[0];
+  float lb = l[2];
+  if (!FastMath) {         // the lane's partial sums, then the row's 4 lanes
+    la += l[1];
+    lb += l[3];
+#pragma unroll
+    for (int x = 1; x < 4; x *= 2) {
+      la += __shfl_xor_sync(0xffffffffu, la, x);
+      lb += __shfl_xor_sync(0xffffffffu, lb, x);
+    }
+  }
+  bf16* oh = o + b * so.b + h * so.h;
+  if (oka) {
+    oh[ra * so.t + 2 * tig * so.d] = __float2bfloat16(acc[0] / la);
+    oh[ra * so.t + (2 * tig + 1) * so.d] = __float2bfloat16(acc[1] / la);
+  }
+  if (okb) {
+    oh[rb * so.t + 2 * tig * so.d] = __float2bfloat16(acc[2] / lb);
+    oh[rb * so.t + (2 * tig + 1) * so.d] = __float2bfloat16(acc[3] / lb);
+  }
+  if (lse != nullptr && tig == 0) {
+    const int64_t stat = (b * heads + h) * seq_len;
+    if (oka) lse[stat + ra] = m[0] + log2f(la);
+    if (okb) lse[stat + rb] = m[1] + log2f(lb);
+  }
+}
+
+template <int G, bool FastMath>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, float* lse,
+                      int batch, int heads, int seq_len, const int64_t* st, float scale,
+                      cudaStream_t stream) {
+  const Strides sq{st[0], st[1], st[2], st[3]};
+  const Strides sk{st[4], st[5], st[6], st[7]};
+  const Strides sv{st[8], st[9], st[10], st[11]};
+  const Strides so{st[12], st[13], st[14], st[15]};
+  if (!rows16(k, sk) || !rows16(v, sv)) return cudaErrorInvalidValue;
+  const dim3 grid((seq_len + kTcRows - 1) / kTcRows, heads / G, batch);
+  attention_fwd_tc_kernel<G, FastMath><<<grid, 32 * kTcWarps * G, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, heads, seq_len, sq, sk, sv, so, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int G>
+cudaError_t launch_tc_math(bool fast_math, const void* q, const void* k, const void* v,
+                           void* o, float* lse, int batch, int heads, int seq_len,
+                           const int64_t* st, float scale, cudaStream_t s) {
+  return fast_math
+      ? launch_tc<G, true>(q, k, v, o, nullptr, batch, heads, seq_len, st, scale, s)
+      : launch_tc<G, false>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+}
+
+cudaError_t launch_tc_group(int group, bool fast_math, const void* q, const void* k,
+                            const void* v, void* o, float* lse, int batch, int heads,
+                            int seq_len, const int64_t* st, float scale, cudaStream_t s) {
+  switch (group) {
+    case 1: return launch_tc_math<1>(fast_math, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    case 2: return launch_tc_math<2>(fast_math, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    case 4: return launch_tc_math<4>(fast_math, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    case 8: return launch_tc_math<8>(fast_math, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 16 element strides, (b, h, t, d)
@@ -292,7 +544,8 @@ cudaError_t launch_group(int group, bool fast_math, const void* q, const void* k
 // contiguous f32 (batch, heads, seq_len) output for each row's base-2
 // log-sum-exp. Returns a cudaError_t; an unsupported head_dim, dtype or
 // group, or lse with fast_math, returns cudaErrorInvalidValue without
-// launching.
+// launching. bf16 with head_dim 8 (the tensor-core kernel) also needs each
+// row of k and v to start on 16 bytes with its channels contiguous.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
                              void* o, float* lse, int batch, int heads,
                              int seq_len, int head_dim, int dtype,
@@ -308,7 +561,7 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0 && head_dim == 8)
     return launch_group<8, float>(g, fm, q, k, v, o, lse, batch, heads, seq_len, strides, scale, s);
   if (dtype == 1 && head_dim == 8)
-    return launch_group<8, __nv_bfloat16>(g, fm, q, k, v, o, lse, batch, heads, seq_len, strides, scale, s);
+    return launch_tc_group(g, fm, q, k, v, o, lse, batch, heads, seq_len, strides, scale, s);
   if (dtype == 0 && head_dim == 4)
     return launch_group<4, float>(g, fm, q, k, v, o, lse, batch, heads, seq_len, strides, scale, s);
   if (dtype == 1 && head_dim == 4)

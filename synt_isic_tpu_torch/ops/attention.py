@@ -100,22 +100,30 @@ def attention_fast_math_reference(q: torch.Tensor, k: torch.Tensor,
     return (pv / denom).to(q.dtype)
 
 
-def attention_fast_math_kernel_order(q: torch.Tensor, k: torch.Tensor,
-                                     v: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel's fast-math rounding in plain PyTorch, to hold the
+def fast_math_step(q: torch.Tensor) -> int:
+    """Keys per running-max update of the fast-math kernel that takes
+    tensors like q: a staged tile of 64 on the tensor-core kernel (bf16,
+    head_dim 8), pairs on the CUDA-core kernel (every other case)."""
+    return 64 if q.dtype == torch.bfloat16 and q.shape[-1] == 8 else 2
+
+
+def attention_fast_math_kernel_order(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     step: int) -> torch.Tensor:
+    """The CUDA kernels' fast-math rounding in plain PyTorch, to hold a
     kernel to a limit that exact attention does not meet. Where the Pallas
     branch (`attention_fast_math_reference`) rounds the natural-log logit
-    minus the row's max, the kernel rounds the base-2 logit (log2(e) folded
-    into the scale, in f32) minus the running max over the key pairs seen so
-    far, and takes `exp2` of that bf16 value in bf16. Here, as there, the
-    weights are brought onto the row's max in f32, summed and multiplied
-    into v in f32, and the division comes last; the result is in q's
-    dtype."""
+    minus the row's max, the kernels round the base-2 logit (log2(e) folded
+    into the scale, in f32) minus the running max, which moves once per
+    group of `step` keys (`fast_math_step`: 2 on the CUDA-core kernel, 64 on
+    the tensor-core one; groups start at key 0, the last may be short), and
+    take `exp2` of that bf16 value in bf16. Here, as there, the weights are
+    brought onto the row's max in f32, summed and multiplied into v in f32,
+    and the division comes last; the result is in q's dtype."""
     t = q.shape[-2]
     logits = torch.matmul(q.float() * _scale_log2(q.shape[-1]), k.float().transpose(-1, -2))
-    pairs = torch.nn.functional.pad(logits, (0, t % 2), value=-math.inf)
-    pair_max = pairs.unflatten(-1, (-1, 2)).amax(dim=-1)
-    run_max = pair_max.cummax(dim=-1).values.repeat_interleave(2, dim=-1)[..., :t]
+    groups = torch.nn.functional.pad(logits, (0, -t % step), value=-math.inf)
+    group_max = groups.unflatten(-1, (-1, step)).amax(dim=-1)
+    run_max = group_max.cummax(dim=-1).values.repeat_interleave(step, dim=-1)[..., :t]
     exp = torch.exp2((logits - run_max).to(torch.bfloat16)).float()
     weights = exp * torch.exp2(run_max - run_max[..., -1:])
     pv = torch.matmul(weights, v.float())
@@ -227,12 +235,32 @@ def _group(heads: int, heads_per_program: int, device: str) -> int:
     return g
 
 
+def _tensor_cores(q: torch.Tensor) -> bool:
+    """Whether these CUDA tensors go to the tensor-core kernels: the
+    forward, and the backward, which reads the forward's output and
+    log-sum-exp."""
+    return q.device.type == "cuda" and q.dtype == torch.bfloat16 and q.shape[-1] == 8
+
+
+def _rows16(z: torch.Tensor) -> torch.Tensor:
+    """z itself where each (b, h, t) row starts on 16 bytes with its channels
+    contiguous, as the tensor-core kernels stage k and v (and, in the
+    backward, q and do), else a contiguous copy in fresh storage (only for
+    unusual layouts: the UNet's views and dense tensors pass; `contiguous()`
+    would return a contiguous tensor that starts off 16 bytes as it is)."""
+    aligned = (z.stride(-1) == 1 and all(st % 8 == 0 for st in z.stride()[:3])
+               and z.data_ptr() % 16 == 0)
+    return z if aligned else z.clone(memory_format=torch.contiguous_format)
+
+
 def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, fast_math: bool,
                     group: int, with_lse: bool):
     """One forward kernel launch on CUDA tensors, counted by the caller:
     (out, lse), lse the f32 (B, H, T) base-2 log-sum-exp when asked for
-    (exact maths only), else None."""
+    (exact maths only), else None. out takes q's strides where q is dense."""
     out = torch.empty_like(q)
+    if _tensor_cores(q):
+        k, v = _rows16(k), _rows16(v)
     b, h, t, d = q.shape
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
@@ -266,22 +294,6 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if group > 1:
         LAUNCHES[GROUPED_KERNEL] += 1
     return (out, lse) if with_lse else out
-
-
-def _tensor_cores(q: torch.Tensor) -> bool:
-    """Whether the backward of these CUDA tensors runs the tensor-core
-    kernels, which read the forward's output and log-sum-exp."""
-    return q.device.type == "cuda" and q.dtype == torch.bfloat16 and q.shape[-1] == 8
-
-
-def _rows16(z: torch.Tensor) -> torch.Tensor:
-    """z itself where each (b, h, t) row starts on 16 bytes with its channels
-    contiguous, as the tensor-core kernels stage them, else a contiguous
-    copy (only for unusual layouts: the UNet's views and dense tensors
-    pass)."""
-    aligned = (z.stride(-1) == 1 and all(st % 8 == 0 for st in z.stride()[:3])
-               and z.data_ptr() % 16 == 0)
-    return z if aligned else z.contiguous()
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

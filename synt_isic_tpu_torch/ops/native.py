@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain `extern "C"` launcher. It is compiled
 by `nvcc` into a shared library under `synt_isic_tpu_torch/_build/` at first
-use and loaded with `ctypes`; a change to the source or to the flags changes
-the file name, so a stale library is never loaded. Nothing here runs at
+use and loaded with `ctypes`; a change to the source, to a header of
+`csrc/` or to the flags changes the file name, so a stale library is never
+loaded. Nothing here runs at
 import time: the CPU tests import every module without a CUDA toolkit.
 """
 from __future__ import annotations
@@ -36,8 +37,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where `csrc/<name>.cu` builds to, keyed by its source and flags."""
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()
+    """Where `csrc/<name>.cu` builds to, keyed by its source, the headers
+    of `csrc/` (`*.cuh`, which the sources include) and the flags."""
+    sources = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(path.name.encode() + path.read_bytes() for path in sources)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

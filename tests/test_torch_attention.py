@@ -76,3 +76,19 @@ def test_rejects_what_it_does_not_take():
         attention.fused_attention(q, q, torch.zeros(1, 2, 8, 8))
     with pytest.raises(ValueError):
         attention.fused_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+def test_library_path_follows_the_headers(tmp_path, monkeypatch):
+    """A kernel library is keyed by its source and by the `csrc/` headers it
+    may include, so an edited header never loads a stale build."""
+    from synt_isic_tpu_torch.ops import native
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(native, "CSRC_DIR", tmp_path)
+    first = native.library_path("k")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert native.library_path("k") != first
+    (tmp_path / "h.cuh").write_text("// one\n")
+    assert native.library_path("k") == first
+    assert first.name.startswith("libk-")

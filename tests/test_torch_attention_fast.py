@@ -57,9 +57,10 @@ def test_fast_math_is_near_exact():
     assert not torch.equal(fast, exact)
 
 
-def _kernel_loop(q, k, v):
+def _kernel_loop(q, k, v, step):
     """`attention_fwd.cu`'s fast-math walk in plain PyTorch, every row at
-    once: keys two at a time, the running max over the pairs seen so far,
+    once: keys `step` at a time (2 on the CUDA-core kernel, a staged tile of
+    64 on the tensor-core one), the running max over the groups seen so far,
     bf16 exponentials of the base-2 logit minus it, an f32 rescale of the
     sum and accumulator when it moves, the division last."""
     t = q.shape[-2]
@@ -69,30 +70,31 @@ def _kernel_loop(q, k, v):
     m = torch.full(q.shape[:-1], -np.inf)
     total = torch.zeros(q.shape[:-1])
     acc = torch.zeros(q.shape[:-1] + (v.shape[-1],))
-    for j in range(0, t, 2):
-        s = logits[..., j:j + 2]
+    for j in range(0, t, step):
+        s = logits[..., j:j + step]
         new = torch.maximum(m, s.amax(dim=-1))
         c = torch.exp2(m - new)
         total, acc, m = total * c, acc * c[..., None], new
         p = torch.exp2((s - m[..., None]).to(torch.bfloat16)).float()
         total = total + p.sum(dim=-1)
-        acc = acc + torch.matmul(p.unsqueeze(-2), v[..., None, j:j + 2, :].float()).squeeze(-2)
+        acc = acc + torch.matmul(p, v[..., j:j + step, :].float())
     return (acc / total[..., None]).to(q.dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 2, 33, 4), (2, 4, 64, 8)])
 def test_kernel_order_follows_the_kernel(shape, dtype):
-    """`attention_fast_math_kernel_order`, which the CUDA kernel is held to
-    on the card, is the kernel's walk (up to f32 rounding of the rescale:
-    1e-5; bf16 output: one bf16 ulp, 2^-6 at |x| < 4), and it is fast math:
-    within 1e-2 of the Pallas-order version and within the JAX package's
-    fast-math tolerance of exact attention, but not exact."""
+    """`attention_fast_math_kernel_order` at 2 keys per max update, which
+    the CUDA-core kernel is held to on the card, is that kernel's walk (up
+    to f32 rounding of the rescale: 1e-5; bf16 output: one bf16 ulp, 2^-6 at
+    |x| < 4), and it is fast math: within 1e-2 of the Pallas-order version
+    and within the JAX package's fast-math tolerance of exact attention,
+    but not exact."""
     q, k, v = (torch.from_numpy(z).to(dtype) for z in _qkv(shape, seed=9))
-    got = attention.attention_fast_math_kernel_order(q, k, v)
+    got = attention.attention_fast_math_kernel_order(q, k, v, 2)
     assert got.dtype == dtype
     tol = 1e-5 if dtype == torch.float32 else FAST_TOL["bfloat16"]
-    torch.testing.assert_close(got.float(), _kernel_loop(q, k, v).float(),
+    torch.testing.assert_close(got.float(), _kernel_loop(q, k, v, 2).float(),
                                rtol=0, atol=tol)
     pallas_order = attention.attention_fast_math_reference(q, k, v).float()
     assert (got.float() - pallas_order).abs().max().item() <= 1e-2
@@ -100,6 +102,55 @@ def test_kernel_order_follows_the_kernel(shape, dtype):
     torch.testing.assert_close(got.float(), exact, rtol=0.05, atol=0.02)
     if dtype == torch.float32:
         assert (got - exact).abs().max().item() > 1e-4
+
+
+def test_fast_math_step_names_the_kernel():
+    """Keys per max update: a tile of 64 for bf16 at head_dim 8 (the
+    tensor-core kernel), pairs for every other case."""
+    assert attention.fast_math_step(torch.zeros(1, 2, 16, 8, dtype=torch.bfloat16)) == 64
+    assert attention.fast_math_step(torch.zeros(1, 2, 16, 8)) == 2
+    assert attention.fast_math_step(torch.zeros(1, 2, 16, 4, dtype=torch.bfloat16)) == 2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 2, 101, 8), (2, 4, 130, 8)])
+def test_kernel_order_at_the_tensor_core_step(shape, dtype):
+    """At 64 keys per max update (the tensor-core kernel; T = 101 and 130
+    leave a short last tile) the order function is the walk at that step
+    (the tolerances of `test_kernel_order_follows_the_kernel`), within 1e-2
+    of the Pallas fast-math kernel, within the JAX package's fast-math
+    tolerance of exact attention, and not exact in f32."""
+    q, k, v = _qkv(shape, seed=10)
+    tq, tk, tv = (torch.from_numpy(z).to(getattr(torch, dtype)) for z in (q, k, v))
+    got = attention.attention_fast_math_kernel_order(tq, tk, tv, 64)
+    tol = 1e-5 if dtype == "float32" else FAST_TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), _kernel_loop(tq, tk, tv, 64).float(),
+                               rtol=0, atol=tol)
+    pallas = np.asarray(jax_fused_attention(
+        *(jnp.asarray(z, dtype) for z in (q, k, v)), interpret=True,
+        fast_math=True).astype(jnp.float32))
+    assert np.abs(got.float().numpy() - pallas).max() <= 1e-2
+    exact = attention.attention_reference(tq, tk, tv).float()
+    torch.testing.assert_close(got.float(), exact, rtol=0.05, atol=0.02)
+    if dtype == "float32":
+        assert (got - exact).abs().max().item() > 1e-4
+
+
+def test_bf16_fast_math_separates_from_exact():
+    """What `chip_smoke.py` tells the bf16 tensor-core fast math from exact
+    attention by, on the plain versions: at logits 8x wider, exact attention
+    lies on average more than 10x as far from the fast-math rounding order
+    (64 keys per max update) as the kernel's walk does. The walk differs
+    from the order function only in f32 rounding (the rescale), which
+    rarely moves a bf16 output; exact attention differs at every weight by
+    the bf16 rounding of its shifted logit."""
+    q, k, v = (torch.from_numpy(z).bfloat16() for z in _qkv((2, 4, 256, 8), seed=11))
+    q = (q.float() * 8).bfloat16()
+    order = attention.attention_fast_math_kernel_order(q, k, v, 64).float()
+    walk = (_kernel_loop(q, k, v, 64).float() - order).abs()
+    exact = (attention.attention_reference(q, k, v).float() - order).abs()
+    assert walk.max().item() <= FAST_TOL["bfloat16"]
+    assert exact.mean().item() > 10 * walk.mean().item()
 
 
 @pytest.mark.parametrize("fast_math", [False, True])

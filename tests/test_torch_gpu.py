@@ -14,9 +14,13 @@ since the kernels and the plain versions round at different points. The
 fast-math forward: within 1e-2 of its plain version (both take bf16
 exponentials, relative to different maxima), within the JAX package's
 fast-math tolerance of exact attention (rtol 0.05, atol 0.02), and within
-FAST_ORDER_TOL of the plain version of its own rounding order (in f32 5e-6,
-a limit that the exact kernel misses; in bf16 one bf16 ulp, as TOL). Head
-grouping, forward and backward: bit-identical to one head per block.
+FAST_ORDER_TOL of the plain version of its own rounding order at the
+kernel's keys per max update (in f32 5e-6, a limit that the exact kernel
+misses; in bf16 one bf16 ulp, as TOL); in bf16 at head_dim 8 (the
+tensor-core kernel), at logits 8x wider, the exact kernel's mean distance
+from that order exceeds the fast kernel's FAST_SEPARATION times
+(`chip_smoke.py` gives the reason for the factor). Head grouping, forward
+and backward: bit-identical to one head per block.
 """
 import json
 
@@ -32,6 +36,7 @@ pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
 FAST_ORDER_TOL = {torch.float32: 5e-6, torch.bfloat16: 2.0 ** -6}
+FAST_SEPARATION = 10.0
 
 
 @pytest.fixture
@@ -186,7 +191,7 @@ def test_fast_math_kernel_matches_plain(cuda, shape, dtype, layout):
     assert (got.float() - plain).abs().max().item() <= 1e-2
     exact = attention.attention_reference(q, k, v).float()
     torch.testing.assert_close(got.float(), exact, rtol=0.05, atol=0.02)
-    order = attention.attention_fast_math_kernel_order(q, k, v).float()
+    order = attention.attention_fast_math_kernel_order(q, k, v, attention.fast_math_step(q)).float()
     assert (got.float() - order).abs().max().item() <= FAST_ORDER_TOL[dtype]
     if dtype == torch.float32:
         exact_kernel = attention.fused_attention(*args).float()
@@ -426,3 +431,75 @@ def test_bf16_bwd_takes_any_layout(cuda):
     got = attention.fused_attention_bwd(q_strided, k, v, do, o=o, lse=lse)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         assert torch.equal(a, w), name
+
+
+@pytest.mark.parametrize("layout", ["BHTD", "BTC"])
+@pytest.mark.parametrize("shape", [(2, 4, 101, 8), (2, 32, 1000, 8)])
+def test_bf16_forward_ragged(cuda, shape, layout):
+    """The tensor-core forward at a T that leaves a short last key tile and
+    a short last block of rows: exact within TOL of the plain version, its
+    log-sum-exp within LSE_TOL, the output torch.equal with and without it;
+    fast math within one bf16 ulp of its own rounding order; every G that
+    divides the heads torch.equal to G = 1, output and lse."""
+    q, k, v, _ = _bf16_args(cuda, shape, layout, 17)
+    out, lse = attention.fused_attention(q, k, v, with_lse=True)
+    fast = attention.fused_attention(q, k, v, fast_math=True)
+    assert out.stride() == q.stride()
+    want = attention.attention_reference(q, k, v).float()
+    torch.testing.assert_close(out.float(), want, rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, attention.attention_lse_reference(q, k), rtol=0, atol=LSE_TOL)
+    assert torch.equal(out, attention.fused_attention(q, k, v))
+    order = attention.attention_fast_math_kernel_order(q, k, v, 64).float()
+    assert (fast.float() - order).abs().max().item() <= FAST_ORDER_TOL[torch.bfloat16]
+    for group in (2, 4, 8):
+        if shape[1] % group == 0:
+            o_g, lse_g = attention.fused_attention(q, k, v, heads_per_program=group, with_lse=True)
+            assert torch.equal(o_g, out) and torch.equal(lse_g, lse), group
+            assert torch.equal(attention.fused_attention(q, k, v, fast_math=True,
+                                                         heads_per_program=group), fast), group
+
+
+def test_bf16_forward_takes_any_layout(cuda):
+    """k and v rows the tensor-core forward cannot stage by 16-byte copies
+    (a contiguous tensor that starts 2 bytes off, channels that are not
+    contiguous) are copied first, and q is read from its own strides: the
+    same output, bit for bit, as from dense tensors, in q's strides."""
+    q, k, v, _ = _bf16_args(cuda, (2, 32, 256, 8), "BHTD", 18)
+    storage = torch.empty(k.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    k_off = storage[1:].view(k.shape)
+    k_off.copy_(k)
+    v_strided = v.transpose(-1, -2).contiguous().transpose(-1, -2)
+    q_strided = q.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert k_off.is_contiguous() and k_off.data_ptr() % 16 != 0 and v_strided.stride(-1) != 1
+    for fast_math in (False, True):
+        want = attention.fused_attention(q, k, v, fast_math=fast_math)
+        got = attention.fused_attention(q_strided, k_off, v_strided, fast_math=fast_math)
+        assert got.stride() == q_strided.stride()
+        assert torch.equal(got, want), fast_math
+
+
+def test_bf16_bwd_takes_an_unaligned_contiguous_tensor(cuda):
+    """A contiguous tensor whose rows start off 16 bytes is copied into
+    fresh storage before the tensor-core backward stages it: the same
+    gradients as from aligned tensors."""
+    q, k, v, do = _bf16_args(cuda, (2, 32, 256, 8), "BHTD", 19)
+    storage = torch.empty(do.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    do_off = storage[1:].view(do.shape)
+    do_off.copy_(do)
+    o, lse = attention.fused_attention(q, k, v, with_lse=True)
+    want = attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse)
+    got = attention.fused_attention_bwd(q, k, v, do_off, o=o, lse=lse)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.equal(a, w), name
+
+
+def test_bf16_fast_math_is_told_from_exact(cuda):
+    """At logits 8x wider, the exact tensor-core kernel lies on average more
+    than FAST_SEPARATION times as far from the fast-math rounding order as
+    the fast kernel does (the check `chip_smoke.py` makes)."""
+    q, k, v, _ = _bf16_args(cuda, (2, 32, 1024, 8), "BTC", 20)
+    q = (q.float() * 8).bfloat16()
+    order = attention.attention_fast_math_kernel_order(q, k, v, 64).float()
+    fast = (attention.fused_attention(q, k, v, fast_math=True).float() - order).abs().mean()
+    exact = (attention.fused_attention(q, k, v).float() - order).abs().mean()
+    assert exact.item() > FAST_SEPARATION * fast.item()
