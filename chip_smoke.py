@@ -11,15 +11,17 @@ Phases, each of which exits non-zero on failure:
      flip a TF32 rounding (2^-11 relative) downstream;
   2. build every hand-written kernel from the sources in the checkout, all
      `nvcc`s at once, with each kernel's registers and spills, and the
-     SASS count of HMMA (tensor-core) and MUFU.EX2 instructions in the bf16
-     head_dim-8 kernels (the forward's 8 instances, exact and fast math at
-     G 1/2/4/8, and the backward's two kernels at each G), each of which
-     must hold HMMA and spill nothing;
+     SASS count of HMMA (tensor-core) and MUFU.EX2 instructions in the
+     head_dim-8 tensor-core kernels (the forward's 8 bf16 instances, exact
+     and fast math at G 1/2/4/8, its 4 exact f32 (3xTF32) instances, and
+     the bf16 backward's two kernels at each G), each of which must hold
+     HMMA and spill nothing;
   3. the attention forward against its plain PyTorch version at the
      sampling path's shapes (and at batch 16, the guided sampler's and the
-     trainer's, and at ragged T, 101 and 1000), in both layouts; in bf16 at
-     head_dim 8 also its log-sum-exp against `attention_lse_reference` and
-     the output torch.equal with and without it; then timed beside its
+     trainer's, and at ragged T, 101 and 1000), in both layouts; at head_dim
+     8 also its log-sum-exp against `attention_lse_reference` and the
+     output torch.equal with and without it, and in f32 the kernel against
+     `attention_tf32x3_kernel_order` (TF32_ORDER_TOL); then timed beside its
      bound (the largest of bytes, products and one pass of exponentials),
      the plain version and `scaled_dot_product_attention`, launched from
      the host and, for the device time alone, replayed from a CUDA graph;
@@ -41,7 +43,8 @@ Phases, each of which exits non-zero on failure:
   6. the sampling path through its entry point: `synt_isic_tpu_torch.cli.main`
      generating 8 MEL images, batch 8, DDIM 10 steps, from a random
      full-width checkpoint; the forward kernel's launch count must read
-     exactly 6 attention calls x 10 steps;
+     exactly 6 attention calls x 10 steps; then 3 warm sampler steps under
+     `torch.profiler`: device busy s/step, idle share, attention part;
   7. the training path through its entry point:
      `synt_isic_tpu_torch.train.__main__.main` on 64 procedural MEL images,
      2 epochs of batch 16 (8 steps, bf16 compute, f32 parameters); the
@@ -68,6 +71,11 @@ Phases, each of which exits non-zero on failure:
      and bf16, exact and fast math: every G torch.equal to G = 1 (exact:
      the log-sum-exp too), and a time for each; G* is the fastest G > 1 for fast math in bf16, the variant
      [generator] runs, whose error and time the `kernels` line reports;
+ 10b. [host] the wrappers' host path at T=256 (and T=1024): per wrapper
+     (`fused_attention` bf16, f32 and fast math, K4 forward+backward) the
+     host time of one call, and the kernel and SDPA launched from the host
+     in turns (medians of HOST_ROUNDS), with a cProfile split at T=256;
+     `python3 chip_smoke.py --host` runs this phase alone after the build;
  11. [generator] the library path: `ImageGenerator` (bf16 compute) on the
      full-width random checkpoint, `set_attention_tuning(G*, fast_math=True)`,
      DDIM 10 steps, batch 8, fixed base seed, `generate_images([("MEL", 16)])`:
@@ -117,12 +125,15 @@ non-zero without one.
 from __future__ import annotations
 
 import contextlib
+import cProfile
 import io
 import json
 import math
 import os
+import pstats
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -148,7 +159,11 @@ from synt_isic_tpu_torch.train.train_ddpm import TrainConfig, create_train_state
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 off the tensor cores
+# f32: products accurate to f32 on the tensor cores, as the f32 attention
+# forward computes them, take three TF32 passes (3xTF32: hi*hi + hi*lo +
+# lo*hi), so a third of the dense TF32 rate; this is above the CUDA cores'
+# 67e12, so it is the least time any f32 kernel could take for the products
+PEAK_FLOPS = {torch.float32: 494.7e12 / 3, torch.bfloat16: 989e12}
 SFU_EXP_PER_S = 16 * 132 * 1.98e9   # exponentials: 16 per clock per SM at boost clock
 
 # f32: the tolerance the Pallas kernel is held to against its einsum
@@ -182,6 +197,14 @@ BWD_ORDER_TOL = 1e-2
 # the forward's base-2 log-sum-exp against its plain version: f32 sums of up
 # to T = 1024 terms in another order, T * 2^-24 / ln 2 = 8.8e-5 at worst
 LSE_TOL = 1e-4
+# the f32 tensor-core forward against `attention_tf32x3_kernel_order`, the
+# same splits and products in the same order of terms: they differ only where
+# f32 rounds, in the tensor cores' accumulation, ex2.approx (2^-22 relative)
+# and the order of the f32 row sums, each a few f32 ulps of a weight or a
+# logit; randn inputs give |out| < 4, where an ulp is at most 2^-22 = 2.4e-7,
+# and 5e-6 allows 20 of them: a fourth of the 2e-5 the kernel is held to
+# against the reference (a single TF32 pass misses that by 15-30x)
+TF32_ORDER_TOL = 5e-6
 # ragged T (a short last key tile, a short last block of rows), checked in
 # both dtypes and in bf16 at head_dim 8 (the tensor-core kernel) with its lse
 RAGGED_SHAPES = [(2, 4, 101, 8), (2, 32, 1000, 8)]
@@ -241,6 +264,13 @@ COND_LIB_IMAGES = 5                   # per class: 35 images, 2 steps of 16 at G
 COND_GROUP = 2
 COND_REQUEST = [("MEL", 6), ("NV", 6), ("VASC", 4)]
 COND_GUIDANCE, COND_MAP = 3.0, {"MEL": 2.5, "NV": 1.0}
+# [host]: the wrappers' host path at the UNet's T=256 call (and T=1024,
+# where the device sets the pace): host time per call over HOST_CALLS
+# calls, then kernel and SDPA launched from the host in turns, the median
+# of HOST_ROUNDS rounds (single runs of the same tree have read 0.0513 and
+# 0.0281 ms for one call)
+HOST_SHAPES = [(8, 32, 256, 8), (8, 32, 1024, 8)]
+HOST_CALLS, HOST_ROUNDS = 1000, 7
 
 
 def fail(msg: str) -> None:
@@ -352,11 +382,13 @@ def phase_card() -> dict:
             "count": torch.cuda.device_count()}
 
 
-# the bf16 head_dim-8 kernels, on the tensor cores: instances per source
-TC_KERNELS = {attention.KERNEL: {"attention_fwd_tc_kernel": 2 * len(GROUPS)},
+# the head_dim-8 kernels on the tensor cores (bf16, and the exact f32
+# forward in 3xTF32): instances per source
+TC_KERNELS = {attention.KERNEL: {"attention_fwd_tc_kernel": 2 * len(GROUPS),
+                                 "attention_fwd_tf32_kernel": len(GROUPS)},
               attention.BWD_KERNEL: {"attention_bwd_dq_tc_kernel": len(GROUPS),
                                      "attention_bwd_dkdv_tc_kernel": len(GROUPS)}}
-_KERNEL_NAME = re.compile(r"(attention_[a-z_]+?_kernel)(I\w*?E)Ev")
+_KERNEL_NAME = re.compile(r"(attention_[a-z_]+?(?:tf32_)?kernel)(I\w*?E)Ev")
 
 
 def _kernel_label(mangled: str) -> str:
@@ -383,10 +415,10 @@ def phase_build() -> None:
             if "registers" in line or "spill" in line:
                 print(f"[build]   {name}: {kernel}: {line.strip()}", flush=True)
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if spills and "_tc_kernel" in kernel:
+            if spills and kernel.split("<")[0] in TC_KERNELS[name]:
                 check(spills.group(1) == spills.group(2) == "0",
                       f"[build] {kernel} spills: {line.strip()}")
-        # the bf16 head_dim-8 kernels run their products on the tensor cores
+        # the head_dim-8 tensor-core kernels run their products there
         sass = subprocess.run([str(cuobjdump), "-sass", str(native.library_path(name))],
                               capture_output=True, text=True, check=True).stdout
         counts, kernel = {}, None
@@ -417,6 +449,9 @@ def phase_kernel() -> dict:
             q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
                        for _ in range(3))
             want = attention.attention_reference(q, k, v).float()
+            # the f32 tensor-core kernel's own rounding (3xTF32, max per tile)
+            order = (attention.attention_tf32x3_kernel_order(q, k, v)
+                     if dtype == torch.float32 and d == 8 else None)
             # contiguous (B, H, T, D), and the (B, T, C) projection layout
             # split into heads by a view, as the UNet hands it over
             btc = [z.transpose(1, 2).reshape(b, t, h * d) for z in (q, k, v)]
@@ -435,8 +470,15 @@ def phase_kernel() -> dict:
                       f"{'ok' if ok else 'FAIL'}", flush=True)
                 check(ok, f"attention kernel disagrees with plain at {shape} {dtype} {layout}")
                 report[(shape, dtype, layout)] = max_abs
-                if dtype == torch.bfloat16 and d == 8:
-                    # the tensor-core kernel's log-sum-exp, and the output
+                if order is not None:
+                    order_err = (got - order).abs().max().item()
+                    print(f"[kernel]   vs attention_tf32x3_kernel_order: max_abs_err "
+                          f"{order_err:.3e} (allowed {TF32_ORDER_TOL:.0e})", flush=True)
+                    check(order_err <= TF32_ORDER_TOL,
+                          f"f32 kernel vs its rounding order at {shape} {layout}")
+                    report[(shape, dtype, layout, "order")] = order_err
+                if d == 8:
+                    # the tensor-core kernels' log-sum-exp, and the output
                     # unchanged by writing it
                     out, lse = attention.fused_attention(*args, with_lse=True)
                     lse_err = (lse - attention.attention_lse_reference(q, k)).abs().max().item()
@@ -729,6 +771,114 @@ def phase_kernel_group() -> dict:
           f"G=1 {fast[1]:.4f} ms); G* = {report['g_star']} (the fastest G > 1) drives "
           f"[generator]", flush=True)
     return report
+
+
+def host_ms(fn, calls: int = HOST_CALLS) -> float:
+    """Host time of one call of `fn`: `time.perf_counter` over `calls` calls
+    with no synchronisation inside (the device runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def in_turns(fns: dict, rounds: int = HOST_ROUNDS) -> dict:
+    """The median over `rounds` of each function's `cuda_ms`, the functions
+    taken in turns, the order reversed every other round (a, b, b, a, ...)."""
+    times = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[name].append(cuda_ms(fns[name]))
+    return {name: statistics.median(ts) for name, ts in times.items()}
+
+
+def host_profile(fn, calls: int = 200, top: int = 8) -> list:
+    """cProfile of `calls` calls of `fn` (the calling thread only): the
+    `top` functions by own time, as (microseconds per call of `fn`, calls
+    per call of `fn`, where)."""
+    fn()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    rows = []
+    for (path, line, func), (_, ncalls, tottime, _, _) in pstats.Stats(prof).stats.items():
+        rows.append((tottime / calls * 1e6, ncalls / calls, f"{Path(path).name}:{line}({func})"))
+    return sorted(rows, reverse=True)[:top]
+
+
+def phase_host() -> dict:
+    """The wrappers' host path at the UNet's T=256 call and at T=1024: per
+    wrapper the host time of one call, the kernel launched from the host and
+    `scaled_dot_product_attention` launched from the host (CUDA events, in
+    turns, medians of HOST_ROUNDS rounds), and where the host time goes
+    (cProfile, T=256)."""
+    g = torch.Generator(device="cuda").manual_seed(10)
+    report = {}
+    for shape in HOST_SHAPES:
+        for dtype, fast_math in ((torch.bfloat16, False), (torch.float32, False),
+                                 (torch.bfloat16, True)):
+            q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                       for _ in range(3))
+            views = _btc_views(q, k, v)
+            name = host_name(shape, dtype, fast_math)
+
+            def kernel():
+                return attention.fused_attention(*views, fast_math=fast_math)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(*views)
+
+            report[name] = _host_line(name, kernel, sdpa, shape[2] == 256)
+            del q, k, v, views
+    # K4 at the training path's T=256 call, forward+backward through autograd
+    shape = (TRAIN_BATCH, 32, 256, 8)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda").bfloat16()
+                   for _ in range(4))
+    leaves = [z.detach().requires_grad_() for z in _btc_views(q, k, v)]
+
+    def k4():
+        return torch.autograd.grad(attention.fused_attention_trainable(*leaves), leaves, do)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(F.scaled_dot_product_attention(*leaves), leaves, do)
+
+    name = host_name(shape, torch.bfloat16, False, trainable=True)
+    report[name] = _host_line(name, k4, sdpa_fwd_bwd, False)
+    # its backward alone, from the forward's statistics (cProfile sees the
+    # calling thread only, and autograd runs the backward on its own)
+    with torch.no_grad():
+        o, lse = attention.fused_attention(*leaves, with_lse=True)
+    for entry in host_profile(lambda: attention.fused_attention_bwd(*leaves, do, o=o, lse=lse)):
+        print(f"[host]   cProfile fused_attention_bwd {shape} bfloat16 from saved statistics: "
+              f"{entry[0]:.2f} us/call in {entry[2]} ({entry[1]:g} calls)", flush=True)
+    return report
+
+
+def host_name(shape, dtype, fast_math: bool, trainable: bool = False) -> str:
+    if trainable:
+        return f"fused_attention_trainable fwd+bwd {shape} {str(dtype)[6:]}"
+    return f"fused_attention{'(fast_math)' if fast_math else ''} {shape} {str(dtype)[6:]}"
+
+
+def _host_line(name: str, kernel, sdpa, profile: bool) -> dict:
+    row = dict(host_ms=host_ms(kernel), sdpa_host_ms=host_ms(sdpa))
+    timed = in_turns({"kernel": kernel, "sdpa": sdpa})
+    row.update(ms=timed["kernel"], sdpa_ms=timed["sdpa"])
+    print(f"[host] {name}: host {row['host_ms']:.4f} ms per call (sdpa {row['sdpa_host_ms']:.4f}); "
+          f"launched from the host, in turns, median of {HOST_ROUNDS}: kernel {row['ms']:.4f} "
+          f"ms, sdpa {row['sdpa_ms']:.4f} ms ({row['ms'] / row['sdpa_ms']:.2f}x)", flush=True)
+    if profile:
+        for us, ncalls, where in host_profile(kernel):
+            print(f"[host]   cProfile: {us:.2f} us/call in {where} ({ncalls:g} calls)", flush=True)
+    return row
 
 
 def _png_arrays(paths):
@@ -1060,7 +1210,44 @@ def phase_cli(state: dict, card: str, base: Path) -> int:
           f"on {card}; images kernel vs plain attention (full-f32 convolutions) "
           f"max_abs_err {err:.3e}", flush=True)
     check(err <= 1e-3, "sampled images, kernel vs plain attention")
+    profile_sampler(mm, seeds)
     return launches[attention.KERNEL]
+
+
+def profile_sampler(mm: ModelManager, seeds) -> dict:
+    """PROFILE_STEPS warm DDIM steps of the CLI's sampler under
+    `torch.profiler`: the device's busy time per step, its idle share of the
+    same walk on the host clock (median of 3, outside the profiler), and the
+    attention kernels' part."""
+    from torch.profiler import ProfilerActivity, profile
+
+    # imported here: `--host` runs this script on trees that lack it
+    from synt_isic_tpu_torch.train.benchmark import device_seconds
+
+    sampler = mm.create_sampler(PROFILE_STEPS, scheduler="ddim")
+    model = mm.loaded_models["MEL"]
+    sampler.sample(model, seeds)
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler.sample(model, seeds)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) / PROFILE_STEPS)
+    step_s = statistics.median(runs)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sampler.sample(model, seeds)
+        torch.cuda.synchronize()
+    busy, attn = (x / PROFILE_STEPS for x in device_seconds(prof))
+    if busy == 0:
+        print("[cli] torch.profiler recorded no device time: busy time and idle share not "
+              "measured", flush=True)
+        return {}
+    print(f"[cli] torch.profiler over {PROFILE_STEPS} warm DDIM steps, batch {CLI_BATCH}, f32: "
+          f"device busy {busy:.5f} s/step of {step_s:.5f} s/step on the host clock (idle "
+          f"share {1 - busy / step_s:.3f}), of which the attention kernels {attn:.5f} s/step "
+          f"({attn / busy:.3f} of busy)", flush=True)
+    return dict(busy_s=busy, step_s=step_s, attention_s=attn)
 
 
 class _Tee(io.TextIOBase):
@@ -1454,11 +1641,18 @@ def phase_reproduce_conditional(cond: dict, ckpt: Path) -> dict:
 
 def main() -> int:
     card = phase_card()
+    if sys.argv[1:] == ["--host"]:
+        # the [host] phase alone, e.g. in an unpacked parent tree with this
+        # script copied in (so no check of which kernels the tree has)
+        native.build([attention.KERNEL, attention.BWD_KERNEL])
+        print(json.dumps({"host": phase_host(), "card": card["card"]}), flush=True)
+        return 0
     phase_build()
     kernel_report = phase_kernel()
     bwd_report = phase_kernel_bwd()
     fast_report = phase_kernel_fast()
     group_report = phase_kernel_group()
+    host_report = phase_host()
     bwd_group_report = phase_kernel_bwd_group()
     state = phase_unet()
     phase_unet_grad()
@@ -1496,6 +1690,8 @@ def main() -> int:
         "launches_reproduce_conditional": cond_redo[attention.KERNEL],
         "launches_train_conditional": cond_train["entry"][attention.KERNEL],
         "max_abs_err": kernel_report[(shape, dtype, "BTC")],
+        # the f32 kernel (3xTF32 on the tensor cores) vs its own rounding order
+        "max_abs_err_kernel_order": kernel_report[(shape, dtype, "BTC", "order")],
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
@@ -1503,6 +1699,10 @@ def main() -> int:
         "library_ms": timing["library_ms"],
         "device_ms": timing["device_ms"],
         "library_device_ms": timing["library_device_ms"],
+        # [host] at the UNet's T=256 call: host ms per call, and kernel and
+        # SDPA launched from the host in turns (medians)
+        "host_t256": host_report[host_name(MAIN_SHAPES[1], dtype, False)],
+        "host_t256_bf16": host_report[host_name(MAIN_SHAPES[1], torch.bfloat16, False)],
         # bf16 (the tensor-core kernel, which the training path's launches
         # run): host-launched and from a CUDA graph, beside SDPA
         "max_abs_err_bf16": kernel_report[(shape, torch.bfloat16, "BTC")],
@@ -1550,6 +1750,10 @@ def main() -> int:
         "exp_bound_ms": bwd_bf16["exp_ms"],
         "max_abs_err_bf16_kernel_order": bwd_report[(bwd_shape, torch.bfloat16, "BTC",
                                                      "order")],
+        # [host]: K4 forward+backward through autograd at the training
+        # path's T=256 call, beside SDPA's
+        "host_fwd_bwd_t256_bf16": host_report[host_name((TRAIN_BATCH, 32, 256, 8),
+                                                        torch.bfloat16, False, trainable=True)],
         "launches_stats_train": train_launches[attention.STATS_KERNEL],
         "launches_stats_train_conditional": cond_train["entry"][attention.STATS_KERNEL],
         "launches_train_conditional": cond_train["entry"][attention.BWD_KERNEL],
@@ -1592,6 +1796,7 @@ def main() -> int:
         "library_ms": fast_timing["library_ms"],
         "exact_ms": fast_timing["exact_ms"],
         "device_ms": fast_timing["device_ms"],
+        "host_t256": host_report[host_name(MAIN_SHAPES[1], torch.bfloat16, True)],
         "shape": list(MAIN_SHAPES[0]),
         "dtype": "bfloat16",
     }, {

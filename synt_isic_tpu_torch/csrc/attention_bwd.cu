@@ -670,7 +670,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* d
   const Strides sdk{st[20], st[21], st[22], st[23]};
   const Strides sdv{st[24], st[25], st[26], st[27]};
   const Strides so{st[28], st[29], st[30], st[31]};
-  if (!rows16(q, sq) || !rows16(k, sk) || !rows16(v, sv) || !rows16(dout, sdo)
+  if (!rows16<bf16>(q, sq) || !rows16<bf16>(k, sk) || !rows16<bf16>(v, sv)
+      || !rows16<bf16>(dout, sdo)
       || o == nullptr || lse == nullptr)
     return cudaErrorInvalidValue;
   const dim3 grid((seq_len + kTcRows - 1) / kTcRows, heads / G, batch);
@@ -705,36 +706,45 @@ cudaError_t launch_tc_group(int group, const void* q, const void* k, const void*
 
 }  // namespace
 
+// The launch's shape, types and knobs, packed once per checked layout by
+// ops/attention.py (`_BwdArgs` there: the same fields in the same order).
 // dtype: 0 = float32, 1 = bfloat16. strides: 32 element strides, (b, h, t, d)
-// for q, k, v, dout, dq, dk, dv and o in that order. lse and delta: f32
-// (batch, heads, seq_len), contiguous. bf16 with head_dim 8 (the tensor-core
-// kernels): o is the forward's output and lse its base-2 log-sum-exp, both
-// read; delta is scratch, written by the first launch and read by the
-// second; the rows of q, k, v and dout must start on 16 bytes with their
-// channels contiguous. Every other instance ignores o and uses lse and delta
-// as scratch of its own. heads_per_program: 1, 2, 4 or 8, and it must divide
-// heads. Returns a cudaError_t; an unsupported head_dim, dtype, group or
-// layout returns cudaErrorInvalidValue without launching.
-extern "C" int attention_bwd(const void* q, const void* k, const void* v,
+// for q, k, v, dout, dq, dk, dv and o in that order. heads_per_program: 1, 2,
+// 4 or 8, and it must divide heads.
+struct BwdArgs {
+  int64_t strides[32];
+  int32_t batch, heads, seq_len, head_dim, dtype, heads_per_program;
+  float scale;
+};
+
+// lse and delta: f32 (batch, heads, seq_len), contiguous. bf16 with head_dim
+// 8 (the tensor-core kernels): o is the forward's output and lse its base-2
+// log-sum-exp, both read; delta is scratch, written by the first launch and
+// read by the second; the rows of q, k, v and dout must start on 16 bytes
+// with their channels contiguous. Every other instance ignores o and uses
+// lse and delta as scratch of its own. Returns a cudaError_t; an unsupported
+// head_dim, dtype, group or layout returns cudaErrorInvalidValue without
+// launching.
+extern "C" int attention_bwd(const BwdArgs* a, const void* q, const void* k, const void* v,
                              const void* dout, const void* o, void* dq, void* dk,
-                             void* dv, float* lse, float* delta, int batch,
-                             int heads, int seq_len, int head_dim, int dtype,
-                             const int64_t* strides, float scale,
-                             int heads_per_program, void* stream) {
+                             void* dv, float* lse, float* delta, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int g = heads_per_program;
+  const int g = a->heads_per_program;
+  const int batch = a->batch, heads = a->heads, seq_len = a->seq_len;
+  const int64_t* strides = a->strides;
+  const float scale = a->scale;
   if (seq_len <= 0 || batch <= 0 || heads <= 0 || g <= 0 || heads % g != 0)
     return cudaErrorInvalidValue;
-  if (dtype == 0 && head_dim == 8)
+  if (a->dtype == 0 && a->head_dim == 8)
     return launch_group<8, float>(g, q, k, v, dout, dq, dk, dv, lse, delta,
                                   batch, heads, seq_len, strides, scale, s);
-  if (dtype == 1 && head_dim == 8)
+  if (a->dtype == 1 && a->head_dim == 8)
     return launch_tc_group(g, q, k, v, dout, o, dq, dk, dv, lse, delta, batch,
                            heads, seq_len, strides, scale, s);
-  if (dtype == 0 && head_dim == 4)
+  if (a->dtype == 0 && a->head_dim == 4)
     return launch_group<4, float>(g, q, k, v, dout, dq, dk, dv, lse, delta,
                                   batch, heads, seq_len, strides, scale, s);
-  if (dtype == 1 && head_dim == 4)
+  if (a->dtype == 1 && a->head_dim == 4)
     return launch_group<4, __nv_bfloat16>(g, q, k, v, dout, dq, dk, dv, lse,
                                           delta, batch, heads, seq_len,
                                           strides, scale, s);

@@ -93,7 +93,64 @@
 //   (attention.py:81-83); the products accumulate in f32 on the tensor
 //   cores.
 //
-// f32 (any head_dim) and bf16 at head_dim 4: the CUDA-core kernel, one
+// f32, head_dim 8, exact maths: the 3xTF32 tensor-core kernel (the console
+// CLI's and the conditional generator's configuration; every G, so that G > 1
+// runs the arithmetic of G = 1).
+//   Bound on the H100 at (8, 32, 1024, 8): products accurate to f32 run on
+//   the tensor cores in three TF32 passes, 3 x 8.6 GFLOP at 494.7 TFLOP/s
+//   (dense TF32) = 52 us; q, k, v and out in f32 are 33.6 MB, 10 us; the
+//   2.7e8 exponentials take 64 us on the special-function units. So, as in
+//   bf16, the exponentials are the limit, and everything else is kept off
+//   their way: one MUFU.EX2 per (i, j) and no data-dependent branch per key.
+//   Layout as the bf16 kernel: one warp per 16 query rows of one head, 4 warps
+//   per head, 64 rows x G heads per block, at most 64 registers a thread. K
+//   and V come in f32 tiles of 64 keys by `cp.async`, double-buffered, two
+//   16-byte copies per key row of one head (so each row of k and v must start
+//   on 16 bytes with its 8 channels contiguous; the wrapper copies any other
+//   layout first); the block then splits each staged tile once into TF32 hi
+//   and lo parts in shared memory (16 KB x G of dynamic shared memory in all),
+//   so no warp splits K or V in its inner loop.
+//   Products: `mma.sync` m16n8k8 with TF32 operands (D = 8 unpadded as k8 for
+//   S = Q K^T; 8 keys as k8 for O += P V), each operand split into hi, its
+//   TF32 rounding to nearest with ties away (as `cvt.rna.tf32.f32`, here two
+//   integer instructions), and lo = x - hi, of which the tensor cores read the
+//   top 19 bits; three products per 8 keys, lo.hi + hi.lo + hi.hi, the small
+//   terms first. q is scaled to base-2 logits in f32 (1/sqrt(D) * log2(e))
+//   and split once, in registers; P is split in registers.
+//   Fragments (PTX ISA, m16n8k8 .tf32; g = lane / 4, t = lane % 4): A holds
+//   rows g, g + 8 at columns t and t + 4, B rows t and t + 4 of column g, C
+//   rows g, g + 8 at columns 2t and 2t + 1. S's accumulator thus holds keys
+//   2t, 2t + 1 where P's A fragment wants columns t, t + 4: no shuffle, the
+//   keys are permuted instead. S's B column n reads key n ^ ((n >> 2) & 1)
+//   of its 8, so the accumulator's columns (2t, 2t + 1) hold keys 2t + w and
+//   2t + 1 - w (w = (t >> 1) & 1), which become P's columns t and t + 4;
+//   V's B fragment reads keys 2t + w and 2t + 1 - w of channel g. With V's
+//   rows stored as they come, those reads hit 32 banks; K's reads (keys
+//   n and n + 4 would share banks) do so because the two 16-byte chunks of
+//   keys 4-7 of every 8 are stored swapped.
+//   Softmax in base 2, one pass per tile: p = 2^(s - m), one FADD and one
+//   MUFU.EX2 per pair, against a running shift m that needs no pass of its
+//   own: the tile max of one TF32 pass (hi.hi) on the first tile, then, after
+//   a tile whose row sum passes 2^16, m + log2 of that sum (within 6 of the
+//   tile's max), so the weights stay under 2^16. The shift cancels in the
+//   softmax; it changes rounding only. A tile whose row sums would
+//   pass 2^40 against it (logits that jump by more than about 40 within a
+//   row; a warp-wide vote) is done again after moving the shift to that
+//   one-pass tile max. Each tile's P V gathers in its own accumulator and is
+//   added in f32 at the end: the tensor cores' f32 sums truncate, and a
+//   chain of 24 products, not one of every key's, carries that error. l sums
+//   the f32 p (the lse is the f32 softmax's).
+//   Deviations from the TPU kernel (attention.py:28-56, exact f32), rounding
+//   only (`attention_tf32x3_kernel_order` in ops/attention.py is this
+//   arithmetic in plain PyTorch, all but the redone tiles): each product is
+//   carried to about 2^-21 of it (lo truncated, lo.lo dropped), the sums in
+//   f32 in the tensor cores' order; the weights are taken against a running
+//   shift, not the row's max; unnormalised weights multiply v and the
+//   division comes last. At randn inputs the result lies within about 5e-7
+//   of float64 attention on the CPU model, as f32 does; one TF32 pass would
+//   miss the 2e-5 tolerance 15-30 times over.
+//
+// f32 fast math and head_dim 4 (f32 and bf16): the CUDA-core kernel, one
 // thread per (row, head), everything f32 inside. A block handles kBlockQ
 // query rows of G heads; the thread keeps its q row, an f32 accumulator of
 // D values, a running max and a running sum in registers, and walks the
@@ -101,9 +158,7 @@
 // the two shifted logits rounded to bf16 by one conversion. Deviation from
 // the TPU kernel on the exact path: unnormalised f32 weights multiply v and
 // the normalisation comes last; nothing is rounded until the store. Only
-// rounding changes: about 1e-6 in f32. Bound at (8, 32, 1024, 8) in f32:
-// 8.6 GFLOP, 0.128 ms at 67 TFLOP/s on the CUDA cores, which is what the
-// scalar dot products spend their time on.
+// rounding changes: about 1e-6 in f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -115,6 +170,7 @@
 namespace {
 
 constexpr int kBlockQ = 128;  // query rows per block, one thread per (row, head)
+
 constexpr float kLog2e = 1.4426950408889634f;
 
 // keys per staged tile: 128, or fewer so that the f32 k and v tiles of G
@@ -296,26 +352,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int D, typename T, int G>
-cudaError_t launch_math(bool fast_math, const void* q, const void* k, const void* v,
-                        void* o, float* lse, int batch, int heads, int seq_len,
-                        const int64_t* st, float scale, cudaStream_t s) {
-  return fast_math
-      ? launch<D, T, G, true>(q, k, v, o, nullptr, batch, heads, seq_len, st, scale, s)
-      : launch<D, T, G, false>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+template <int D, typename T, bool FastMath>
+cudaError_t launch_group(int group, const void* q, const void* k, const void* v, void* o,
+                         float* lse, int batch, int heads, int seq_len, const int64_t* st,
+                         float scale, cudaStream_t s) {
+  switch (group) {
+    case 1: return launch<D, T, 1, FastMath>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    case 2: return launch<D, T, 2, FastMath>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    case 4: return launch<D, T, 4, FastMath>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    case 8: return launch<D, T, 8, FastMath>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int D, typename T>
-cudaError_t launch_group(int group, bool fast_math, const void* q, const void* k,
-                         const void* v, void* o, float* lse, int batch, int heads,
-                         int seq_len, const int64_t* st, float scale, cudaStream_t s) {
-  switch (group) {
-    case 1: return launch_math<D, T, 1>(fast_math, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
-    case 2: return launch_math<D, T, 2>(fast_math, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
-    case 4: return launch_math<D, T, 4>(fast_math, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
-    case 8: return launch_math<D, T, 8>(fast_math, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t launch_math(int group, bool fast_math, const void* q, const void* k,
+                        const void* v, void* o, float* lse, int batch, int heads,
+                        int seq_len, const int64_t* st, float scale, cudaStream_t s) {
+  return fast_math
+      ? launch_group<D, T, true>(group, q, k, v, o, nullptr, batch, heads, seq_len, st, scale, s)
+      : launch_group<D, T, false>(group, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -507,7 +563,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, floa
   const Strides sk{st[4], st[5], st[6], st[7]};
   const Strides sv{st[8], st[9], st[10], st[11]};
   const Strides so{st[12], st[13], st[14], st[15]};
-  if (!rows16(k, sk) || !rows16(v, sv)) return cudaErrorInvalidValue;
+  if (!rows16<bf16>(k, sk) || !rows16<bf16>(v, sv)) return cudaErrorInvalidValue;
   const dim3 grid((seq_len + kTcRows - 1) / kTcRows, heads / G, batch);
   attention_fwd_tc_kernel<G, FastMath><<<grid, 32 * kTcWarps * G, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
@@ -536,35 +592,387 @@ cudaError_t launch_tc_group(int group, bool fast_math, const void* q, const void
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32, D = 8, exact: the 3xTF32 tensor-core kernel (see the top of the file)
+// ---------------------------------------------------------------------------
+
+// Stage keys [r0, r0 + kTcTile) of G heads of k and v (f32, from head h0 on,
+// at kb and vb) into kt[g * 2 kTcTile + ...] and vt[...]: a key row of one
+// head is 8 floats, two 16-byte chunks, one chunk of each tensor per thread.
+// Chunk c of key j lands at j * 2 + c in vt, and at j * 2 + (c ^ ((j >> 2) & 1))
+// in kt, so that the S step's reads of K (two keys 4 apart share banks
+// unswizzled) hit 32 banks. Keys past seq_len are zeros.
+template <int G>
+__device__ __forceinline__ void stage_rows_f32(float4* kt, float4* vt, const float* kb,
+                                               const float* vb, Strides sk, Strides sv,
+                                               int r0, int seq_len) {
+  static_assert(2 * kTcTile == 32 * kTcWarps, "one chunk of k and one of v per thread");
+  const int c = threadIdx.x;
+  const int64_t gh = c / (2 * kTcTile);
+  const int key = (c % (2 * kTcTile)) / 2;
+  const int half = c % 2;
+  const int row = r0 + key;
+  float4* kd = kt + gh * 2 * kTcTile + key * 2 + (half ^ ((key >> 2) & 1));
+  float4* vd = vt + c;
+  if (row < seq_len) {
+    cp_async16(kd, kb + row * sk.t + gh * sk.h + 4 * half);
+    cp_async16(vd, vb + row * sv.t + gh * sv.h + 4 * half);
+  } else {
+    *kd = *vd = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Split the staged tile of G heads (raw K and V, 2 kTcTile chunks each per
+// head) into TF32 hi and lo parts, chunk for chunk, one chunk of each tensor
+// per thread: done once per block and tile, so that no warp splits K or V in
+// its inner loop.
+__device__ __forceinline__ void split_tile(const float4* raw_k, const float4* raw_v,
+                                           float4* khi, float4* klo, float4* vhi,
+                                           float4* vlo) {
+  const int c = threadIdx.x;
+  const float4 kx = raw_k[c];
+  const float4 vx = raw_v[c];
+  uint4 h, l;
+  split_tf32(kx.x, h.x, l.x);
+  split_tf32(kx.y, h.y, l.y);
+  split_tf32(kx.z, h.z, l.z);
+  split_tf32(kx.w, h.w, l.w);
+  reinterpret_cast<uint4*>(khi)[c] = h;
+  reinterpret_cast<uint4*>(klo)[c] = l;
+  split_tf32(vx.x, h.x, l.x);
+  split_tf32(vx.y, h.y, l.y);
+  split_tf32(vx.z, h.z, l.z);
+  split_tf32(vx.w, h.w, l.w);
+  reinterpret_cast<uint4*>(vhi)[c] = h;
+  reinterpret_cast<uint4*>(vlo)[c] = l;
+}
+
+// This lane's reads of one staged tile, as offsets in floats from the head's
+// K or V tile, for slice 0 (slice s adds 64 s): K[n ^ ((n >> 2) & 1)][tig]
+// and [tig + 4] for S's B column n = gid (the chunk swap of keys 4-7 undone);
+// V[2 tig + w][gid] and V[2 tig + 1 - w][gid] for P V's B fragment.
+struct Tf32Lane {
+  int k0, k1, v0, v1;
+  __device__ __forceinline__ Tf32Lane() {
+    const int lane = threadIdx.x % 32;
+    const int gid = lane / 4;
+    const int tig = lane % 4;
+    const int sw = (gid >> 2) & 1;
+    const int key = gid ^ sw;
+    const int w = (tig >> 1) & 1;
+    k0 = key * 8 + 4 * sw + tig;
+    k1 = key * 8 + 4 * (sw ^ 1) + tig;
+    v0 = (2 * tig + w) * 8 + gid;
+    v1 = (2 * tig + 1 - w) * 8 + gid;
+  }
+};
+
+// Keys at or past `keys` get s = -inf (weight 0): c[0], c[2] hold key
+// 8 s + 2 tig + w, c[1], c[3] key 8 s + 2 tig + 1 - w (w = (tig >> 1) & 1).
+__device__ __forceinline__ void mask_keys(int s, int keys, float* c) {
+  const int tig = threadIdx.x % 4;
+  const int w = (tig >> 1) & 1;
+  if (8 * s + 2 * tig + w >= keys) c[0] = c[2] = -INFINITY;
+  if (8 * s + 2 * tig + 1 - w >= keys) c[1] = c[3] = -INFINITY;
+}
+
+// S = Q K^T in base 2 for one warp's 16 rows and the 8 keys of slice s of the
+// staged tile, as one C fragment (c[0..1] row a, c[2..3] row b, keys as in
+// mask_keys): three TF32 products, the small terms first.
+template <bool Mask>
+__device__ __forceinline__ void qk_tf32(const uint32_t* kh, const uint32_t* kl,
+                                        const Tf32Lane& ln, int s, const uint32_t* qhi,
+                                        const uint32_t* qlo, int keys, float* c) {
+  const uint32_t khi[2] = {kh[ln.k0 + 64 * s], kh[ln.k1 + 64 * s]};
+  const uint32_t klo[2] = {kl[ln.k0 + 64 * s], kl[ln.k1 + 64 * s]};
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+  mma_tf32(c, qlo, khi);
+  mma_tf32(c, qhi, klo);
+  mma_tf32(c, qhi, khi);
+  if (Mask) mask_keys(s, keys, c);
+}
+
+// The row maxima of one TF32 product of the hi parts (within about 2^-10 of
+// S) over the staged tile, for one warp's rows a and b, reduced over each
+// row's 4 lanes.
+template <bool Mask>
+__device__ __forceinline__ void tile_max_tf32(const uint32_t* kh, const Tf32Lane& ln,
+                                              const uint32_t* qhi, int keys, float* mx) {
+  mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+  for (int s = 0; s < kTcTile / 8; ++s) {
+    const uint32_t kb[2] = {kh[ln.k0 + 64 * s], kh[ln.k1 + 64 * s]};
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_tf32(c, qhi, kb);
+    if (Mask) mask_keys(s, keys, c);
+    mx[0] = fmaxf(mx[0], fmaxf(c[0], c[1]));
+    mx[1] = fmaxf(mx[1], fmaxf(c[2], c[3]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+}
+
+// P = 2^(S - m) and P V over the staged tile for one warp's 16 query rows, 8
+// keys a step: lt[r] gets the row's sum of its f32 weights (reduced over its
+// 4 lanes), pv the tile's P V (a C fragment, its own accumulator: the tensor
+// cores' f32 sums truncate, so a chain of 24 products, not one of every
+// key's, carries that error).
+template <bool Mask>
+__device__ __forceinline__ void tile_pv_tf32(const uint32_t* kh, const uint32_t* kl,
+                                             const uint32_t* vh, const uint32_t* vl,
+                                             const Tf32Lane& ln, const uint32_t* qhi,
+                                             const uint32_t* qlo, int keys, const float* m,
+                                             float* lt, float* pv) {
+  lt[0] = lt[1] = 0.f;
+  pv[0] = pv[1] = pv[2] = pv[3] = 0.f;
+  // two steps a turn: fully unrolled, the steps' fragments spill at the
+  // 64-register cap
+#pragma unroll 2
+  for (int s = 0; s < kTcTile / 8; ++s) {
+    float c[4];
+    qk_tf32<Mask>(kh, kl, ln, s, qhi, qlo, keys, c);
+    const float p[4] = {ex2(__fsub_rn(c[0], m[0])), ex2(__fsub_rn(c[1], m[0])),
+                        ex2(__fsub_rn(c[2], m[1])), ex2(__fsub_rn(c[3], m[1]))};
+    lt[0] = __fadd_rn(lt[0], __fadd_rn(p[0], p[1]));
+    lt[1] = __fadd_rn(lt[1], __fadd_rn(p[2], p[3]));
+    // P's A fragment: rows a, b at column tig (c[0], c[2]), then at tig + 4
+    uint32_t phi[4], plo[4];
+    split_tf32(p[0], phi[0], plo[0]);
+    split_tf32(p[2], phi[1], plo[1]);
+    split_tf32(p[1], phi[2], plo[2]);
+    split_tf32(p[3], phi[3], plo[3]);
+    const uint32_t vhi[2] = {vh[ln.v0 + 64 * s], vh[ln.v1 + 64 * s]};
+    const uint32_t vlo[2] = {vl[ln.v0 + 64 * s], vl[ln.v1 + 64 * s]};
+    mma_tf32(pv, plo, vhi);   // P V, the small terms first
+    mma_tf32(pv, phi, vlo);
+    mma_tf32(pv, phi, vhi);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lt[r] = __fadd_rn(lt[r], __shfl_xor_sync(0xffffffffu, lt[r], 1));
+    lt[r] = __fadd_rn(lt[r], __shfl_xor_sync(0xffffffffu, lt[r], 2));
+  }
+}
+
+// Bring row r's sum l[r] and accumulator (acc[2r], acc[2r + 1]) from shift
+// m[r] onto mnew >= m[r]. __fmul_rn is never contracted into an fma with the
+// sums that follow, so no G instance rounds otherwise than G = 1.
+__device__ __forceinline__ void shift_to(int r, float mnew, float* m, float* l, float* acc) {
+  // on the first tile m = -inf, so c = 0 and the zero state stays zero
+  const float c = mnew > m[r] ? ex2(m[r] - mnew) : 1.f;
+  m[r] = mnew;
+  l[r] = __fmul_rn(l[r], c);
+  acc[2 * r] = __fmul_rn(acc[2 * r], c);
+  acc[2 * r + 1] = __fmul_rn(acc[2 * r + 1], c);
+}
+
+// One staged key tile for one warp's 16 query rows. The weights are taken
+// against a running shift m that needs no pass over the tile: on the first
+// tile, and on a tile whose row sums would pass 2^40 against it (then, or on
+// inf or NaN, the tile is done again), m first moves to the tile's max from
+// one TF32 pass (tile_max_tf32); after a tile whose row sum passes 2^16, m
+// moves to m + log2 of that sum (within 6 of the tile's max, as a tile has
+// 64 keys), so the weights stay under 2^16. m, l (row sums) and acc are per
+// row as in shift_to, the same in each row's 4 lanes.
+template <bool Mask>
+__device__ __forceinline__ void fwd_tile_tf32(const uint32_t* kh, const uint32_t* kl,
+                                              const uint32_t* vh, const uint32_t* vl,
+                                              const Tf32Lane& ln, const uint32_t* qhi,
+                                              const uint32_t* qlo, int keys, bool first,
+                                              float* m, float* l, float* acc) {
+  float lt[2], pv[4];
+  bool need_max = first;
+  for (;;) {
+    if (need_max) {
+      float mx[2];
+      tile_max_tf32<Mask>(kh, ln, qhi, keys, mx);
+      shift_to(0, fmaxf(m[0], mx[0]), m, l, acc);
+      shift_to(1, fmaxf(m[1], mx[1]), m, l, acc);
+    }
+    tile_pv_tf32<Mask>(kh, kl, vh, vl, ln, qhi, qlo, keys, m, lt, pv);
+    // !(x <= 2^40) also holds for inf and NaN
+    const bool wide = !(lt[0] <= 0x1p40f) || !(lt[1] <= 0x1p40f);
+    if (need_max || !__any_sync(0xffffffffu, wide)) break;
+    need_max = true;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = __fadd_rn(l[r], lt[r]);
+    acc[2 * r] = __fadd_rn(acc[2 * r], pv[2 * r]);
+    acc[2 * r + 1] = __fadd_rn(acc[2 * r + 1], pv[2 * r + 1]);
+    if (lt[r] > 0x1p16f) shift_to(r, __fadd_rn(m[r], __log2f(lt[r])), m, l, acc);
+  }
+}
+
+template <int G>
+__global__ void __launch_bounds__(32 * kTcWarps * G, kTcBlocksPerSM / G)
+attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int heads, int seq_len, Strides sq,
+                          Strides sk, Strides sv, Strides so, float scale_log2) {
+  // two buffers of G heads' K tiles as staged, two of their V tiles, then
+  // the current tile's K hi, K lo, V hi and V lo parts
+  extern __shared__ float4 tf32_tiles[];
+  constexpr int kChunks = G * 2 * kTcTile;   // 16-byte chunks per tile of G heads
+  float4* k_tile = tf32_tiles;
+  float4* v_tile = tf32_tiles + 2 * kChunks;
+  float4* parts = tf32_tiles + 4 * kChunks;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = warp / kTcWarps;          // this warp's head within the group
+  const int tig = lane % 4;
+  const int64_t b = blockIdx.z;
+  const int64_t h0 = static_cast<int64_t>(blockIdx.y) * G;
+  const int64_t h = h0 + g;
+  const int ra = blockIdx.x * kTcRows + (warp % kTcWarps) * 16 + lane / 4;
+  const int rb = ra + 8;
+  const bool oka = ra < seq_len;
+  const bool okb = rb < seq_len;
+
+  // q's A fragment (rows a, b at channel tig, then at tig + 4), scaled to
+  // base-2 logits in f32 and split into TF32 hi and lo parts once
+  const float* qh = q + b * sq.b + h * sq.h;
+  const float qx[4] = {oka ? qh[ra * sq.t + tig * sq.d] : 0.f,
+                       okb ? qh[rb * sq.t + tig * sq.d] : 0.f,
+                       oka ? qh[ra * sq.t + (tig + 4) * sq.d] : 0.f,
+                       okb ? qh[rb * sq.t + (tig + 4) * sq.d] : 0.f};
+  uint32_t qhi[4], qlo[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__fmul_rn(qx[i], scale_log2), qhi[i], qlo[i]);
+
+  const Tf32Lane lane_reads;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  const float* kb = k + b * sk.b + h0 * sk.h;
+  const float* vb = v + b * sv.b + h0 * sv.h;
+  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
+  stage_rows_f32<G>(k_tile, v_tile, kb, vb, sk, sv, 0, seq_len);
+  cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {   // the next tile streams in while this one is used
+      stage_rows_f32<G>(k_tile + (buf ^ 1) * kChunks, v_tile + (buf ^ 1) * kChunks, kb, vb,
+                        sk, sv, (t + 1) * kTcTile, seq_len);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    // buf has landed for every thread, and every warp is done with the
+    // previous tile's parts
+    __syncthreads();
+    split_tile(k_tile + buf * kChunks, v_tile + buf * kChunks, parts, parts + kChunks,
+               parts + 2 * kChunks, parts + 3 * kChunks);
+    __syncthreads();
+    const uint32_t* head = reinterpret_cast<const uint32_t*>(parts + g * 2 * kTcTile);
+    constexpr int kPart = 4 * kChunks;   // words from one part to the next
+    const int keys = seq_len - t * kTcTile;
+    if (keys >= kTcTile) {
+      fwd_tile_tf32<false>(head, head + kPart, head + 2 * kPart, head + 3 * kPart, lane_reads,
+                           qhi, qlo, keys, t == 0, m, l, acc);
+    } else {
+      fwd_tile_tf32<true>(head, head + kPart, head + 2 * kPart, head + 3 * kPart, lane_reads,
+                          qhi, qlo, keys, t == 0, m, l, acc);
+    }
+  }
+
+  const float la = l[0];
+  const float lb = l[1];
+  float* oh = o + b * so.b + h * so.h;
+  if (oka) {
+    oh[ra * so.t + 2 * tig * so.d] = acc[0] / la;
+    oh[ra * so.t + (2 * tig + 1) * so.d] = acc[1] / la;
+  }
+  if (okb) {
+    oh[rb * so.t + 2 * tig * so.d] = acc[2] / lb;
+    oh[rb * so.t + (2 * tig + 1) * so.d] = acc[3] / lb;
+  }
+  if (lse != nullptr && tig == 0) {
+    const int64_t stat = (b * heads + h) * seq_len;
+    if (oka) lse[stat + ra] = m[0] + log2f(la);
+    if (okb) lse[stat + rb] = m[1] + log2f(lb);
+  }
+}
+
+template <int G>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int batch, int heads, int seq_len, const int64_t* st, float scale,
+                        cudaStream_t stream) {
+  const Strides sq{st[0], st[1], st[2], st[3]};
+  const Strides sk{st[4], st[5], st[6], st[7]};
+  const Strides sv{st[8], st[9], st[10], st[11]};
+  const Strides so{st[12], st[13], st[14], st[15]};
+  if (!rows16<float>(k, sk) || !rows16<float>(v, sv)) return cudaErrorInvalidValue;
+  // K and V as staged, double-buffered, and the tile's four parts
+  constexpr int kBytes = 8 * G * 2 * kTcTile * 16;
+  if (kBytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_fwd_tf32_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((seq_len + kTcRows - 1) / kTcRows, heads / G, batch);
+  attention_fwd_tf32_kernel<G><<<grid, 32 * kTcWarps * G, kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, heads, seq_len, sq, sk, sv, so, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tf32_group(int group, const void* q, const void* k, const void* v,
+                              void* o, float* lse, int batch, int heads, int seq_len,
+                              const int64_t* st, float scale, cudaStream_t s) {
+  switch (group) {
+    case 1: return launch_tf32<1>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    case 2: return launch_tf32<2>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    case 4: return launch_tf32<4>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    case 8: return launch_tf32<8>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
+// The launch's shape, types and knobs, packed once per checked layout by
+// ops/attention.py (`_FwdArgs` there: the same fields in the same order).
 // dtype: 0 = float32, 1 = bfloat16. strides: 16 element strides, (b, h, t, d)
 // for q, k, v and out in that order. heads_per_program: 1, 2, 4 or 8, and it
-// must divide heads. fast_math: 0 or 1. lse: null, or (exact path only) a
-// contiguous f32 (batch, heads, seq_len) output for each row's base-2
-// log-sum-exp. Returns a cudaError_t; an unsupported head_dim, dtype or
-// group, or lse with fast_math, returns cudaErrorInvalidValue without
-// launching. bf16 with head_dim 8 (the tensor-core kernel) also needs each
-// row of k and v to start on 16 bytes with its channels contiguous.
-extern "C" int attention_fwd(const void* q, const void* k, const void* v,
-                             void* o, float* lse, int batch, int heads,
-                             int seq_len, int head_dim, int dtype,
-                             const int64_t* strides, float scale,
-                             int heads_per_program, int fast_math,
-                             void* stream) {
+// must divide heads. fast_math: 0 or 1.
+struct FwdArgs {
+  int64_t strides[16];
+  int32_t batch, heads, seq_len, head_dim, dtype, heads_per_program, fast_math;
+  float scale;
+};
+
+// lse: null, or (exact path only) a contiguous f32 (batch, heads, seq_len)
+// output for each row's base-2 log-sum-exp. Returns a cudaError_t; an
+// unsupported head_dim, dtype or group, or lse with fast_math, returns
+// cudaErrorInvalidValue without launching. head_dim 8 on the tensor cores
+// (bf16, and f32 exact) also needs each row of k and v to start on 16 bytes
+// with its channels contiguous.
+extern "C" int attention_fwd(const FwdArgs* a, const void* q, const void* k, const void* v,
+                             void* o, float* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int g = heads_per_program;
+  const int g = a->heads_per_program;
+  const int batch = a->batch, heads = a->heads, seq_len = a->seq_len;
+  const int64_t* st = a->strides;
+  const float scale = a->scale;
   if (seq_len <= 0 || batch <= 0 || heads <= 0 || g <= 0 || heads % g != 0)
     return cudaErrorInvalidValue;
-  const bool fm = fast_math != 0;
+  const bool fm = a->fast_math != 0;
   if (fm && lse != nullptr) return cudaErrorInvalidValue;
-  if (dtype == 0 && head_dim == 8)
-    return launch_group<8, float>(g, fm, q, k, v, o, lse, batch, heads, seq_len, strides, scale, s);
-  if (dtype == 1 && head_dim == 8)
-    return launch_tc_group(g, fm, q, k, v, o, lse, batch, heads, seq_len, strides, scale, s);
-  if (dtype == 0 && head_dim == 4)
-    return launch_group<4, float>(g, fm, q, k, v, o, lse, batch, heads, seq_len, strides, scale, s);
-  if (dtype == 1 && head_dim == 4)
-    return launch_group<4, __nv_bfloat16>(g, fm, q, k, v, o, lse, batch, heads, seq_len, strides, scale, s);
+  if (a->dtype == 0 && a->head_dim == 8) {
+    return fm ? launch_group<8, float, true>(g, q, k, v, o, nullptr, batch, heads, seq_len, st, scale, s)
+              : launch_tf32_group(g, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+  }
+  if (a->dtype == 1 && a->head_dim == 8)
+    return launch_tc_group(g, fm, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+  if (a->dtype == 0 && a->head_dim == 4)
+    return launch_math<4, float>(g, fm, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+  if (a->dtype == 1 && a->head_dim == 4)
+    return launch_math<4, __nv_bfloat16>(g, fm, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
   return cudaErrorInvalidValue;
 }

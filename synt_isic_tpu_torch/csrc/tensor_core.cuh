@@ -1,9 +1,12 @@
-// Building blocks of the bf16, head_dim-8 attention kernels on Hopper's
-// tensor cores (`attention_fwd.cu`, `attention_bwd.cu`): `cp.async` staging
-// of 16-byte rows, `ldmatrix` fragments, `mma.sync` products with f32
-// accumulation, and the special-function exponential. Fragment layouts are
-// the PTX ISA's for m16n8k8 and m16n8k16 (bf16): lane l holds rows l/4 and
-// l/4 + 8 of a 16-row A or C fragment, columns 2(l%4) and +1.
+// Building blocks of the head_dim-8 attention kernels on Hopper's tensor
+// cores (`attention_fwd.cu`, `attention_bwd.cu`): `cp.async` staging of
+// 16-byte chunks, `ldmatrix` fragments, `mma.sync` products with f32
+// accumulation (bf16 operands, or TF32 operands split in two for f32
+// accuracy), and the special-function exponential. Fragment layouts are the
+// PTX ISA's for m16n8k8 and m16n8k16: lane l holds rows l/4 and l/4 + 8 of a
+// 16-row A or C fragment; of a C fragment columns 2(l%4) and +1, of a bf16
+// A fragment the same pairs, of a TF32 A fragment (m16n8k8) columns l%4 and
+// l%4 + 4, and of a TF32 B fragment rows l%4 and l%4 + 4 of column l/4.
 
 #pragma once
 
@@ -78,6 +81,34 @@ __device__ __forceinline__ void mma_k16(float* c, const uint32_t* a, const uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// c += a b on the tensor cores, TF32 in, f32 accumulated: a 16 x 8 row-major
+// A fragment (a[0..3]: rows l/4, l/4 + 8 at column l%4, then both at l%4 + 4)
+// and an 8 x 8 B fragment (b[0..1]: rows l%4 and l%4 + 4 of column l/4)
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// finite x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+// zero, as `cvt.rna.tf32.f32` rounds it: half a TF32 ulp added to the
+// magnitude bits, the 13 low bits cleared (two integer instructions, where
+// the cvt also tests for inf and NaN, which no operand here is)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo: hi = tf32(x) rounded to nearest, lo = x - hi (exact) with its
+// 13 low bits cleared, as the tensor cores read an operand anyway (so the
+// compiler drops the clearing where lo goes straight to an mma). lo is under
+// 2^-11 |x| and loses under 2^-10 of itself, so hi * hi' + hi * lo' + lo * hi'
+// carries the f32 product to about 2^-21 of it (lo * lo' is under 2^-22).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi))) & 0xffffe000u;
+}
+
 // two f32 values rounded to bf16 (round to nearest even), lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -126,11 +157,13 @@ __device__ __forceinline__ void stage_rows(uint4* xt, uint4* yt, const bf16* xb,
   }
 }
 
-// cp.async stages 16-byte rows: each row of x must start on 16 bytes with
-// its 8 channels contiguous
+// cp.async stages 16-byte chunks: each row of x (elements of type T) must
+// start on 16 bytes with its 8 channels contiguous
+template <typename T>
 bool rows16(const void* x, const Strides& s) {
-  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && s.d == 1 && s.t % 8 == 0
-         && s.h % 8 == 0 && s.b % 8 == 0;
+  constexpr int64_t n = 16 / sizeof(T);   // elements per 16 bytes
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && s.d == 1 && s.t % n == 0
+         && s.h % n == 0 && s.b % n == 0;
 }
 
 }  // namespace

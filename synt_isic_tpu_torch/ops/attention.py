@@ -16,10 +16,17 @@ For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it runs the plain PyTorch version (`attention_reference`,
 `attention_fast_math_reference`, `attention_bwd_reference`), which the
 tests and `chip_smoke.py` hold the kernels against; the fast-math kernel is
-also held to `attention_fast_math_kernel_order` and the bf16 backward to
-`attention_bwd_kernel_order`, the same maths rounded where the kernel
+also held to `attention_fast_math_kernel_order`, the exact f32 forward (3xTF32
+on the tensor cores) to `attention_tf32x3_kernel_order` and the bf16 backward
+to `attention_bwd_kernel_order`, the same maths rounded where the kernel
 rounds, and the forward's log-sum-exp to `attention_lse_reference`. There
 is no other route.
+
+The UNet calls the wrappers with the same few layouts on every step, so a
+CUDA call's checks run once per layout: the verdict, G, the copies the
+tensor-core kernels need and the kernel's packed arguments are kept in
+`_PLANS`, keyed by everything the checks read, and a call with a key not
+seen yet is checked in full first.
 
 `heads_per_program` = G runs G heads per block with bit-identical maths,
 in the forward and the backward alike; as in the JAX package, a G that does
@@ -130,6 +137,59 @@ def attention_fast_math_kernel_order(q: torch.Tensor, k: torch.Tensor, v: torch.
     return (pv / weights.sum(dim=-1, keepdim=True)).to(q.dtype)
 
 
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 x as TF32 (10 mantissa bits) hi + lo, as the f32 tensor-core
+    kernel splits its operands: hi rounded to nearest with ties away from
+    zero on the 13 low bits (as `cvt.rna.tf32.f32` rounds), lo = x - hi
+    (exact) with its 13 low bits cleared (as the tensor cores read it)."""
+    def bits(z):
+        return z.contiguous().view(torch.int32)
+
+    x = x.float()
+    hi = ((bits(x) + 0x1000) & ~0x1FFF).view(torch.float32).view(x.shape)
+    return hi, (bits(x - hi) & ~0x1FFF).view(torch.float32).view(x.shape)
+
+
+def attention_tf32x3_kernel_order(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor) -> torch.Tensor:
+    """The f32 tensor-core kernel's arithmetic (`attention_fwd.cu`, exact f32
+    at head_dim 8) in plain PyTorch, to hold the kernel to its own rounding.
+    q is scaled to base-2 logits in f32 (1/sqrt(D) * log2(e)), then q, k, v
+    and the weights are split into TF32 hi and lo parts (`tf32_split`), and
+    each product is lo.hi + hi.lo + hi.hi in f32, the small terms first
+    (lo.lo is dropped). The keys go in tiles of 64, the weights of a tile
+    taken as p = 2^(s - shift) in f32 against a running shift: on the first
+    tile the tile's max of one TF32 product (hi.hi, within about 2^-10 of the
+    logits), then, after a tile whose row sum passes 2^16, shift + log2 of
+    that sum (the softmax does not depend on the shift). A tile's sum
+    and P V are added to the running ones, which follow the shift in f32;
+    the division comes last. (The kernel also takes a tile's max first where
+    its weights would pass 2^40 against the running shift: logits that jump
+    by more than 40 within a row, which this leaves out.) The result is f32."""
+    qh, ql = tf32_split(q.float() * _scale_log2(q.shape[-1]))
+    m = torch.full(q.shape[:-1], -math.inf, device=q.device)
+    total = torch.zeros(q.shape[:-1], device=q.device)
+    acc = torch.zeros(q.shape, device=q.device)
+
+    def shift_to(new):
+        c = torch.where(new > m, torch.exp2(m - new), torch.ones_like(m))
+        return new, total * c, acc * c[..., None]
+
+    for j in range(0, q.shape[-2], 64):
+        kh, kl = tf32_split(k[..., j:j + 64, :].float().transpose(-1, -2))
+        if j == 0:
+            m, total, acc = shift_to(torch.maximum(m, torch.matmul(qh, kh).amax(dim=-1)))
+        p = torch.exp2(torch.matmul(ql, kh) + torch.matmul(qh, kl) + torch.matmul(qh, kh)
+                       - m[..., None])
+        ph, pl = tf32_split(p)
+        vh, vl = tf32_split(v[..., j:j + 64, :].float())
+        tile = p.sum(dim=-1)
+        total = total + tile
+        acc = acc + (torch.matmul(pl, vh) + torch.matmul(ph, vl) + torch.matmul(ph, vh))
+        m, total, acc = shift_to(torch.where(tile > 2.0 ** 16, m + torch.log2(tile), m))
+    return acc / total[..., None]
+
+
 def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             do: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -201,25 +261,29 @@ def _check(*tensors: torch.Tensor) -> str:
     return q.device.type
 
 
+class _FwdArgs(ctypes.Structure):
+    """`FwdArgs` of `csrc/attention_fwd.cu`: one checked forward layout."""
+    _fields_ = [("strides", ctypes.c_int64 * 16)] + [
+        (name, ctypes.c_int32) for name in ("batch", "heads", "seq_len", "head_dim", "dtype",
+                                             "heads_per_program", "fast_math")] + [
+        ("scale", ctypes.c_float)]
+
+
+class _BwdArgs(ctypes.Structure):
+    """`BwdArgs` of `csrc/attention_bwd.cu`: one checked backward layout."""
+    _fields_ = [("strides", ctypes.c_int64 * 32)] + [
+        (name, ctypes.c_int32) for name in ("batch", "heads", "seq_len", "head_dim", "dtype",
+                                             "heads_per_program")] + [
+        ("scale", ctypes.c_float)]
+
+
 @functools.cache
 def _lib(name: str) -> ctypes.CDLL:
     lib = native.load(name)
-    if name == KERNEL:
-        lib.attention_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
-        lib.attention_fwd.restype = ctypes.c_int
-    else:
-        lib.attention_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int,
-            ctypes.c_void_p]
-        lib.attention_bwd.restype = ctypes.c_int
+    fn = lib.attention_fwd if name == KERNEL else lib.attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * (7 if name == KERNEL else 12)
+    fn.restype = ctypes.c_int
     return lib
-
-
-def _strides(*tensors: torch.Tensor):
-    return (ctypes.c_int64 * (4 * len(tensors)))(
-        *(s for z in tensors for s in z.stride()))
 
 
 def _group(heads: int, heads_per_program: int, device: str) -> int:
@@ -235,43 +299,136 @@ def _group(heads: int, heads_per_program: int, device: str) -> int:
     return g
 
 
-def _tensor_cores(q: torch.Tensor) -> bool:
-    """Whether these CUDA tensors go to the tensor-core kernels: the
-    forward, and the backward, which reads the forward's output and
-    log-sum-exp."""
-    return q.device.type == "cuda" and q.dtype == torch.bfloat16 and q.shape[-1] == 8
+def _staged_forward(q: torch.Tensor, fast_math: bool) -> bool:
+    """Whether this CUDA forward runs a tensor-core kernel, which stages k
+    and v in 16-byte chunks: head_dim 8 in bf16, and in f32 exact maths."""
+    return q.shape[-1] == 8 and (q.dtype == torch.bfloat16 or not fast_math)
 
 
-def _rows16(z: torch.Tensor) -> torch.Tensor:
-    """z itself where each (b, h, t) row starts on 16 bytes with its channels
-    contiguous, as the tensor-core kernels stage k and v (and, in the
-    backward, q and do), else a contiguous copy in fresh storage (only for
-    unusual layouts: the UNet's views and dense tensors pass; `contiguous()`
-    would return a contiguous tensor that starts off 16 bytes as it is)."""
-    aligned = (z.stride(-1) == 1 and all(st % 8 == 0 for st in z.stride()[:3])
-               and z.data_ptr() % 16 == 0)
-    return z if aligned else z.clone(memory_format=torch.contiguous_format)
+def _reads_stats(q: torch.Tensor) -> bool:
+    """Whether this CUDA backward runs the tensor-core kernels (bf16, head_dim
+    8), which stage q, k, v and do in 16-byte chunks and read the exact
+    forward's output and log-sum-exp."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] == 8
 
 
-def _launch_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, fast_math: bool,
-                    group: int, with_lse: bool):
-    """One forward kernel launch on CUDA tensors, counted by the caller:
-    (out, lse), lse the f32 (B, H, T) base-2 log-sum-exp when asked for
-    (exact maths only), else None. out takes q's strides where q is dense."""
-    out = torch.empty_like(q)
-    if _tensor_cores(q):
-        k, v = _rows16(k), _rows16(v)
-    b, h, t, d = q.shape
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if with_lse else None
-    with torch.cuda.device(q.device):
-        err = _lib(KERNEL).attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if with_lse else None, b, h, t, d, _DTYPE_CODES[q.dtype],
-            _strides(q, k, v, out), 1.0 / math.sqrt(d), group, int(bool(fast_math)),
-            torch.cuda.current_stream(q.device).cuda_stream)
+def _rows16(z: torch.Tensor) -> bool:
+    """Whether each (b, h, t) row of z starts on 16 bytes with its channels
+    contiguous, as the tensor-core kernels stage it. The UNet's views and
+    dense tensors pass; other layouts are copied first."""
+    return (z.stride(-1) == 1 and z.data_ptr() % 16 == 0
+            and all(st % (16 // z.element_size()) == 0 for st in z.stride()[:3]))
+
+
+def _staged(z: torch.Tensor, copy: bool) -> torch.Tensor:
+    """z, or a contiguous copy in fresh storage (`contiguous()` would return
+    a contiguous tensor that starts off 16 bytes as it is)."""
+    return z.clone(memory_format=torch.contiguous_format) if copy else z
+
+
+def _staged_strides(z: torch.Tensor, copy: bool) -> tuple:
+    """The strides of `_staged(z, copy)`."""
+    if not copy:
+        return z.stride()
+    b, h, t, d = z.shape
+    return (h * t * d, t * d, d, 1)
+
+
+def _count(kernels: Tuple[str, ...]) -> None:
+    """One launch of each named kernel variant: the only place LAUNCHES
+    moves, called by a plan right after its launch."""
+    for name in kernels:
+        LAUNCHES[name] += 1
+
+
+# Checked launches, keyed by everything the checks read: shapes, strides,
+# dtypes and devices of the tensors, the knobs, and whether the rows the
+# tensor-core kernels stage start on 16 bytes. A call whose key is not here
+# goes through every check first, so nothing launches on a layout that was
+# not checked, and what the checks refuse raises as before.
+_PLANS: dict = {}
+_MAX_PLANS = 256
+
+
+def _remember(key: tuple, plan):
+    if len(_PLANS) >= _MAX_PLANS:
+        _PLANS.clear()
+    _PLANS[key] = plan
+    return plan
+
+
+def _launch(fn, args: int, index: int, *pointers) -> None:
+    """Call one `extern "C"` launcher with the address of its packed
+    arguments on the current stream of device `index`, making that device
+    current only when it is not."""
+    if torch._C._cuda_getDevice() == index:
+        err = fn(args, *pointers, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(args, *pointers, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
-        raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
-    return out, lse
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
+
+
+class _ForwardPlan:
+    """One checked forward layout on CUDA: the kernel's packed arguments,
+    which of k and v are copied before staging, and the LAUNCHES keys a
+    launch counts under."""
+    __slots__ = ("args", "address", "fn", "copy_k", "copy_v", "counts", "index", "lse_shape",
+                 "empty")
+
+    def __init__(self, q, k, v, fast_math: bool, group: int, with_lse: bool,
+                 counts: Tuple[str, ...]):
+        self.counts, self.index = counts, q.device.index
+        self.empty = q.numel() == 0
+        b, h, t, d = q.shape
+        self.lse_shape = (b, h, t) if with_lse else None
+        staged = _staged_forward(q, fast_math)
+        self.copy_k, self.copy_v = (staged and not _rows16(z) for z in (k, v))
+        strides = (q.stride(), _staged_strides(k, self.copy_k), _staged_strides(v, self.copy_v),
+                   self.outputs(q)[0].stride())
+        self.args = _FwdArgs((ctypes.c_int64 * 16)(*(s for st in strides for s in st)),
+                             b, h, t, d, _DTYPE_CODES[q.dtype], group, int(bool(fast_math)),
+                             1.0 / math.sqrt(d))
+        self.address, self.fn = ctypes.addressof(self.args), _lib(KERNEL).attention_fwd
+
+    def outputs(self, q):
+        """(out, lse) as a launch fills them: out like q, lse f32 (B, H, T)
+        contiguous where the plan asks for it, else None."""
+        lse = None if self.lse_shape is None else q.new_empty(self.lse_shape, dtype=torch.float32)
+        return torch.empty_like(q), lse
+
+    def __call__(self, q, k, v):
+        """(out, lse), lse each row's base-2 log-sum-exp; one launch, counted."""
+        out, lse = self.outputs(q)
+        if not self.empty:
+            # the copies stay referenced until the launch is queued, so the
+            # allocator cannot hand k's storage to v's copy
+            k, v = _staged(k, self.copy_k), _staged(v, self.copy_v)
+            _launch(self.fn, self.address, self.index, q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr())
+            _count(self.counts)
+        return out, lse
+
+
+def _forward_key(q, k, v, fast_math, heads_per_program, with_lse) -> tuple:
+    return (q.shape, q.stride(), q.dtype, q.device, k.shape, k.stride(), k.dtype, k.device,
+            v.shape, v.stride(), v.dtype, v.device, not (k.data_ptr() | v.data_ptr()) % 16,
+            fast_math, heads_per_program, with_lse)
+
+
+def _forward_plan(q, k, v, fast_math, heads_per_program, with_lse):
+    """The plan of a forward call the cache has not seen, after every check;
+    None for CPU tensors."""
+    device = _check(q, k, v)
+    group = _group(q.shape[1], heads_per_program, device)
+    if with_lse and (device != "cuda" or fast_math):
+        raise ValueError("the log-sum-exp comes from the exact CUDA kernel only")
+    if device == "cpu":
+        return None
+    counts = (FAST_KERNEL if fast_math else KERNEL,) + ((GROUPED_KERNEL,) if group > 1 else ())
+    return _remember(_forward_key(q, k, v, fast_math, heads_per_program, with_lse),
+                     _ForwardPlan(q, k, v, fast_math, group, with_lse, counts))
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -280,19 +437,12 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The forward on the tensors' device, no gradient: the kernel on CUDA,
     the plain version on the CPU. `with_lse` (CUDA, exact maths) returns
     (out, lse) with each row's base-2 log-sum-exp."""
-    device = _check(q, k, v)
-    group = _group(q.shape[1], heads_per_program, device)
-    if with_lse and (device != "cuda" or fast_math):
-        raise ValueError("the log-sum-exp comes from the exact CUDA kernel only")
-    if device == "cpu":
-        return (attention_fast_math_reference if fast_math else attention_reference)(q, k, v)
-    if q.numel() == 0:
-        out = torch.empty_like(q)
-        return (out, torch.empty(q.shape[:3], device=q.device)) if with_lse else out
-    out, lse = _launch_forward(q, k, v, fast_math, group, with_lse)
-    LAUNCHES[FAST_KERNEL if fast_math else KERNEL] += 1
-    if group > 1:
-        LAUNCHES[GROUPED_KERNEL] += 1
+    plan = _PLANS.get(_forward_key(q, k, v, fast_math, heads_per_program, with_lse))
+    if plan is None:
+        plan = _forward_plan(q, k, v, fast_math, heads_per_program, with_lse)
+        if plan is None:
+            return (attention_fast_math_reference if fast_math else attention_reference)(q, k, v)
+    out, lse = plan(q, k, v)
     return (out, lse) if with_lse else out
 
 
@@ -308,11 +458,87 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output is the same either way. The CUDA kernel has no gradient: under
     grad mode, CUDA inputs that require grad raise (use
     `fused_attention_trainable`)."""
-    if (q.device.type == "cuda" and torch.is_grad_enabled()
-            and any(z.requires_grad for z in (q, k, v))):
+    if ((q.requires_grad or k.requires_grad or v.requires_grad) and q.is_cuda
+            and torch.is_grad_enabled()):
         raise RuntimeError("fused_attention has no gradient on CUDA; call "
                            "fused_attention_trainable for inputs that require grad")
     return _forward(q, k, v, fast_math, heads_per_program, with_lse)
+
+
+class _BackwardPlan:
+    """One checked backward layout on CUDA: the kernel's packed arguments,
+    which of q, k, v, do are copied before staging, and the LAUNCHES keys a
+    launch counts under. With `stats`, a bf16 D=8 call without o and lse,
+    the exact forward plan that computes them first (counted under
+    STATS_KERNEL)."""
+    __slots__ = ("args", "address", "fn", "copies", "counts", "index", "tensor_cores", "stats",
+                 "empty")
+
+    def __init__(self, q, k, v, do, o, group: int, stats):
+        self.index, self.stats = q.device.index, stats
+        self.counts = (BWD_KERNEL,) + ((BWD_GROUPED_KERNEL,) if group > 1 else ())
+        self.empty = q.numel() == 0
+        self.tensor_cores = _reads_stats(q)
+        b, h, t, d = q.shape
+        self.copies = tuple(self.tensor_cores and not _rows16(z) for z in (q, k, v, do))
+        strides = (*(_staged_strides(z, c) for z, c in zip((q, k, v, do), self.copies)),
+                   *(torch.empty_like(z).stride() for z in (q, k, v)),
+                   (o if self.tensor_cores else q).stride())
+        self.args = _BwdArgs((ctypes.c_int64 * 32)(*(s for st in strides for s in st)),
+                             b, h, t, d, _DTYPE_CODES[q.dtype], group, 1.0 / math.sqrt(d))
+        self.address, self.fn = ctypes.addressof(self.args), _lib(BWD_KERNEL).attention_bwd
+
+    def __call__(self, q, k, v, do, o, lse):
+        """(dq, dk, dv); one launch of the two passes, counted (and the
+        statistics launch first where the plan has one)."""
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        if self.empty:
+            return dq, dk, dv
+        b, h, t, _ = q.shape
+        if not self.tensor_cores:
+            # the row's base-2 log-sum-exp, computed by the first launch (f32 scratch)
+            o, lse = q, q.new_empty((b, h, t), dtype=torch.float32)
+        elif self.stats is not None:
+            o, lse = self.stats(q, k, v)
+        if any(self.copies):
+            q, k, v, do = (_staged(z, c) for z, c in zip((q, k, v, do), self.copies))
+        # per query row: delta = do . o (f32 scratch)
+        delta = q.new_empty((b, h, t), dtype=torch.float32)
+        _launch(self.fn, self.address, self.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                do.data_ptr(), o.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                lse.data_ptr(), delta.data_ptr())
+        _count(self.counts)
+        return dq, dk, dv
+
+
+def _backward_plan(q, k, v, do, heads_per_program, o, lse):
+    """The plan of a backward call the cache has not seen, after every
+    check; None for CPU tensors."""
+    device = _check(q, k, v, do)
+    group = _group(q.shape[1], heads_per_program, device)
+    if device == "cpu":
+        return None
+    key = _backward_key(q, k, v, do, heads_per_program, o, lse)
+    stats = None
+    if q.numel() and _reads_stats(q):
+        if o is None or lse is None:
+            stats = _ForwardPlan(q, k, v, False, 1, True, (STATS_KERNEL,))
+            o, lse = stats.outputs(q)   # laid out as the statistics launch fills them
+        _check(q, o)
+        b, h, t, _ = q.shape
+        if lse.shape != (b, h, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
+            raise ValueError(f"lse must be a contiguous float32 {(b, h, t)} tensor, got "
+                             f"{lse.dtype} {tuple(lse.shape)}")
+    return _remember(key, _BackwardPlan(q, k, v, do, o, group, stats))
+
+
+def _backward_key(q, k, v, do, heads_per_program, o, lse) -> tuple:
+    return (q.shape, q.stride(), q.dtype, q.device, k.shape, k.stride(), k.dtype, k.device,
+            v.shape, v.stride(), v.dtype, v.device, do.shape, do.stride(), do.dtype, do.device,
+            not (q.data_ptr() | k.data_ptr() | v.data_ptr() | do.data_ptr()) % 16,
+            heads_per_program,
+            None if o is None else (o.shape, o.stride(), o.dtype, o.device),
+            None if lse is None else (lse.shape, lse.stride(), lse.dtype, lse.device))
 
 
 def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -329,41 +555,12 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `FusedAttention` saves them; without them one exact forward launch
     (counted under STATS_KERNEL) computes both first. Elsewhere they are
     not used."""
-    device = _check(q, k, v, do)
-    group = _group(q.shape[1], heads_per_program, device)
-    if device == "cpu":
-        return attention_bwd_reference(q, k, v, do)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if q.numel() == 0:
-        return dq, dk, dv
-    b, h, t, d = q.shape
-    if _tensor_cores(q):
-        if o is None or lse is None:
-            o, lse = _launch_forward(q, k, v, False, 1, True)
-            LAUNCHES[STATS_KERNEL] += 1
-        _check(q, o)
-        if lse.shape != (b, h, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
-            raise ValueError(f"lse must be a contiguous float32 {(b, h, t)} tensor, got "
-                             f"{lse.dtype} {tuple(lse.shape)}")
-        q, k, v, do = (_rows16(z) for z in (q, k, v, do))
-    else:
-        # the row's base-2 log-sum-exp, computed by the first launch (f32 scratch)
-        o, lse = q, torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    # per query row: delta = do . o (f32 scratch)
-    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _lib(BWD_KERNEL).attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), b, h, t, d, _DTYPE_CODES[q.dtype],
-            _strides(q, k, v, do, dq, dk, dv, o), 1.0 / math.sqrt(d), group,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{BWD_KERNEL} launch failed: cudaError {err}")
-    LAUNCHES[BWD_KERNEL] += 1
-    if group > 1:
-        LAUNCHES[BWD_GROUPED_KERNEL] += 1
-    return dq, dk, dv
+    plan = _PLANS.get(_backward_key(q, k, v, do, heads_per_program, o, lse))
+    if plan is None:
+        plan = _backward_plan(q, k, v, do, heads_per_program, o, lse)
+        if plan is None:
+            return attention_bwd_reference(q, k, v, do)
+    return plan(q, k, v, do, o, lse)
 
 
 class FusedAttention(torch.autograd.Function):
@@ -376,7 +573,7 @@ class FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, fast_math=False, heads_per_program=1):
         ctx.heads_per_program = heads_per_program
-        if _tensor_cores(q) and not fast_math:
+        if q.is_cuda and _reads_stats(q) and not fast_math:
             out, lse = _forward(q, k, v, False, heads_per_program, with_lse=True)
             ctx.save_for_backward(q, k, v, out, lse)
             return out
@@ -387,8 +584,8 @@ class FusedAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, *stats = ctx.saved_tensors
         saved = dict(zip(("o", "lse"), stats))
-        return (*fused_attention_bwd(q, k, v, do.to(q.dtype), ctx.heads_per_program, **saved),
-                None, None)
+        do = do if do.dtype == q.dtype else do.to(q.dtype)
+        return (*fused_attention_bwd(q, k, v, do, ctx.heads_per_program, **saved), None, None)
 
 
 def fused_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -17,12 +17,12 @@ from typing import Any, Dict
 
 import torch
 
-__all__ = ["measure_train_step"]
+__all__ = ["device_seconds", "measure_train_step"]
 
 PROFILE_STEPS = 3
 
 
-def _device_seconds(prof) -> tuple:
+def device_seconds(prof) -> tuple:
     """(all, attention) seconds of device activity in a profiler window:
     the device-side events (kernels, copies, sets), and those of the
     hand-written attention kernels."""
@@ -79,7 +79,7 @@ def measure_train_step(batch: int = 32, steps: int = 30, size: int = 128,
         for i in range(PROFILE_STEPS):
             step_fn(state, base * (1.0 - 1e-4 * (i + 1)), gen)
         torch.cuda.synchronize(dev)
-    busy, attention = (s / PROFILE_STEPS for s in _device_seconds(prof))
+    busy, attention = (s / PROFILE_STEPS for s in device_seconds(prof))
     seen = busy > 0
     result.update(device_busy_s_per_step=busy if seen else None,
                   idle_share=1.0 - busy / sec if seen else None,

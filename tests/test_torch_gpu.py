@@ -503,3 +503,127 @@ def test_bf16_fast_math_is_told_from_exact(cuda):
     fast = (attention.fused_attention(q, k, v, fast_math=True).float() - order).abs().mean()
     exact = (attention.fused_attention(q, k, v).float() - order).abs().mean()
     assert exact.item() > FAST_SEPARATION * fast.item()
+
+
+# the f32 tensor-core forward against the plain version of its own rounding
+# (3xTF32 products, the max per 64-key tile): they differ only where f32
+# rounds (the tensor cores' accumulation, ex2.approx's 2^-22, the order of
+# the row sums), a few f32 ulps of outputs under 4 (2^-22 = 2.4e-7 each);
+# 5e-6 allows 20 of them, a fourth of TOL (`chip_smoke.py` TF32_ORDER_TOL)
+TF32_ORDER_TOL = 5e-6
+
+
+def _f32_args(cuda, shape, layout, seed):
+    return [z.float() for z in _bf16_args(cuda, shape, layout, seed)]
+
+
+@pytest.mark.parametrize("layout", ["BHTD", "BTC"])
+@pytest.mark.parametrize("shape", [(8, 32, 1024, 8), (8, 32, 256, 8), (16, 32, 1024, 8),
+                                   (2, 4, 101, 8), (2, 32, 1000, 8)])
+def test_f32_tensor_core_forward(cuda, shape, layout):
+    """Exact f32 at head_dim 8 (the 3xTF32 tensor-core kernel): within TOL of
+    the plain version and TF32_ORDER_TOL of its own rounding order, at the
+    sampling, training and ragged shapes; the output in q's strides and
+    torch.equal with and without the log-sum-exp, which matches its plain
+    version."""
+    q, k, v, _ = _f32_args(cuda, shape, layout, 21)
+    before = attention.LAUNCHES[attention.KERNEL]
+    out = attention.fused_attention(q, k, v)
+    with_lse, lse = attention.fused_attention(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES[attention.KERNEL] == before + 2
+    assert out.stride() == q.stride() and torch.equal(out, with_lse)
+    want = attention.attention_reference(q, k, v)
+    torch.testing.assert_close(out, want, rtol=TOL[torch.float32], atol=TOL[torch.float32])
+    order = attention.attention_tf32x3_kernel_order(q, k, v)
+    assert (out - order).abs().max().item() <= TF32_ORDER_TOL
+    torch.testing.assert_close(lse, attention.attention_lse_reference(q, k), rtol=0, atol=LSE_TOL)
+
+
+@pytest.mark.parametrize("layout", ["BHTD", "BTC"])
+def test_f32_tensor_core_forward_grouped_is_bit_identical(cuda, layout):
+    q, k, v, _ = _f32_args(cuda, (2, 32, 1024, 8), layout, 22)
+    out, lse = attention.fused_attention(q, k, v, with_lse=True)
+    for group in (2, 4, 8):
+        before = attention.LAUNCHES[attention.GROUPED_KERNEL]
+        o_g, lse_g = attention.fused_attention(q, k, v, heads_per_program=group, with_lse=True)
+        torch.cuda.synchronize()
+        assert attention.LAUNCHES[attention.GROUPED_KERNEL] == before + 1
+        assert torch.equal(o_g, out) and torch.equal(lse_g, lse), group
+
+
+def test_f32_forward_takes_any_layout(cuda):
+    """k and v rows the f32 tensor-core forward cannot stage by 16-byte
+    copies (a contiguous tensor that starts 4 bytes off, channels that are
+    not contiguous) are copied first, and q is read from its own strides:
+    the same output, bit for bit, as from dense tensors. Fast math in f32
+    stays on the CUDA-core kernel and takes them as they are."""
+    q, k, v, _ = _f32_args(cuda, (2, 32, 256, 8), "BHTD", 23)
+    storage = torch.empty(k.numel() + 1, device=cuda)
+    k_off = storage[1:].view(k.shape)
+    k_off.copy_(k)
+    v_strided = v.transpose(-1, -2).contiguous().transpose(-1, -2)
+    q_strided = q.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert k_off.is_contiguous() and k_off.data_ptr() % 16 != 0 and v_strided.stride(-1) != 1
+    for fast_math in (False, True):
+        want = attention.fused_attention(q, k, v, fast_math=fast_math)
+        for _ in range(2):      # the second call takes the cached checks
+            got = attention.fused_attention(q_strided, k_off, v_strided, fast_math=fast_math)
+            assert got.stride() == q_strided.stride()
+            assert torch.equal(got, want), fast_math
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cached_launch_still_refuses(cuda, dtype):
+    """After a good call of a shape has been checked and remembered, every
+    input the wrapper refuses still raises, forward and backward."""
+    q, k, v, do = (z.to(dtype) for z in _bf16_args(cuda, (2, 32, 64, 8), "BTC", 24))
+    attention.fused_attention(q, k, v)
+    attention.fused_attention_bwd(q, k, v, do)
+    with pytest.raises(ValueError):        # another dtype
+        attention.fused_attention(q, k.half(), v)
+    with pytest.raises(ValueError):        # a G the kernels do not take
+        attention.fused_attention(q, k, v, heads_per_program=16)
+    with pytest.raises(ValueError):        # another device
+        attention.fused_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):        # another shape
+        attention.fused_attention(q, k[:, :, :32], v)
+    with pytest.raises(ValueError):        # the log-sum-exp with fast math
+        attention.fused_attention(q, k, v, fast_math=True, with_lse=True)
+    with pytest.raises(RuntimeError, match="fused_attention_trainable"):
+        attention.fused_attention(q, k.detach().requires_grad_(), v)
+    with pytest.raises(ValueError):
+        attention.fused_attention_bwd(q, k, v, do.half())
+    with pytest.raises(ValueError):
+        attention.fused_attention_bwd(q, k, v, do, heads_per_program=16)
+    with pytest.raises(ValueError):
+        attention.fused_attention_bwd(q, k, v, do[:, :, :32])
+    if dtype == torch.bfloat16:
+        o, lse = attention.fused_attention(q, k, v, with_lse=True)
+        attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse)
+        with pytest.raises(ValueError):    # a log-sum-exp of another type
+            attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse.double())
+        with pytest.raises(ValueError):    # an output of another shape
+            attention.fused_attention_bwd(q, k, v, do, o=o[:, :, :32], lse=lse)
+
+
+def test_f32_forward_redoes_a_tile_whose_logits_jump(cuda):
+    """Keys after the first tile give logits about 200 (base 2) above the
+    first tile's: against the shift taken from the first tile their weights
+    would overflow f32, so the kernel takes the tile's max first and does
+    the tile again. The output stays finite and within TOL of float64
+    attention, and every G gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(25)
+    shape = (1, 4, 192, 8)
+    q = torch.randn(shape, generator=g, device=cuda) * 6
+    k = torch.randn(shape, generator=g, device=cuda)
+    k[:, :, :64] *= 0.5
+    k[:, :, 64:] *= 10
+    v = torch.randn(shape, generator=g, device=cuda)
+    out, lse = attention.fused_attention(q, k, v, with_lse=True)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    want = torch.softmax(q.double() @ k.double().transpose(-1, -2) / 8 ** 0.5, -1) @ v.double()
+    torch.testing.assert_close(out.double(), want, rtol=TOL[torch.float32], atol=TOL[torch.float32])
+    for group in (2, 4):
+        o_g, lse_g = attention.fused_attention(q, k, v, heads_per_program=group, with_lse=True)
+        assert torch.equal(o_g, out) and torch.equal(lse_g, lse), group
