@@ -14,8 +14,8 @@ Phases, each of which exits non-zero on failure:
      SASS count of HMMA (tensor-core) and MUFU.EX2 instructions in the
      head_dim-8 tensor-core kernels (the forward's 8 bf16 instances, exact
      and fast math at G 1/2/4/8, its 4 exact f32 (3xTF32) instances, and
-     the bf16 backward's two kernels at each G), each of which must hold
-     HMMA and spill nothing;
+     the backward's two kernels at each G in bf16 and in f32 (3xTF32)), each
+     of which must hold HMMA and spill nothing;
   3. the attention forward against its plain PyTorch version at the
      sampling path's shapes (and at batch 16, the guided sampler's and the
      trainer's, and at ragged T, 101 and 1000), in both layouts; at head_dim
@@ -25,15 +25,18 @@ Phases, each of which exits non-zero on failure:
      bound (the largest of bytes, products and one pass of exponentials),
      the plain version and `scaled_dot_product_attention`, launched from
      the host and, for the device time alone, replayed from a CUDA graph;
-  4. the attention backward likewise at the training path's shapes; in
-     bf16 (the tensor-core kernels) also from the exact forward's saved
-     output and log-sum-exp: the output torch.equal with and without the
-     log-sum-exp, the log-sum-exp against `attention_lse_reference`, the
-     gradients against `attention_bwd_kernel_order` (BWD_ORDER_TOL), two
-     calls and the standalone call (with its statistics launch)
-     torch.equal; timed from saved statistics, standalone, beside SDPA's
-     backward alone, and its forward+backward beside the plain path's and
-     `scaled_dot_product_attention`'s through autograd;
+  4. the attention backward likewise at the training path's shapes and at
+     ragged T; at head_dim 8 (the tensor-core kernels, f32 and bf16) also
+     from the exact forward's saved output and log-sum-exp: the output
+     torch.equal with and without the log-sum-exp, the log-sum-exp against
+     `attention_lse_reference`, the gradients against the plain version of
+     the kernel's own rounding (bf16 `attention_bwd_kernel_order` within
+     BWD_ORDER_TOL, f32 `attention_bwd_tf32x3_kernel_order` within
+     TF32_BWD_ORDER_TOL), two calls and the standalone call (with its
+     statistics launch) torch.equal; timed from saved statistics,
+     standalone, beside SDPA's backward alone, and its forward+backward
+     beside the plain path's and `scaled_dot_product_attention`'s through
+     autograd;
   5. the full-width UNet2D (random weights from a seed): one forward with
      the kernel and one with the plain attention, f32 and bf16; then one
      backward each way at batch 4, f32 and bf16 compute on f32 parameters:
@@ -56,6 +59,15 @@ Phases, each of which exits non-zero on failure:
      `torch.profiler`: the device's busy time per step, its idle share and
      the attention kernels' part (or "not measured" where the profiler
      records no device time);
+  8b. [train-f32] `train --no-bf16` through the same entry point and run as
+     7 (f32 compute): 6 forward and 6 backward launches per step, no
+     statistics launch; then [f32]: K3 in f32 from the forward's saved
+     statistics and standalone, and K4 in f32, at the training shapes (CUDA
+     events, in turns, medians of F32_ROUNDS), and the warm f32 training
+     step at batch 32 (`measure_train_step` handed a TrainConfig with
+     bf16_compute off) with its profiler split; `python3 chip_smoke.py
+     --f32` runs [f32] alone after the build, also in a parent tree with
+     this script copied in;
   9. [kernel-fast] the forward kernel's fast-math variant (bf16
      exponentials) at the sampling path's shapes, f32 and bf16, in both
      layouts: within 1e-2 of its plain version, within the JAX package's
@@ -205,8 +217,23 @@ LSE_TOL = 1e-4
 # and 5e-6 allows 20 of them: a fourth of the 2e-5 the kernel is held to
 # against the reference (a single TF32 pass misses that by 15-30x)
 TF32_ORDER_TOL = 5e-6
+# the f32 tensor-core backward against `attention_bwd_tf32x3_kernel_order`,
+# the same splits and products with the same per-tile partial sums, as
+# max|diff| / max|g| per gradient. They differ where f32 rounds: ex2.approx
+# (2^-22 relative) and the exponent's one fma against a double-rounded shift,
+# the tensor cores' truncated f32 sums (each add loses under 2^-23 of a
+# partial sum, in chains of 3 products for S and dP, which enter the
+# exponent as an absolute error of a few 2^-23 |q||k|, and of 24 for a
+# tile's dq, dk, dv) and the order of the f32 sums; each is a few 2^-23 of
+# the terms of a gradient entry, whose sum of magnitudes is a few times
+# max|g| at randn inputs. The order function itself lies about 1e-6 max|g|
+# from float64 gradients (CPU, up to T=1024); 1e-5 allows ten times that, a
+# fifth of BWD_TOL, which one TF32 pass misses 10-50x
+# (tests/test_torch_attention_tf32_bwd.py)
+TF32_BWD_ORDER_TOL = 1e-5
 # ragged T (a short last key tile, a short last block of rows), checked in
-# both dtypes and in bf16 at head_dim 8 (the tensor-core kernel) with its lse
+# both dtypes, at head_dim 8 (the tensor-core kernels) with the forward's lse
+# and the backward from it
 RAGGED_SHAPES = [(2, 4, 101, 8), (2, 32, 1000, 8)]
 # whole-UNet parameter gradients, per parameter as max|diff| / max|g|. f32
 # (full-f32 convolutions): kernel path vs plain attention within 1e-3. bf16
@@ -271,6 +298,9 @@ COND_GUIDANCE, COND_MAP = 3.0, {"MEL": 2.5, "NV": 1.0}
 # 0.0281 ms for one call)
 HOST_SHAPES = [(8, 32, 256, 8), (8, 32, 1024, 8)]
 HOST_CALLS, HOST_ROUNDS = 1000, 7
+# [f32]: K3 and K4 in f32 timed in turns, medians of F32_ROUNDS rounds; the
+# backward's two launches split by torch.profiler over F32_PROFILED calls
+F32_ROUNDS, F32_PROFILED = 3, 10
 
 
 def fail(msg: str) -> None:
@@ -387,7 +417,9 @@ def phase_card() -> dict:
 TC_KERNELS = {attention.KERNEL: {"attention_fwd_tc_kernel": 2 * len(GROUPS),
                                  "attention_fwd_tf32_kernel": len(GROUPS)},
               attention.BWD_KERNEL: {"attention_bwd_dq_tc_kernel": len(GROUPS),
-                                     "attention_bwd_dkdv_tc_kernel": len(GROUPS)}}
+                                     "attention_bwd_dkdv_tc_kernel": len(GROUPS),
+                                     "attention_bwd_dq_tf32_kernel": len(GROUPS),
+                                     "attention_bwd_dkdv_tf32_kernel": len(GROUPS)}}
 _KERNEL_NAME = re.compile(r"(attention_[a-z_]+?(?:tf32_)?kernel)(I\w*?E)Ev")
 
 
@@ -407,6 +439,7 @@ def phase_build() -> None:
     logs = native.build(names)
     print(f"[build] {', '.join(names)} in {time.time() - t0:.1f} s", flush=True)
     cuobjdump = Path(native._nvcc()).with_name("cuobjdump")
+    spilled = []
     for name in names:
         kernel = ""
         for line in logs.get(name, "").splitlines():
@@ -415,9 +448,10 @@ def phase_build() -> None:
             if "registers" in line or "spill" in line:
                 print(f"[build]   {name}: {kernel}: {line.strip()}", flush=True)
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if spills and kernel.split("<")[0] in TC_KERNELS[name]:
-                check(spills.group(1) == spills.group(2) == "0",
-                      f"[build] {kernel} spills: {line.strip()}")
+            if (spills and kernel.split("<")[0] in TC_KERNELS[name]
+                    and not spills.group(1) == spills.group(2) == "0"):
+                spilled.append(f"{kernel}: {line.strip()}")
+    for name in names:
         # the head_dim-8 tensor-core kernels run their products there
         sass = subprocess.run([str(cuobjdump), "-sass", str(native.library_path(name))],
                               capture_output=True, text=True, check=True).stdout
@@ -436,6 +470,7 @@ def phase_build() -> None:
             for k, c in sorted(found.items()):
                 print(f"[build]   SASS of {k}: {c['HMMA']} HMMA, {c['MUFU.EX2']} MUFU.EX2",
                       flush=True)
+    check(not spilled, f"[build] tensor-core kernels spill: {spilled}")
 
 
 def phase_kernel() -> dict:
@@ -508,7 +543,7 @@ def phase_kernel() -> dict:
 def phase_kernel_bwd() -> dict:
     g = torch.Generator(device="cuda").manual_seed(3)
     report = {}
-    for shape in TRAIN_SHAPES + [(2, 4, 64, 4)]:
+    for shape in TRAIN_SHAPES + RAGGED_SHAPES + [(2, 4, 64, 4)]:
         b, h, t, d = shape
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -516,7 +551,7 @@ def phase_kernel_bwd() -> dict:
             want = attention.attention_bwd_reference(q, k, v, do)
             views = [z.transpose(1, 2).reshape(b, t, h * d).view(b, t, h, d).transpose(1, 2)
                      for z in (q, k, v, do)]
-            tensor_cores = dtype == torch.bfloat16 and d == 8
+            tensor_cores = d == 8
             for layout, args in (("BHTD", (q, k, v, do)), ("BTC", views)):
                 got = attention.fused_attention_bwd(*args)
                 torch.cuda.synchronize()
@@ -577,13 +612,19 @@ def phase_kernel_bwd() -> dict:
 
 
 def check_bwd_from_stats(shape, args) -> float:
-    """The bf16 tensor-core backward from the exact forward's statistics:
-    the output torch.equal with and without the log-sum-exp, the
-    log-sum-exp against its plain version, the gradients against the plain
-    version of the kernel's own rounding, two calls torch.equal, and the
-    standalone call (its own statistics launch) torch.equal to them.
-    Returns the largest difference from the kernel order."""
+    """The tensor-core backward (f32 or bf16, head_dim 8) from the exact
+    forward's statistics: the output torch.equal with and without the
+    log-sum-exp, the log-sum-exp against its plain version, the gradients
+    against the plain version of the kernel's own rounding, two calls
+    torch.equal, and the standalone call (its own statistics launch)
+    torch.equal to them. Returns the largest difference from the kernel
+    order."""
     q, k, v, do = args
+    dtype = str(q.dtype)[6:]
+    if q.dtype == torch.float32:
+        order_fn, order_tol = attention.attention_bwd_tf32x3_kernel_order, TF32_BWD_ORDER_TOL
+    else:
+        order_fn, order_tol = attention.attention_bwd_kernel_order, BWD_ORDER_TOL
     o, lse = attention.fused_attention(q, k, v, with_lse=True)
     alone = attention.fused_attention(q, k, v)
     got = attention.fused_attention_bwd(*args, o=o, lse=lse)
@@ -592,24 +633,25 @@ def check_bwd_from_stats(shape, args) -> float:
     standalone = attention.fused_attention_bwd(*args)
     torch.cuda.synchronize()
     check(attention.LAUNCHES[attention.STATS_KERNEL] == before + 1,
-          "standalone bf16 backward did not count its statistics launch")
+          f"standalone {dtype} backward did not count its statistics launch")
     check(torch.equal(o, alone), f"forward output changes with the lse output at {shape}")
     lse_err = (lse - attention.attention_lse_reference(q, k)).abs().max().item()
     check(lse_err <= LSE_TOL, f"forward lse {lse_err:.3e} from plain at {shape}")
-    order = attention.attention_bwd_kernel_order(q, k, v, do, o, lse)
+    order = order_fn(q, k, v, do, o, lse)
     worst, max_abs = 0.0, 0.0
     for name, a, w, a2, a3 in zip(("dq", "dk", "dv"), got, order, again, standalone):
         check(torch.equal(a, a2) and torch.equal(a, a3),
-              f"bf16 backward {name} at {shape}: two calls, or saved and standalone "
+              f"{dtype} backward {name} at {shape}: two calls, or saved and standalone "
               f"statistics, differ")
         err = (a.float() - w.float()).abs().max().item()
         worst = max(worst, err / w.float().abs().max().item())
         max_abs = max(max_abs, err)
     print(f"[kernel-bwd]   from the forward's statistics: output torch.equal with and "
           f"without lse, lse max_abs_err {lse_err:.3e} (allowed {LSE_TOL:.0e}); vs its own "
-          f"rounding order worst max|diff|/max|g| {worst:.3e} (allowed {BWD_ORDER_TOL:.0e}); "
-          f"two calls and the standalone call torch.equal", flush=True)
-    check(worst <= BWD_ORDER_TOL, f"bf16 backward vs attention_bwd_kernel_order at {shape}")
+          f"rounding order ({order_fn.__name__}) worst max|diff|/max|g| {worst:.3e} (allowed "
+          f"{order_tol:.0e}); two calls and the standalone call torch.equal", flush=True)
+    check(worst <= order_tol, f"{dtype} backward vs {order_fn.__name__} at {shape}")
+    del order, got, again, standalone
     return max_abs
 
 
@@ -1264,11 +1306,15 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def phase_train(card: str) -> dict:
+def phase_train(card: str, f32: bool = False) -> dict:
+    """The training entry point (`[train]`; with `f32`, `train --no-bf16` as
+    `[train-f32]`), its launch counts, and train -> sample."""
+    tag, compute = ("[train-f32]", "f32 compute") if f32 else ("[train]", "bf16 compute")
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--classes", "MEL", "--procedural", str(TRAIN_IMAGES),
                 "--epochs", str(TRAIN_EPOCHS), "--batch", str(TRAIN_BATCH),
                 "--checkpoints", tmp, "--seed", "0", "--device", "cuda"]
+        argv += ["--no-bf16"] if f32 else []
         tee = _Tee(sys.stdout)
         reset_launches()
         t0 = time.time()
@@ -1283,7 +1329,7 @@ def phase_train(card: str) -> dict:
         check(len(losses) == TRAIN_EPOCHS and all(math.isfinite(x) for x in losses),
               f"loss history {losses}")
         want = ATTENTION_CALLS_PER_UNET * TRAIN_STEPS
-        print(f"[train] {TRAIN_STEPS} steps of batch {TRAIN_BATCH} (bf16 compute, f32 "
+        print(f"{tag} {TRAIN_STEPS} steps of batch {TRAIN_BATCH} ({compute}, f32 "
               f"parameters) in {wall:.3f} s (cold: model build, first-call set-up and "
               f"checkpoint writes included); losses {losses}; launches attention_fwd "
               f"{launches[attention.KERNEL]}, attention_bwd {launches[attention.BWD_KERNEL]} "
@@ -1292,8 +1338,8 @@ def phase_train(card: str) -> dict:
               f"forward's saved statistics)", flush=True)
         check(launches[attention.KERNEL] == want and launches[attention.BWD_KERNEL] == want
               and launches[attention.STATS_KERNEL] == 0,
-              f"training launched {launches}, not {want} of each kernel and no statistics "
-              f"launch")
+              f"{tag} training launched {launches}, not {want} of each kernel and no "
+              f"statistics launch")
         best = Path(tmp) / "unet_MEL_best.pth"
         resume = Path(tmp) / "train_state_MEL.pt"
         check(best.exists() and resume.exists(), "training wrote no best checkpoint or resume state")
@@ -1309,7 +1355,7 @@ def phase_train(card: str) -> dict:
             mm.loaded_models["MEL"], np.arange(CLI_BATCH, dtype=np.uint32))["images"]
         check(images.shape == (CLI_BATCH, 128, 128, 3) and bool(torch.isfinite(images).all()),
               f"samples from the trained checkpoint: {tuple(images.shape)}")
-        print(f"[train] the trained checkpoint loads in ModelManager and samples "
+        print(f"{tag} the trained checkpoint loads in ModelManager and samples "
               f"{CLI_BATCH} finite images (DDIM {CLI_STEPS}) on {card}", flush=True)
     return launches
 
@@ -1334,6 +1380,75 @@ def phase_bench(card: str) -> dict:
     return r
 
 
+def phase_f32() -> dict:
+    """[f32] the f32 training path's attention and step: K3 in f32 from the
+    forward's saved statistics (as K4 runs it) and standalone, and K4 in f32
+    forward+backward through autograd, at TRAIN_SHAPES in the UNet's layout
+    (in turns, medians of F32_ROUNDS); then the warm f32 training step at
+    batch 32 with its profiler split. Uses only what a parent tree has
+    (`python3 chip_smoke.py --f32`): on a tree whose f32 backward ignores o
+    and lse, "from saved statistics" times the same launch as standalone."""
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from synt_isic_tpu_torch.train import train_ddpm
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    report = {}
+    for shape in TRAIN_SHAPES:
+        args = [torch.randn(shape, generator=g, device="cuda") for _ in range(4)]
+        views = _btc_views(*args)
+        o, lse = attention.fused_attention(*views[:3], with_lse=True)
+        leaves = [z.detach().requires_grad_() for z in views[:3]]
+        times = in_turns({
+            "from_stats_ms": lambda: attention.fused_attention_bwd(*views, o=o, lse=lse),
+            "standalone_ms": lambda: attention.fused_attention_bwd(*views),
+            "fwd_bwd_ms": lambda: torch.autograd.grad(
+                attention.fused_attention_trainable(*leaves), leaves, views[3]),
+        }, rounds=F32_ROUNDS)
+        # each launch of the backward from saved statistics on its own
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(F32_PROFILED):
+                attention.fused_attention_bwd(*views, o=o, lse=lse)
+            torch.cuda.synchronize()
+        times["launches_ms"] = {
+            re.search(r"attention_\w+<[^>]*>", evt.key).group(0):
+                evt.device_time_total / evt.count / 1e3
+            for evt in prof.key_averages() if re.search(r"attention_bwd\w*<", evt.key)}
+        report[str(shape)] = times
+        print(f"[f32] attention backward {shape} float32: from saved statistics "
+              f"{times['from_stats_ms']:.4f} ms, standalone {times['standalone_ms']:.4f} ms; "
+              f"forward+backward through autograd {times['fwd_bwd_ms']:.4f} ms (medians of "
+              f"{F32_ROUNDS}, in turns); per launch (torch.profiler, {F32_PROFILED} calls): "
+              + ", ".join(f"{k} {ms:.4f} ms" for k, ms in times["launches_ms"].items()),
+              flush=True)
+        del args, views, o, lse, leaves
+    # `measure_train_step` has no dtype knob (nor has the JAX package's): it
+    # builds its TrainConfig inside, so it is handed one with bf16 compute off
+    built, config = [], train_ddpm.TrainConfig
+
+    def f32_config(*a, **kw):
+        built.append(config(*a, bf16_compute=False, **kw))
+        return built[-1]
+
+    with mock.patch.object(train_ddpm, "TrainConfig", f32_config):
+        r = measure_train_step(batch=BENCH_BATCH, steps=BENCH_STEPS)
+    check(len(built) == 1 and math.isfinite(r["loss"]),
+          f"f32 measure_train_step: {len(built)} configs, loss {r['loss']}")
+    report["train_step"] = r
+    split = ("not measured (torch.profiler recorded no device time)"
+             if r["device_busy_s_per_step"] is None else
+             f"device busy {r['device_busy_s_per_step']:.5f} s/step (idle share "
+             f"{r['idle_share']:.3f}), attention kernels {r['attention_s_per_step']:.5f} s/step "
+             f"({r['attention_s_per_step'] / r['device_busy_s_per_step']:.3f} of busy)")
+    print(f"[f32] measure_train_step with f32 compute: batch {r['batch']}, {r['steps']} warm "
+          f"steps: {r['sec_per_step']:.5f} s/step, {r['img_per_s']:.2f} images/s, peak device "
+          f"memory {r['peak_bytes'] / 2**30:.3f} GiB; torch.profiler over {PROFILE_STEPS} more "
+          f"steps: {split}", flush=True)
+    return report
+
+
 def phase_kernel_bwd_group() -> dict:
     """K3 at G heads per block: bit-identical to G = 1, timed per G."""
     g = torch.Generator(device="cuda").manual_seed(8)
@@ -1356,8 +1471,8 @@ def phase_kernel_bwd_group() -> dict:
                     for name, x, y in zip(("dq", "dk", "dv"), got, base):
                         check(torch.equal(x, y), f"backward G={group} {shape} {dtype} "
                                                  f"{layout} {name}: not bit-identical to G=1")
-            # as the trainer runs it: from the forward's statistics (read in
-            # bf16 only), checked against G = 1 and timed per G
+            # as the trainer runs it: from the forward's statistics (read at
+            # head_dim 8 in both dtypes), checked against G = 1 and timed per G
             o, lse = attention.fused_attention(*views[:3], with_lse=True)
             base = attention.fused_attention_bwd(*views, o=o, lse=lse)
             for group in GROUPS[1:]:
@@ -1647,6 +1762,11 @@ def main() -> int:
         native.build([attention.KERNEL, attention.BWD_KERNEL])
         print(json.dumps({"host": phase_host(), "card": card["card"]}), flush=True)
         return 0
+    if sys.argv[1:] == ["--f32"]:
+        # the [f32] phase alone, likewise
+        native.build([attention.KERNEL, attention.BWD_KERNEL])
+        print(json.dumps({"f32": phase_f32(), "card": card["card"]}), flush=True)
+        return 0
     phase_build()
     kernel_report = phase_kernel()
     bwd_report = phase_kernel_bwd()
@@ -1663,6 +1783,8 @@ def main() -> int:
         phase_reproduce(gen, Path(tmp) / "cli")
     train_launches = phase_train(card["card"])
     phase_bench(card["card"])
+    train_f32_launches = phase_train(card["card"], f32=True)
+    f32_report = phase_f32()
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = Path(tmp) / "checkpoints"
         cond_train = phase_train_conditional(card["card"], ckpt)
@@ -1677,6 +1799,7 @@ def main() -> int:
     bwd_bf16 = bwd_report[(bwd_shape, torch.bfloat16, "time")]
     bwd_group_bf16 = bwd_group_report[(bwd_shape, torch.bfloat16)]
     fast_timing = fast_report[(MAIN_SHAPES[0], torch.bfloat16, "time")]
+    fast_f32 = fast_report[(MAIN_SHAPES[0], torch.float32, "time")]
     g_star = group_report["g_star"]
     group_bound, group_bound_by, _, _ = attention_bound_ms(GROUP_SHAPE, torch.bfloat16)
     line = {"kernels": [{
@@ -1722,7 +1845,15 @@ def main() -> int:
         "replaces": "synt_isic_tpu/ops/pallas/attention.py:149",
         "launches": train_launches[attention.BWD_KERNEL],
         "max_abs_err": bwd_report[(bwd_shape, dtype, "BTC")],
-        "ms": bwd_timing["ms"],
+        # f32 (3xTF32 on the tensor cores): from the forward's saved
+        # statistics, as K4 runs it, and standalone with its statistics launch
+        "ms": bwd_timing["from_stats_ms"],
+        "ms_standalone": bwd_timing["ms"],
+        "max_abs_err_kernel_order": bwd_report[(bwd_shape, dtype, "BTC", "order")],
+        "launches_train_f32": train_f32_launches[attention.BWD_KERNEL],
+        "launches_stats_train_f32": train_f32_launches[attention.STATS_KERNEL],
+        # [f32]: in turns at both training shapes, and the f32 training step
+        "f32": f32_report,
         "plain_ms": bwd_timing["plain_ms"],
         "bound_ms": bwd_timing["bound_ms"],
         "bound_by": bwd_timing["bound_by"],
@@ -1797,6 +1928,15 @@ def main() -> int:
         "exact_ms": fast_timing["exact_ms"],
         "device_ms": fast_timing["device_ms"],
         "host_t256": host_report[host_name(MAIN_SHAPES[1], torch.bfloat16, True)],
+        # f32 (the CUDA-core fast-math kernel): on no default path
+        "ms_f32": fast_f32["ms"],
+        "device_ms_f32": fast_f32["device_ms"],
+        "exact_ms_f32": fast_f32["exact_ms"],
+        "plain_ms_f32": fast_f32["plain_ms"],
+        "bound_ms_f32": fast_f32["bound_ms"],
+        "library_ms_f32": fast_f32["library_ms"],
+        "max_abs_err_f32_kernel_order": fast_report[(MAIN_SHAPES[0], torch.float32, "BTC",
+                                                     "order")],
         "shape": list(MAIN_SHAPES[0]),
         "dtype": "bfloat16",
     }, {

@@ -11,9 +11,9 @@
 //
 // The TPU kernel holds the (T, T) probs, dp and ds of one head in VMEM (about
 // 10 MB at T=1024); a Hopper block has at most 227 KB of shared memory. So
-// both versions below are the FlashAttention-2 split into two launches, a dq
+// every version below is the FlashAttention-2 split into two launches, a dq
 // launch over query rows and a dk/dv launch over key rows, each walking the
-// other side in tiles staged in shared memory. Neither uses atomics, so the
+// other side in tiles staged in shared memory. None uses atomics, so the
 // result is deterministic. Head grouping (`heads_per_program` = G, the TPU
 // kernel's G heads per grid program, attention.py:149-151, 158, 190-218)
 // changes only which heads a block covers and stages the other side's rows
@@ -63,29 +63,79 @@
 //   (`__launch_bounds__`), so 32 warps per SM hide the special-function
 //   units' latency.
 //
-// f32 (any head_dim) and bf16 at head_dim 4: the CUDA-core kernels, one
-// thread per (row, head), everything f32 inside. The dq launch first sweeps
-// the keys with the forward's online softmax for the row's log-sum-exp and
-// its f32 output o_i, and so delta_i = do_i . o_i (no bf16 rounding enters
-// delta); a second sweep forms p = exp2(s - lse), dp = do_i . v_j and
-// dq_i += p (dp - delta_i) k_j; the row's lse and delta go to an f32 scratch.
-// The dk/dv launch walks the queries with their q, do, lse and delta:
-// dv_j += p do_i and dk_j += p (dp - delta_i) q_i. The tile holds 128 rows,
-// fewer at large G so the f32 tiles stay within 32 KB of static shared
-// memory. Deviation from the TPU kernel: there P is rounded to the primal
-// dtype before dv and ds, and ds before dq and dk; here nothing is rounded
-// until the stores. In f32 only the order of summation differs. These
-// instances ignore o and the caller's lse.
+// f32, head_dim 8: the 3xTF32 tensor-core kernels (`train --no-bf16`).
+//   The same split, inputs and launches as bf16 (o is the f32 output), with
+//   every product accurate to f32: `mma.sync` m16n8k8 with TF32 operands,
+//   each operand split into hi, its TF32 rounding to nearest (ties away), and
+//   lo = x - hi, three products per step, lo.hi + hi.lo + hi.hi, the small
+//   terms first (`split_tf32` in tensor_core.cuh, as the f32 forward does).
+//   All five products need the three: with any one of them at one or two
+//   TF32 passes the gradients miss 5e-5 max|g| of the f32 reference 4-50
+//   times at randn inputs (CPU model of this order). The warp's own rows'
+//   operands (q and do in the dq launch, k and v in the dk/dv launch) are
+//   split once in registers; the staged tiles of the other side (k, v; q,
+//   do) come in f32 by `cp.async`, double-buffered, two 16-byte copies per
+//   row of one head, and the block splits each tile once into hi and lo
+//   parts in shared memory (18 KB x G of dynamic shared memory in the dq
+//   launch, 25.5 KB x G in the dk/dv launch with its lse, delta and the slots
+//   below). P = 2^(s * scale * log2(e) -
+//   lse) with `ex2.approx`, the shift one fma; delta = do . o in f32 from the
+//   saved f32 output; dS = P (dP - delta); dq and dk are scaled by
+//   1/sqrt(D) at the store. Nothing is rounded below f32.
+//   Fragments (m16n8k8 .tf32; g = lane / 4, t = lane % 4): A holds columns
+//   t and t + 4, C columns 2t and 2t + 1, so a C fragment (S, dP; S^T, dP^T)
+//   is not the A fragment of the next product as in bf16. As in the f32
+//   forward, the rows of the other side are permuted instead: column n of
+//   S or S^T reads row n ^ ((n >> 2) & 1), so the accumulator's columns 2t,
+//   2t + 1 are rows 2t + w, 2t + 1 - w (w = (t >> 1) & 1) and become the A
+//   fragment's columns t, t + 4 of dS (dQ += dS K), P^T (dV += P^T dO) and
+//   dS^T (dK += dS^T Q), whose B fragments read those rows. Both staged
+//   tensors keep the chunk swap of rows 4-7 of every 8, so both read
+//   patterns hit 32 banks. The tensor cores truncate their f32 sums, so each
+//   tile's dq (dk, dv) gathers in its own accumulator (a chain of 24
+//   products) and is added to the total in f32. Past T, as in bf16: keys are
+//   masked on the last tile, queries have lse = +inf and delta = 0.
+//   Registers: at most 64 (`__launch_bounds__`, 32 warps per SM; G = 8 has
+//   1024 threads a block, so no G can take more). Each thread's f32 totals
+//   (dq; dk and dv) and, in the dk/dv launch, v's split A fragment live in
+//   its own shared-memory slots, read and written by it alone (the totals
+//   once per tile, v's fragment once per step), and the lane's two queries'
+//   (-lse, delta) come as one float4 (stored in the permuted order); four
+//   steps a turn: with these the loops run at 63 and 64 registers without
+//   spilling, where holding them in registers spilled at every G.
+//   Per 16 rows x 8 keys a warp issues 9 TF32 products in the dq launch and
+//   12 in the dk/dv launch: the FA2 split without atomics recomputes S and
+//   dP there, so 21 where the bound below counts 15, on `mma.sync`, which
+//   does not reach the dense TF32 rate that `wgmma` does.
+//   Deviation from the TPU kernel, rounding only
+//   (`attention_bwd_tf32x3_kernel_order` in ops/attention.py is this order in
+//   plain PyTorch): the products as above; P from the forward's base-2
+//   log-sum-exp and delta from its f32 output, as in bf16; the scale last.
+//
+// head_dim 4 (f32 and bf16, the tiny test configurations): the CUDA-core
+// kernels, one thread per (row, head), everything f32 inside. The dq launch
+// first sweeps the keys with the forward's online softmax for the row's
+// log-sum-exp and its f32 output o_i, and so delta_i = do_i . o_i (no bf16
+// rounding enters delta); a second sweep forms p = exp2(s - lse),
+// dp = do_i . v_j and dq_i += p (dp - delta_i) k_j; the row's lse and delta
+// go to an f32 scratch. The dk/dv launch walks the queries with their q, do,
+// lse and delta: dv_j += p do_i and dk_j += p (dp - delta_i) q_i. The tile
+// holds 128 rows, fewer at large G so the f32 tiles stay within 32 KB of
+// static shared memory. Deviation from the TPU kernel: there P is rounded to
+// the primal dtype before dv and ds, and ds before dq and dk; here nothing is
+// rounded until the stores. In f32 only the order of summation differs.
+// These instances ignore o and the caller's lse.
 //
 // Bound on the H100 at the training path's largest call, B=16, H=32,
 // T=1024, D=8: the five T x T contractions are 10*B*H*T^2*D = 43 GFLOP,
-// 0.641 ms in f32 on the CUDA cores (67 TFLOP/s) and 0.043 ms in bf16 on the
-// tensor cores (989 TFLOP/s); q, k, v, do read once and dq, dk, dv written
-// once are 58.7 MB in bf16 (0.018 ms at 3.35 TB/s), twice that in f32. One pass of
-// the B*H*T^2 = 5.4e8 recomputed exponentials takes 0.128 ms on the
-// special-function units (16 per clock per SM): in bf16 that is the floor,
-// and the tensor-core kernels take two passes (0.257 ms); the f32 kernels
-// take three.
+// 0.043 ms in bf16 on the tensor cores (989 TFLOP/s) and 0.26 ms in f32 as
+// three TF32 passes (3 x 43 GFLOP at 494.7 TFLOP/s dense TF32; 0.641 ms on
+// the CUDA cores at 67 TFLOP/s); q, k, v, do read once and dq, dk, dv
+// written once are 58.7 MB in bf16 (0.018 ms at 3.35 TB/s), twice that in
+// f32. One pass of the B*H*T^2 = 5.4e8 recomputed exponentials takes 0.128
+// ms on the special-function units (16 per clock per SM): in bf16 that is
+// the floor, in f32 the products are; the tensor-core kernels take two
+// passes (0.257 ms), the CUDA-core ones three.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -704,6 +754,465 @@ cudaError_t launch_tc_group(int group, const void* q, const void* k, const void*
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32, D = 8: the 3xTF32 tensor-core kernels (see the top of the file)
+// ---------------------------------------------------------------------------
+
+// This lane's reads of one staged f32 tile (both tensors staged with the
+// chunk swap, stage_rows_f32<G, true>), as word offsets in the head's part
+// for slice 0 (slice s adds 64 s). t0, t1: a B fragment of the tile
+// transposed (k = channel, n = row), rows n ^ ((n >> 2) & 1) at channels tig
+// and tig + 4 of column n = gid, for S = Q K^T and dP = dO V^T (S^T, dP^T).
+// r0, r1: a B fragment of the tile as it is (k = row in the permuted order,
+// n = channel), rows 2 tig + w and 2 tig + 1 - w (w = (tig >> 1) & 1) at
+// channel gid, for dQ += dS K (dV += P^T dO, dK += dS^T Q). Both read 32
+// banks.
+struct BwdLane {
+  int t0, t1, r0, r1;
+  __device__ __forceinline__ BwdLane() {
+    const int lane = threadIdx.x % 32;
+    const int gid = lane / 4;
+    const int tig = lane % 4;
+    const int sw = (gid >> 2) & 1;
+    const int row = gid ^ sw;
+    const int w = (tig >> 1) & 1;   // rows 4-7 (stored swapped) when w = 1
+    t0 = row * 8 + 4 * sw + tig;
+    t1 = row * 8 + 4 * (sw ^ 1) + tig;
+    r0 = (2 * tig + w) * 8 + (gid ^ (4 * w));
+    r1 = (2 * tig + 1 - w) * 8 + (gid ^ (4 * w));
+  }
+};
+
+// c += a b in 3xTF32, lo.hi + hi.lo + hi.hi (the small terms first): a's A
+// fragment split in registers, b's B fragment from the hi and lo parts at
+// word offsets o0 and o1
+__device__ __forceinline__ void mma3(float* c, const uint32_t* ahi, const uint32_t* alo,
+                                     const uint32_t* bh, const uint32_t* bl, int o0, int o1) {
+  const uint32_t bhi[2] = {bh[o0], bh[o1]};
+  const uint32_t blo[2] = {bl[o0], bl[o1]};
+  mma_tf32(c, alo, bhi);
+  mma_tf32(c, ahi, blo);
+  mma_tf32(c, ahi, bhi);
+}
+
+// The split A fragment of a 16 x 8 operand that a C fragment c holds: c's
+// columns 2 tig and 2 tig + 1 are the operand's columns tig and tig + 4 (the
+// permuted order of BwdLane), so a = {c[0], c[2], c[1], c[3]}.
+__device__ __forceinline__ void split_as_a(const float* c, uint32_t* hi, uint32_t* lo) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
+// Four words from shared memory at every call (volatile: the compiler may
+// not keep them in registers across a loop instead)
+__device__ __forceinline__ void lds128(uint32_t* r, const uint4* p) {
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+// x at rows ra and ra + 8 (zeros where not ok), channels tig and tig + 4:
+// the values of an A fragment in its order
+__device__ __forceinline__ void load_a(const float* xh, Strides s, int ra, bool oka, bool okb,
+                                       float* x) {
+  const int tig = threadIdx.x % 4;
+  x[0] = oka ? xh[ra * s.t + tig * s.d] : 0.f;
+  x[1] = okb ? xh[(ra + 8) * s.t + tig * s.d] : 0.f;
+  x[2] = oka ? xh[ra * s.t + (tig + 4) * s.d] : 0.f;
+  x[3] = okb ? xh[(ra + 8) * s.t + (tig + 4) * s.d] : 0.f;
+}
+
+// Add a tile's accumulator (a C fragment) into this lane's f32 total, kept
+// in shared memory (its own slot: no other thread reads it), so that a
+// tile's accumulator and the total do not both hold registers
+__device__ __forceinline__ void add_to_total(float4* total, const float* part) {
+  float4 t = *total;
+  t.x = __fadd_rn(t.x, part[0]);
+  t.y = __fadd_rn(t.y, part[1]);
+  t.z = __fadd_rn(t.z, part[2]);
+  t.w = __fadd_rn(t.w, part[3]);
+  *total = t;
+}
+
+// One staged key tile (K and V hi and lo parts) for one warp's 16 query
+// rows, 8 keys a step: S and dP, then dS = P (dP - delta) with
+// P = 2^(S * scale * log2(e) - lse) (nla, nlb: -lse of rows a and b), then
+// dQ += dS K. The tile's dQ gathers in its own accumulator, added to the
+// total in f32: the tensor cores' f32 sums truncate, so a chain of 24
+// products, not one of every key's, carries that error. Keys at or past
+// `keys` get dS = 0.
+template <bool Mask>
+__device__ __forceinline__ void dq_tile_tf32(const uint32_t* kh, const uint32_t* kl,
+                                             const uint32_t* vh, const uint32_t* vl,
+                                             const BwdLane& ln, const uint32_t* qhi,
+                                             const uint32_t* qlo, const uint32_t* dhi,
+                                             const uint32_t* dlo, float nla, float nlb,
+                                             float dla, float dlb, float scale_log2, int keys,
+                                             float4* total) {
+  const int tig = threadIdx.x % 4;
+  const int w = (tig >> 1) & 1;
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int s = 0; s < kTcTile / 8; ++s) {
+    const int o = 64 * s;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    float dp[4] = {0.f, 0.f, 0.f, 0.f};
+    mma3(c, qhi, qlo, kh, kl, ln.t0 + o, ln.t1 + o);    // S = Q K^T
+    mma3(dp, dhi, dlo, vh, vl, ln.t0 + o, ln.t1 + o);   // dP = dO V^T
+    // c[0], c[2] hold key 8 s + 2 tig + w, c[1], c[3] key 8 s + 2 tig + 1 - w
+    float ds[4] = {__fmul_rn(ex2(fmaf(c[0], scale_log2, nla)), __fsub_rn(dp[0], dla)),
+                   __fmul_rn(ex2(fmaf(c[1], scale_log2, nla)), __fsub_rn(dp[1], dla)),
+                   __fmul_rn(ex2(fmaf(c[2], scale_log2, nlb)), __fsub_rn(dp[2], dlb)),
+                   __fmul_rn(ex2(fmaf(c[3], scale_log2, nlb)), __fsub_rn(dp[3], dlb))};
+    if (Mask) {
+      if (8 * s + 2 * tig + w >= keys) ds[0] = ds[2] = 0.f;
+      if (8 * s + 2 * tig + 1 - w >= keys) ds[1] = ds[3] = 0.f;
+    }
+    uint32_t hi[4], lo[4];
+    split_as_a(ds, hi, lo);
+    mma3(part, hi, lo, kh, kl, ln.r0 + o, ln.r1 + o);   // dQ += dS K
+  }
+  add_to_total(total, part);
+}
+
+// Launch 1 (f32, D = 8): dq, and each query row's delta = do . o.
+template <int G>
+__global__ void __launch_bounds__(32 * kTcWarps * G, kTcBlocksPerSM / G)
+attention_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ o, const float* __restrict__ lse,
+                             float* __restrict__ dq, float* __restrict__ delta, int heads,
+                             int seq_len, Strides sq, Strides sk, Strides sv, Strides sdo,
+                             Strides so, Strides sdq, float scale, float scale_log2) {
+  // two buffers of G heads' K tiles as staged, two of their V tiles, the
+  // current tile's K hi, K lo, V hi and V lo parts, then each thread's dq
+  // total
+  extern __shared__ float4 tf32_tiles[];
+  constexpr int kChunks = G * 2 * kTcTile;   // 16-byte chunks per tile of G heads
+  float4* k_tile = tf32_tiles;
+  float4* v_tile = tf32_tiles + 2 * kChunks;
+  float4* parts = tf32_tiles + 4 * kChunks;
+  float4* total = tf32_tiles + 8 * kChunks + threadIdx.x;
+  *total = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = warp / kTcWarps;          // this warp's head within the group
+  const int tig = lane % 4;
+  const int64_t b = blockIdx.z;
+  const int64_t h0 = static_cast<int64_t>(blockIdx.y) * G;
+  const int64_t h = h0 + g;
+  const int ra = blockIdx.x * kTcRows + (warp % kTcWarps) * 16 + lane / 4;
+  const int rb = ra + 8;
+  const bool oka = ra < seq_len;
+  const bool okb = rb < seq_len;
+
+  // A fragments of q and do, split into TF32 hi and lo parts once
+  float x[4], ox[4];
+  uint32_t qhi[4], qlo[4], dhi[4], dlo[4];
+  load_a(q + b * sq.b + h * sq.h, sq, ra, oka, okb, x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(x[i], qhi[i], qlo[i]);
+  load_a(dout + b * sdo.b + h * sdo.h, sdo, ra, oka, okb, x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(x[i], dhi[i], dlo[i]);
+
+  // delta = do . o in f32 from the saved output: channels tig and tig + 4
+  // here, then over the row's 4 lanes
+  load_a(o + b * so.b + h * so.h, so, ra, oka, okb, ox);
+  float dla = fmaf(x[2], ox[2], __fmul_rn(x[0], ox[0]));
+  float dlb = fmaf(x[3], ox[3], __fmul_rn(x[1], ox[1]));
+#pragma unroll
+  for (int m = 1; m < 4; m *= 2) {
+    dla = __fadd_rn(dla, __shfl_xor_sync(0xffffffffu, dla, m));
+    dlb = __fadd_rn(dlb, __shfl_xor_sync(0xffffffffu, dlb, m));
+  }
+  const int64_t stat = (b * heads + h) * seq_len;
+  const float nla = oka ? -lse[stat + ra] : 0.f;
+  const float nlb = okb ? -lse[stat + rb] : 0.f;
+  if (tig == 0) {
+    if (oka) delta[stat + ra] = dla;
+    if (okb) delta[stat + rb] = dlb;
+  }
+
+  const BwdLane lane_reads;
+  const float* kb = k + b * sk.b + h0 * sk.h;
+  const float* vb = v + b * sv.b + h0 * sv.h;
+  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
+  stage_rows_f32<G, true>(k_tile, v_tile, kb, vb, sk, sv, 0, seq_len);
+  cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {   // the next tile streams in while this one is used
+      stage_rows_f32<G, true>(k_tile + (buf ^ 1) * kChunks, v_tile + (buf ^ 1) * kChunks,
+                              kb, vb, sk, sv, (t + 1) * kTcTile, seq_len);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    // buf has landed for every thread, and every warp is done with the
+    // previous tile's parts
+    __syncthreads();
+    split_tile(k_tile + buf * kChunks, v_tile + buf * kChunks, parts, parts + kChunks,
+               parts + 2 * kChunks, parts + 3 * kChunks);
+    __syncthreads();
+    const uint32_t* head = reinterpret_cast<const uint32_t*>(parts + g * 2 * kTcTile);
+    constexpr int kPart = 4 * kChunks;   // words from one part to the next
+    const int keys = seq_len - t * kTcTile;
+    if (keys >= kTcTile) {
+      dq_tile_tf32<false>(head, head + kPart, head + 2 * kPart, head + 3 * kPart, lane_reads,
+                          qhi, qlo, dhi, dlo, nla, nlb, dla, dlb, scale_log2, keys, total);
+    } else {
+      dq_tile_tf32<true>(head, head + kPart, head + 2 * kPart, head + 3 * kPart, lane_reads,
+                         qhi, qlo, dhi, dlo, nla, nlb, dla, dlb, scale_log2, keys, total);
+    }
+  }
+
+  const float4 acc = *total;
+  float* dqh = dq + b * sdq.b + h * sdq.h;
+  if (oka) {
+    dqh[ra * sdq.t + 2 * tig * sdq.d] = __fmul_rn(acc.x, scale);
+    dqh[ra * sdq.t + (2 * tig + 1) * sdq.d] = __fmul_rn(acc.y, scale);
+  }
+  if (okb) {
+    dqh[rb * sdq.t + 2 * tig * sdq.d] = __fmul_rn(acc.z, scale);
+    dqh[rb * sdq.t + (2 * tig + 1) * sdq.d] = __fmul_rn(acc.w, scale);
+  }
+}
+
+// One staged query tile (Q and dO hi and lo parts, and (-lse, delta) of its
+// queries, stored in the permuted order: this lane's two queries of step s,
+// 8 s + 2 tig + w and 8 s + 2 tig + 1 - w, are the float4 stats[4 s + tig])
+// for one warp's 16 key rows, 8 queries a step: S^T, P^T, dV += P^T dO,
+// dP^T, dS^T = P^T (dP^T - delta), dK += dS^T Q, the tile's dV and dK each
+// in its own accumulator, added to the totals (as in dq_tile_tf32). v's
+// split A fragment comes from this thread's slots vfrag[0] (hi) and
+// vfrag[kThreads] (lo) at each step, which keeps the loop within 64
+// registers. Queries past T have lse = +inf (P = 0) and delta = 0.
+template <int kThreads>
+__device__ __forceinline__ void dkdv_tile_tf32(const uint32_t* qh, const uint32_t* ql,
+                                               const uint32_t* dh, const uint32_t* dl,
+                                               const float4* stats, const BwdLane& ln,
+                                               const uint32_t* khi, const uint32_t* klo,
+                                               const uint4* vfrag, float scale_log2,
+                                               float4* dk_total, float4* dv_total) {
+  const int tig = threadIdx.x % 4;
+  float pk[4] = {0.f, 0.f, 0.f, 0.f};
+  float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int s = 0; s < kTcTile / 8; ++s) {
+    const int o = 64 * s;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    mma3(c, khi, klo, qh, ql, ln.t0 + o, ln.t1 + o);    // S^T = K Q^T
+    // -lse and delta of c[0], c[2]'s query (x, y) and of c[1], c[3]'s (z, w)
+    const float4 st = stats[4 * s + tig];
+    float p[4] = {ex2(fmaf(c[0], scale_log2, st.x)), ex2(fmaf(c[1], scale_log2, st.z)),
+                  ex2(fmaf(c[2], scale_log2, st.x)), ex2(fmaf(c[3], scale_log2, st.z))};
+    uint32_t hi[4], lo[4];
+    split_as_a(p, hi, lo);
+    mma3(pv, hi, lo, dh, dl, ln.r0 + o, ln.r1 + o);     // dV += P^T dO
+    float dp[4] = {0.f, 0.f, 0.f, 0.f};
+    uint32_t vhi[4], vlo[4];
+    lds128(vhi, vfrag);
+    lds128(vlo, vfrag + kThreads);
+    mma3(dp, vhi, vlo, dh, dl, ln.t0 + o, ln.t1 + o);   // dP^T = V dO^T
+    p[0] = __fmul_rn(p[0], __fsub_rn(dp[0], st.y));
+    p[1] = __fmul_rn(p[1], __fsub_rn(dp[1], st.w));
+    p[2] = __fmul_rn(p[2], __fsub_rn(dp[2], st.y));
+    p[3] = __fmul_rn(p[3], __fsub_rn(dp[3], st.w));
+    split_as_a(p, hi, lo);
+    mma3(pk, hi, lo, qh, ql, ln.r0 + o, ln.r1 + o);     // dK += dS^T Q
+  }
+  add_to_total(dk_total, pk);
+  add_to_total(dv_total, pv);
+}
+
+// Launch 2 (f32, D = 8): dk and dv. Each warp holds 16 key rows (k split in
+// registers, v in shared memory) and walks the query tiles (q, do, lse,
+// delta).
+template <int G>
+__global__ void __launch_bounds__(32 * kTcWarps * G, kTcBlocksPerSM / G)
+attention_bwd_dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta, float* __restrict__ dk,
+                               float* __restrict__ dv, int heads, int seq_len, Strides sq,
+                               Strides sk, Strides sv, Strides sdo, Strides sdk,
+                               Strides sdv, float scale, float scale_log2) {
+  // two buffers of G heads' Q tiles as staged, two of their dO tiles, the
+  // current tile's Q hi, Q lo, dO hi and dO lo parts; each thread's dk and
+  // dv totals and v's split A fragment (hi, lo); then the staged lse and
+  // delta (two buffers each) and the current tile's (-lse, delta) pairs
+  extern __shared__ float4 tf32_tiles[];
+  constexpr int kChunks = G * 2 * kTcTile;
+  constexpr int kStats = G * kTcTile;
+  constexpr int kThreads = 32 * kTcWarps * G;
+  float4* q_tile = tf32_tiles;
+  float4* do_tile = tf32_tiles + 2 * kChunks;
+  float4* parts = tf32_tiles + 4 * kChunks;
+  float4* dk_total = tf32_tiles + 8 * kChunks + threadIdx.x;
+  float4* dv_total = dk_total + kThreads;
+  uint4* vfrag = reinterpret_cast<uint4*>(dk_total + 2 * kThreads);
+  float* l_raw = reinterpret_cast<float*>(tf32_tiles + 8 * kChunks + 4 * kThreads);
+  float* d_raw = l_raw + 2 * kStats;
+  float2* cur = reinterpret_cast<float2*>(l_raw + 4 * kStats);
+  *dk_total = *dv_total = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = warp / kTcWarps;
+  const int tig = lane % 4;
+  const int64_t b = blockIdx.z;
+  const int64_t h0 = static_cast<int64_t>(blockIdx.y) * G;
+  const int64_t h = h0 + g;
+  const int ja = blockIdx.x * kTcRows + (warp % kTcWarps) * 16 + lane / 4;
+  const int jb = ja + 8;
+  const bool oka = ja < seq_len;
+  const bool okb = jb < seq_len;
+
+  // A fragments of k and v, split into TF32 hi and lo parts once; v's go to
+  // this thread's slots
+  float x[4];
+  uint32_t khi[4], klo[4];
+  load_a(k + b * sk.b + h * sk.h, sk, ja, oka, okb, x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(x[i], khi[i], klo[i]);
+  load_a(v + b * sv.b + h * sv.h, sv, ja, oka, okb, x);
+  uint4 vh, vl;
+  split_tf32(x[0], vh.x, vl.x);
+  split_tf32(x[1], vh.y, vl.y);
+  split_tf32(x[2], vh.z, vl.z);
+  split_tf32(x[3], vh.w, vl.w);
+  vfrag[0] = vh;
+  vfrag[kThreads] = vl;
+
+  const BwdLane lane_reads;
+  const float* qb = q + b * sq.b + h0 * sq.h;
+  const float* dob = dout + b * sdo.b + h0 * sdo.h;
+  const float* lseb = lse + (b * heads + h0) * seq_len;   // G heads' rows follow
+  const float* deltab = delta + (b * heads + h0) * seq_len;
+  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
+  stage_rows_f32<G, true>(q_tile, do_tile, qb, dob, sq, sdo, 0, seq_len);
+  stage_stats<G>(l_raw, d_raw, lseb, deltab, 0, seq_len);
+  cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {
+      stage_rows_f32<G, true>(q_tile + (buf ^ 1) * kChunks, do_tile + (buf ^ 1) * kChunks,
+                              qb, dob, sq, sdo, (t + 1) * kTcTile, seq_len);
+      stage_stats<G>(l_raw + (buf ^ 1) * kStats, d_raw + (buf ^ 1) * kStats, lseb, deltab,
+                     (t + 1) * kTcTile, seq_len);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    split_tile(q_tile + buf * kChunks, do_tile + buf * kChunks, parts, parts + kChunks,
+               parts + 2 * kChunks, parts + 3 * kChunks);
+    // one of the tile's 2 kStats statistics per thread, as (-lse, delta)
+    // pairs, query j of every 8 at j ^ ((j >> 2) & 1) (dkdv_tile_tf32)
+    {
+      const int c = threadIdx.x < kStats ? threadIdx.x : threadIdx.x - kStats;
+      float* pair = reinterpret_cast<float*>(cur + (c ^ ((c >> 2) & 1)));
+      if (threadIdx.x < kStats) {
+        pair[0] = -l_raw[buf * kStats + c];
+      } else {
+        pair[1] = d_raw[buf * kStats + c];
+      }
+    }
+    __syncthreads();
+    const uint32_t* head = reinterpret_cast<const uint32_t*>(parts + g * 2 * kTcTile);
+    constexpr int kPart = 4 * kChunks;
+    dkdv_tile_tf32<kThreads>(head, head + kPart, head + 2 * kPart, head + 3 * kPart,
+                             reinterpret_cast<const float4*>(cur + g * kTcTile), lane_reads,
+                             khi, klo, vfrag, scale_log2, dk_total, dv_total);
+  }
+
+  const float4 dka = *dk_total;
+  const float4 dva = *dv_total;
+  float* dkh = dk + b * sdk.b + h * sdk.h;
+  float* dvh = dv + b * sdv.b + h * sdv.h;
+  if (oka) {
+    dkh[ja * sdk.t + 2 * tig * sdk.d] = __fmul_rn(dka.x, scale);
+    dkh[ja * sdk.t + (2 * tig + 1) * sdk.d] = __fmul_rn(dka.y, scale);
+    dvh[ja * sdv.t + 2 * tig * sdv.d] = dva.x;
+    dvh[ja * sdv.t + (2 * tig + 1) * sdv.d] = dva.y;
+  }
+  if (okb) {
+    dkh[jb * sdk.t + 2 * tig * sdk.d] = __fmul_rn(dka.z, scale);
+    dkh[jb * sdk.t + (2 * tig + 1) * sdk.d] = __fmul_rn(dka.w, scale);
+    dvh[jb * sdv.t + 2 * tig * sdv.d] = dva.z;
+    dvh[jb * sdv.t + (2 * tig + 1) * sdv.d] = dva.w;
+  }
+}
+
+template <int G>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, const void* dout,
+                        const void* o, void* dq, void* dk, void* dv, const float* lse,
+                        float* delta, int batch, int heads, int seq_len, const int64_t* st,
+                        float scale, cudaStream_t stream) {
+  const Strides sq{st[0], st[1], st[2], st[3]};
+  const Strides sk{st[4], st[5], st[6], st[7]};
+  const Strides sv{st[8], st[9], st[10], st[11]};
+  const Strides sdo{st[12], st[13], st[14], st[15]};
+  const Strides sdq{st[16], st[17], st[18], st[19]};
+  const Strides sdk{st[20], st[21], st[22], st[23]};
+  const Strides sdv{st[24], st[25], st[26], st[27]};
+  const Strides so{st[28], st[29], st[30], st[31]};
+  if (!rows16<float>(q, sq) || !rows16<float>(k, sk) || !rows16<float>(v, sv)
+      || !rows16<float>(dout, sdo) || o == nullptr || lse == nullptr)
+    return cudaErrorInvalidValue;
+  // the staged tiles of two tensors, double-buffered, and their four parts,
+  // and each thread's totals (dq; dk and dv); the dk/dv launch also keeps
+  // v's split fragment and stages lse and delta (two buffers, and the
+  // current tile's pairs)
+  constexpr int kThreads = 32 * kTcWarps * G;
+  constexpr int kTileBytes = 8 * G * 2 * kTcTile * 16;
+  constexpr int kDqBytes = kTileBytes + kThreads * 16;
+  constexpr int kDkdvBytes = kTileBytes + 4 * kThreads * 16 + 6 * G * kTcTile * 4;
+  if (kDkdvBytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_tf32_kernel<G>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           kDqBytes);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(attention_bwd_dkdv_tf32_kernel<G>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvBytes);
+    }
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((seq_len + kTcRows - 1) / kTcRows, heads / G, batch);
+  const float scale_log2 = scale * kLog2e;
+  attention_bwd_dq_tf32_kernel<G><<<grid, 32 * kTcWarps * G, kDqBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(o), lse, static_cast<float*>(dq), delta, heads, seq_len,
+      sq, sk, sv, sdo, so, sdq, scale, scale_log2);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_dkdv_tf32_kernel<G><<<grid, 32 * kTcWarps * G, kDkdvBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dk), static_cast<float*>(dv), heads, seq_len, sq, sk, sv, sdo,
+      sdk, sdv, scale, scale_log2);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tf32_group(int group, const void* q, const void* k, const void* v,
+                              const void* dout, const void* o, void* dq, void* dk, void* dv,
+                              const float* lse, float* delta, int batch, int heads,
+                              int seq_len, const int64_t* st, float scale, cudaStream_t s) {
+  switch (group) {
+    case 1: return launch_tf32<1>(q, k, v, dout, o, dq, dk, dv, lse, delta, batch, heads, seq_len, st, scale, s);
+    case 2: return launch_tf32<2>(q, k, v, dout, o, dq, dk, dv, lse, delta, batch, heads, seq_len, st, scale, s);
+    case 4: return launch_tf32<4>(q, k, v, dout, o, dq, dk, dv, lse, delta, batch, heads, seq_len, st, scale, s);
+    case 8: return launch_tf32<8>(q, k, v, dout, o, dq, dk, dv, lse, delta, batch, heads, seq_len, st, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // The launch's shape, types and knobs, packed once per checked layout by
@@ -717,12 +1226,12 @@ struct BwdArgs {
   float scale;
 };
 
-// lse and delta: f32 (batch, heads, seq_len), contiguous. bf16 with head_dim
-// 8 (the tensor-core kernels): o is the forward's output and lse its base-2
-// log-sum-exp, both read; delta is scratch, written by the first launch and
-// read by the second; the rows of q, k, v and dout must start on 16 bytes
-// with their channels contiguous. Every other instance ignores o and uses
-// lse and delta as scratch of its own. Returns a cudaError_t; an unsupported
+// lse and delta: f32 (batch, heads, seq_len), contiguous. head_dim 8 (the
+// tensor-core kernels, f32 and bf16): o is the forward's output (in the
+// primal dtype) and lse its base-2 log-sum-exp, both read; delta is scratch,
+// written by the first launch and read by the second; the rows of q, k, v
+// and dout must start on 16 bytes with their channels contiguous. head_dim 4
+// ignores o and uses lse and delta as scratch of its own. Returns a cudaError_t; an unsupported
 // head_dim, dtype, group or layout returns cudaErrorInvalidValue without
 // launching.
 extern "C" int attention_bwd(const BwdArgs* a, const void* q, const void* k, const void* v,
@@ -736,8 +1245,8 @@ extern "C" int attention_bwd(const BwdArgs* a, const void* q, const void* k, con
   if (seq_len <= 0 || batch <= 0 || heads <= 0 || g <= 0 || heads % g != 0)
     return cudaErrorInvalidValue;
   if (a->dtype == 0 && a->head_dim == 8)
-    return launch_group<8, float>(g, q, k, v, dout, dq, dk, dv, lse, delta,
-                                  batch, heads, seq_len, strides, scale, s);
+    return launch_tf32_group(g, q, k, v, dout, o, dq, dk, dv, lse, delta, batch, heads,
+                             seq_len, strides, scale, s);
   if (a->dtype == 1 && a->head_dim == 8)
     return launch_tc_group(g, q, k, v, dout, o, dq, dk, dv, lse, delta, batch,
                            heads, seq_len, strides, scale, s);

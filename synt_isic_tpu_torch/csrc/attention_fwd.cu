@@ -596,57 +596,6 @@ cudaError_t launch_tc_group(int group, bool fast_math, const void* q, const void
 // f32, D = 8, exact: the 3xTF32 tensor-core kernel (see the top of the file)
 // ---------------------------------------------------------------------------
 
-// Stage keys [r0, r0 + kTcTile) of G heads of k and v (f32, from head h0 on,
-// at kb and vb) into kt[g * 2 kTcTile + ...] and vt[...]: a key row of one
-// head is 8 floats, two 16-byte chunks, one chunk of each tensor per thread.
-// Chunk c of key j lands at j * 2 + c in vt, and at j * 2 + (c ^ ((j >> 2) & 1))
-// in kt, so that the S step's reads of K (two keys 4 apart share banks
-// unswizzled) hit 32 banks. Keys past seq_len are zeros.
-template <int G>
-__device__ __forceinline__ void stage_rows_f32(float4* kt, float4* vt, const float* kb,
-                                               const float* vb, Strides sk, Strides sv,
-                                               int r0, int seq_len) {
-  static_assert(2 * kTcTile == 32 * kTcWarps, "one chunk of k and one of v per thread");
-  const int c = threadIdx.x;
-  const int64_t gh = c / (2 * kTcTile);
-  const int key = (c % (2 * kTcTile)) / 2;
-  const int half = c % 2;
-  const int row = r0 + key;
-  float4* kd = kt + gh * 2 * kTcTile + key * 2 + (half ^ ((key >> 2) & 1));
-  float4* vd = vt + c;
-  if (row < seq_len) {
-    cp_async16(kd, kb + row * sk.t + gh * sk.h + 4 * half);
-    cp_async16(vd, vb + row * sv.t + gh * sv.h + 4 * half);
-  } else {
-    *kd = *vd = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// Split the staged tile of G heads (raw K and V, 2 kTcTile chunks each per
-// head) into TF32 hi and lo parts, chunk for chunk, one chunk of each tensor
-// per thread: done once per block and tile, so that no warp splits K or V in
-// its inner loop.
-__device__ __forceinline__ void split_tile(const float4* raw_k, const float4* raw_v,
-                                           float4* khi, float4* klo, float4* vhi,
-                                           float4* vlo) {
-  const int c = threadIdx.x;
-  const float4 kx = raw_k[c];
-  const float4 vx = raw_v[c];
-  uint4 h, l;
-  split_tf32(kx.x, h.x, l.x);
-  split_tf32(kx.y, h.y, l.y);
-  split_tf32(kx.z, h.z, l.z);
-  split_tf32(kx.w, h.w, l.w);
-  reinterpret_cast<uint4*>(khi)[c] = h;
-  reinterpret_cast<uint4*>(klo)[c] = l;
-  split_tf32(vx.x, h.x, l.x);
-  split_tf32(vx.y, h.y, l.y);
-  split_tf32(vx.z, h.z, l.z);
-  split_tf32(vx.w, h.w, l.w);
-  reinterpret_cast<uint4*>(vhi)[c] = h;
-  reinterpret_cast<uint4*>(vlo)[c] = l;
-}
-
 // This lane's reads of one staged tile, as offsets in floats from the head's
 // K or V tile, for slice 0 (slice s adds 64 s): K[n ^ ((n >> 2) & 1)][tig]
 // and [tig + 4] for S's B column n = gid (the chunk swap of keys 4-7 undone);
@@ -851,13 +800,14 @@ attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   const float* kb = k + b * sk.b + h0 * sk.h;
   const float* vb = v + b * sv.b + h0 * sv.h;
   const int tiles = (seq_len + kTcTile - 1) / kTcTile;
-  stage_rows_f32<G>(k_tile, v_tile, kb, vb, sk, sv, 0, seq_len);
+  // K with its chunk swap (S's reads), V as it comes (P V's reads)
+  stage_rows_f32<G, false>(k_tile, v_tile, kb, vb, sk, sv, 0, seq_len);
   cp_async_commit();
   for (int t = 0; t < tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < tiles) {   // the next tile streams in while this one is used
-      stage_rows_f32<G>(k_tile + (buf ^ 1) * kChunks, v_tile + (buf ^ 1) * kChunks, kb, vb,
-                        sk, sv, (t + 1) * kTcTile, seq_len);
+      stage_rows_f32<G, false>(k_tile + (buf ^ 1) * kChunks, v_tile + (buf ^ 1) * kChunks,
+                               kb, vb, sk, sv, (t + 1) * kTcTile, seq_len);
       cp_async_commit();
       cp_async_wait<1>();
     } else {

@@ -157,6 +157,59 @@ __device__ __forceinline__ void stage_rows(uint4* xt, uint4* yt, const bf16* xb,
   }
 }
 
+// Stage rows [r0, r0 + kTcTile) of G heads of f32 x and y (from head h0 on,
+// at xb and yb) into xt[g * 2 kTcTile + ...] and yt[...]: a row of one head is
+// 8 floats, two 16-byte chunks, one chunk of each tensor per thread. Chunk c
+// of row j lands at j * 2 + (c ^ ((j >> 2) & 1)) in xt, and likewise in yt if
+// SwapY (else at j * 2 + c): the chunk swap of rows 4-7 of every 8 lets the
+// reads of a B fragment of the transposed tile (rows n ^ ((n >> 2) & 1) at
+// channels l%4 and l%4 + 4, for column n = l/4) hit 32 banks, where two rows 4
+// apart would share banks unswizzled. Rows past seq_len are zeros.
+template <int G, bool SwapY>
+__device__ __forceinline__ void stage_rows_f32(float4* xt, float4* yt, const float* xb,
+                                               const float* yb, Strides sx, Strides sy,
+                                               int r0, int seq_len) {
+  static_assert(2 * kTcTile == 32 * kTcWarps, "one chunk of x and one of y per thread");
+  const int c = threadIdx.x;
+  const int64_t gh = c / (2 * kTcTile);
+  const int row = (c % (2 * kTcTile)) / 2;
+  const int half = c % 2;
+  const int swapped = gh * 2 * kTcTile + row * 2 + (half ^ ((row >> 2) & 1));
+  float4* xd = xt + swapped;
+  float4* yd = yt + (SwapY ? swapped : c);
+  if (r0 + row < seq_len) {
+    cp_async16(xd, xb + (r0 + row) * sx.t + gh * sx.h + 4 * half);
+    cp_async16(yd, yb + (r0 + row) * sy.t + gh * sy.h + 4 * half);
+  } else {
+    *xd = *yd = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Split the staged f32 tile of G heads (raw x and y, 2 kTcTile chunks each per
+// head) into TF32 hi and lo parts, chunk for chunk, one chunk of each tensor
+// per thread: done once per block and tile, so that no warp splits a staged
+// operand in its inner loop.
+__device__ __forceinline__ void split_tile(const float4* raw_x, const float4* raw_y,
+                                           float4* xhi, float4* xlo, float4* yhi,
+                                           float4* ylo) {
+  const int c = threadIdx.x;
+  const float4 xv = raw_x[c];
+  const float4 yv = raw_y[c];
+  uint4 h, l;
+  split_tf32(xv.x, h.x, l.x);
+  split_tf32(xv.y, h.y, l.y);
+  split_tf32(xv.z, h.z, l.z);
+  split_tf32(xv.w, h.w, l.w);
+  reinterpret_cast<uint4*>(xhi)[c] = h;
+  reinterpret_cast<uint4*>(xlo)[c] = l;
+  split_tf32(yv.x, h.x, l.x);
+  split_tf32(yv.y, h.y, l.y);
+  split_tf32(yv.z, h.z, l.z);
+  split_tf32(yv.w, h.w, l.w);
+  reinterpret_cast<uint4*>(yhi)[c] = h;
+  reinterpret_cast<uint4*>(ylo)[c] = l;
+}
+
 // cp.async stages 16-byte chunks: each row of x (elements of type T) must
 // start on 16 bytes with its 8 channels contiguous
 template <typename T>

@@ -9,18 +9,20 @@ The port of synt_isic_tpu/ops/pallas/attention.py:
   * `fused_attention_bwd` (the Pallas recompute backward, with its knob
     `heads_per_program`) launches `csrc/attention_bwd.cu`;
   * `fused_attention_trainable` (the Pallas `custom_vjp`) is the autograd
-    Function `FusedAttention`: forward kernel, backward kernel. In bf16 at
-    head_dim 8 its exact forward also writes each row's base-2 log-sum-exp,
-    and it saves that and its output for the backward's tensor-core kernels.
+    Function `FusedAttention`: forward kernel, backward kernel. At head_dim
+    8 (f32 and bf16) its exact forward also writes each row's base-2
+    log-sum-exp, and it saves that and its output for the backward's
+    tensor-core kernels.
 For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it runs the plain PyTorch version (`attention_reference`,
 `attention_fast_math_reference`, `attention_bwd_reference`), which the
 tests and `chip_smoke.py` hold the kernels against; the fast-math kernel is
 also held to `attention_fast_math_kernel_order`, the exact f32 forward (3xTF32
-on the tensor cores) to `attention_tf32x3_kernel_order` and the bf16 backward
-to `attention_bwd_kernel_order`, the same maths rounded where the kernel
-rounds, and the forward's log-sum-exp to `attention_lse_reference`. There
-is no other route.
+on the tensor cores) to `attention_tf32x3_kernel_order`, the bf16 backward to
+`attention_bwd_kernel_order` and the f32 one (3xTF32) to
+`attention_bwd_tf32x3_kernel_order`, the same maths rounded where the kernel
+rounds, and the forward's log-sum-exp to `attention_lse_reference`. There is
+no other route.
 
 The UNet calls the wrappers with the same few layouts on every step, so a
 CUDA call's checks run once per layout: the verdict, G, the copies the
@@ -56,8 +58,8 @@ FAST_KERNEL = "attention_fwd_fast_math"
 GROUPED_KERNEL = "attention_fwd_grouped"
 # counter of the backward kernel's grouped variant (one source, `attention_bwd.cu`)
 BWD_GROUPED_KERNEL = "attention_bwd_grouped"
-# counter of the exact forward launches that a bf16 backward without saved
-# statistics runs first for its o and log-sum-exp (`attention_fwd.cu`)
+# counter of the exact forward launches that a head_dim-8 backward without
+# saved statistics runs first for its o and log-sum-exp (`attention_fwd.cu`)
 STATS_KERNEL = "attention_bwd_stats"
 HEAD_DIMS = (4, 8)
 HEADS_PER_PROGRAM = (1, 2, 4, 8)
@@ -150,6 +152,14 @@ def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, (bits(x - hi) & ~0x1FFF).view(torch.float32).view(x.shape)
 
 
+def _tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in f32 as the f32 tensor-core kernels form it: both operands
+    split (`tf32_split`), lo.hi + hi.lo + hi.hi, the small terms first."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return torch.matmul(al, bh) + torch.matmul(ah, bl) + torch.matmul(ah, bh)
+
+
 def attention_tf32x3_kernel_order(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor) -> torch.Tensor:
     """The f32 tensor-core kernel's arithmetic (`attention_fwd.cu`, exact f32
@@ -166,7 +176,7 @@ def attention_tf32x3_kernel_order(q: torch.Tensor, k: torch.Tensor,
     the division comes last. (The kernel also takes a tile's max first where
     its weights would pass 2^40 against the running shift: logits that jump
     by more than 40 within a row, which this leaves out.) The result is f32."""
-    qh, ql = tf32_split(q.float() * _scale_log2(q.shape[-1]))
+    qs = q.float() * _scale_log2(q.shape[-1])
     m = torch.full(q.shape[:-1], -math.inf, device=q.device)
     total = torch.zeros(q.shape[:-1], device=q.device)
     acc = torch.zeros(q.shape, device=q.device)
@@ -176,16 +186,14 @@ def attention_tf32x3_kernel_order(q: torch.Tensor, k: torch.Tensor,
         return new, total * c, acc * c[..., None]
 
     for j in range(0, q.shape[-2], 64):
-        kh, kl = tf32_split(k[..., j:j + 64, :].float().transpose(-1, -2))
+        kt = k[..., j:j + 64, :].float().transpose(-1, -2)
         if j == 0:
-            m, total, acc = shift_to(torch.maximum(m, torch.matmul(qh, kh).amax(dim=-1)))
-        p = torch.exp2(torch.matmul(ql, kh) + torch.matmul(qh, kl) + torch.matmul(qh, kh)
-                       - m[..., None])
-        ph, pl = tf32_split(p)
-        vh, vl = tf32_split(v[..., j:j + 64, :].float())
+            first = torch.matmul(tf32_split(qs)[0], tf32_split(kt)[0])   # hi.hi alone
+            m, total, acc = shift_to(torch.maximum(m, first.amax(dim=-1)))
+        p = torch.exp2(_tf32x3_matmul(qs, kt) - m[..., None])
         tile = p.sum(dim=-1)
         total = total + tile
-        acc = acc + (torch.matmul(pl, vh) + torch.matmul(ph, vl) + torch.matmul(ph, vh))
+        acc = acc + _tf32x3_matmul(p, v[..., j:j + 64, :].float())
         m, total, acc = shift_to(torch.where(tile > 2.0 ** 16, m + torch.log2(tile), m))
     return acc / total[..., None]
 
@@ -240,6 +248,33 @@ def attention_bwd_kernel_order(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     dq = torch.matmul(ds, k.float())
     dk = torch.matmul(ds.transpose(-1, -2), q.float())
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def attention_bwd_tf32x3_kernel_order(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                      do: torch.Tensor, o: torch.Tensor, lse: torch.Tensor
+                                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The f32 tensor-core backward's arithmetic (`attention_bwd.cu`, f32 at
+    head_dim 8) in plain PyTorch, to hold the kernel to its own rounding,
+    from the forward's output `o` and base-2 log-sum-exp `lse`. Every
+    product is 3xTF32 (`_tf32x3_matmul`): S = q k^T and dP = do v^T;
+    P = 2^(S * scale * log2(e) - lse) with the shift rounded once, as the
+    kernel's fma does; delta = do . o; dS = P (dP - delta); dq = dS k summed
+    per tile of 64 keys, dv = P^T do and dk = dS^T q per tile of 64 queries,
+    the tiles' partial sums added in f32; dq and dk times 1/sqrt(D) last.
+    Nothing is rounded below f32. The results are f32."""
+    q, k, v, do, o = (z.float() for z in (q, k, v, do, o))
+    scale = torch.tensor(1.0 / math.sqrt(q.shape[-1])).item()
+    s = _tf32x3_matmul(q, k.transpose(-1, -2))
+    p = torch.exp2((s.double() * _scale_log2(q.shape[-1]) - lse.double()[..., None]).float())
+    dp = _tf32x3_matmul(do, v.transpose(-1, -2))
+    ds = p * (dp - (do * o).sum(dim=-1, keepdim=True))
+    dq, dk, dv = (torch.zeros_like(z) for z in (q, k, v))
+    for j in range(0, q.shape[-2], 64):
+        tile = slice(j, j + 64)
+        dq = dq + _tf32x3_matmul(ds[..., tile], k[..., tile, :])
+        dk = dk + _tf32x3_matmul(ds[..., tile, :].transpose(-1, -2), q[..., tile, :])
+        dv = dv + _tf32x3_matmul(p[..., tile, :].transpose(-1, -2), do[..., tile, :])
+    return dq * scale, dk * scale, dv
 
 
 def _check(*tensors: torch.Tensor) -> str:
@@ -306,10 +341,10 @@ def _staged_forward(q: torch.Tensor, fast_math: bool) -> bool:
 
 
 def _reads_stats(q: torch.Tensor) -> bool:
-    """Whether this CUDA backward runs the tensor-core kernels (bf16, head_dim
-    8), which stage q, k, v and do in 16-byte chunks and read the exact
-    forward's output and log-sum-exp."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] == 8
+    """Whether this CUDA backward runs the tensor-core kernels (head_dim 8,
+    f32 in 3xTF32 and bf16), which stage q, k, v and do in 16-byte chunks and
+    read the exact forward's output and log-sum-exp."""
+    return q.shape[-1] == 8
 
 
 def _rows16(z: torch.Tensor) -> bool:
@@ -468,7 +503,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class _BackwardPlan:
     """One checked backward layout on CUDA: the kernel's packed arguments,
     which of q, k, v, do are copied before staging, and the LAUNCHES keys a
-    launch counts under. With `stats`, a bf16 D=8 call without o and lse,
+    launch counts under. With `stats`, a head_dim-8 call without o and lse,
     the exact forward plan that computes them first (counted under
     STATS_KERNEL)."""
     __slots__ = ("args", "address", "fn", "copies", "counts", "index", "tensor_cores", "stats",
@@ -550,11 +585,11 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `heads_per_program` groups heads per block (identical results). One
     call launches the kernel's two passes and counts one launch.
 
-    On CUDA in bf16 at head_dim 8 the kernels read the exact forward's
-    output `o` and base-2 log-sum-exp `lse` (f32, (B, H, T)), as
+    On CUDA at head_dim 8 (f32 and bf16) the kernels read the exact
+    forward's output `o` and base-2 log-sum-exp `lse` (f32, (B, H, T)), as
     `FusedAttention` saves them; without them one exact forward launch
-    (counted under STATS_KERNEL) computes both first. Elsewhere they are
-    not used."""
+    (counted under STATS_KERNEL) computes both first. At head_dim 4 they
+    are not used."""
     plan = _PLANS.get(_backward_key(q, k, v, do, heads_per_program, o, lse))
     if plan is None:
         plan = _backward_plan(q, k, v, do, heads_per_program, o, lse)
@@ -567,7 +602,7 @@ class FusedAttention(torch.autograd.Function):
     """The Pallas `fused_attention_trainable` custom VJP: the forward kernel
     as the primal, the recompute backward kernel as the VJP. Saves q, k, v
     (views of the projections, no copy) and, where the backward reads them
-    (CUDA, bf16, head_dim 8, exact maths), the output and each row's f32
+    (CUDA, head_dim 8, exact maths), the output and each row's f32
     log-sum-exp (B*H*T*4 bytes); nothing of size T^2."""
 
     @staticmethod

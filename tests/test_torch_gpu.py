@@ -598,13 +598,13 @@ def test_cached_launch_still_refuses(cuda, dtype):
         attention.fused_attention_bwd(q, k, v, do, heads_per_program=16)
     with pytest.raises(ValueError):
         attention.fused_attention_bwd(q, k, v, do[:, :, :32])
-    if dtype == torch.bfloat16:
-        o, lse = attention.fused_attention(q, k, v, with_lse=True)
-        attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse)
-        with pytest.raises(ValueError):    # a log-sum-exp of another type
-            attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse.double())
-        with pytest.raises(ValueError):    # an output of another shape
-            attention.fused_attention_bwd(q, k, v, do, o=o[:, :, :32], lse=lse)
+    # head_dim 8: the backward reads o and lse in both dtypes
+    o, lse = attention.fused_attention(q, k, v, with_lse=True)
+    attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse)
+    with pytest.raises(ValueError):        # a log-sum-exp of another type
+        attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse.double())
+    with pytest.raises(ValueError):        # an output of another shape
+        attention.fused_attention_bwd(q, k, v, do, o=o[:, :, :32], lse=lse)
 
 
 def test_f32_forward_redoes_a_tile_whose_logits_jump(cuda):
@@ -627,3 +627,118 @@ def test_f32_forward_redoes_a_tile_whose_logits_jump(cuda):
     for group in (2, 4):
         o_g, lse_g = attention.fused_attention(q, k, v, heads_per_program=group, with_lse=True)
         assert torch.equal(o_g, out) and torch.equal(lse_g, lse), group
+
+
+# the f32 tensor-core backward against the plain version of its own rounding
+# (`attention_bwd_tf32x3_kernel_order`: the same splits and products, per-tile
+# partial sums), per gradient as max|diff| / max|g|. They differ where f32
+# rounds: ex2.approx (2^-22 relative) and the exponent's one fma against a
+# double-rounded shift, the tensor cores' truncated f32 sums (each add loses
+# under 2^-23 of a partial sum, in chains of 3 products for S and dP, which
+# enter the exponent as an absolute error of a few 2^-23 |q||k|, and of 24
+# for a tile's dq, dk, dv) and the order of the f32 sums; each of these is a
+# few 2^-23 of the terms of a gradient entry, whose sum of magnitudes is a
+# few times max|g| at randn inputs. The order function itself lies about
+# 1e-6 max|g| from float64 gradients (CPU, up to T=1024); 1e-5 allows ten
+# times that and is a fifth of BWD_TOL, which one TF32 pass misses 10-50x
+# (`chip_smoke.py` TF32_BWD_ORDER_TOL)
+TF32_BWD_ORDER_TOL = 1e-5
+
+
+@pytest.mark.parametrize("layout", ["BHTD", "BTC"])
+@pytest.mark.parametrize("shape", [(2, 32, 1024, 8), (8, 32, 256, 8), (1, 2, 101, 8),
+                                   (2, 32, 1000, 8)])
+def test_f32_bwd_from_saved_statistics(cuda, shape, layout):
+    """The 3xTF32 tensor-core backward from the exact f32 forward's output
+    and log-sum-exp: within BWD_TOL of the plain version and within
+    TF32_BWD_ORDER_TOL of the plain version of its own rounding, at full,
+    short and ragged T; two calls torch.equal; the gradients in the strides
+    of q, k and v; no statistics launch."""
+    q, k, v, do = _f32_args(cuda, shape, layout, 26)
+    o, lse = attention.fused_attention(q, k, v, with_lse=True)
+    before = dict(attention.LAUNCHES)
+    got = attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse)
+    again = attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES[attention.BWD_KERNEL] == before[attention.BWD_KERNEL] + 2
+    assert attention.LAUNCHES[attention.STATS_KERNEL] == before[attention.STATS_KERNEL]
+    want = attention.attention_bwd_reference(q, k, v, do)
+    order = attention.attention_bwd_tf32x3_kernel_order(q, k, v, do, o, lse)
+    for name, a, w, r, a2, src in zip(("dq", "dk", "dv"), got, want, order, again, (q, k, v)):
+        assert torch.equal(a, a2), name
+        assert a.dtype == torch.float32 and a.stride() == src.stride(), name
+        for ref, tol in ((w, BWD_TOL[torch.float32]), (r, TF32_BWD_ORDER_TOL)):
+            torch.testing.assert_close(a, ref, rtol=0, atol=tol * ref.abs().max().item(),
+                                       msg=name)
+
+
+@pytest.mark.parametrize("layout", ["BHTD", "BTC"])
+def test_f32_bwd_from_saved_statistics_grouped_is_bit_identical(cuda, layout):
+    q, k, v, do = _f32_args(cuda, (2, 32, 1024, 8), layout, 27)
+    o, lse = attention.fused_attention(q, k, v, with_lse=True)
+    base = attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse)
+    for group in (2, 4, 8):
+        before = attention.LAUNCHES[attention.BWD_GROUPED_KERNEL]
+        got = attention.fused_attention_bwd(q, k, v, do, group, o=o, lse=lse)
+        torch.cuda.synchronize()
+        assert attention.LAUNCHES[attention.BWD_GROUPED_KERNEL] == before + 1
+        for name, a, w in zip(("dq", "dk", "dv"), got, base):
+            assert torch.equal(a, w), (group, name)
+
+
+def test_f32_bwd_takes_any_layout(cuda):
+    """Rows the f32 tensor-core backward cannot stage by 16-byte copies (a
+    contiguous tensor that starts 4 bytes off, channels that are not
+    contiguous, a broadcast output gradient) are copied into fresh storage
+    first: the same gradients, bit for bit, as from dense tensors."""
+    q, k, v, do = _f32_args(cuda, (2, 32, 256, 8), "BHTD", 28)
+    o, lse = attention.fused_attention(q, k, v, with_lse=True)
+    storage = torch.empty(do.numel() + 1, device=cuda)
+    do_off = storage[1:].view(do.shape)
+    do_off.copy_(do)
+    q_strided = q.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert do_off.is_contiguous() and do_off.data_ptr() % 16 != 0 and q_strided.stride(-1) != 1
+    want = attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse)
+    for _ in range(2):      # the second call takes the cached checks
+        got = attention.fused_attention_bwd(q_strided, k, v, do_off, o=o, lse=lse)
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            assert torch.equal(a, w), name
+    ones = torch.ones((), device=cuda).expand(q.shape)
+    want = attention.fused_attention_bwd(q, k, v, ones.contiguous(), o=o, lse=lse)
+    for name, a, w in zip(("dq", "dk", "dv"), attention.fused_attention_bwd(q, k, v, ones, o=o,
+                                                                            lse=lse), want):
+        assert torch.equal(a, w), name
+
+
+def test_f32_standalone_bwd_runs_one_statistics_launch(cuda):
+    """An f32 backward at head_dim 8 without o and lse runs one exact forward
+    launch for them first, counted under STATS_KERNEL only, and gives the
+    gradients of the backward from the forward's statistics bit for bit."""
+    q, k, v, do = _f32_args(cuda, (2, 32, 1024, 8), "BTC", 29)
+    o, lse = attention.fused_attention(q, k, v, with_lse=True)
+    want = attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse)
+    before = dict(attention.LAUNCHES)
+    got = attention.fused_attention_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    launched = {key: attention.LAUNCHES[key] - before[key] for key in before}
+    assert launched[attention.STATS_KERNEL] == launched[attention.BWD_KERNEL] == 1
+    assert launched[attention.KERNEL] == 0
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.equal(a, w), name
+
+
+def test_f32_exact_trainable_reads_its_saved_statistics(cuda):
+    """K4 in f32 at head_dim 8, exact maths: one forward and one backward
+    launch, no statistics launch; the same gradients as the backward from
+    the forward's statistics."""
+    q, k, v, do = _f32_args(cuda, (2, 32, 1024, 8), "BTC", 30)
+    leaves = [z.detach().requires_grad_() for z in (q, k, v)]
+    before = dict(attention.LAUNCHES)
+    got = torch.autograd.grad(attention.fused_attention_trainable(*leaves), leaves, do)
+    torch.cuda.synchronize()
+    launched = {key: attention.LAUNCHES[key] - before[key] for key in before}
+    assert launched[attention.KERNEL] == launched[attention.BWD_KERNEL] == 1
+    assert launched[attention.STATS_KERNEL] == 0
+    o, lse = attention.fused_attention(q, k, v, with_lse=True)
+    for a, w in zip(got, attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse)):
+        assert torch.equal(a, w)
