@@ -46,9 +46,10 @@
 // running max, not the row's global max, and the rescale factor applied to
 // the sum and accumulator when the max moves stays f32. Both change bf16
 // rounding only. The running max moves once per group of keys: 2 keys on
-// the CUDA-core kernel, one staged tile of 64 on the tensor-core kernel.
-// `attention_fast_math_kernel_order(q, k, v, step)` in ops/attention.py is
-// the plain PyTorch version of this rounding, for either group size.
+// the CUDA-core kernel, one staged tile of 64 on the tensor-core kernels.
+// `attention_fast_math_kernel_order(q, k, v, step, tf32x3)` in
+// ops/attention.py is the plain PyTorch version of this rounding, for either
+// group size (`tf32x3`: the f32 tensor-core kernel's logits and tile max).
 //
 // bf16, head_dim 8: the tensor-core kernel (the trainer's and the library
 // generator's configuration).
@@ -93,9 +94,10 @@
 //   (attention.py:81-83); the products accumulate in f32 on the tensor
 //   cores.
 //
-// f32, head_dim 8, exact maths: the 3xTF32 tensor-core kernel (the console
-// CLI's and the conditional generator's configuration; every G, so that G > 1
-// runs the arithmetic of G = 1).
+// f32, head_dim 8: the 3xTF32 tensor-core kernel, exact maths (the console
+// CLI's and the conditional generator's configuration) and fast math (an f32
+// `ModelManager` with `set_attention_tuning(fast_math=True)`); every G, so that
+// G > 1 runs the arithmetic of G = 1.
 //   Bound on the H100 at (8, 32, 1024, 8): products accurate to f32 run on
 //   the tensor cores in three TF32 passes, 3 x 8.6 GFLOP at 494.7 TFLOP/s
 //   (dense TF32) = 52 us; q, k, v and out in f32 are 33.6 MB, 10 us; the
@@ -149,9 +151,29 @@
 //   division comes last. At randn inputs the result lies within about 5e-7
 //   of float64 attention on the CPU model, as f32 does; one TF32 pass would
 //   miss the 2e-5 tolerance 15-30 times over.
+//   Fast math (`FastMath`), the same kernel with the weights rounded: the
+//   bound is the same 64 us of exponentials (products: 5 TF32 passes, plus
+//   one for the max, 6 x 4.3 GFLOP = 52 us at the dense TF32 rate). S is
+//   formed in three TF32 passes as above: the bf16 rounding of the shifted
+//   logit magnifies an error of S, and at one pass (about 2^-11 relative) a
+//   large share of the weights would round to another bf16 value, as far
+//   from the fast-math rounding as exact attention lies. The shift is the
+//   running max, as on the bf16 kernel, so that the value rounded to bf16
+//   is s - m with m a max the plain rounding order reproduces: each tile
+//   first takes its max from the one-pass hi.hi product (`tile_max_tf32`,
+//   within about 2^-10 of S, so s - m may be a little above 0) and moves m,
+//   l and the accumulator onto it in f32. Then per 8 keys: x = bf16(s - m),
+//   p = bf16(ex2(x)) (the correctly rounded bf16 exponential of the top of
+//   the file); p is bf16-valued, so it is exact in TF32, its lo part is
+//   zero, and P V takes two products, P.v_lo + P.v_hi, into the tile's own
+//   accumulator; l sums the bf16 p in f32, per lane, then over the row's 4
+//   lanes. The division comes last; no lse is written. Its plain rounding
+//   order is `attention_fast_math_kernel_order(..., step=64, tf32x3=True)`.
 //
-// f32 fast math and head_dim 4 (f32 and bf16): the CUDA-core kernel, one
-// thread per (row, head), everything f32 inside. A block handles kBlockQ
+// head_dim 4 (f32 and bf16, exact and fast math): the CUDA-core kernel, one
+// thread per (row, head), everything f32 inside. No configuration of the
+// model has head_dim 4 (the UNet's `attention_head_dim` is 8); it serves
+// small test configurations. A block handles kBlockQ
 // query rows of G heads; the thread keeps its q row, an f32 accumulator of
 // D values, a running max and a running sum in registers, and walks the
 // keys in tiles staged as f32, at most 32 KB. Fast math takes keys in pairs,
@@ -668,8 +690,11 @@ __device__ __forceinline__ void tile_max_tf32(const uint32_t* kh, const Tf32Lane
 // keys a step: lt[r] gets the row's sum of its f32 weights (reduced over its
 // 4 lanes), pv the tile's P V (a C fragment, its own accumulator: the tensor
 // cores' f32 sums truncate, so a chain of 24 products, not one of every
-// key's, carries that error).
-template <bool Mask>
+// key's, carries that error). With FastMath the shifted logit s - m is
+// rounded to bf16 and its correctly rounded bf16 exponential taken; a bf16
+// weight is exact in TF32 (its lo part is zero), so P V takes two products,
+// P.v_lo + P.v_hi, and lt sums the bf16 weights in f32.
+template <bool FastMath, bool Mask>
 __device__ __forceinline__ void tile_pv_tf32(const uint32_t* kh, const uint32_t* kl,
                                              const uint32_t* vh, const uint32_t* vl,
                                              const Tf32Lane& ln, const uint32_t* qhi,
@@ -683,21 +708,37 @@ __device__ __forceinline__ void tile_pv_tf32(const uint32_t* kh, const uint32_t*
   for (int s = 0; s < kTcTile / 8; ++s) {
     float c[4];
     qk_tf32<Mask>(kh, kl, ln, s, qhi, qlo, keys, c);
-    const float p[4] = {ex2(__fsub_rn(c[0], m[0])), ex2(__fsub_rn(c[1], m[0])),
-                        ex2(__fsub_rn(c[2], m[1])), ex2(__fsub_rn(c[3], m[1]))};
-    lt[0] = __fadd_rn(lt[0], __fadd_rn(p[0], p[1]));
-    lt[1] = __fadd_rn(lt[1], __fadd_rn(p[2], p[3]));
-    // P's A fragment: rows a, b at column tig (c[0], c[2]), then at tig + 4
-    uint32_t phi[4], plo[4];
-    split_tf32(p[0], phi[0], plo[0]);
-    split_tf32(p[2], phi[1], plo[1]);
-    split_tf32(p[1], phi[2], plo[2]);
-    split_tf32(p[3], phi[3], plo[3]);
-    const uint32_t vhi[2] = {vh[ln.v0 + 64 * s], vh[ln.v1 + 64 * s]};
-    const uint32_t vlo[2] = {vl[ln.v0 + 64 * s], vl[ln.v1 + 64 * s]};
-    mma_tf32(pv, plo, vhi);   // P V, the small terms first
-    mma_tf32(pv, phi, vlo);
-    mma_tf32(pv, phi, vhi);
+    if (FastMath) {
+      // rows a (xa) and b (xb), keys of c[0] and c[2] in the low halves
+      const uint32_t xa = pack_bf16(__fsub_rn(c[0], m[0]), __fsub_rn(c[1], m[0]));
+      const uint32_t xb = pack_bf16(__fsub_rn(c[2], m[1]), __fsub_rn(c[3], m[1]));
+      const uint32_t pa = pack_bf16(ex2(lo_f32(xa)), ex2(hi_f32(xa)));
+      const uint32_t pb = pack_bf16(ex2(lo_f32(xb)), ex2(hi_f32(xb)));
+      lt[0] = __fadd_rn(lt[0], __fadd_rn(lo_f32(pa), hi_f32(pa)));
+      lt[1] = __fadd_rn(lt[1], __fadd_rn(lo_f32(pb), hi_f32(pb)));
+      // P's A fragment as f32 bit patterns: rows a, b at column tig, then at tig + 4
+      const uint32_t pf[4] = {pa << 16, pb << 16, pa & 0xffff0000u, pb & 0xffff0000u};
+      const uint32_t vhi[2] = {vh[ln.v0 + 64 * s], vh[ln.v1 + 64 * s]};
+      const uint32_t vlo[2] = {vl[ln.v0 + 64 * s], vl[ln.v1 + 64 * s]};
+      mma_tf32(pv, pf, vlo);   // P V, the small term first
+      mma_tf32(pv, pf, vhi);
+    } else {
+      const float p[4] = {ex2(__fsub_rn(c[0], m[0])), ex2(__fsub_rn(c[1], m[0])),
+                          ex2(__fsub_rn(c[2], m[1])), ex2(__fsub_rn(c[3], m[1]))};
+      lt[0] = __fadd_rn(lt[0], __fadd_rn(p[0], p[1]));
+      lt[1] = __fadd_rn(lt[1], __fadd_rn(p[2], p[3]));
+      // P's A fragment: rows a, b at column tig (c[0], c[2]), then at tig + 4
+      uint32_t phi[4], plo[4];
+      split_tf32(p[0], phi[0], plo[0]);
+      split_tf32(p[2], phi[1], plo[1]);
+      split_tf32(p[1], phi[2], plo[2]);
+      split_tf32(p[3], phi[3], plo[3]);
+      const uint32_t vhi[2] = {vh[ln.v0 + 64 * s], vh[ln.v1 + 64 * s]};
+      const uint32_t vlo[2] = {vl[ln.v0 + 64 * s], vl[ln.v1 + 64 * s]};
+      mma_tf32(pv, plo, vhi);   // P V, the small terms first
+      mma_tf32(pv, phi, vlo);
+      mma_tf32(pv, phi, vhi);
+    }
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -724,16 +765,19 @@ __device__ __forceinline__ void shift_to(int r, float mnew, float* m, float* l, 
 // inf or NaN, the tile is done again), m first moves to the tile's max from
 // one TF32 pass (tile_max_tf32); after a tile whose row sum passes 2^16, m
 // moves to m + log2 of that sum (within 6 of the tile's max, as a tile has
-// 64 keys), so the weights stay under 2^16. m, l (row sums) and acc are per
-// row as in shift_to, the same in each row's 4 lanes.
-template <bool Mask>
+// 64 keys), so the weights stay under 2^16. With FastMath the shift is the
+// running max instead, the value the bf16 rounding is taken against: m moves
+// to the one-pass tile max on every tile (the weights then stay near or
+// under 1). m, l (row sums) and acc are per row as in shift_to, the same in
+// each row's 4 lanes.
+template <bool FastMath, bool Mask>
 __device__ __forceinline__ void fwd_tile_tf32(const uint32_t* kh, const uint32_t* kl,
                                               const uint32_t* vh, const uint32_t* vl,
                                               const Tf32Lane& ln, const uint32_t* qhi,
                                               const uint32_t* qlo, int keys, bool first,
                                               float* m, float* l, float* acc) {
   float lt[2], pv[4];
-  bool need_max = first;
+  bool need_max = first || FastMath;
   for (;;) {
     if (need_max) {
       float mx[2];
@@ -741,7 +785,7 @@ __device__ __forceinline__ void fwd_tile_tf32(const uint32_t* kh, const uint32_t
       shift_to(0, fmaxf(m[0], mx[0]), m, l, acc);
       shift_to(1, fmaxf(m[1], mx[1]), m, l, acc);
     }
-    tile_pv_tf32<Mask>(kh, kl, vh, vl, ln, qhi, qlo, keys, m, lt, pv);
+    tile_pv_tf32<FastMath, Mask>(kh, kl, vh, vl, ln, qhi, qlo, keys, m, lt, pv);
     // !(x <= 2^40) also holds for inf and NaN
     const bool wide = !(lt[0] <= 0x1p40f) || !(lt[1] <= 0x1p40f);
     if (need_max || !__any_sync(0xffffffffu, wide)) break;
@@ -752,11 +796,11 @@ __device__ __forceinline__ void fwd_tile_tf32(const uint32_t* kh, const uint32_t
     l[r] = __fadd_rn(l[r], lt[r]);
     acc[2 * r] = __fadd_rn(acc[2 * r], pv[2 * r]);
     acc[2 * r + 1] = __fadd_rn(acc[2 * r + 1], pv[2 * r + 1]);
-    if (lt[r] > 0x1p16f) shift_to(r, __fadd_rn(m[r], __log2f(lt[r])), m, l, acc);
+    if (!FastMath && lt[r] > 0x1p16f) shift_to(r, __fadd_rn(m[r], __log2f(lt[r])), m, l, acc);
   }
 }
 
-template <int G>
+template <int G, bool FastMath>
 __global__ void __launch_bounds__(32 * kTcWarps * G, kTcBlocksPerSM / G)
 attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ o,
@@ -823,11 +867,11 @@ attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__
     constexpr int kPart = 4 * kChunks;   // words from one part to the next
     const int keys = seq_len - t * kTcTile;
     if (keys >= kTcTile) {
-      fwd_tile_tf32<false>(head, head + kPart, head + 2 * kPart, head + 3 * kPart, lane_reads,
-                           qhi, qlo, keys, t == 0, m, l, acc);
+      fwd_tile_tf32<FastMath, false>(head, head + kPart, head + 2 * kPart, head + 3 * kPart,
+                                     lane_reads, qhi, qlo, keys, t == 0, m, l, acc);
     } else {
-      fwd_tile_tf32<true>(head, head + kPart, head + 2 * kPart, head + 3 * kPart, lane_reads,
-                          qhi, qlo, keys, t == 0, m, l, acc);
+      fwd_tile_tf32<FastMath, true>(head, head + kPart, head + 2 * kPart, head + 3 * kPart,
+                                    lane_reads, qhi, qlo, keys, t == 0, m, l, acc);
     }
   }
 
@@ -849,7 +893,7 @@ attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
-template <int G>
+template <int G, bool FastMath>
 cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o, float* lse,
                         int batch, int heads, int seq_len, const int64_t* st, float scale,
                         cudaStream_t stream) {
@@ -861,25 +905,35 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o, fl
   // K and V as staged, double-buffered, and the tile's four parts
   constexpr int kBytes = 8 * G * 2 * kTcTile * 16;
   if (kBytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_fwd_tf32_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    const cudaError_t err = cudaFuncSetAttribute(attention_fwd_tf32_kernel<G, FastMath>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 kBytes);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((seq_len + kTcRows - 1) / kTcRows, heads / G, batch);
-  attention_fwd_tf32_kernel<G><<<grid, 32 * kTcWarps * G, kBytes, stream>>>(
+  attention_fwd_tf32_kernel<G, FastMath><<<grid, 32 * kTcWarps * G, kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), lse, heads, seq_len, sq, sk, sv, so, scale * kLog2e);
   return cudaGetLastError();
 }
 
-cudaError_t launch_tf32_group(int group, const void* q, const void* k, const void* v,
-                              void* o, float* lse, int batch, int heads, int seq_len,
-                              const int64_t* st, float scale, cudaStream_t s) {
+template <int G>
+cudaError_t launch_tf32_math(bool fast_math, const void* q, const void* k, const void* v,
+                             void* o, float* lse, int batch, int heads, int seq_len,
+                             const int64_t* st, float scale, cudaStream_t s) {
+  return fast_math
+      ? launch_tf32<G, true>(q, k, v, o, nullptr, batch, heads, seq_len, st, scale, s)
+      : launch_tf32<G, false>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+}
+
+cudaError_t launch_tf32_group(int group, bool fast_math, const void* q, const void* k,
+                              const void* v, void* o, float* lse, int batch, int heads,
+                              int seq_len, const int64_t* st, float scale, cudaStream_t s) {
   switch (group) {
-    case 1: return launch_tf32<1>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
-    case 2: return launch_tf32<2>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
-    case 4: return launch_tf32<4>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
-    case 8: return launch_tf32<8>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    case 1: return launch_tf32_math<1>(fast_math, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    case 2: return launch_tf32_math<2>(fast_math, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    case 4: return launch_tf32_math<4>(fast_math, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+    case 8: return launch_tf32_math<8>(fast_math, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -900,9 +954,9 @@ struct FwdArgs {
 // lse: null, or (exact path only) a contiguous f32 (batch, heads, seq_len)
 // output for each row's base-2 log-sum-exp. Returns a cudaError_t; an
 // unsupported head_dim, dtype or group, or lse with fast_math, returns
-// cudaErrorInvalidValue without launching. head_dim 8 on the tensor cores
-// (bf16, and f32 exact) also needs each row of k and v to start on 16 bytes
-// with its channels contiguous.
+// cudaErrorInvalidValue without launching. head_dim 8 (the tensor-core
+// kernels, both dtypes, exact and fast math) also needs each row of k and v
+// to start on 16 bytes with its channels contiguous.
 extern "C" int attention_fwd(const FwdArgs* a, const void* q, const void* k, const void* v,
                              void* o, float* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -914,10 +968,8 @@ extern "C" int attention_fwd(const FwdArgs* a, const void* q, const void* k, con
     return cudaErrorInvalidValue;
   const bool fm = a->fast_math != 0;
   if (fm && lse != nullptr) return cudaErrorInvalidValue;
-  if (a->dtype == 0 && a->head_dim == 8) {
-    return fm ? launch_group<8, float, true>(g, q, k, v, o, nullptr, batch, heads, seq_len, st, scale, s)
-              : launch_tf32_group(g, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
-  }
+  if (a->dtype == 0 && a->head_dim == 8)
+    return launch_tf32_group(g, fm, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
   if (a->dtype == 1 && a->head_dim == 8)
     return launch_tc_group(g, fm, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
   if (a->dtype == 0 && a->head_dim == 4)

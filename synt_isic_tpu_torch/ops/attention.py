@@ -16,8 +16,9 @@ The port of synt_isic_tpu/ops/pallas/attention.py:
 For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it runs the plain PyTorch version (`attention_reference`,
 `attention_fast_math_reference`, `attention_bwd_reference`), which the
-tests and `chip_smoke.py` hold the kernels against; the fast-math kernel is
-also held to `attention_fast_math_kernel_order`, the exact f32 forward (3xTF32
+tests and `chip_smoke.py` hold the kernels against; the fast-math kernels
+are also held to `attention_fast_math_kernel_order` (by each kernel's rule,
+`fast_math_kernel_order`), the exact f32 forward (3xTF32
 on the tensor cores) to `attention_tf32x3_kernel_order`, the bf16 backward to
 `attention_bwd_kernel_order` and the f32 one (3xTF32) to
 `attention_bwd_tf32x3_kernel_order`, the same maths rounded where the kernel
@@ -111,32 +112,51 @@ def attention_fast_math_reference(q: torch.Tensor, k: torch.Tensor,
 
 def fast_math_step(q: torch.Tensor) -> int:
     """Keys per running-max update of the fast-math kernel that takes
-    tensors like q: a staged tile of 64 on the tensor-core kernel (bf16,
-    head_dim 8), pairs on the CUDA-core kernel (every other case)."""
-    return 64 if q.dtype == torch.bfloat16 and q.shape[-1] == 8 else 2
+    tensors like q: a staged tile of 64 on the tensor-core kernels (head_dim
+    8, bf16 and f32), pairs on the CUDA-core kernel (head_dim 4)."""
+    return 64 if q.shape[-1] == 8 else 2
 
 
 def attention_fast_math_kernel_order(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                     step: int) -> torch.Tensor:
+                                     step: int, tf32x3: bool = False) -> torch.Tensor:
     """The CUDA kernels' fast-math rounding in plain PyTorch, to hold a
     kernel to a limit that exact attention does not meet. Where the Pallas
     branch (`attention_fast_math_reference`) rounds the natural-log logit
     minus the row's max, the kernels round the base-2 logit (log2(e) folded
     into the scale, in f32) minus the running max, which moves once per
     group of `step` keys (`fast_math_step`: 2 on the CUDA-core kernel, 64 on
-    the tensor-core one; groups start at key 0, the last may be short), and
+    the tensor-core ones; groups start at key 0, the last may be short), and
     take `exp2` of that bf16 value in bf16. Here, as there, the weights are
     brought onto the row's max in f32, summed and multiplied into v in f32,
-    and the division comes last; the result is in q's dtype."""
+    and the division comes last; the result is in q's dtype.
+
+    `tf32x3` is the f32 tensor-core kernel's rule: the logits are the
+    3xTF32 product of the exact f32 kernel (`_tf32x3_matmul` of the scaled
+    q and k), and each group's max is taken over the one-pass product of
+    the TF32 hi parts (within about 2^-10 of the logits), so the shifted
+    logit may lie a little above 0."""
     t = q.shape[-2]
-    logits = torch.matmul(q.float() * _scale_log2(q.shape[-1]), k.float().transpose(-1, -2))
-    groups = torch.nn.functional.pad(logits, (0, -t % step), value=-math.inf)
+    qs, kt = q.float() * _scale_log2(q.shape[-1]), k.float().transpose(-1, -2)
+    if tf32x3:
+        logits = _tf32x3_matmul(qs, kt)
+        peaks = torch.matmul(tf32_split(qs)[0], tf32_split(kt)[0])   # hi.hi alone
+    else:
+        logits = peaks = torch.matmul(qs, kt)
+    groups = torch.nn.functional.pad(peaks, (0, -t % step), value=-math.inf)
     group_max = groups.unflatten(-1, (-1, step)).amax(dim=-1)
     run_max = group_max.cummax(dim=-1).values.repeat_interleave(step, dim=-1)[..., :t]
     exp = torch.exp2((logits - run_max).to(torch.bfloat16)).float()
     weights = exp * torch.exp2(run_max - run_max[..., -1:])
     pv = torch.matmul(weights, v.float())
     return (pv / weights.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+def fast_math_kernel_order(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """`attention_fast_math_kernel_order` by the rule of the fast-math kernel
+    that takes tensors like q: its keys per max update (`fast_math_step`),
+    and at head_dim 8 in f32 the 3xTF32 logits and one-pass tile max."""
+    return attention_fast_math_kernel_order(
+        q, k, v, fast_math_step(q), tf32x3=q.dtype == torch.float32 and q.shape[-1] == 8)
 
 
 def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -334,16 +354,12 @@ def _group(heads: int, heads_per_program: int, device: str) -> int:
     return g
 
 
-def _staged_forward(q: torch.Tensor, fast_math: bool) -> bool:
-    """Whether this CUDA forward runs a tensor-core kernel, which stages k
-    and v in 16-byte chunks: head_dim 8 in bf16, and in f32 exact maths."""
-    return q.shape[-1] == 8 and (q.dtype == torch.bfloat16 or not fast_math)
-
-
-def _reads_stats(q: torch.Tensor) -> bool:
-    """Whether this CUDA backward runs the tensor-core kernels (head_dim 8,
-    f32 in 3xTF32 and bf16), which stage q, k, v and do in 16-byte chunks and
-    read the exact forward's output and log-sum-exp."""
+def _tensor_cores(q: torch.Tensor) -> bool:
+    """Whether a CUDA call runs the tensor-core kernels: head_dim 8, in both
+    dtypes (f32 in 3xTF32), the forward with exact and fast math alike. They
+    stage their rows in 16-byte chunks (k and v in the forward; q, k, v and
+    do in the backward), and the backward reads the exact forward's output
+    and log-sum-exp."""
     return q.shape[-1] == 8
 
 
@@ -418,7 +434,7 @@ class _ForwardPlan:
         self.empty = q.numel() == 0
         b, h, t, d = q.shape
         self.lse_shape = (b, h, t) if with_lse else None
-        staged = _staged_forward(q, fast_math)
+        staged = _tensor_cores(q)
         self.copy_k, self.copy_v = (staged and not _rows16(z) for z in (k, v))
         strides = (q.stride(), _staged_strides(k, self.copy_k), _staged_strides(v, self.copy_v),
                    self.outputs(q)[0].stride())
@@ -513,7 +529,7 @@ class _BackwardPlan:
         self.index, self.stats = q.device.index, stats
         self.counts = (BWD_KERNEL,) + ((BWD_GROUPED_KERNEL,) if group > 1 else ())
         self.empty = q.numel() == 0
-        self.tensor_cores = _reads_stats(q)
+        self.tensor_cores = _tensor_cores(q)
         b, h, t, d = q.shape
         self.copies = tuple(self.tensor_cores and not _rows16(z) for z in (q, k, v, do))
         strides = (*(_staged_strides(z, c) for z, c in zip((q, k, v, do), self.copies)),
@@ -555,7 +571,7 @@ def _backward_plan(q, k, v, do, heads_per_program, o, lse):
         return None
     key = _backward_key(q, k, v, do, heads_per_program, o, lse)
     stats = None
-    if q.numel() and _reads_stats(q):
+    if q.numel() and _tensor_cores(q):
         if o is None or lse is None:
             stats = _ForwardPlan(q, k, v, False, 1, True, (STATS_KERNEL,))
             o, lse = stats.outputs(q)   # laid out as the statistics launch fills them
@@ -608,7 +624,7 @@ class FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, fast_math=False, heads_per_program=1):
         ctx.heads_per_program = heads_per_program
-        if q.is_cuda and _reads_stats(q) and not fast_math:
+        if q.is_cuda and _tensor_cores(q) and not fast_math:
             out, lse = _forward(q, k, v, False, heads_per_program, with_lse=True)
             ctx.save_for_backward(q, k, v, out, lse)
             return out

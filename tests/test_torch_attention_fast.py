@@ -105,11 +105,12 @@ def test_kernel_order_follows_the_kernel(shape, dtype):
 
 
 def test_fast_math_step_names_the_kernel():
-    """Keys per max update: a tile of 64 for bf16 at head_dim 8 (the
-    tensor-core kernel), pairs for every other case."""
+    """Keys per max update: a tile of 64 at head_dim 8 in both dtypes (the
+    tensor-core kernels), pairs at head_dim 4 (the CUDA-core kernel)."""
     assert attention.fast_math_step(torch.zeros(1, 2, 16, 8, dtype=torch.bfloat16)) == 64
-    assert attention.fast_math_step(torch.zeros(1, 2, 16, 8)) == 2
+    assert attention.fast_math_step(torch.zeros(1, 2, 16, 8)) == 64
     assert attention.fast_math_step(torch.zeros(1, 2, 16, 4, dtype=torch.bfloat16)) == 2
+    assert attention.fast_math_step(torch.zeros(1, 2, 16, 4)) == 2
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

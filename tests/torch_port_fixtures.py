@@ -1,18 +1,23 @@
 """Shared inputs for the tests that hold the PyTorch port against the JAX
 package: the tiny UNet config in both packages (unconditional, and
-class-conditional with three classes plus the null row), and a seeded random
+class-conditional with three classes plus the null row), a seeded random
 parameter set in the JAX package's own tree layout (shapes from
 `jax.eval_shape` of its `init_unet_params`, values from numpy, so no
-compile is spent on initialisation)."""
+compile is spent on initialisation), and the JAX package's fast-math
+attention on seeded inputs, computed once per process."""
 from __future__ import annotations
 
+import functools
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from synt_isic_tpu.models.unet2d import UNet2D as JaxUNet2D
 from synt_isic_tpu.models.unet2d import UNet2DConfig as JaxUNet2DConfig
 from synt_isic_tpu.models.unet2d import init_unet_params
+from synt_isic_tpu.ops.pallas.attention import fused_attention as jax_fused_attention
 from synt_isic_tpu_torch.io.convert import state_dict_from_jax
 from synt_isic_tpu_torch.models.unet2d import UNet2D, UNet2DConfig
 
@@ -58,3 +63,19 @@ def port_model(params, config: UNet2DConfig = TINY, **kw) -> UNet2D:
 
 def nchw(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).permute(0, 3, 1, 2)
+
+
+def attention_inputs(shape, seed: int):
+    """q, k, v ~ N(0, 1) in f32 from numpy, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
+
+
+@functools.cache
+def jax_fast_attention(shape, seed: int, token_minor: bool) -> np.ndarray:
+    """The JAX package's Pallas fast-math forward (interpret mode, as its
+    own tests run it on the CPU) on `attention_inputs(shape, seed)`, f32;
+    cached, so the tests that read it share one compile and one run."""
+    q, k, v = (jnp.asarray(z) for z in attention_inputs(shape, seed))
+    return np.asarray(jax_fused_attention(q, k, v, interpret=True, fast_math=True,
+                                          token_minor=token_minor))
