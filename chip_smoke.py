@@ -110,6 +110,22 @@ Phases, each of which exits non-zero on failure:
      each under `torch.profiler` (device busy, attention part); then
      `cli --reproduce` of a sidecar of the second block in a fresh process:
      byte-identical, 60 fast-math launches;
+ 11c. [samplers] the rest of the sampler on the [cli] checkpoint, f32, exact
+     kernel: `cli.main` at MEL:8 with `--scheduler unipc` and with
+     `--scheduler dpm_solver_sde`, 20 steps, trailing (bench.py's UNIPC and
+     SDE configurations at batch 8), each with exactly 6 x 20 = 120 launches
+     and a fresh-process `--reproduce` of one JPEG (byte-identical, 120
+     launches); `--augment-source` with `--augment-mask` (the mask keeps the
+     left half of a seeded source PNG), DDIM 10 at strength 0.6, 2 variants:
+     exactly 2 x 6 x 6 = 72 launches, the kept half within one 8-bit level of
+     the source, and a fresh-process `--reproduce` of one (byte-identical, 36
+     launches); a UniPC-20 walk with injected noise on both grids, kernel
+     vs plain attention under full-f32 convolutions: leading within
+     UNIPC_WALK_TOL, trailing within the bound carried from its first step
+     (UNIPC_FIRST_STEP_FACTOR, derived beside it); DDIM-20,
+     UniPC-20 and SDE-20 (trailing, batch 8) timed in turns on the host
+     clock (s/step of a warm walk, and each against DDIM), and UniPC and SDE
+     under `torch.profiler` (device busy, idle share, attention part);
  12. [reproduce] `python -m synt_isic_tpu_torch.cli --reproduce` in a fresh
      process: a sidecar of the second [generator] block (60 fast-math
      launches) and a JPEG sidecar of the CLI phase (f32, 60 exact launches),
@@ -333,6 +349,35 @@ HOST_CALLS, HOST_ROUNDS = 1000, 7
 # [f32]: K3 and K4 in f32 timed in turns, medians of F32_ROUNDS rounds; the
 # backward's two launches split by torch.profiler over F32_PROFILED calls
 F32_ROUNDS, F32_PROFILED = 3, 10
+SCHEDULER_NAMES = {"ddpm": "DDPM", "ddim": "DDIM", "dpm_solver": "DPM-Solver++(2M)",
+                   "dpm_solver_sde": "SDE-DPM-Solver++(2M)", "unipc": "UniPC"}
+# [samplers]: bench.py's UNIPC and SDE configurations (20 steps, trailing) at
+# the CLI's batch, timed in turns with DDIM at the same steps and spacing
+# (medians of SAMPLER_ROUNDS: single walks spread over +-5 ms per step on
+# the host clock), each also with an identity eps model, which leaves the
+# update, the noise draws and the loop's own host work; the augment run:
+# DDIM 10 at strength 0.6 runs round(0.6 x 10) = 6 steps per image
+SAMPLER_STEPS, SAMPLER_SPACING, SAMPLER_ROUNDS = 20, "trailing", 7
+SAMPLER_KINDS = ("ddim", "unipc", "dpm_solver_sde")
+AUGMENT_STEPS, AUGMENT_STRENGTH, AUGMENT_COUNT = 10, 0.6, 2
+AUGMENT_RUN = round(AUGMENT_STRENGTH * AUGMENT_STEPS)
+# the whole UniPC-20 walk, kernel vs plain attention (full-f32 convolutions,
+# the same injected noise), max|diff| of the final images, on both grids.
+# Leading (first step t = 950, where the x0 estimate multiplies the eps
+# difference by sigma/alpha = 13): held as the DDIM-10 walk of [cli] is, to
+# 1e-3 (it reads 3.4e-5 on the H100), times two: UniPC-20 runs twice the UNet
+# evaluations, and each x0 difference enters a second time through the next
+# step's history term d1 = x0 - x0_prev (weights c_d1 <= 1/2, p_d1 < 1).
+# Trailing (bench.py's grid, first step t = 999): there sigma/alpha =
+# 1/sqrt(abar_999) = 2.0e4, so the first step turns the two forwards' eps
+# difference d0 (itself held to UNET_TOL by [unet]) into an x0 difference of
+# up to 2.0e4 d0 on the pixels the clip to [-1, 1] leaves alone. That
+# difference is a shift of the walk's data estimate, which the rest of the
+# walk carries to the image at a gain of about one; UNIPC_FIRST_STEP_FACTOR
+# = 2 leaves as much again for the 19 later evaluations, each amplified far
+# less (sigma/alpha <= 13 from t = 949 on). So the trailing walk is held to
+# 2 (sigma_0/alpha_0) d0, with d0 measured on the walk's first input.
+UNIPC_WALK_TOL, UNIPC_FIRST_STEP_FACTOR = 2e-3, 2.0
 
 
 def fail(msg: str) -> None:
@@ -1415,17 +1460,19 @@ def phase_cli(state: dict, card: str, base: Path) -> int:
     return launches[attention.KERNEL]
 
 
-def profile_sampler(mm: ModelManager, seeds, tag: str, label: str) -> dict:
-    """PROFILE_STEPS warm DDIM steps of the sampler of `mm` under
-    `torch.profiler`: the device's busy time per step, its idle share of the
-    same walk on the host clock (median of 3, outside the profiler), and the
-    attention kernels' part; printed under `tag`, the run named `label`."""
+def profile_sampler(mm: ModelManager, seeds, tag: str, label: str,
+                    scheduler: str = "ddim", spacing: str = "leading") -> dict:
+    """PROFILE_STEPS warm steps of the `scheduler` sampler of `mm` (DDIM by
+    default) under `torch.profiler`: the device's busy time per step, its
+    idle share of the same walk on the host clock (median of 3, outside the
+    profiler), and the attention kernels' part; printed under `tag`, the run
+    named `label`."""
     from torch.profiler import ProfilerActivity, profile
 
     # imported here: `--host` runs this script on trees that lack it
     from synt_isic_tpu_torch.train.benchmark import device_seconds
 
-    sampler = mm.create_sampler(PROFILE_STEPS, scheduler="ddim")
+    sampler = mm.create_sampler(PROFILE_STEPS, scheduler=scheduler, timestep_spacing=spacing)
     model = mm.loaded_models["MEL"]
     sampler.sample(model, seeds)
     runs = []
@@ -1444,11 +1491,189 @@ def profile_sampler(mm: ModelManager, seeds, tag: str, label: str) -> dict:
         print(f"{tag} torch.profiler recorded no device time: busy time and idle share not "
               "measured", flush=True)
         return {}
-    print(f"{tag} torch.profiler over {PROFILE_STEPS} warm DDIM steps, batch {CLI_BATCH}, {label}: "
+    print(f"{tag} torch.profiler over {PROFILE_STEPS} warm {SCHEDULER_NAMES[scheduler]} steps, "
+          f"batch {CLI_BATCH}, {label}: "
           f"device busy {busy:.5f} s/step of {step_s:.5f} s/step on the host clock (idle "
           f"share {1 - busy / step_s:.3f}), of which the attention kernels {attn:.5f} s/step "
           f"({attn / busy:.3f} of busy)", flush=True)
     return dict(busy_s=busy, step_s=step_s, attention_s=attn)
+
+
+def _cli_run(argv, want: int, what: str) -> dict:
+    """`cli.main(argv)` in this process, with exactly `want` exact-kernel
+    launches and no other; returns the launch counts."""
+    reset_launches()
+    t0 = time.time()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(attention.LAUNCHES)
+    print(f"[samplers] {what}: rc {rc} in {wall:.3f} s (cold), attention_fwd launches "
+          f"{launches[attention.KERNEL]} (want {want})", flush=True)
+    check(rc == 0, f"{what}: cli.main returned {rc}")
+    others = sum(n for key, n in launches.items() if key != attention.KERNEL)
+    check(launches[attention.KERNEL] == want and others == 0, f"{what} launched {launches}")
+    return launches
+
+
+def _fresh_reproduce(sidecar: Path, ckpt: Path, want: int, what: str) -> dict:
+    """`--reproduce` of `sidecar` in a fresh process: rc 0, byte-identical,
+    exactly `want` exact-kernel launches."""
+    meta = json.loads(sidecar.read_text())
+    rc, launches, output = run_cli_process(
+        ["--reproduce", str(sidecar), "--checkpoints", str(ckpt), "--device", "cuda"])
+    original = sidecar.with_name(meta["filename"])
+    redo = sidecar.with_name(f"{original.stem}_reproduced{original.suffix}")
+    identical = redo.exists() and redo.read_bytes() == original.read_bytes()
+    print(f"[samplers] --reproduce of {what} ({sidecar.name}) in a fresh process: rc {rc}, "
+          f"byte-identical {identical}, launches {launches[attention.KERNEL]} (want {want})",
+          flush=True)
+    check(rc == 0 and identical, f"--reproduce of {what}: rc {rc}\n{output}")
+    others = sum(n for key, n in launches.items() if key != attention.KERNEL)
+    check(launches[attention.KERNEL] == want and others == 0,
+          f"--reproduce of {what} launched {launches}")
+    return launches
+
+
+def phase_samplers(state: dict, card: str, base: Path, ckpt: Path) -> dict:
+    """[samplers] the rest of the sampler through its entry points, f32 on
+    the random full-width checkpoint `[cli]` wrote to `ckpt`: the CLI at UniPC-20 and SDE-20
+    (trailing, batch 8) and a fresh-process `--reproduce` of each; the
+    augment run (inpainting, DDIM 10 at strength 0.6, 2 variants) and its
+    `--reproduce`; a UniPC-20 walk kernel vs plain attention; DDIM-20,
+    UniPC-20 and SDE-20 timed in turns, and UniPC and SDE profiled."""
+    base.mkdir(parents=True)
+    per_walk = ATTENTION_CALLS_PER_UNET * SAMPLER_STEPS
+    report = {}
+    for kind in ("unipc", "dpm_solver_sde"):
+        run_base = base / kind
+        launches = _cli_run(["--base-dir", str(run_base), "--checkpoints", str(ckpt),
+                             "--class-counts", f"MEL:{CLI_BATCH}", "--batch", str(CLI_BATCH),
+                             "--scheduler", kind, "--steps", str(SAMPLER_STEPS),
+                             "--timestep-spacing", SAMPLER_SPACING, "--seed", "0",
+                             "--device", "cuda"],
+                            per_walk, f"cli {SCHEDULER_NAMES[kind]} {SAMPLER_STEPS} steps "
+                                      f"{SAMPLER_SPACING}, MEL:{CLI_BATCH}")
+        out = run_base / "ISIC2018_Task3_synt"
+        jpgs = sorted(out.glob("ISIC_*.jpg"))
+        sidecars = sorted(out.glob("ISIC_*.json"))
+        check(len(jpgs) == CLI_BATCH == len(sidecars), f"{kind}: {len(jpgs)} JPEGs")
+        arrays = _png_arrays(jpgs)
+        check(all(a.shape == (128, 128, 3) for a in arrays)
+              and len({a.tobytes() for a in arrays}) == CLI_BATCH, f"{kind}: JPEG shapes")
+        meta = json.loads(sidecars[2].read_text())
+        check(meta["scheduler"]["kind"] == kind
+              and meta["scheduler"]["timestep_spacing"] == SAMPLER_SPACING, f"sidecar {meta}")
+        report[kind] = launches[attention.KERNEL]
+        report[f"{kind}_reproduce"] = _fresh_reproduce(
+            sidecars[2], ckpt, per_walk, f"a {SCHEDULER_NAMES[kind]} JPEG")[attention.KERNEL]
+
+    # the augment run: a seeded source, a mask that keeps the left half
+    src, mask_path = base / "source.png", base / "mask.png"
+    pixels = np.random.default_rng(12).integers(0, 256, (128, 128, 3), dtype=np.uint8)
+    Image.fromarray(pixels).save(src)
+    mask = np.full((128, 128), 255, np.uint8)
+    mask[:, :64] = 0
+    Image.fromarray(mask).save(mask_path)
+    aug = base / "augmented"
+    want = AUGMENT_COUNT * ATTENTION_CALLS_PER_UNET * AUGMENT_RUN
+    launches = _cli_run(["--checkpoints", str(ckpt), "--classes", "MEL",
+                         "--augment-source", str(src), "--augment-mask", str(mask_path),
+                         "--augment-strength", str(AUGMENT_STRENGTH), "--scheduler", "ddim",
+                         "--steps", str(AUGMENT_STEPS), "--count", str(AUGMENT_COUNT),
+                         "--seed", "0", "--output", str(aug), "--device", "cuda"],
+                        want, f"cli --augment-source with --augment-mask, DDIM "
+                              f"{AUGMENT_STEPS} at strength {AUGMENT_STRENGTH}, "
+                              f"{AUGMENT_COUNT} variants")
+    outs = sorted(aug.glob("source_aug_*.png"))
+    check(len(outs) == AUGMENT_COUNT, f"augment wrote {[p.name for p in outs]}")
+    kept = [int(np.abs(np.asarray(Image.open(p)).astype(int)[:, :64]
+                       - pixels[:, :64]).max()) for p in outs]
+    print(f"[samplers] augment: the kept half of each output differs from the source by at "
+          f"most {kept} 8-bit levels (allowed 1)", flush=True)
+    check(max(kept) <= 1, "augment did not keep the masked-off half")
+    report["augment"] = launches[attention.KERNEL]
+    report["augment_reproduce"] = _fresh_reproduce(
+        outs[1].with_suffix(".json"), ckpt, ATTENTION_CALLS_PER_UNET * AUGMENT_RUN,
+        "an inpainted PNG")[attention.KERNEL]
+
+    mm = ModelManager(checkpoints_dir=str(ckpt), device="cuda")
+    check(mm.load_model("MEL"), "ModelManager.load_model")
+    model = mm.loaded_models["MEL"]
+    seeds = np.arange(CLI_BATCH, dtype=np.uint32)
+
+    # the whole UniPC-20 walk, kernel vs plain attention, the same noise
+    plain = UNet2D(mm.config, dtype=mm.dtype, use_fused_attention=False, fast_norm=mm.fast_norm)
+    plain.load_state_dict(state)
+    plain = plain.cuda().eval()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    noise = torch.randn(CLI_BATCH, 128, 128, 3, generator=g, device="cuda")
+    report["unipc_walk_max_abs_err"] = {}
+    for spacing in ("leading", "trailing"):
+        sampler = mm.create_sampler(SAMPLER_STEPS, scheduler="unipc", timestep_spacing=spacing)
+        x = noise.permute(0, 3, 1, 2).contiguous()
+        t = sampler.params.timesteps[0].expand(CLI_BATCH)
+        with torch.inference_mode(), full_f32_convolutions():
+            eps_fused, eps_plain = model(x, t), plain(x, t)
+            fused = sampler.sample(model, seeds, initial_noise=noise)["images"]
+            reference = sampler.sample(plain, seeds, initial_noise=noise)["images"]
+        d0 = (eps_fused - eps_plain).abs().max().item()
+        scale = eps_plain.abs().max().item()
+        check(d0 <= UNET_TOL[torch.float32] * scale, f"first-step eps difference {d0:.3e}")
+        gain = (sampler.params.sigma[0] * sampler.params.inv_alpha[0]).item()
+        bound = (UNIPC_WALK_TOL if spacing == "leading"
+                 else UNIPC_FIRST_STEP_FACTOR * gain * d0)
+        check(bool(torch.isfinite(fused).all()) and fused.shape == (CLI_BATCH, 128, 128, 3),
+              f"UniPC images {fused.shape}")
+        err = (fused - reference).abs().max().item()
+        print(f"[samplers] UniPC {SAMPLER_STEPS} {spacing}, batch {CLI_BATCH}, f32: final images "
+              f"kernel vs plain attention (full-f32 convolutions) max_abs_err {err:.3e} "
+              f"(allowed {bound:.3e}); first step t={int(sampler.timesteps[0])}: eps "
+              f"difference {d0:.3e} (max |eps| {scale:.3f}), sigma/alpha {gain:.1f}",
+              flush=True)
+        check(err <= bound, f"UniPC {spacing} walk, kernel vs plain attention")
+        report["unipc_walk_max_abs_err"][spacing] = err
+
+    # seconds per step of the warm walks, in turns; and of the same walks
+    # with an identity eps model: the update's own cost, noise draws included
+    samplers = {kind: mm.create_sampler(SAMPLER_STEPS, scheduler=kind,
+                                        timestep_spacing=SAMPLER_SPACING)
+                for kind in SAMPLER_KINDS}
+    models = {"unet": model, "update": lambda x, t: x}
+    for walk in samplers.values():
+        for m in models.values():
+            walk.sample(m, seeds)
+    runs = {(kind, which): [] for kind in SAMPLER_KINDS for which in models}
+    for r in range(SAMPLER_ROUNDS):
+        for kind in (SAMPLER_KINDS if r % 2 == 0 else SAMPLER_KINDS[::-1]):
+            for which, m in models.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                samplers[kind].sample(m, seeds)
+                torch.cuda.synchronize()
+                runs[kind, which].append((time.perf_counter() - t0) / SAMPLER_STEPS)
+    step = {kind: statistics.median(runs[kind, "unet"]) for kind in SAMPLER_KINDS}
+    update = {kind: statistics.median(runs[kind, "update"]) for kind in SAMPLER_KINDS}
+    print(f"[samplers] warm walks of {SAMPLER_STEPS} {SAMPLER_SPACING} steps, batch "
+          f"{CLI_BATCH}, f32, in turns, medians of {SAMPLER_ROUNDS} on {card}: "
+          + "; ".join(f"{SCHEDULER_NAMES[k]} {step[k]:.5f} s/step "
+                      f"({', '.join(f'{t:.5f}' for t in runs[k, 'unet'])})" for k in SAMPLER_KINDS)
+          + "; against DDIM: " + ", ".join(f"{SCHEDULER_NAMES[k]} "
+                                           f"{(step[k] - step['ddim']) * 1e3:+.3f} ms/step"
+                                           for k in SAMPLER_KINDS[1:]), flush=True)
+    print(f"[samplers] the same walks with an identity eps model (the update, its noise "
+          f"draws and the loop alone), medians of {SAMPLER_ROUNDS}: "
+          + "; ".join(f"{SCHEDULER_NAMES[k]} {update[k] * 1e3:.3f} ms/step" for k in SAMPLER_KINDS)
+          + "; against DDIM: " + ", ".join(f"{SCHEDULER_NAMES[k]} "
+                                           f"{(update[k] - update['ddim']) * 1e3:+.3f} ms/step"
+                                           for k in SAMPLER_KINDS[1:]), flush=True)
+    report["update_s"] = update
+    report["step_s"] = step
+    report["profiles"] = {kind: profile_sampler(mm, seeds, "[samplers]",
+                                                f"f32, {SAMPLER_SPACING}", scheduler=kind,
+                                                spacing=SAMPLER_SPACING)
+                          for kind in SAMPLER_KINDS[1:]}
+    return report
 
 
 class _Tee(io.TextIOBase):
@@ -1946,6 +2171,8 @@ def main() -> int:
                               group_report["g_star"])
         phase_reproduce(gen, Path(tmp) / "cli")
         gen_f32 = phase_generator_f32_fast(state, card["card"], Path(tmp) / "library_f32")
+        samplers = phase_samplers(state, card["card"], Path(tmp) / "samplers",
+                                  Path(tmp) / "cli" / "checkpoints")
     train_launches = phase_train(card["card"])
     phase_bench(card["card"])
     train_f32_launches = phase_train(card["card"], f32=True)
@@ -1977,6 +2204,21 @@ def main() -> int:
         "launches_conditional": cond["launches"][attention.KERNEL],
         "launches_reproduce_conditional": cond_redo[attention.KERNEL],
         "launches_train_conditional": cond_train["entry"][attention.KERNEL],
+        # [samplers]: the CLI at UniPC-20 and SDE-20 (trailing, batch 8), the
+        # inpainting augment run (2 x 6 steps) and a fresh-process
+        # --reproduce of each
+        "launches_unipc": samplers["unipc"],
+        "launches_unipc_reproduce": samplers["unipc_reproduce"],
+        "launches_sde": samplers["dpm_solver_sde"],
+        "launches_sde_reproduce": samplers["dpm_solver_sde_reproduce"],
+        "launches_augment": samplers["augment"],
+        "launches_augment_reproduce": samplers["augment_reproduce"],
+        "max_abs_err_unipc_walk": samplers["unipc_walk_max_abs_err"],
+        "sampler_step_s": samplers["step_s"],
+        "sampler_update_s": samplers["update_s"],
+        "sampler_busy_s": {k: p.get("busy_s") for k, p in samplers["profiles"].items()},
+        "sampler_attention_s": {k: p.get("attention_s")
+                                for k, p in samplers["profiles"].items()},
         "max_abs_err": kernel_report[(shape, dtype, "BTC")],
         # the f32 kernel (3xTF32 on the tensor cores) vs its own rounding order
         "max_abs_err_kernel_order": kernel_report[(shape, dtype, "BTC", "order")],

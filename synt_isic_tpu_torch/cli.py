@@ -1,28 +1,37 @@
 """Headless batch-generation CLI producing ISIC2018_Task3-format synthetic
 datasets, on a CUDA device.
 
-The port of `synt_isic_tpu/cli.py` for batch generation: the same flags
-(`--classes/--count/--class-counts/--output/--no-postprocess/--list-classes/
---base-dir/--checkpoints/--steps/--batch/--scheduler/--timestep-spacing/
---seed/--model-variant/--conditional/--guidance-scale/--guidance-map`), the
-same artifacts — JPEG quality 95 named
-`ISIC_%07d.jpg` continuing from the original dataset's last id 34320, one
-sidecar JSON per image, the one-hot ground-truth CSV appended across runs,
-mean-shift colour postprocessing — plus `--device {cuda,cpu}` (default
-cuda), and `--reproduce SIDECAR_JSON`, which regenerates the image a
-sidecar records (console JPEGs, and the generator's PNGs of one image or of
-a device block) and checks it byte for byte against the original.
+The port of `synt_isic_tpu/cli.py`: the same flags
+(`--classes/--count/--class-counts/--output/--no-postprocess/--interactive/
+--list-classes/--base-dir/--checkpoints/--steps/--batch/--scheduler/
+--timestep-spacing/--seed/--model-variant/--conditional/--guidance-scale/
+--guidance-map/--augment-source/--augment-strength/--augment-mask`, all five
+schedulers), the same artifacts — JPEG quality 95 named `ISIC_%07d.jpg`
+continuing from the original dataset's last id 34320, one sidecar JSON per
+image, the one-hot ground-truth CSV appended across runs, mean-shift colour
+postprocessing; `--augment-source` writes img2img / inpainting PNG variants
+of one image through the library generator — plus `--device {cuda,cpu}`
+(default cuda), and `--reproduce SIDECAR_JSON`, which regenerates the image
+a sidecar records (console JPEGs, the generator's PNGs of one image or of a
+device block, and img2img PNGs from their source and mask files) and checks
+it byte for byte against the original.
 
 Usage:
     python -m synt_isic_tpu_torch.cli --checkpoints DIR --class-counts MEL:8 \
         --scheduler ddim --steps 50
     python -m synt_isic_tpu_torch.cli --checkpoints DIR --conditional \
         --class-counts MEL:8,NV:8 --guidance-scale 3 --scheduler ddim --steps 50
+    python -m synt_isic_tpu_torch.cli --checkpoints DIR --class-counts MEL:8 \
+        --scheduler unipc --steps 20 --timestep-spacing trailing
+    python -m synt_isic_tpu_torch.cli --checkpoints DIR --classes MEL \
+        --augment-source SRC.png --augment-mask MASK.png --augment-strength 0.6 \
+        --scheduler ddim --steps 50 --count 4 --output OUT
     python -m synt_isic_tpu_torch.cli --checkpoints DIR --reproduce OUT/MEL/ISIC_0000001.json
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 import time
@@ -33,7 +42,7 @@ import numpy as np
 import torch
 from PIL import Image
 
-from .diffusion.sampler import noise_hash, to_uint8_images
+from .diffusion.sampler import SCHEDULERS, noise_hash, to_uint8_images
 from .generator import (ImageGenerator, dtype_name, parse_guidance_map, tf32_as_recorded,
                         tf32_state)
 from .io.color_stats import apply_mean_shift_postprocessing, load_color_statistics
@@ -229,6 +238,32 @@ def _output_path(sidecar_path: str, meta: dict, output: Optional[str]) -> str:
     return str(Path(output) / name)
 
 
+def _resolve_img2img_file(sidecar_path: str, i2i: dict, kind: str):
+    """(path, 0) of an img2img run's `kind` file ("source" or "mask"): the
+    file next to the sidecar, then the recorded path, the first whose
+    SHA-256 is the recorded one; (None, 2) for an in-memory array, (None,
+    1) for a missing or changed file."""
+    name = i2i.get(kind)
+    if not name:
+        print(f"sidecar records an img2img run from an in-memory {kind} array — "
+              f"cannot reproduce without the original file", file=sys.stderr)
+        return None, 2
+    candidates = [Path(sidecar_path).with_name(name)]
+    if i2i.get(f"{kind}_path"):
+        candidates.append(Path(i2i[f"{kind}_path"]))
+    existing = [c for c in candidates if c.exists()]
+    if not existing:
+        print(f"img2img {kind} file {name} not found next to the sidecar or at its "
+              f"recorded path — cannot reproduce", file=sys.stderr)
+        return None, 1
+    for path in existing:
+        if hashlib.sha256(path.read_bytes()).hexdigest() == i2i.get(f"{kind}_sha256"):
+            return path, 0
+    print(f"img2img {kind} file(s) {', '.join(str(p) for p in existing)} CHANGED "
+          f"since the run (sha256 mismatch)", file=sys.stderr)
+    return None, 1
+
+
 def reproduce_from_sidecar(sidecar_path: str, checkpoints_dir: Optional[str],
                            output: Optional[str] = None,
                            postprocess: bool = True,
@@ -240,10 +275,12 @@ def reproduce_from_sidecar(sidecar_path: str, checkpoints_dir: Optional[str],
     TF32 switches of an f32 run on CUDA (set for the regeneration only), and
     for the conditional checkpoint its guidance and the block's classes) and
     compare it byte for byte with the original when that is next to the
-    sidecar. 0 = reproduced (and identical where the original was there),
-    1 = failure or different bytes, 2 = a sidecar this slice cannot
-    reproduce, or one whose sampler or dtype had to be assumed and could
-    not be checked.
+    sidecar. An img2img sidecar is rebuilt from its source (and mask) file,
+    next to the sidecar or at its recorded path, checked by SHA-256. 0 =
+    reproduced (and identical where the original was there), 1 = failure,
+    different bytes, or a missing or changed source, 2 = a sidecar this
+    slice cannot reproduce (a device mesh, an in-memory img2img source), or
+    one whose sampler or dtype had to be assumed and could not be checked.
 
     The initial noise of the recorded seed is hashed before anything is
     written: a sidecar from another noise stream (the JAX package's, or
@@ -255,13 +292,20 @@ def reproduce_from_sidecar(sidecar_path: str, checkpoints_dir: Optional[str],
         print("sidecar records no seed — cannot reproduce", file=sys.stderr)
         return 1
     sched = meta.get("scheduler") or {}
-    later = [(meta.get("img2img"), "an img2img run (ROADMAP A1)"),
-             ((meta.get("block") or {}).get("dp_mesh"),
-              "a block sampled over a device mesh (ROADMAP A8)")]
-    for recorded, what in later:
-        if recorded:
-            print(f"sidecar records {what}, which is not ported yet", file=sys.stderr)
-            return 2
+    if (meta.get("block") or {}).get("dp_mesh"):
+        print("sidecar records a block sampled over a device mesh (ROADMAP A8), "
+              "which is not ported yet", file=sys.stderr)
+        return 2
+    i2i = meta.get("img2img")
+    source = mask = None
+    if i2i:
+        source, rc = _resolve_img2img_file(sidecar_path, i2i, "source")
+        if source is None:
+            return rc
+        if i2i.get("mask_sha256"):
+            mask, rc = _resolve_img2img_file(sidecar_path, i2i, "mask")
+            if mask is None:
+                return rc
     # sidecars that predate dtype recording came from f32 or bf16 runs:
     # try f32, then bf16, against the original's bytes
     dtype_recorded = "dtype" in sched
@@ -312,7 +356,13 @@ def reproduce_from_sidecar(sidecar_path: str, checkpoints_dir: Optional[str],
                           f"other device's generator); nothing regenerated",
                           file=sys.stderr)
                     return 1
-            if art.get("format") == "jpeg":
+            if i2i:
+                # the img2img block records its own postprocess setting
+                ok, _ = gen.augment_single_image(
+                    cls, str(source), out_path, strength=float(i2i["strength"]),
+                    mask=str(mask) if mask else None,
+                    postprocess=bool(i2i.get("postprocess", False)), seed=int(seed))
+            elif art.get("format") == "jpeg":
                 ok = _reproduce_console_jpeg(gen, meta, out_path)
             elif block:
                 ok = gen.regenerate_block_image(cls, out_path, postprocess=postprocess,
@@ -363,6 +413,59 @@ def _parse_class_counts(spec: str) -> Dict[str, int]:
     return counts
 
 
+def interactive_menu(gen: ConsoleGenerator) -> Optional[Dict[str, int]]:
+    """Lists the classes and reads 'MEL:50,NV:20' from stdin; None on an
+    empty line."""
+    classes = gen.list_classes()
+    print("available classes:")
+    for i, cls in enumerate(classes, 1):
+        print(f"  {i}. {cls}")
+    print("enter selections as 'MEL:50,NV:20' (empty to quit):")
+    line = input("> ").strip()
+    if not line:
+        return None
+    return _parse_class_counts(line)
+
+
+def augment_from_cli(args, model_config=None) -> int:
+    """--augment-source: `--count` img2img / inpainting variants of one
+    source image through the library generator (PNGs and sidecars that
+    `--reproduce` rebuilds with the source file). Exactly one class, ddpm or
+    ddim, postprocessing off; rc 0 only if every variant was written."""
+    if not args.classes or len(args.classes) != 1:
+        print("--augment-source requires exactly one class via --classes",
+              file=sys.stderr)
+        return 1
+    if args.scheduler not in ("ddpm", "ddim"):
+        print(f"--augment-source supports ddpm/ddim only (multistep solver "
+              f"histories cannot start mid-walk); got {args.scheduler}",
+              file=sys.stderr)
+        return 1
+    cls = args.classes[0]
+    out_dir = Path(args.output) if args.output else Path.cwd() / "augmented"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    gen = ImageGenerator(checkpoints_dir=args.checkpoints, model_config=model_config,
+                         device=args.device, model_variant=args.model_variant,
+                         conditional=args.conditional,
+                         guidance_scale=args.guidance_scale)
+    gen.set_inference_steps(args.steps)
+    gen.scheduler_kind = args.scheduler
+    gen.timestep_spacing = args.timestep_spacing
+    stem = Path(args.augment_source).stem
+    count = max(1, args.count)
+    n_ok = 0
+    for i in range(count):
+        seed = (int(args.seed) + i) if args.seed is not None else None
+        ok, _ = gen.augment_single_image(
+            cls, args.augment_source, str(out_dir / f"{stem}_aug_{i:04d}.png"),
+            strength=args.augment_strength, mask=args.augment_mask,
+            # off: the per-class mean shift would recolour the kept region
+            postprocess=False, seed=seed)
+        n_ok += int(ok)
+    print(f"augmented {n_ok}/{count} -> {out_dir}")
+    return 0 if n_ok == count else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="synt-isic-generate-torch",
@@ -375,13 +478,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", type=str, help="output directory")
     p.add_argument("--no-postprocess", action="store_true",
                    help="disable color postprocessing")
+    p.add_argument("--interactive", action="store_true",
+                   help="list the classes and read the counts from stdin")
     p.add_argument("--list-classes", action="store_true")
     p.add_argument("--base-dir", type=str, default=None)
     p.add_argument("--checkpoints", type=str, default=None)
     p.add_argument("--steps", type=int, default=1000,
                    help="inference steps (1-1000)")
     p.add_argument("--batch", type=int, default=8, help="device batch size")
-    p.add_argument("--scheduler", choices=["ddpm", "ddim"], default="ddpm")
+    p.add_argument("--scheduler", choices=list(SCHEDULERS), default="ddpm")
     p.add_argument("--timestep-spacing", choices=["leading", "trailing"],
                    default="leading",
                    help="'leading' = reference parity; 'trailing' always "
@@ -407,6 +512,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device to sample on (cuda runs the hand-written "
                         "attention kernel; cpu runs its plain version)")
+    p.add_argument("--augment-source", type=str, metavar="IMAGE",
+                   help="img2img mode: forward-noise this image to "
+                        "--augment-strength of the walk and denoise it with the "
+                        "configured sampler (ddpm/ddim only). Needs exactly one "
+                        "class via --classes; writes --count PNG variants to "
+                        "--output with sidecars (--reproduce rebuilds them with "
+                        "the source file)")
+    p.add_argument("--augment-strength", type=float, default=0.6, metavar="S",
+                   help="fraction of the reverse walk run on the source "
+                        "(0<S<=1; lower = closer to the source)")
+    p.add_argument("--augment-mask", type=str, metavar="MASK",
+                   help="optional greyscale mask for inpainting: white (1) = "
+                        "regenerate, black (0) = keep the source pixel")
     p.add_argument("--reproduce", type=str, metavar="SIDECAR_JSON",
                    help="regenerate the exact image a per-image sidecar JSON "
                         "records (verified by the initial-noise hash, and "
@@ -423,6 +541,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                                       output=args.output,
                                       postprocess=not args.no_postprocess,
                                       device=args.device)
+    if args.augment_source:
+        return augment_from_cli(args)
     gen = ConsoleGenerator(base_dir=args.base_dir, checkpoints_dir=args.checkpoints,
                            inference_steps=args.steps, batch_size=args.batch,
                            scheduler=args.scheduler, seed=args.seed,
@@ -439,7 +559,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         for cls in classes:
             print(cls)
         return 0
-    if args.class_counts:
+    if args.interactive:
+        counts = interactive_menu(gen)
+        if not counts:
+            return 0
+    elif args.class_counts:
         counts = _parse_class_counts(args.class_counts)
     elif args.classes:
         counts = {cls: args.count for cls in args.classes}

@@ -8,6 +8,8 @@ from .schedules import (
 )
 from .ddpm import DDPMParams, ddpm_step, add_noise
 from .ddim import DDIMParams, ddim_step
+from .dpm import DPMSolverParams, dpm_solver_step
+from .unipc import UniPCParams, unipc_step
 from .sampler import DiffusionSampler, SamplerConfig
 
 __all__ = [
@@ -22,6 +24,10 @@ __all__ = [
     "add_noise",
     "DDIMParams",
     "ddim_step",
+    "DPMSolverParams",
+    "dpm_solver_step",
+    "UniPCParams",
+    "unipc_step",
     "DiffusionSampler",
     "SamplerConfig",
 ]

@@ -1,18 +1,28 @@
-"""DDPM/DDIM sampler: the reverse walk as a loop of device work.
+"""The diffusion sampler: the reverse walk as a loop of device work.
 
-The port of `synt_isic_tpu/diffusion/sampler.py` for the single-state
-schedulers (`ddpm`, `ddim`), unconditional and class-conditional with
-classifier-free guidance (CFG). The JAX sampler compiles the walk into one
+The port of `synt_isic_tpu/diffusion/sampler.py`: the five schedulers
+(`ddpm`, `ddim`, the multistep `dpm_solver` / `dpm_solver_sde` and `unipc`),
+unconditional and class-conditional with classifier-free guidance (CFG),
+img2img and inpainting, and trajectory capture (every step, windowed, or
+streamed to host memory). The JAX sampler compiles the walk into one
 `lax.scan`; here it is a Python loop over steps whose timesteps and
 coefficients are device tables read by index, so the loop issues work to
 the device and never waits for it (no `.item()`, no host sync per step).
+
+The walk carries one of three states: `simple` (ddpm, ddim) carries x;
+`dpm` carries (x, x0_prev = 0); `unipc` carries (x_pred, x_prev = x,
+x0_prev = 0). Its sample, each captured frame and the final image, is the
+first element: for UniPC the predictor's output, not the corrected one.
 
 Seed contract, kept in shape (PyTorch cannot reproduce JAX's threefry
 bits, so the numbers differ from the JAX package's for the same seed):
   * one independent stream per image seed: the initial noise of an image
     comes from a `torch.Generator` seeded with its seed alone;
-  * step-k noise is a pure function of (seed, k): a generator seeded from
-    `np.random.SeedSequence([seed, k + 1])`;
+  * step-k noise (the DDPM posterior's, the DDIM eta's and the SDE's) is a
+    pure function of (seed, k): a generator seeded from
+    `np.random.SeedSequence([seed, k + 1])`; the inpainting noise of step k
+    is that of (seed, S + k), disjoint from it, as the JAX package's
+    `fold_in(key, S + 1 + k)` is from `fold_in(key, k + 1)`;
   * so no image depends on which other images share its batch;
   * `noise_hash` is the SHA-256 of an image's initial noise as f32 NHWC
     bytes, recorded in sidecars.
@@ -30,19 +40,23 @@ import torch
 
 from .ddim import DDIMParams, ddim_step
 from .ddpm import DDPMParams, ddpm_step
-from .schedules import DiffusionSchedule
+from .dpm import DPMSolverParams, dpm_solver_step
+from .schedules import DiffusionSchedule, device_table
+from .unipc import UniPCParams, unipc_step
+
+SCHEDULERS = ("ddpm", "ddim", "dpm_solver", "dpm_solver_sde", "unipc")
 
 
 @dataclasses.dataclass(frozen=True)
 class SamplerConfig:
     num_inference_steps: int = 50
-    scheduler: str = "ddpm"   # ddpm | ddim
+    scheduler: str = "ddpm"   # ddpm | ddim | dpm_solver | dpm_solver_sde | unipc
     ddim_eta: float = 0.0
     image_size: int = 128
     channels: int = 3
     dtype: torch.dtype = torch.float32   # compute dtype of the walk
     clip_sample: bool = True
-    deterministic_posterior: bool = False  # skip the posterior noise
+    deterministic_posterior: bool = False  # skip the step noise
                                            # (golden tests / mean-path mode)
     # 'leading' = reference scheduler parity; 'trailing' always visits t = T-1
     timestep_spacing: str = "leading"
@@ -57,7 +71,7 @@ class SamplerConfig:
     guidance_table: Optional[Tuple[float, ...]] = None
 
     def __post_init__(self):
-        if self.scheduler not in ("ddpm", "ddim"):
+        if self.scheduler not in SCHEDULERS:
             raise ValueError(f"unknown scheduler: {self.scheduler}")
         if self.timestep_spacing not in ("leading", "trailing"):
             raise ValueError(f"unknown timestep_spacing: {self.timestep_spacing!r}")
@@ -139,6 +153,19 @@ class DiffusionSampler:
                 clip_sample=config.clip_sample,
                 timestep_spacing=config.timestep_spacing, device=self.device)
             self._step = ddpm_step
+        elif config.scheduler in ("dpm_solver", "dpm_solver_sde"):
+            self.params = DPMSolverParams.create(
+                schedule, config.num_inference_steps,
+                clip_sample=config.clip_sample,
+                timestep_spacing=config.timestep_spacing,
+                sde=config.scheduler == "dpm_solver_sde", device=self.device)
+            self._step = None   # multistep: `_advance` calls dpm_solver_step
+        elif config.scheduler == "unipc":
+            self.params = UniPCParams.create(
+                schedule, config.num_inference_steps,
+                clip_sample=config.clip_sample,
+                timestep_spacing=config.timestep_spacing, device=self.device)
+            self._step = None   # multistep: `_advance` calls unipc_step
         else:
             self.params = DDIMParams.create(
                 schedule, config.num_inference_steps, eta=config.ddim_eta,
@@ -146,6 +173,11 @@ class DiffusionSampler:
                 timestep_spacing=config.timestep_spacing, device=self.device)
             self._step = ddim_step
         self.timesteps = self.params.timesteps.cpu().numpy()
+        self._family = ("unipc" if config.scheduler == "unipc"
+                        else "dpm" if config.scheduler.startswith("dpm_solver")
+                        else "simple")
+        # whether a step draws noise of its own, known on the host
+        self._stochastic = self.params.stochastic and not config.deterministic_posterior
 
     # -- seed plumbing ------------------------------------------------------------
     def _normal(self, seed: int, shape) -> torch.Tensor:
@@ -213,22 +245,56 @@ class DiffusionSampler:
         labels = torch.as_tensor(np.asarray(class_labels, np.int64).reshape(-1))
         return labels.expand(batch).to(self.device)
 
+    # -- the walk ------------------------------------------------------------------
+    def _init_carry(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        if self._family == "dpm":
+            return (x, torch.zeros_like(x))
+        if self._family == "unipc":
+            return (x, x, torch.zeros_like(x))
+        return (x,)
+
+    def _advance(self, carry, eps: torch.Tensor, k: int,
+                 z: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        """The carry after step k from the model's eps at carry[0]."""
+        if self._family == "unipc":
+            return unipc_step(*carry, eps, k, self.params)
+        if self._family == "dpm":
+            return dpm_solver_step(*carry, eps, k, self.params, z)
+        return (self._step(carry[0], eps, k, self.params, z),)
+
+    def _noise_at(self, seeds: np.ndarray, k: int, injected: Optional[torch.Tensor],
+                  i: int) -> Optional[torch.Tensor]:
+        """Step k's noise (B, C, H, W) in the compute dtype: the i-th entry
+        of the injected NHWC noise when given, else drawn from the (seed, k)
+        streams when the walk draws any, else None."""
+        if injected is not None:
+            return injected[i].permute(0, 3, 1, 2).to(self.config.dtype)
+        if self._stochastic:
+            return self.step_noise(seeds, k).to(self.config.dtype)
+        return None
+
     # -- public API ------------------------------------------------------------------
     def sample(self, model: torch.nn.Module, seeds: Union[int, np.ndarray],
                capture_trajectory: Union[bool, int] = False,
                initial_noise: Optional[Any] = None,
                step_noise: Optional[Any] = None,
-               class_labels: Optional[Union[int, np.ndarray]] = None
-               ) -> Dict[str, Any]:
+               class_labels: Optional[Union[int, np.ndarray]] = None,
+               stream_to_host: bool = False) -> Dict[str, Any]:
         """Denoise from seed(s). Returns final images (B, H, W, C) f32 in
         about [-1, 1] on the device, plus the trajectory when requested:
         `True` keeps every step ((S, B, H, W, C)); an int n keeps only the
         frames at `save_indices(steps, n)` and returns those indices too.
 
+        `stream_to_host=True` (with either capture mode) copies each kept
+        frame to host memory as the walk goes (on CUDA: pinned buffers,
+        non-blocking copies on a side stream behind an event), so the
+        device holds one frame at a time; the trajectory comes back as host
+        numpy (n_saved, B, H, W, C) with `save_indices`.
+
         `initial_noise` ((B, H, W, C)) replaces the seed-derived noise and
-        `step_noise` ((S, B, H, W, C)) the seed-derived posterior noise:
-        injected noise lets tests hold the walk against another
-        implementation.
+        `step_noise` ((S, B, H, W, C)) the seed-derived step noise (the DDPM
+        posterior's, DDIM's at eta > 0, the SDE's): injected noise lets
+        tests hold the walk against another implementation.
 
         `class_labels` (a scalar or (B,) int ids) is required for a
         conditional sampler and refused otherwise; a scalar broadcasts.
@@ -242,37 +308,189 @@ class DiffusionSampler:
                                       device=self.device))
         if step_noise is not None:
             step_noise = torch.as_tensor(step_noise, device=self.device)
-        stochastic = self.params.stochastic and not cfg.deterministic_posterior
+        streamed = bool(stream_to_host and capture_trajectory)
         keep = self._kept_steps(capture_trajectory)
+        kept = set(keep)
+        frames = _HostFrames(self.device) if streamed else []
 
-        frames = []
-        x = noise.permute(0, 3, 1, 2).to(cfg.dtype).contiguous()
+        carry = self._init_carry(noise.permute(0, 3, 1, 2).to(cfg.dtype).contiguous())
         with torch.inference_mode():
             for k in range(cfg.num_inference_steps):
                 t = self.params.timesteps[k].expand(batch)
-                eps = predict(model, x, t)
-                if step_noise is not None:
-                    z = step_noise[k].permute(0, 3, 1, 2).to(cfg.dtype)
-                elif stochastic:
-                    z = self.step_noise(seeds_arr, k).to(cfg.dtype)
-                else:
-                    z = None
-                x = self._step(x, eps, k, self.params, z)
-                if k in keep:
-                    frames.append(x.float().permute(0, 2, 3, 1))
+                eps = predict(model, carry[0], t)
+                carry = self._advance(carry, eps, k,
+                                      self._noise_at(seeds_arr, k, step_noise, k))
+                if k in kept:
+                    frames.append(carry[0].float().permute(0, 2, 3, 1))
 
         out: Dict[str, Any] = {
-            "images": x.float().permute(0, 2, 3, 1),
+            "images": carry[0].float().permute(0, 2, 3, 1),
             # hashed after the walk is queued, so the copy does not delay it
             "noise_hashes": [noise_hash(n) for n in noise.cpu().numpy()],
             "timesteps": self.timesteps.copy(),
             "seeds": seeds_arr.copy(),
         }
-        if capture_trajectory:
-            out["trajectory"] = torch.stack(frames)
-        if capture_trajectory and capture_trajectory is not True:
+        if streamed:
+            out["trajectory"] = frames.numpy()
             out["save_indices"] = keep
+        elif capture_trajectory:
+            out["trajectory"] = torch.stack(frames)
+            if capture_trajectory is not True:
+                out["save_indices"] = keep
         return out
+
+    def img2img(self, model: torch.nn.Module, seeds: Union[int, np.ndarray],
+                init_image, strength: float = 0.6, mask=None,
+                capture_trajectory: bool = False,
+                class_labels: Optional[Union[int, np.ndarray]] = None,
+                initial_noise: Optional[Any] = None,
+                step_noise: Optional[Any] = None,
+                inpaint_noise: Optional[Any] = None) -> Dict[str, Any]:
+        """SDEdit-style image-to-image with optional RePaint-style
+        inpainting, for the single-state schedulers (ddpm, ddim); the
+        multistep ones raise, since their histories cannot start mid-walk.
+
+        `init_image` ((H, W, C) or (B, H, W, C), f32 in [-1, 1]) is
+        forward-noised to the grid step `k0 = S - max(1, round(strength S))`
+        (x = sqrt(ab) init + sqrt(1 - ab) noise, with the initial noise of
+        `sample`, so the `noise_hashes` contract carries over) and denoised
+        over the remaining steps. `mask` ((H, W), (H, W, 1) or (B, H, W,
+        1 or C); 1 = regenerate, 0 = keep) re-imposes the known region at
+        each step's noise level after the step, so the result equals `init`
+        exactly where mask == 0.
+
+        `initial_noise`, `step_noise` and `inpaint_noise` inject the noise
+        as in `sample`: step and inpaint noise hold the executed steps only,
+        (steps_to_run, B, H, W, C). Returns the `sample()` dict plus
+        `strength`, `start_index` (k0) and `t_start`; a captured trajectory
+        holds the executed steps only.
+        """
+        if self._family != "simple":
+            raise NotImplementedError(
+                "img2img/inpainting requires a single-step-state scheduler "
+                "(ddpm or ddim); multistep solver histories cannot start "
+                "mid-walk")
+        cfg = self.config
+        s = float(strength)
+        if not 0.0 < s <= 1.0:
+            raise ValueError(f"strength must be in (0, 1], got {strength}")
+        seeds_arr = np.atleast_1d(np.asarray(seeds, dtype=np.uint32))
+        batch = int(seeds_arr.shape[0])
+        predict = self._make_predict(self._labels(class_labels, batch))
+        shape = (cfg.image_size, cfg.image_size, cfg.channels)
+        init = torch.as_tensor(init_image, dtype=torch.float32, device=self.device)
+        if init.dim() == 3:
+            init = init[None]
+        if tuple(init.shape) not in ((batch,) + shape, (1,) + shape):
+            raise ValueError(f"init_image shape {tuple(init.shape)} incompatible "
+                             f"with batch {batch} and image shape {shape}")
+        init = init.expand((batch,) + shape)
+        m = None
+        if mask is not None:
+            m = torch.as_tensor(mask, dtype=torch.float32, device=self.device)
+            if m.dim() == 2:
+                m = m[None, :, :, None]
+            elif m.dim() == 3:
+                m = m[None]
+            if (tuple(m.shape[1:3]) != shape[:2]
+                    or m.shape[-1] not in (1, cfg.channels)
+                    or m.shape[0] not in (1, batch)):
+                raise ValueError(f"mask shape {tuple(m.shape)} incompatible with "
+                                 f"image shape {shape} and batch {batch}")
+
+        num_steps = cfg.num_inference_steps
+        # Python's round: half to even, as the JAX package rounds
+        steps_to_run = max(1, int(round(s * num_steps)))
+        k0 = num_steps - steps_to_run
+        t_start = int(self.timesteps[k0])
+        ab0 = float(np.asarray(self.schedule.alphas_cumprod, dtype=np.float64)[t_start])
+        noise = (self.initial_noise(seeds_arr) if initial_noise is None
+                 else torch.as_tensor(initial_noise, dtype=torch.float32,
+                                      device=self.device))
+        x_start = (float(np.float32(np.sqrt(ab0))) * init
+                   + float(np.float32(np.sqrt(1.0 - ab0))) * noise)
+        if step_noise is not None:
+            step_noise = torch.as_tensor(step_noise, device=self.device)
+        if inpaint_noise is not None:
+            inpaint_noise = torch.as_tensor(inpaint_noise, device=self.device)
+
+        dt = cfg.dtype
+        frames = []
+        x = x_start.permute(0, 3, 1, 2).to(dt).contiguous()
+        with torch.inference_mode():
+            if m is not None:
+                # the noise level after step k: ab of the next grid timestep,
+                # 1 (clean) after the final step
+                ab_np = np.asarray(self.schedule.alphas_cumprod, dtype=np.float32)
+                ab_after = device_table(np.append(ab_np[self.timesteps[1:]], np.float32(1.0)),
+                                        self.device)
+                known_img = init.permute(0, 3, 1, 2).to(dt)
+                regen = m.permute(0, 3, 1, 2).to(dt)
+            for i, k in enumerate(range(k0, num_steps)):
+                t = self.params.timesteps[k].expand(batch)
+                eps = predict(model, x, t)
+                x = self._step(x, eps, k, self.params,
+                               self._noise_at(seeds_arr, k, step_noise, i))
+                if m is not None:
+                    z = (inpaint_noise[i].permute(0, 3, 1, 2).to(dt)
+                         if inpaint_noise is not None
+                         else self.step_noise(seeds_arr, num_steps + k).to(dt))
+                    ab = ab_after[k].to(dt)
+                    known = ab.sqrt() * known_img + (1.0 - ab).sqrt() * z
+                    x = regen * x + (1.0 - regen) * known
+                if capture_trajectory:
+                    frames.append(x.float().permute(0, 2, 3, 1))
+
+        out: Dict[str, Any] = {
+            "images": x.float().permute(0, 2, 3, 1),
+            "noise_hashes": [noise_hash(n) for n in noise.cpu().numpy()],
+            "timesteps": self.timesteps.copy(),
+            "seeds": seeds_arr.copy(),
+            "strength": s,
+            "start_index": k0,
+            "t_start": t_start,
+        }
+        if capture_trajectory:
+            out["trajectory"] = torch.stack(frames)   # (steps_to_run, B, H, W, C)
+        return out
+
+    def sample_single(self, model: torch.nn.Module, seed: int,
+                      capture_trajectory: bool = False,
+                      class_labels: Optional[int] = None) -> Dict[str, Any]:
+        return self.sample(model, np.asarray([seed], dtype=np.uint32),
+                           capture_trajectory=capture_trajectory,
+                           class_labels=class_labels)
+
+
+class _HostFrames:
+    """Trajectory frames copied to host memory as the walk goes. On CUDA
+    each frame goes into a pinned buffer by a non-blocking copy on a side
+    stream that waits on an event recorded after the frame, so the copies
+    overlap the next steps and the device keeps no frame once its copy is
+    done; elsewhere the frame already is in host memory."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.frames: List[torch.Tensor] = []
+
+    def append(self, frame: torch.Tensor) -> None:
+        frame = frame.contiguous()
+        if self.stream is None:
+            self.frames.append(frame)
+            return
+        ready = torch.cuda.Event()
+        ready.record()
+        host = torch.empty(frame.shape, dtype=frame.dtype, pin_memory=True)
+        with torch.cuda.stream(self.stream):
+            self.stream.wait_event(ready)
+            host.copy_(frame, non_blocking=True)
+        frame.record_stream(self.stream)   # freed only after the copy
+        self.frames.append(host)
+
+    def numpy(self) -> np.ndarray:
+        if self.stream is not None:
+            self.stream.synchronize()
+        return np.stack([f.numpy() for f in self.frames])
 
 
 def to_uint8_images(images) -> np.ndarray:

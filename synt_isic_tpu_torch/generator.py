@@ -4,8 +4,10 @@ CUDA device.
 The port of `synt_isic_tpu/generator.py`, for per-class models and for the
 one class-conditional checkpoint with classifier-free guidance
 (`conditional`, `guidance_scale`, `guidance_map`): `set_progress_callback`,
-`set_log_callback`, `set_generation_seed`, `set_inference_steps`, `set_save_trajectory`, `get_available_classes`, `validate_models`, `generate_single_image`,
-`regenerate_block_image`, `generate_images`, `generate_batch_images`,
+`set_log_callback`, `set_generation_seed`, `set_inference_steps`,
+`set_save_trajectory`, `get_available_classes`, `validate_models`,
+`generate_single_image`, `regenerate_block_image`, `generate_images`,
+`generate_batch_images`, `augment_single_image` (img2img and inpainting),
 `stop_generation`, `get_generation_status`, `cleanup`.
 
 The same contract as the JAX package:
@@ -37,10 +39,9 @@ block (the noise hash is read back after the walk), so the JAX package's
 overlap of one block's file writes with the next block's sampling has no
 counterpart here: blocks run one after the other.
 
-Left for later slices, and raising `NotImplementedError`: img2img
-(`augment_single_image`; ROADMAP A1), data-parallel sampling (`set_mesh`;
-A8) and the XAI hooks (`set_xai_hook`, `set_xai_analyzer`,
-`set_xai_frequency`; A7).
+Left for later slices, and raising `NotImplementedError`: data-parallel
+sampling (`set_mesh`; ROADMAP A8) and the XAI hooks (`set_xai_hook`,
+`set_xai_analyzer`, `set_xai_frequency`; A7).
 """
 from __future__ import annotations
 
@@ -373,11 +374,108 @@ class ImageGenerator:
                   f"(size {len(seeds)}, index {idx}): {output_path}")
         return True
 
+    # -- img2img / inpainting augmentation -------------------------------------------
+    @staticmethod
+    def _load_source_image(source, image_size: int):
+        """Path or array -> ((H, W, C) f32 in [-1, 1], name, sha256).
+
+        A path is hashed over its file bytes (the reproduce contract pins
+        the input file) and resized BILINEAR; an array is hashed over its
+        f32 pixel bytes, and rescaled from 0-255 when its original dtype is
+        an integer one (a dark uint8 image with every pixel <= 1 included)
+        or, for floats of unknown range, when its maximum exceeds 1.5."""
+        if isinstance(source, (str, Path)):
+            data = Path(source).read_bytes()
+            digest = hashlib.sha256(data).hexdigest()
+            pil = Image.open(Path(source)).convert("RGB")
+            if pil.size != (image_size, image_size):
+                pil = pil.resize((image_size, image_size), Image.BILINEAR)
+            arr = np.asarray(pil, np.float32) / 127.5 - 1.0
+            return arr, Path(source).name, digest
+        raw = np.asarray(source)
+        is_int = np.issubdtype(raw.dtype, np.integer)
+        arr = raw.astype(np.float32)
+        if arr.ndim == 4:
+            arr = arr[0]
+        if is_int or arr.max() > 1.5:
+            arr = arr / 127.5 - 1.0
+        digest = hashlib.sha256(
+            np.ascontiguousarray(arr, np.float32).tobytes()).hexdigest()
+        return arr, None, digest
+
+    @staticmethod
+    def _load_mask(mask, image_size: int):
+        """Path or array -> ((H, W) f32 in [0, 1], name, sha256), or (None,
+        None, None). 1 = regenerate, 0 = keep the source pixel. A path is
+        read as "L" and resized NEAREST."""
+        if mask is None:
+            return None, None, None
+        if isinstance(mask, (str, Path)):
+            data = Path(mask).read_bytes()
+            digest = hashlib.sha256(data).hexdigest()
+            pil = Image.open(Path(mask)).convert("L")
+            if pil.size != (image_size, image_size):
+                pil = pil.resize((image_size, image_size), Image.NEAREST)
+            return np.asarray(pil, np.float32) / 255.0, Path(mask).name, digest
+        arr = np.asarray(mask, np.float32)
+        digest = hashlib.sha256(
+            np.ascontiguousarray(arr, np.float32).tobytes()).hexdigest()
+        return arr, None, digest
+
     def augment_single_image(self, class_name: str, source_image,
                              output_path: str, strength: float = 0.6,
                              mask=None, postprocess: bool = False,
-                             seed: Optional[int] = None):
-        raise _later("img2img and inpainting", "A1")
+                             seed: Optional[int] = None
+                             ) -> Tuple[bool, Optional[np.ndarray]]:
+        """img2img / inpainting through the generator's artifact path.
+
+        `source_image` (path or array, any range) is forward-noised to
+        `strength` of the walk and denoised with the configured sampler
+        (ddpm or ddim only); `mask` (path or array; 1 = regenerate, 0 =
+        keep) makes it inpainting. The artifacts are those of
+        `generate_single_image` plus an `img2img` sidecar block (strength,
+        `t_start`, postprocess, the source's and mask's SHA-256, and their
+        names and paths when given as paths), from which `cli --reproduce`
+        rebuilds the bytes with the original files. Postprocessing is off
+        by default: the mean shift would recolour the kept region. Returns
+        (success, trajectory (steps run, H, W, C) or None)."""
+        if self.stop_requested:
+            return False, None
+        try:
+            seed = int(seed) if seed is not None else secrets.randbelow(0x7FFFFFFF)
+            mm = self.model_manager
+            if not mm.load_model(class_name):
+                return False, None
+            size = mm.config.sample_size
+            init, src_name, src_sha = self._load_source_image(source_image, size)
+            m, mask_name, mask_sha = self._load_mask(mask, size)
+            labels = mm.class_id(class_name) if mm.conditional else None
+            out = self._sampler().img2img(
+                mm.loaded_models[class_name], np.asarray([seed], np.uint32), init,
+                strength=float(strength), mask=m,
+                capture_trajectory=self.save_trajectory, class_labels=labels)
+            extra = {"img2img": {
+                "strength": float(strength),
+                "t_start": int(out["t_start"]),
+                "postprocess": bool(postprocess),
+                "source_sha256": src_sha,
+                **({"source": src_name,
+                    "source_path": str(Path(source_image).resolve())}
+                   if src_name else {}),
+                **({"mask_sha256": mask_sha} if mask_sha else {}),
+                **({"mask": mask_name, "mask_path": str(Path(mask).resolve())}
+                   if mask_name else {}),
+            }}
+            self._write_image_artifacts(out, 0, class_name, output_path,
+                                        postprocess, seed, extra=extra)
+            traj = (out["trajectory"][:, 0].cpu().numpy()
+                    if self.save_trajectory else None)
+            self._log(f"augmented image for class {class_name} "
+                      f"(strength={strength}): {output_path}")
+            return True, traj
+        except Exception as exc:  # reported through the log and the result
+            self._log(f"augmentation failed for {class_name}: {exc}", "error")
+            return False, None
 
     def sidecar_scheduler(self, class_name: Optional[str] = None) -> Dict[str, Any]:
         """The sidecar's `scheduler` block: the reference's static fields,

@@ -68,6 +68,41 @@ def test_main_lists_classes_on_cpu(tmp_path, checkpoint, capsys):
     assert capsys.readouterr().out.split() == ["MEL"]
 
 
+def test_interactive_menu(tmp_path, checkpoint, capsys, monkeypatch):
+    base = _base(tmp_path, checkpoint, "menu")
+    gen = ConsoleGenerator(base_dir=str(base), model_config=TINY, device="cpu")
+    answers = iter(["MEL:2, NV:1", ""])
+    monkeypatch.setattr("builtins.input", lambda prompt="": next(answers))
+    assert cli.interactive_menu(gen) == {"MEL": 2, "NV": 1}
+    assert "1. MEL" in capsys.readouterr().out
+    assert cli.interactive_menu(gen) is None
+
+
+def test_main_interactive(tmp_path, checkpoint, monkeypatch):
+    """`--interactive` reads the counts from stdin and generates them; an
+    empty line generates nothing and exits 0."""
+    base = _base(tmp_path, checkpoint, "interactive")
+    argv = ["--base-dir", str(base), "--device", "cpu", "--interactive",
+            "--steps", "2", "--scheduler", "unipc", "--seed", "0"]
+    monkeypatch.setattr(cli, "ConsoleGenerator",
+                        lambda **kw: ConsoleGenerator(model_config=TINY, **kw))
+    monkeypatch.setattr("builtins.input", lambda prompt="": "")
+    assert cli.main(argv) == 0
+    assert not (base / "ISIC2018_Task3_synt").exists()
+    monkeypatch.setattr("builtins.input", lambda prompt="": "MEL:2")
+    assert cli.main(argv) == 0
+    names, sidecars, _ = _artifacts(base)
+    assert names == ["ISIC_0034321.jpg", "ISIC_0034322.jpg"]
+    assert all(m["scheduler"]["kind"] == "unipc" for m in sidecars.values())
+
+
+def test_parser_takes_every_scheduler():
+    for name in ("ddpm", "ddim", "dpm_solver", "dpm_solver_sde", "unipc"):
+        assert cli.build_parser().parse_args(["--scheduler", name]).scheduler == name
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["--scheduler", "euler"])
+
+
 def test_parser_defaults_to_cuda():
     args = cli.build_parser().parse_args([])
     assert args.device == "cuda" and args.scheduler == "ddpm" and args.steps == 1000

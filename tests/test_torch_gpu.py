@@ -28,9 +28,11 @@ and backward: bit-identical to one head per block.
 """
 import json
 
+import numpy as np
 import pytest
 import torch
 
+from synt_isic_tpu_torch.diffusion import DiffusionSampler, DiffusionSchedule, SamplerConfig
 from synt_isic_tpu_torch.generator import ImageGenerator
 from synt_isic_tpu_torch.model_manager import ModelManager
 from synt_isic_tpu_torch.models.unet2d import UNet2D, UNet2DConfig
@@ -809,3 +811,76 @@ def test_f32_fast_math_is_told_from_exact(cuda):
     fast = (attention.fused_attention(q, k, v, fast_math=True) - order).abs().mean()
     exact = (attention.fused_attention(q, k, v) - order).abs().mean()
     assert exact.item() > FAST_SEPARATION * fast.item()
+
+
+def _walk_models(cuda, cfg):
+    """The same random small UNet with the kernel and with the plain
+    attention, on the card."""
+    torch.manual_seed(0)
+    state = UNet2D(cfg).state_dict()
+    models = {}
+    for fused in (True, False):
+        model = UNet2D(cfg, use_fused_attention=fused)
+        model.load_state_dict(state)
+        models[fused] = model.to(cuda).eval()
+    return models
+
+
+def _launched(before):
+    torch.cuda.synchronize()
+    return {key: attention.LAUNCHES[key] - before[key] for key in before}
+
+
+def test_unipc_walk_runs_the_kernel(cuda, monkeypatch):
+    """A UniPC walk launches the forward kernel 6 times per step and agrees
+    with the walk through the plain attention (full-f32 convolutions, as in
+    `test_unet_runs_the_kernel`; 1e-3 over the walk, the CLI check's
+    tolerance in `chip_smoke.py`); its host-streamed trajectory equals the
+    on-device one."""
+    cfg = UNet2DConfig(sample_size=32, block_out_channels=(32, 64, 64, 64))
+    models = _walk_models(cuda, cfg)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    steps = 4
+    sampler = DiffusionSampler(DiffusionSchedule.create(),
+                               SamplerConfig(num_inference_steps=steps, scheduler="unipc",
+                                             timestep_spacing="trailing", image_size=32),
+                               device=cuda)
+    outs = {}
+    for fused, model in models.items():
+        before = dict(attention.LAUNCHES)
+        outs[fused] = sampler.sample(model, [1, 2], capture_trajectory=2, stream_to_host=True)
+        got = _launched(before)
+        assert got[attention.KERNEL] == (6 * steps if fused else 0)
+        assert got[attention.FAST_KERNEL] == 0
+    assert torch.isfinite(outs[True]["images"]).all()
+    torch.testing.assert_close(outs[True]["images"], outs[False]["images"],
+                               rtol=1e-3, atol=1e-3)
+    on_device = sampler.sample(models[True], [1, 2], capture_trajectory=2)
+    assert isinstance(outs[True]["trajectory"], np.ndarray)
+    np.testing.assert_array_equal(outs[True]["trajectory"],
+                                  on_device["trajectory"].cpu().numpy())
+
+
+def test_inpainting_walk_runs_the_kernel(cuda, monkeypatch):
+    """Inpainting launches the kernel 6 times per executed step, keeps the
+    known region exactly and agrees with the plain attention's walk."""
+    cfg = UNet2DConfig(sample_size=32, block_out_channels=(32, 64, 64, 64))
+    models = _walk_models(cuda, cfg)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    sampler = DiffusionSampler(DiffusionSchedule.create(),
+                               SamplerConfig(num_inference_steps=10, scheduler="ddpm",
+                                             image_size=32), device=cuda)
+    rng = np.random.default_rng(3)
+    init = np.clip(rng.normal(0, 0.3, (32, 32, 3)), -1, 1).astype(np.float32)
+    mask = np.zeros((32, 32), np.float32)
+    mask[:, :16] = 1.0
+    outs = {}
+    for fused, model in models.items():
+        before = dict(attention.LAUNCHES)
+        outs[fused] = sampler.img2img(model, [5, 6], init, strength=0.5, mask=mask)
+        assert _launched(before)[attention.KERNEL] == (6 * 5 if fused else 0)
+        assert outs[fused]["start_index"] == 5
+    images = outs[True]["images"].cpu().numpy()
+    np.testing.assert_array_equal(images[:, :, 16:], np.broadcast_to(init, images.shape)[:, :, 16:])
+    torch.testing.assert_close(outs[True]["images"], outs[False]["images"],
+                               rtol=1e-3, atol=1e-3)

@@ -202,8 +202,11 @@ def test_recorded_tf32_is_set_for_the_regeneration_only(tmp_path, ckpt_dir, monk
 
 @pytest.mark.parametrize("field", ["conditional", "img2img", "dp_mesh"])
 def test_later_slices_exit_2(tmp_path, ckpt_dir, field, capsys):
+    """What cannot be reproduced exits 2 before any model is built: a block
+    sampled over a device mesh (not ported yet), and an img2img run from an
+    in-memory source (img2img sidecars with their source file reproduce,
+    `tests/test_torch_img2img.py`), conditional or not."""
     sidecar = _generate(tmp_path, ckpt_dir, count=2, batch=2)[0]
-    # conditional sidecars are ported; a conditional img2img one is not
     change = {"conditional": lambda m: (m["scheduler"].update(conditional=True,
                                                               guidance_scale=2.0),
                                         m.update(img2img={"strength": 0.5})),
@@ -212,8 +215,36 @@ def test_later_slices_exit_2(tmp_path, ckpt_dir, field, capsys):
     edited = _edit(sidecar, tmp_path, change)
     # through the entry point: refused before any model is built
     assert cli.main(["--reproduce", str(edited), "--device", "cpu"]) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    said = {"conditional": "in-memory source", "img2img": "in-memory source",
+            "dp_mesh": "ROADMAP A8"}[field]
+    assert said in capsys.readouterr().err
     assert not _redo(edited)[1].exists()
+
+
+@pytest.mark.parametrize("kind", ["unipc", "dpm_solver_sde", "dpm_solver"])
+def test_multistep_sidecars(tmp_path, ckpt_dir, kind):
+    """The multistep schedulers' sidecars reproduce byte for byte (the SDE
+    from its step-noise streams), and the recorded kind is what pins them."""
+    sidecar = _generate(tmp_path, ckpt_dir, configure=lambda g: (
+        setattr(g, "scheduler_kind", kind), setattr(g, "timestep_spacing", "trailing")))[0]
+    meta = json.loads(sidecar.read_text())
+    assert (meta["scheduler"]["kind"], meta["scheduler"]["timestep_spacing"]) == (kind,
+                                                                                 "trailing")
+    _assert_reproduces(sidecar, ckpt_dir)
+    wrong = _edit(sidecar, tmp_path, lambda m: m["scheduler"].update(kind="ddim"))
+    assert _reproduce(wrong, ckpt_dir) == 1
+
+
+def test_console_sde_jpeg_sidecar(tmp_path, ckpt_dir):
+    base = tmp_path / "console"
+    (base / "checkpoints").mkdir(parents=True)
+    shutil.copy(ckpt_dir / "unet_MEL_best.pth", base / "checkpoints")
+    ConsoleGenerator(base_dir=str(base), model_config=TINY, inference_steps=3,
+                     batch_size=2, scheduler="dpm_solver_sde", timestep_spacing="trailing",
+                     seed=0, device="cpu").generate({"MEL": 2})
+    sidecar = sorted((base / "ISIC2018_Task3_synt").glob("*.json"))[1]
+    redo = _assert_reproduces(sidecar, base / "checkpoints")
+    assert redo["scheduler"]["kind"] == "dpm_solver_sde" and redo["block"]["index"] == 1
 
 
 def test_refuses_a_jax_sidecar(tmp_path, ckpt_dir, capsys):

@@ -175,5 +175,9 @@ def test_to_uint8_matches():
 
 
 def test_config_rejects_unported_schedulers():
+    """The five schedulers of the JAX package are ported; another name is
+    refused."""
+    for name in ("ddpm", "ddim", "dpm_solver", "dpm_solver_sde", "unipc"):
+        assert SamplerConfig(scheduler=name).scheduler == name
     with pytest.raises(ValueError):
-        SamplerConfig(scheduler="unipc")
+        SamplerConfig(scheduler="euler")
