@@ -126,6 +126,24 @@ Phases, each of which exits non-zero on failure:
      UniPC-20 and SDE-20 (trailing, batch 8) timed in turns on the host
      clock (s/step of a warm walk, and each against DDIM), and UniPC and SDE
      under `torch.profiler` (device busy, idle share, attention part);
+ 11d. [xai] the XAI engine on the [cli] checkpoint (f32, exact kernel) and a
+     classifier.pth of seeded random ResNet-18 weights (torchvision's names,
+     8 outputs): `run_standalone_xai` at the reference defaults (MEL, seed
+     42, DDPM 50 keeping every 5th step and the last: 11 frames, IG 50,
+     SHAP 512, Grad-CAM and sanity, 1000 bootstraps, 10 000 permutations):
+     exactly 6 x 50 = 300 launches and no plain attention call, every
+     classifier tensor on the card, no stage's caught failure, the files and
+     their keys, its stage_seconds, wall time and trajectories per hour;
+     the same DDPM-50 walk kernel vs plain attention (XAI_WALK_TOL, derived
+     beside it); the pipeline on the card under full-f32 convolutions
+     against the CPU port over the same frames (XAI_TOL); K1 at the walk's
+     batch-1 shapes in turns with SDPA, host-launched and from a CUDA
+     graph; `ImageGenerator` with `create_integrated_xai_analyzer`, DDPM 10
+     on 4 MEL images, every 2nd analysed: exactly 240 launches and 2
+     `xai_results/MEL/*.json` files without a failed stage; without
+     matplotlib both runs go on without figures and say so
+     (`python3 chip_smoke.py --xai` runs card, build, [unet] and this phase
+     alone);
  12. [reproduce] `python -m synt_isic_tpu_torch.cli --reproduce` in a fresh
      process: a sidecar of the second [generator] block (60 fast-math
      launches) and a JPEG sidecar of the CLI phase (f32, 60 exact launches),
@@ -169,10 +187,12 @@ from __future__ import annotations
 
 import contextlib
 import cProfile
+import importlib.util
 import io
 import json
 import math
 import os
+import pickle
 import pstats
 import re
 import shutil
@@ -378,6 +398,40 @@ AUGMENT_RUN = round(AUGMENT_STRENGTH * AUGMENT_STEPS)
 # less (sigma/alpha <= 13 from t = 949 on). So the trailing walk is held to
 # 2 (sigma_0/alpha_0) d0, with d0 measured on the walk's first input.
 UNIPC_WALK_TOL, UNIPC_FIRST_STEP_FACTOR = 2e-3, 2.0
+# [xai]: the standalone XAI run at the reference defaults (`xai/XAI.py`;
+# `synt_isic_tpu/xai/standalone.py`): MEL, seed 42, DDPM 50 keeping every
+# 5th step plus the last (11 frames), IG 50 steps, SHAP 512 masks, Grad-CAM
+# and sanity on, 1000 bootstraps and 10 000 permutations, on the [cli]
+# checkpoint and a classifier.pth of seeded random ResNet-18 weights
+# (torchvision's names, 8 outputs, the XAI path's NUM_CLASSES + 1); then
+# the library generator's integrated XAI: DDPM 10 on 4 MEL images at
+# batch 1, every 2nd image of the class analysed (a short pipeline: IG 10,
+# SHAP 64)
+XAI_CLASS, XAI_SEED, XAI_STEPS, XAI_SAVE_EVERY = "MEL", 42, 50, 5
+XAI_IG_STEPS, XAI_SHAP_SAMPLES, XAI_BOOTSTRAP, XAI_PERMUTATIONS = 50, 512, 1000, 10000
+XAI_CLASSIFIER_SEED, XAI_OUTPUTS = 13, 8
+XAI_GEN_IMAGES, XAI_GEN_STEPS, XAI_GEN_FREQUENCY = 4, 10, 2
+XAI_BATCH1_SHAPES = [(1, 32, 1024, 8), (1, 32, 256, 8)]
+# the DDPM-50 walk at batch 1, kernel vs plain attention (full-f32
+# convolutions, the same injected initial noise and the same seed-derived
+# step noise), max|diff| over every kept frame: [cli] holds its DDIM-10 walk
+# to 1e-3, 1e-4 per UNet evaluation (it reads 3.4e-5); the DDPM-50 walk runs
+# 50 evaluations, so 5e-3. The DDPM posterior mean weighs each step's x0
+# estimate by at most one and clips it to [-1, 1], so no step amplifies an
+# eps difference as the trailing grid's t = 999 step does in [samplers].
+XAI_WALK_TOL = 5e-3
+# the pipeline on the card (full-f32 convolutions) against the CPU port on
+# the same frames, at the CPU tests' tolerances (tests/test_torch_xai*.py):
+# attribution maps 1e-4 x max|map|, Time-SHAP's probabilities and
+# log-probability scores 1e-5 (its min-max-normalised importance at the
+# bound that carries, see `_xai_compare`), Grad-CAM 1e-3, CFI 1e-5 where
+# both top/bottom-k masks agree, the sanity checks' correlations 1e-4
+# (their draws come from the same CPU generators on both sides)
+XAI_TOL = {"attribution": 1e-4, "time_shap": 1e-5, "gradcam": 1e-3, "cfi": 1e-5,
+           "sanity": 1e-4}
+XAI_RESULT_KEYS = {"metadata", "xai_maps", "region_analysis", "interventions",
+                   "cfi_analysis", "time_shap", "statistical_validation", "sanity_checks",
+                   "visualizations", "gradcam", "gradcam_most_important", "gradcam_summary"}
 
 
 def fail(msg: str) -> None:
@@ -1676,6 +1730,305 @@ def phase_samplers(state: dict, card: str, base: Path, ckpt: Path) -> dict:
     return report
 
 
+def _xai_stage_errors(results: dict) -> dict:
+    """The stages of a pipeline result that recorded a caught failure, with
+    its message."""
+    return {key: results[key]["error"]
+            for key in ("time_shap", "statistical_validation", "sanity_checks", "gradcam")
+            if isinstance(results.get(key), dict) and "error" in results[key]}
+
+
+def _xai_compare(card_res: dict, cpu_res: dict) -> dict:
+    """The card's pipeline result against the CPU port's on the same frames:
+    the largest difference of each part, each against its XAI_TOL."""
+    out = {"attribution": 0.0, "time_shap": 0.0, "gradcam": 0.0, "cfi": 0.0, "sanity": 0.0}
+    masks_equal = masks_total = pixels_off = 0
+    for step, want in cpu_res["xai_maps"].items():
+        got = card_res["xai_maps"][step]["attribution_map"]
+        ref = want["attribution_map"]
+        out["attribution"] = max(out["attribution"],
+                                 float(np.abs(got - ref).max() / np.abs(ref).max()))
+        for region in ("top_k", "bottom_k"):
+            a = card_res["region_analysis"][step][region]["mask"]
+            b = cpu_res["region_analysis"][step][region]["mask"]
+            masks_total += 1
+            masks_equal += int(np.array_equal(a, b))
+            pixels_off = max(pixels_off, int((a != b).sum()))
+    for step, per_key in cpu_res["cfi_analysis"].items():
+        for key, want in per_key.items():
+            region = "top_k" if key.startswith("top_k") else "bottom_k"
+            if np.array_equal(card_res["region_analysis"][step][region]["mask"],
+                              cpu_res["region_analysis"][step][region]["mask"]):
+                got = card_res["cfi_analysis"][step][key]["target_class_analysis"]["cfi"]
+                out["cfi"] = max(out["cfi"], abs(got - want["target_class_analysis"]["cfi"]))
+    raw_card, raw_cpu = card_res["time_shap"]["raw_data"], cpu_res["time_shap"]["raw_data"]
+    conf_diff = float(np.abs(raw_card["confidence_scores"] - raw_cpu["confidence_scores"]).max())
+    out["time_shap"] = max(conf_diff, float(np.abs(raw_card["probability_scores"]
+                                                   - raw_cpu["probability_scores"]).max()))
+    # the importance is min-max normalised, (c - min c) / R: a difference d
+    # of the scores moves it by at most 4 d / R (d in c and in min c, 2 d in
+    # R), so it is held to that, from the scores' own difference
+    spread = float(np.ptp(raw_cpu["confidence_scores"]))
+    out["importance"] = float(np.abs(card_res["time_shap"]["importance"]
+                                     - cpu_res["time_shap"]["importance"]).max())
+    out["importance_bound"] = 4 * max(conf_diff, 1e-12) / spread if spread > 1e-6 else 1e-12
+    for step, cam in cpu_res["gradcam"].items():
+        out["gradcam"] = max(out["gradcam"], float(np.abs(card_res["gradcam"][step] - cam).max()))
+    out["gradcam"] = max(out["gradcam"], float(np.abs(card_res["gradcam_summary"]
+                                                      - cpu_res["gradcam_summary"]).max()))
+    for test, key in (("weight_randomization_test", "correlations_per_trial"),
+                      ("input_independence_test", "independence_correlations"),
+                      ("model_sensitivity_test", "different_class_correlations")):
+        got = np.asarray(card_res["sanity_checks"][test][key])
+        want = np.asarray(cpu_res["sanity_checks"][test][key])
+        check(got.shape == want.shape, f"sanity {test} shapes {got.shape} {want.shape}")
+        out["sanity"] = max(out["sanity"], float(np.abs(got - want).max()))
+    out["masks_equal"], out["masks_total"], out["mask_pixels_off"] = (masks_equal, masks_total,
+                                                                      pixels_off)
+    return out
+
+
+def phase_xai(state: dict, card: str, base: Path) -> dict:
+    """[xai] the XAI engine through its two entry points on the card: the
+    standalone run (`run_standalone_xai`, as `python -m
+    synt_isic_tpu_torch.xai.standalone` runs it) at the reference defaults,
+    with its K1 launches, its walk kernel vs plain, its pipeline against the
+    CPU port's on the same frames and its files; K1 at the walk's batch-1
+    shapes in turns with SDPA; and `ImageGenerator`'s integrated XAI."""
+    from unittest import mock
+
+    from synt_isic_tpu_torch.diffusion.sampler import save_indices
+    from synt_isic_tpu_torch.models import unet2d as unet2d_module
+    from synt_isic_tpu_torch.models.classifier import LesionClassifier, random_resnet
+    from synt_isic_tpu_torch.xai import (XAIAnalyzer, create_integrated_xai_analyzer,
+                                         run_comprehensive_xai_pipeline, standalone)
+
+    report = {}
+    ckpt = base / "checkpoints"
+    ckpt.mkdir(parents=True)
+    torch.save(state, ckpt / "unet_MEL_best.pth")
+    clf_state = {}
+    for key, value in random_resnet(XAI_OUTPUTS, XAI_CLASSIFIER_SEED).state_dict().items():
+        clf_state[key] = value
+        if key.endswith("running_var"):         # torchvision's BatchNorm entry
+            clf_state[key.replace("running_var", "num_batches_tracked")] = torch.tensor(0)
+    clf_path = ckpt / "classifier.pth"
+    torch.save(clf_state, clf_path)
+    figures = importlib.util.find_spec("matplotlib") is not None
+    if not figures:
+        print("[xai] matplotlib is not installed here: both runs write their results "
+              "without figures (save_figures=False)", flush=True)
+
+    # the standalone run; the pipeline call and the plain attention watched
+    seen, plain_calls, logs = {}, [], []
+    plain_ref = unet2d_module.attention_reference
+
+    def pipeline_spy(**kwargs):
+        seen.update(kwargs)
+        return run_comprehensive_xai_pipeline(**kwargs)
+
+    def plain_spy(*args, **kwargs):
+        plain_calls.append(1)
+        return plain_ref(*args, **kwargs)
+
+    out_dir = base / "standalone"
+    reset_launches()
+    with mock.patch.object(standalone, "run_comprehensive_xai_pipeline", pipeline_spy), \
+            mock.patch.object(unet2d_module, "attention_reference", plain_spy):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = standalone.run_standalone_xai(
+            target_class=XAI_CLASS, seed=XAI_SEED, inference_steps=XAI_STEPS,
+            save_every=XAI_SAVE_EVERY, checkpoints_dir=str(ckpt), results_dir=str(out_dir),
+            ig_n_steps=XAI_IG_STEPS, shap_n_samples=XAI_SHAP_SAMPLES,
+            n_bootstrap=XAI_BOOTSTRAP, n_permutations=XAI_PERMUTATIONS, device="cuda",
+            save_figures=figures, log=lambda msg: logs.append((time.perf_counter(), msg)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(attention.LAUNCHES)
+    check(results is not None, f"run_standalone_xai returned None: {logs}")
+    want = ATTENTION_CALLS_PER_UNET * XAI_STEPS
+    others = sum(n for key, n in launches.items() if key != attention.KERNEL)
+    print(f"[xai] standalone run (MEL, seed {XAI_SEED}, DDPM {XAI_STEPS}, every "
+          f"{XAI_SAVE_EVERY}th step and the last kept): attention_fwd launches "
+          f"{launches[attention.KERNEL]} "
+          f"(want {want}), other kernels {others}, plain attention calls {len(plain_calls)}",
+          flush=True)
+    check(launches[attention.KERNEL] == want and others == 0 and not plain_calls,
+          f"the standalone walk launched {launches} with {len(plain_calls)} plain calls")
+    clf = seen["classifier"]
+    tensors = list(clf.model.state_dict().values())
+    check(clf.device.type == "cuda" and all(t.is_cuda for t in tensors),
+          "a classifier tensor is not on the card")
+    frames = np.asarray(seen["trajectory"])
+    timesteps = list(seen["timesteps"])
+    n_frames = len(save_indices(XAI_STEPS, XAI_SAVE_EVERY))
+    check(frames.shape == (n_frames, 128, 128, 3) and bool(np.isfinite(frames).all()),
+          f"trajectory {frames.shape}")
+    failures = [msg for _, msg in logs if "failed" in msg]
+    check(not _xai_stage_errors(results) and not failures,
+          f"stages failed: {_xai_stage_errors(results)}; {failures}")
+    check(len(results["xai_maps"]) == n_frames and len(results["gradcam"]) == n_frames,
+          "a frame's maps are missing")
+    saved = json.loads((out_dir / "analysis_results.json").read_text())
+    with open(out_dir / "full_results.pkl", "rb") as f:
+        pickled = pickle.load(f)
+    check(set(pickled) == XAI_RESULT_KEYS and set(saved) == XAI_RESULT_KEYS - {
+        "gradcam", "gradcam_most_important", "gradcam_summary"},
+        f"result files' keys {sorted(saved)} / {sorted(pickled)}")
+    stamps = {msg.split(":")[0]: t for t, msg in logs}
+    walk_s = stamps.get("[xai-standalone] trajectory", t0) - stamps.get(
+        "[xai-standalone] classifier loaded", t0)
+    stage_s = results["metadata"]["stage_seconds"]
+    files = sorted(p.name for p in out_dir.iterdir())
+    print(f"[xai] standalone on {card}: {wall:.3f} s in all ({n_frames} frames; the DDPM load "
+          f"and the walk {walk_s:.3f} s), {3600 / wall:.1f} trajectories/hour, "
+          f"{3600 * n_frames / wall:.0f} frame attributions/hour; {len(files)} files "
+          f"({sum(n.endswith('.png') for n in files)} figures)", flush=True)
+    print(f"[xai] stage_seconds on {card}: {json.dumps(stage_s)}", flush=True)
+    report.update(launches=launches[attention.KERNEL], wall_s=wall, walk_s=walk_s,
+                  stage_seconds=stage_s, trajectories_per_hour=3600 / wall,
+                  frames=n_frames, figures=figures)
+
+    # the same walk through the plain attention, from the same noise
+    mm = ModelManager(checkpoints_dir=str(ckpt), device="cuda")
+    check(mm.load_model(XAI_CLASS), "ModelManager.load_model")
+    sampler = mm.create_sampler(XAI_STEPS)
+    model = mm.loaded_models[XAI_CLASS]
+    plain = UNet2D(mm.config, dtype=mm.dtype, use_fused_attention=False, fast_norm=mm.fast_norm)
+    plain.load_state_dict(state)
+    plain = plain.to(mm.device).eval()
+    seeds = np.asarray([XAI_SEED], np.uint32)
+    noise = sampler.initial_noise(seeds)
+    runs = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler.sample(model, seeds, initial_noise=noise)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) / XAI_STEPS)
+    step_s = statistics.median(runs[1:])
+    with full_f32_convolutions():
+        walks = [sampler.sample(m, seeds, capture_trajectory=XAI_SAVE_EVERY, stream_to_host=True,
+                                initial_noise=noise)["trajectory"] for m in (model, plain)]
+    walk_err = float(np.abs(walks[0] - walks[1]).max())
+    print(f"[xai] DDPM {XAI_STEPS}, batch 1, f32 on {card}: warm {step_s:.5f} s/step on the "
+          f"host clock (median of 3: {', '.join(f'{r:.5f}' for r in runs[1:])}); the {n_frames} "
+          f"kept frames kernel vs plain attention (full-f32 convolutions) max_abs_err "
+          f"{walk_err:.3e} (allowed {XAI_WALK_TOL:.0e})", flush=True)
+    check(walk_err <= XAI_WALK_TOL, "the XAI walk, kernel vs plain attention")
+    report.update(walk_step_s=step_s, walk_max_abs_err=walk_err)
+
+    # the pipeline on the card and on the CPU over the same frames
+    def pipeline(device):
+        classifier, _ = LesionClassifier.from_checkpoint(str(clf_path), num_classes=XAI_OUTPUTS,
+                                                         device=device)
+        analyzer = XAIAnalyzer(classifier, ig_n_steps=XAI_IG_STEPS,
+                               shap_n_samples=XAI_SHAP_SAMPLES, seed=XAI_SEED)
+        failed = []
+        t0 = time.perf_counter()
+        res = run_comprehensive_xai_pipeline(
+            frames, timesteps, analyzer, classifier, 0, XAI_CLASS, save_results=False,
+            save_figures=False, n_bootstrap=XAI_BOOTSTRAP, n_permutations=XAI_PERMUTATIONS,
+            log=lambda msg: failed.append(msg) if "failed" in msg else None)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        check(not _xai_stage_errors(res) and not failed,
+              f"{device} pipeline stages failed: {_xai_stage_errors(res)}; {failed}")
+        return res, time.perf_counter() - t0
+
+    with full_f32_convolutions():
+        card_res, card_s = pipeline("cuda")
+    cpu_res, cpu_s = pipeline("cpu")
+    diff = _xai_compare(card_res, cpu_res)
+    print(f"[xai] pipeline card (full-f32 convolutions, {card_s:.3f} s) vs CPU port "
+          f"({cpu_s:.3f} s, {torch.get_num_threads()} threads) on the same {n_frames} frames: "
+          f"attribution maps {diff['attribution']:.3e} x max|map| (allowed "
+          f"{XAI_TOL['attribution']:.0e}), Time-SHAP scores {diff['time_shap']:.3e} (allowed "
+          f"{XAI_TOL['time_shap']:.0e}) and importance {diff['importance']:.3e} (allowed "
+          f"{diff['importance_bound']:.3e}: 4 x the scores' difference over their range), "
+          f"Grad-CAM {diff['gradcam']:.3e} (allowed "
+          f"{XAI_TOL['gradcam']:.0e}), CFI {diff['cfi']:.3e} (allowed {XAI_TOL['cfi']:.0e}) "
+          f"where the masks agree ({diff['masks_equal']} of {diff['masks_total']} top/bottom-k "
+          f"masks equal, at most {diff['mask_pixels_off']} pixels apart), sanity correlations "
+          f"{diff['sanity']:.3e} (allowed {XAI_TOL['sanity']:.0e})", flush=True)
+    for part, tol in list(XAI_TOL.items()) + [("importance", diff["importance_bound"])]:
+        check(diff[part] <= tol, f"the XAI pipeline, card vs CPU: {part} {diff[part]:.3e}")
+    report["card_vs_cpu"] = diff
+    report["card_f32_pipeline_s"], report["cpu_pipeline_s"] = card_s, cpu_s
+
+    # K1 at the walk's batch-1 shapes, in turns with SDPA
+    g = torch.Generator(device="cuda").manual_seed(9)
+    report["batch1"] = {}
+    for shape in XAI_BATCH1_SHAPES:
+        b, h, t, d = shape
+        q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
+        views = [z.transpose(1, 2).reshape(b, t, h * d).view(b, t, h, d).transpose(1, 2)
+                 for z in (q, k, v)]
+        err = (attention.fused_attention(*views) - attention.attention_reference(q, k, v)
+               ).abs().max().item()
+        check(err <= TOL[torch.float32], f"K1 at {shape}: {err:.3e}")
+        fns = {"kernel": lambda: attention.fused_attention(*views),
+               "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)}
+        host = in_turns(fns)
+        device = {name: [] for name in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for name in order:
+                device[name].append(graph_ms(fns[name]))
+        device = {name: statistics.mean(ts) for name, ts in device.items()}
+        plain_ms = cuda_ms(lambda: attention.attention_reference(q, k, v))
+        bound, bound_by, exp_ms, unit = attention_bound_ms(shape, torch.float32)
+        print(f"[xai] attention {shape} f32 on {card}, in turns with SDPA: kernel "
+              f"{host['kernel']:.4f} ms host-launched ({device['kernel']:.4f} on the device "
+              f"alone, from a CUDA graph), sdpa {host['sdpa']:.4f} ms ({device['sdpa']:.4f}), "
+              f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({unit}); max_abs_err {err:.3e}",
+              flush=True)
+        report["batch1"][str(shape)] = dict(
+            ms=host["kernel"], device_ms=device["kernel"], library_ms=host["sdpa"],
+            library_device_ms=device["sdpa"], plain_ms=plain_ms, bound_ms=bound,
+            bound_by=bound_by, max_abs_err=err)
+
+    # the library generator's integrated XAI
+    lib = base / "library"
+    gen = ImageGenerator(checkpoints_dir=str(ckpt), device="cuda")
+    gen.set_inference_steps(XAI_GEN_STEPS)
+    gen.set_generation_seed(0)
+    gen_logs = []
+    gen.set_log_callback(lambda msg, level: gen_logs.append((level, msg)))
+    gen.set_xai_analyzer(create_integrated_xai_analyzer(
+        str(clf_path), device="cuda", verbose=False, ig_n_steps=10, shap_n_samples=64,
+        n_bootstrap=200, n_permutations=1000, save_figures=figures, viz_every_n=5))
+    gen.set_save_trajectory(True)
+    gen.set_xai_frequency(XAI_GEN_FREQUENCY)
+    reset_launches()
+    t0 = time.perf_counter()
+    result = gen.generate_images([(XAI_CLASS, XAI_GEN_IMAGES)], str(lib))
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    gen_launches = attention.LAUNCHES[attention.KERNEL]
+    jsons = sorted((lib / "xai_results" / XAI_CLASS).glob("xai_*.json"))
+    failed = [msg for level, msg in gen_logs if "integrated XAI failed" in msg]
+    print(f"[xai] ImageGenerator integrated XAI on {card}: {result.get('generated')} images "
+          f"(DDPM {XAI_GEN_STEPS}) in {gen_wall:.3f} s, attention_fwd launches {gen_launches} "
+          f"(want {ATTENTION_CALLS_PER_UNET * XAI_GEN_STEPS * XAI_GEN_IMAGES}), "
+          f"{len(jsons)} xai_results JSON files ({', '.join(p.name for p in jsons)}), "
+          f"failures logged {len(failed)}", flush=True)
+    check(result.get("generated") == XAI_GEN_IMAGES and not failed,
+          f"generator run {result}; {failed}")
+    check(gen_launches == ATTENTION_CALLS_PER_UNET * XAI_GEN_STEPS * XAI_GEN_IMAGES,
+          f"integrated run launched {gen_launches}")
+    check([p.name.rsplit("_", 2)[0] for p in jsons] == ["xai_ISIC_0000002", "xai_ISIC_0000004"],
+          f"xai_results files {[p.name for p in jsons]}")
+    for path in jsons:
+        data = json.loads(path.read_text())
+        check(not _xai_stage_errors(data) and data["metadata"]["n_timesteps"] == XAI_GEN_STEPS
+              and len(data["xai_maps"]) == XAI_GEN_STEPS,
+              f"{path.name}: {_xai_stage_errors(data)}")
+    report.update(launches_integrated=gen_launches, integrated_wall_s=gen_wall,
+                  integrated_json=len(jsons))
+    return report
+
+
 class _Tee(io.TextIOBase):
     """Writes to the real stdout and keeps a copy."""
 
@@ -2151,6 +2504,13 @@ def main() -> int:
         native.build([attention.KERNEL, attention.BWD_KERNEL])
         print(json.dumps({"f32": phase_f32(), "card": card["card"]}), flush=True)
         return 0
+    if sys.argv[1:] == ["--xai"]:
+        # the [xai] phase alone (on the full-width UNet of [unet]), likewise
+        native.build([attention.KERNEL])
+        with tempfile.TemporaryDirectory() as tmp:
+            report = phase_xai(phase_unet(), card["card"], Path(tmp))
+        print(json.dumps({"xai": report, "card": card["card"]}, default=str), flush=True)
+        return 0
     if sys.argv[1:] == ["--fast-f32"]:
         # the f32 fast-math timing of [kernel-fast] alone, likewise
         native.build([attention.KERNEL])
@@ -2173,6 +2533,7 @@ def main() -> int:
         gen_f32 = phase_generator_f32_fast(state, card["card"], Path(tmp) / "library_f32")
         samplers = phase_samplers(state, card["card"], Path(tmp) / "samplers",
                                   Path(tmp) / "cli" / "checkpoints")
+        xai = phase_xai(state, card["card"], Path(tmp) / "xai")
     train_launches = phase_train(card["card"])
     phase_bench(card["card"])
     train_f32_launches = phase_train(card["card"], f32=True)
@@ -2215,6 +2576,14 @@ def main() -> int:
         "launches_augment_reproduce": samplers["augment_reproduce"],
         "max_abs_err_unipc_walk": samplers["unipc_walk_max_abs_err"],
         "sampler_step_s": samplers["step_s"],
+        # [xai]: the standalone XAI run's DDPM-50 walk at batch 1 and the
+        # integrated run's 4 x DDPM-10; K1 at the batch-1 shapes
+        "launches_xai": xai["launches"],
+        "launches_xai_integrated": xai["launches_integrated"],
+        "max_abs_err_xai_walk": xai["walk_max_abs_err"],
+        "xai_batch1": xai["batch1"],
+        "xai_stage_seconds": xai["stage_seconds"],
+        "xai_wall_s": xai["wall_s"],
         "sampler_update_s": samplers["update_s"],
         "sampler_busy_s": {k: p.get("busy_s") for k, p in samplers["profiles"].items()},
         "sampler_attention_s": {k: p.get("attention_s")

@@ -39,16 +39,26 @@ block (the noise hash is read back after the walk), so the JAX package's
 overlap of one block's file writes with the next block's sampling has no
 counterpart here: blocks run one after the other.
 
-Left for later slices, and raising `NotImplementedError`: data-parallel
-sampling (`set_mesh`; ROADMAP A8) and the XAI hooks (`set_xai_hook`,
-`set_xai_analyzer`, `set_xai_frequency`; A7).
+Integrated XAI (`set_xai_analyzer`, `set_xai_frequency`,
+`set_save_trajectory`): with an analyzer set and trajectories on, a block
+keeps every denoise step on the device (the block capped so the capture
+stays within 4 GiB) and every `xai_frequency`-th image of a class has its
+trajectory analysed (`analyze_trajectory`), the result written to
+`<output>/xai_results/<class>/xai_<stem>_<timestamp>.json`; a failed
+analysis is logged and generation goes on. `set_xai_hook` keeps the
+reference's inactive legacy hook.
+
+Left for a later slice, and raising `NotImplementedError`: data-parallel
+sampling (`set_mesh`; ROADMAP A8).
 """
 from __future__ import annotations
 
 import contextlib
 import hashlib
+import json
 import secrets
 import time
+from datetime import datetime
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
@@ -194,6 +204,11 @@ class ImageGenerator:
 
         self.base_seed: Optional[int] = None
         self.save_trajectory = True
+        self.xai_frequency = int(config.get_generation_param("xai_frequency")) \
+            if config else 1
+        self.xai_analyzer = None
+        self.xai_hook: Optional[Callable] = None
+        self.xai_hook_every_n = 10
 
         self.progress_callback: Optional[Callable[[int, int, str], None]] = None
         self.log_callback: Optional[Callable[[str, str], None]] = None
@@ -212,13 +227,19 @@ class ImageGenerator:
         self.log_callback = cb
 
     def set_xai_hook(self, hook: Callable, every_n: int = 10) -> None:
-        raise _later("the XAI hook", "A7")
+        """Legacy hook kept for API parity (the reference keeps it wired but
+        inactive, `image_generator.py:714-715`)."""
+        self.xai_hook = hook
+        self.xai_hook_every_n = every_n
 
     def set_xai_analyzer(self, analyzer) -> None:
-        raise _later("integrated XAI", "A7")
+        """`analyzer` exposes `analyze_trajectory(trajectory, class_name,
+        seed, inference_steps, filename, file_path)` (the integrated-XAI
+        adapter protocol, `xai/xai_integration.py:84`)."""
+        self.xai_analyzer = analyzer
 
     def set_xai_frequency(self, n: int) -> None:
-        raise _later("integrated XAI", "A7")
+        self.xai_frequency = max(1, int(n))
 
     def set_save_trajectory(self, flag: bool) -> None:
         self.save_trajectory = bool(flag)
@@ -564,17 +585,24 @@ class ImageGenerator:
             class_totals: Dict[str, int] = {}
             for cls, count in class_configs:
                 class_totals[cls] = class_totals.get(cls, 0) + count
-            class_counts: Dict[str, int] = {}  # ISIC numbering per class
+            class_counts: Dict[str, int] = {}  # ISIC numbering + XAI cadence
             dead: set = set()                  # classes whose model failed to load
             announced: set = set()
             mm = self.model_manager
             mixed = mm.conditional
+            need_traj = self.save_trajectory and self.xai_analyzer is not None
+            block_cap = self.batch_size
+            if need_traj:
+                # the capture holds (steps, block, H, W, C) f32 on the device
+                frame_bytes = mm.config.sample_size ** 2 * mm.config.in_channels * 4
+                block_cap = min(block_cap, max(1, (4 << 30) //
+                                               (self.inference_steps * frame_bytes)))
 
             def block_at(start: int) -> List[Tuple[str, int]]:
                 """Up to batch_size items from `start`: one class's run with
                 per-class models, any classes with the conditional one; cut
                 before the first item of a class known to be dead."""
-                end = min(start + self.batch_size, len(items))
+                end = min(start + block_cap, len(items))
                 if not mixed:
                     run = start + 1
                     while run < end and items[run][0] == items[start][0]:
@@ -616,7 +644,7 @@ class ImageGenerator:
                     continue
                 seeds = np.asarray([self._seed_for(cls, i, offsets) for cls, i in blk],
                                    dtype=np.uint32)
-                out = self._sample_block([cls for cls, _ in blk], seeds, False)
+                out = self._sample_block([cls for cls, _ in blk], seeds, need_traj)
                 index += len(blk)
                 # one device->host copy for the whole block
                 out = dict(out, images=out["images"].cpu().numpy())
@@ -649,6 +677,9 @@ class ImageGenerator:
                     self._progress(generated * self.inference_steps,
                                    total_images * self.inference_steps,
                                    f"generated {generated}/{total_images}")
+                    if need_traj and isic_number % self.xai_frequency == 0:
+                        self._integrated_xai(out["trajectory"][:, j], class_name,
+                                             int(seeds[j]), filename, str(file_path))
 
             elapsed = time.time() - t_start
             result = {
@@ -666,6 +697,35 @@ class ImageGenerator:
             return {"error": str(exc)}
         finally:
             self.is_generating = False
+
+    def _integrated_xai(self, trajectory: torch.Tensor, class_name: str, seed: int,
+                        filename: str, file_path: str) -> None:
+        """Analyse one image's trajectory and save the result; a failure is
+        logged and generation goes on (reference `generator.py:735-750`)."""
+        try:
+            self._log(f"integrated XAI for {class_name} ({filename})")
+            xai_results = self.xai_analyzer.analyze_trajectory(
+                trajectory=trajectory.cpu().numpy(), class_name=class_name, seed=seed,
+                inference_steps=self.inference_steps, filename=filename,
+                file_path=file_path)
+            if xai_results:
+                self._save_xai_results(xai_results, class_name, filename, file_path)
+        except Exception as exc:  # reported through the log; generation goes on
+            self._log(f"integrated XAI failed: {exc}", "warning")
+
+    def _save_xai_results(self, xai_results: Dict[str, Any], class_name: str,
+                          filename: str, file_path: str) -> None:
+        """`xai_results/<class>/xai_<stem>_<ts>.json` beside the class
+        folders (reference `image_generator.py:866-886`)."""
+        from .xai.pipeline import json_safe
+
+        xai_dir = Path(file_path).parent.parent / "xai_results" / class_name
+        xai_dir.mkdir(parents=True, exist_ok=True)
+        stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+        out = xai_dir / f"xai_{Path(filename).stem}_{stamp}.json"
+        with open(out, "w", encoding="utf-8") as f:
+            json.dump(json_safe(xai_results), f, indent=2, ensure_ascii=False, default=str)
+        self._log(f"XAI results saved: {out}")
 
     def generate_batch_images(self, class_name: str, output_dir: str,
                               count: int, batch_size: Optional[int] = None,

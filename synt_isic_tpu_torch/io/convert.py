@@ -3,9 +3,11 @@
 `state_dict_from_jax` is the inverse of the checkpoint conversion the JAX
 package applies at load time: merged index segments expand
 (`resnets_1` -> `resnets.1`), conv kernels go HWIO -> OIHW, Dense kernels
-(I, O) -> (O, I), GroupNorm `scale` -> `weight`, `nn.Embed` tables keep
-their layout. The result loads into the port's `UNet2D` with
-`load_state_dict(strict=True)`.
+(I, O) -> (O, I), GroupNorm and BatchNorm `scale` -> `weight`, the frozen
+BatchNorm statistics `mean`/`var` -> `running_mean`/`running_var`,
+`nn.Embed` tables keep their layout. The result loads into the port's
+`UNet2D` and `ResNet18` (torchvision's names: `layer2_0/downsample_0` ->
+`layer2.0.downsample.0`) with `load_state_dict(strict=True)`.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import torch
 
 # module names whose trailing _<digit> is part of the torch name, not an index
 _LITERAL_NAMES = {"linear_1", "linear_2"}
+_LEAF_NAMES = {"embedding": "weight", "scale": "weight", "mean": "running_mean",
+               "var": "running_var"}
 
 
 def state_dict_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -41,10 +45,8 @@ def state_dict_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 elif value.ndim == 2:
                     value = np.transpose(value, (1, 0))
                 leaf = "weight"
-            elif name in ("embedding", "scale"):
-                leaf = "weight"
             else:
-                leaf = name
+                leaf = _LEAF_NAMES.get(name, name)
             flat[".".join(parts + [leaf])] = torch.tensor(value)
 
     walk(tree, [])

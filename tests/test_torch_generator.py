@@ -229,12 +229,15 @@ def test_later_slices_raise(ckpt_dir, monkeypatch):
     with pytest.raises(FileNotFoundError, match="unet_conditional_best.json"):
         ImageGenerator(checkpoints_dir=str(ckpt_dir), device="cpu", conditional=True)
     gen = _port(ckpt_dir)
-    for call, item in ((lambda: gen.set_mesh(object()), "A8"),
-                       (lambda: gen.set_xai_hook(print), "A7"),
-                       (lambda: gen.set_xai_analyzer(object()), "A7"),
-                       (lambda: gen.set_xai_frequency(5), "A7")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(NotImplementedError, match="A8"):
+        gen.set_mesh(object())
+    # integrated XAI (A7) is ported: its setters take their values
+    analyzer = object()
+    gen.set_xai_hook(print, every_n=3)
+    gen.set_xai_analyzer(analyzer)
+    gen.set_xai_frequency(0)
+    assert (gen.xai_hook, gen.xai_hook_every_n, gen.xai_analyzer, gen.xai_frequency) == (
+        print, 3, analyzer, 1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ImageGenerator(checkpoints_dir=str(ckpt_dir))
@@ -357,3 +360,98 @@ def test_config_manager_matches_jax(tmp_path, ckpt_dir, monkeypatch):
     meta = json.loads((tmp_path / "out" / "MEL" / "ISIC_0000001.json").read_text())
     assert meta["scheduler"]["png_compress_level"] == 1
     assert "attention_fast_math" not in meta["scheduler"]
+
+
+class _RecordingAnalyzer:
+    """An integrated-XAI stub: records each call and returns a small
+    JSON-able result (or raises, when told to)."""
+
+    def __init__(self, fail: bool = False):
+        self.calls, self.fail = [], fail
+
+    def analyze_trajectory(self, trajectory, class_name, seed, inference_steps, filename,
+                           file_path):
+        if self.fail:
+            raise RuntimeError("analysis failed")
+        self.calls.append({"shape": tuple(np.shape(trajectory)), "class_name": class_name,
+                           "seed": seed, "steps": inference_steps, "filename": filename,
+                           "file": "/".join(file_path.split("/")[-2:]),
+                           "type": type(trajectory).__name__})
+        return {"class": class_name, "first": np.asarray(trajectory)[0, 0, 0].tolist()}
+
+
+def _xai_json(out):
+    return {p.name.rsplit("_", 2)[0]: json.loads(p.read_text())
+            for p in sorted((out / "xai_results" / "MEL").glob("xai_*.json"))}
+
+
+def test_integrated_xai_cadence_matches_jax(tmp_path, ckpt_dir):
+    """Every xai_frequency-th image of a class has its whole trajectory
+    analysed, the result written to xai_results/<class>/xai_<stem>_<ts>.json,
+    in both packages; a failed analysis is logged and generation goes on."""
+    port_rec, jax_rec, port_images, jax_images = (_RecordingAnalyzer(), _RecordingAnalyzer(),
+                                                  [], [])
+    gen = _port(ckpt_dir)
+    _inject(gen, lambda a: a, port_images)
+    jgen = jax_generator.ImageGenerator(checkpoints_dir=str(ckpt_dir), model_config=TINY_JAX)
+    jgen.set_inference_steps(STEPS)
+    jgen.scheduler_kind = "ddim"
+    jgen.batch_size = BATCH
+    jgen.set_generation_seed(SEED)
+    _inject(jgen, jnp.asarray, jax_images)
+    for g, rec in ((gen, port_rec), (jgen, jax_rec)):
+        g.set_save_trajectory(True)
+        g.set_xai_analyzer(rec)
+        g.set_xai_frequency(2)
+    port = gen.generate_images([("MEL", 4)], str(tmp_path / "port"), postprocess=False)
+    jax_result = jgen.generate_images([("MEL", 4)], str(tmp_path / "jax"), postprocess=False)
+    assert port["generated"] == jax_result["generated"] == 4
+    size = TINY.sample_size
+    assert port_rec.calls == [dict(c, type="ndarray") for c in jax_rec.calls]
+    assert [c["filename"] for c in port_rec.calls] == ["ISIC_0000002.png", "ISIC_0000004.png"]
+    assert {c["shape"] for c in port_rec.calls} == {(STEPS, size, size, 3)}
+    port_json, jax_json = _xai_json(tmp_path / "port"), _xai_json(tmp_path / "jax")
+    assert list(port_json) == list(jax_json) == ["xai_ISIC_0000002", "xai_ISIC_0000004"]
+    for stem in port_json:
+        assert port_json[stem]["class"] == "MEL"
+        np.testing.assert_allclose(port_json[stem]["first"], jax_json[stem]["first"],
+                                   rtol=1e-4, atol=1e-4)
+    # no analyzer, or trajectories off: no capture, no analysis
+    gen = _port(ckpt_dir)
+    gen.set_xai_analyzer(_RecordingAnalyzer())
+    gen.set_save_trajectory(False)
+    gen.generate_images([("MEL", 2)], str(tmp_path / "off"), postprocess=False)
+    assert gen.xai_analyzer.calls == [] and not (tmp_path / "off" / "xai_results").exists()
+    # a failing analysis is logged, and every image is still written
+    gen = _port(ckpt_dir)
+    logs = []
+    gen.set_log_callback(lambda msg, level: logs.append((level, msg)))
+    gen.set_xai_analyzer(_RecordingAnalyzer(fail=True))
+    gen.set_xai_frequency(1)
+    result = gen.generate_images([("MEL", 2)], str(tmp_path / "fail"), postprocess=False)
+    assert result["generated"] == 2
+    assert [lvl for lvl, msg in logs if "integrated XAI failed" in msg] == ["warning"] * 2
+    assert not list((tmp_path / "fail").glob("xai_results/MEL/*.json"))
+
+
+def test_trajectory_block_is_capped(ckpt_dir, tmp_path):
+    """With integrated XAI on, a block's captured walk (every step, f32)
+    stays within 4 GiB: at 1000 steps of 128² images that is 21 images."""
+    from synt_isic_tpu_torch.models.unet2d import UNet2DConfig
+
+    gen = _port(ckpt_dir)
+    assert gen.model_manager.load_model("MEL")
+    gen.model_manager.config = UNet2DConfig()      # sizes the frames at 128²
+    gen.set_inference_steps(1000)
+    gen.batch_size = 64
+    seen = []
+
+    def record(classes, seeds, capture):
+        seen.append((len(seeds), capture))
+        raise RuntimeError("recorded")
+
+    gen._sample_block = record
+    for analyzer, want in ((_RecordingAnalyzer(), (21, True)), (None, (40, False))):
+        gen.set_xai_analyzer(analyzer)
+        assert "recorded" in gen.generate_images([("MEL", 40)], str(tmp_path))["error"]
+        assert seen.pop() == want

@@ -884,3 +884,99 @@ def test_inpainting_walk_runs_the_kernel(cuda, monkeypatch):
     np.testing.assert_array_equal(images[:, :, 16:], np.broadcast_to(init, images.shape)[:, :, 16:])
     torch.testing.assert_close(outs[True]["images"], outs[False]["images"],
                                rtol=1e-3, atol=1e-3)
+
+
+# -- the XAI engine on the card ----------------------------------------------------------
+
+def _xai_frames(n, size=128, seed=7):
+    rng = np.random.default_rng(seed)
+    return (0.95 * np.tanh(rng.normal(size=(n, size, size, 3)))).astype(np.float32)
+
+
+def test_classifier_on_cuda_matches_cpu(cuda, monkeypatch):
+    """The ResNet-18 classifier at its 224² input on the card against the
+    same weights on the CPU, full-f32 convolutions on the card: logits and
+    input gradients within 1e-4 · max|value| (two f32 convolution
+    algorithms), Grad-CAM maps within 1e-3."""
+    from synt_isic_tpu_torch.models.classifier import LesionClassifier
+    from synt_isic_tpu_torch.xai import compute_gradcam
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cpu = LesionClassifier.random_init(num_classes=8, seed=0, device="cpu")
+    card = LesionClassifier.random_init(num_classes=8, seed=0, device=cuda)
+    assert all(p.is_cuda for p in card.model.state_dict().values())
+    x = _xai_frames(3)
+    for got, want in ((card.logits(x), cpu.logits(x)),
+                      (card.input_gradient(x, 2), cpu.input_gradient(x, 2))):
+        assert got.is_cuda
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-4 * want.abs().max().item())
+    np.testing.assert_allclose(compute_gradcam(card, x, 2), compute_gradcam(cpu, x, 2),
+                               rtol=0, atol=1e-3)
+
+
+def test_standalone_run_launches_the_kernel(cuda, tmp_path):
+    """The standalone XAI run on the card: its walk launches the attention
+    kernel 6 times per step (no plain attention), then the pipeline writes
+    its results."""
+    from synt_isic_tpu_torch.xai.standalone import run_standalone_xai
+
+    cfg = UNet2DConfig(sample_size=32, block_out_channels=(32, 64, 64, 64))
+    torch.manual_seed(0)
+    torch.save(UNet2D(cfg).state_dict(), tmp_path / "unet_MEL_best.pth")
+    steps = 3
+    before = dict(attention.LAUNCHES)
+    results = run_standalone_xai(checkpoints_dir=str(tmp_path), model_config=cfg,
+                                 inference_steps=steps, save_every=1, ig_n_steps=2,
+                                 shap_n_samples=4, n_bootstrap=20, n_permutations=50,
+                                 with_sanity=False, results_dir=str(tmp_path / "out"),
+                                 device="cuda", save_figures=False, log=lambda *a: None)
+    launched = _launched(before)
+    assert launched[attention.KERNEL] == 6 * steps
+    assert launched[attention.FAST_KERNEL] == 0
+    assert results["metadata"]["n_timesteps"] == steps
+    assert (tmp_path / "out" / "analysis_results.json").exists()
+    assert "error" not in results["time_shap"] and "error" not in results["gradcam"]
+
+
+def test_xai_path_keeps_its_work_on_the_card(cuda):
+    """Attribution, Grad-CAM, interventions and CFI on a classifier on the
+    card: every convolution, matrix product, pooling, resize and softmax
+    runs on the card (only the seeded draws are made on the host, so the
+    card and the CPU draw the same numbers), and the results lie there."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from synt_isic_tpu_torch.models.classifier import LesionClassifier
+    from synt_isic_tpu_torch.xai import (XAIAnalyzer, compute_causal_shift_comprehensive,
+                                         compute_gradcam, counterfactual_intervention_advanced)
+
+    heavy = ("conv", "mm", "pool", "upsample", "softmax", "bmm", "einsum")
+
+    class HostWork(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.host_ops = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            tensors = [a for a in torch.utils._pytree.tree_leaves((args, kwargs or {}))
+                       if isinstance(a, torch.Tensor)]
+            if tensors and not any(t.is_cuda for t in tensors):
+                self.host_ops.add(str(func))
+            return func(*args, **(kwargs or {}))
+
+    clf = LesionClassifier.random_init(num_classes=8, seed=0, device=cuda)
+    an = XAIAnalyzer(clf, ig_n_steps=4, shap_n_samples=16, seed=0)
+    frames = torch.from_numpy(_xai_frames(2)).to(cuda)
+    mask = np.zeros((128, 128), bool)
+    mask[32:96, 32:96] = True
+    with HostWork() as mode:
+        outs = [an.compute_ig_frames(frames, 1), an.compute_shap_frames(frames, 1),
+                an.compute_integrated_gradients(frames[:1], 1, baseline_type="blur")]
+        an.compute_time_shap(frames, [10.0, 0.0], 1)
+        compute_gradcam(clf, frames, 1)
+        for itype in ("blur", "noise", "shuffle"):
+            res = counterfactual_intervention_advanced(frames[:1], mask, itype)
+            outs.append(res["modified_image"])
+            compute_causal_shift_comprehensive(clf, frames[:1], res["modified_image"], 1)
+    assert all(o.is_cuda for o in outs)
+    assert not [op for op in mode.host_ops if any(h in op for h in heavy)], mode.host_ops

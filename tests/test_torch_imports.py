@@ -32,5 +32,10 @@ def test_every_ported_module_is_checked():
                    "train/__init__.py", "train/__main__.py", "train/async_ckpt.py",
                    "train/benchmark.py", "train/data.py", "train/procedural.py",
                    "train/train_ddpm.py", "train/train_conditional.py", "generator.py",
-                   "cache.py", "utils/config.py", "model_manager.py", "cli.py"):
+                   "cache.py", "utils/config.py", "model_manager.py", "cli.py",
+                   "models/resnet18.py", "models/classifier.py", "native/__init__.py",
+                   *(f"xai/{name}.py" for name in (
+                       "__init__", "attribution", "cfi", "fairness", "gradcam", "integration",
+                       "interventions", "pipeline", "regions", "sanity", "standalone", "stats",
+                       "viz"))):
         assert f"synt_isic_tpu_torch/{module}" in names, module
