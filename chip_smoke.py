@@ -144,6 +144,21 @@ Phases, each of which exits non-zero on failure:
      matplotlib both runs go on without figures and say so
      (`python3 chip_smoke.py --xai` runs card, build, [unet] and this phase
      alone);
+ 11e. [serve] the serving path: an in-process `GenerationServer` over
+     `ImageGenerator(device="cuda")` (bf16, batch 16, DDIM 10): warmup with
+     `compile: true` (`compiled_batches == [1, 16]`), 4 concurrent clients x
+     8 seedless images (coalesced; served images/s beside the warm
+     `generate_images` rate), a fixed-seed request byte-identical to
+     `generate_images`, the `bench_serve.py --mixed` load (interactive b1
+     replies before a 64-image DDIM-50 bulk reply; p50/p95), the UniPC-8
+     fast lane, an `xai` request, `status`; exactly 6 K1 launches per UNet
+     evaluation of every walk, counted from the sampler calls, and no
+     plain attention; then `python -m synt_isic_tpu_torch.serve` in a fresh
+     process (classes, a 2-image generate, shutdown at rc 0) and the web UI
+     (a 4-image generation, device memory in `/api/state`); `python3
+     chip_smoke.py --serve` runs card, build, [unet] and this phase alone,
+     and `--generator` runs [generator] alone (e.g. in an unpacked parent
+     tree);
  12. [reproduce] `python -m synt_isic_tpu_torch.cli --reproduce` in a fresh
      process: a sidecar of the second [generator] block (60 fast-math
      launches) and a JPEG sidecar of the CLI phase (f32, 60 exact launches),
@@ -200,6 +215,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -349,6 +365,21 @@ GROUP_SHAPE = (8, 32, 1024, 8)       # grouped_attention's own shape
 GROUPS = (1, 2, 4, 8)
 GEN_IMAGES, GEN_SEED = 16, 1234
 GEN_ROUNDS = 3    # [generator-f32-fast]: the warm sampler block, fast and exact in turns
+GEN_GROUP = 2     # `--generator`: heads_per_program of the phase run alone (the G* [kernel-group] picks on the H100)
+GEN_WARM_ROUNDS = 5   # [generator]: warm generate_images runs, in turns with one block
+# [serve]: the daemon at serve's default dtype (bf16, exact kernel), device
+# batch 16, DDIM 10 leading (serve's default walk is DDPM 1000: cut to keep
+# the run short). Interactive cost 10 puts a b1 DDIM-10 request on the fast
+# lane and an 8-image one in bulk; the mixed load is bench_serve.py --mixed:
+# a bulk request of SERVE_BULK images at DDIM SERVE_BULK_STEPS (its default
+# bulk walk, long enough that the interactive requests arrive while it runs)
+# and SERVE_INTERACTIVE b1 requests SERVE_GAP s apart; the fast lane is
+# UniPC 8 trailing on the same weights; the XAI request runs the [xai]
+# integrated settings (IG 10, SHAP 64)
+SERVE_BATCH, SERVE_STEPS, SERVE_COST = 16, 10, 10
+SERVE_CLIENTS, SERVE_COUNT, SERVE_SEED = 4, 8, 2024
+SERVE_BULK, SERVE_BULK_STEPS, SERVE_INTERACTIVE, SERVE_GAP = 64, 50, 4, 0.2
+SERVE_FAST_STEPS, SERVE_WEBUI_IMAGES = 8, 4
 REPO = Path(__file__).resolve().parent
 # the class-conditional family: the seven ISIC classes plus the null row
 COND_CLASSES = ("MEL", "NV", "BCC", "AKIEC", "BKL", "DF", "VASC")
@@ -1103,7 +1134,15 @@ def _png_arrays(paths):
     return [np.asarray(Image.open(p)) for p in paths]
 
 
-def phase_generator(state: dict, card: str, base: Path, g_star: int) -> dict:
+def phase_generator(state: dict, card: str, base: Path, g_star: int,
+                    check_sync: bool = True) -> dict:
+    """[generator]: `generate_images` cold and warm, its launches, and the
+    sampler alone on one block; block k's writes overlap block
+    k+1's walk, so the warm time is set beside the sampler's blocks (their
+    share) and, with `check_sync`, one block is queued under
+    `torch.cuda.set_sync_debug_mode("error")`: `sample()` may not wait for
+    the card (`python3 chip_smoke.py --generator` runs this phase alone
+    without that check, e.g. in an unpacked parent tree)."""
     ckpt = base / "checkpoints"
     ckpt.mkdir(parents=True)
     torch.save(state, ckpt / "unet_MEL_best.pth")
@@ -1151,30 +1190,53 @@ def phase_generator(state: dict, card: str, base: Path, g_star: int) -> dict:
           f"generator launched {launches}")
 
     # the same call again on the warm generator, and its sampler alone
-    warm_out = base / "generated_warm"
-    _, warm, warm_launches = run(warm_out)
-    check(warm_launches == launches, f"warm run launched {warm_launches}")
-    same = all(a.read_bytes() == b.read_bytes() for a, b in
-               zip(pngs, sorted((warm_out / "MEL").glob("ISIC_*.png"))))
+    # the same call again on the warm generator, in turns with its sampler
+    # alone on one block (medians: single runs spread by 0.1 s and more on
+    # the host clock)
     seeds = np.asarray(sidecars[0]["block"]["seeds"], np.uint32)
-    runs = []
-    for _ in range(3):
+    warm_runs, runs, same = [], [], True
+    for r in range(GEN_WARM_ROUNDS):
+        warm_out = base / f"generated_warm{r}"
+        _, warm, warm_launches = run(warm_out)
+        check(warm_launches == launches, f"warm run launched {warm_launches}")
+        same = same and all(a.read_bytes() == b.read_bytes() for a, b in
+                            zip(pngs, sorted((warm_out / "MEL").glob("ISIC_*.png"))))
+        warm_runs.append(warm)
         torch.cuda.synchronize()
         t0 = time.time()
         gen._sample_block(["MEL"] * CLI_BATCH, seeds, False)
         torch.cuda.synchronize()
         runs.append(time.time() - t0)
-    block_s = sorted(runs)[1]
+    warm, block_s = statistics.median(warm_runs), statistics.median(runs)
     blocks = GEN_IMAGES // CLI_BATCH
-    print(f"[generator] warm (same ImageGenerator): {warm:.3f} s, {GEN_IMAGES / warm:.2f} "
-          f"images/s on {card}; PNGs byte-identical to the cold run: {same}; the "
-          f"sampler alone, one block, median of 3 ({', '.join(f'{r:.4f}' for r in runs)} "
-          f"s): {block_s / CLI_STEPS:.5f} s/step, {CLI_BATCH / block_s:.2f} images/s, so "
-          f"{blocks} blocks sample in {blocks * block_s:.3f} s of the {warm:.3f} s and "
-          f"the rest is PNG, sidecar and CSV writes", flush=True)
+    share = blocks * block_s / warm
+    print(f"[generator] warm (same ImageGenerator), median of {GEN_WARM_ROUNDS} "
+          f"({', '.join(f'{r:.4f}' for r in warm_runs)} s): {warm:.4f} s, "
+          f"{GEN_IMAGES / warm:.2f} images/s on {card}; PNGs byte-identical to the cold "
+          f"run: {same}; the sampler alone, one block, in turns with it "
+          f"({', '.join(f'{r:.4f}' for r in runs)} s): {block_s / CLI_STEPS:.5f} s/step, "
+          f"{CLI_BATCH / block_s:.2f} images/s, so {blocks} blocks sample in "
+          f"{blocks * block_s:.4f} s of the {warm:.4f} s (sampler share {share:.3f}; the "
+          f"rest is the writes the walks do not hide)", flush=True)
     check(same, "the same generate_images call wrote other bytes the second time")
-    return dict(launches=launches, wall_s=wall, warm_s=warm, block_s=block_s,
-                out=out, ckpt=ckpt)
+    if check_sync:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            queued = gen._sample_block(["MEL"] * CLI_BATCH, seeds, False)
+            queue_s = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        walk_s = time.perf_counter() - t0
+        check(list(queued["noise_hashes"]) == [m["noise_hash"] for m in sidecars[:CLI_BATCH]],
+              "the noise hashes of a re-queued first block")
+        print(f"[generator] one block queued under set_sync_debug_mode('error'): no host "
+              f"synchronisation; sample() returned after {queue_s:.4f} s, the walk ended "
+              f"after {walk_s:.4f} s; its noise hashes are the sidecars'", flush=True)
+    return dict(launches=launches, wall_s=wall, warm_s=warm, warm_runs=warm_runs,
+                block_s=block_s, sampler_share=share, out=out, ckpt=ckpt)
 
 
 def phase_generator_f32_fast(state: dict, card: str, base: Path) -> dict:
@@ -2043,6 +2105,308 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
+def _serve_requests(host: str, port: int, payloads: list, delays: list) -> list:
+    """Each payload sent by its own client thread `delays[i]` s after the
+    call; returns (reply, seconds from the first send to the reply, clock
+    at the reply) per payload."""
+    from synt_isic_tpu_torch.serve import request
+
+    results = [None] * len(payloads)
+    t0 = time.perf_counter()
+
+    def client(i):
+        time.sleep(max(0.0, t0 + delays[i] - time.perf_counter()))
+        sent = time.perf_counter()
+        reply = request(host, port, payloads[i], timeout=600)
+        done = time.perf_counter()
+        results[i] = (reply, done - sent, done)
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads) and all(results), "a client got no reply")
+    return results
+
+
+def _serve_subprocess(ckpt: Path, out: Path) -> dict:
+    """`python -m synt_isic_tpu_torch.serve` in a fresh process: the bound
+    port from its "serving on" line, then classes, a 2-image generate and
+    shutdown; the process is killed if it is still running at the end."""
+    from synt_isic_tpu_torch.serve import request
+
+    argv = ["--port", "0", "--warmup", "MEL", "--batch", str(SERVE_BATCH), "--steps",
+            str(SERVE_STEPS), "--scheduler", "ddim", "--checkpoints", str(ckpt),
+            "--output-root", str(out)]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.Popen([sys.executable, "-m", "synt_isic_tpu_torch.serve", *argv],
+                            cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, serving = [], []
+    found = threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("serving on "):
+                serving.append(line)
+                found.set()
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        t0 = time.perf_counter()
+        check(found.wait(timeout=300), "the daemon printed no 'serving on' line:\n"
+              + "\n".join(lines))
+        up_s = time.perf_counter() - t0
+        host, port = re.search(r"serving on ([\d.]+):(\d+)", serving[0]).groups()
+        classes = request(host, int(port), {"op": "classes"}, timeout=60)
+        reply = request(host, int(port), {"op": "generate", "class": "MEL", "count": 2},
+                        timeout=300)
+        down = request(host, int(port), {"op": "shutdown"}, timeout=60)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+    check(classes == {"ok": True, "classes": ["MEL"]}, f"daemon classes: {classes}")
+    check(reply.get("ok") and len(reply["files"]) == 2
+          and all(Path(f).exists() for f in reply["files"]), f"daemon generate: {reply}")
+    check(down.get("ok") and rc == 0, f"daemon shutdown {down}, rc {rc}:\n" + "\n".join(lines))
+    warm_line = next((line for line in lines if "compiled_batches" in line), "")
+    print(f"[serve] python -m synt_isic_tpu_torch.serve {' '.join(argv[:8])} ...: up in "
+          f"{up_s:.1f} s ({warm_line.strip()}); classes, a 2-image generate "
+          f"({reply['elapsed_s']} s) and shutdown: rc {rc}", flush=True)
+    return {"up_s": up_s, "rc": rc}
+
+
+def _serve_webui(ckpt: Path, base: Path) -> dict:
+    """The web UI on the card: one 4-image generation through its worker,
+    then the device memory its state reports."""
+    import urllib.request
+
+    from synt_isic_tpu_torch.app.webui import WebUIServer
+    from synt_isic_tpu_torch.utils.config import ConfigManager
+
+    cfg = ConfigManager(config_file=str(base / "config.json"), project_root=str(base))
+    gen = ImageGenerator(config=cfg, checkpoints_dir=str(ckpt), device="cuda")
+    app = WebUIServer(generator=gen, config=cfg, checkpoints_dir=str(ckpt),
+                      output_dir=str(base / "generated")).start()
+
+    def call(path, body=None):
+        req = urllib.request.Request(f"http://127.0.0.1:{app.port}{path}",
+                                     data=None if body is None else json.dumps(body).encode(),
+                                     method="GET" if body is None else "POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return json.loads(r.read())
+    try:
+        t0 = time.perf_counter()
+        started = call("/api/generate", {"classes": {"MEL": SERVE_WEBUI_IMAGES},
+                                         "steps": SERVE_STEPS, "seed_mode": "fixed",
+                                         "seed": SERVE_SEED, "postprocess": False})
+        deadline = time.time() + 300
+        state = call("/api/state")
+        while state["busy"] and time.time() < deadline:
+            time.sleep(0.1)
+            state = call("/api/state")
+        wall = time.perf_counter() - t0
+    finally:
+        app.stop()
+    files = sorted((base / "generated" / "MEL").glob("ISIC_*.png"))
+    check(started.get("ok") and not state["busy"]
+          and (state["last_result"] or {}).get("generated") == SERVE_WEBUI_IMAGES
+          and len(files) == SERVE_WEBUI_IMAGES, f"web UI generation: {state}")
+    mem = state["memory"]
+    check(state["device"].startswith("cuda") and (mem["mb_in_use"] or 0) > 0,
+          f"web UI state reports no device memory: {state['device']} {mem}")
+    print(f"[serve] web UI (WebUIServer, f32, batch {gen.batch_size}, "
+          f"{gen.scheduler_kind} {SERVE_STEPS}): {SERVE_WEBUI_IMAGES} PNGs in {wall:.2f} s; "
+          f"/api/state memory {mem} on {state['device']}, n_devices {state['n_devices']}",
+          flush=True)
+    return {"wall_s": wall, "memory": mem}
+
+
+def phase_serve(state: dict, card: str, base: Path) -> dict:
+    """[serve] the serving path on the card: an in-process `GenerationServer`
+    over `ImageGenerator(device="cuda")` (warmup, coalesced concurrent
+    clients, the served bytes against the library's, interactive requests
+    behind a bulk job, the scheduler-only fast lane, an XAI request,
+    status), the daemon as `python -m synt_isic_tpu_torch.serve` in a fresh
+    process, and the web UI; K1 launched exactly 6 times per UNet
+    evaluation of every walk, counted from the sampler calls, and no plain
+    attention call."""
+    from unittest import mock
+
+    from synt_isic_tpu_torch.diffusion.sampler import DiffusionSampler
+    from synt_isic_tpu_torch.models import unet2d as unet2d_module
+    from synt_isic_tpu_torch.serve import GenerationServer, request
+    from synt_isic_tpu_torch.xai import create_integrated_xai_analyzer
+
+    ckpt = base / "checkpoints"
+    ckpt.mkdir(parents=True)
+    torch.save(state, ckpt / "unet_MEL_best.pth")
+    report = {}
+
+    def generator() -> ImageGenerator:
+        gen = ImageGenerator(checkpoints_dir=str(ckpt), compute_dtype=torch.bfloat16)
+        gen.scheduler_kind = "ddim"
+        gen.set_inference_steps(SERVE_STEPS)
+        gen.batch_size = SERVE_BATCH
+        return gen
+
+    gen = generator()
+    fast = generator()
+    fast.model_manager = gen.model_manager          # serve --fast-scheduler: one set of weights
+    fast.scheduler_kind, fast.timestep_spacing = "unipc", "trailing"
+    fast.set_inference_steps(SERVE_FAST_STEPS)
+    fast.save_trajectory = False
+    figures = importlib.util.find_spec("matplotlib") is not None
+    srv = GenerationServer(
+        gen, port=0, output_root=str(base / "served"), max_batch=SERVE_BATCH,
+        interactive_cost=SERVE_COST, fast_generator=fast,
+        xai_analyzer_factory=lambda: create_integrated_xai_analyzer(
+            device="cuda", verbose=False, ig_n_steps=10, shap_n_samples=64,
+            n_bootstrap=200, n_permutations=1000, save_figures=figures, viz_every_n=5))
+    host, port = srv.address
+
+    walks, plain_calls = [], []
+    sample = DiffusionSampler.sample
+    plain_ref = unet2d_module.attention_reference
+
+    def counted_sample(self, model, seeds, *args, **kwargs):
+        walks.append(self.config.num_inference_steps)
+        return sample(self, model, seeds, *args, **kwargs)
+
+    def plain_spy(*args, **kwargs):
+        plain_calls.append(1)
+        return plain_ref(*args, **kwargs)
+
+    reset_launches()
+    t_phase = time.perf_counter()
+    with mock.patch.object(DiffusionSampler, "sample", counted_sample), \
+            mock.patch.object(unet2d_module, "attention_reference", plain_spy):
+        srv.start()
+        try:
+            # 1. warmup: weights, kernels, a b1 and a device-batch walk
+            w = request(host, port, {"op": "warmup", "class": "MEL", "compile": True})
+            check(w.get("ok") and w.get("compiled_batches") == [1, SERVE_BATCH],
+                  f"warmup: {w}")
+            print(f"[serve] GenerationServer over ImageGenerator(device='cuda'), bf16, batch "
+                  f"{SERVE_BATCH}, DDIM {SERVE_STEPS} leading: warmup {w}", flush=True)
+
+            # 2. concurrent seedless clients, coalesced; the library's warm rate
+            burst = _serve_requests(host, port, [
+                {"op": "generate", "class": "MEL", "count": SERVE_COUNT,
+                 "postprocess": False}] * SERVE_CLIENTS, [0.0] * SERVE_CLIENTS)
+            replies = [r for r, _, _ in burst]
+            files = [f for r in replies for f in r.get("files", [])]
+            served_s = max(done for _, _, done in burst) - min(
+                done - lat for _, lat, done in burst)
+            check(all(r.get("ok") for r in replies) and len(files) == SERVE_CLIENTS * SERVE_COUNT
+                  and all(Path(f).exists() for f in files)
+                  and max(r["coalesced"] for r in replies) >= 2, f"burst replies {replies}")
+            lib = generator()
+            lib.generate_images([("MEL", SERVE_CLIENTS * SERVE_COUNT)], str(base / "lib_cold"),
+                                postprocess=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lib.generate_images([("MEL", SERVE_CLIENTS * SERVE_COUNT)], str(base / "lib_warm"),
+                                postprocess=False)
+            torch.cuda.synchronize()
+            lib_s = time.perf_counter() - t0
+            n = SERVE_CLIENTS * SERVE_COUNT
+            report.update(served_img_s=n / served_s, library_img_s=n / lib_s)
+            print(f"[serve] {SERVE_CLIENTS} concurrent clients x {SERVE_COUNT} seedless images: "
+                  f"all ok, {len(files)} files, coalesced "
+                  f"{sorted(r['coalesced'] for r in replies)}; served {n} images in "
+                  f"{served_s:.3f} s = {n / served_s:.2f} images/s (host clock, first send "
+                  f"to last reply) against generate_images warm {n / lib_s:.2f} images/s "
+                  f"({n} images in blocks of {SERVE_BATCH}, {lib_s:.3f} s) on {card}: "
+                  f"{lib_s / served_s:.3f} of the library's rate", flush=True)
+
+            # 3. the served bytes are the library's
+            seeded = request(host, port, {"op": "generate", "class": "MEL",
+                                          "count": SERVE_BATCH, "seed": SERVE_SEED})
+            lib.set_generation_seed(SERVE_SEED)
+            lib.generate_images([("MEL", SERVE_BATCH)], str(base / "lib_seeded"))
+            mine = [Path(f).read_bytes() for f in seeded.get("files", [])]
+            theirs = [p.read_bytes() for p in
+                      sorted((base / "lib_seeded" / "MEL").glob("ISIC_*.png"))]
+            check(seeded.get("ok") and len(mine) == SERVE_BATCH and mine == theirs,
+                  f"served fixed-seed PNGs differ from generate_images': {seeded}")
+            print(f"[serve] fixed-seed generate of {SERVE_BATCH}: PNGs byte-identical to "
+                  f"ImageGenerator.generate_images([('MEL', {SERVE_BATCH})]) at seed "
+                  f"{SERVE_SEED} on a second generator", flush=True)
+
+            # 4. interactive requests behind a bulk job
+            mixed = _serve_requests(host, port, [
+                {"op": "generate", "class": "MEL", "count": SERVE_BULK,
+                 "steps": SERVE_BULK_STEPS, "postprocess": False}] + [
+                {"op": "generate", "class": "MEL", "count": 1, "steps": SERVE_STEPS,
+                 "postprocess": False}] * SERVE_INTERACTIVE,
+                [0.0] + [0.5 + SERVE_GAP * i for i in range(SERVE_INTERACTIVE)])
+            (bulk, bulk_s, bulk_done), inter = mixed[0], mixed[1:]
+            lat = sorted(l for _, l, _ in inter)
+            p50 = lat[min(len(lat) - 1, round(0.5 * (len(lat) - 1)))]
+            p95 = lat[min(len(lat) - 1, round(0.95 * (len(lat) - 1)))]
+            check(bulk.get("ok") and len(bulk["files"]) == SERVE_BULK, f"bulk reply {bulk}")
+            check(all(r.get("ok") and r.get("interactive") is True and done < bulk_done
+                      for r, _, done in inter),
+                  f"interactive replies {[(r, done - bulk_done) for r, _, done in inter]}")
+            report.update(interactive_p50_s=p50, interactive_p95_s=p95, bulk_s=bulk_s)
+            print(f"[serve] mixed load (bench_serve.py --mixed): bulk {SERVE_BULK} images at "
+                  f"DDIM {SERVE_BULK_STEPS} in {bulk_s:.3f} s; {SERVE_INTERACTIVE} interactive b1 "
+                  f"DDIM {SERVE_STEPS} requests {SERVE_GAP} s apart, all served between its "
+                  f"blocks and answered before it: p50 {p50:.3f} s, p95 {p95:.3f} s "
+                  f"({', '.join(f'{x:.3f}' for x in lat)})", flush=True)
+
+            # 5. the scheduler-only fast lane; 6. an XAI request
+            f = request(host, port, {"op": "generate", "class": "MEL", "count": 2,
+                                     "fast": True, "postprocess": False})
+            check(f.get("ok") and f.get("fast_steps") == SERVE_FAST_STEPS
+                  and len(f["files"]) == 2, f"fast lane reply {f}")
+            t0 = time.perf_counter()
+            x = request(host, port, {"op": "generate", "class": "MEL", "count": 1,
+                                     "xai": True, "postprocess": False})
+            xai_s = time.perf_counter() - t0
+            check(x.get("ok") and x.get("xai_dir") and "xai_error" not in x
+                  and any(Path(x["xai_dir"]).rglob("analysis_results.json")),
+                  f"xai reply {x}")
+            print(f"[serve] fast lane (UniPC {SERVE_FAST_STEPS} trailing, the same weights): "
+                  f"2 images in {f['elapsed_s']} s, fast_steps {f['fast_steps']}; an xai "
+                  f"request of 1 image (IG 10, SHAP 64): {xai_s:.2f} s, {x['xai_dir']}",
+                  flush=True)
+
+            # 7. status
+            st = request(host, port, {"op": "status"})
+            check(st.get("ok") and st["loaded_models"] == ["MEL"] and st["mesh"] is None
+                  and st["latency"]["n"] > 0 and st["interactive_latency"]["n"] >= 1
+                  and st["throughput_img_s"] > 0, f"status {st}")
+            print(f"[serve] status: latency {st['latency']}, interactive "
+                  f"{st['interactive_latency']}, throughput {st['throughput_img_s']} img/s, "
+                  f"served {st['served_images']}, loaded {st['loaded_models']}", flush=True)
+        finally:
+            srv.stop()
+        webui = _serve_webui(ckpt, base / "webui")
+        torch.cuda.synchronize()
+    launches = dict(attention.LAUNCHES)
+    evaluations = sum(walks)
+    others = sum(n for key, n in launches.items() if key != attention.KERNEL)
+    print(f"[serve] {len(walks)} walks, {evaluations} UNet evaluations in-process: "
+          f"attention_fwd launches {launches[attention.KERNEL]} (want "
+          f"{ATTENTION_CALLS_PER_UNET * evaluations}), other kernels {others}, plain "
+          f"attention calls {len(plain_calls)}; in-process part "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(launches[attention.KERNEL] == ATTENTION_CALLS_PER_UNET * evaluations
+          and others == 0 and not plain_calls,
+          f"the serving path launched {launches} for {evaluations} evaluations, "
+          f"{len(plain_calls)} plain calls")
+    daemon = _serve_subprocess(ckpt, base / "daemon")
+    report.update(launches=launches[attention.KERNEL], unet_evaluations=evaluations,
+                  webui=webui, daemon=daemon)
+    return report
+
+
 def phase_train(card: str, f32: bool = False) -> dict:
     """The training entry point (`[train]`; with `f32`, `train --no-bf16` as
     `[train-f32]`), its launch counts, and train -> sample."""
@@ -2511,6 +2875,27 @@ def main() -> int:
             report = phase_xai(phase_unet(), card["card"], Path(tmp))
         print(json.dumps({"xai": report, "card": card["card"]}, default=str), flush=True)
         return 0
+    if sys.argv[1:] == ["--generator"]:
+        # the [generator] phase alone at G = GEN_GROUP, likewise (on a parent
+        # tree: its warm time without the pipeline)
+        native.build([attention.KERNEL])
+        torch.manual_seed(0)
+        state = UNet2D(UNet2DConfig()).state_dict()
+        with tempfile.TemporaryDirectory() as tmp:
+            report = phase_generator(state, card["card"], Path(tmp), GEN_GROUP,
+                                     check_sync=False)
+        print(json.dumps({"generator": {k: report[k] for k in
+                                        ("wall_s", "warm_s", "warm_runs", "block_s",
+                                         "sampler_share")},
+                          "card": card["card"]}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--serve"]:
+        # the [serve] phase alone, on the full-width UNet of [unet]
+        native.build([attention.KERNEL])
+        with tempfile.TemporaryDirectory() as tmp:
+            report = phase_serve(phase_unet(), card["card"], Path(tmp))
+        print(json.dumps({"serve": report, "card": card["card"]}, default=str), flush=True)
+        return 0
     if sys.argv[1:] == ["--fast-f32"]:
         # the f32 fast-math timing of [kernel-fast] alone, likewise
         native.build([attention.KERNEL])
@@ -2534,6 +2919,7 @@ def main() -> int:
         samplers = phase_samplers(state, card["card"], Path(tmp) / "samplers",
                                   Path(tmp) / "cli" / "checkpoints")
         xai = phase_xai(state, card["card"], Path(tmp) / "xai")
+        served = phase_serve(state, card["card"], Path(tmp) / "serve")
     train_launches = phase_train(card["card"])
     phase_bench(card["card"])
     train_f32_launches = phase_train(card["card"], f32=True)
@@ -2584,6 +2970,15 @@ def main() -> int:
         "xai_batch1": xai["batch1"],
         "xai_stage_seconds": xai["stage_seconds"],
         "xai_wall_s": xai["wall_s"],
+        # [serve]: the daemon's in-process server and the web UI, every walk
+        # counted from its sampler call (6 per UNet evaluation); served
+        # images/s beside the library's warm rate, interactive p50/p95
+        "launches_serve": served["launches"],
+        "serve": {k: served[k] for k in ("served_img_s", "library_img_s",
+                                         "interactive_p50_s", "interactive_p95_s",
+                                         "bulk_s", "unet_evaluations")},
+        "generator_warm_s": gen["warm_s"],
+        "generator_sampler_share": gen["sampler_share"],
         "sampler_update_s": samplers["update_s"],
         "sampler_busy_s": {k: p.get("busy_s") for k, p in samplers["profiles"].items()},
         "sampler_attention_s": {k: p.get("attention_s")

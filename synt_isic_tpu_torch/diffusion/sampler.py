@@ -25,15 +25,19 @@ bits, so the numbers differ from the JAX package's for the same seed):
     `fold_in(key, S + 1 + k)` is from `fold_in(key, k + 1)`;
   * so no image depends on which other images share its batch;
   * `noise_hash` is the SHA-256 of an image's initial noise as f32 NHWC
-    bytes, recorded in sidecars.
+    bytes, recorded in sidecars. On CUDA the noise goes to pinned host
+    memory by a copy queued before the first UNet call and is hashed when
+    `noise_hashes` is first read, so `sample()` returns without waiting for
+    the device.
 
 Public tensors are NHWC, as in the JAX package; the model is called NCHW.
 """
 from __future__ import annotations
 
+import collections.abc
 import dataclasses
 import hashlib
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -114,6 +118,59 @@ def save_indices(num_steps: int, save_every: int,
 def noise_hash(noise: np.ndarray) -> str:
     """SHA-256 (first 16 hex chars) of the initial noise as f32 bytes."""
     return hashlib.sha256(np.ascontiguousarray(noise, dtype=np.float32).tobytes()).hexdigest()[:16]
+
+
+class HostCopy:
+    """A tensor's copy in host memory, started now and read later. On CUDA
+    the copy goes into a pinned buffer, queued without blocking on the
+    current stream behind the work that makes the tensor, with an event
+    recorded behind it: `numpy()` waits on that event alone, never on work
+    queued after it. Elsewhere the tensor already is in host memory."""
+
+    def __init__(self, tensor: torch.Tensor):
+        tensor = tensor.detach()
+        self._ready = None
+        if tensor.device.type != "cuda":
+            self._host = tensor
+            return
+        self._host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+        self._host.copy_(tensor, non_blocking=True)
+        self._ready = torch.cuda.Event()
+        self._ready.record()
+
+    def numpy(self) -> np.ndarray:
+        if self._ready is not None:
+            self._ready.synchronize()
+        return self._host.numpy()
+
+
+class NoiseHashes(collections.abc.Sequence):
+    """The `noise_hash` of each image of a block, computed from a
+    `HostCopy` of its initial noise when first read."""
+
+    def __init__(self, noise: HostCopy):
+        self._noise: Optional[HostCopy] = noise
+        self._hashes: List[str] = []
+
+    def _list(self) -> List[str]:
+        if self._noise is not None:
+            self._hashes = [noise_hash(n) for n in self._noise.numpy()]
+            self._noise = None
+        return self._hashes
+
+    def __getitem__(self, index):
+        return self._list()[index]
+
+    def __len__(self) -> int:
+        return len(self._list())
+
+
+def noise_hashes(noise: torch.Tensor) -> Sequence[str]:
+    """The hashes of a block's initial noise (B, H, W, C): on CUDA a
+    `NoiseHashes` whose copy is queued now, elsewhere the list itself."""
+    if noise.device.type == "cuda":
+        return NoiseHashes(HostCopy(noise))
+    return [noise_hash(n) for n in noise.numpy()]
 
 
 def _step_seed(seed: int, k: int) -> int:
@@ -284,6 +341,8 @@ class DiffusionSampler:
         about [-1, 1] on the device, plus the trajectory when requested:
         `True` keeps every step ((S, B, H, W, C)); an int n keeps only the
         frames at `save_indices(steps, n)` and returns those indices too.
+        On CUDA it returns once the walk is queued, without waiting for the
+        device; `noise_hashes` waits for the initial noise's copy alone.
 
         `stream_to_host=True` (with either capture mode) copies each kept
         frame to host memory as the walk goes (on CUDA: pinned buffers,
@@ -306,6 +365,8 @@ class DiffusionSampler:
         noise = (self.initial_noise(seeds_arr) if initial_noise is None
                  else torch.as_tensor(initial_noise, dtype=torch.float32,
                                       device=self.device))
+        # queued before the walk: reading the hashes waits for the noise alone
+        hashes = noise_hashes(noise)
         if step_noise is not None:
             step_noise = torch.as_tensor(step_noise, device=self.device)
         streamed = bool(stream_to_host and capture_trajectory)
@@ -325,8 +386,7 @@ class DiffusionSampler:
 
         out: Dict[str, Any] = {
             "images": carry[0].float().permute(0, 2, 3, 1),
-            # hashed after the walk is queued, so the copy does not delay it
-            "noise_hashes": [noise_hash(n) for n in noise.cpu().numpy()],
+            "noise_hashes": hashes,
             "timesteps": self.timesteps.copy(),
             "seeds": seeds_arr.copy(),
         }
@@ -407,6 +467,7 @@ class DiffusionSampler:
         noise = (self.initial_noise(seeds_arr) if initial_noise is None
                  else torch.as_tensor(initial_noise, dtype=torch.float32,
                                       device=self.device))
+        hashes = noise_hashes(noise)
         x_start = (float(np.float32(np.sqrt(ab0))) * init
                    + float(np.float32(np.sqrt(1.0 - ab0))) * noise)
         if step_noise is not None:
@@ -443,7 +504,7 @@ class DiffusionSampler:
 
         out: Dict[str, Any] = {
             "images": x.float().permute(0, 2, 3, 1),
-            "noise_hashes": [noise_hash(n) for n in noise.cpu().numpy()],
+            "noise_hashes": hashes,
             "timesteps": self.timesteps.copy(),
             "seeds": seeds_arr.copy(),
             "strength": s,

@@ -34,10 +34,15 @@ The same contract as the JAX package:
     rows of classes absent from the map, see ROADMAP C5).
 
 The noise streams are the port's own (`diffusion/sampler.py`), so a seed
-gives other images here than in the JAX package. `sample()` waits for its
-block (the noise hash is read back after the walk), so the JAX package's
-overlap of one block's file writes with the next block's sampling has no
-counterpart here: blocks run one after the other.
+gives other images here than in the JAX package. `generate_images` runs the
+JAX package's two-stage pipeline: `sample()` returns once a block's walk is
+queued (its noise hashes come from a pinned copy made before the walk), the
+block's images start for a pinned host buffer at once with an event behind
+them, block k+1 is queued, and only then are block k's PNGs, sidecars and
+CSV rows written, waiting on block k's event alone, while block k+1 runs on
+the device. A stop between blocks leaves the block in flight unwritten, as
+in the JAX package. Trajectory mode (integrated XAI) keeps one block in
+flight: two captured walks would double the capped device footprint.
 
 Integrated XAI (`set_xai_analyzer`, `set_xai_frequency`,
 `set_save_trajectory`): with an analyzer set and trajectories on, a block
@@ -67,7 +72,7 @@ import torch
 from PIL import Image
 
 from .cache import CacheManager
-from .diffusion.sampler import to_uint8_images
+from .diffusion.sampler import HostCopy, to_uint8_images
 from .io.color_stats import apply_color_postprocessing, load_color_statistics
 from .io.csv_io import append_synthetic_row, initialize_synthetic_csv
 from .io.images import save_image, write_sidecar_metadata
@@ -315,9 +320,11 @@ class ImageGenerator:
         return tuple(table)
 
     # -- core generation --------------------------------------------------------------------
-    def _sampler(self):
+    def _sampler(self, steps: Optional[int] = None):
+        """The sampler of this generator's settings (at `steps`, else its
+        own inference steps): the one its blocks run."""
         return self.model_manager.create_sampler(
-            self.inference_steps, scheduler=self.scheduler_kind,
+            steps or self.inference_steps, scheduler=self.scheduler_kind,
             ddim_eta=self.ddim_eta, timestep_spacing=self.timestep_spacing,
             guidance_scale=self.guidance_scale,
             guidance_table=self._guidance_table())
@@ -614,8 +621,37 @@ class ImageGenerator:
                         return blk[:k]
                 return blk
 
+            def queue_block(blk: List[Tuple[str, int]]) -> Optional[tuple]:
+                """Queue `blk`'s walk and its images' copy to the host, or
+                drop the classes whose model does not load (None). In a
+                mixed block one unknown class must not take its block-mates
+                with it: the rest are blocked again in the next round."""
+                block_classes = list(dict.fromkeys(cls for cls, _ in blk))
+                for cls in block_classes:
+                    if cls not in announced:
+                        announced.add(cls)
+                        self._log(f"generating {class_totals[cls]} images for class {cls}")
+                        (output_path / cls).mkdir(exist_ok=True)
+                failed = [cls for cls in block_classes if not mm.load_model(cls)]
+                if failed:
+                    for cls in failed:
+                        self._log(f"model unavailable for {cls}", "error")
+                    dead.update(failed)
+                    return None
+                seeds = np.asarray([self._seed_for(cls, i, offsets) for cls, i in blk],
+                                   dtype=np.uint32)
+                out = self._sample_block([cls for cls, _ in blk], seeds, need_traj)
+                # one device->host copy for the whole block, started before
+                # the next block is queued: read after it, a plain copy
+                # would wait for that block too
+                return dict(out, images=HostCopy(out["images"])), seeds, blk
+
+            # two stages: block k's files are written while block k+1 runs
+            # on the device; one block at a time in trajectory mode
+            pipeline = not need_traj
             index = 0
-            while index < len(items) and not self.stop_requested:
+            pending = None   # the block queued in an earlier round, unwritten
+            while (index < len(items) or pending is not None) and not self.stop_requested:
                 if self.between_blocks_hook is not None:
                     try:
                         self.between_blocks_hook()
@@ -623,31 +659,21 @@ class ImageGenerator:
                         self._log(f"between-blocks hook failed: {exc}", "warning")
                     if self.stop_requested:
                         break
-                if items[index][0] in dead:
+                while index < len(items) and items[index][0] in dead:
                     index += 1
+                queued = None
+                if index < len(items):
+                    blk = block_at(index)
+                    queued = queue_block(blk)
+                    if queued is not None:
+                        index += len(blk)
+                if not pipeline and queued is not None:
+                    pending, queued = queued, None
+                if pending is None:
+                    pending = queued
                     continue
-                blk = block_at(index)
-                block_classes = list(dict.fromkeys(cls for cls, _ in blk))
-                for cls in block_classes:
-                    if cls not in announced:
-                        announced.add(cls)
-                        self._log(f"generating {class_totals[cls]} images for class {cls}")
-                        (output_path / cls).mkdir(exist_ok=True)
-                # drop only the classes that do not load: in a mixed block
-                # one unknown class must not take its block-mates with it;
-                # the rest are blocked again in the next round
-                failed = [cls for cls in block_classes if not mm.load_model(cls)]
-                if failed:
-                    for cls in failed:
-                        self._log(f"model unavailable for {cls}", "error")
-                    dead.update(failed)
-                    continue
-                seeds = np.asarray([self._seed_for(cls, i, offsets) for cls, i in blk],
-                                   dtype=np.uint32)
-                out = self._sample_block([cls for cls, _ in blk], seeds, need_traj)
-                index += len(blk)
-                # one device->host copy for the whole block
-                out = dict(out, images=out["images"].cpu().numpy())
+                (out, seeds, blk), pending = pending, queued
+                out = dict(out, images=out["images"].numpy())
                 for j, (class_name, _) in enumerate(blk):
                     if self.stop_requested:
                         break

@@ -187,17 +187,20 @@ def test_batched_equals_serial_and_seeds_reproduce(tmp_path, ckpt_dir):
 
 
 def test_stop_generation_halts_between_blocks(tmp_path, ckpt_dir):
+    """The hook runs before each round of the pipeline: the first round
+    queues block 0, the second queues block 1 and writes block 0, so a
+    stop at the third call leaves block 1, queued but unwritten, out."""
     gen = _port(ckpt_dir)
     calls, progress = [], []
     gen.set_progress_callback(lambda done, total, msg: progress.append((done, total)))
 
     def hook():
         calls.append(1)
-        if len(calls) == 2:
+        if len(calls) == 3:
             gen.stop_generation()
     gen.between_blocks_hook = hook
     result = gen.generate_images([("MEL", 6)], str(tmp_path / "out"))
-    assert result["generated"] == BATCH and result["stopped"]
+    assert result["generated"] == BATCH and result["stopped"] and len(calls) == 3
     assert len(list((tmp_path / "out" / "MEL").glob("*.png"))) == BATCH
     assert progress == [(STEPS, 6 * STEPS), (2 * STEPS, 6 * STEPS)]
     assert gen.get_generation_status()["is_generating"] is False
@@ -455,3 +458,160 @@ def test_trajectory_block_is_capped(ckpt_dir, tmp_path):
         gen.set_xai_analyzer(analyzer)
         assert "recorded" in gen.generate_images([("MEL", 40)], str(tmp_path))["error"]
         assert seen.pop() == want
+
+
+# -- the two-stage pipeline against the JAX generator ---------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_gen(ckpt_dir):
+    """One JAX generator for the pipeline tests, its samplers on injected noise."""
+    jgen = jax_generator.ImageGenerator(checkpoints_dir=str(ckpt_dir), model_config=TINY_JAX)
+    jgen.set_inference_steps(STEPS)
+    jgen.scheduler_kind = "ddim"
+    jgen.batch_size = BATCH
+    jgen.set_generation_seed(SEED)
+    images = []
+    _inject(jgen, jnp.asarray, images)
+    return jgen, images
+
+
+def _run_both(tmp_path, ckpt_dir, jax_gen, request, stop_at=None, analyzer=None):
+    """`request` through the port's generator and the JAX one, a hook that
+    counts its calls and stops at call `stop_at`; returns per side the
+    result, the hook's calls and the artifacts, and the float images."""
+    jgen, jax_images = jax_gen
+    del jax_images[:]
+    port_images = []
+    gen = _port(ckpt_dir)
+    _inject(gen, lambda a: a, port_images)
+    sides = {}
+    for name, g in (("port", gen), ("jax", jgen)):
+        calls = []
+
+        def hook(g=g, calls=calls):
+            calls.append(1)
+            if len(calls) == stop_at:
+                g.stop_generation()
+        g.between_blocks_hook = hook
+        g.set_save_trajectory(analyzer is not None)
+        g.set_xai_analyzer(analyzer)
+        g.set_xai_frequency(1)
+        result = g.generate_images(request, str(tmp_path / name), postprocess=False)
+        g.between_blocks_hook = None
+        g.set_xai_analyzer(None)
+        pngs = sorted(p.relative_to(tmp_path / name) for p in (tmp_path / name).rglob("*.png"))
+        with open(tmp_path / name / "synthetic_dataset.csv", newline="") as f:
+            rows = [{k: v for k, v in r.items() if k != "generated_at"}
+                    for r in csv.DictReader(f)]
+        sidecars = [_without_clock(json.loads((tmp_path / name / p).with_suffix(".json")
+                                              .read_text())) for p in pngs]
+        sides[name] = ({k: v for k, v in result.items()
+                        if k in ("generated", "requested", "stopped")},
+                       len(calls), pngs, rows, sidecars)
+    assert sides["port"] == sides["jax"]
+    # after a stop from the hook the JAX loop still samples the next block,
+    # if there is one, and drops it; the port queues none once stopped
+    extra = len(jax_images) - len(port_images)
+    assert extra in ((0, 1) if sides["port"][0]["stopped"] else (0,))
+    assert [i.shape for i in port_images] == [i.shape for i in jax_images][:len(port_images)]
+    for mine, theirs in zip(port_images, jax_images):
+        np.testing.assert_allclose(mine, theirs, rtol=1e-4, atol=1e-4)
+    return sides["port"]
+
+
+def test_pipeline_matches_jax_with_a_dead_class_mid_list(tmp_path, ckpt_dir, jax_gen):
+    """MEL blocks of 2 and 1, DF (no checkpoint) dropped, then MEL again:
+    the same rounds, files, rows and sidecars as the JAX pipeline."""
+    result, calls, pngs, rows, _ = _run_both(
+        tmp_path, ckpt_dir, jax_gen, [("MEL", 3), ("DF", 2), ("MEL", 1)])
+    assert result == {"generated": 4, "requested": 6, "stopped": False}
+    assert [str(p) for p in pngs] == [f"MEL/ISIC_000000{i}.png" for i in range(1, 5)]
+    assert [r["isic_number"] for r in rows] == ["1", "2", "3", "4"]
+    # one round per block queued or dropped, and the last write
+    assert calls == 5
+
+
+@pytest.mark.parametrize("stop_at, written", [(2, 0), (3, 2), (4, 4)])
+def test_pipeline_stop_between_blocks_matches_jax(tmp_path, ckpt_dir, jax_gen, stop_at,
+                                                  written):
+    """A stop from the hook leaves the block in flight unwritten."""
+    result, calls, pngs, _, _ = _run_both(tmp_path, ckpt_dir, jax_gen, [("MEL", 6)],
+                                          stop_at=stop_at)
+    assert result == {"generated": written, "requested": 6, "stopped": True}
+    assert len(pngs) == written and calls == stop_at
+
+
+def test_trajectory_mode_runs_one_block_at_a_time_as_jax(tmp_path, ckpt_dir, jax_gen):
+    """With integrated XAI on, each round writes the block it queued (no
+    pipeline), so a stop at the hook's second call keeps the first block."""
+    result, calls, pngs, _, _ = _run_both(tmp_path, ckpt_dir, jax_gen, [("MEL", 4)],
+                                          stop_at=2, analyzer=_RecordingAnalyzer())
+    assert result == {"generated": BATCH, "requested": 4, "stopped": True}
+    assert calls == 2 and len(pngs) == BATCH
+
+
+def test_pipeline_reads_each_block_back_before_the_next_is_queued(tmp_path, ckpt_dir):
+    """Block k's host copy is started right after its walk and before block
+    k+1 is queued; its files are written after block k+1 is queued."""
+    from synt_isic_tpu_torch import generator as port_generator
+
+    events = []
+    gen = _port(ckpt_dir)
+    sample_block = gen._sample_block
+
+    def recording_block(classes, seeds, capture):
+        events.append(("queue", len(seeds)))
+        return sample_block(classes, seeds, capture)
+    gen._sample_block = recording_block
+
+    class RecordingCopy(port_generator.HostCopy):
+        def __init__(self, tensor):
+            events.append(("copy", tensor.shape[0]))
+            super().__init__(tensor)
+
+        def numpy(self):
+            events.append(("read", self._host.shape[0]))
+            return super().numpy()
+    write = gen._write_image_artifacts
+
+    def recording_write(out, idx, *args, **kwargs):
+        if idx == 0:
+            events.append(("write", len(out["images"])))
+        return write(out, idx, *args, **kwargs)
+    gen._write_image_artifacts = recording_write
+    original = port_generator.HostCopy
+    port_generator.HostCopy = RecordingCopy
+    try:
+        assert gen.generate_images([("MEL", 5)], str(tmp_path), postprocess=False)[
+            "generated"] == 5
+    finally:
+        port_generator.HostCopy = original
+    assert events == [("queue", 2), ("copy", 2), ("queue", 2), ("copy", 2), ("read", 2),
+                      ("write", 2), ("queue", 1), ("copy", 1), ("read", 2), ("write", 2),
+                      ("read", 1), ("write", 1)]
+
+
+# -- the noise hash -------------------------------------------------------------------------
+
+def test_noise_hash_is_unchanged_and_read_lazily(ckpt_dir):
+    """The hash of a seed's initial noise is today's bytes (SHA-256 of the
+    f32 NHWC noise); `HostCopy` and `NoiseHashes`, which carry it from the
+    card, give the same on the CPU."""
+    import hashlib
+
+    from synt_isic_tpu_torch.diffusion.sampler import HostCopy, NoiseHashes, noise_hash
+
+    gen = _port(ckpt_dir)
+    assert gen.model_manager.load_model("MEL")
+    sampler = gen._sampler()
+    seeds = np.asarray([5, 6], np.uint32)
+    out = sampler.sample(gen.model_manager.loaded_models["MEL"], seeds)
+    noise = sampler.initial_noise(seeds).numpy()
+    today = [hashlib.sha256(np.ascontiguousarray(n, np.float32).tobytes()).hexdigest()[:16]
+             for n in noise]
+    assert out["noise_hashes"] == today and isinstance(out["noise_hashes"], list)
+    # seeds 5 and 6 at 16x16x3, as the sampler hashed them before the pipeline
+    assert today == ["f2233a04737af851", "0041086b9f2c025d"]
+    lazy = NoiseHashes(HostCopy(torch.from_numpy(noise)))
+    assert list(lazy) == today and len(lazy) == 2 and lazy[1] == noise_hash(noise[1])
+    assert HostCopy(torch.ones(3)).numpy().tolist() == [1.0, 1.0, 1.0]

@@ -980,3 +980,75 @@ def test_xai_path_keeps_its_work_on_the_card(cuda):
             compute_causal_shift_comprehensive(clf, frames[:1], res["modified_image"], 1)
     assert all(o.is_cuda for o in outs)
     assert not [op for op in mode.host_ops if any(h in op for h in heavy)], mode.host_ops
+
+
+# -- the serving path ----------------------------------------------------------------------
+
+_SERVE_CFG = UNet2DConfig(sample_size=32, block_out_channels=(32, 64, 64, 64))
+
+
+def _serve_gen(tmp_path, batch):
+    if not (tmp_path / "unet_MEL_best.pth").exists():
+        torch.manual_seed(0)
+        torch.save(UNet2D(_SERVE_CFG).state_dict(), tmp_path / "unet_MEL_best.pth")
+    gen = ImageGenerator(checkpoints_dir=str(tmp_path), device="cuda",
+                         compute_dtype=torch.bfloat16, model_config=_SERVE_CFG)
+    gen.scheduler_kind, gen.batch_size = "ddim", batch
+    gen.set_inference_steps(2)
+    return gen
+
+
+def test_served_fixed_seed_is_byte_identical_to_generate_images(cuda, tmp_path):
+    from synt_isic_tpu_torch.serve import GenerationServer, request
+
+    srv = GenerationServer(_serve_gen(tmp_path, 4), port=0,
+                           output_root=str(tmp_path / "served")).start()
+    try:
+        host, port = srv.address
+        w = request(host, port, {"op": "warmup", "class": "MEL", "compile": True})
+        assert w["ok"] and w["compiled_batches"] == [1, 4]
+        before = dict(attention.LAUNCHES)
+        r = request(host, port, {"op": "generate", "class": "MEL", "count": 4, "seed": 11})
+        assert r["ok"] and r["coalesced"] == 1
+        assert attention.LAUNCHES[attention.KERNEL] - before[attention.KERNEL] == 2 * 6
+    finally:
+        srv.stop()
+    lib = _serve_gen(tmp_path, 4)
+    lib.set_generation_seed(11)
+    assert lib.generate_images([("MEL", 4)], str(tmp_path / "lib"))["generated"] == 4
+    served = [open(f, "rb").read() for f in r["files"]]
+    assert served == [p.read_bytes() for p in sorted((tmp_path / "lib" / "MEL").glob("*.png"))]
+
+
+def test_pipelined_generator_matches_single_block_runs(cuda, tmp_path):
+    """Three blocks in flight two at a time write the bytes that each block
+    run alone writes (same seeds, same block)."""
+    gen = _serve_gen(tmp_path, 2)
+    gen.set_generation_seed(3)
+    assert gen.generate_images([("MEL", 6)], str(tmp_path / "pipelined"))["generated"] == 6
+    piped = sorted((tmp_path / "pipelined" / "MEL").glob("*.png"))
+    for k in range(3):
+        alone = _serve_gen(tmp_path, 2)
+        alone.set_generation_seed(3 + 2 * k)
+        out = tmp_path / f"alone{k}"
+        assert alone.generate_images([("MEL", 2)], str(out))["generated"] == 2
+        assert [p.read_bytes() for p in sorted((out / "MEL").glob("*.png"))] == [
+            p.read_bytes() for p in piped[2 * k:2 * k + 2]]
+
+
+def test_sample_returns_without_a_host_sync(cuda, tmp_path):
+    from synt_isic_tpu_torch.diffusion.sampler import noise_hash
+
+    gen = _serve_gen(tmp_path, 4)
+    assert gen.model_manager.load_model("MEL")
+    sampler, model = gen._sampler(), gen.model_manager.loaded_models["MEL"]
+    seeds = np.arange(4, dtype=np.uint32)
+    sampler.sample(model, seeds)                       # builds the kernel, warms up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = sampler.sample(model, seeds)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    noise = sampler.initial_noise(seeds).cpu().numpy()
+    assert list(out["noise_hashes"]) == [noise_hash(n) for n in noise]
