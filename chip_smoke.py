@@ -68,7 +68,30 @@ Phases, each of which exits non-zero on failure:
      bf16_compute off) with its profiler split; `python3 chip_smoke.py
      --f32` runs [f32] alone after the build, also in a parent tree with
      this script copied in;
-  9. [kernel-fast] the forward kernel's fast-math variant (bf16
+   8c. [distill] `python -m synt_isic_tpu_torch.train --distill-from` on a
+     seeded full-width teacher (save_checkpoint of `UNet2DConfig()`), 32
+     procedural MEL images, batch 16, 16 -> 4 steps: phases 8 and 4 of 8
+     steps; exactly 18 forward launches per step (two teacher forwards
+     without the log-sum-exp, the student's with it) and 6 backward, no
+     statistics launch; finite losses; `unet_MEL_distill8.pth` and
+     `unet_MEL_distill4.pth` written; the 4-step student loaded by
+     `ModelManager(variant="distill4")` and sampled at DDIM 4 trailing
+     (exactly 24 launches, finite images); then the warm distillation step
+     at batch 32 beside [bench]'s train step, its peak memory and its
+     profiler split (`python3 chip_smoke.py --distill` runs card, build,
+     the train step and this phase alone);
+  8d. [remat] `measure_train_step(remat_mode=m)` for none/all/hires/attn/dots
+     at batch 32 and 64: s/step, peak memory, launches per step (6 or 12
+     forward, 6 backward, no statistics launch), every mode's peak below
+     none's; one step's gradients at full width under deterministic cuDNN,
+     every mode torch.equal to none's (`python3 chip_smoke.py --remat` runs
+     card, build and this phase alone);
+  8e. [train-classifier] `train --train-classifier` on 8 procedural JPEGs per
+     class for the seven classes and their one-hot CSV, 2 epochs of batch
+     16: finite epochs; `classifier.pth` loaded by the XAI classifier with
+     nothing skipped, its logits on a probe batch torch.equal to an f32
+     rebuild from the file and near the trained model's own; the warm step;
+ 9. [kernel-fast] the forward kernel's fast-math variant (bf16
      exponentials) at the sampling path's shapes, f32 and bf16, in both
      layouts (both on the tensor cores at head_dim 8): within 1e-2 of its
      plain version, within the JAX package's fast-math tolerance (rtol
@@ -231,7 +254,7 @@ from synt_isic_tpu_torch.models.unet2d import UNet2D, UNet2DConfig
 from synt_isic_tpu_torch.ops import attention, native
 from synt_isic_tpu_torch.diffusion.schedules import DiffusionSchedule
 from synt_isic_tpu_torch.train import __main__ as train_entry
-from synt_isic_tpu_torch.train.benchmark import PROFILE_STEPS, measure_train_step
+from synt_isic_tpu_torch.train.benchmark import PROFILE_STEPS, device_seconds, measure_train_step
 from synt_isic_tpu_torch.train.procedural import ProceduralDataset
 from synt_isic_tpu_torch.train.train_conditional import LabeledMixtureDataset, train_conditional
 from synt_isic_tpu_torch.train.train_ddpm import TrainConfig, create_train_state, make_train_step
@@ -317,6 +340,34 @@ TRAIN_IMAGES, TRAIN_EPOCHS, TRAIN_BATCH = 64, 2, 16
 TRAIN_STEPS = TRAIN_EPOCHS * (TRAIN_IMAGES // TRAIN_BATCH)
 TRAIN_SHAPES = [(TRAIN_BATCH, 32, 1024, 8), (TRAIN_BATCH, 32, 256, 8)]
 BENCH_BATCH, BENCH_STEPS = 32, 10
+# [distill]: the distillation entry point on a seeded full-width teacher,
+# 32 procedural MEL images, batch 16, 16 -> 4 steps (phases 8 and 4) of 8
+# optimizer steps each, no eval probe. Per step the teacher's two forwards
+# launch K1 without the log-sum-exp (12), the student's forward K1 with it
+# (6) and its backward K3 (6); the 4-step student then samples DDIM 4
+# trailing at the CLI's batch: 6 x 4 K1. The warm step is timed at
+# BENCH_BATCH (DistillConfig's defaults otherwise: clip 1.0, EMA 0.999)
+# beside the train step of [bench] at the same batch.
+DISTILL_IMAGES, DISTILL_BATCH, DISTILL_START, DISTILL_END, DISTILL_STEPS = 32, 16, 16, 4, 8
+DISTILL_PHASES = (8, 4)
+DISTILL_WARM_STEPS = 10
+# [remat]: measure_train_step for every remat mode at each batch (about 10
+# warm steps per row; the profiler, about 10 s a row, only at the first
+# batch), then one step's gradients at full width, batch 4, under
+# deterministic cuDNN: every mode's torch.equal to no remat's
+REMAT_BATCHES, REMAT_STEPS, REMAT_GRAD_BATCH = (32, 64), 10, 4
+# [train-classifier]: the classifier entry point on 8 procedural JPEGs per
+# class for the seven classes and their one-hot CSV, 2 epochs of batch 16
+# (3 steps each); the exported classifier.pth against a probe batch: the
+# XAI classifier's logits (f32 convolutions) torch.equal to an f32
+# ResNet18Trainable loaded from the same file, and, where the last epoch was
+# the best (the file then holds the final weights), within CLF_BF16_TOL x
+# max|logit| of the trained model's own eval-mode logits (bf16
+# convolutions: each of the 20 convolutions rounds its inputs and weights
+# to 8 bits of mantissa, 2^-9 relative, and BatchNorm rescales each layer)
+CLF_IMAGES_PER_CLASS, CLF_EPOCHS, CLF_BATCH, CLF_WARM_STEPS = 8, 2, 16, 10
+CLF_BF16_TOL = 2.0 ** -4
+CLF_STATE_ENTRIES = 102      # ResNet-18's weights and BatchNorm statistics
 # fast math: against its plain version, bf16-level (the kernel and the plain
 # version round the weights relative to different maxima); against exact
 # attention, the JAX package's own fast-math tolerance
@@ -2550,6 +2601,285 @@ def phase_f32() -> dict:
     return report
 
 
+def phase_distill(card: str, bench: dict) -> dict:
+    """[distill] `python -m synt_isic_tpu_torch.train --distill-from` (in
+    process) on a seeded full-width teacher: exact launch counts, finite
+    losses over both phases, both students written; the 4-step student
+    loaded by `ModelManager(variant="distill4")` and sampled at DDIM 4
+    trailing; then the warm distillation step at BENCH_BATCH beside
+    `bench`'s train step, its peak memory and its profiler split."""
+    from synt_isic_tpu_torch.io.pth import save_checkpoint
+    from synt_isic_tpu_torch.train import distill
+    from synt_isic_tpu_torch.train.train_ddpm import default_model
+
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.manual_seed(0)
+        save_checkpoint(UNet2D(UNet2DConfig()).state_dict(), str(Path(tmp) / "unet_MEL_best.pth"))
+        argv = ["--classes", "MEL", "--procedural", str(DISTILL_IMAGES),
+                "--batch", str(DISTILL_BATCH),
+                "--distill-from", str(Path(tmp) / "unet_{CLASS}_best.pth"),
+                "--distill-start", str(DISTILL_START), "--distill-end", str(DISTILL_END),
+                "--distill-steps-per-phase", str(DISTILL_STEPS), "--checkpoints", tmp,
+                "--seed", "0", "--device", "cuda"]
+        tee = _Tee(sys.stdout)
+        reset_launches()
+        t0 = time.time()
+        with contextlib.redirect_stdout(tee):
+            rc = train_entry.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(attention.LAUNCHES)
+        check(rc == 0, f"train --distill-from returned {rc}")
+        losses = {}
+        for n, loss in re.findall(r"\[distill:(\d+)\] step \d+/\d+ loss=(\S+)",
+                                  tee.seen.getvalue()):
+            losses.setdefault(int(n), []).append(float(loss))
+        check(tuple(losses) == DISTILL_PHASES
+              and all(math.isfinite(x) for v in losses.values() for x in v),
+              f"distillation losses by phase {losses}")
+        steps = len(DISTILL_PHASES) * DISTILL_STEPS
+        want_fwd, want_bwd = 3 * ATTENTION_CALLS_PER_UNET * steps, ATTENTION_CALLS_PER_UNET * steps
+        print(f"[distill] train --distill-from, {DISTILL_START} -> {DISTILL_END} steps (phases "
+              f"{DISTILL_PHASES}), {steps} steps of batch {DISTILL_BATCH} in {wall:.3f} s (cold: "
+              f"model build, first-call set-up and checkpoint writes included); block losses "
+              f"{losses}; launches attention_fwd {launches[attention.KERNEL]} (want {want_fwd}: "
+              f"2 teacher forwards without the log-sum-exp and 1 student forward with it), "
+              f"attention_bwd {launches[attention.BWD_KERNEL]} (want {want_bwd}), "
+              f"attention_bwd_stats {launches[attention.STATS_KERNEL]} (want 0)", flush=True)
+        others = sum(v for k, v in launches.items()
+                     if k not in (attention.KERNEL, attention.BWD_KERNEL))
+        check(launches[attention.KERNEL] == want_fwd and launches[attention.BWD_KERNEL] == want_bwd
+              and others == 0, f"[distill] launched {launches}")
+        written = [Path(tmp) / f"unet_MEL_distill{n}.pth" for n in DISTILL_PHASES]
+        check(all(path.exists() for path in written), f"students written: "
+              f"{sorted(q.name for q in Path(tmp).iterdir())}")
+
+        mm = ModelManager(checkpoints_dir=tmp, device="cuda", variant=f"distill{DISTILL_END}")
+        check(mm.load_model("MEL"), f"ModelManager(variant='distill{DISTILL_END}').load_model")
+        reset_launches()
+        images = mm.create_sampler(DISTILL_END, scheduler="ddim", timestep_spacing="trailing"
+                                   ).sample(mm.loaded_models["MEL"],
+                                            np.arange(CLI_BATCH, dtype=np.uint32))["images"]
+        torch.cuda.synchronize()
+        sample_launches = attention.LAUNCHES[attention.KERNEL]
+        want = ATTENTION_CALLS_PER_UNET * DISTILL_END
+        check(sample_launches == want and images.shape == (CLI_BATCH, 128, 128, 3)
+              and bool(torch.isfinite(images).all()),
+              f"distill{DISTILL_END} sample: {sample_launches} launches (want {want}), "
+              f"{tuple(images.shape)}")
+        print(f"[distill] unet_MEL_distill{DISTILL_END}.pth loads in ModelManager and samples "
+              f"{CLI_BATCH} finite images at DDIM {DISTILL_END} trailing with {sample_launches} "
+              f"K1 launches", flush=True)
+        report.update(launches=launches, sample_launches=sample_launches, losses=losses,
+                      wall_s=wall)
+
+    dev = torch.device("cuda")
+    cfg = distill.DistillConfig(batch_size=BENCH_BATCH)
+    student = default_model(TrainConfig(), dev).to(dev).train()
+    teacher = default_model(TrainConfig(seed=1), dev).to(dev).requires_grad_(False)
+    state = distill.create_distill_state(student, cfg)
+    step = distill.make_distill_step(DiffusionSchedule.create(), cfg, DISTILL_END)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    base = torch.rand((BENCH_BATCH, 128, 128, 3), generator=gen, device=dev) * 2 - 1
+    step(state, teacher, base, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(1, DISTILL_WARM_STEPS + 1):
+        loss = step(state, teacher, base * (1.0 + 1e-4 * i), gen)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / DISTILL_WARM_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(float(loss)), f"warm distillation loss {float(loss)}")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(PROFILE_STEPS):
+            step(state, teacher, base * (1.0 - 1e-4 * (i + 1)), gen)
+        torch.cuda.synchronize()
+    busy, attn = (x / PROFILE_STEPS for x in device_seconds(prof))
+    busy, attn = (busy, attn) if busy > 0 else (None, None)
+    train_s = bench["sec_per_step"]
+    split = ("torch.profiler recorded no device time: busy and idle share not measured"
+             if busy is None else
+             f"torch.profiler over {PROFILE_STEPS} more steps: device busy {busy:.5f} s/step "
+             f"(idle share {1.0 - busy / sec:.3f}), attention kernels {attn:.5f} s/step")
+    print(f"[distill] warm distillation step, batch {BENCH_BATCH} (bf16 compute / f32 "
+          f"parameters, clip, Adam, EMA), {DISTILL_WARM_STEPS} steps: {sec:.5f} s/step = "
+          f"{sec / train_s:.3f} x the train step of [bench] ({train_s:.5f} s/step at the same "
+          f"batch); peak device memory {peak / 2**30:.3f} GiB (train step "
+          f"{bench['peak_bytes'] / 2**30:.3f}); {split}; on {card}", flush=True)
+    report.update(step_s=sec, train_step_s=train_s, peak_bytes=peak, busy_s=busy,
+                  attention_s=attn)
+    del student, teacher, state
+    return report
+
+
+def phase_remat(card: str) -> dict:
+    """[remat] `measure_train_step(remat_mode=m)` for every mode at each of
+    REMAT_BATCHES: s/step, peak memory and launches per step (K1 twice per
+    attention call where attention blocks recompute, K3 once, no statistics
+    launch), each mode's peak below `none`'s; then one step's gradients at
+    full width, every mode torch.equal to no remat's under deterministic
+    cuDNN."""
+    from synt_isic_tpu_torch.models.unet2d import REMAT_MODES
+    from synt_isic_tpu_torch.train.train_ddpm import default_model
+
+    rows = []
+    for batch in REMAT_BATCHES:
+        peaks = {}
+        for mode in REMAT_MODES:
+            reset_launches()
+            t0 = time.time()
+            profiled = batch == REMAT_BATCHES[0]
+            r = measure_train_step(mode, batch=batch, steps=REMAT_STEPS, profile=profiled)
+            wall = time.time() - t0
+            calls = 1 + REMAT_STEPS + (PROFILE_STEPS if profiled else 0)
+            per_step = {k: v / calls for k, v in attention.LAUNCHES.items() if v}
+            recompute = mode in ("all", "attn", "dots")
+            want = {attention.KERNEL: ATTENTION_CALLS_PER_UNET * (2 if recompute else 1),
+                    attention.BWD_KERNEL: ATTENTION_CALLS_PER_UNET}
+            check(per_step == want, f"[remat] {mode} batch {batch}: launches per step "
+                                    f"{per_step}, want {want}")
+            peaks[mode] = r["peak_bytes"]
+            busy = r["device_busy_s_per_step"]
+            print(f"[remat] {mode:5s} batch {batch}: {r['sec_per_step']:.5f} s/step, "
+                  f"{r['img_per_s']:.2f} images/s, peak {r['peak_bytes'] / 2**30:.3f} GiB, "
+                  f"launches per step attention_fwd {per_step[attention.KERNEL]:g} "
+                  f"attention_bwd {per_step[attention.BWD_KERNEL]:g} attention_bwd_stats 0; "
+                  + ("device busy not measured (no profiler at this batch)" if busy is None else
+                     f"device busy {busy:.5f} s/step (idle share {r['idle_share']:.3f})")
+                  + f"; the row took {wall:.1f} s", flush=True)
+            rows.append({k: r[k] for k in ("remat", "batch", "sec_per_step", "img_per_s",
+                                           "peak_bytes", "device_busy_s_per_step",
+                                           "idle_share", "attention_s_per_step")}
+                        | {"launches_per_step": per_step[attention.KERNEL]})
+        lower = all(peaks[m] < peaks["none"] for m in REMAT_MODES if m != "none")
+        check(lower, f"[remat] batch {batch}: peak memory {peaks} not below none's for "
+                     f"every other mode")
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((REMAT_GRAD_BATCH, 3, 128, 128), generator=gen, device=dev)
+    eps = torch.randn((REMAT_GRAD_BATCH, 3, 128, 128), generator=gen, device=dev)
+    t = torch.tensor([3, 250, 600, 999], device=dev)
+    grads = {}
+    with deterministic_cudnn():
+        for mode in REMAT_MODES:
+            model = default_model(TrainConfig(), dev, remat=mode).to(dev)
+            torch.mean((model(x, t) - eps) ** 2).backward()
+            grads[mode] = {k: p.grad for k, p in model.named_parameters()}
+            del model
+    same = {m: all(torch.equal(g, grads["none"][k]) for k, g in grads[m].items())
+            for m in REMAT_MODES}
+    print(f"[remat] one step's gradients at full width (batch {REMAT_GRAD_BATCH}, bf16 compute, "
+          f"deterministic cuDNN) torch.equal to no remat's: {same}", flush=True)
+    check(all(same.values()), f"[remat] gradients differ from no remat's: {same}")
+    return {"rows": rows, "grads_equal": same}
+
+
+def _classifier_images(root: Path) -> tuple:
+    """CLF_IMAGES_PER_CLASS procedural JPEGs per class of the seven and
+    their one-hot ground-truth CSV (the ISIC column order)."""
+    from synt_isic_tpu_torch.train.procedural import procedural_image
+
+    img_dir = root / "images"
+    img_dir.mkdir()
+    csv_path = root / "groundtruth.csv"
+    with open(csv_path, "w") as f:
+        f.write("image," + ",".join(COND_CLASSES) + "\n")
+        for c, cls in enumerate(COND_CLASSES):
+            for i in range(CLF_IMAGES_PER_CLASS):
+                name = f"ISIC_{100 * c + i:07d}"
+                arr = procedural_image(cls, i, 128, seed=0)
+                Image.fromarray(np.round((arr + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
+                                ).save(img_dir / f"{name}.jpg")
+                f.write(name + "," + ",".join("1.0" if j == c else "0.0"
+                                              for j in range(len(COND_CLASSES))) + "\n")
+    return img_dir, csv_path
+
+
+def phase_train_classifier(card: str) -> dict:
+    """[train-classifier] `python -m synt_isic_tpu_torch.train
+    --train-classifier` (in process) on procedural JPEGs: finite epochs,
+    `classifier.pth` loaded by the XAI classifier with nothing skipped, its
+    logits on a probe batch against the file's f32 rebuild and the trained
+    model; then the warm training step."""
+    from unittest import mock
+
+    from synt_isic_tpu_torch.io.pth import load_checkpoint
+    from synt_isic_tpu_torch.models.classifier import LesionClassifier
+    from synt_isic_tpu_torch.train import train_classifier as tc
+    from synt_isic_tpu_torch.train.data import MultiClassDataset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir, csv_path = _classifier_images(Path(tmp))
+        trained = {}
+        library_call = tc.train_classifier
+
+        def keep_result(*args, **kwargs):
+            trained.update(library_call(*args, **kwargs))
+            return trained
+
+        argv = ["--train-classifier", "--data-dir", str(img_dir), "--csv", str(csv_path),
+                "--epochs", str(CLF_EPOCHS), "--batch", str(CLF_BATCH), "--checkpoints", tmp,
+                "--seed", "0", "--device", "cuda"]
+        tee = _Tee(sys.stdout)
+        t0 = time.time()
+        with mock.patch.object(tc, "train_classifier", keep_result), \
+                contextlib.redirect_stdout(tee):
+            rc = train_entry.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        check(rc == 0, f"train --train-classifier returned {rc}")
+        epochs = [(float(a), float(b)) for a, b in re.findall(
+            r"\[clf\] epoch \d+/\d+ loss=(\S+) acc=(\S+)", tee.seen.getvalue())]
+        check(len(epochs) == CLF_EPOCHS and all(math.isfinite(x) for e in epochs for x in e),
+              f"classifier epochs {epochs}")
+        path = str(Path(tmp) / "classifier.pth")
+        clf, counts = LesionClassifier.from_checkpoint(path, device="cuda")
+        check(counts == {"loaded": CLF_STATE_ENTRIES, "skipped": 0},
+              f"classifier.pth load counts {counts}")
+        images, _ = next(MultiClassDataset(str(img_dir), str(csv_path), seed=0).batches(
+            CLF_BATCH, np.random.default_rng(1)))
+        probe = torch.from_numpy(images).cuda().permute(0, 3, 1, 2)
+        model = trained["state"].model
+        rebuilt = tc.ResNet18Trainable(len(COND_CLASSES)).cuda().eval()
+        rebuilt.load_state_dict(load_checkpoint(path), strict=True)
+        with torch.no_grad():
+            got, want, own = clf.model(probe), rebuilt(probe), model.eval()(probe)
+        check(torch.equal(got, want), "the XAI classifier's logits differ from the f32 "
+                                      "rebuild of the same classifier.pth")
+        last_best = epochs[-1][1] >= max(acc for _, acc in epochs)
+        dist = float((got - own).abs().max() / own.abs().max())
+        print(f"[train-classifier] {CLF_EPOCHS} epochs of batch {CLF_BATCH} on "
+              f"{len(COND_CLASSES) * CLF_IMAGES_PER_CLASS} images in {wall:.3f} s (cold); "
+              f"(loss, acc) per epoch {epochs}; classifier.pth loads {counts}; its logits "
+              f"torch.equal to the f32 rebuild; the trained (bf16) model's own eval-mode "
+              f"logits within {dist:.2e} x max|logit|"
+              + ("" if last_best else " (not checked: an earlier epoch was the best, so the "
+                                      "file holds its weights)"), flush=True)
+        check(not last_best or dist <= CLF_BF16_TOL,
+              f"trained model's logits {dist} x max|logit| from the export's")
+
+    model.train()
+    step = tc.make_classifier_train_step()
+    labels = torch.arange(CLF_BATCH, device="cuda") % len(COND_CLASSES)
+    batch = torch.from_numpy(images).cuda()
+    step(trained["state"], batch, labels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, CLF_WARM_STEPS + 1):
+        loss, _ = step(trained["state"], batch * (1.0 + 1e-4 * i), labels)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / CLF_WARM_STEPS
+    check(math.isfinite(float(loss)), f"warm classifier loss {float(loss)}")
+    print(f"[train-classifier] warm step (ResNet-18 at 224x224, bf16 convolutions, batch "
+          f"{CLF_BATCH}, device-resident batch): {sec:.5f} s/step on {card}", flush=True)
+    return {"step_s": sec, "wall_s": wall, "epochs": epochs, "logit_dist": dist}
+
+
 def phase_kernel_bwd_group() -> dict:
     """K3 at G heads per block: bit-identical to G = 1, timed per G."""
     g = torch.Generator(device="cuda").manual_seed(8)
@@ -2896,6 +3226,19 @@ def main() -> int:
             report = phase_serve(phase_unet(), card["card"], Path(tmp))
         print(json.dumps({"serve": report, "card": card["card"]}, default=str), flush=True)
         return 0
+    if sys.argv[1:] == ["--distill"]:
+        # the [distill] phase alone, with the [bench] train step it is read against
+        native.build([attention.KERNEL, attention.BWD_KERNEL])
+        report = phase_distill(card["card"], measure_train_step(batch=BENCH_BATCH,
+                                                                steps=BENCH_STEPS))
+        print(json.dumps({"distill": report, "card": card["card"]}, default=str), flush=True)
+        return 0
+    if sys.argv[1:] == ["--remat"]:
+        # the [remat] phase alone
+        native.build([attention.KERNEL, attention.BWD_KERNEL])
+        print(json.dumps({"remat": phase_remat(card["card"]), "card": card["card"]},
+                         default=str), flush=True)
+        return 0
     if sys.argv[1:] == ["--fast-f32"]:
         # the f32 fast-math timing of [kernel-fast] alone, likewise
         native.build([attention.KERNEL])
@@ -2921,9 +3264,12 @@ def main() -> int:
         xai = phase_xai(state, card["card"], Path(tmp) / "xai")
         served = phase_serve(state, card["card"], Path(tmp) / "serve")
     train_launches = phase_train(card["card"])
-    phase_bench(card["card"])
+    bench = phase_bench(card["card"])
     train_f32_launches = phase_train(card["card"], f32=True)
     f32_report = phase_f32()
+    distilled = phase_distill(card["card"], bench)
+    remat = phase_remat(card["card"])
+    classifier = phase_train_classifier(card["card"])
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = Path(tmp) / "checkpoints"
         cond_train = phase_train_conditional(card["card"], ckpt)
@@ -2948,6 +3294,16 @@ def main() -> int:
         "replaces": "synt_isic_tpu/ops/pallas/attention.py:28",
         "launches": launches,
         "launches_train": train_launches[attention.KERNEL],
+        # [distill]: train --distill-from over phases 8 and 4 (3 UNet forwards
+        # per step), and the 4-step student sampled at DDIM 4 trailing
+        "launches_distill": distilled["launches"][attention.KERNEL],
+        "launches_distill4_sample": distilled["sample_launches"],
+        "distill_step_s": distilled["step_s"],
+        "distill_step_vs_train_step": distilled["step_s"] / distilled["train_step_s"],
+        # [remat]: launches per training step by mode and batch (the
+        # recomputing modes with attention blocks run the forward twice)
+        "launches_remat_per_step": {f"{r['remat']}@{r['batch']}": r["launches_per_step"]
+                                    for r in remat["rows"]},
         "launches_conditional": cond["launches"][attention.KERNEL],
         "launches_reproduce_conditional": cond_redo[attention.KERNEL],
         "launches_train_conditional": cond_train["entry"][attention.KERNEL],
@@ -3057,6 +3413,12 @@ def main() -> int:
         "host_fwd_bwd_t256_bf16": host_report[host_name((TRAIN_BATCH, 32, 256, 8),
                                                         torch.bfloat16, False, trainable=True)],
         "launches_stats_train": train_launches[attention.STATS_KERNEL],
+        "launches_distill": distilled["launches"][attention.BWD_KERNEL],
+        "launches_stats_distill": distilled["launches"][attention.STATS_KERNEL],
+        # [remat]: s/step and peak bytes of the training step by mode and batch
+        "remat": {f"{r['remat']}@{r['batch']}": [r["sec_per_step"], r["peak_bytes"]]
+                  for r in remat["rows"]},
+        "classifier_step_s": classifier["step_s"],
         "launches_stats_train_conditional": cond_train["entry"][attention.STATS_KERNEL],
         "launches_train_conditional": cond_train["entry"][attention.BWD_KERNEL],
         "shape": list(bwd_shape),

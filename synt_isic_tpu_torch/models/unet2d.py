@@ -24,17 +24,29 @@ Tensors are NCHW, PyTorch's habit. The numerics follow the JAX model:
     path. `fused_heads_per_program` and `fused_fast_math` are the kernel's
     knobs (JAX `unet2d.py:185-186`): heads per block (identical results)
     and bf16 exponentials (bf16-level deviation); the einsum path ignores
-    them, as in the JAX model.
+    them, as in the JAX model;
+  * `remat` trades compute for training memory as `jax.checkpoint` does in
+    the JAX model (`unet2d.py:420-449`): the chosen blocks keep only their
+    inputs and run their forward again in the backward
+    (`torch.utils.checkpoint`, non-reentrant, so the recompute runs with
+    grad on and the attention blocks take the trainable kernel and save
+    its log-sum-exp again). "dots" keeps the 2-D matrix products (the
+    Linear layers) and recomputes the rest, as JAX's
+    `dots_with_no_batch_dims_saveable` does. Outputs and gradients are
+    those of `remat=False`.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.attention import (attention_reference, fused_attention,
                              fused_attention_trainable)
@@ -96,7 +108,13 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.compute_dtype
-        return F.linear(x.to(d), self.weight.to(d), _cast(self.bias, d))
+        x, w, b = x.to(d), self.weight.to(d), _cast(self.bias, d)
+        if b is not None and x.dim() > 2 and not x.is_contiguous():
+            # F.linear's own route for such an input (the product, then the
+            # bias), with the bias added out of place: the product stays as
+            # it was computed, which "dots" remat keeps
+            return torch.matmul(x, w.t()) + b
+        return F.linear(x, w, b)
 
 
 class Embedding(nn.Embedding):
@@ -354,19 +372,56 @@ class UpBlock2D(nn.Module):
         return x
 
 
+REMAT_MODES = ("none", "all", "hires", "attn", "dots")
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def remat_mode(remat) -> str:
+    """The mode a `remat` argument names: a bool (True is "all") or one of
+    REMAT_MODES."""
+    mode = remat if isinstance(remat, str) else ("all" if remat else "none")
+    if mode not in REMAT_MODES:
+        raise ValueError(f"unknown remat mode {mode!r} "
+                         "(expected bool or all/hires/attn/dots)")
+    return mode
+
+
+def save_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """"dots": keep the 2-D matrix products, recompute everything else
+    (convolutions, norms, elementwise ops, the attention kernel)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _block_remat(mode: str, is_hires: bool, has_attn: bool) -> bool:
+    """Whether a block recomputes its forward (the JAX `want_block`)."""
+    return (mode in ("all", "dots") or (mode == "hires" and is_hires)
+            or (mode == "attn" and has_attn))
+
+
 class UNet2D(nn.Module):
     """Top-level epsilon-prediction UNet. Input and output NCHW; the output
     is f32. `param_dtype` (default `dtype`) is the storage dtype of the conv,
     linear and embedding weights; GroupNorm weights and `conv_out` are
-    always f32."""
+    always f32. `remat` (a bool or a mode of REMAT_MODES) picks the blocks
+    whose forward the backward runs again."""
 
     def __init__(self, config: UNet2DConfig = UNet2DConfig(),
                  dtype: torch.dtype = torch.float32,
                  use_fused_attention: bool = False, fast_norm: bool = False,
                  param_dtype: Optional[torch.dtype] = None,
-                 fused_heads_per_program: int = 1, fused_fast_math: bool = False):
+                 fused_heads_per_program: int = 1, fused_fast_math: bool = False,
+                 remat=False):
         super().__init__()
         cfg = self.config = config
+        self.remat = mode = remat_mode(remat)
+        last_block = len(cfg.block_out_channels) - 1
+        self.remat_blocks = {
+            "down": [_block_remat(mode, i == 0, t == "AttnDownBlock2D")
+                     for i, t in enumerate(cfg.down_block_types)],
+            "mid": _block_remat(mode, False, cfg.add_mid_attention),
+            "up": [_block_remat(mode, i == last_block, t == "AttnUpBlock2D")
+                   for i, t in enumerate(cfg.up_block_types)]}
         self.dtype = dtype
         self.param_dtype = param_dtype = param_dtype or dtype
         temb = cfg.time_embed_dim
@@ -430,15 +485,34 @@ class UNet2D(nn.Module):
 
         x = self.conv_in(sample)
         skips = [x]
-        for block in self.down_blocks:
-            x, states = block(x, emb)
+        for block, remat in zip(self.down_blocks, self.remat_blocks["down"]):
+            x, states = self._run(remat, block, x, emb)
             skips.extend(states)
 
-        x = self.mid_block(x, emb)
+        x = self._run(self.remat_blocks["mid"], self.mid_block, x, emb)
 
-        for block in self.up_blocks:
+        for block, remat in zip(self.up_blocks, self.remat_blocks["up"]):
             n = len(block.resnets)
             block_skips, skips = skips[-n:], skips[:-n]
-            x = block(x, block_skips, emb)
+            # the skips go in as tensors: the block pops from its list, and a
+            # recompute must find them all again
+            x = self._run(remat, _up_block, block, x, emb, *block_skips)
 
         return self.conv_out(F.silu(self.conv_norm_out(x.float())))
+
+    def _run(self, remat: bool, fn, *args):
+        """fn(*args), its forward run again in the backward where `remat`
+        says so and a gradient is being taken."""
+        if not (remat and torch.is_grad_enabled()):
+            return fn(*args)
+        kw = {}
+        if self.remat == "dots":
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 save_matmuls)
+        # the blocks draw no random numbers, so no generator state is stashed
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
+def _up_block(block: UpBlock2D, x: torch.Tensor, temb: torch.Tensor,
+              *skips: torch.Tensor) -> torch.Tensor:
+    return block(x, list(skips), temb)

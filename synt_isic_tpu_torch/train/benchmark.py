@@ -1,7 +1,7 @@
 """Steady-state training-step timing on a CUDA device.
 
-The port of `synt_isic_tpu/train/benchmark.py` without `remat` (not ported
-yet): the flagship UNet at bf16 compute on f32 parameters, the hand-written
+The port of `synt_isic_tpu/train/benchmark.py`: the flagship UNet, with
+the `remat` mode asked for, at bf16 compute on f32 parameters, the hand-written
 attention forward and backward kernels and the f32-statistics GroupNorm,
 reference-parity TrainConfig (constant lr, no EMA); device-resident inputs
 whose contents vary per step; timed after one warm-up step, on the host
@@ -13,7 +13,7 @@ kernels' part.
 from __future__ import annotations
 
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import torch
 
@@ -37,15 +37,19 @@ def device_seconds(prof) -> tuple:
     return busy, attention
 
 
-def measure_train_step(batch: int = 32, steps: int = 30, size: int = 128,
-                       device: str = "cuda") -> Dict[str, Any]:
-    """Time the flagship training step; returns raw (unrounded) metrics:
-    sec_per_step, img_per_s, loss (of the last step), batch, steps,
-    peak_bytes (the step's peak allocated device memory) and device (the
-    card's name); from the PROFILE_STEPS steps under `torch.profiler`,
+def measure_train_step(remat_mode: Union[bool, str] = False, batch: int = 32,
+                       steps: int = 30, size: int = 128,
+                       device: str = "cuda", profile: bool = True) -> Dict[str, Any]:
+    """Time the flagship training step with `UNet2D(remat=remat_mode)`;
+    returns raw (unrounded) metrics: remat (the mode's name), sec_per_step,
+    img_per_s, loss (of the last step), batch, steps, peak_bytes (the
+    step's peak allocated device memory) and device (the card's name);
+    from the PROFILE_STEPS steps under `torch.profiler`,
     device_busy_s_per_step, idle_share (1 - busy / sec_per_step) and
     attention_s_per_step, each None where the profiler recorded no device
-    time. Raises without CUDA: a CPU time is not this number."""
+    time or, with `profile=False`, did not run (a sweep of many rows skips
+    its seconds of set-up and trace processing). Raises without CUDA: a
+    CPU time is not this number."""
     from ..diffusion.schedules import DiffusionSchedule
     from ..model_manager import resolve_device
     from .train_ddpm import (TrainConfig, create_train_state, default_model,
@@ -55,7 +59,7 @@ def measure_train_step(batch: int = 32, steps: int = 30, size: int = 128,
     if dev.type != "cuda":
         raise ValueError(f"measure_train_step times a CUDA device, not {dev}")
     cfg = TrainConfig(batch_size=batch, image_size=size)
-    model = default_model(cfg, dev).to(dev).train()
+    model = default_model(cfg, dev, remat=remat_mode).to(dev).train()
     state = create_train_state(model, cfg)
     step_fn = make_train_step(DiffusionSchedule.create(), cfg)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -69,19 +73,23 @@ def measure_train_step(batch: int = 32, steps: int = 30, size: int = 128,
         loss = step_fn(state, base * (1.0 + 1e-4 * i), gen)
     torch.cuda.synchronize(dev)
     sec = (time.perf_counter() - t0) / steps
-    result = {"batch": batch, "steps": steps, "sec_per_step": sec,
-              "img_per_s": batch / sec, "loss": float(loss),
+    result = {"remat": model.remat, "batch": batch, "steps": steps,
+              "sec_per_step": sec, "img_per_s": batch / sec, "loss": float(loss),
               "peak_bytes": torch.cuda.max_memory_allocated(dev),
-              "device": torch.cuda.get_device_name(dev)}
-    from torch.profiler import ProfilerActivity, profile
+              "device": torch.cuda.get_device_name(dev),
+              "device_busy_s_per_step": None, "idle_share": None,
+              "attention_s_per_step": None}
+    if not profile:
+        return result
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(PROFILE_STEPS):
             step_fn(state, base * (1.0 - 1e-4 * (i + 1)), gen)
         torch.cuda.synchronize(dev)
     busy, attention = (s / PROFILE_STEPS for s in device_seconds(prof))
-    seen = busy > 0
-    result.update(device_busy_s_per_step=busy if seen else None,
-                  idle_share=1.0 - busy / sec if seen else None,
-                  attention_s_per_step=attention if seen else None)
+    if busy > 0:
+        result.update(device_busy_s_per_step=busy, idle_share=1.0 - busy / sec,
+                      attention_s_per_step=attention)
     return result

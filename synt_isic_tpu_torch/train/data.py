@@ -11,14 +11,16 @@ Parity with reference `diffusion/train_diffusion.py`:
     horizontal/vertical flips, ColorJitter(brightness .3, contrast .3,
     saturation .2), rotation +-15° with p=0.5, normalize to [-1,1].
 
-A copy of `synt_isic_tpu/train/data.py` without `MultiClassDataset` (the
-classifier's data, not ported yet). Augmentations are pure numpy, applied
-per batch on the host while the device trains on the previous batch
+A copy of `synt_isic_tpu/train/data.py`. Augmentations are pure numpy,
+applied per batch on the host while the device trains on the previous batch
 (`prefetch`); batches are NHWC float32 in [-1,1]. pandas is imported only
-by `SingleClassDataset`, so the procedural path does not need it.
+by `SingleClassDataset`, so the procedural path does not need it;
+`MultiClassDataset` (the classifier's data) reads its CSV with the `csv`
+module and draws the pandas subsets itself.
 """
 from __future__ import annotations
 
+import csv
 import os
 from pathlib import Path
 from typing import Iterator, Optional, Tuple
@@ -152,6 +154,72 @@ def prefetch(iterator, depth: int = 2):
             yield item
     finally:
         stop.set()
+
+
+def read_onehot_csv(csv_path) -> list:
+    """(image, label) per row of a one-hot ground-truth CSV, in file order:
+    the label is the argmax over the columns other than `image` (the first
+    maximum, as numpy's argmax takes it)."""
+    with open(csv_path, newline="", encoding="utf-8") as f:
+        reader = csv.DictReader(f)
+        class_cols = [c for c in reader.fieldnames if c != "image"]
+        return [(row["image"], int(np.argmax([float(row[c]) for c in class_cols])))
+                for row in reader]
+
+
+class MultiClassDataset:
+    """All-classes labeled dataset for classifier training: one-hot CSV ->
+    labels, per-class color enhancement, augmentation, then the classifier's
+    input space (224², ImageNet-normalized) on the fly.
+
+    The rows are the JAX dataset's without pandas: per label (sorted), the
+    `DataFrame.sample(n, random_state=seed)` subset of that label's rows
+    (in file order) is `RandomState(seed).choice(len, n, replace=False)`."""
+
+    def __init__(self, image_dir: str, csv_path: str, image_size: int = 128,
+                 max_samples_per_class: int = 500, seed: int = 42):
+        self.image_dir = Path(image_dir)
+        self.image_size = image_size
+        available = {f.split(".")[0] for f in os.listdir(image_dir)
+                     if f.endswith(".jpg")}
+        rows = [r for r in read_onehot_csv(csv_path) if r[0] in available]
+        self.data = []
+        for cid in sorted({label for _, label in rows}):
+            cls = [r for r in rows if r[1] == cid]
+            n = min(max_samples_per_class, len(cls))
+            pick = np.random.RandomState(seed).choice(len(cls), size=n, replace=False)
+            self.data.extend(cls[int(i)] for i in pick)
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def batches(self, batch_size: int, rng: np.random.Generator,
+                classifier_size: int = 224):
+        """Yields (images, labels): images (B, classifier_size, ·, 3)
+        ImageNet-normalized float32; labels int64."""
+        from ..models.classifier import IMAGENET_MEAN, IMAGENET_STD
+
+        mean = np.asarray(IMAGENET_MEAN, np.float32)
+        std = np.asarray(IMAGENET_STD, np.float32)
+        order = np.arange(len(self))
+        rng.shuffle(order)
+        for start in range(0, len(order) - batch_size + 1, batch_size):
+            idxs = order[start:start + batch_size]
+            imgs, labels = [], []
+            for i in idxs:
+                name, label = self.data[int(i)]
+                img = Image.open(self.image_dir / f"{name}.jpg") \
+                    .convert("RGB").resize((self.image_size, self.image_size))
+                arr = np.asarray(img, dtype=np.float32) / 255.0
+                arr = enhance_color(arr, label)
+                arr = (augment_image(arr, rng, self.image_size) + 1.0) / 2.0
+                arr = np.asarray(Image.fromarray(
+                    (np.clip(arr, 0, 1) * 255).astype(np.uint8)).resize(
+                    (classifier_size, classifier_size), Image.BILINEAR),
+                    dtype=np.float32) / 255.0
+                imgs.append((arr - mean) / std)
+                labels.append(label)
+            yield np.stack(imgs), np.asarray(labels, np.int64)
 
 
 class SingleClassDataset:

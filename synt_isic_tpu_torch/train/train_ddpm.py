@@ -226,18 +226,27 @@ def make_train_step(schedule: DiffusionSchedule, config: TrainConfig) -> Callabl
             err = err * (torch.clamp(snr, max=config.min_snr_gamma) / snr)
         loss = err.mean()
 
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        for group in state.optimizer.param_groups:
-            group["lr"] = state.lr_schedule(state.step)
-        state.optimizer.step()
-        if state.ema is not None:
-            ema_update(state.ema, state.model.state_dict(), state.step,
-                       config.ema_decay)
-        state.step += 1
-        return loss.detach()
+        return apply_gradients(state, loss, config.ema_decay)
 
     return train_step
+
+
+def apply_gradients(state: TrainState, loss: torch.Tensor, ema_decay: float,
+                    clip: Optional[Callable[[Any], Any]] = None) -> torch.Tensor:
+    """One update of `state` from `loss`: backward, `clip` on the model's
+    parameters when given, an Adam step at the schedule's lr for the count
+    of updates made, the EMA, the count. Returns the detached loss."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    if clip is not None:
+        clip(state.model.parameters())
+    for group in state.optimizer.param_groups:
+        group["lr"] = state.lr_schedule(state.step)
+    state.optimizer.step()
+    if state.ema is not None:
+        ema_update(state.ema, state.model.state_dict(), state.step, ema_decay)
+    state.step += 1
+    return loss.detach()
 
 
 def make_eval_fn(model: UNet2D, schedule: DiffusionSchedule,
@@ -340,12 +349,12 @@ save_checkpoint_torch_format = save_checkpoint
 
 
 def default_model(config: TrainConfig, device: torch.device,
-                  num_class_embeds: Optional[int] = None) -> UNet2D:
+                  num_class_embeds: Optional[int] = None, remat=False) -> UNet2D:
     """The flagship UNet the trainer builds: bf16 compute (unless
     `bf16_compute` is off) on f32 parameters, and on CUDA the hand-written
     attention kernels and the f32-statistics GroupNorm; the CPU keeps the
     f32 GroupNorm. Weights are initialised from `config.seed`.
-    `num_class_embeds` makes it class-conditional."""
+    `num_class_embeds` makes it class-conditional; `remat` is `UNet2D`'s."""
     on_cuda = device.type == "cuda"
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(config.seed)
@@ -353,7 +362,7 @@ def default_model(config: TrainConfig, device: torch.device,
                                    num_class_embeds=num_class_embeds),
                       dtype=torch.bfloat16 if config.bf16_compute else torch.float32,
                       param_dtype=torch.float32, use_fused_attention=on_cuda,
-                      fast_norm=on_cuda)
+                      fast_norm=on_cuda, remat=remat)
 
 
 def _probe(dataset, config: TrainConfig, device: torch.device,

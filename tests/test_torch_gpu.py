@@ -1052,3 +1052,66 @@ def test_sample_returns_without_a_host_sync(cuda, tmp_path):
         torch.cuda.set_sync_debug_mode("default")
     noise = sampler.initial_noise(seeds).cpu().numpy()
     assert list(out["noise_hashes"]) == [noise_hash(n) for n in noise]
+
+
+def _launches_since(before):
+    return {key: attention.LAUNCHES[key] - before[key] for key in before}
+
+
+def test_distill_step_runs_the_kernels(cuda):
+    """One distillation step at full width (32x32): the teacher's two
+    forwards launch K1 without the log-sum-exp (12), the student's forward
+    K1 with it (6) and its backward K3 (6), and no statistics launch."""
+    from synt_isic_tpu_torch.train import distill
+    from synt_isic_tpu_torch.train.train_ddpm import TrainConfig, default_model
+
+    student = default_model(TrainConfig(image_size=32), cuda).to(cuda).train()
+    teacher = default_model(TrainConfig(image_size=32, seed=1), cuda).to(cuda)
+    teacher.requires_grad_(False)
+    cfg = distill.DistillConfig(batch_size=4, steps_per_phase=10)
+    state = distill.create_distill_state(student, cfg)
+    step = distill.make_distill_step(DiffusionSchedule.create(), cfg, 4)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = torch.rand((4, 32, 32, 3), generator=gen, device=cuda) * 2 - 1
+    step(state, teacher, batch, gen)                 # builds the kernels
+    before = dict(attention.LAUNCHES)
+    loss = step(state, teacher, batch, gen)
+    got = _launches_since(before)
+    assert torch.isfinite(loss)
+    assert (got[attention.KERNEL], got[attention.BWD_KERNEL], got[attention.STATS_KERNEL]) \
+        == (18, 6, 0)
+    assert all(p.grad is None for p in teacher.parameters())
+
+
+def test_remat_modes_give_bit_identical_gradients(cuda):
+    """The trainer's UNet (bf16 compute, f32 parameters, the kernels) at
+    full width (32x32) under deterministic cuDNN: every remat mode's
+    gradients torch.equal to no remat's; the recomputing modes with
+    attention blocks launch K1 twice per attention call, K3 once, and no
+    statistics launch."""
+    from synt_isic_tpu_torch.models.unet2d import REMAT_MODES
+    from synt_isic_tpu_torch.train.train_ddpm import TrainConfig, default_model
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((4, 3, 32, 32), generator=gen, device=cuda)
+    t = torch.tensor([3, 250, 500, 999], device=cuda)
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    grads, launches = {}, {}
+    try:
+        for mode in REMAT_MODES:
+            model = default_model(TrainConfig(image_size=32), cuda, remat=mode).to(cuda)
+            model(x, t).square().mean().backward()     # builds the kernels
+            model.zero_grad(set_to_none=True)
+            before = dict(attention.LAUNCHES)
+            model(x, t).square().mean().backward()
+            launches[mode] = _launches_since(before)
+            grads[mode] = {k: p.grad for k, p in model.named_parameters()}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+    for mode in REMAT_MODES:
+        assert all(torch.equal(g, grads["none"][k]) for k, g in grads[mode].items()), mode
+        want_fwd = 12 if mode in ("all", "attn", "dots") else 6
+        got = launches[mode]
+        assert (got[attention.KERNEL], got[attention.BWD_KERNEL],
+                got[attention.STATS_KERNEL]) == (want_fwd, 6, 0), mode

@@ -31,7 +31,8 @@ def test_every_ported_module_is_checked():
     for module in ("ops/attention.py", "models/unet2d.py", "io/pth.py",
                    "train/__init__.py", "train/__main__.py", "train/async_ckpt.py",
                    "train/benchmark.py", "train/data.py", "train/procedural.py",
-                   "train/train_ddpm.py", "train/train_conditional.py", "generator.py",
+                   "train/train_ddpm.py", "train/train_conditional.py", "train/distill.py",
+                   "train/train_classifier.py", "generator.py",
                    "cache.py", "utils/config.py", "model_manager.py", "cli.py",
                    "models/resnet18.py", "models/classifier.py", "native/__init__.py",
                    "serve.py", "app/__init__.py", "app/webui.py", "utils/profiling.py",
