@@ -215,6 +215,28 @@ Phases, each of which exits non-zero on failure:
  16. [reproduce-conditional] `cli --reproduce` in a fresh process of a
      sidecar of the second mixed block: byte-identical, exactly 60
      launches;
+ 16b. [mesh] data parallelism over device meshes on the full-width UNet of
+     [unet]: `cli --dp-mesh 1` (MEL:8, DDIM 10, f32) against the same run
+     without a mesh: 60 launches each, the JPEGs byte-identical, sidecars
+     recording dp_mesh 1, and a fresh-process `--reproduce` of one
+     byte-identical with 60 launches; the library `ShardedSampler` over
+     [cuda:0, cuda:0] and over every card when there are more on 5 seeds
+     (padded to 6), over [cuda:0, cpu] (two distinct devices: a CPU replica
+     and a thread per device) on 2, within MESH_WALK_TOL of the unsharded
+     walk, exactly 6 x CUDA shards x 10 K1 launches, host-clock walk times
+     beside the unsharded walk's; `train --dp-mesh` in a fresh process with
+     RANK=0 WORLD_SIZE=1 (a one-rank NCCL group: its all_reduce runs once
+     per step), 2 steps with [train]'s 6 + 6 launches per step; one f32 dp
+     train step at batch 32 on [cuda:0, cuda:0] and on [cuda:0, cpu]
+     against the single-device step (the loss, every reduced gradient and
+     every weight within the bounds stated at MESH_LOSS_RTOL, and the
+     replicas torch.equal to the primary); `serve --mesh auto` from a
+     fresh process (status, a 3-image bulk generate whose sidecars record
+     the mesh); the standalone XAI through its environment protocol with
+     XAI_MESH_DEVICES=1 against the run without (attribution maps within
+     [xai]'s bound), and the library XAI fan-out over [cuda:0, cpu]
+     against no mesh. `python3 chip_smoke.py --mesh` runs card, build,
+     [unet] and this phase alone;
  17. a JSON line of per-kernel numbers, then as the last line
      {"ok": true, "device": {...}}.
 
@@ -225,6 +247,7 @@ from __future__ import annotations
 
 import contextlib
 import cProfile
+import functools
 import importlib.util
 import io
 import json
@@ -241,6 +264,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -511,6 +535,43 @@ XAI_WALK_TOL = 5e-3
 # (their draws come from the same CPU generators on both sides)
 XAI_TOL = {"attribution": 1e-4, "time_shap": 1e-5, "gradcam": 1e-3, "cfi": 1e-5,
            "sanity": 1e-4}
+# [mesh]: the library ShardedSampler on MESH_SEEDS seeds (5 on 2 shards: one
+# pad row) at DDIM 10, f32, full-f32 convolutions and deterministic cuDNN,
+# held to the unsharded walk: a shard of 3 and the batch of 5 pick their own
+# convolution algorithms, whose f32 sums differ in order only. [cli] holds
+# the kernel-vs-plain attention walk (DDIM 10, batch 8) to 1e-3; a batch
+# composition changes far less than the attention route, so the same 1e-3.
+# The dp train step: MESH_TRAIN_BATCH rows (the [bench] batch) in f32 on
+# [cuda:0, cuda:0], MESH_MIXED_TRAIN_BATCH on [cuda:0, cpu] (the CPU's rows
+# of the full-width UNet take seconds each), against one device at the
+# same batch, from the same weights and draws. The loss
+# and the reduced gradients are equal up to the order of the sum: the loss
+# within MESH_LOSS_RTOL, each leaf's gradient within MESH_GRAD_TOL x its
+# largest magnitude where every shard runs on a card; a CPU shard runs the
+# plain attention, so a mesh with one is held at UNET_GRAD_TOL, the bound
+# of the kernel path's gradients against the plain path's. The attention
+# key biases' gradient is zero in exact arithmetic (softmax ignores a shift
+# shared by every key), so theirs is rounding alone and is held to the
+# same factor of the step's largest gradient. Adam's first step moves a
+# weight by u(g) = lr g / (|g| + eps) whatever the scale of g, so the
+# weights after it are held to what the two runs' gradients predict:
+# |(w_mesh - w_one) + u(g_mesh) - u(g_one)| within MESH_ADAM_TOL (f32
+# rounding of the weights is below 1e-7). After the step every replica is
+# torch.equal to the primary. `train --dp-mesh` takes 2 steps of
+# TRAIN_BATCH on MESH_TRAIN_IMAGES procedural images.
+# The [cuda:0, cpu] mesh has two distinct devices, so it runs what one card
+# alone never does: a replica rebuilt with the CPU's switches (plain
+# attention, f32 GroupNorm), a thread per device, the cross-replica
+# gradient sum and the weights copied back. Its XAI fan-out (IG, patch-SHAP,
+# Time-SHAP, Grad-CAM, fairness scores on MESH_XAI_FRAMES frames) is held,
+# row by row, to what the row's device gives without a mesh (the analyzer
+# on the card, or on a CPU copy of the classifier with the same draws), at
+# [xai]'s bounds: the card and the CPU themselves differ by more on IG at
+# few steps over noise frames, where f32 rounding flips ReLU gates.
+MESH_SEEDS, MESH_MIXED_SEEDS, MESH_WALK_TOL = 5, 2, 1e-3
+MESH_TRAIN_BATCH, MESH_MIXED_TRAIN_BATCH, MESH_TRAIN_IMAGES = 32, 4, 32
+MESH_LOSS_RTOL, MESH_GRAD_TOL, MESH_ADAM_TOL = 1e-5, 1e-4, 1e-6
+MESH_XAI_FRAMES, MESH_XAI_IG_STEPS, MESH_XAI_SHAP_SAMPLES = 3, 8, 16
 XAI_RESULT_KEYS = {"metadata", "xai_maps", "region_analysis", "interventions",
                    "cfi_analysis", "time_shap", "statistical_validation", "sanity_checks",
                    "visualizations", "gradcam", "gradcam_most_important", "gradcam_summary"}
@@ -1372,11 +1433,22 @@ def phase_generator_f32_fast(state: dict, card: str, base: Path) -> dict:
                 reproduce_launches=redo_launches)
 
 
-def run_cli_process(argv, module: str = "synt_isic_tpu_torch.cli") -> tuple:
-    """`python -m MODULE ARGV` in a fresh process, plus the launch counts it
-    ends with. Returns (rc, launches, output)."""
+def run_cli_process(argv, module: str = "synt_isic_tpu_torch.cli", env=None,
+                    count_all_reduce: bool = False) -> tuple:
+    """`python -m MODULE ARGV` in a fresh process (with `env` added to its
+    environment), plus the launch counts it ends with, and with
+    `count_all_reduce` the number of `torch.distributed.all_reduce` calls
+    (an `ALL_REDUCE n` line). Returns (rc, launches, output)."""
+    spy = ("import torch.distributed as dist\n"
+           "calls = [0]\n"
+           "real = dist.all_reduce\n"
+           "def counted(*a, **k):\n"
+           "    calls[0] += 1\n"
+           "    return real(*a, **k)\n"
+           "dist.all_reduce = counted\n") if count_all_reduce else ""
     code = ("import json, runpy, sys\n"
             "from synt_isic_tpu_torch.ops import attention\n"
+            + spy +
             f"sys.argv = ['{module}'] + sys.argv[1:]\n"
             "try:\n"
             f"    runpy.run_module('{module}', run_name='__main__')\n"
@@ -1384,8 +1456,9 @@ def run_cli_process(argv, module: str = "synt_isic_tpu_torch.cli") -> tuple:
             "except SystemExit as exc:\n"
             "    rc = exc.code or 0\n"
             "print('LAUNCHES ' + json.dumps(attention.LAUNCHES), flush=True)\n"
-            "sys.exit(rc)\n")
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+            + ("print(f'ALL_REDUCE {calls[0]}', flush=True)\n" if count_all_reduce else "")
+            + "sys.exit(rc)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO), **(env or {}))
     proc = subprocess.run([sys.executable, "-c", code, *argv], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     found = re.findall(r"^LAUNCHES (.*)$", proc.stdout, re.M)
@@ -3185,6 +3258,446 @@ def phase_reproduce_conditional(cond: dict, ckpt: Path) -> dict:
     return launches
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_cli(base: Path, ckpt: Path, dp: Optional[int]) -> tuple:
+    """`cli.main` at MEL:8, DDIM 10, f32 into `base` (over a `--dp-mesh dp`
+    when given): the JPEGs, the sidecars and the K1 launches."""
+    argv = ["--base-dir", str(base), "--checkpoints", str(ckpt), "--class-counts",
+            f"MEL:{CLI_BATCH}", "--batch", str(CLI_BATCH), "--scheduler", "ddim",
+            "--steps", str(CLI_STEPS), "--seed", "0", "--device", "cuda"]
+    argv += ["--dp-mesh", str(dp)] if dp else []
+    reset_launches()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(attention.LAUNCHES)
+    check(rc == 0, f"cli.main {' '.join(argv[-2:])} returned {rc}")
+    out = base / "ISIC2018_Task3_synt"
+    return sorted(out.glob("ISIC_*.jpg")), sorted(out.glob("ISIC_*.json")), launches
+
+
+def _mesh_walks(mm: ModelManager, meshes: dict, seeds) -> dict:
+    """The DDIM-10 walk of `seeds` unsharded and over each mesh, full-f32
+    convolutions and deterministic cuDNN: images held to the unsharded ones
+    within MESH_WALK_TOL, exact K1 launch counts, host-clock walk times
+    (after `synchronize`) beside the unsharded one: warm where every shard
+    is on a card, cold (the replica built inside) where a CPU shard paces
+    the walk."""
+    from synt_isic_tpu_torch.parallel import ShardedSampler
+
+    sampler = mm.create_sampler(CLI_STEPS, scheduler="ddim")
+    model = mm.loaded_models["MEL"]
+    report = {}
+    with full_f32_convolutions(), deterministic_cudnn():
+        walkers = {"unsharded": sampler, **{name: ShardedSampler(sampler, mesh)
+                                            for name, mesh in meshes.items()}}
+        for name, walker in walkers.items():        # warm: replicas, plans
+            if name not in meshes or all(d.type == "cuda"
+                                         for d in meshes[name].shard_devices()):
+                walker.sample(model, seeds)
+        torch.cuda.synchronize()
+        outs = {}
+        for name, walker in walkers.items():
+            reset_launches()
+            t0 = time.perf_counter()
+            outs[name] = walker.sample(model, seeds)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            devices = meshes[name].shard_devices() if name in meshes else [torch.device("cuda")]
+            shards = len(devices)
+            padded = -(-len(seeds) // shards) * shards
+            # one walk per shard, each ATTENTION_CALLS_PER_UNET x steps on a
+            # card; a CPU shard's replica runs the plain attention
+            want = ATTENTION_CALLS_PER_UNET * CLI_STEPS * sum(d.type == "cuda" for d in devices)
+            got = attention.LAUNCHES[attention.KERNEL]
+            report[name] = {"walk_s": wall, "launches": got, "shards": shards,
+                            "padded": padded}
+            check(got == want, f"[mesh] {name} walk launched K1 {got} times, not {want}")
+    ref = outs["unsharded"]
+    for name in meshes:
+        images = outs[name]["images"]
+        check(images.shape == ref["images"].shape and bool(torch.isfinite(images).all()),
+              f"[mesh] {name} images {tuple(images.shape)}")
+        check(list(outs[name]["noise_hashes"]) == list(ref["noise_hashes"])
+              and list(outs[name]["seeds"]) == list(ref["seeds"]),
+              f"[mesh] {name} noise hashes or seeds differ from the unsharded walk")
+        err = (images - ref["images"]).abs().max().item()
+        report[name]["max_abs_err"] = err
+        print(f"[mesh] ShardedSampler over {name}: {len(seeds)} seeds padded to "
+              f"{report[name]['padded']} in {report[name]['shards']} shards, K1 launches "
+              f"{report[name]['launches']}; images vs unsharded max_abs_err {err:.3e} "
+              f"(allowed {MESH_WALK_TOL:.0e}); walk {report[name]['walk_s']:.4f} s vs "
+              f"unsharded {report['unsharded']['walk_s']:.4f} s (host clock)", flush=True)
+        check(err <= MESH_WALK_TOL, f"[mesh] {name} images vs the unsharded walk")
+    return report
+
+
+def _mesh_train_step(name: str, mesh, batch_size: int) -> dict:
+    """One f32 train step at `batch_size` on `mesh` against the
+    single-device step from the same weights, batch and draws, full-f32
+    convolutions and deterministic cuDNN: the loss, each leaf's reduced
+    gradient and the weights after the step within the bounds stated at
+    MESH_LOSS_RTOL, every replica torch.equal to the primary after the
+    step, and the launch counts of one forward and backward per CUDA
+    shard."""
+    from synt_isic_tpu_torch.train.train_ddpm import default_model
+
+    cfg = TrainConfig(batch_size=batch_size, bf16_compute=False)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batch = torch.rand(batch_size, 128, 128, 3, generator=g, device="cuda") * 2 - 1
+    step = make_train_step(DiffusionSchedule.create(), cfg)
+    runs = {}
+    with full_f32_convolutions(), deterministic_cudnn():
+        for run_name, run_mesh in (("single", None), (name, mesh)):
+            model = default_model(cfg, torch.device("cuda")).cuda().train()
+            state = create_train_state(model, cfg, mesh=run_mesh)
+            reset_launches()
+            t0 = time.perf_counter()
+            loss = step(state, batch, torch.Generator(device="cuda").manual_seed(7))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(bool(torch.isfinite(loss)), f"[mesh] {run_name} train step loss {loss}")
+            weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            replicas = state.replicas.others() if run_mesh is not None else []
+            for other in replicas:
+                check(all(torch.equal(weights[k], v.to(weights[k].device))
+                          for k, v in other.state_dict().items()),
+                      f"[mesh] {name}: a replica differs from the primary after the step")
+            cuda_shards = (1 if run_mesh is None else
+                           sum(d.type == "cuda" for d in run_mesh.shard_devices()))
+            runs[run_name] = {"loss": loss.item(), "wall_s": wall, "weights": weights,
+                          "lr": float(state.lr_schedule(0)),
+                          "grads": {n: p.grad.detach().clone()
+                                    for n, p in model.named_parameters() if p.grad is not None},
+                          "launches": dict(attention.LAUNCHES), "replicas": len(replicas),
+                          "cuda_shards": cuda_shards}
+    one = runs.pop("single")
+    got = tuple(one["launches"][k] for k in (attention.KERNEL, attention.BWD_KERNEL,
+                                              attention.STATS_KERNEL))
+    check(got == (ATTENTION_CALLS_PER_UNET, ATTENTION_CALLS_PER_UNET, 0),
+          f"[mesh] single train step launched K1/K3/stats {got}")
+    g_max = max(gr.abs().max().item() for gr in one["grads"].values())
+    run = runs[name]
+    want = (ATTENTION_CALLS_PER_UNET * run["cuda_shards"],) * 2 + (0,)
+    got = tuple(run["launches"][k] for k in (attention.KERNEL, attention.BWD_KERNEL,
+                                              attention.STATS_KERNEL))
+    check(got == want, f"[mesh] {name} train step launched K1/K3/stats {got}, not {want}")
+    check(set(run["grads"]) == set(one["grads"]),
+          f"[mesh] {name} train step: gradients of other parameters than the single step's")
+    loss_rel = abs(run["loss"] - one["loss"]) / abs(one["loss"])
+    tol = (MESH_GRAD_TOL if run["cuda_shards"] == len(mesh.shard_devices())
+           else UNET_GRAD_TOL)
+    grad_rel, adam_err = {}, {}
+
+    def adam(g):
+        g = g.double()
+        return run["lr"] * g / (g.abs() + 1e-8)
+
+    for k, gr in one["grads"].items():
+        scale = g_max if k.endswith("to_k.bias") else gr.abs().max().item()
+        grad_rel[k] = (run["grads"][k] - gr).abs().max().item() / max(scale, 1e-30)
+        moved = (run["weights"][k] - one["weights"][k]).double()
+        adam_err[k] = (moved + adam(run["grads"][k]) - adam(gr)).abs().max().item()
+    worst_g = max(grad_rel, key=grad_rel.get)
+    worst_w = max(adam_err, key=adam_err.get)
+    print(f"[mesh] one f32 train step at batch {batch_size}, {name} vs one device: "
+          f"loss {run['loss']:.7f} vs {one['loss']:.7f} (rel {loss_rel:.3e}, allowed "
+          f"{MESH_LOSS_RTOL:.0e}); worst gradient {worst_g} at {grad_rel[worst_g]:.3e} of "
+          f"its scale (allowed {tol:.0e}); weights vs Adam's step from the gradients: "
+          f"worst {worst_w} {adam_err[worst_w]:.3e} (allowed {MESH_ADAM_TOL:.0e}); "
+          f"{run['replicas']} replica(s) torch.equal to the primary; launches K1/K3 "
+          f"{got[0]}/{got[1]}; step {run['wall_s']:.3f} s vs {one['wall_s']:.3f} s "
+          f"(host clock)", flush=True)
+    check(loss_rel <= MESH_LOSS_RTOL, f"[mesh] {name} dp train loss vs the single step")
+    check(grad_rel[worst_g] <= tol, f"[mesh] {name} dp gradients vs the single step "
+          f"({worst_g})")
+    check(adam_err[worst_w] <= MESH_ADAM_TOL, f"[mesh] {name} dp weights vs Adam's step "
+          f"from the gradients ({worst_w})")
+    return {"loss_rel": loss_rel, "grad_rel": grad_rel[worst_g], "adam_err": adam_err[worst_w],
+            "max_weight_diff": max((run["weights"][k] - w).abs().max().item()
+                                   for k, w in one["weights"].items()),
+            "launches": run["launches"], "wall_s": run["wall_s"]}
+
+
+def _mesh_xai_fan_out(mesh) -> dict:
+    """The library XAI fan-out (IG and patch-SHAP over every frame, the
+    Time-SHAP scores, Grad-CAM, the fairness scores) over `mesh`, held row
+    by row to the same analyzer without a mesh on the row's device: on the
+    card with [xai]'s seeded classifier, on the CPU with a copy of it, the
+    same draws on every side. Full-f32 convolutions; each output within
+    [xai]'s bound of its largest magnitude."""
+    from synt_isic_tpu_torch.models.classifier import LesionClassifier, random_resnet
+    from synt_isic_tpu_torch.parallel.mesh import pad_to_multiple
+    from synt_isic_tpu_torch.xai import FairnessAuditor, XAIAnalyzer
+    from synt_isic_tpu_torch.xai.gradcam import compute_gradcam
+
+    rng = np.random.default_rng(XAI_SEED)
+    frames = (0.95 * np.tanh(rng.normal(size=(MESH_XAI_FRAMES, 128, 128, 3)))
+              ).astype(np.float32)
+    images = rng.integers(0, 256, size=(5, 128, 128, 3)).astype(np.uint8)
+    cls, timesteps = 2, [float(t) for t in range(MESH_XAI_FRAMES - 1, -1, -1)]
+    fair_batch = 3
+    classifiers = {dev: LesionClassifier(random_resnet(XAI_OUTPUTS, XAI_CLASSIFIER_SEED),
+                                         device=dev) for dev in ("cuda", "cpu")}
+    outs = {}
+    with full_f32_convolutions(), deterministic_cudnn():
+        for name, clf, m in (("cuda", classifiers["cuda"], None),
+                             ("cpu", classifiers["cpu"], None),
+                             ("mesh", classifiers["cuda"], mesh)):
+            xai = XAIAnalyzer(clf, ig_n_steps=MESH_XAI_IG_STEPS,
+                              shap_n_samples=MESH_XAI_SHAP_SAMPLES, batch_size=8,
+                              seed=XAI_SEED, mesh=m)
+            outs[name] = {
+                "ig": xai.compute_ig_frames(frames, cls),
+                "shap": xai.compute_shap_frames(frames, cls),
+                "time_shap": xai.compute_time_shap(frames, timesteps, cls)[1][
+                    "probability_scores"],
+                "gradcam": compute_gradcam(clf, frames, cls, output_size=128, mesh=m),
+                "fairness": FairnessAuditor(clf, batch_size=fair_batch, mesh=m
+                                            ).probabilities(images)}
+    devices = mesh.shard_devices()
+
+    def on_card(n: int) -> np.ndarray:
+        """Whether each of n rows split over the mesh ran on a card."""
+        per = pad_to_multiple(n, len(devices)) // len(devices)
+        return np.array([devices[i // per].type == "cuda" for i in range(n)])
+
+    rows = {key: on_card(MESH_XAI_FRAMES) for key in ("ig", "shap", "time_shap", "gradcam")}
+    rows["fairness"] = np.concatenate([on_card(len(images[a:a + fair_batch]))
+                                       for a in range(0, len(images), fair_batch)])
+    bounds = {"ig": XAI_TOL["attribution"], "shap": XAI_TOL["attribution"],
+              "time_shap": XAI_TOL["time_shap"], "gradcam": XAI_TOL["gradcam"],
+              "fairness": XAI_TOL["time_shap"]}
+    errs, apart = {}, {}
+    for key, bound in bounds.items():
+        card, cpu, got = (np.asarray(_np(outs[k][key]), np.float64)
+                          for k in ("cuda", "cpu", "mesh"))
+        check(got.shape == card.shape and np.isfinite(got).all(),
+              f"[mesh] XAI fan-out {key}: {got.shape} vs {card.shape}")
+        mask = rows[key].reshape((-1,) + (1,) * (card.ndim - 1))
+        want = np.where(mask, card, cpu)
+        errs[key] = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+        apart[key] = np.abs(cpu - card).max() / max(np.abs(card).max(), 1e-30)
+    check(rows["ig"].any() and not rows["ig"].all(), f"[mesh] {mesh} puts no frame on a card "
+          "or none on the CPU")
+    print(f"[mesh] XAI fan-out over {mesh} vs no mesh on each row's device ({MESH_XAI_FRAMES} "
+          f"frames, IG {MESH_XAI_IG_STEPS} steps, SHAP {MESH_XAI_SHAP_SAMPLES} samples): "
+          f"max |diff| / max |out| " + ", ".join(
+              f"{k} {v:.3e} (allowed {bounds[k]:.0e}; card vs CPU {apart[k]:.3e})"
+              for k, v in errs.items()), flush=True)
+    for key, err in errs.items():
+        check(err <= bounds[key], f"[mesh] XAI fan-out {key} over {mesh} vs no mesh")
+    return errs
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _mesh_serve(ckpt: Path, out: Path) -> dict:
+    """`python -m synt_isic_tpu_torch.serve --mesh auto` in a fresh process:
+    its status reports the mesh and the rounded device batch, and a bulk
+    generate is answered, its sidecars recording the mesh."""
+    from synt_isic_tpu_torch.serve import request
+
+    argv = ["--port", "0", "--mesh", "auto", "--warmup", "MEL", "--batch", "3",
+            "--steps", str(CLI_STEPS), "--scheduler", "ddim", "--dtype", "f32",
+            "--interactive-cost", "1", "--checkpoints", str(ckpt), "--output-root", str(out)]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.Popen([sys.executable, "-m", "synt_isic_tpu_torch.serve", *argv],
+                            cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, serving = [], []
+    found = threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("serving on "):
+                serving.append(line)
+                found.set()
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        check(found.wait(timeout=300), "the mesh daemon printed no 'serving on' line:\n"
+              + "\n".join(lines))
+        host, port = re.search(r"serving on ([\d.]+):(\d+)", serving[0]).groups()
+        status = request(host, int(port), {"op": "status"}, timeout=60)
+        t0 = time.perf_counter()
+        reply = request(host, int(port), {"op": "generate", "class": "MEL", "count": 3,
+                                          "seed": 9}, timeout=300)
+        served_s = time.perf_counter() - t0
+        down = request(host, int(port), {"op": "shutdown"}, timeout=60)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+    cards = torch.cuda.device_count()
+    batch = -(-3 // cards) * cards
+    check(status.get("mesh") == {"data": cards} and status.get("device_batch") == batch,
+          f"mesh daemon status {status}")
+    check(reply.get("ok") and len(reply["files"]) == 3
+          and all(Path(f).exists() for f in reply["files"]), f"mesh daemon generate: {reply}")
+    meta = json.loads(Path(reply["files"][0]).with_suffix(".json").read_text())
+    check(meta.get("block", {}).get("dp_mesh") == cards, f"mesh daemon sidecar {meta}")
+    check(down.get("ok") and rc == 0, f"mesh daemon shutdown {down}, rc {rc}:\n"
+          + "\n".join(lines))
+    print(f"[mesh] python -m synt_isic_tpu_torch.serve --mesh auto: status mesh "
+          f"{status['mesh']}, device batch {status['device_batch']}; a 3-image generate in "
+          f"{served_s:.2f} s (host clock), sidecars record dp_mesh {cards}; shutdown rc {rc}",
+          flush=True)
+    return {"mesh": status["mesh"], "served_s": served_s}
+
+
+def _mesh_xai(ckpt: Path, base: Path) -> dict:
+    """`python -m synt_isic_tpu_torch.xai.standalone` (through `main()`, the
+    environment protocol) at its defaults, without a mesh and with
+    `XAI_MESH_DEVICES=1`: every frame's attribution map within [xai]'s
+    XAI_TOL['attribution'] x max|map|."""
+    from unittest import mock
+
+    from synt_isic_tpu_torch.xai import standalone
+
+    env = {"XAI_TARGET_CLASS": "MEL", "XAI_CHECKPOINTS_DIR": str(ckpt),
+           "XAI_DEVICE": "cuda", "XAI_GENERATION_SEED": str(XAI_SEED)}
+    figures = importlib.util.find_spec("matplotlib") is not None
+    runner = functools.partial(standalone.run_standalone_xai, save_figures=figures,
+                               log=lambda *_: None)
+    results, walls = {}, {}
+    for name, extra in (("plain", {}), ("mesh", {"XAI_MESH_DEVICES": "1"})):
+        out = base / f"xai_{name}"
+        with mock.patch.dict(os.environ, {**env, **extra, "XAI_RESULTS_DIR": str(out)}), \
+                mock.patch.object(standalone, "run_standalone_xai", runner):
+            t0 = time.perf_counter()
+            rc = standalone.main()
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+        check(rc == 0, f"[mesh] standalone XAI ({name}) returned {rc}")
+        (run_dir,) = (out / "MEL").iterdir()
+        results[name] = pickle.loads((run_dir / "full_results.pkl").read_bytes())
+    want, got = results["plain"]["xai_maps"], results["mesh"]["xai_maps"]
+    check(set(got) == set(want) and want, f"[mesh] XAI frames {sorted(got)} vs {sorted(want)}")
+    worst = 0.0
+    for step, maps in want.items():
+        ref = np.asarray(maps["attribution_map"], np.float64)
+        err = np.abs(np.asarray(got[step]["attribution_map"], np.float64) - ref).max()
+        worst = max(worst, err / max(np.abs(ref).max(), 1e-30))
+    print(f"[mesh] standalone XAI with XAI_MESH_DEVICES=1 vs without: {len(want)} frames, "
+          f"attribution maps max |diff| / max |map| {worst:.3e} (allowed "
+          f"{XAI_TOL['attribution']:.0e}); wall {walls['mesh']:.2f} s vs {walls['plain']:.2f} s",
+          flush=True)
+    check(worst <= XAI_TOL["attribution"], "[mesh] XAI over a mesh vs unsharded")
+    return {"rel_err": worst, "wall_s": walls}
+
+
+def phase_mesh(state: dict, card: str, base: Path) -> dict:
+    """[mesh] data-parallel sampling, serving, training and XAI over device
+    meshes on the full-width UNet with [unet]'s seeded weights."""
+    from synt_isic_tpu_torch.parallel import create_mesh
+
+    t_phase = time.perf_counter()
+    ckpt = base / "checkpoints"
+    ckpt.mkdir(parents=True)
+    torch.save(state, ckpt / "unet_MEL_best.pth")
+    report = {}
+
+    # 1. the CLI with --dp-mesh 1 against no mesh, and a fresh --reproduce
+    plain_jpgs, _, plain_launches = _mesh_cli(base / "cli_plain", ckpt, None)
+    jpgs, sidecars, launches = _mesh_cli(base / "cli_mesh", ckpt, 1)
+    want = ATTENTION_CALLS_PER_UNET * CLI_STEPS
+    check(plain_launches[attention.KERNEL] == want and launches[attention.KERNEL] == want,
+          f"[mesh] CLI launches {plain_launches[attention.KERNEL]} / "
+          f"{launches[attention.KERNEL]}, not {want}")
+    check(len(jpgs) == len(plain_jpgs) == CLI_BATCH, f"[mesh] CLI wrote {len(jpgs)} JPEGs")
+    identical = all(a.read_bytes() == b.read_bytes() for a, b in zip(jpgs, plain_jpgs))
+    metas = [json.loads(p.read_text()) for p in sidecars]
+    check(all(m.get("block", {}).get("dp_mesh") == 1 for m in metas),
+          f"[mesh] sidecars do not record dp_mesh 1: {metas[0]}")
+    rc, redo_launches, output = run_cli_process(
+        ["--reproduce", str(sidecars[3]), "--checkpoints", str(ckpt), "--device", "cuda"])
+    redo_same = "byte-identical" in output
+    print(f"[mesh] cli --dp-mesh 1 (MEL:{CLI_BATCH}, DDIM {CLI_STEPS}, f32): K1 launches "
+          f"{launches[attention.KERNEL]} (want {want}), JPEGs byte-identical to the run "
+          f"without a mesh: {identical}; sidecars record dp_mesh 1; fresh-process "
+          f"--reproduce rc {rc}, byte-identical {redo_same}, "
+          f"{redo_launches[attention.KERNEL]} launches", flush=True)
+    check(identical, "[mesh] --dp-mesh 1 JPEGs differ from the run without a mesh")
+    check(rc == 0 and redo_same and redo_launches[attention.KERNEL] == want,
+          f"[mesh] --reproduce of a dp_mesh sidecar: rc {rc}\n{output}")
+    report["cli_launches"] = launches[attention.KERNEL]
+    report["cli_reproduce_launches"] = redo_launches[attention.KERNEL]
+
+    # 2. the library ShardedSampler over [cuda:0, cuda:0] (and every card)
+    mm = ModelManager(checkpoints_dir=str(ckpt), device="cuda")
+    check(mm.load_model("MEL"), "ModelManager.load_model")
+    meshes = {"[cuda:0, cuda:0]": create_mesh({"data": 2}, ["cuda:0", "cuda:0"])}
+    if torch.cuda.device_count() > 1:
+        meshes["every card"] = create_mesh({"data": -1})
+    report["walks"] = _mesh_walks(mm, meshes, np.arange(MESH_SEEDS, dtype=np.uint32))
+    # two distinct devices, one seed each: the CPU's full-width walk takes
+    # about a second a step
+    mixed = meshes["[cuda:0, cpu]"] = create_mesh({"data": 2}, ["cuda:0", "cpu"])
+    report["walks"]["[cuda:0, cpu]"] = _mesh_walks(
+        mm, {"[cuda:0, cpu]": mixed}, np.arange(MESH_MIXED_SEEDS, dtype=np.uint32)
+    )["[cuda:0, cpu]"]
+    # the walk's CPU shard ran on a replica built with the CPU's switches
+    from synt_isic_tpu_torch.parallel.replicas import sampling_replica
+
+    model = mm.loaded_models["MEL"]
+    cpu_replica = sampling_replica(model, torch.device("cpu"))
+    check(cpu_replica is not model and not cpu_replica.use_fused_attention
+          and all(torch.equal(v, model.state_dict()[k].cpu())
+                  for k, v in cpu_replica.state_dict().items()),
+          "[mesh] the CPU sampling replica is not the primary's weights on the plain path")
+
+    # 3. train --dp-mesh under a one-rank NCCL group, then one dp step
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--dp-mesh", "--classes", "MEL", "--procedural", str(MESH_TRAIN_IMAGES),
+                "--epochs", "1", "--batch", str(TRAIN_BATCH), "--checkpoints", tmp,
+                "--seed", "0", "--device", "cuda"]
+        rc, train_launches, output = run_cli_process(argv, "synt_isic_tpu_torch.train",
+                                                     env=env, count_all_reduce=True)
+        steps = MESH_TRAIN_IMAGES // TRAIN_BATCH
+        reduces = int(re.findall(r"^ALL_REDUCE (\d+)$", output, re.M)[-1])
+        print(f"[mesh] RANK=0 WORLD_SIZE=1 python -m synt_isic_tpu_torch.train --dp-mesh: "
+              f"rc {rc}, {steps} steps, K1/K3/stats launches "
+              f"{train_launches[attention.KERNEL]}/{train_launches[attention.BWD_KERNEL]}/"
+              f"{train_launches[attention.STATS_KERNEL]}, nccl all_reduce calls {reduces}",
+              flush=True)
+        check(rc == 0 and "data-parallel mesh {'data': 1} (process 0 of 1)" in output
+              and (Path(tmp) / "unet_MEL_best.pth").exists(),
+              f"[mesh] train --dp-mesh: rc {rc}\n{output}")
+    check((train_launches[attention.KERNEL], train_launches[attention.BWD_KERNEL],
+           train_launches[attention.STATS_KERNEL])
+          == (ATTENTION_CALLS_PER_UNET * steps, ATTENTION_CALLS_PER_UNET * steps, 0)
+          and reduces == steps, f"[mesh] train --dp-mesh launches {train_launches}, "
+          f"{reduces} all_reduce calls")
+    report["train_launches"] = {k: train_launches[k] for k in
+                                (attention.KERNEL, attention.BWD_KERNEL, attention.STATS_KERNEL)}
+    report["train_step"] = {
+        name: _mesh_train_step(name, meshes[name], batch)
+        for name, batch in (("[cuda:0, cuda:0]", MESH_TRAIN_BATCH),
+                            ("[cuda:0, cpu]", MESH_MIXED_TRAIN_BATCH))}
+
+    # 4. serve --mesh auto; 5. XAI_MESH_DEVICES=1
+    report["serve"] = _mesh_serve(ckpt, base / "served")
+    report["xai"] = _mesh_xai(ckpt, base)
+    report["xai_fan_out"] = _mesh_xai_fan_out(mixed)
+    report["wall_s"] = time.perf_counter() - t_phase
+    print(f"[mesh] phase wall {report['wall_s']:.1f} s on {card}", flush=True)
+    return report
+
+
 def main() -> int:
     card = phase_card()
     if sys.argv[1:] == ["--host"]:
@@ -3239,6 +3752,13 @@ def main() -> int:
         print(json.dumps({"remat": phase_remat(card["card"]), "card": card["card"]},
                          default=str), flush=True)
         return 0
+    if sys.argv[1:] == ["--mesh"]:
+        # the [mesh] phase alone, on the full-width UNet of [unet]
+        native.build([attention.KERNEL, attention.BWD_KERNEL])
+        with tempfile.TemporaryDirectory() as tmp:
+            report = phase_mesh(phase_unet(), card["card"], Path(tmp))
+        print(json.dumps({"mesh": report, "card": card["card"]}, default=str), flush=True)
+        return 0
     if sys.argv[1:] == ["--fast-f32"]:
         # the f32 fast-math timing of [kernel-fast] alone, likewise
         native.build([attention.KERNEL])
@@ -3263,6 +3783,7 @@ def main() -> int:
                                   Path(tmp) / "cli" / "checkpoints")
         xai = phase_xai(state, card["card"], Path(tmp) / "xai")
         served = phase_serve(state, card["card"], Path(tmp) / "serve")
+        meshed = phase_mesh(state, card["card"], Path(tmp) / "mesh")
     train_launches = phase_train(card["card"])
     bench = phase_bench(card["card"])
     train_f32_launches = phase_train(card["card"], f32=True)
@@ -3333,6 +3854,18 @@ def main() -> int:
         "serve": {k: served[k] for k in ("served_img_s", "library_img_s",
                                          "interactive_p50_s", "interactive_p95_s",
                                          "bulk_s", "unet_evaluations")},
+        # [mesh]: cli --dp-mesh 1 and its fresh-process --reproduce, the
+        # ShardedSampler walks (6 per UNet evaluation per shard), the
+        # one-rank NCCL `train --dp-mesh` and the [cuda:0, cuda:0] train step
+        "launches_mesh_cli": meshed["cli_launches"],
+        "launches_mesh_reproduce": meshed["cli_reproduce_launches"],
+        "launches_mesh_sharded": {k: v["launches"] for k, v in meshed["walks"].items()},
+        "mesh_walk_s": {k: v["walk_s"] for k, v in meshed["walks"].items()},
+        "max_abs_err_mesh_walk": {k: v.get("max_abs_err")
+                                  for k, v in meshed["walks"].items() if k != "unsharded"},
+        "launches_mesh_train": meshed["train_launches"][attention.KERNEL],
+        "launches_mesh_train_step": {k: v["launches"][attention.KERNEL]
+                                     for k, v in meshed["train_step"].items()},
         "generator_warm_s": gen["warm_s"],
         "generator_sampler_share": gen["sampler_share"],
         "sampler_update_s": samplers["update_s"],
@@ -3413,6 +3946,13 @@ def main() -> int:
         "host_fwd_bwd_t256_bf16": host_report[host_name((TRAIN_BATCH, 32, 256, 8),
                                                         torch.bfloat16, False, trainable=True)],
         "launches_stats_train": train_launches[attention.STATS_KERNEL],
+        # [mesh]: `train --dp-mesh` (one-rank NCCL) and the [cuda:0, cuda:0]
+        # f32 train step against one device
+        "launches_mesh_train": meshed["train_launches"][attention.BWD_KERNEL],
+        "launches_mesh_train_step": {k: v["launches"][attention.BWD_KERNEL]
+                                     for k, v in meshed["train_step"].items()},
+        "mesh_train_max_weight_diff": {k: v["max_weight_diff"]
+                                       for k, v in meshed["train_step"].items()},
         "launches_distill": distilled["launches"][attention.BWD_KERNEL],
         "launches_stats_distill": distilled["launches"][attention.STATS_KERNEL],
         # [remat]: s/step and peak bytes of the training step by mode and batch

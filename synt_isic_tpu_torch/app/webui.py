@@ -251,7 +251,7 @@ class WebUIServer:
             "last_result": last,
             "device": str(mm.device),
             "n_devices": torch.cuda.device_count(),
-            "mesh": None,
+            "mesh": dict(gen.mesh.shape) if gen.mesh is not None else None,
             "memory": {"mb_in_use": stats.get("mb_in_use"),
                        "mb_peak": stats.get("mb_peak")},
             "family": "conditional" if mm.conditional else "per-class",

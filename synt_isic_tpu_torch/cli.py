@@ -5,8 +5,8 @@ The port of `synt_isic_tpu/cli.py`: the same flags
 (`--classes/--count/--class-counts/--output/--no-postprocess/--interactive/
 --list-classes/--base-dir/--checkpoints/--steps/--batch/--scheduler/
 --timestep-spacing/--seed/--model-variant/--conditional/--guidance-scale/
---guidance-map/--augment-source/--augment-strength/--augment-mask`, all five
-schedulers), the same artifacts — JPEG quality 95 named `ISIC_%07d.jpg`
+--guidance-map/--dp-mesh/--augment-source/--augment-strength/--augment-mask`,
+all five schedulers), the same artifacts — JPEG quality 95 named `ISIC_%07d.jpg`
 continuing from the original dataset's last id 34320, one sidecar JSON per
 image, the one-hot ground-truth CSV appended across runs, mean-shift colour
 postprocessing; `--augment-source` writes img2img / inpainting PNG variants
@@ -15,6 +15,12 @@ of one image through the library generator — plus `--device {cuda,cpu}`
 a sidecar records (console JPEGs, the generator's PNGs of one image or of a
 device block, and img2img PNGs from their source and mask files) and checks
 it byte for byte against the original.
+
+`--dp-mesh N` shards each device block over an N-device data-parallel mesh
+(`parallel.ShardedSampler`; -1 = every local card); its sidecars record
+`block.dp_mesh`, and `--reproduce` of one rebuilds a mesh of that size (rc
+2 on a host with fewer cards). With `--device cpu` the mesh is N repeats of
+the CPU device: the only place the CLI accepts a repeated device.
 
 Usage:
     python -m synt_isic_tpu_torch.cli --checkpoints DIR --class-counts MEL:8 \
@@ -26,6 +32,8 @@ Usage:
     python -m synt_isic_tpu_torch.cli --checkpoints DIR --classes MEL \
         --augment-source SRC.png --augment-mask MASK.png --augment-strength 0.6 \
         --scheduler ddim --steps 50 --count 4 --output OUT
+    python -m synt_isic_tpu_torch.cli --checkpoints DIR --class-counts MEL:16 \
+        --scheduler ddim --steps 50 --dp-mesh -1
     python -m synt_isic_tpu_torch.cli --checkpoints DIR --reproduce OUT/MEL/ISIC_0000001.json
 """
 from __future__ import annotations
@@ -49,6 +57,8 @@ from .io.color_stats import apply_mean_shift_postprocessing, load_color_statisti
 from .io.csv_io import append_groundtruth_row, initialize_groundtruth_csv
 from .io.images import save_image, write_sidecar_metadata
 from .model_manager import ModelManager
+from .parallel.mesh import data_mesh
+from .parallel.sharded_sampler import ShardedSampler
 
 LAST_ORIGINAL_ISIC_NUMBER = 34320  # last id of the real ISIC2018 Task3 set
 
@@ -66,7 +76,8 @@ class ConsoleGenerator:
                  device: Optional[str] = None,
                  conditional: bool = False,
                  guidance_scale: float = 0.0,
-                 guidance_map=None):
+                 guidance_map=None,
+                 mesh=None):
         self.base_dir = Path(base_dir) if base_dir else Path.cwd()
         ckpt = Path(checkpoints_dir) if checkpoints_dir else self.base_dir / "checkpoints"
         self.model_manager = ModelManager(checkpoints_dir=str(ckpt),
@@ -83,6 +94,8 @@ class ConsoleGenerator:
         self.scheduler = scheduler
         self.timestep_spacing = timestep_spacing
         self.seed = seed
+        # --dp-mesh: shard the sampling blocks over the mesh's 'data' axis
+        self.mesh = mesh
         self.synthetic_dir = self.base_dir / "ISIC2018_Task3_synt"
         self.synthetic_csv = self.base_dir / "ISIC2018_Task3_GroundTruth_synt.csv"
         self.color_stats = load_color_statistics(ckpt / "color_statistics.json")
@@ -125,6 +138,8 @@ class ConsoleGenerator:
             sampler = mm.create_sampler(self.inference_steps, scheduler=self.scheduler,
                                         timestep_spacing=self.timestep_spacing,
                                         guidance_scale=g_class)
+            if self.mesh is not None:
+                sampler = ShardedSampler(sampler, self.mesh)
             model = mm.loaded_models[class_name]
             labels = mm.class_id(class_name) if mm.conditional else None
             n = 0
@@ -175,8 +190,12 @@ class ConsoleGenerator:
                                 "postprocess": ("mean_shift" if postprocess
                                                 else None),
                             },
-                            **({"block": {"seeds": [int(s) for s in seeds],
-                                          "index": j}} if block > 1 else {}),
+                            # a mesh block also records the mesh's device
+                            # count, even for one image
+                            **({"block": {"seeds": [int(s) for s in seeds], "index": j,
+                                          **({"dp_mesh": int(self.mesh.devices.size)}
+                                             if self.mesh is not None else {})}}
+                               if block > 1 or self.mesh is not None else {}),
                         })
                     append_groundtruth_row(self.synthetic_csv, name, class_name)
                     n += 1
@@ -212,7 +231,8 @@ def _reproduce_console_jpeg(gen: ImageGenerator, meta: dict, out_path: str) -> b
                            noise_hash=out["noise_hashes"][idx],
                            scheduler=meta.get("scheduler"),
                            extra={"artifact": art,
-                                  **({"block": blk} if len(seeds) > 1 else {})})
+                                  **({"block": blk}
+                                     if len(seeds) > 1 or "dp_mesh" in blk else {})})
     return True
 
 
@@ -279,8 +299,11 @@ def reproduce_from_sidecar(sidecar_path: str, checkpoints_dir: Optional[str],
     next to the sidecar or at its recorded path, checked by SHA-256. 0 =
     reproduced (and identical where the original was there), 1 = failure,
     different bytes, or a missing or changed source, 2 = a sidecar this
-    slice cannot reproduce (a device mesh, an in-memory img2img source), or
-    one whose sampler or dtype had to be assumed and could not be checked.
+    slice cannot reproduce (a block sampled over a mesh of more devices than
+    this host has, an in-memory img2img source), or one whose sampler or
+    dtype had to be assumed and could not be checked. A mesh block is
+    rebuilt over a mesh of the recorded size (on the CPU, repeats of the
+    CPU device).
 
     The initial noise of the recorded seed is hashed before anything is
     written: a sidecar from another noise stream (the JAX package's, or
@@ -292,10 +315,18 @@ def reproduce_from_sidecar(sidecar_path: str, checkpoints_dir: Optional[str],
         print("sidecar records no seed — cannot reproduce", file=sys.stderr)
         return 1
     sched = meta.get("scheduler") or {}
-    if (meta.get("block") or {}).get("dp_mesh"):
-        print("sidecar records a block sampled over a device mesh (ROADMAP A8), "
-              "which is not ported yet", file=sys.stderr)
-        return 2
+    # a block sampled over a mesh is rebuilt over a mesh of the same size:
+    # the shard shapes pick the convolution algorithms
+    mesh = None
+    n_dev = int((meta.get("block") or {}).get("dp_mesh") or 0)
+    if n_dev:
+        on_cuda = torch.device(device or "cuda").type == "cuda"
+        have = torch.cuda.device_count() if on_cuda else n_dev
+        if have < n_dev:
+            print(f"sidecar block was sampled over a {n_dev}-device mesh; this host "
+                  f"has {have} — the layout cannot be rebuilt here", file=sys.stderr)
+            return 2
+        mesh = data_mesh(n_dev, device)
     i2i = meta.get("img2img")
     source = mask = None
     if i2i:
@@ -337,6 +368,8 @@ def reproduce_from_sidecar(sidecar_path: str, checkpoints_dir: Optional[str],
                                      "guidance_default", sched.get("guidance_scale", 0.0))),
                                  guidance_map=sched.get("guidance_map"))
             gen.set_inference_steps(int(meta["inference_steps"]))
+            if mesh is not None:
+                gen.set_mesh(mesh)
             gen.scheduler_kind = sched.get("kind", "ddpm")
             gen.ddim_eta = float(sched.get("ddim_eta", 0.0))
             gen.timestep_spacing = sched.get("timestep_spacing", "leading")
@@ -512,6 +545,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device to sample on (cuda runs the hand-written "
                         "attention kernel; cpu runs its plain version)")
+    p.add_argument("--dp-mesh", type=int, default=0, metavar="N",
+                   help="shard sampling over an N-device data-parallel mesh "
+                        "(-1 = every local card; 0 = one device). Per-seed "
+                        "noise streams keep each image the one-device image; "
+                        "sidecars record the mesh size. With --device cpu the "
+                        "mesh is N repeats of the CPU device (the only place "
+                        "a repeated device is accepted)")
     p.add_argument("--augment-source", type=str, metavar="IMAGE",
                    help="img2img mode: forward-noise this image to "
                         "--augment-strength of the walk and denoise it with the "
@@ -550,7 +590,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                            model_variant=args.model_variant, device=args.device,
                            conditional=args.conditional,
                            guidance_scale=args.guidance_scale,
-                           guidance_map=parse_guidance_map(args.guidance_map))
+                           guidance_map=parse_guidance_map(args.guidance_map),
+                           mesh=data_mesh(args.dp_mesh, args.device) if args.dp_mesh else None)
     if args.list_classes:
         classes = gen.list_classes()
         if not classes:

@@ -197,6 +197,9 @@ class DiffusionSampler:
         self.schedule = schedule
         self.config = config
         self.device = torch.device(device)
+        # where the seed streams are drawn: a shard of a mesh run draws on
+        # the primary's device, so its noise is the unsharded run's
+        self.noise_device = self.device
         self.conditional = bool(conditional)
         self.null_label = null_label
         if (self.conditional and null_label is None
@@ -236,10 +239,18 @@ class DiffusionSampler:
         # whether a step draws noise of its own, known on the host
         self._stochastic = self.params.stochastic and not config.deterministic_posterior
 
+    def on_device(self, device: Union[str, torch.device]) -> "DiffusionSampler":
+        """This sampler's walk on another device (its tables there), drawing
+        its seed streams where this one draws them."""
+        other = DiffusionSampler(self.schedule, self.config, device,
+                                 conditional=self.conditional, null_label=self.null_label)
+        other.noise_device = self.noise_device
+        return other
+
     # -- seed plumbing ------------------------------------------------------------
     def _normal(self, seed: int, shape) -> torch.Tensor:
-        g = torch.Generator(device=self.device).manual_seed(seed)
-        return torch.randn(shape, generator=g, device=self.device)
+        g = torch.Generator(device=self.noise_device).manual_seed(seed)
+        return torch.randn(shape, generator=g, device=self.noise_device).to(self.device)
 
     def initial_noise(self, seeds: Union[int, np.ndarray]) -> torch.Tensor:
         """(B, H, W, C) f32 standard normal, one independent stream per seed."""

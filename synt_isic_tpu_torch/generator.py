@@ -53,8 +53,14 @@ trajectory analysed (`analyze_trajectory`), the result written to
 analysis is logged and generation goes on. `set_xai_hook` keeps the
 reference's inactive legacy hook.
 
-Left for a later slice, and raising `NotImplementedError`: data-parallel
-sampling (`set_mesh`; ROADMAP A8).
+Data-parallel sampling (`set_mesh`, reference `generator.py:200-206,
+305-307`): every device block goes through `parallel.ShardedSampler`, its
+seeds split over the mesh's 'data' axis (padded cyclically), each shard
+walked on its device. Per-seed noise streams keep each image the
+single-device image up to batch-composition rounding, and a block sampled
+over a mesh records the mesh's device count in its sidecar
+(`block.dp_mesh`, even for one image), so `--reproduce` rebuilds the same
+layout.
 """
 from __future__ import annotations
 
@@ -73,6 +79,7 @@ from PIL import Image
 
 from .cache import CacheManager
 from .diffusion.sampler import HostCopy, to_uint8_images
+from .parallel.sharded_sampler import ShardedSampler
 from .io.color_stats import apply_color_postprocessing, load_color_statistics
 from .io.csv_io import append_synthetic_row, initialize_synthetic_csv
 from .io.images import save_image, write_sidecar_metadata
@@ -145,10 +152,6 @@ def tf32_as_recorded(scheduler: Dict[str, Any]):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
 
 
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 class ImageGenerator:
     def __init__(self, config: Optional[ConfigManager] = None,
                  checkpoints_dir: Optional[str] = None,
@@ -218,6 +221,9 @@ class ImageGenerator:
         self.progress_callback: Optional[Callable[[int, int, str], None]] = None
         self.log_callback: Optional[Callable[[str, str], None]] = None
 
+        self.mesh = None  # set_mesh() enables data-parallel sampling
+        self._sharded: Dict[int, ShardedSampler] = {}
+
         self.is_generating = False
         self.stop_requested = False
         # called between device blocks of a generate_images run (same
@@ -256,7 +262,13 @@ class ImageGenerator:
         self.inference_steps = max(1, min(1000, int(steps)))
 
     def set_mesh(self, mesh) -> None:
-        raise _later("data-parallel sampling over a mesh", "A8")
+        """Shard sampling blocks over a `parallel.Mesh` ('data' axis), or
+        sample on the one device again with None. A mesh whose other axes
+        exceed 1 (tensor parallelism, ROADMAP A8-tp) raises."""
+        if mesh is not None:
+            mesh.shard_devices("data")
+        self.mesh = mesh
+        self._sharded.clear()
 
     # -- logging / progress ----------------------------------------------------------
     def _log(self, msg: str, level: str = "info") -> None:
@@ -329,6 +341,33 @@ class ImageGenerator:
             guidance_scale=self.guidance_scale,
             guidance_table=self._guidance_table())
 
+    def block_sampler(self, steps: Optional[int] = None):
+        """The sampler a device block goes through: `_sampler(steps)`, over
+        the mesh when one is set."""
+        sampler = self._sampler(steps)
+        if self.mesh is None:
+            return sampler
+        sharded = self._sharded.get(id(sampler))
+        if sharded is None or sharded.sampler is not sampler:
+            sharded = self._sharded[id(sampler)] = ShardedSampler(sampler, self.mesh)
+        return sharded
+
+    def _block_record(self, seeds: np.ndarray, index: int,
+                      classes: Optional[List[str]] = None,
+                      always: bool = False) -> Optional[Dict[str, Any]]:
+        """The sidecar's `block` field of image `index` of a device block: a
+        multi-image block (or any, with `always`) records its seeds (and,
+        conditional, its classes) so --reproduce can rebuild it; a block
+        sampled over a mesh also records the mesh's device count, even for
+        one image."""
+        if len(seeds) == 1 and self.mesh is None and not always:
+            return None
+        return {"block": {"seeds": [int(s) for s in seeds], "index": int(index),
+                          **({"classes": list(classes)}
+                             if self.model_manager.conditional and classes else {}),
+                          **({"dp_mesh": int(self.mesh.devices.size)}
+                             if self.mesh is not None else {})}}
+
     def _sample_batch(self, class_name: str, seeds: np.ndarray,
                       capture_trajectory: bool) -> Optional[Dict[str, Any]]:
         return self._sample_block([class_name] * len(seeds), seeds,
@@ -348,9 +387,9 @@ class ImageGenerator:
                 return None
         labels = (np.asarray([mm.class_id(c) for c in classes], np.int64)
                   if mm.conditional else None)
-        return self._sampler().sample(mm.loaded_models[classes[0]], seeds,
-                                      capture_trajectory=capture_trajectory,
-                                      class_labels=labels)
+        return self.block_sampler().sample(mm.loaded_models[classes[0]], seeds,
+                                           capture_trajectory=capture_trajectory,
+                                           class_labels=labels)
 
     def generate_single_image(self, class_name: str, output_path: str,
                               postprocess: bool = True,
@@ -395,9 +434,7 @@ class ImageGenerator:
             return False
         self._write_image_artifacts(
             out, idx, class_name, output_path, postprocess, int(seeds[idx]),
-            extra={"block": {"seeds": [int(s) for s in seeds], "index": idx,
-                             **({"classes": classes}
-                                if self.model_manager.conditional else {})}})
+            extra=self._block_record(seeds, idx, classes, always=True))
         self._log(f"image regenerated from its recorded device block "
                   f"(size {len(seeds)}, index {idx}): {output_path}")
         return True
@@ -681,13 +718,9 @@ class ImageGenerator:
                     isic_number = class_counts[class_name]
                     filename = self.path_manager.get_isic_filename(isic_number)
                     file_path = output_path / class_name / filename
-                    # a multi-image block records its layout, so
-                    # --reproduce can rebuild the same block
-                    block_extra = ({"block": {"seeds": [int(s) for s in seeds],
-                                              "index": j,
-                                              **({"classes": [c for c, _ in blk]}
-                                                 if mixed else {})}}
-                                   if len(blk) > 1 else None)
+                    # a multi-image (or mesh) block records its layout,
+                    # so --reproduce can rebuild the same block
+                    block_extra = self._block_record(seeds, j, [c for c, _ in blk])
                     self._write_image_artifacts(out, j, class_name, str(file_path),
                                                 postprocess, int(seeds[j]),
                                                 extra=block_extra)

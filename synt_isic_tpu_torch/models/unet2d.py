@@ -424,6 +424,10 @@ class UNet2D(nn.Module):
                    for i, t in enumerate(cfg.up_block_types)]}
         self.dtype = dtype
         self.param_dtype = param_dtype = param_dtype or dtype
+        # the kernel switches, which a replica on another device takes again
+        self.use_fused_attention, self.fast_norm = use_fused_attention, fast_norm
+        self.fused_heads_per_program = fused_heads_per_program
+        self.fused_fast_math = fused_fast_math
         temb = cfg.time_embed_dim
         last = len(cfg.block_out_channels) - 1
         layers = _Layers(temb, cfg.norm_num_groups, cfg.norm_eps, dtype, fast_norm,

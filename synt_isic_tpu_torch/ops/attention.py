@@ -46,6 +46,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import Tuple
 
 import torch
@@ -385,11 +386,17 @@ def _staged_strides(z: torch.Tensor, copy: bool) -> tuple:
     return (h * t * d, t * d, d, 1)
 
 
+# LAUNCHES and _PLANS change under this lock: the shards of a mesh run
+# launch from one host thread per device
+_LOCK = threading.Lock()
+
+
 def _count(kernels: Tuple[str, ...]) -> None:
     """One launch of each named kernel variant: the only place LAUNCHES
     moves, called by a plan right after its launch."""
-    for name in kernels:
-        LAUNCHES[name] += 1
+    with _LOCK:
+        for name in kernels:
+            LAUNCHES[name] += 1
 
 
 # Checked launches, keyed by everything the checks read: shapes, strides,
@@ -402,9 +409,10 @@ _MAX_PLANS = 256
 
 
 def _remember(key: tuple, plan):
-    if len(_PLANS) >= _MAX_PLANS:
-        _PLANS.clear()
-    _PLANS[key] = plan
+    with _LOCK:
+        if len(_PLANS) >= _MAX_PLANS:
+            _PLANS.clear()
+        _PLANS[key] = plan
     return plan
 
 

@@ -40,10 +40,18 @@ generator's between-blocks hook); replies served that way carry
 `"interactive": true`. `status` reports `latency` / `interactive_latency`
 ({p50_ms, p95_ms, n}), `fast_lane_depth` and `throughput_img_s`.
 
+Multi-device: `--mesh N|auto` (reference `serve.py:758, 879-881`) shards
+every device batch over a data-parallel mesh (`parallel.apply_dp_mesh`,
+`ShardedSampler`, one walk per shard on its card): per-seed noise streams
+keep each image the single-device image, the device batch is rounded up to
+a multiple of the mesh, `status` reports the mesh, the warmup walks the
+sharded sampler and `"xai": true` requests fan their attribution over the
+same mesh. A `DxT` spec with T > 1 (tensor parallelism, ROADMAP A8-tp)
+exits 2. The fast lane stays on one device: it serves images one by one.
+
 Where the port differs: `--device {cuda,cpu}` (the card by default; no
-silent drop to the CPU), `--dtype` maps to torch.bfloat16 / torch.float32,
-`--mesh` exits 2 (data-parallel serving is ROADMAP A8), and `status`
-reports `mesh: null`.
+silent drop to the CPU; with `cpu` a mesh is N repeats of the CPU device),
+and `--dtype` maps to torch.bfloat16 / torch.float32.
 """
 from __future__ import annotations
 
@@ -288,7 +296,8 @@ class GenerationServer:
                     "loaded_models": _snapshot_keys(
                         self.generator.model_manager.loaded_models),
                     "device_batch": self.generator.batch_size,
-                    "mesh": None,
+                    "mesh": (dict(self.generator.mesh.shape)
+                             if self.generator.mesh is not None else None),
                     "max_batch": self.max_batch,
                     "default_steps": self._default_steps,
                     "fast_variant": (
@@ -553,7 +562,10 @@ class GenerationServer:
             if mm.use_fused_attention:
                 native.build([attention.KERNEL])
             host_native.lib()
-            sampler = g._sampler(steps)
+            # over the mesh when one is set: the walk the generate path runs
+            sampler = g.block_sampler(steps)
+            if g.mesh is not None:
+                resp["mesh"] = dict(g.mesh.shape)
             labels = mm.class_id(cls) if mm.conditional else None
             sizes = sorted({1, int(g.batch_size)})
             for b in sizes:
@@ -572,9 +584,11 @@ class GenerationServer:
             else:
                 from .xai.integration import create_integrated_xai_analyzer
 
-                # the classifier on the generator's device
+                # the classifier on the generator's device; a mesh-backed
+                # server fans the attribution batches over the same mesh
                 self._xai_analyzer = create_integrated_xai_analyzer(
-                    device=self.generator.model_manager.device)
+                    device=self.generator.model_manager.device,
+                    mesh=self.generator.mesh)
         return self._xai_analyzer
 
     def _finish(self, r: _Request, response: Dict[str, Any]) -> None:
@@ -716,8 +730,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device to serve on (cuda runs the hand-written "
                         "attention kernel; cpu runs its plain version)")
     p.add_argument("--mesh", default=None, metavar="N|auto|DxT",
-                   help="multi-device serving: not ported yet (ROADMAP A8); "
-                        "exits 2")
+                   help="shard every device batch over a data-parallel mesh of "
+                        "N devices ('auto' = every visible card; with --device "
+                        "cpu, N repeats of the CPU device); rounds --batch up "
+                        "to a multiple of N. DxT with T > 1 (tensor "
+                        "parallelism) is not ported and exits 2")
     p.add_argument("--interactive-cost", type=int, default=256,
                    help="count x steps threshold under which a request "
                         "rides the priority lane (ahead of queued bulk "
@@ -776,7 +793,12 @@ def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
     if args.mesh:
-        p.error("--mesh: multi-device serving is not ported yet (ROADMAP A8)")
+        from .parallel.mesh import parse_mesh_spec
+
+        try:
+            parse_mesh_spec(args.mesh)
+        except (NotImplementedError, ValueError) as exc:
+            p.error(f"--mesh {args.mesh}: {exc}")
 
     from .generator import ImageGenerator, parse_guidance_map
 
@@ -804,6 +826,12 @@ def main(argv=None) -> int:
         gen.set_inference_steps(args.steps)
     if args.batch:
         gen.batch_size = args.batch
+    if args.mesh:
+        from .parallel.mesh import apply_dp_mesh
+
+        mesh = apply_dp_mesh(gen, args.mesh)
+        print(f"serving over a {dict(mesh.shape)} mesh "
+              f"(device batch {gen.batch_size})", flush=True)
     fast_gen = None
     if args.fast_variant or args.fast_scheduler:
         import re
@@ -837,6 +865,8 @@ def main(argv=None) -> int:
               f"({args.fast_spacing})", flush=True)
     server = GenerationServer(gen, host=args.host, port=args.port,
                               output_root=args.output_root,
+                              # gen.batch_size, not args.batch: --mesh may
+                              # have rounded the device batch up
                               max_batch=args.max_batch or gen.batch_size,
                               interactive_cost=args.interactive_cost,
                               fast_generator=fast_gen)

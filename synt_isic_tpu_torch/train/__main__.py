@@ -24,8 +24,16 @@ mode's defaults hold otherwise (DDPM batch 2 / lr 1e-4, classifier batch
     python -m synt_isic_tpu_torch.train --train-classifier --data-dir IMAGES \
         --csv GROUNDTRUTH.csv --epochs 2 --batch 16 --checkpoints DIR
 
-`--dp-mesh` (data-parallel training) is not ported yet and exits with
-status 2.
+`--dp-mesh` (reference `train/__main__.py:98-102, 142-146`) trains
+data-parallel over every local card, and over every process when the
+process was started by torchrun (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`,
+`MASTER_ADDR`, `MASTER_PORT`: `parallel.multihost.initialize`, nccl on
+CUDA, gloo with `--device cpu`). `--batch` is then the global batch and
+must be a multiple of the mesh's data size. With `--device cpu` the
+process's mesh is the one CPU device.
+
+    torchrun --nproc-per-node 4 -m synt_isic_tpu_torch.train --dp-mesh \
+        --classes MEL --procedural 64 --epochs 2 --batch 32 --checkpoints DIR
 """
 from __future__ import annotations
 
@@ -36,10 +44,9 @@ from pathlib import Path
 from typing import List
 
 from ..model_manager import resolve_device
+from ..parallel import multihost
 from ..utils.config import CLASS_NAMES
 from .train_ddpm import TrainConfig, train_class
-
-NOT_PORTED = ("dp_mesh",)
 
 
 def select_classes_interactive() -> List[str]:
@@ -124,8 +131,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default="trailing",
                    help="timestep spacing of the student grids (trailing "
                         "is the measured few-step winner)")
-    not_ported = p.add_argument_group("not ported yet (exit with status 2)")
-    not_ported.add_argument("--dp-mesh", action="store_true")
+    p.add_argument("--dp-mesh", action="store_true",
+                   help="data-parallel training over every local card (and every "
+                        "process when started by torchrun); --batch is then the "
+                        "global batch and must be a multiple of the device count")
     return p
 
 
@@ -160,7 +169,7 @@ def train_classifier_from_cli(args, device) -> int:
     return 0
 
 
-def distill_from_cli(args, classes: List[str], device, dataset_for) -> int:
+def distill_from_cli(args, classes: List[str], device, dataset_for, mesh=None) -> int:
     """`--distill-from`: progressive distillation of each class's teacher
     (the path with {CLASS} replaced), loaded into the port's UNet2D with
     `load_state_dict(strict=True)`."""
@@ -194,7 +203,7 @@ def distill_from_cli(args, classes: List[str], device, dataset_for) -> int:
         out = progressive_distill(teacher, dataset, cls, args.checkpoints,
                                   start_steps=args.distill_start,
                                   end_steps=args.distill_end, config=cfg_cls,
-                                  image_size=args.image_size, device=device)
+                                  image_size=args.image_size, mesh=mesh, device=device)
         for ph in out["phases"]:
             print(f"  T={ph['n_student']}: {ph['checkpoint']} "
                   f"(loss {ph['final_loss']:.5f})")
@@ -203,11 +212,18 @@ def distill_from_cli(args, classes: List[str], device, dataset_for) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for name in NOT_PORTED:
-        if getattr(args, name):
-            print(f"--{name.replace('_', '-')} is not ported yet", file=sys.stderr)
-            return 2
     device = resolve_device(args.device)
+    # joins the process group when torchrun's variables are set; a single
+    # process otherwise
+    multihost.initialize(device=device.type)
+    mesh = None
+    if args.dp_mesh:
+        mesh = multihost.hybrid_mesh(
+            devices=None if device.type == "cuda" else [device])
+        # the primary replica is this process's first device
+        device = mesh.shard_devices()[0]
+        print(f"data-parallel mesh {mesh.shape} "
+              f"(process {multihost.process_index()} of {multihost.process_count()})")
     if args.train_classifier:
         return train_classifier_from_cli(args, device)
 
@@ -238,7 +254,7 @@ def main(argv=None) -> int:
                                   max_samples=args.max_samples)
 
     if args.distill_from:
-        return distill_from_cli(args, classes, device, dataset_for)
+        return distill_from_cli(args, classes, device, dataset_for, mesh)
 
     if args.conditional:
         from .train_conditional import train_conditional
@@ -252,7 +268,7 @@ def main(argv=None) -> int:
         print(f"== training conditional model on {list(datasets)}: {total} "
               f"images on {device} ==")
         result = train_conditional(datasets, args.checkpoints, cfg,
-                                   resume=args.resume, device=device)
+                                   resume=args.resume, mesh=mesh, device=device)
         print(f"== conditional done: best_loss={result['best_loss']:.5f} "
               f"-> {result['checkpoint']} ==")
         return 0
@@ -264,7 +280,7 @@ def main(argv=None) -> int:
             continue
         print(f"== training {cls}: {len(dataset)} images on {device} ==")
         result = train_class(cls, dataset, args.checkpoints, cfg,
-                             resume=args.resume, device=device)
+                             resume=args.resume, mesh=mesh, device=device)
         print(f"== {cls} done: best_loss={result['best_loss']:.5f} ==")
     return 0
 

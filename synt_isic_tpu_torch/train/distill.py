@@ -39,7 +39,13 @@ What differs from the JAX distiller, and why:
     max_norm / norm only when norm >= max_norm, with no epsilon;
   * `history` holds every step's loss (the JAX scan path keeps one mean
     per block), and the log prints one line per block of batches;
-  * data-parallel distillation (`mesh`) is not ported (ROADMAP A8).
+  * data parallelism (`mesh`, reference `distill.py:265, 427, 477`) follows
+    the trainer's scheme (`train_ddpm.py`): k and eps are drawn for the
+    global batch, then split; each shard runs the teacher's two forwards
+    and the student's forward and backward on its device's replicas; the
+    gradients are summed (and `all_reduce`d across processes) before the
+    clip, Adam and the EMA. Across processes checkpoints go through
+    `host0_only`.
 """
 from __future__ import annotations
 
@@ -57,8 +63,11 @@ from ..diffusion.schedules import DiffusionSchedule, spaced_timesteps
 from ..io.pth import save_checkpoint
 from ..model_manager import resolve_device
 from ..models.unet2d import UNet2D
+from ..parallel import multihost
+from ..parallel.replicas import Replicas
 from .train_ddpm import (TrainConfig, TrainState, _epoch_batches, _nchw, apply_gradients,
-                         create_train_state, default_model)
+                         apply_sharded_gradients, checkpoint_writer, create_train_state,
+                         default_model, global_rows, local_rows, shard_spans)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,17 +172,13 @@ def make_distill_loss(schedule: DiffusionSchedule, config: DistillConfig,
                                                     device=dev)
         return tables[dev]
 
-    def loss_fn(student: UNet2D, teacher: UNet2D, batch: torch.Tensor,
-                generator: Optional[torch.Generator] = None, *,
-                k: Optional[torch.Tensor] = None, eps: Optional[torch.Tensor] = None,
-                params: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+    def row_losses(student: UNet2D, teacher: UNet2D, batch: torch.Tensor,
+                   k: torch.Tensor, eps: torch.Tensor,
+                   params: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+        """(B,) weighted x0 errors of the batch's rows, on its device."""
         dev = batch.device
         tb = device_tables(dev)
         b = batch.shape[0]
-        if k is None:
-            k = torch.randint(0, n_student, (b,), generator=generator, device=dev)
-        if eps is None:
-            eps = torch.randn(batch.shape, generator=generator, device=dev)
         k = k.to(dev).long()
         x0, eps = _nchw(batch.float()), _nchw(eps.to(dev, torch.float32))
 
@@ -202,8 +207,21 @@ def make_distill_loss(schedule: DiffusionSchedule, config: DistillConfig,
         x0_s = (z - st * e_s) / at
         w = torch.clamp(tb["snr"][k], min=config.snr_floor)
         per_img = torch.mean((x0_s - x0_target) ** 2, dim=(1, 2, 3))
-        return torch.mean(w * per_img)
+        return w * per_img
 
+    def loss_fn(student: UNet2D, teacher: UNet2D, batch: torch.Tensor,
+                generator: Optional[torch.Generator] = None, *,
+                k: Optional[torch.Tensor] = None, eps: Optional[torch.Tensor] = None,
+                params: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+        dev = batch.device
+        b = batch.shape[0]
+        if k is None:
+            k = torch.randint(0, n_student, (b,), generator=generator, device=dev)
+        if eps is None:
+            eps = torch.randn(batch.shape, generator=generator, device=dev)
+        return torch.mean(row_losses(student, teacher, batch, k, eps, params))
+
+    loss_fn.row_losses = row_losses
     return loss_fn
 
 
@@ -220,14 +238,15 @@ def clip_by_global_norm_(parameters, max_norm: float) -> torch.Tensor:
     return norm
 
 
-def create_distill_state(student: UNet2D, config: DistillConfig) -> TrainState:
+def create_distill_state(student: UNet2D, config: DistillConfig, mesh=None) -> TrainState:
     """The trainer's state over the student (`create_train_state`): Adam
-    (optax's defaults) at the phase's warmup-cosine lr, and the EMA as an
-    f32 copy of the weights when `ema_decay` > 0."""
+    (optax's defaults) at the phase's warmup-cosine lr, the EMA as an f32
+    copy of the weights when `ema_decay` > 0, and with a mesh the
+    student's replicas."""
     return create_train_state(student, TrainConfig(
         learning_rate=config.learning_rate, lr_schedule="cosine",
         warmup_steps=config.warmup_steps, lr_end_factor=config.lr_end_factor,
-        ema_decay=config.ema_decay), total_steps=config.steps_per_phase)
+        ema_decay=config.ema_decay), total_steps=config.steps_per_phase, mesh=mesh)
 
 
 def make_distill_step(schedule: DiffusionSchedule, config: DistillConfig,
@@ -236,17 +255,37 @@ def make_distill_step(schedule: DiffusionSchedule, config: DistillConfig,
     *, k=None, eps=None) -> loss, a 0-d f32 tensor on the device (no host
     sync). The student in `state` takes the gradient (clipped by global norm
     when `grad_clip` > 0), an Adam step at the schedule's lr, and the EMA
-    update; the teacher is read only."""
+    update; the teacher is read only.
+
+    With a data-parallel state (`create_distill_state(mesh=)`), `teacher` is
+    the teacher's `Replicas` over the same mesh, and `k` and `eps` (drawn
+    or given) are the global batch's; each shard's rows run on its device
+    and the reduced gradients take one update."""
     loss_fn = make_distill_loss(schedule, config, n_student)
     clip = (functools.partial(clip_by_global_norm_, max_norm=config.grad_clip)
             if config.grad_clip > 0 else None)
 
-    def step(state: TrainState, teacher: UNet2D, batch: torch.Tensor,
+    def step(state: TrainState, teacher, batch: torch.Tensor,
              generator: Optional[torch.Generator] = None, *,
              k: Optional[torch.Tensor] = None,
              eps: Optional[torch.Tensor] = None) -> torch.Tensor:
-        loss = loss_fn(state.model, teacher, batch, generator, k=k, eps=eps)
-        return apply_gradients(state, loss, config.ema_decay, clip)
+        if state.replicas is None:
+            loss = loss_fn(state.model, teacher, batch, generator, k=k, eps=eps)
+            return apply_gradients(state, loss, config.ema_decay, clip)
+        dev = batch.device
+        b, lo, hi = global_rows(state, batch.shape[0])
+        if k is None:
+            k = torch.randint(0, n_student, (b,), generator=generator, device=dev)
+        if eps is None:
+            eps = torch.randn((b,) + tuple(batch.shape[1:]), generator=generator, device=dev)
+        k, eps = k.to(dev)[lo:hi], eps.to(dev)[lo:hi]
+
+        def shard_losses():
+            for d, a, z in shard_spans(state, batch.shape[0]):
+                yield loss_fn.row_losses(state.replicas[d], teacher[d], batch[a:z].to(d),
+                                         k[a:z], eps[a:z]).sum() / b
+
+        return apply_sharded_gradients(state, shard_losses(), config.ema_decay, clip)
 
     return step
 
@@ -279,10 +318,14 @@ def distill_phase(model: UNet2D, schedule: DiffusionSchedule,
     `model` is the student module (its weights are overwritten with
     `teacher_params`, a state dict) on the phase's device; `teacher` the
     module that holds the teacher's weights (a copy of `model` unless
-    given)."""
+    given). `mesh`: data-parallel over its 'data' axis; `batch_size` is the
+    global batch and must divide by its size."""
     if mesh is not None:
-        raise NotImplementedError("data-parallel distillation (mesh) is not ported yet "
-                                  "(ROADMAP A8)")
+        mesh.shard_devices("data")   # a 'model' axis above 1 raises (A8-tp)
+    if mesh is not None and config.batch_size % mesh.shape["data"] != 0:
+        raise ValueError(
+            f"batch_size {config.batch_size} must be a multiple of the mesh data "
+            f"axis size ({mesh.shape['data']}) for dp distill")
     if len(dataset) < config.batch_size:
         # both phase loops draw full batches; an undersized dataset would
         # yield zero batches and the while-loop would spin forever
@@ -296,7 +339,11 @@ def distill_phase(model: UNet2D, schedule: DiffusionSchedule,
         teacher.load_state_dict(teacher_params, strict=True)
     teacher.requires_grad_(False)
     model.requires_grad_(True)
-    state = create_distill_state(model, config)
+    state = create_distill_state(model, config, mesh)
+    # the teacher's replicas, made once its weights are in
+    teachers = Replicas(teacher, mesh) if mesh is not None else teacher
+    rows = (multihost.local_batch_bounds(config.batch_size)
+            if mesh is not None and mesh.processes > 1 else None)
     step_fn = make_distill_step(schedule, config, n_student)
     generator = torch.Generator(device=device).manual_seed(config.seed + n_student)
     data_rng = np.random.default_rng(config.seed + n_student)
@@ -341,7 +388,7 @@ def distill_phase(model: UNet2D, schedule: DiffusionSchedule,
         t0 = time.time()
         losses = []
         for batch in _epoch_batches(dataset, config.batch_size, data_rng, device):
-            losses.append(step_fn(state, teacher, batch, generator))
+            losses.append(step_fn(state, teachers, local_rows(batch, rows), generator))
             done += 1
             maybe_eval()
             if done >= config.steps_per_phase:
@@ -386,9 +433,6 @@ def progressive_distill(teacher_params: Mapping[str, torch.Tensor], dataset,
             f"start_steps {start_steps} halves to {start_steps // 2} < "
             f"end_steps {end_steps} — no phase would run (start_steps must "
             f"be at least 2 x end_steps)")
-    if mesh is not None:
-        raise NotImplementedError("data-parallel distillation (mesh) is not ported yet "
-                                  "(ROADMAP A8)")
     device = resolve_device(device)
     model = (model or default_model(TrainConfig(image_size=image_size,
                                                 bf16_compute=config.bf16_compute,
@@ -397,9 +441,8 @@ def progressive_distill(teacher_params: Mapping[str, torch.Tensor], dataset,
     schedule = DiffusionSchedule.create(config.num_train_timesteps)
     ckpt_dir = Path(checkpoint_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    from .async_ckpt import AsyncCheckpointer
-
-    writer = AsyncCheckpointer(log=log)
+    # across processes, process 0 writes each phase (host0_only)
+    writer = checkpoint_writer(mesh is not None and mesh.processes > 1, log)
     phases = []
     n = start_steps // 2
     teacher_params = {k: v.to(device, torch.float32) for k, v in teacher_params.items()}
@@ -408,7 +451,7 @@ def progressive_distill(teacher_params: Mapping[str, torch.Tensor], dataset,
         while n >= end_steps:
             t0 = time.time()
             result = distill_phase(model, schedule, teacher_params, dataset, n,
-                                   config, log=log, teacher=teacher)
+                                   config, mesh=mesh, log=log, teacher=teacher)
             path = ckpt_dir / f"unet_{class_name}_distill{n}.pth"
             writer.submit(result["params"], save_checkpoint, str(path))
             log(f"[distill:{n}] phase done in {time.time() - t0:.1f}s -> {path}")

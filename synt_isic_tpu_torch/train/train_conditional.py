@@ -19,7 +19,9 @@ GroupNorm). Artifacts:
     the table size and the null row, written before training starts so a
     crashed run never leaves a checkpoint that cannot be loaded;
   * per-class colour statistics for the generator's postprocessing.
-Data-parallel training (`mesh`) is not ported yet.
+`mesh=` trains data-parallel through `train_class(mesh=)` (reference
+`train_conditional.py:146, 171`); across processes the metadata and the
+statistics are written by process 0.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import torch
 
 from ..model_manager import resolve_device
 from ..models.unet2d import UNet2D
+from ..parallel import multihost
 from .data import augment_image
 from .train_ddpm import TrainConfig, dataset_color_statistics, default_model, train_class
 
@@ -138,8 +141,6 @@ def train_conditional(class_datasets: Dict[str, Any], checkpoint_dir: str,
     rows (recorded in the metadata JSON). `model` defaults to the trainer's
     flagship with `len(class_datasets) + 1` embedding rows. Returns the
     `train_class` result plus the class list and the table size."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training (mesh) is not ported yet")
     device = resolve_device(device)
     classes = list(class_datasets)
     n_embed = len(classes) + 1  # + the CFG null row
@@ -148,11 +149,12 @@ def train_conditional(class_datasets: Dict[str, Any], checkpoint_dir: str,
         raise ValueError(
             f"model.num_class_embeds={model.config.num_class_embeds} does not "
             f"fit {len(classes)} classes + 1 null row")
-    write_conditional_metadata(checkpoint_dir, classes, config.cond_dropout)
+    multihost.host0_only(write_conditional_metadata, checkpoint_dir, classes,
+                         config.cond_dropout)
 
     mixture = LabeledMixtureDataset(class_datasets, image_size=config.image_size)
     result = train_class("conditional", mixture, checkpoint_dir, config,
-                         model=model, resume=resume, log=log, device=device)
+                         model=model, resume=resume, mesh=mesh, log=log, device=device)
 
     # the generator looks colour statistics up by class name, so each
     # class's own go beside the mixture's (written under 'conditional')
@@ -161,6 +163,6 @@ def train_conditional(class_datasets: Dict[str, Any], checkpoint_dir: str,
     for cls, ds in class_datasets.items():
         stats = dataset_color_statistics(ds)
         if stats is not None:
-            update_color_statistics_file(
-                Path(checkpoint_dir) / "color_statistics.json", cls, stats)
+            multihost.host0_only(update_color_statistics_file,
+                                 Path(checkpoint_dir) / "color_statistics.json", cls, stats)
     return {**result, "classes": classes, "num_class_embeds": n_embed}

@@ -23,8 +23,22 @@ What differs from the JAX trainer, and why:
   * the resume state keeps `best_loss`, and a run resumed after its last
     epoch runs no further epoch (the JAX trainer re-runs the last one).
 Labelled batches, `(images, labels)` tuples (`train_conditional.py`),
-train the class-conditional UNet through the same loop. Data-parallel
-training (`mesh`) is not ported yet.
+train the class-conditional UNet through the same loop.
+
+Data parallelism (`train_class(mesh=)`, reference `train_ddpm.py:371,
+409-417, 495-600`): the global batch must divide by the mesh's 'data'
+size. Each step's timesteps, noise and label dropout are drawn once for the
+global batch, exactly as the unsharded step draws them, and only then
+split into the shards, so a dp step equals the unsharded step up to the
+order of the gradient sum. Each shard's forward and backward run on its
+device's replica (`parallel.replicas.Replicas`) with loss = its rows' sum
+over the global batch size; the replicas' gradients are summed into the
+primary's and, when a process group exists, `all_reduce`d across the
+processes, and the clip, Adam and the EMA run once on the reduced
+gradients before the primary's weights are copied back into every
+replica. Across processes (`parallel.multihost`) every process draws the
+same global batch and keeps its rows, and checkpoints go through
+`host0_only`; a single process keeps the async writer.
 """
 from __future__ import annotations
 
@@ -42,6 +56,9 @@ from ..diffusion.schedules import DiffusionSchedule, device_table
 from ..io.pth import save_checkpoint
 from ..model_manager import resolve_device
 from ..models.unet2d import UNet2D, UNet2DConfig
+from ..parallel import multihost
+from ..parallel.mesh import split_rows
+from ..parallel.replicas import Replicas
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,12 +98,14 @@ class TrainConfig:
 @dataclasses.dataclass
 class TrainState:
     """The model (updated in place), its optimizer, the lr schedule, the
-    count of steps taken, and the f32 EMA of the weights (None when off)."""
+    count of steps taken, the f32 EMA of the weights (None when off), and
+    the model's replicas over a data-parallel mesh (None without one)."""
     model: UNet2D
     optimizer: torch.optim.Adam
     lr_schedule: Callable[[int], float]
     step: int = 0
     ema: Optional[Dict[str, torch.Tensor]] = None
+    replicas: Optional[Replicas] = None
 
     def export_params(self) -> Dict[str, torch.Tensor]:
         """The weights checkpoints ship: the EMA when on, else the model's."""
@@ -160,15 +179,33 @@ def make_lr_schedule(config: TrainConfig,
 
 
 def create_train_state(model: UNet2D, config: TrainConfig,
-                       total_steps: Optional[int] = None) -> TrainState:
+                       total_steps: Optional[int] = None, mesh=None) -> TrainState:
     """Adam (optax's defaults: betas 0.9/0.999, eps 1e-8) over the model's
-    parameters, where they are; the EMA starts as an f32 copy of them."""
+    parameters, where they are; the EMA starts as an f32 copy of them.
+    With a mesh, the model's replicas on the mesh's other devices."""
     lr = make_lr_schedule(config, total_steps)
     optimizer = torch.optim.Adam(model.parameters(), lr=lr(0),
                                  betas=(0.9, 0.999), eps=1e-8)
     ema = ({k: v.detach().float().clone() for k, v in model.state_dict().items()}
            if config.ema_decay > 0 else None)
-    return TrainState(model=model, optimizer=optimizer, lr_schedule=lr, ema=ema)
+    return TrainState(model=model, optimizer=optimizer, lr_schedule=lr, ema=ema,
+                      replicas=Replicas(model, mesh) if mesh is not None else None)
+
+
+def global_rows(state: TrainState, b_local: int) -> Tuple[int, int, int]:
+    """(global batch size, first and end row of this process's part) of a
+    step whose local batch has `b_local` rows: every process draws the
+    step's noise for the global batch and keeps its rows."""
+    procs = state.replicas.mesh.processes if state.replicas is not None else 1
+    b = b_local * procs
+    start = multihost.process_index() * b_local if procs > 1 else 0
+    return b, start, start + b_local
+
+
+def shard_spans(state: TrainState, b_local: int):
+    """(device, start, stop) of each shard of a local batch, in mesh order."""
+    devices = state.replicas.devices
+    return [(d, a, z) for d, (a, z) in zip(devices, split_rows(b_local, len(devices)))]
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -189,6 +226,24 @@ def make_train_step(schedule: DiffusionSchedule, config: TrainConfig) -> Callabl
     tables: Dict[torch.device, torch.Tensor] = {}
     T = schedule.num_train_timesteps
 
+    def row_errors(model: UNet2D, batch: torch.Tensor, t: torch.Tensor,
+                   eps: torch.Tensor, labels: Optional[torch.Tensor]) -> torch.Tensor:
+        """(B,) f32 per-image losses of `model` on its device's rows."""
+        dev = batch.device
+        if dev not in tables:
+            tables[dev] = device_table(schedule.alphas_cumprod, dev)
+        b = batch.shape[0]
+        t = t.to(dev)
+        x0, eps = _nchw(batch.float()), _nchw(eps.to(dev, torch.float32))
+        ab_t = tables[dev][t].reshape(b, 1, 1, 1)
+        noisy = torch.sqrt(ab_t) * x0 + torch.sqrt(1.0 - ab_t) * eps
+        pred = model(noisy, t, None if labels is None else labels.to(dev))
+        err = torch.mean((pred.float() - eps) ** 2, dim=(1, 2, 3))
+        if config.min_snr_gamma > 0.0:
+            snr = (ab_t / (1.0 - ab_t)).reshape(b)
+            err = err * (torch.clamp(snr, max=config.min_snr_gamma) / snr)
+        return err
+
     def train_step(state: TrainState, batch: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    t: Optional[torch.Tensor] = None,
@@ -198,35 +253,36 @@ def make_train_step(schedule: DiffusionSchedule, config: TrainConfig) -> Callabl
         if isinstance(batch, (tuple, list)):
             batch, labels = batch
         dev = batch.device
-        if dev not in tables:
-            tables[dev] = device_table(schedule.alphas_cumprod, dev)
-        b = batch.shape[0]
+        # drawn for the global batch (the local one without a mesh across
+        # processes), then this process's rows kept
+        b, lo, hi = global_rows(state, batch.shape[0])
+        shape = (b,) + tuple(batch.shape[1:])
         if t is None:
             t = torch.randint(0, T, (b,), generator=generator, device=dev)
         if eps is None:
-            eps = torch.randn(batch.shape, generator=generator, device=dev)
+            eps = torch.randn(shape, generator=generator, device=dev)
             if config.offset_noise > 0.0:
                 eps = eps + config.offset_noise * torch.randn(
                     (b, 1, 1, batch.shape[-1]), generator=generator, device=dev)
-        t = t.to(dev)
-        x0, eps = _nchw(batch.float()), _nchw(eps.to(dev, torch.float32))
-        ab_t = tables[dev][t].reshape(b, 1, 1, 1)
-        noisy = torch.sqrt(ab_t) * x0 + torch.sqrt(1.0 - ab_t) * eps
         if labels is not None:
             labels = labels.to(dev).long()
             if drop is None and config.cond_dropout > 0.0:
                 drop = torch.rand(b, generator=generator, device=dev) < config.cond_dropout
             if drop is not None:
                 null = state.model.config.num_class_embeds - 1
-                labels = torch.where(drop.to(dev), torch.full_like(labels, null), labels)
-        pred = state.model(noisy, t, labels)
-        err = torch.mean((pred.float() - eps) ** 2, dim=(1, 2, 3))
-        if config.min_snr_gamma > 0.0:
-            snr = (ab_t / (1.0 - ab_t)).reshape(b)
-            err = err * (torch.clamp(snr, max=config.min_snr_gamma) / snr)
-        loss = err.mean()
+                labels = torch.where(drop.to(dev)[lo:hi], torch.full_like(labels, null),
+                                     labels)
+        t, eps = t.to(dev)[lo:hi], eps[lo:hi]
+        if state.replicas is None:
+            loss = row_errors(state.model, batch, t, eps, labels).mean()
+            return apply_gradients(state, loss, config.ema_decay)
 
-        return apply_gradients(state, loss, config.ema_decay)
+        def shard_losses():
+            for d, a, z in shard_spans(state, batch.shape[0]):
+                yield row_errors(state.replicas[d], batch[a:z].to(d), t[a:z], eps[a:z],
+                                 None if labels is None else labels[a:z]).sum() / b
+
+        return apply_sharded_gradients(state, shard_losses(), config.ema_decay)
 
     return train_step
 
@@ -238,6 +294,31 @@ def apply_gradients(state: TrainState, loss: torch.Tensor, ema_decay: float,
     of updates made, the EMA, the count. Returns the detached loss."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    return _update(state, loss, ema_decay, clip)
+
+
+def apply_sharded_gradients(state: TrainState, shard_losses, ema_decay: float,
+                            clip: Optional[Callable[[Any], Any]] = None) -> torch.Tensor:
+    """One data-parallel update: the backward of each shard's loss (each
+    on its replica, yielded one at a time so a shard's graph is freed
+    before the next is built), the replicas' gradients and the losses summed
+    into the primary and across processes, then `apply_gradients`' clip,
+    Adam step and EMA, and the new weights copied into every replica.
+    Returns the summed, detached loss on the primary's device."""
+    state.replicas.zero_grad()
+    dev = next(state.model.parameters()).device
+    total = None
+    for loss in shard_losses:
+        loss.backward()
+        part = loss.detach().to(dev)
+        total = part if total is None else total + part
+    return _update(state, state.replicas.reduce_gradients(extra=total), ema_decay, clip)
+
+
+def _update(state: TrainState, loss: torch.Tensor, ema_decay: float,
+            clip: Optional[Callable[[Any], Any]]) -> torch.Tensor:
+    """The update from the gradients in place: the clip, Adam at the
+    schedule's lr, the EMA, the count, and the replicas' weights."""
     if clip is not None:
         clip(state.model.parameters())
     for group in state.optimizer.param_groups:
@@ -246,6 +327,8 @@ def apply_gradients(state: TrainState, loss: torch.Tensor, ema_decay: float,
     if state.ema is not None:
         ema_update(state.ema, state.model.state_dict(), state.step, ema_decay)
     state.step += 1
+    if state.replicas is not None:
+        state.replicas.broadcast()
     return loss.detach()
 
 
@@ -425,6 +508,37 @@ def _epoch_batches(dataset, batch_size: int, rng: np.random.Generator,
         yield _to_device(batch, device)
 
 
+def local_rows(batch, rows: Optional[Tuple[int, int]]):
+    """This process's rows [start, stop) of a global batch (images, or an
+    (images, labels) tuple); the batch itself when `rows` is None."""
+    if rows is None:
+        return batch
+    if isinstance(batch, (tuple, list)):
+        return tuple(z[rows[0]:rows[1]] for z in batch)
+    return batch[rows[0]:rows[1]]
+
+
+class _Host0Writer:
+    """The `AsyncCheckpointer` interface over `multihost.host0_only`: each
+    write runs at once on process 0, every process waiting for it."""
+
+    def submit(self, tree, fn, path, coalesce=None) -> None:
+        multihost.host0_only(fn, tree, path)
+
+    def close(self) -> None:
+        pass
+
+
+def checkpoint_writer(multi_process: bool, log=print):
+    """The async writer in one process; process 0's synchronous writes,
+    with a barrier, across processes (the reference's host0_only path)."""
+    if multi_process:
+        return _Host0Writer()
+    from .async_ckpt import AsyncCheckpointer
+
+    return AsyncCheckpointer(log=log)
+
+
 def train_class(class_name: str, dataset, checkpoint_dir: str,
                 config: TrainConfig = TrainConfig(),
                 model: Optional[UNet2D] = None,
@@ -442,15 +556,31 @@ def train_class(class_name: str, dataset, checkpoint_dir: str,
     loop — a run interrupted after epoch E continues at E+1; a run that had
     finished runs no epoch and keeps its best checkpoint and best loss. The
     data and noise streams restart from the seed, so a resumed run's batch
-    order differs from the uninterrupted run's."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training (mesh) is not ported yet")
+    order differs from the uninterrupted run's.
+
+    `mesh`: a `parallel.Mesh` with a 'data' axis (on a
+    `multihost.hybrid_mesh` it spans the processes): `config.batch_size` is
+    the global batch and must divide by the mesh's data size; each step is
+    split over the mesh's devices (see the module docstring). `device` is
+    then the primary replica's device, which the optimizer and the EMA live
+    on. Across processes, checkpoints and statistics are written by
+    process 0 only."""
     device = resolve_device(device)
+    if mesh is not None:
+        mesh.shard_devices("data")   # a 'model' axis above 1 raises (A8-tp)
+    if mesh is not None and config.batch_size % mesh.shape["data"] != 0:
+        raise ValueError(
+            f"batch_size {config.batch_size} must be a multiple of the mesh data "
+            f"axis size ({mesh.shape['data']}) for dp training")
     model = (model or default_model(config, device)).to(device).train()
     schedule = DiffusionSchedule.create(config.num_train_timesteps)
     steps_per_epoch = max(1, len(dataset) // config.batch_size)
     state = create_train_state(model, config,
-                               total_steps=config.epochs * steps_per_epoch)
+                               total_steps=config.epochs * steps_per_epoch, mesh=mesh)
+    # across processes every process draws the whole global batch and keeps
+    # its rows; process 0 alone writes
+    multi = mesh is not None and mesh.processes > 1
+    rows = multihost.local_batch_bounds(config.batch_size) if multi else None
     step_fn = make_train_step(schedule, config)
 
     ckpt_dir = Path(checkpoint_dir)
@@ -497,18 +627,16 @@ def train_class(class_name: str, dataset, checkpoint_dir: str,
     if color_stats is not None:
         from ..io.color_stats import update_color_statistics_file
 
-        update_color_statistics_file(ckpt_dir / "color_statistics.json",
-                                     class_name, color_stats)
+        multihost.host0_only(update_color_statistics_file, ckpt_dir / "color_statistics.json",
+                             class_name, color_stats)
 
-    from .async_ckpt import AsyncCheckpointer
-
-    writer = AsyncCheckpointer(log=log)
+    writer = checkpoint_writer(multi, log)
     loop_ok = False
     try:
         for epoch in range(start_epoch, config.epochs + 1):
             t0 = time.time()
             # losses stay on the device; one host read per epoch
-            losses = [step_fn(state, batch, generator)
+            losses = [step_fn(state, local_rows(batch, rows), generator)
                       for batch in _epoch_batches(dataset, config.batch_size,
                                                   data_rng, device)]
             epoch_loss = (float(torch.stack(losses).mean()) if losses

@@ -26,8 +26,16 @@ draw a fresh CPU `torch.Generator`, so the card and the CPU draw the same
 numbers. The masks of frame i come from a stream that depends only on
 (the call's seed, i). Every draw has a keyword seam (`baseline=`,
 `patch_masks=`, `permutations=`) so tests can inject another
-implementation's draws. Mesh sharding (`mesh=`, `set_mesh`) is not ported
-(ROADMAP A8) and raises.
+implementation's draws.
+
+Mesh (`mesh=`, `set_mesh`, reference `attribution.py:93, 146, 384`): the
+frame-batched kernels (IG and patch-SHAP over a trajectory, the Time-SHAP
+scoring) split the frame axis over the mesh's 'data' axis, padded by
+repeating the last frame, each shard on its device with that device's
+classifier replica (`parallel.replicas`), one host thread per distinct
+device. Every frame runs the same per-frame code with the same draws (the
+masks of frame i depend on i alone), so the result does not depend on the
+layout. A mesh with a 'model' axis above 1 raises (ROADMAP A8-tp).
 """
 from __future__ import annotations
 
@@ -37,15 +45,19 @@ import numpy as np
 import torch
 
 from ..models.classifier import LesionClassifier, SCORE_EPS
+from ..parallel.replicas import run_per_device, sampling_replica
+from ..parallel.sharded_sampler import shard_frames, sharded_scores
 # the one stride-1 count_include_pad average pool, shared with the blur
 # intervention so the blur baseline and the blur intervention cannot drift
 from .interventions import _avg_pool_same
 
 
-def refuse_mesh(mesh) -> None:
-    """Mesh-sharded XAI is not ported: a mesh argument raises."""
+def check_mesh(mesh, axis: str = "data"):
+    """`mesh` when XAI can shard over its `axis` (None passes): a mesh
+    whose other axes exceed 1 raises (tensor parallelism, ROADMAP A8-tp)."""
     if mesh is not None:
-        raise NotImplementedError("XAI over a device mesh is not ported yet (ROADMAP A8)")
+        mesh.shard_devices(axis)
+    return mesh
 
 
 def _largest_divisor(n: int, cap: int) -> int:
@@ -70,8 +82,8 @@ class XAIAnalyzer:
                  batch_size: int = 128,
                  seed: int = 0,
                  verbose: bool = False,
-                 mesh=None):
-        refuse_mesh(mesh)
+                 mesh=None,
+                 mesh_axis: str = "data"):
         self.classifier = classifier
         self.ig_n_steps = ig_n_steps
         self.shap_n_samples = shap_n_samples
@@ -80,9 +92,30 @@ class XAIAnalyzer:
         self.verbose = verbose
         self._seeds = np.random.default_rng(seed)
         self._baseline_cache: Dict[Tuple, torch.Tensor] = {}
+        self.set_mesh(mesh, mesh_axis)
 
     def set_mesh(self, mesh, axis: str = "data") -> None:
-        refuse_mesh(mesh)
+        """Shard the frame-batched kernels over `mesh` (or not, with None)."""
+        self.mesh = check_mesh(mesh, axis)
+        self.mesh_axis = axis
+
+    def _over_frames(self, frames: torch.Tensor, per_frame) -> torch.Tensor:
+        """`per_frame(classifier, frame, i)` stacked over every frame: on the
+        classifier's device, or with a mesh, each shard of the frame axis
+        (padded with the last frame) on its device and classifier replica."""
+        if self.mesh is None:
+            return torch.stack([per_frame(self.classifier, f, i)
+                                for i, f in enumerate(frames)])
+        spans, padded = shard_frames(frames, self.mesh, self.mesh_axis)
+        s = frames.shape[0]
+
+        def work(k: int) -> torch.Tensor:
+            d, a, b = spans[k]
+            clf = sampling_replica(self.classifier, d)
+            return torch.stack([per_frame(clf, padded[i].to(d), min(i, s - 1))
+                                for i in range(a, b)]).to(frames.device)
+
+        return torch.cat(run_per_device([d for d, _, _ in spans], work))[:s]
 
     # -- RNG ------------------------------------------------------------------------
     def _next_seed(self) -> int:
@@ -118,15 +151,19 @@ class XAIAnalyzer:
 
     # -- Integrated Gradients ------------------------------------------------------------
     def _ig_frame(self, frame: torch.Tensor, baseline: torch.Tensor, target_class: int,
-                  n_steps: int, chunk: int) -> torch.Tensor:
+                  n_steps: int, chunk: int,
+                  classifier: Optional[LesionClassifier] = None) -> torch.Tensor:
         """(x - x') · (1/n) Σ_k ∂F(x' + α_k (x - x'))/∂x, α_k = k/n, the
-        α points `chunk` at a time."""
+        α points `chunk` at a time, through `classifier` (default: this
+        analyzer's)."""
+        clf = classifier or self.classifier
+        baseline = baseline.to(frame.device)
         alphas = torch.arange(1, n_steps + 1, dtype=torch.float32, device=frame.device) / n_steps
         diff = frame - baseline
         total = torch.zeros_like(frame)
         for start in range(0, n_steps, chunk):
             points = baseline[None] + alphas[start:start + chunk, None, None, None] * diff[None]
-            total += self.classifier.input_gradient(points, target_class).sum(dim=0)
+            total += clf.input_gradient(points, target_class).sum(dim=0)
         return diff * (total / n_steps)
 
     def compute_integrated_gradients(self, image, target_class: int,
@@ -159,19 +196,21 @@ class XAIAnalyzer:
         baseline = (self.classifier.as_input(baseline) if baseline is not None
                     else self._get_baseline(frames[:1], baseline_type))[0]
         chunk = _largest_divisor(n, self.batch_size)
-        return torch.stack([self._ig_frame(f, baseline, int(target_class), n, chunk)
-                            for f in frames])
+        return self._over_frames(frames, lambda clf, f, i: self._ig_frame(
+            f, baseline, int(target_class), n, chunk, clf))
 
     # -- patch SHAP ------------------------------------------------------------------------
     def _shap_frame(self, frame: torch.Tensor, patch_masks: torch.Tensor,
-                    target_class: int, patch_size: int, chunk: int) -> torch.Tensor:
+                    target_class: int, patch_size: int, chunk: int,
+                    classifier: Optional[LesionClassifier] = None) -> torch.Tensor:
         """Mean masked-score contribution against the zero image, per
-        pixel, broadcast over channels."""
+        pixel, broadcast over channels, through `classifier` (default: this
+        analyzer's)."""
         n = patch_masks.shape[0]
         masks = (patch_masks.to(frame.device)
                  .repeat_interleave(patch_size, dim=1)
                  .repeat_interleave(patch_size, dim=2).to(frame.dtype))     # (n, H, W)
-        clf = self.classifier
+        clf = classifier or self.classifier
         scores = torch.cat([clf.get_per_class_score(frame[None] * masks[s:s + chunk, :, :, None],
                                                     target_class)
                             for s in range(0, n, chunk)])
@@ -209,12 +248,17 @@ class XAIAnalyzer:
         masks = (torch.as_tensor(np.array(patch_masks)) if patch_masks is not None
                  else self._draw_patch_masks(s, n, h // p, w // p))
         chunk = _largest_divisor(n, self.batch_size)
-        return torch.stack([self._shap_frame(frames[i], masks[i], int(target_class), p, chunk)
-                            for i in range(s)])
+        return self._over_frames(frames, lambda clf, f, i: self._shap_frame(
+            f, masks[i], int(target_class), p, chunk, clf))
 
     # -- Time-SHAP ---------------------------------------------------------------------------
     def _frame_probabilities(self, frames: torch.Tensor) -> np.ndarray:
-        """Classifier probabilities of a stack of frames, in chunks."""
+        """Classifier probabilities of a stack of frames: in chunks on the
+        classifier's device, or one shard per mesh device."""
+        if self.mesh is not None:
+            return sharded_scores(
+                lambda shard: sampling_replica(self.classifier, shard.device)
+                .get_probabilities(shard), frames, self.mesh, self.mesh_axis)
         return np.concatenate([
             self.classifier.get_probabilities(frames[s:s + self.batch_size]).cpu().numpy()
             for s in range(0, frames.shape[0], self.batch_size)])

@@ -23,14 +23,16 @@ import torch
 
 from ..models.classifier import LesionClassifier, SCORE_EPS
 from ..utils.config import CLASS_NAMES
-from .attribution import refuse_mesh
+from ..parallel.replicas import sampling_replica
+from ..parallel.sharded_sampler import sharded_scores
+from .attribution import check_mesh
 from .stats import statistical_validation_comprehensive
 
 
 class FairnessAuditor:
     def __init__(self, classifier: LesionClassifier, batch_size: int = 128,
                  mesh=None, class_names: Optional[Sequence[str]] = None):
-        refuse_mesh(mesh)
+        self.mesh = check_mesh(mesh)
         self.classifier = classifier
         self.batch_size = batch_size
         self.class_names = list(class_names or CLASS_NAMES)
@@ -39,14 +41,25 @@ class FairnessAuditor:
     def probabilities(self, images: np.ndarray) -> np.ndarray:
         """(N,H,W,3) -> (N, num_classes) softmax probabilities, computed in
         device batches. Accepts float in [-1,1] or uint8 [0,255] (dequantised
-        on the device)."""
+        on the device). With a mesh each chunk is split over its 'data' axis
+        (`parallel.sharded_scores`), one shard per device's classifier
+        replica (reference `fairness.py:57-71`)."""
+        def probs_on(clf: LesionClassifier):
+            def probs(chunk: torch.Tensor) -> np.ndarray:
+                chunk = chunk.to(clf.device)
+                if chunk.dtype == torch.uint8:
+                    chunk = chunk.float() / 127.5 - 1.0
+                return clf.get_probabilities(chunk).cpu().numpy()
+            return probs
+
         outs = []
         for start in range(0, len(images), self.batch_size):
             chunk = torch.as_tensor(np.array(images[start:start + self.batch_size]))
-            chunk = chunk.to(self.classifier.device)
-            if chunk.dtype == torch.uint8:
-                chunk = chunk.float() / 127.5 - 1.0
-            outs.append(self.classifier.get_probabilities(chunk).cpu().numpy())
+            if self.mesh is not None:
+                outs.append(sharded_scores(lambda shard: probs_on(
+                    sampling_replica(self.classifier, shard.device))(shard), chunk, self.mesh))
+            else:
+                outs.append(probs_on(self.classifier)(chunk))
         return np.concatenate(outs) if outs else np.zeros((0, len(self.class_names)))
 
     # -- audit -------------------------------------------------------------------

@@ -12,6 +12,11 @@ batch, with no hooks:
     w_c = mean over space of dy/dA_c,
     CAM = relu(Σ_c w_c · A_c), min-max per image,
 resized bilinearly (half-pixel centres) to the classifier's input size.
+
+With a mesh (reference `gradcam.py:35-56, 106`) the frame batch is padded
+by repeating its last frame and split over the mesh's 'data' axis, each
+shard's CAMs computed on its device's classifier replica; every CAM is
+its own image's, so the result does not depend on the layout.
 """
 from __future__ import annotations
 
@@ -20,14 +25,23 @@ import torch
 import torch.nn.functional as F
 
 from ..models.classifier import LesionClassifier
-from .attribution import refuse_mesh
+from ..parallel.replicas import run_per_device, sampling_replica
+from ..parallel.sharded_sampler import shard_frames
+from .attribution import check_mesh
 
 
 def compute_gradcam(classifier: LesionClassifier, images, target_class: int,
-                    output_size: int = 224, mesh=None) -> np.ndarray:
+                    output_size: int = 224, mesh=None,
+                    mesh_axis: str = "data") -> np.ndarray:
     """images: (B,H,W,C) in [-1,1] diffusion space. Returns (B, output_size,
     output_size) CAMs in [0,1]."""
-    refuse_mesh(mesh)
+    if check_mesh(mesh, mesh_axis) is not None:
+        frames = classifier.as_input(images)
+        spans, padded = shard_frames(frames, mesh, mesh_axis)
+        cams = run_per_device([d for d, _, _ in spans], lambda k: compute_gradcam(
+            sampling_replica(classifier, spans[k][0]),
+            padded[spans[k][1]:spans[k][2]], target_class, output_size))
+        return np.concatenate(cams)[:frames.shape[0]]
     _, act, block_input = classifier.gradcam_tensors(images)
     act = act.requires_grad_(True)
     with torch.enable_grad():

@@ -23,7 +23,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from ..models.classifier import LesionClassifier
 from ..utils.config import CLASS_NAMES, NUM_CLASSES
-from .attribution import XAIAnalyzer, _stack_trajectory, refuse_mesh
+from .attribution import XAIAnalyzer, _stack_trajectory, check_mesh
 from .pipeline import _strip_tensors, json_safe, run_comprehensive_xai_pipeline
 from .viz import save_trajectory_grid
 
@@ -49,8 +49,12 @@ class IntegratedXAIAnalyzer:
                  viz_every_n: int = 1,
                  seed: int = 0,
                  device=None,
-                 mesh=None):
-        refuse_mesh(mesh)
+                 mesh=None,
+                 mesh_axis: str = "data"):
+        # mesh (reference `integration.py:52-73`): shard the frame-batched
+        # attribution kernels over the device mesh
+        self.mesh = check_mesh(mesh, mesh_axis)
+        self.mesh_axis = mesh_axis
         if classifier is not None:
             self.classifier = classifier
         elif classifier_path and Path(classifier_path).exists():
@@ -65,7 +69,8 @@ class IntegratedXAIAnalyzer:
                 print("[xai] classifier: random init (no checkpoint found)")
         self.xai_analyzer = XAIAnalyzer(self.classifier, ig_n_steps=ig_n_steps,
                                         shap_n_samples=shap_n_samples,
-                                        seed=seed, verbose=verbose)
+                                        seed=seed, verbose=verbose,
+                                        mesh=mesh, mesh_axis=mesh_axis)
         self.intervention_types = list(intervention_types)
         self.with_gradcam = with_gradcam
         self.with_sanity = with_sanity
@@ -112,6 +117,7 @@ class IntegratedXAIAnalyzer:
             coalitional_shap=self.coalitional_shap,
             coalitional_permutations=self.coalitional_permutations,
             viz_every_n=self.viz_every_n,
+            mesh=self.mesh, mesh_axis=self.mesh_axis,
             log=print if self.verbose else (lambda *_: None))
 
         traj_grid = out_dir / "trajectory_all_steps.png"

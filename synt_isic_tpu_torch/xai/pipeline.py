@@ -21,7 +21,9 @@ Grad-CAM loop of the reference is one batched backward over all frames;
 Time-SHAP is one batched forward; IG and SHAP run as chunked device
 batches per frame (`attribution.py`). Arrays in the results are host numpy
 (intervention images included), so `full_results.pkl` loads without a
-card. Mesh sharding (`mesh=`) is not ported (ROADMAP A8) and raises.
+card. `mesh=` (reference `pipeline.py:82-97, 332`) shards the frame-batched
+kernels (IG, SHAP, Time-SHAP scoring, Grad-CAM) over the mesh through the
+analyzer and `compute_gradcam`; without it the analyzer's own mesh is used.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.classifier import LesionClassifier
-from .attribution import XAIAnalyzer, _stack_trajectory, refuse_mesh
+from .attribution import XAIAnalyzer, _stack_trajectory
 from .cfi import compute_causal_shift_comprehensive
 from .gradcam import compute_gradcam, overlay_cam_on_image
 from .interventions import counterfactual_intervention_advanced
@@ -94,9 +96,13 @@ def run_comprehensive_xai_pipeline(trajectory, timesteps: Sequence[float],
                                    coalitional_permutations: int = 256,
                                    viz_every_n: int = 1,
                                    mesh=None,
+                                   mesh_axis: str = "data",
                                    progress_cb=None,
                                    log=print) -> Dict[str, Any]:
-    refuse_mesh(mesh)
+    if mesh is not None:
+        xai_analyzer.set_mesh(mesh, mesh_axis)
+    else:
+        mesh, mesh_axis = xai_analyzer.mesh, xai_analyzer.mesh_axis
     frames = classifier.as_input(_stack_trajectory(trajectory))   # (S, H, W, C)
     frames_host = frames.cpu().numpy()
     timesteps = [float(t) for t in timesteps]
@@ -314,7 +320,8 @@ def run_comprehensive_xai_pipeline(trajectory, timesteps: Sequence[float],
     if with_gradcam:
         log("[xai] Grad-CAM block (batched over all frames)")
         try:
-            cams = compute_gradcam(classifier, frames, target_class_id)  # (S,224,224)
+            cams = compute_gradcam(classifier, frames, target_class_id,
+                                   mesh=mesh, mesh_axis=mesh_axis)  # (S,224,224)
             gradcam_results: Dict[str, np.ndarray] = {}
             rgb224_all = None
             if save_results and save_figures:

@@ -13,8 +13,10 @@ run on the CPU). It loads the classifier and the target class's DDPM,
 denoises from the same seed with the port's sampler on the device,
 keeping every N-th frame (plus always the last, and the absolute-t mode
 when save_every >= steps, `XAI.py:750-779`) streamed to host memory, then
-runs the comprehensive pipeline. `XAI_MESH_DEVICES` (a mesh) is not ported
-(ROADMAP A8) and raises.
+runs the comprehensive pipeline. `XAI_MESH_DEVICES=N` (reference
+`standalone.py:140-147`; -1 = every local card) fans the attribution
+kernels over an N-device data mesh (on the CPU, N repeats of the CPU
+device); the results equal the one-device run's.
 
     XAI_TARGET_CLASS=MEL XAI_CHECKPOINTS_DIR=checkpoints \
         python -m synt_isic_tpu_torch.xai.standalone
@@ -30,7 +32,8 @@ import numpy as np
 from ..model_manager import ModelManager
 from ..models.classifier import LesionClassifier
 from ..utils.config import CLASS_NAMES, NUM_CLASSES
-from .attribution import XAIAnalyzer, refuse_mesh
+from ..parallel.mesh import data_mesh
+from .attribution import XAIAnalyzer, check_mesh
 from .pipeline import run_comprehensive_xai_pipeline
 
 
@@ -60,8 +63,9 @@ def run_standalone_xai(target_class: str = "MEL",
                        log=print) -> Optional[dict]:
     """Full standalone analysis on `device` (CUDA unless named); returns
     the pipeline results dict, or None when the DDPM does not load.
-    `save_figures=False` writes the results without the figures."""
-    refuse_mesh(mesh)
+    `save_figures=False` writes the results without the figures. `mesh`
+    shards the attribution kernels (`XAIAnalyzer(mesh=)`)."""
+    check_mesh(mesh)
     ckpt_dir = Path(checkpoints_dir) if checkpoints_dir else Path("checkpoints")
     log(f"[xai-standalone] class={target_class} seed={seed} "
         f"steps={inference_steps} save_every={save_every}")
@@ -111,7 +115,7 @@ def run_standalone_xai(target_class: str = "MEL",
         target_id = 0
 
     analyzer = XAIAnalyzer(classifier, ig_n_steps=ig_n_steps,
-                           shap_n_samples=shap_n_samples, seed=seed)
+                           shap_n_samples=shap_n_samples, seed=seed, mesh=mesh)
     return run_comprehensive_xai_pipeline(
         trajectory=frames, timesteps=frame_ts, xai_analyzer=analyzer,
         classifier=classifier, target_class_id=target_id,
@@ -132,10 +136,10 @@ def main() -> int:
     steps = int(os.environ.get("XAI_INFERENCE_STEPS", "50"))
     save_every = int(os.environ.get("XAI_SAVE_EVERY_N", "5"))
     ddpm_path = os.environ.get("XAI_DDPM_MODEL_PATH") or None
-    # XAI_MESH_DEVICES=N (an N-device data mesh) is not ported
-    if int(os.environ.get("XAI_MESH_DEVICES", "0") or 0):
-        refuse_mesh(os.environ["XAI_MESH_DEVICES"])
     device = os.environ.get("XAI_DEVICE") or None
+    # XAI_MESH_DEVICES=N: an N-device data mesh (-1 = every local card)
+    n_mesh = int(os.environ.get("XAI_MESH_DEVICES", "0") or 0)
+    mesh = data_mesh(n_mesh, device) if n_mesh else None
     # XAI_CONDITIONAL=1 analyzes the single class-conditional checkpoint;
     # XAI_GUIDANCE_SCALE>1 captures the CFG-guided trajectory
     conditional = os.environ.get("XAI_CONDITIONAL", "") in ("1", "true", "yes")
@@ -164,7 +168,7 @@ def main() -> int:
     results = run_standalone_xai(target_class=target, seed=seed,
                                  inference_steps=steps, save_every=save_every,
                                  checkpoints_dir=ckpt_dir,
-                                 ddpm_model_path=ddpm_path, device=device,
+                                 ddpm_model_path=ddpm_path, device=device, mesh=mesh,
                                  results_dir=results_dir,
                                  conditional=conditional,
                                  guidance_scale=guidance,

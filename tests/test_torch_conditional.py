@@ -44,7 +44,7 @@ from synt_isic_tpu_torch.train import procedural, train_ddpm
 from synt_isic_tpu_torch.train.train_conditional import LabeledMixtureDataset, train_conditional
 
 from tests.torch_port_fixtures import (COND_CLASSES, TINY, TINY_COND, TINY_COND_JAX,
-                                       jax_params, port_model)
+                                       jax_params, port_model, tp_mesh)
 
 STEPS = 3
 SIZE = TINY_COND.sample_size
@@ -382,8 +382,8 @@ def test_train_conditional_end_to_end(params, tmp_path):
     with pytest.raises(ValueError, match="num_class_embeds"):   # 1 class + null != 4
         train_conditional({"MEL": datasets["MEL"]}, str(tmp_path), cfg,
                                             model=UNet2D(TINY_COND), device="cpu")
-    with pytest.raises(NotImplementedError):
-        train_conditional(datasets, str(tmp_path), cfg, mesh=object(),
+    with pytest.raises(NotImplementedError, match="A8-tp"):
+        train_conditional(datasets, str(tmp_path), cfg, mesh=tp_mesh(),
                                             device="cpu")
 
 

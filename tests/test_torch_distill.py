@@ -28,7 +28,7 @@ from synt_isic_tpu_torch.train import __main__ as train_main
 from synt_isic_tpu_torch.train import distill
 from synt_isic_tpu_torch.train.procedural import ProceduralDataset
 
-from tests.torch_port_fixtures import TINY, TINY_JAX, jax_params, port_model
+from tests.torch_port_fixtures import TINY, TINY_JAX, jax_params, port_model, tp_mesh
 
 N_STUDENT = 4
 
@@ -225,7 +225,8 @@ def test_progressive_distill_writes_students_both_packages_load(teacher_params, 
 def test_entry_point_distills_on_cpu(tmp_path):
     """`--distill-from` with the {CLASS} rule and the default batch clamped
     to a small dataset, on the full-width UNet at 16x16 (one phase of two
-    steps); several classes without {CLASS} refuse; a mesh raises."""
+    steps); several classes without {CLASS} refuse; a tensor-parallel mesh
+    raises."""
     torch.manual_seed(0)
     torch.save(UNet2D(UNet2DConfig(sample_size=16)).state_dict(), tmp_path / "unet_MEL_best.pth")
     out = tmp_path / "out"
@@ -236,6 +237,6 @@ def test_entry_point_distills_on_cpu(tmp_path):
     assert sorted(p.name for p in out.iterdir()) == ["unet_MEL_distill2.pth"]
     assert train_main.main(["--classes", "MEL,NV", "--device", "cpu", "--distill-from",
                             str(tmp_path / "unet_MEL_best.pth")]) == 1
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A8-tp"):
         distill.distill_phase(UNet2D(TINY), DiffusionSchedule.create(), {}, [], 2,
-                              mesh=object())
+                              mesh=tp_mesh())

@@ -32,7 +32,7 @@ from synt_isic_tpu_torch.generator import ImageGenerator
 from synt_isic_tpu_torch.utils import config
 from synt_isic_tpu_torch.utils.config import CLASS_NAMES, ConfigManager
 
-from tests.torch_port_fixtures import TINY, TINY_JAX, jax_params
+from tests.torch_port_fixtures import TINY, TINY_JAX, jax_params, tp_mesh
 
 STEPS, BATCH, SEED = 2, 2, 5
 
@@ -232,8 +232,10 @@ def test_later_slices_raise(ckpt_dir, monkeypatch):
     with pytest.raises(FileNotFoundError, match="unet_conditional_best.json"):
         ImageGenerator(checkpoints_dir=str(ckpt_dir), device="cpu", conditional=True)
     gen = _port(ckpt_dir)
-    with pytest.raises(NotImplementedError, match="A8"):
-        gen.set_mesh(object())
+    # data-parallel sampling is ported (tests/test_torch_mesh_surfaces.py);
+    # tensor parallelism is not
+    with pytest.raises(NotImplementedError, match="A8-tp"):
+        gen.set_mesh(tp_mesh())
     # integrated XAI (A7) is ported: its setters take their values
     analyzer = object()
     gen.set_xai_hook(print, every_n=3)

@@ -36,6 +36,8 @@ def test_every_ported_module_is_checked():
                    "cache.py", "utils/config.py", "model_manager.py", "cli.py",
                    "models/resnet18.py", "models/classifier.py", "native/__init__.py",
                    "serve.py", "app/__init__.py", "app/webui.py", "utils/profiling.py",
+                   *(f"parallel/{name}.py" for name in (
+                       "__init__", "mesh", "multihost", "replicas", "sharded_sampler")),
                    *(f"xai/{name}.py" for name in (
                        "__init__", "attribution", "cfi", "fairness", "gradcam", "integration",
                        "interventions", "pipeline", "regions", "sanity", "standalone", "stats",

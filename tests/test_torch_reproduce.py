@@ -203,20 +203,23 @@ def test_recorded_tf32_is_set_for_the_regeneration_only(tmp_path, ckpt_dir, monk
 @pytest.mark.parametrize("field", ["conditional", "img2img", "dp_mesh"])
 def test_later_slices_exit_2(tmp_path, ckpt_dir, field, capsys):
     """What cannot be reproduced exits 2 before any model is built: a block
-    sampled over a device mesh (not ported yet), and an img2img run from an
-    in-memory source (img2img sidecars with their source file reproduce,
-    `tests/test_torch_img2img.py`), conditional or not."""
+    sampled over a mesh of more cards than the host has (mesh sidecars
+    reproduce otherwise, `tests/test_torch_mesh_surfaces.py`), and an
+    img2img run from an in-memory source (img2img sidecars with their source
+    file reproduce, `tests/test_torch_img2img.py`), conditional or not."""
     sidecar = _generate(tmp_path, ckpt_dir, count=2, batch=2)[0]
     change = {"conditional": lambda m: (m["scheduler"].update(conditional=True,
                                                               guidance_scale=2.0),
                                         m.update(img2img={"strength": 0.5})),
               "img2img": lambda m: m.update(img2img={"strength": 0.5}),
-              "dp_mesh": lambda m: m["block"].update(dp_mesh=4)}[field]
+              "dp_mesh": lambda m: m["block"].update(dp_mesh=64)}[field]
     edited = _edit(sidecar, tmp_path, change)
-    # through the entry point: refused before any model is built
-    assert cli.main(["--reproduce", str(edited), "--device", "cpu"]) == 2
+    # through the entry point: refused before any model is built; the mesh
+    # block on the cards (the default device), of which no host has 64
+    device = [] if field == "dp_mesh" else ["--device", "cpu"]
+    assert cli.main(["--reproduce", str(edited), *device]) == 2
     said = {"conditional": "in-memory source", "img2img": "in-memory source",
-            "dp_mesh": "ROADMAP A8"}[field]
+            "dp_mesh": "cannot be rebuilt here"}[field]
     assert said in capsys.readouterr().err
     assert not _redo(edited)[1].exists()
 

@@ -597,9 +597,11 @@ def test_xai_request_returns_artifacts(ckpt_dir, tmp_path):
 
 
 def test_main_refuses_mesh_and_a_missing_card(ckpt_dir, monkeypatch, capsys):
+    # a data-parallel --mesh is served (tests/test_torch_mesh_surfaces.py);
+    # tensor parallelism (DxT with T > 1) exits 2 before any model is built
     with pytest.raises(SystemExit) as exc:
-        serve.main(["--mesh", "2", "--checkpoints", str(ckpt_dir)])
-    assert exc.value.code == 2 and "A8" in capsys.readouterr().err
+        serve.main(["--mesh", "2x2", "--checkpoints", str(ckpt_dir)])
+    assert exc.value.code == 2 and "A8-tp" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--checkpoints", str(ckpt_dir)])

@@ -29,11 +29,12 @@ from synt_isic_tpu_torch.diffusion.schedules import DiffusionSchedule
 from synt_isic_tpu_torch.io.convert import state_dict_from_jax
 from synt_isic_tpu_torch.io.pth import load_checkpoint
 from synt_isic_tpu_torch.models.unet2d import UNet2D
+from synt_isic_tpu_torch.parallel.mesh import create_mesh
 from synt_isic_tpu_torch.train import __main__ as train_main
 from synt_isic_tpu_torch.train import data, procedural, train_ddpm
 from synt_isic_tpu_torch.train.async_ckpt import AsyncCheckpointer
 
-from tests.torch_port_fixtures import TINY, TINY_JAX, jax_params, nchw, port_model
+from tests.torch_port_fixtures import TINY, TINY_JAX, jax_params, nchw, port_model, tp_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -320,10 +321,14 @@ def test_entry_point_refuses_what_it_cannot_do(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_main.main(["--classes", "MEL", "--procedural", "4",
                          "--checkpoints", str(tmp_path)])
-    # data-parallel training is the one mode not ported (the distillation and
-    # classifier modes have their own entry-point tests)
-    assert train_main.main(["--classes", "MEL", "--device", "cpu", "--dp-mesh"]) == 2
-    assert train_main.NOT_PORTED == ("dp_mesh",)
-    with pytest.raises(NotImplementedError):
+    # data-parallel training is ported (tests/test_torch_mesh_surfaces.py):
+    # a global batch that does not divide by the mesh, and tensor
+    # parallelism, are refused
+    two = create_mesh({"data": 2}, [torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="multiple of the mesh"):
         train_ddpm.train_class("MEL", procedural.ProceduralDataset("MEL", 2, 16),
-                               str(tmp_path), mesh=object(), device="cpu")
+                               str(tmp_path), train_ddpm.TrainConfig(batch_size=3),
+                               mesh=two, device="cpu")
+    with pytest.raises(NotImplementedError, match="A8-tp"):
+        train_ddpm.train_class("MEL", procedural.ProceduralDataset("MEL", 2, 16),
+                               str(tmp_path), mesh=tp_mesh(), device="cpu")

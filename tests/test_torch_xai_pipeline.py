@@ -30,7 +30,7 @@ from synt_isic_tpu_torch.xai import (FairnessAuditor, IntegratedXAIAnalyzer, XAI
                                      run_xai_analysis)
 from synt_isic_tpu_torch.xai import standalone
 
-from tests.torch_port_fixtures import classifier_pair, small_classifiers
+from tests.torch_port_fixtures import classifier_pair, small_classifiers, tp_mesh
 
 NUM_CLASSES, TARGET, SIZE, PATCH = 8, 1, 32, 8
 TIMESTEPS = [900.0, 500.0, 0.0]
@@ -253,25 +253,30 @@ def test_integrated_analyzer_writes_the_reference_layout(clfs, frames, tmp_path)
 
 
 @pytest.mark.parametrize("call", [
-    lambda clf: XAIAnalyzer(clf, mesh=object()),
-    lambda clf: XAIAnalyzer(clf).set_mesh(object()),
-    lambda clf: compute_gradcam(clf, np.zeros((1, SIZE, SIZE, 3), np.float32), 0, mesh=object()),
+    lambda clf: XAIAnalyzer(clf, mesh=tp_mesh()),
+    lambda clf: XAIAnalyzer(clf).set_mesh(tp_mesh()),
+    lambda clf: compute_gradcam(clf, np.zeros((1, SIZE, SIZE, 3), np.float32), 0, mesh=tp_mesh()),
     lambda clf: run_comprehensive_xai_pipeline(np.zeros((1, SIZE, SIZE, 3), np.float32), [0.0],
                                                XAIAnalyzer(clf), clf, 0, "MEL",
-                                               mesh=object()),
-    lambda clf: IntegratedXAIAnalyzer(classifier=clf, mesh=object()),
-    lambda clf: FairnessAuditor(clf, mesh=object()),
-    lambda clf: standalone.run_standalone_xai(mesh=object(), device="cpu"),
-    lambda clf: ImageGenerator(checkpoints_dir=".", device="cpu").set_mesh(object()),
+                                               mesh=tp_mesh()),
+    lambda clf: IntegratedXAIAnalyzer(classifier=clf, mesh=tp_mesh()),
+    lambda clf: FairnessAuditor(clf, mesh=tp_mesh()),
+    lambda clf: standalone.run_standalone_xai(mesh=tp_mesh(), device="cpu"),
+    lambda clf: ImageGenerator(checkpoints_dir=".", device="cpu").set_mesh(tp_mesh()),
 ], ids=["analyzer", "set_mesh", "gradcam", "pipeline", "integrated", "fairness", "standalone",
         "generator"])
 def test_mesh_arguments_refuse(clfs, call):
-    with pytest.raises(NotImplementedError, match="A8"):
+    """Data-parallel meshes are ported (tests/test_torch_mesh_surfaces.py);
+    every surface refuses a tensor-parallel one."""
+    with pytest.raises(NotImplementedError, match="A8-tp"):
         call(clfs[1])
 
 
 def test_standalone_main_refuses_a_mesh(monkeypatch):
+    """`XAI_MESH_DEVICES` builds its mesh on the cards unless `XAI_DEVICE`
+    names the CPU: without CUDA it raises, never drops to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setenv("XAI_MESH_DEVICES", "2")
-    monkeypatch.setenv("XAI_DEVICE", "cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
+    monkeypatch.delenv("XAI_DEVICE", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         standalone.main()

@@ -24,6 +24,7 @@ from synt_isic_tpu.models.unet2d import init_unet_params
 from synt_isic_tpu.ops.pallas.attention import fused_attention as jax_fused_attention
 from synt_isic_tpu_torch.io.convert import state_dict_from_jax
 from synt_isic_tpu_torch.models.unet2d import UNet2D, UNet2DConfig
+from synt_isic_tpu_torch.parallel.mesh import create_mesh
 
 from tests.torch_oracle.unet2d_torch import tiny_config
 
@@ -63,6 +64,23 @@ def port_model(params, config: UNet2DConfig = TINY, **kw) -> UNet2D:
     model = UNet2D(config, **kw)
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     return model.eval()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for a module's tiny tensors (active in the
+    modules that import it): on a host whose cores are all busy, more
+    threads only spin."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def tp_mesh():
+    """A 1 x 2 ('data', 'model') mesh of CPU repeats: tensor parallelism,
+    the one mesh every surface refuses (ROADMAP A8-tp)."""
+    return create_mesh({"data": 1, "model": 2}, [torch.device("cpu")] * 2)
 
 
 def nchw(x: np.ndarray) -> torch.Tensor:
