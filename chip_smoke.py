@@ -237,6 +237,24 @@ Phases, each of which exits non-zero on failure:
      [xai]'s bound), and the library XAI fan-out over [cuda:0, cpu]
      against no mesh. `python3 chip_smoke.py --mesh` runs card, build,
      [unet] and this phase alone;
+ 16c. [eval] image-set evaluation through its four entry points, on the
+     full-width UNet of [unet] (MEL) and a seeded NV one, a seeded random
+     classifier.pth and a seeded random inception_v3.pth (torchvision's
+     names): `eval_fid`'s generator (64 MEL images, DDIM 10: 60 launches);
+     `default_extractor(require_standard=True)` must pick Inception-v3 from
+     the file; its pool3 features of the 64 images at batch 32 in f32 (TF32
+     off for its calls): images/s warm on the host clock, device busy from
+     `torch.profiler`, peak memory, and the bound from the FLOPs of the
+     manifest's convolutions, 4 images held to the CPU port within
+     INCEPTION_CARD_TOL; `compute_fid` of two 16-image sets with each
+     extractor (Inception, classifier, pixel) on the card and on the CPU,
+     held to the bound the two runs' features give at this small N
+     (`frechet_feature_bound`); `parity_gauntlet` at DDIM 10, 2 images a
+     class: every step passes (FID standard, not skipped), exactly 420
+     launches; `fairness_audit --images` on the gauntlet's FID PNGs; a cut
+     `e2e_loop` (E2E_ARGS): exactly 312 forward and 24 backward launches,
+     its report keys and finite Fréchet batteries. `python3 chip_smoke.py
+     --eval` runs card, build and this phase alone;
  17. a JSON line of per-kernel numbers, then as the last line
      {"ok": true, "device": {...}}.
 
@@ -245,6 +263,7 @@ non-zero without one.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import cProfile
 import functools
@@ -252,6 +271,7 @@ import importlib.util
 import io
 import json
 import math
+import multiprocessing
 import os
 import pickle
 import pstats
@@ -575,6 +595,40 @@ MESH_XAI_FRAMES, MESH_XAI_IG_STEPS, MESH_XAI_SHAP_SAMPLES = 3, 8, 16
 XAI_RESULT_KEYS = {"metadata", "xai_maps", "region_analysis", "interventions",
                    "cfi_analysis", "time_shap", "statistical_validation", "sanity_checks",
                    "visualizations", "gradcam", "gradcam_most_important", "gradcam_summary"}
+# [eval]: image-set evaluation. eval_fid's generator samples EVAL_IMAGES
+# 128² MEL images at DDIM EVAL_STEPS in blocks of 64 (6 K1 launches per
+# step and block); Inception-v3 (a seeded random inception_v3.pth in
+# torchvision's names) extracts them at EVAL_BATCH, the default batch, and
+# EVAL_HOLD of them are held to the CPU port within INCEPTION_CARD_TOL x
+# max|feature| (two f32 convolution algorithms over ~20 sequential
+# convolutions, the classifier's bound in tests/test_torch_gpu.py); the
+# first two EVAL_FID_SET-image slices are the two sets `compute_fid`
+# compares, card against CPU, with each extractor. parity_gauntlet runs on
+# two full-width classes at GAUNTLET_SAMPLES images each, DDIM EVAL_STEPS,
+# bf16: one walk per block of smoke samples (2), per reproduced sidecar
+# (2), the XAI image (1) and each FID set of max(16, 4 x samples) images
+# in one block (2). e2e_loop is cut to 128², quarter width, 32 training
+# images, 2 epochs of 16 (4 steps, each 6 K1 + 6 K3; the eval probe at the
+# last epoch runs eval_t_points = 8 forwards), 8 samples per sampler at
+# DDIM 10 and DPM-Solver++ 5 (one raw and one post-processed run each) and
+# one DDIM-10 XAI trajectory; its classifier trains 8 epochs on 3 x 64
+# procedural images (run_loop's defaults; no UNet launch).
+EVAL_IMAGES, EVAL_BATCH, EVAL_STEPS, EVAL_HOLD, EVAL_FID_SET = 64, 32, 10, 4, 16
+EVAL_NV_SEED, EVAL_CLASSIFIER_SEED, EVAL_INCEPTION_SEED = 5, 3, 0
+INCEPTION_CARD_TOL = 1e-4
+GAUNTLET_SAMPLES = 2
+GAUNTLET_LAUNCHES = ATTENTION_CALLS_PER_UNET * EVAL_STEPS * (2 + 2 + 1 + 2)
+E2E_TRAIN_STEPS, E2E_DDIM, E2E_DPM = 4, 10, 5
+E2E_ARGS = ["--size", "128", "--width", "quarter", "--train-images", "32", "--heldout", "32",
+            "--epochs", "2", "--batch", "16", "--sample-count", "8", "--ddim-steps",
+            str(E2E_DDIM), "--dpm-steps", str(E2E_DPM), "--seed", "0", "--device", "cuda"]
+E2E_FWD_LAUNCHES = ATTENTION_CALLS_PER_UNET * (E2E_TRAIN_STEPS + EVAL_T_POINTS + 2 * E2E_DDIM
+                                               + 2 * E2E_DPM + E2E_DDIM)
+E2E_BWD_LAUNCHES = ATTENTION_CALLS_PER_UNET * E2E_TRAIN_STEPS
+E2E_KEYS = {"class", "size", "width", "train_images", "epochs", "train_fused", "train",
+            "classifier", "timestep_spacing", "fast_scheduler", "sample_ddim", "sample_dpm",
+            "xai", "fid_pixel", "fid_proxy", "fid_extractor", "quality_bar",
+            "model_converged", "sampler_within_bar", "converged"}
 
 
 def fail(msg: str) -> None:
@@ -3698,6 +3752,317 @@ def phase_mesh(state: dict, card: str, base: Path) -> dict:
     return report
 
 
+def fid_from_svd(fa, fb) -> float:
+    """The exact Fréchet distance of two feature sets, from the singular
+    values of the centred cross product (see `frechet_feature_bound`): no
+    matrix square root, so no sqrtm rounding at any rank."""
+    fa, fb = np.asarray(fa, np.float64), np.asarray(fb, np.float64)
+    xa, xb = fa - fa.mean(0), fb - fb.mean(0)
+    na, nb = len(fa) - 1, len(fb) - 1
+    nuclear = np.linalg.svd(xa @ xb.T, compute_uv=False).sum()
+    return float(np.sum((fa.mean(0) - fb.mean(0)) ** 2) + np.sum(xa ** 2) / na
+                 + np.sum(xb ** 2) / nb - 2 * nuclear / math.sqrt(na * nb))
+
+
+def frechet_feature_bound(fa, fb, ga, gb) -> float:
+    """The largest |FID(fa, fb) - FID(ga, gb)| of the EXACT Fréchet distance
+    that feature differences of these sizes allow, at any number of rows n:
+    with X the centred features and S = XᵀX / (n-1), Tr S = ||X||_F² / (n-1)
+    and Tr (Sa Sb)^{1/2} = ||Xa Xbᵀ||_* / sqrt((na-1)(nb-1)) (the nonzero
+    eigenvalues of Sa Sb are the squared singular values of Xa Xbᵀ over
+    (na-1)(nb-1)); ||A B||_* <= ||A||_F ||B||_F bounds the change of each
+    term. (tests/test_torch_fid.py holds the same bound on the CPU.)"""
+    fa, fb, ga, gb = (np.asarray(f, np.float64) for f in (fa, fb, ga, gb))
+    xa, xb = fa - fa.mean(0), fb - fb.mean(0)
+    da = np.linalg.norm((ga - ga.mean(0)) - xa)
+    db = np.linalg.norm((gb - gb.mean(0)) - xb)
+    na, nb = len(fa) - 1, len(fb) - 1
+    a, b = np.linalg.norm(xa), np.linalg.norm(xb)
+    m = np.linalg.norm(fa.mean(0) - fb.mean(0))
+    dm = np.linalg.norm((ga.mean(0) - gb.mean(0)) - (fa.mean(0) - fb.mean(0)))
+    return float(2 * m * dm + dm ** 2 + (2 * a * da + da ** 2) / na
+                 + (2 * b * db + db ** 2) / nb
+                 + 2 * (da * b + a * db + da * db) / math.sqrt(na * nb))
+
+
+def inception_bound_ms(model, images: int, size: int) -> tuple:
+    """(bound ms, "bytes" or "operations", GFLOP) of pool3 features of
+    `images` [-1,1] images of size² through `model`: the convolutions'
+    2 * Cout * Cin * kh * kw * Ho * Wo flops per image, the weight shapes
+    those of the torchvision manifest and Ho, Wo traced from one image at
+    299², at the f32 peak (f32-accurate products at a third of the dense
+    TF32 rate, the table's f32 figure); the weights, the images and the
+    features each moved once."""
+    from synt_isic_tpu_torch.models.inception_v3 import (BasicConv2d,
+                                                         expected_inception_state_shapes)
+
+    flops = []
+    hooks = [m.register_forward_hook(lambda mod, inp, out: flops.append(
+        2 * out[0].numel() * mod.conv.weight[0].numel()))
+        for m in model.modules() if isinstance(m, BasicConv2d)]
+    try:
+        with torch.no_grad():
+            model.pool3_features(torch.zeros(1, 3, 299, 299, device="cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    manifest = expected_inception_state_shapes()
+    check(len(flops) == sum(k.endswith(".conv.weight") for k in manifest),
+          f"traced {len(flops)} convolutions")
+    weight_bytes = 4 * sum(int(np.prod(s)) for k, s in manifest.items() if not k.startswith("fc."))
+    io_bytes = 4 * images * (size * size * 3 + 2048)
+    total = images * sum(flops)
+    bound, bound_by, _ = _largest_bound((weight_bytes + io_bytes) / PEAK_BYTES_PER_S * 1e3,
+                                        total / PEAK_FLOPS[torch.float32] * 1e3, 0.0)
+    return bound, bound_by, total / 1e9
+
+
+def fid_run(extractor, set_a, set_b) -> tuple:
+    """(compute_fid of the two sets with `extractor`, the features it
+    extracted for each set, seconds)."""
+    from synt_isic_tpu_torch.metrics.fid import compute_fid
+
+    feats = []
+
+    def recording(images):
+        feats.append(extractor(images))
+        return feats[-1]
+    t0 = time.time()
+    fid = compute_fid(set_a, set_b, recording)
+    return fid, feats, time.time() - t0
+
+
+def cpu_inception_fid(path: str, set_a, set_b) -> tuple:
+    """`fid_run` with the CPU port's Inception extractor from `path`; run
+    in a child process beside the card's work (the host's 2048-d sqrtm
+    takes 13-34 s and holds the interpreter)."""
+    from synt_isic_tpu_torch.metrics.fid import InceptionFeatureExtractor
+
+    return fid_run(InceptionFeatureExtractor(path, device="cpu"), set_a, set_b)
+
+
+def check_fid(card: str, name: str, on_card: tuple, on_cpu: tuple) -> dict:
+    """One extractor's `compute_fid` on the card printed beside the CPU's
+    and held to the bound of the two runs' features
+    (`frechet_feature_bound`) plus what sqrtm's own rounding adds on each
+    side (its distance from `fid_from_svd` of the same features); the
+    host-only pixel extractor must give the same value on both sides."""
+    (fid_card, card_feats, card_s), (fid_cpu, cpu_feats, cpu_s) = on_card, on_cpu
+    exact_card, exact_cpu = fid_from_svd(*card_feats), fid_from_svd(*cpu_feats)
+    feature_bound = frechet_feature_bound(*cpu_feats, *card_feats)
+    bound = feature_bound + abs(fid_card - exact_card) + abs(fid_cpu - exact_cpu)
+    print(f"[eval] compute_fid, {name} extractor ({card_feats[0].shape[1]}-d), "
+          f"{len(card_feats[0])} vs {len(card_feats[1])} images: card {fid_card!r} "
+          f"({card_s:.1f} s) CPU {fid_cpu!r} ({cpu_s:.1f} s) (|diff| "
+          f"{abs(fid_card - fid_cpu):.3e}; allowed "
+          f"{bound:.3e} = feature bound {feature_bound:.3e} + sqrtm rounding "
+          f"{abs(fid_card - exact_card):.3e} / {abs(fid_cpu - exact_cpu):.3e}); exact "
+          f"(singular values) card {exact_card!r} CPU {exact_cpu!r}; on {card}", flush=True)
+    check(np.isfinite(fid_card) and np.isfinite(fid_cpu), f"{name} FID not finite")
+    check(abs(exact_card - exact_cpu) <= feature_bound,
+          f"{name}: exact FIDs {exact_card} / {exact_cpu} beyond {feature_bound}")
+    check(abs(fid_card - fid_cpu) <= bound, f"{name}: FID card {fid_card} vs CPU {fid_cpu}")
+    if name == "pixel":
+        check(fid_card == fid_cpu, "the pixel extractor runs on the host: the same value")
+    return {"card": fid_card, "cpu": fid_cpu, "bound": bound, "feature_bound": feature_bound,
+            "card_s": card_s, "cpu_s": cpu_s}
+
+
+def _eval_checkpoints(state: dict, ckpt: Path) -> None:
+    """The gauntlet's folder: full-width MEL (the [unet] weights) and NV
+    (seeded) UNets, a seeded random classifier.pth (torchvision's names, 7
+    outputs) and a seeded random inception_v3.pth (torchvision's names)."""
+    from synt_isic_tpu_torch.io.pth import save_checkpoint
+    from synt_isic_tpu_torch.models.classifier import random_resnet
+    from synt_isic_tpu_torch.models.inception_v3 import random_inception_state
+
+    ckpt.mkdir(parents=True)
+    save_checkpoint(state, str(ckpt / "unet_MEL_best.pth"))
+    torch.manual_seed(EVAL_NV_SEED)
+    save_checkpoint(UNet2D(UNet2DConfig()).state_dict(), str(ckpt / "unet_NV_best.pth"))
+    save_checkpoint(random_resnet(7, EVAL_CLASSIFIER_SEED).state_dict(),
+                    str(ckpt / "classifier.pth"))
+    save_checkpoint({k: torch.from_numpy(v) for k, v in
+                     random_inception_state(EVAL_INCEPTION_SEED).items()},
+                    str(ckpt / "inception_v3.pth"))
+
+
+def phase_eval(state: dict, card: str, base: Path) -> dict:
+    """[eval] image-set evaluation on the card: Inception-v3 from a seeded
+    inception_v3.pth through `default_extractor(require_standard=True)`,
+    timed on 64 generated images and held to the CPU; `compute_fid` with
+    the three extractors, card vs CPU; `parity_gauntlet` (every step),
+    `fairness_audit --images` and a cut `e2e_loop`, each with its K1 (and
+    K3) launches counted exactly."""
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from synt_isic_tpu_torch.metrics.fid import (FeatureExtractor, InceptionFeatureExtractor,
+                                                 PixelFeatureExtractor, default_extractor)
+    from synt_isic_tpu_torch.models.classifier import LesionClassifier
+    from synt_isic_tpu_torch.scripts import e2e_loop, eval_fid, fairness_audit, parity_gauntlet
+    from synt_isic_tpu_torch.xai import integration
+
+    t_phase = time.time()
+    ckpt = base / "checkpoints"
+    _eval_checkpoints(state, ckpt)
+    report = {}
+    # the gauntlet's and the loop's XAI draw figures; where matplotlib is
+    # missing they write their results without them, as [xai] does
+    figures = importlib.util.find_spec("matplotlib") is not None
+    if not figures:
+        print("[eval] matplotlib is not installed here: the gauntlet's and e2e_loop's XAI "
+              "write their results without figures (save_figures=False)", flush=True)
+    analyzer = integration.IntegratedXAIAnalyzer
+    figures_as_installed = mock.patch.object(
+        integration, "IntegratedXAIAnalyzer",
+        lambda *args, **kwargs: analyzer(*args, **{**kwargs, "save_figures": figures}))
+
+    # -- eval_fid --generate's sampler: 64 images of 128², DDIM 10 ---------------------
+    reset_launches()
+    t0 = time.time()
+    images = eval_fid.generate("MEL", str(ckpt), EVAL_IMAGES, EVAL_STEPS, 0, "cuda")
+    torch.cuda.synchronize()
+    launches = dict(attention.LAUNCHES)
+    want = ATTENTION_CALLS_PER_UNET * EVAL_STEPS * math.ceil(EVAL_IMAGES / 64)
+    print(f"[eval] eval_fid --generate MEL --count {EVAL_IMAGES} --steps {EVAL_STEPS}: "
+          f"{images.shape} in {time.time() - t0:.3f} s (cold), attention_fwd launches "
+          f"{launches[attention.KERNEL]} (want {want}); on {card}", flush=True)
+    check(launches[attention.KERNEL] == want and sum(launches.values()) == want,
+          f"eval_fid generate launched {launches}")
+    check(images.shape == (EVAL_IMAGES, 128, 128, 3) and bool(np.isfinite(images).all()),
+          "generated images")
+    report["launches_generate"] = launches[attention.KERNEL]
+
+    # -- Inception-v3 on the card at batch 32: throughput, bound -------------------------
+    ex = default_extractor(str(ckpt), require_standard=True)
+    check(isinstance(ex, InceptionFeatureExtractor) and ex.pretrained
+          and ex.batch_size == EVAL_BATCH and ex.device.type == "cuda",
+          f"default_extractor picked {type(ex).__name__}")
+    feats = ex(images)                                       # warm: cuDNN plans
+    runs = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = ex(images)
+        runs.append(time.perf_counter() - t0)
+    wall = statistics.median(runs)
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ex(images)
+        torch.cuda.synchronize()
+    busy, _ = device_seconds(prof)
+    peak = torch.cuda.max_memory_allocated()
+    bound_ms, bound_by, gflop = inception_bound_ms(ex.model, EVAL_IMAGES, 128)
+    print(f"[eval] Inception-v3 pool3 (f32, TF32 off), {EVAL_IMAGES} images of 128² at batch "
+          f"{EVAL_BATCH}: {EVAL_IMAGES / wall:.2f} images/s warm ({wall:.4f} s, host clock "
+          f"after synchronize, median of 3), device busy {busy:.4f} s "
+          + ("(torch.profiler)" if busy else "(not measured: no device time recorded)")
+          + f", peak memory {peak / 2**20:.1f} MiB; bound {bound_ms:.4f} ms by {bound_by} "
+          f"({gflop:.1f} GFLOP), {EVAL_IMAGES / (bound_ms / 1e3):.0f} images/s; on {card}",
+          flush=True)
+    check(feats.shape == (EVAL_IMAGES, 2048) and bool(np.isfinite(feats).all()),
+          "Inception features")
+    report["inception"] = {"images_per_s": EVAL_IMAGES / wall, "wall_s": wall,
+                           "busy_s": busy or None, "peak_bytes": peak, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "gflop": gflop}
+
+    # -- compute_fid, card vs CPU, on two seeded sets: the CPU port's Inception
+    # run in a child process while the card goes on to the gauntlet ---------------------------
+    clf_path = str(ckpt / "classifier.pth")
+    set_a, set_b = images[:EVAL_FID_SET], images[EVAL_FID_SET:2 * EVAL_FID_SET]
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    with pool:
+        cpu_inception = pool.submit(cpu_inception_fid, str(ckpt / "inception_v3.pth"),
+                                    set_a, set_b)
+        card_inception = fid_run(ex, set_a, set_b)
+        report["fid"] = {
+            "classifier": check_fid(card, "classifier", fid_run(FeatureExtractor(
+                LesionClassifier.from_checkpoint(clf_path)[0]), set_a, set_b), fid_run(
+                FeatureExtractor(LesionClassifier.from_checkpoint(clf_path, device="cpu")[0]),
+                set_a, set_b)),
+            "pixel": check_fid(card, "pixel", fid_run(PixelFeatureExtractor(), set_a, set_b),
+                               fid_run(PixelFeatureExtractor(), set_a, set_b))}
+
+        # -- parity_gauntlet: every step ----------------------------------------------------
+        reset_launches()
+        t0 = time.time()
+        with figures_as_installed:
+            gauntlet = parity_gauntlet.run_gauntlet(
+                str(ckpt), str(base / "gauntlet_report.json"),
+                samples_per_class=GAUNTLET_SAMPLES, steps=EVAL_STEPS,
+                work_dir=str(base / "gauntlet"), log=print, device="cuda")
+        torch.cuda.synchronize()
+        report["gauntlet_s"] = time.time() - t0
+        launches = dict(attention.LAUNCHES)
+        print(f"[eval] parity_gauntlet, 2 classes x {GAUNTLET_SAMPLES}, DDIM {EVAL_STEPS}: "
+              f"passed {gauntlet['passed']} in {report['gauntlet_s']:.3f} s; attention_fwd "
+              f"launches {launches[attention.KERNEL]} (want {GAUNTLET_LAUNCHES}); on {card}",
+              flush=True)
+        check(gauntlet["passed"] and not any(s["skipped"] for s in gauntlet["steps"].values()),
+              f"gauntlet {gauntlet['steps']}")
+        check(launches[attention.KERNEL] == GAUNTLET_LAUNCHES
+              and sum(launches.values()) == GAUNTLET_LAUNCHES, f"gauntlet launched {launches}")
+        report["launches_gauntlet"] = launches[attention.KERNEL]
+        report["gauntlet_fid"] = gauntlet["fid_value"]
+
+        # -- the CPU port's Inception run: the FID pair and EVAL_HOLD images' features
+        on_cpu = cpu_inception.result()
+    report["fid"]["inception"] = check_fid(card, "inception", card_inception, on_cpu)
+    hold = on_cpu[1][0][:EVAL_HOLD]
+    err = float(np.abs(feats[:EVAL_HOLD] - hold).max())
+    scale = float(np.abs(hold).max())
+    print(f"[eval] Inception-v3 pool3 of {EVAL_HOLD} images, card vs the CPU port: "
+          f"max_abs_err {err:.3e} (max|feature| {scale:.3f}; allowed "
+          f"{INCEPTION_CARD_TOL:.0e} x); on {card}", flush=True)
+    check(err <= INCEPTION_CARD_TOL * scale, "Inception features card vs CPU")
+    report["inception"]["max_abs_err"] = err
+
+    # -- fairness_audit --images on the gauntlet's PNGs -----------------------------------------
+    reset_launches()
+    t0 = time.time()
+    rc = fairness_audit.main(["--images", str(base / "gauntlet" / "fid_a"), "--checkpoints",
+                              str(ckpt), "--split", "median-luminance", "--target-class", "MEL",
+                              "--out", str(base / "fairness.json")])
+    torch.cuda.synchronize()
+    audit = json.loads((base / "fairness.json").read_text())
+    print(f"[eval] fairness_audit --images (the gauntlet's {audit['n_group'] + audit['n_rest']} "
+          f"FID PNGs): rc {rc}, verdict {audit['verdict']} in {time.time() - t0:.3f} s, "
+          f"launches {sum(attention.LAUNCHES.values())}; on {card}", flush=True)
+    check(rc == 0 and audit["confidence"]["statistics"] is not None
+          and sum(attention.LAUNCHES.values()) == 0, f"fairness_audit rc {rc}: {audit}")
+
+    # -- e2e_loop, cut ----------------------------------------------------------------------
+    reset_launches()
+    t0 = time.time()
+    with figures_as_installed:
+        rc = e2e_loop.main(["--out", str(base / "e2e"), *E2E_ARGS])
+    torch.cuda.synchronize()
+    report["e2e_s"] = time.time() - t0
+    launches = dict(attention.LAUNCHES)
+    e2e = json.loads((base / "e2e" / "report.json").read_text())
+    print(f"[eval] e2e_loop {' '.join(E2E_ARGS)}: rc {rc} in {report['e2e_s']:.3f} s; "
+          f"attention_fwd {launches[attention.KERNEL]} (want {E2E_FWD_LAUNCHES}), "
+          f"attention_bwd {launches[attention.BWD_KERNEL]} (want {E2E_BWD_LAUNCHES}), "
+          f"statistics {launches[attention.STATS_KERNEL]}; fid_pixel {e2e['fid_pixel']}; "
+          f"fid_proxy {e2e['fid_proxy']}; on {card}", flush=True)
+    check(rc == 0 and E2E_KEYS <= set(e2e) and e2e["train_fused"],
+          f"e2e_loop report {sorted(e2e)}")
+    check(all(math.isfinite(v) for k in ("fid_pixel", "fid_proxy") for v in e2e[k].values()),
+          "e2e Fréchet values")
+    check(launches[attention.KERNEL] == E2E_FWD_LAUNCHES
+          and launches[attention.BWD_KERNEL] == E2E_BWD_LAUNCHES
+          and sum(launches.values()) == E2E_FWD_LAUNCHES + E2E_BWD_LAUNCHES,
+          f"e2e_loop launched {launches}")
+    report["launches_e2e"] = {attention.KERNEL: launches[attention.KERNEL],
+                              attention.BWD_KERNEL: launches[attention.BWD_KERNEL]}
+    report["phase_s"] = time.time() - t_phase
+    print(f"[eval] phase {report['phase_s']:.1f} s on {card}", flush=True)
+    return report
+
+
 def main() -> int:
     card = phase_card()
     if sys.argv[1:] == ["--host"]:
@@ -3759,43 +4124,68 @@ def main() -> int:
             report = phase_mesh(phase_unet(), card["card"], Path(tmp))
         print(json.dumps({"mesh": report, "card": card["card"]}, default=str), flush=True)
         return 0
+    if sys.argv[1:] == ["--eval"]:
+        # the [eval] phase alone, on a seeded full-width UNet
+        native.build([attention.KERNEL, attention.BWD_KERNEL])
+        torch.manual_seed(0)
+        state = UNet2D(UNet2DConfig()).state_dict()
+        with tempfile.TemporaryDirectory() as tmp:
+            report = phase_eval(state, card["card"], Path(tmp))
+        print(json.dumps({"eval": report, "card": card["card"]}, default=str), flush=True)
+        print(card["card"], flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
+                                                 "count": card["count"]}}), flush=True)
+        return 0
     if sys.argv[1:] == ["--fast-f32"]:
         # the f32 fast-math timing of [kernel-fast] alone, likewise
         native.build([attention.KERNEL])
         print(json.dumps({"fast_f32": phase_fast_f32(), "card": card["card"]}), flush=True)
         return 0
-    phase_build()
-    kernel_report = phase_kernel()
-    bwd_report = phase_kernel_bwd()
-    fast_report = phase_kernel_fast()
-    group_report = phase_kernel_group()
-    host_report = phase_host()
-    bwd_group_report = phase_kernel_bwd_group()
-    state = phase_unet()
-    phase_unet_grad()
+    started = time.time()
+
+    def timed(name, fn, *args):
+        """`fn(*args)`, its wall time printed beside the script's."""
+        t0 = time.time()
+        out = fn(*args)
+        print(f"[time] {name} {time.time() - t0:.1f} s (script at {time.time() - started:.1f} s)",
+              flush=True)
+        return out
+
+    timed("build", phase_build)
+    kernel_report = timed("kernel", phase_kernel)
+    bwd_report = timed("kernel-bwd", phase_kernel_bwd)
+    fast_report = timed("kernel-fast", phase_kernel_fast)
+    group_report = timed("kernel-group", phase_kernel_group)
+    host_report = timed("host", phase_host)
+    bwd_group_report = timed("kernel-bwd-group", phase_kernel_bwd_group)
+    state = timed("unet", phase_unet)
+    timed("unet-grad", phase_unet_grad)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_cli(state, card["card"], Path(tmp) / "cli")
-        gen = phase_generator(state, card["card"], Path(tmp) / "library",
-                              group_report["g_star"])
-        phase_reproduce(gen, Path(tmp) / "cli")
-        gen_f32 = phase_generator_f32_fast(state, card["card"], Path(tmp) / "library_f32")
-        samplers = phase_samplers(state, card["card"], Path(tmp) / "samplers",
-                                  Path(tmp) / "cli" / "checkpoints")
-        xai = phase_xai(state, card["card"], Path(tmp) / "xai")
-        served = phase_serve(state, card["card"], Path(tmp) / "serve")
-        meshed = phase_mesh(state, card["card"], Path(tmp) / "mesh")
-    train_launches = phase_train(card["card"])
-    bench = phase_bench(card["card"])
-    train_f32_launches = phase_train(card["card"], f32=True)
-    f32_report = phase_f32()
-    distilled = phase_distill(card["card"], bench)
-    remat = phase_remat(card["card"])
-    classifier = phase_train_classifier(card["card"])
+        launches = timed("cli", phase_cli, state, card["card"], Path(tmp) / "cli")
+        gen = timed("generator", phase_generator, state, card["card"], Path(tmp) / "library",
+                    group_report["g_star"])
+        timed("reproduce", phase_reproduce, gen, Path(tmp) / "cli")
+        gen_f32 = timed("generator-f32-fast", phase_generator_f32_fast, state, card["card"],
+                        Path(tmp) / "library_f32")
+        samplers = timed("samplers", phase_samplers, state, card["card"],
+                         Path(tmp) / "samplers", Path(tmp) / "cli" / "checkpoints")
+        xai = timed("xai", phase_xai, state, card["card"], Path(tmp) / "xai")
+        served = timed("serve", phase_serve, state, card["card"], Path(tmp) / "serve")
+        meshed = timed("mesh", phase_mesh, state, card["card"], Path(tmp) / "mesh")
+        evaluated = timed("eval", phase_eval, state, card["card"], Path(tmp) / "eval")
+    train_launches = timed("train", phase_train, card["card"])
+    bench = timed("bench", phase_bench, card["card"])
+    train_f32_launches = timed("train-f32", phase_train, card["card"], True)
+    f32_report = timed("f32", phase_f32)
+    distilled = timed("distill", phase_distill, card["card"], bench)
+    remat = timed("remat", phase_remat, card["card"])
+    classifier = timed("train-classifier", phase_train_classifier, card["card"])
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = Path(tmp) / "checkpoints"
-        cond_train = phase_train_conditional(card["card"], ckpt)
-        cond = phase_conditional(card["card"], ckpt, Path(tmp) / "conditional")
-        cond_redo = phase_reproduce_conditional(cond, ckpt)
+        cond_train = timed("train-conditional", phase_train_conditional, card["card"], ckpt)
+        cond = timed("conditional", phase_conditional, card["card"], ckpt,
+                     Path(tmp) / "conditional")
+        cond_redo = timed("reproduce-conditional", phase_reproduce_conditional, cond, ckpt)
 
     shape, dtype = MAIN_SHAPES[0], torch.float32
     timing = kernel_report[(shape, dtype, "time")]
@@ -3866,6 +4256,15 @@ def main() -> int:
         "launches_mesh_train": meshed["train_launches"][attention.KERNEL],
         "launches_mesh_train_step": {k: v["launches"][attention.KERNEL]
                                      for k, v in meshed["train_step"].items()},
+        # [eval]: eval_fid --generate's 64 images, parity_gauntlet (420:
+        # seven DDIM-10 walks) and the cut e2e_loop (training, probe,
+        # samplers, XAI); Inception-v3 at batch 32 and the FIDs card vs CPU
+        "launches_eval_generate": evaluated["launches_generate"],
+        "launches_eval_gauntlet": evaluated["launches_gauntlet"],
+        "launches_eval_e2e": evaluated["launches_e2e"][attention.KERNEL],
+        "eval_inception": evaluated["inception"],
+        "eval_fid": evaluated["fid"],
+        "eval_wall_s": {k: evaluated[k] for k in ("gauntlet_s", "e2e_s", "phase_s")},
         "generator_warm_s": gen["warm_s"],
         "generator_sampler_share": gen["sampler_share"],
         "sampler_update_s": samplers["update_s"],
@@ -3960,6 +4359,7 @@ def main() -> int:
                   for r in remat["rows"]},
         "classifier_step_s": classifier["step_s"],
         "launches_stats_train_conditional": cond_train["entry"][attention.STATS_KERNEL],
+        "launches_eval_e2e": evaluated["launches_e2e"][attention.BWD_KERNEL],
         "launches_train_conditional": cond_train["entry"][attention.BWD_KERNEL],
         "shape": list(bwd_shape),
         "dtype": "float32",

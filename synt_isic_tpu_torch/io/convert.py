@@ -6,8 +6,10 @@ package applies at load time: merged index segments expand
 (I, O) -> (O, I), GroupNorm and BatchNorm `scale` -> `weight`, the frozen
 BatchNorm statistics `mean`/`var` -> `running_mean`/`running_var`,
 `nn.Embed` tables keep their layout. The result loads into the port's
-`UNet2D` and `ResNet18` (torchvision's names: `layer2_0/downsample_0` ->
-`layer2.0.downsample.0`) with `load_state_dict(strict=True)`.
+`UNet2D`, `ResNet18` (torchvision's names: `layer2_0/downsample_0` ->
+`layer2.0.downsample.0`) and `InceptionV3` (torchvision's names, whose
+numbered branches keep their `_<digit>`: `Mixed_5b/branch5x5_1` ->
+`Mixed_5b.branch5x5_1`) with `load_state_dict(strict=True)`.
 """
 from __future__ import annotations
 
@@ -16,8 +18,14 @@ from typing import Any, Dict, List, Mapping
 import numpy as np
 import torch
 
-# module names whose trailing _<digit> is part of the torch name, not an index
-_LITERAL_NAMES = {"linear_1", "linear_2"}
+# module names whose trailing _<digit> is part of the torch name, not an
+# index: the UNet's time-embedding layers and Inception-v3's numbered
+# branch convolutions (torchvision's `branch5x5_1`, ..., `branch7x7x3_4`)
+_LITERAL_NAMES = {"linear_1", "linear_2"} | {
+    f"{branch}_{i}" for branch, n in (("branch5x5", 2), ("branch3x3", 2),
+                                      ("branch3x3dbl", 3), ("branch7x7", 3),
+                                      ("branch7x7dbl", 5), ("branch7x7x3", 4))
+    for i in range(1, n + 1)}
 _LEAF_NAMES = {"embedding": "weight", "scale": "weight", "mean": "running_mean",
                "var": "running_var"}
 

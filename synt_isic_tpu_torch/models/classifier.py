@@ -2,8 +2,8 @@
 
 The port of `synt_isic_tpu/models/classifier.py`:
   * `preprocess_for_classifier`: [-1,1] NHWC -> clip to [0,1] -> bilinear
-    resize to 224 with half-pixel centres (`jax.image.resize`'s bilinear,
-    which at an upscale is `F.interpolate(align_corners=False)`) ->
+    resize to 224 as `jax.image.resize` does it (`ops/resize.py`: half-pixel
+    centres, antialiased when an image larger than 224 shrinks) ->
     ImageNet normalisation, as NCHW for the model;
   * `get_probabilities` = softmax(logits), `get_per_class_score` =
     log(p_c + 1e-8), `predict` = argmax, `get_confidence`;
@@ -22,10 +22,10 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..io.pth import load_checkpoint
 from ..model_manager import resolve_device
+from ..ops.resize import resize_bilinear
 from .resnet18 import ResNet18, ResNet18Config
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -42,10 +42,7 @@ def preprocess_for_classifier(x: torch.Tensor,
     of it)."""
     x = (x + 1.0) / 2.0
     x = torch.minimum(torch.maximum(x, torch.zeros_like(x)), torch.ones_like(x))
-    x = x.permute(0, 3, 1, 2)
-    if x.shape[2] != size or x.shape[3] != size:
-        x = F.interpolate(x, size=(size, size), mode="bilinear", align_corners=False,
-                          antialias=False)
+    x = resize_bilinear(x.permute(0, 3, 1, 2), (size, size))
     mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device).view(1, 3, 1, 1)
     std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device).view(1, 3, 1, 1)
     return (x - mean) / std

@@ -7,10 +7,11 @@ loads by name. NCHW inside. BatchNorm is frozen (eval-mode statistics
 only, as the classifier is only ever run in eval mode): y = (x - mean) *
 rsqrt(var + eps) * weight + bias.
 
-`features_and_logits` also returns the Grad-CAM target activation, the
-output of `layer4[-1].conv2` (the last block's `pre_activation`), and the
-last block's input, so `logits_from_activation` can rerun the tail from a
-perturbed activation.
+`penultimate` gives the 512-d pooled features before `fc` (the
+classifier-feature FID embedding). `features_and_logits` also returns
+the Grad-CAM target activation, the output of `layer4[-1].conv2` (the
+last block's `pre_activation`), and the last block's input, so
+`logits_from_activation` can rerun the tail from a perturbed activation.
 """
 from __future__ import annotations
 
@@ -103,11 +104,19 @@ class ResNet18(nn.Module):
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc(x.mean(dim=(2, 3)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
         x = self._stem(x)
         for layer in self._layers():
             x = layer(x)
-        return self._head(x)
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._head(self._features(x))
+
+    def penultimate(self, x: torch.Tensor) -> torch.Tensor:
+        """The 512-d globally pooled features before `fc`, in f32: the
+        classifier-feature FID embedding (`metrics/fid.py`)."""
+        return self._features(x).mean(dim=(2, 3)).float()
 
     def trunk(self, x: torch.Tensor) -> torch.Tensor:
         """Everything before the last block: the last block's input."""

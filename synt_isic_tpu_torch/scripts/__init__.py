@@ -1,0 +1,10 @@
+"""Entry points that score and check image sets, each the port of the JAX
+package's script of the same name under `scripts/`, with its flags and
+report keys and `--device` (default cuda; cpu only when asked) in place of
+`--cpu`:
+
+    python -m synt_isic_tpu_torch.scripts.eval_fid --a DIR_A --b DIR_B
+    python -m synt_isic_tpu_torch.scripts.fairness_audit --images DIR
+    python -m synt_isic_tpu_torch.scripts.parity_gauntlet --checkpoints DIR
+    python -m synt_isic_tpu_torch.scripts.e2e_loop --out DIR
+"""

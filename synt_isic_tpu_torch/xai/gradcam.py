@@ -11,7 +11,8 @@ activation's gradient is one `torch.autograd.grad` over a whole frame
 batch, with no hooks:
     w_c = mean over space of dy/dA_c,
     CAM = relu(Σ_c w_c · A_c), min-max per image,
-resized bilinearly (half-pixel centres) to the classifier's input size.
+resized bilinearly as `jax.image.resize` does (`ops/resize.py`) to the
+classifier's input size.
 
 With a mesh (reference `gradcam.py:35-56, 106`) the frame batch is padded
 by repeating its last frame and split over the mesh's 'data' axis, each
@@ -22,9 +23,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..models.classifier import LesionClassifier
+from ..ops.resize import resize_bilinear
 from ..parallel.replicas import run_per_device, sampling_replica
 from ..parallel.sharded_sampler import shard_frames
 from .attribution import check_mesh
@@ -53,8 +54,7 @@ def compute_gradcam(classifier: LesionClassifier, images, target_class: int,
         lo = cam.amin(dim=(1, 2), keepdim=True)
         hi = cam.amax(dim=(1, 2), keepdim=True)
         cam = (cam - lo) / (hi - lo + 1e-7)
-        cam = F.interpolate(cam[:, None], size=(output_size, output_size), mode="bilinear",
-                            align_corners=False, antialias=False)[:, 0]
+        cam = resize_bilinear(cam[:, None], (output_size, output_size))[:, 0]
         return torch.clamp(cam, 0.0, 1.0).cpu().numpy()
 
 

@@ -36,9 +36,9 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..models.classifier import LesionClassifier
+from ..ops.resize import resize_bilinear
 from .attribution import XAIAnalyzer, _stack_trajectory
 from .cfi import compute_causal_shift_comprehensive
 from .gradcam import compute_gradcam, overlay_cam_on_image
@@ -325,14 +325,13 @@ def run_comprehensive_xai_pipeline(trajectory, timesteps: Sequence[float],
             gradcam_results: Dict[str, np.ndarray] = {}
             rgb224_all = None
             if save_results and save_figures:
-                # all frames resized in one batched call (bilinear, half-
-                # pixel centres, as the classifier's preprocessing)
+                # all frames resized in one batched call, as the
+                # classifier's preprocessing resizes them
                 rgb_all = np.stack([viz.tensor_to_displayable_image(frames_host[i])
                                     for i in range(n_frames)])
-                rgb224_all = F.interpolate(
-                    torch.from_numpy(rgb_all).permute(0, 3, 1, 2), size=(224, 224),
-                    mode="bilinear", align_corners=False,
-                    antialias=False).permute(0, 2, 3, 1).numpy()
+                rgb224_all = resize_bilinear(
+                    torch.from_numpy(rgb_all).permute(0, 3, 1, 2),
+                    (224, 224)).permute(0, 2, 3, 1).numpy()
             for i in range(n_frames):
                 step_key = f"t_{timesteps[i]:.0f}"
                 gradcam_results[step_key] = cams[i]

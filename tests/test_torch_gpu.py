@@ -1115,3 +1115,32 @@ def test_remat_modes_give_bit_identical_gradients(cuda):
         got = launches[mode]
         assert (got[attention.KERNEL], got[attention.BWD_KERNEL],
                 got[attention.STATS_KERNEL]) == (want_fwd, 6, 0), mode
+
+
+def test_inception_extractor_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
+    """`InceptionFeatureExtractor` on the card against the same seeded
+    weights on the CPU, 4 images of 128²: pool3 features within 1e-4 ·
+    max|feature| (two f32 convolution algorithms over the network's ~20
+    sequential convolutions, as the classifier above). The extractor turns
+    TF32 off for its own calls, whatever the process-wide switches, and
+    sets them back."""
+    from synt_isic_tpu_torch.metrics.fid import InceptionFeatureExtractor, default_extractor
+    from synt_isic_tpu_torch.io.pth import save_checkpoint
+    from synt_isic_tpu_torch.models.inception_v3 import random_inception_state
+
+    save_checkpoint({k: torch.from_numpy(v) for k, v in random_inception_state(0).items()},
+                    str(tmp_path / "inception_v3.pth"))
+    card = default_extractor(str(tmp_path), require_standard=True)
+    assert isinstance(card, InceptionFeatureExtractor) and card.pretrained
+    assert all(p.is_cuda for p in card.model.state_dict().values())
+    cpu = InceptionFeatureExtractor(str(tmp_path / "inception_v3.pth"), device="cpu")
+    x = _xai_frames(4)
+    want = cpu(x)
+    for tf32 in (True, False):
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", tf32)
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", tf32)
+        got = card(x)
+        assert torch.backends.cudnn.allow_tf32 is tf32
+        assert torch.backends.cuda.matmul.allow_tf32 is tf32
+        assert got.shape == (4, 2048) and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())

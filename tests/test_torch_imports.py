@@ -36,6 +36,10 @@ def test_every_ported_module_is_checked():
                    "cache.py", "utils/config.py", "model_manager.py", "cli.py",
                    "models/resnet18.py", "models/classifier.py", "native/__init__.py",
                    "serve.py", "app/__init__.py", "app/webui.py", "utils/profiling.py",
+                   "app/download_models.py", "ops/resize.py", "models/inception_v3.py",
+                   "metrics/__init__.py", "metrics/fid.py",
+                   *(f"scripts/{name}.py" for name in (
+                       "__init__", "eval_fid", "fairness_audit", "parity_gauntlet", "e2e_loop")),
                    *(f"parallel/{name}.py" for name in (
                        "__init__", "mesh", "multihost", "replicas", "sharded_sampler")),
                    *(f"xai/{name}.py" for name in (
