@@ -159,7 +159,8 @@ Phases, each of which exits non-zero on failure:
      their keys, its stage_seconds, wall time and trajectories per hour;
      the same DDPM-50 walk kernel vs plain attention (XAI_WALK_TOL, derived
      beside it); the pipeline on the card under full-f32 convolutions
-     against the CPU port over the same frames (XAI_TOL); K1 at the walk's
+     against the CPU port over the same frames (XAI_TOL; IG and SHAP cut to
+     XAI_CMP_IG_STEPS and XAI_CMP_SHAP_SAMPLES on both sides); K1 at the walk's
      batch-1 shapes in turns with SDPA, host-launched and from a CUDA
      graph; `ImageGenerator` with `create_integrated_xai_analyzer`, DDPM 10
      on 4 MEL images, every 2nd analysed: exactly 240 launches and 2
@@ -255,6 +256,20 @@ Phases, each of which exits non-zero on failure:
      `e2e_loop` (E2E_ARGS): exactly 312 forward and 24 backward launches,
      its report keys and finite Fréchet batteries. `python3 chip_smoke.py
      --eval` runs card, build and this phase alone;
+ 16d. [score] the quality ladders and the per-class family through their
+     entry points (`synt_isic_tpu_torch.scripts.<name>.main`), full width,
+     bf16 (augment_eval f32), cut as SCORE_* says: train_family over MEL and
+     NV (and again: both skipped, checkpoints byte for byte), score_family
+     and rescore_family_consistency --skip-probe (the same consistency and
+     probe accuracy), score_checkpoint --flagship with --ab-fast-math (the
+     fast row K1-fast only, its sidecars recording it) and with
+     --heads-per-program 2 (K1-G), sampler_ladder with one rung per
+     scheduler, distill_ladder 8 -> 4, augment_eval (border preserved),
+     e2e_conditional at guidance 1 and 3: every launch count as read from the
+     code (SCORE_WANT), no plain attention call, every report's keys, wall
+     times, images/s per rung, and the warm family and distillation steps
+     beside [bench]'s (`python3 chip_smoke.py --score` runs card, build, a
+     [bench] step and this phase alone);
  17. a JSON line of per-kernel numbers, then as the last line
      {"ok": true, "device": {...}}.
 
@@ -395,11 +410,12 @@ BENCH_BATCH, BENCH_STEPS = 32, 10
 DISTILL_IMAGES, DISTILL_BATCH, DISTILL_START, DISTILL_END, DISTILL_STEPS = 32, 16, 16, 4, 8
 DISTILL_PHASES = (8, 4)
 DISTILL_WARM_STEPS = 10
-# [remat]: measure_train_step for every remat mode at each batch (about 10
-# warm steps per row; the profiler, about 10 s a row, only at the first
-# batch), then one step's gradients at full width, batch 4, under
+# [remat]: measure_train_step for every remat mode at each batch (5 warm
+# steps per row, cut from 10 to keep the whole script inside its time; the
+# profiler, about 10 s a row, only at the first batch), then one step's
+# gradients at full width, batch 4, under
 # deterministic cuDNN: every mode's torch.equal to no remat's
-REMAT_BATCHES, REMAT_STEPS, REMAT_GRAD_BATCH = (32, 64), 10, 4
+REMAT_BATCHES, REMAT_STEPS, REMAT_GRAD_BATCH = (32, 64), 5, 4
 # [train-classifier]: the classifier entry point on 8 procedural JPEGs per
 # class for the seven classes and their one-hot CSV, 2 epochs of batch 16
 # (3 steps each); the exported classifier.pth against a probe batch: the
@@ -555,6 +571,10 @@ XAI_WALK_TOL = 5e-3
 # (their draws come from the same CPU generators on both sides)
 XAI_TOL = {"attribution": 1e-4, "time_shap": 1e-5, "gradcam": 1e-3, "cfi": 1e-5,
            "sanity": 1e-4}
+# that comparison runs IG and SHAP cut from the standalone run's 50 steps and
+# 512 masks (the CPU port took 127 s of the phase at those; every stage and
+# every bound stays): the same cut on both sides
+XAI_CMP_IG_STEPS, XAI_CMP_SHAP_SAMPLES = 10, 64
 # [mesh]: the library ShardedSampler on MESH_SEEDS seeds (5 on 2 shards: one
 # pad row) at DDIM 10, f32, full-f32 convolutions and deterministic cuDNN,
 # held to the unsharded walk: a shard of 3 and the batch of 5 pick their own
@@ -629,6 +649,101 @@ E2E_KEYS = {"class", "size", "width", "train_images", "epochs", "train_fused", "
             "classifier", "timestep_spacing", "fast_scheduler", "sample_ddim", "sample_dpm",
             "xai", "fid_pixel", "fid_proxy", "fid_extractor", "quality_bar",
             "model_converged", "sampler_within_bar", "converged"}
+
+# [score]: the quality ladders and the per-class family through their entry
+# points, at full width (`UNet2DConfig()`, 128²) in bf16 unless stated, each
+# cut in depth and count (PERF.md §4). K1 per UNet evaluation is
+# ATTENTION_CALLS_PER_UNET, at every block of every walk, the warm passes of
+# `ladder_common.score_rung` (one block of the same size) included.
+#  * train_family over SCORE_CLASSES, SCORE_FAMILY_IMAGES procedural images
+#    a class, 1 epoch of SCORE_FAMILY_BATCH: per class 2 steps (6 K1 + 6 K3
+#    each) and the eval probe at the last epoch (EVAL_T_POINTS forwards);
+#    a second call skips both classes: no launch, checkpoints unchanged;
+#  * score_family: the probe (SCORE_PROBE_IMAGES a class, 1 epoch) runs no
+#    UNet; each class one DDIM-SCORE_STEPS walk of SCORE_COUNT images;
+#    rescore_family_consistency --skip-probe runs no UNet;
+#  * score_checkpoint --flagship, ddim:SCORE_STEPS:trailing, SCORE_COUNT
+#    images at batch SCORE_COUNT: a warm and a timed walk a row, the exact
+#    row K1, the --ab-fast-math row K1-fast only; --heads-per-program 2
+#    one row of K1 at G = 2 (every launch grouped);
+#  * sampler_ladder --width full, one rung per scheduler (SCORE_LADDER) at
+#    SCORE_LADDER_COUNT images: a warm and a timed walk a rung, UniPC and
+#    DDPM taking one UNet evaluation a step as the others do;
+#  * distill_ladder --width full, 8 -> 4 at 2 steps a phase of batch
+#    SCORE_DISTILL_BATCH: per step two teacher forwards and the student's (18
+#    K1) and its backward (6 K3); then the teacher at DDIM 8 and 4 and the
+#    student at 4, warm and timed walks of SCORE_LADDER_COUNT images;
+#  * augment_eval --width full (f32, the JAX script's manager default),
+#    SCORE_LADDER_COUNT sources at DDIM SCORE_AUGMENT_STEPS trailing: the
+#    strengths 0.2-1.0 walk round(s x 10) = 2+4+6+8+10 steps, the plain rung
+#    10, the diversity probe (32 seeds at 0.6) 6, the inpaint rung 10;
+#  * e2e_conditional --width full over SCORE_COND_CLASSES, SCORE_COND_IMAGES
+#    images a class, 1 epoch of SCORE_COND_BATCH (3 steps), the probe's
+#    EVAL_T_POINTS forwards, guidance 1 and 3 over SCORE_LADDER_COUNT samples
+#    a class at DDIM SCORE_STEPS in mixed blocks of SCORE_LADDER_COUNT (one
+#    forward a step at 2B when guided).
+# The held-out sets are cut to SCORE_HELDOUT images (default 128), the
+# classifier judges to SCORE_PROBE_IMAGES a class; the warm steps of the
+# family recipe (batch SCORE_FAMILY_BATCH) and of the ladder's distillation
+# (batch SCORE_DISTILL_BATCH) are timed over SCORE_WARM_STEPS steps, and
+# one more step of each is profiled.
+SCORE_CLASSES, SCORE_COND_CLASSES = ("MEL", "NV"), ("MEL", "NV", "VASC")
+SCORE_FAMILY_IMAGES, SCORE_FAMILY_BATCH, SCORE_PROBE_IMAGES = 32, 16, 16
+SCORE_COUNT, SCORE_STEPS, SCORE_HELDOUT, SCORE_LADDER_COUNT = 16, 10, 32, 8
+SCORE_LADDER = (("ddim", 10, "trailing"), ("dpm_solver", 10, "trailing"),
+                ("unipc", 8, "trailing"), ("dpm_solver_sde", 10, "trailing"), ("ddpm", 20))
+SCORE_DISTILL_BATCH, SCORE_DISTILL_IMAGES, SCORE_AUGMENT_STEPS = 8, 16, 10
+SCORE_COND_IMAGES, SCORE_COND_BATCH, SCORE_GUIDANCE = 16, 16, (1.0, 3.0)
+# (the trace of one eager step takes seconds to read: one profiled step)
+SCORE_WARM_STEPS, SCORE_PROFILED_STEPS = 5, 1
+SCORE_FAMILY_STEPS = SCORE_FAMILY_IMAGES // SCORE_FAMILY_BATCH
+SCORE_COND_STEPS = len(SCORE_COND_CLASSES) * SCORE_COND_IMAGES // SCORE_COND_BATCH
+SCORE_AUGMENT_EVALS = sum(max(1, round(s * SCORE_AUGMENT_STEPS))
+                          for s in (0.2, 0.4, 0.6, 0.8, 1.0, 1.0, 0.6, 1.0))
+# (UNet evaluations, UNet backward passes) of each entry point, read from the
+# code: x ATTENTION_CALLS_PER_UNET they are its K1 (or K1-fast) and K3 launches
+SCORE_WANT = {
+    "train_family": (len(SCORE_CLASSES) * (SCORE_FAMILY_STEPS + EVAL_T_POINTS),
+                     len(SCORE_CLASSES) * SCORE_FAMILY_STEPS),
+    "train_family_again": (0, 0),
+    "score_family": (len(SCORE_CLASSES) * SCORE_STEPS, 0),
+    "rescore_family_consistency": (0, 0),
+    "score_checkpoint_ab_fast_math": (2 * 2 * SCORE_STEPS, 0),
+    "score_checkpoint_heads_per_program_2": (2 * SCORE_STEPS, 0),
+    "sampler_ladder": (2 * sum(r[1] for r in SCORE_LADDER), 0),
+    "distill_ladder": (3 * 2 + 2 * (8 + 4 + 4), 2),
+    "augment_eval": (SCORE_AUGMENT_EVALS, 0),
+    "e2e_conditional": (SCORE_COND_STEPS + EVAL_T_POINTS + len(SCORE_GUIDANCE) * SCORE_STEPS
+                        * math.ceil(len(SCORE_COND_CLASSES) * SCORE_LADDER_COUNT
+                                    / SCORE_LADDER_COUNT), SCORE_COND_STEPS),
+}
+# the report keys of the JAX scripts (tests/test_torch_ladders.py,
+# test_torch_family.py and test_torch_e2e_conditional.py cite their lines)
+SCORE_KEYS = {
+    "score_checkpoint": {"checkpoints", "class", "size", "count", "variant",
+                         "floor_train_vs_heldout", "ceiling_noise_vs_heldout", "rows"},
+    "sampler_ladder": {"class", "size", "count", "checkpoints", "floor_train_vs_heldout",
+                       "floor_train_n_vs_heldout", "ceiling_noise_vs_heldout", "rungs",
+                       "headline", "headline_rule"},
+    "distill_ladder": {"class", "size", "count", "teacher", "timestep_spacing",
+                       "steps_per_phase", "distill_wall_s", "floor_train_vs_heldout",
+                       "floor_train_n_vs_heldout", "ceiling_noise_vs_heldout", "rungs"},
+    "augment_eval": {"class", "size", "count", "steps", "timestep_spacing", "anchors",
+                     "strength_sweep", "plain_generation_frechet", "diversity",
+                     "inpaint_center_box"},
+    "train_family": {"config", "classes", "family_complete"},
+    "score_family": {"checkpoints_dir", "classes", "size", "width", "count", "steps", "seed",
+                     "started", "probe", "per_class", "family_converged",
+                     "family_consistent_absolute", "probe_competent"},
+    "rescore_family_consistency": {"checkpoints_dir", "classes", "probe", "merged_from",
+                                   "note", "rescored", "per_class", "family_converged",
+                                   "family_consistent_absolute", "probe_competent"},
+    "e2e_conditional": {"classes", "size", "width", "clf_hard", "epochs",
+                        "train_images_per_class", "guidance_scales", "train_fused", "train",
+                        "classifier", "anchors", "results", "best_guidance",
+                        "conditional_ok", "per_class_best_guidance",
+                        "consistent_absolute_all", "probe_competent_all"},
+}
 
 
 def fail(msg: str) -> None:
@@ -2163,8 +2278,8 @@ def phase_xai(state: dict, card: str, base: Path) -> dict:
     def pipeline(device):
         classifier, _ = LesionClassifier.from_checkpoint(str(clf_path), num_classes=XAI_OUTPUTS,
                                                          device=device)
-        analyzer = XAIAnalyzer(classifier, ig_n_steps=XAI_IG_STEPS,
-                               shap_n_samples=XAI_SHAP_SAMPLES, seed=XAI_SEED)
+        analyzer = XAIAnalyzer(classifier, ig_n_steps=XAI_CMP_IG_STEPS,
+                               shap_n_samples=XAI_CMP_SHAP_SAMPLES, seed=XAI_SEED)
         failed = []
         t0 = time.perf_counter()
         res = run_comprehensive_xai_pipeline(
@@ -4063,6 +4178,330 @@ def phase_eval(state: dict, card: str, base: Path) -> dict:
     return report
 
 
+def _score_step_times(card: str, bench: dict) -> dict:
+    """The warm training step of train_family's recipe (batch
+    SCORE_FAMILY_BATCH: EMA, cosine lr, min-SNR, offset noise) and the warm
+    step of distill_ladder's distillation (batch SCORE_DISTILL_BATCH, 4-step
+    student), each over SCORE_WARM_STEPS steps on the host clock after a
+    synchronize, then SCORE_PROFILED_STEPS more under `torch.profiler`
+    (device busy s/step and idle share), beside `bench`'s train step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from synt_isic_tpu_torch.scripts import train_family
+    from synt_isic_tpu_torch.train import distill
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    schedule = DiffusionSchedule.create()
+    times, busy = {}, {}
+
+    def warm(name, step, batch):
+        base = torch.rand((batch, 128, 128, 3), generator=gen, device=dev) * 2 - 1
+        step(base)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(1, SCORE_WARM_STEPS + 1):
+            loss = step(base * (1.0 + 1e-4 * i))
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) / SCORE_WARM_STEPS
+        check(math.isfinite(float(loss)), f"{name} warm loss {float(loss)}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(SCORE_PROFILED_STEPS):
+                step(base * (1.0 - 1e-4 * (i + 1)))
+            torch.cuda.synchronize()
+        seconds = device_seconds(prof)[0] / SCORE_PROFILED_STEPS
+        busy[name] = seconds if seconds > 0 else None
+
+    cfg = train_family.family_train_config(128, SCORE_FAMILY_IMAGES, 1, SCORE_FAMILY_BATCH, 0)
+    state = create_train_state(train_family.family_model(128, "full", 0, fused=True).to(dev),
+                               cfg, total_steps=100)
+    train_step = make_train_step(schedule, cfg)
+    warm("family", lambda x: train_step(state, x, gen), SCORE_FAMILY_BATCH)
+    del state
+    dcfg = distill.DistillConfig(batch_size=SCORE_DISTILL_BATCH, steps_per_phase=2,
+                                 timestep_spacing="trailing", seed=1)
+    student = UNet2D(UNet2DConfig(), dtype=torch.bfloat16, param_dtype=torch.float32,
+                     use_fused_attention=True, fast_norm=True).to(dev).train()
+    teacher = UNet2D(UNet2DConfig(), dtype=torch.bfloat16, param_dtype=torch.float32,
+                     use_fused_attention=True, fast_norm=True).to(dev).requires_grad_(False)
+    dstate = distill.create_distill_state(student, dcfg)
+    dstep = distill.make_distill_step(schedule, dcfg, 4)
+    warm("distill", lambda x: dstep(dstate, teacher, x, gen), SCORE_DISTILL_BATCH)
+    del dstate, student, teacher
+    train_s, train_batch = bench["sec_per_step"], bench["batch"]
+    for name, batch in (("family", SCORE_FAMILY_BATCH), ("distill", SCORE_DISTILL_BATCH)):
+        split = ("torch.profiler recorded no device time: busy not measured"
+                 if busy[name] is None else
+                 f"device busy {busy[name]:.5f} s/step (idle share "
+                 f"{1.0 - busy[name] / times[name]:.3f}, torch.profiler over "
+                 f"{SCORE_PROFILED_STEPS} step)")
+        print(f"[score] warm {name} step at batch {batch} ({SCORE_WARM_STEPS} steps, host clock "
+              f"after synchronize): {times[name]:.5f} s/step, {batch / times[name]:.2f} "
+              f"images/s, {split}; beside the [bench] train step at batch {train_batch}: "
+              f"{train_s:.5f} s/step, {train_batch / train_s:.2f} images/s; on {card}",
+              flush=True)
+    return {"s_per_step": times, "busy_s_per_step": busy}
+
+
+def phase_score(card: str, base: Path, bench: dict) -> dict:
+    """[score] the quality ladders and the per-class family through their
+    `python -m synt_isic_tpu_torch.scripts.<name>` entry points (`main(argv)`
+    in process), at full width: each one's K1, K1-fast, K1-G and K3 launches
+    exactly as read from the code (SCORE_WANT) and no plain attention call;
+    every report's keys; the checks of each path (a second train_family run
+    skips and leaves the checkpoints byte for byte; rescore gives
+    score_family's consistency and probe accuracy; the fast rows run K1-fast
+    only and G = 2 K1-G only; the inpaint border is kept); each script's wall
+    time and each rung's images/s; and the family and distillation steps
+    beside [bench]'s."""
+    import hashlib
+    from unittest import mock
+
+    from synt_isic_tpu_torch.models import unet2d as unet2d_module
+    from synt_isic_tpu_torch.scripts import (augment_eval, distill_ladder, e2e_conditional,
+                                             rescore_family_consistency, sampler_ladder,
+                                             score_checkpoint, score_family, train_family)
+
+    t_phase = time.time()
+    base.mkdir(parents=True)
+    report = {"launches": {}, "wall_s": {}}
+    plain_calls = []
+    plain_ref = unet2d_module.attention_reference
+
+    def plain_spy(*args, **kwargs):
+        plain_calls.append(1)
+        return plain_ref(*args, **kwargs)
+
+    def run(name, main, argv, out, keys, rcs=(0,), fast_share=0.0, grouped=False):
+        """`main(argv)` with its launches counted and its wall time taken;
+        returns the report it wrote to `out`, whose keys must be
+        SCORE_KEYS[keys].
+        `fast_share` of the UNet evaluations run K1-fast, the rest K1;
+        `grouped`: every forward launch at G > 1."""
+        evals, backwards = SCORE_WANT[name]
+        want = dict.fromkeys(attention.LAUNCHES, 0)
+        want[attention.FAST_KERNEL] = round(ATTENTION_CALLS_PER_UNET * evals * fast_share)
+        want[attention.KERNEL] = ATTENTION_CALLS_PER_UNET * evals - want[attention.FAST_KERNEL]
+        want[attention.BWD_KERNEL] = ATTENTION_CALLS_PER_UNET * backwards
+        if grouped:
+            want[attention.GROUPED_KERNEL] = ATTENTION_CALLS_PER_UNET * evals
+        reset_launches()
+        plain_calls.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(unet2d_module, "attention_reference", plain_spy):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(attention.LAUNCHES)
+        print(f"[score] {name}: rc {rc} in {wall:.3f} s (host clock after synchronize); "
+              f"launches {launches} (want {want}), plain attention calls {len(plain_calls)}; "
+              f"on {card}", flush=True)
+        check(rc in rcs, f"{name} returned {rc}")
+        check(launches == want and not plain_calls,
+              f"{name} launched {launches} with {len(plain_calls)} plain calls (want {want})")
+        report["launches"][name] = {k: v for k, v in launches.items() if v}
+        report["wall_s"][name] = wall
+        written = json.loads(Path(out).read_text())
+        check(set(written) == SCORE_KEYS[keys], f"{name} report keys {sorted(written)}")
+        return written
+
+    def digests(ckpt):
+        return {c: hashlib.sha256((ckpt / f"unet_{c}_best.pth").read_bytes()).hexdigest()
+                for c in SCORE_CLASSES}
+
+    # -- train_family, then again (both classes skipped) ------------------------------------
+    fam = base / "family"
+    ckpt = fam / "checkpoints"
+    argv = ["--out", str(fam), "--classes", ",".join(SCORE_CLASSES), "--size", "128",
+            "--train-images", str(SCORE_FAMILY_IMAGES), "--epochs", "1",
+            "--batch", str(SCORE_FAMILY_BATCH), "--width", "full", "--device", "cuda"]
+    trained = run("train_family", train_family.main, argv, fam / "family_train.json",
+                  "train_family")
+    check(trained["family_complete"]
+          and all(trained["classes"][c]["steps"] == SCORE_FAMILY_STEPS
+                  and math.isfinite(trained["classes"][c]["best_loss"])
+                  and not (ckpt / f"train_state_{c}.pt").exists() for c in SCORE_CLASSES),
+          f"train_family report {trained['classes']}")
+    before = digests(ckpt)
+    again = run("train_family_again", train_family.main, argv, fam / "family_train.json",
+                "train_family")
+    check(again["family_complete"] and digests(ckpt) == before,
+          "a second train_family changed a finished class's checkpoint")
+    print(f"[score] train_family: {SCORE_CLASSES} trained ({SCORE_FAMILY_STEPS} steps of batch "
+          f"{SCORE_FAMILY_BATCH} each, best losses "
+          f"{[trained['classes'][c]['best_loss'] for c in SCORE_CLASSES]}); the second call "
+          f"skipped both, checkpoints byte for byte", flush=True)
+
+    # -- score_family, rescore_family_consistency --skip-probe --------------------------------
+    scored = run("score_family", score_family.main, [
+        "--checkpoints", str(ckpt), "--out", str(base / "family_score.json"), "--size", "128",
+        "--width", "full", "--count", str(SCORE_COUNT), "--heldout", str(SCORE_HELDOUT),
+        "--steps", str(SCORE_STEPS), "--clf-per-class", str(SCORE_PROBE_IMAGES),
+        "--clf-epochs", "1", "--device", "cuda"], base / "family_score.json", "score_family",
+        rcs=(0, 1))
+    rescored = run("rescore_family_consistency", rescore_family_consistency.main, [
+        "--checkpoints", str(ckpt), "--samples", str(base / "family_score_samples"),
+        "--reports", str(base / "family_score.json"), "--classes", ",".join(SCORE_CLASSES),
+        "--out", str(base / "family_rescore.json"), "--skip-probe", "--device", "cuda"],
+        base / "family_rescore.json", "rescore_family_consistency")
+    for c in SCORE_CLASSES:
+        got, want = rescored["per_class"][c], scored["per_class"][c]
+        same = all(got[k] == want[k] for k in ("class_consistency", "probe_heldout_acc"))
+        if not same:
+            from synt_isic_tpu_torch.models.classifier import LesionClassifier
+            from synt_isic_tpu_torch.scripts.e2e_loop import load_generated_images
+
+            clf, _ = LesionClassifier.from_checkpoint(str(ckpt / "classifier.pth"))
+            logits = clf.logits(load_generated_images(
+                base / "family_score_samples" / c / c, SCORE_COUNT)).float()
+            top2 = logits.topk(2, dim=-1).values
+            print(f"[score] rescore {c}: {got} vs score_family {want}; the probe's smallest "
+                  f"top-2 logit margin on the samples {float((top2[:, 0] - top2[:, 1]).min()):.3e}",
+                  flush=True)
+        check(same, f"rescore of {c} differs from score_family")
+        print(f"[score] {c}: pixel Fréchet {want['frechet_vs_heldout']} (floor "
+              f"{want['floor_train_vs_heldout']}, ceiling {want['ceiling_noise_vs_heldout']}), "
+              f"consistency {want['class_consistency']}, probe held-out accuracy "
+              f"{want['probe_heldout_acc']}, {want['img_per_s']} images/s; rescore gives "
+              f"{got['class_consistency']} and {got['probe_heldout_acc']}; on {card}",
+              flush=True)
+    report["family_img_per_s"] = {c: scored["per_class"][c]["img_per_s"] for c in SCORE_CLASSES}
+
+    # -- score_checkpoint --flagship: --ab-fast-math, then --heads-per-program 2 -------------
+    common = ["--checkpoints", str(ckpt), "--flagship", "--configs",
+              f"ddim:{SCORE_STEPS}:trailing", "--count", str(SCORE_COUNT), "--heldout",
+              str(SCORE_HELDOUT), "--device", "cuda"]
+    ab_launches = {}
+
+    def ab_main(argv):
+        """score_checkpoint.main with each row's launches kept apart (the
+        exact row, then the fast one); the run's totals stay counted."""
+        from synt_isic_tpu_torch.scripts import ladder_common
+
+        score_rung = ladder_common.score_rung
+
+        def row_counted(gen, *args, **kwargs):
+            before = dict(attention.LAUNCHES)
+            row = score_rung(gen, *args, **kwargs)
+            ab_launches[row["tag"]] = {k: v - before[k] for k, v in attention.LAUNCHES.items()}
+            return row
+
+        with mock.patch.object(ladder_common, "score_rung", row_counted):
+            return score_checkpoint.main(argv)
+
+    ab = run("score_checkpoint_ab_fast_math", ab_main,
+             common + ["--ab-fast-math", "--out", str(base / "score_ab.json")],
+             base / "score_ab.json", "score_checkpoint", fast_share=0.5)
+    check([r["fast_math"] for r in ab["rows"]] == [False, True]
+          and "frechet_delta_vs_exact" in ab["rows"][1], f"score_checkpoint rows {ab['rows']}")
+    exact_row, fast_row = (ab_launches[r["tag"]] for r in ab["rows"])
+    want_row = ATTENTION_CALLS_PER_UNET * SCORE_WANT["score_checkpoint_ab_fast_math"][0] // 2
+    check(exact_row[attention.KERNEL] == want_row and exact_row[attention.FAST_KERNEL] == 0
+          and fast_row[attention.FAST_KERNEL] == want_row and fast_row[attention.KERNEL] == 0,
+          f"score_checkpoint rows launched {exact_row} (exact) and {fast_row} (fast math)")
+    fast_sidecar = json.loads(next((base / "score_ab_runs" / ab["rows"][1]["tag"] / "MEL")
+                                   .glob("*.json")).read_text())
+    check(fast_sidecar["scheduler"].get("attention_fast_math") is True,
+          "the fast row's sidecar does not record attention_fast_math")
+    g2 = run("score_checkpoint_heads_per_program_2", score_checkpoint.main,
+             common + ["--heads-per-program", "2", "--out", str(base / "score_g2.json")],
+             base / "score_g2.json", "score_checkpoint", grouped=True)
+    for row in ab["rows"] + g2["rows"]:
+        print(f"[score] score_checkpoint {row['tag']} (G {2 if row in g2['rows'] else 1}): "
+              f"pixel Fréchet {row['frechet_vs_heldout']}, {row['img_per_s']} images/s "
+              f"(timed walk), delta vs exact {row.get('frechet_delta_vs_exact')}; on {card}",
+              flush=True)
+    report["score_checkpoint_img_per_s"] = {
+        ("g2_" if row in g2["rows"] else "") + row["tag"]: row["img_per_s"]
+        for row in ab["rows"] + g2["rows"]}
+    report["launches"]["score_checkpoint_rows"] = {"exact": exact_row[attention.KERNEL],
+                                                   "fast_math": fast_row[attention.FAST_KERNEL]}
+    # the fast row's launches, the grouped run's, for the kernels line
+    report["fast_launches"] = fast_row[attention.FAST_KERNEL]
+    report["grouped_launches"] = report["launches"]["score_checkpoint_heads_per_program_2"][
+        attention.GROUPED_KERNEL]
+
+    # -- sampler_ladder, one rung per scheduler ---------------------------------------------------
+    spec = ",".join(":".join(str(x) for x in r) for r in SCORE_LADDER)
+    ladder = run("sampler_ladder", sampler_ladder.main, [
+        "--checkpoints", str(ckpt), "--out", str(base / "ladder" / "ladder.json"),
+        "--width", "full", "--configs", spec, "--count", str(SCORE_LADDER_COUNT),
+        "--heldout", str(SCORE_HELDOUT), "--device", "cuda"], base / "ladder" / "ladder.json",
+        "sampler_ladder")
+    check([(r["scheduler"], r["steps"]) for r in ladder["rungs"]]
+          == [r[:2] for r in SCORE_LADDER] and ladder["headline"] in ladder["rungs"]
+          and all(math.isfinite(r["frechet_vs_heldout"]) for r in ladder["rungs"]),
+          f"sampler_ladder rungs {ladder['rungs']}")
+    for r in ladder["rungs"]:
+        print(f"[score] sampler_ladder {r['scheduler']}-{r['steps']} {r['timestep_spacing']}: "
+              f"{r['img_per_s']} images/s at batch {SCORE_LADDER_COUNT}, pixel Fréchet "
+              f"{r['frechet_vs_heldout']}; on {card}", flush=True)
+    print(f"[score] sampler_ladder headline {ladder['headline']['scheduler']}-"
+          f"{ladder['headline']['steps']} (the fastest rung within 15% of the best Fréchet; "
+          f"random weights: a path check, not a quality claim)", flush=True)
+    report["ladder_img_per_s"] = {f"{r['scheduler']}{r['steps']}": r["img_per_s"]
+                                  for r in ladder["rungs"]}
+
+    # -- distill_ladder 8 -> 4 ----------------------------------------------------------------
+    dist = run("distill_ladder", distill_ladder.main, [
+        "--checkpoints", str(ckpt), "--out", str(base / "distill"), "--width", "full",
+        "--start", "8", "--end", "4", "--steps-per-phase", "2", "--batch",
+        str(SCORE_DISTILL_BATCH), "--train-images", str(SCORE_DISTILL_IMAGES), "--count",
+        str(SCORE_LADDER_COUNT), "--heldout", str(SCORE_HELDOUT), "--device", "cuda"],
+        base / "distill" / "report.json", "distill_ladder")
+    check([r["tag"] for r in dist["rungs"]] == ["teacher_ddim8", "teacher_ddim4", "distill4"]
+          and math.isfinite(dist["rungs"][2]["phase_final_loss"])
+          and (base / "distill" / "checkpoints" / "unet_MEL_distill4.pth").exists(),
+          f"distill_ladder rungs {dist['rungs']}")
+    for r in dist["rungs"]:
+        print(f"[score] distill_ladder {r['tag']}: {r['img_per_s']} images/s, pixel Fréchet "
+              f"{r['frechet_vs_heldout']}; on {card}", flush=True)
+    report["distill_img_per_s"] = {r["tag"]: r["img_per_s"] for r in dist["rungs"]}
+    report["distill_wall_s"] = dist["distill_wall_s"]
+
+    # -- augment_eval -------------------------------------------------------------------------
+    aug = run("augment_eval", augment_eval.main, [
+        "--checkpoints", str(ckpt), "--out", str(base / "augment.json"), "--width", "full",
+        "--count", str(SCORE_LADDER_COUNT), "--heldout", str(SCORE_HELDOUT), "--steps",
+        str(SCORE_AUGMENT_STEPS), "--device", "cuda"], base / "augment.json", "augment_eval")
+    check(aug["inpaint_center_box"]["border_preserved"],
+          f"augment_eval inpaint border {aug['inpaint_center_box']}")
+    for r in aug["strength_sweep"]:
+        print(f"[score] augment_eval strength {r['strength']}: "
+              f"{SCORE_LADDER_COUNT / max(r['wall_s'], 1e-9):.2f} images/s ({r['wall_s']} s as "
+              f"the report rounds it), pixel Fréchet {r['frechet_vs_heldout']}, rms to source "
+              f"{r['mean_rms_to_source']}; on {card}", flush=True)
+    print(f"[score] augment_eval inpaint border max error "
+          f"{aug['inpaint_center_box']['border_max_abs_err']} (preserved)", flush=True)
+    report["augment_wall_s"] = {str(r["strength"]): r["wall_s"] for r in aug["strength_sweep"]}
+
+    # -- e2e_conditional ----------------------------------------------------------------------
+    cond = run("e2e_conditional", e2e_conditional.main, [
+        "--out", str(base / "cond"), "--width", "full", "--classes",
+        ",".join(SCORE_COND_CLASSES), "--train-images", str(SCORE_COND_IMAGES), "--epochs", "1",
+        "--batch", str(SCORE_COND_BATCH), "--heldout", str(SCORE_HELDOUT), "--sample-count",
+        str(SCORE_LADDER_COUNT), "--ddim-steps", str(SCORE_STEPS), "--guidance",
+        ",".join(f"{g:g}" for g in SCORE_GUIDANCE), "--clf-per-class", str(SCORE_PROBE_IMAGES),
+        "--clf-epochs", "1", "--device", "cuda"], base / "cond" / "report.json",
+        "e2e_conditional")
+    check(cond["train_fused"] and cond["train"]["steps"] == SCORE_COND_STEPS
+          and set(cond["results"]) == {f"g{g:g}" for g in SCORE_GUIDANCE},
+          f"e2e_conditional report {cond['train']} {sorted(cond['results'])}")
+    for g, res in cond["results"].items():
+        print(f"[score] e2e_conditional {g}: {res['img_per_s']} images/s "
+              f"({res['unet_evals_per_step']} UNet evaluation(s) a step), consistency "
+              f"{ {c: v['class_consistency'] for c, v in res['per_class'].items()} }; on {card}",
+              flush=True)
+    report["cond_img_per_s"] = {g: res["img_per_s"] for g, res in cond["results"].items()}
+
+    report["steps"] = _score_step_times(card, bench)
+    report["phase_s"] = time.time() - t_phase
+    print(f"[score] phase {report['phase_s']:.1f} s; wall s by script "
+          f"{ {k: round(v, 3) for k, v in report['wall_s'].items()} }; on {card}", flush=True)
+    return report
+
+
 def main() -> int:
     card = phase_card()
     if sys.argv[1:] == ["--host"]:
@@ -4136,6 +4575,17 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
                                                  "count": card["count"]}}), flush=True)
         return 0
+    if sys.argv[1:] == ["--score"]:
+        # the [score] phase alone, with the [bench] train step it is read against
+        native.build([attention.KERNEL, attention.BWD_KERNEL])
+        bench = measure_train_step(batch=BENCH_BATCH, steps=BENCH_STEPS, profile=False)
+        with tempfile.TemporaryDirectory() as tmp:
+            report = phase_score(card["card"], Path(tmp) / "score", bench)
+        print(json.dumps({"score": report, "card": card["card"]}, default=str), flush=True)
+        print(card["card"], flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
+                                                 "count": card["count"]}}), flush=True)
+        return 0
     if sys.argv[1:] == ["--fast-f32"]:
         # the f32 fast-math timing of [kernel-fast] alone, likewise
         native.build([attention.KERNEL])
@@ -4186,6 +4636,7 @@ def main() -> int:
         cond = timed("conditional", phase_conditional, card["card"], ckpt,
                      Path(tmp) / "conditional")
         cond_redo = timed("reproduce-conditional", phase_reproduce_conditional, cond, ckpt)
+        scored = timed("score", phase_score, card["card"], Path(tmp) / "score", bench)
 
     shape, dtype = MAIN_SHAPES[0], torch.float32
     timing = kernel_report[(shape, dtype, "time")]
@@ -4265,6 +4716,16 @@ def main() -> int:
         "eval_inception": evaluated["inception"],
         "eval_fid": evaluated["fid"],
         "eval_wall_s": {k: evaluated[k] for k in ("gauntlet_s", "e2e_s", "phase_s")},
+        # [score]: the ladders and the family through their entry points
+        # (K1 per script; the --ab-fast-math row's K1-fast and the G = 2
+        # run's K1-G are on their own rows), wall times and images/s
+        "launches_score": {k: v.get(attention.KERNEL, 0)
+                           for k, v in scored["launches"].items() if k != "score_checkpoint_rows"},
+        "score_wall_s": scored["wall_s"],
+        "score_phase_s": scored["phase_s"],
+        "score_img_per_s": {k: scored[k] for k in (
+            "family_img_per_s", "score_checkpoint_img_per_s", "ladder_img_per_s",
+            "distill_img_per_s", "cond_img_per_s")},
         "generator_warm_s": gen["warm_s"],
         "generator_sampler_share": gen["sampler_share"],
         "sampler_update_s": samplers["update_s"],
@@ -4361,6 +4822,12 @@ def main() -> int:
         "launches_stats_train_conditional": cond_train["entry"][attention.STATS_KERNEL],
         "launches_eval_e2e": evaluated["launches_e2e"][attention.BWD_KERNEL],
         "launches_train_conditional": cond_train["entry"][attention.BWD_KERNEL],
+        # [score]: train_family, distill_ladder and e2e_conditional's training
+        "launches_score": {k: v[attention.BWD_KERNEL] for k, v in scored["launches"].items()
+                           if v.get(attention.BWD_KERNEL)},
+        "score_family_step_s": scored["steps"]["s_per_step"]["family"],
+        "score_distill_step_s": scored["steps"]["s_per_step"]["distill"],
+        "score_step_busy_s": scored["steps"]["busy_s_per_step"],
         "shape": list(bwd_shape),
         "dtype": "float32",
     }, {
@@ -4406,6 +4873,8 @@ def main() -> int:
         # graph; its launches on the f32 fast-math generator's path
         "launches_f32": gen_f32["launches"][attention.FAST_KERNEL],
         "launches_f32_reproduce": gen_f32["reproduce_launches"][attention.FAST_KERNEL],
+        # [score]: score_checkpoint --ab-fast-math's fast row (bf16)
+        "launches_score_ab_fast_math": scored["fast_launches"],
         "ms_f32": fast_f32["ms"],
         "device_ms_f32": fast_f32["device_ms"],
         "exact_ms_f32": fast_f32["exact_ms"],
@@ -4442,6 +4911,8 @@ def main() -> int:
         "library_ms": group_report["library_ms"],
         "heads_per_program": g_star,
         "fast_math": True,
+        # [score]: score_checkpoint --heads-per-program 2 (exact maths, bf16)
+        "launches_score_heads_per_program_2": scored["grouped_launches"],
         "fast_ms_by_heads_per_program": {str(grp): ms for grp, ms in
                                          group_report[(torch.bfloat16, "fast")].items()},
         "f32_fast_ms_by_heads_per_program": {str(grp): ms for grp, ms in

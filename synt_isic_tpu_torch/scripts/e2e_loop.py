@@ -197,15 +197,16 @@ def run_loop(out_dir: str, class_name: str = "MEL", size: int = 128,
         train_result = train_class(class_name, dataset, str(ckpt_dir), tcfg,
                                    model=model, resume=resume, log=log, device=device)
         train_s = time.time() - t0
+        # a resumed run whose snapshot had every epoch done runs none
+        history = train_result["history"] or [None]
         report["train"] = {"best_loss": train_result["best_loss"],
                            "steps": train_result["steps"],
-                           "first_epoch_loss": train_result["history"][0],
-                           "last_epoch_loss": train_result["history"][-1],
+                           "first_epoch_loss": history[0],
+                           "last_epoch_loss": history[-1],
                            "best_val": train_result.get("best_val"),
                            "seconds": round(train_s, 1)}
         log(f"[e2e] trained {train_result['steps']} steps in {train_s:.0f}s: "
-            f"loss {train_result['history'][0]:.4f} -> "
-            f"{train_result['history'][-1]:.4f}")
+            f"loss {history[0]} -> {history[-1]}")
 
     # --- 2b. train the lesion classifier on the procedural classes ---------
     # Upgrades the rest of the loop from random-init to LEARNED features:
@@ -511,8 +512,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--resume", action="store_true",
                    help="continue a killed run from the trainer's "
                         "train_state_<CLASS>.pt snapshot (params + "
-                        "optimizer state); --epochs counts the REMAINING "
-                        "epochs to run")
+                        "optimizer state) at the epoch after the "
+                        "snapshot's; --epochs is the run's total")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device to train, sample and score on")
     args = p.parse_args(argv)

@@ -390,6 +390,13 @@ def save_train_state(state: TrainState, path: str,
     _save_tree(train_state_tree(state, best_loss), path)
 
 
+def resume_snapshot_path(checkpoint_dir, class_name: str) -> Path:
+    """The resume snapshot `train_class` keeps for a class in
+    `checkpoint_dir` (`save_train_state`'s file): it exists while a run is
+    unfinished or was left by one, and `resume=True` continues from it."""
+    return Path(checkpoint_dir) / f"train_state_{class_name}.pt"
+
+
 def restore_train_state(state: TrainState, path: str) -> Dict[str, Any]:
     """Load a `save_train_state` file into a freshly built state of the same
     architecture (in place; shapes are checked by `load_state_dict`).
@@ -586,7 +593,7 @@ def train_class(class_name: str, dataset, checkpoint_dir: str,
     ckpt_dir = Path(checkpoint_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     best_path = ckpt_dir / f"unet_{class_name}_best.pth"
-    resume_path = ckpt_dir / f"train_state_{class_name}.pt"
+    resume_path = resume_snapshot_path(ckpt_dir, class_name)
     start_epoch = 1
     best_loss = float("inf")
     if resume and resume_path.exists():

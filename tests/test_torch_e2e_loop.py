@@ -69,3 +69,28 @@ def test_full_loop_closes(tmp_path):
     sidecar = json.loads(next((loop / "samples_dpm2" / "MEL").glob("*.json")).read_text())
     assert sidecar["scheduler"]["kind"] == "dpm_solver"
     assert sidecar["scheduler"]["dtype"] == "bfloat16"
+
+
+def test_resume_with_every_epoch_done_trains_none(tmp_path, monkeypatch):
+    """`--resume` from a snapshot of a finished run: the trainer runs no epoch
+    (the port's `--epochs` is the run's total), and the report says so with
+    no epoch loss instead of failing on an empty history. The loop is
+    stopped where sampling starts."""
+    from synt_isic_tpu_torch import generator
+
+    class Sampling(Exception):
+        pass
+
+    def stop(*args, **kwargs):
+        raise Sampling
+
+    monkeypatch.setattr(generator, "ImageGenerator", stop)
+    logs = []
+    kw = dict(class_name="MEL", size=32, train_images=16, heldout=4, epochs=1, batch_size=8,
+              with_classifier=False, seed=0, device="cpu")
+    for resume in (False, True):
+        with pytest.raises(Sampling):
+            e2e_loop.run_loop(str(tmp_path / "loop"), resume=resume,
+                              log=lambda *a: logs.append(" ".join(map(str, a))), **kw)
+    assert any("all epochs already done" in line for line in logs)
+    assert any("trained 2 steps" in line and "loss None -> None" in line for line in logs)

@@ -1144,3 +1144,31 @@ def test_inception_extractor_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
         assert torch.backends.cuda.matmul.allow_tf32 is tf32
         assert got.shape == (4, 2048) and got.dtype == np.float32
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
+def test_scoring_entry_points_take_cuda_and_raise_without_it(tmp_path):
+    """The quality ladders and the family scripts default to CUDA and, on a
+    machine without it, raise before they do any work: no run goes on on the
+    CPU unless the caller asks for it."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without CUDA")
+    from synt_isic_tpu_torch.scripts import (augment_eval, distill_ladder, e2e_conditional,
+                                             rescore_family_consistency, sampler_ladder,
+                                             score_checkpoint, score_family, train_family)
+
+    ckpt, out = str(tmp_path / "checkpoints"), str(tmp_path / "out")
+    calls = {
+        "score_checkpoint": lambda: score_checkpoint.main(["--checkpoints", ckpt, "--out", out]),
+        "sampler_ladder": lambda: sampler_ladder.main(["--checkpoints", ckpt, "--out", out]),
+        "augment_eval": lambda: augment_eval.main(["--checkpoints", ckpt, "--out", out]),
+        "distill_ladder": lambda: distill_ladder.main(["--checkpoints", ckpt, "--out", out]),
+        "train_family": lambda: train_family.main(["--out", out, "--classes", "MEL"]),
+        "score_family": lambda: score_family.main(["--checkpoints", ckpt, "--out", out]),
+        "rescore_family_consistency": lambda: rescore_family_consistency.main(
+            ["--checkpoints", ckpt, "--out", out]),
+        "e2e_conditional": lambda: e2e_conditional.main(["--out", out]),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+        assert not (tmp_path / "out").exists(), name

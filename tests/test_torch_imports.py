@@ -39,7 +39,10 @@ def test_every_ported_module_is_checked():
                    "app/download_models.py", "ops/resize.py", "models/inception_v3.py",
                    "metrics/__init__.py", "metrics/fid.py",
                    *(f"scripts/{name}.py" for name in (
-                       "__init__", "eval_fid", "fairness_audit", "parity_gauntlet", "e2e_loop")),
+                       "__init__", "eval_fid", "fairness_audit", "parity_gauntlet", "e2e_loop",
+                       "ladder_common", "score_checkpoint", "sampler_ladder", "augment_eval",
+                       "distill_ladder", "train_family", "score_family",
+                       "rescore_family_consistency", "e2e_conditional")),
                    *(f"parallel/{name}.py" for name in (
                        "__init__", "mesh", "multihost", "replicas", "sharded_sampler")),
                    *(f"xai/{name}.py" for name in (
