@@ -270,6 +270,27 @@ Phases, each of which exits non-zero on failure:
      times, images/s per rung, and the warm family and distillation steps
      beside [bench]'s (`python3 chip_smoke.py --score` runs card, build, a
      [bench] step and this phase alone);
+ 16e. [app] the desktop window and the tool scripts on the full-width UNet
+     of [unet] (f32, exact kernel) and [xai]'s seeded classifier.pth: the
+     window (`app/gui.py` through the headless Qt stub) with its default
+     devices: the combo lists cuda:0, the memory label reads MB; Start at
+     MEL:8, 10 steps, fixed seed 0 (the config's batch 8: one block) makes
+     exactly 60 K1 launches and no plain attention call, 8 PNGs with
+     sidecars and CSV rows, one of them `--reproduce`d byte-identical in
+     process (60 more); with "Integrated XAI" at MEL:4, every 2nd (one block
+     of 4 in trajectory mode: 60 launches; a short pipeline, APP_XAI_RUN):
+     2 analyses by a classifier on the card; `display_image` shows the overlay
+     artifact; "Standalone XAI" (a fresh process, 10 steps) exits 0 on the
+     window's device (its log names it) with its analysis_results.json;
+     `python -m
+     synt_isic_tpu_torch.app.gui` exits 1 with the port's message.
+     `smoke_generate --samples 4 --steps 20`: 4 PNGs, 120 launches;
+     `convert_checkpoint` inspect (the parameter count), to-npz then to-pth
+     (every tensor torch.equal); `warm_cache` at APP_WARM_CONFIGS, bf16,
+     classifier batches 64 and 256: both walks of each config (cold, warm)
+     with 2 x 6 x (10 + 10 + 20) = 480 launches, the cold and warm seconds
+     printed; `GPU_PEAKS` holds the card's name. `python3 chip_smoke.py
+     --app` runs card, build, [unet] and this phase alone;
  17. a JSON line of per-kernel numbers, then as the last line
      {"ok": true, "device": {...}}.
 
@@ -281,6 +302,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import cProfile
+import csv
 import functools
 import importlib.util
 import io
@@ -317,15 +339,18 @@ from synt_isic_tpu_torch.train.benchmark import PROFILE_STEPS, device_seconds, m
 from synt_isic_tpu_torch.train.procedural import ProceduralDataset
 from synt_isic_tpu_torch.train.train_conditional import LabeledMixtureDataset, train_conditional
 from synt_isic_tpu_torch.train.train_ddpm import TrainConfig, create_train_state, make_train_step
+from synt_isic_tpu_torch.utils.compute import GPU_PEAKS
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W limit)
-PEAK_BYTES_PER_S = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W limit), from
+# the port's table (`utils/compute.py`)
+H100 = GPU_PEAKS["NVIDIA H100 80GB HBM3"]
+PEAK_BYTES_PER_S = H100["bytes_per_s"]
 # f32: products accurate to f32 on the tensor cores, as the f32 attention
 # forward computes them, take three TF32 passes (3xTF32: hi*hi + hi*lo +
 # lo*hi), so a third of the dense TF32 rate; this is above the CUDA cores'
 # 67e12, so it is the least time any f32 kernel could take for the products
-PEAK_FLOPS = {torch.float32: 494.7e12 / 3, torch.bfloat16: 989e12}
-SFU_EXP_PER_S = 16 * 132 * 1.98e9   # exponentials: 16 per clock per SM at boost clock
+PEAK_FLOPS = {torch.float32: H100["tf32_flops"] / 3, torch.bfloat16: H100["bf16_flops"]}
+SFU_EXP_PER_S = H100["exp_per_s"]   # exponentials: 16 per clock per SM at boost clock
 
 # f32: the tolerance the Pallas kernel is held to against its einsum
 # reference (tests/test_pallas_ops.py). bf16: the kernel and the plain
@@ -697,6 +722,36 @@ SCORE_COND_IMAGES, SCORE_COND_BATCH, SCORE_GUIDANCE = 16, 16, (1.0, 3.0)
 # (the trace of one eager step takes seconds to read: one profiled step)
 SCORE_WARM_STEPS, SCORE_PROFILED_STEPS = 5, 1
 SCORE_FAMILY_STEPS = SCORE_FAMILY_IMAGES // SCORE_FAMILY_BATCH
+# [app]: the window's run (its config's generation.batch_size, so MEL:8 is
+# one block), its integrated-XAI run (one block of 4 in trajectory mode:
+# block_cap = min(8, 4 GiB / (10 x 128^2 x 3 x 4 B)) = 8), with [xai]'s
+# short integrated pipeline; smoke_generate; warm_cache at the production
+# batch of 128 (serve's) with fewer steps, each config walked cold and warm
+APP_BATCH, APP_STEPS, APP_IMAGES, APP_XAI_IMAGES, APP_XAI_FREQUENCY = 8, 10, 8, 4, 2
+APP_XAI_RUN = dict(verbose=False, ig_n_steps=10, shap_n_samples=64, n_bootstrap=200,
+                   n_permutations=1000, viz_every_n=5)
+APP_SMOKE_SAMPLES, APP_SMOKE_STEPS = 4, 20
+APP_WARM_CONFIGS = ("ddim:10:128", "dpm_solver:10:128", "ddpm:20:8")
+APP_WARM_CLASSIFIER_BATCHES = (64, 256)
+# the window's standalone XAI command, and the wrapper that runs the same
+# module's main() with the figures off where matplotlib is missing
+APP_STANDALONE_ARGV = ["-u", "-m", "synt_isic_tpu_torch.xai.standalone"]
+APP_STANDALONE_NO_FIGURES = (
+    "import functools, sys\n"
+    "from synt_isic_tpu_torch.xai import standalone\n"
+    "standalone.run_standalone_xai = functools.partial(standalone.run_standalone_xai, "
+    "save_figures=False)\n"
+    "sys.exit(standalone.main())\n")
+# K1 launches of each entry point, read from the code: 6 per UNet
+# evaluation of a block
+APP_WANT = {
+    "window": ATTENTION_CALLS_PER_UNET * APP_STEPS,
+    "window_reproduce": ATTENTION_CALLS_PER_UNET * APP_STEPS,
+    "window_xai": ATTENTION_CALLS_PER_UNET * APP_STEPS,
+    "smoke_generate": ATTENTION_CALLS_PER_UNET * APP_SMOKE_STEPS,
+    "warm_cache": 2 * ATTENTION_CALLS_PER_UNET * sum(int(c.split(":")[1])
+                                                     for c in APP_WARM_CONFIGS),
+}
 SCORE_COND_STEPS = len(SCORE_COND_CLASSES) * SCORE_COND_IMAGES // SCORE_COND_BATCH
 SCORE_AUGMENT_EVALS = sum(max(1, round(s * SCORE_AUGMENT_STEPS))
                           for s in (0.2, 0.4, 0.6, 0.8, 1.0, 1.0, 0.6, 1.0))
@@ -4502,6 +4557,283 @@ def phase_score(card: str, base: Path, bench: dict) -> dict:
     return report
 
 
+def _app_pngs(folder: Path) -> list:
+    """The uint8 arrays of a folder's PNGs, in name order."""
+    return [np.asarray(Image.open(p).convert("RGB")) for p in sorted(folder.glob("*.png"))]
+
+
+def _check_images(images: list, n: int, what: str) -> None:
+    """n images of the full size, not flat, no two alike."""
+    check(len(images) == n, f"[app] {what}: {len(images)} images, not {n}")
+    size = UNet2DConfig().sample_size
+    check(all(a.shape == (size, size, 3) and a.std() > 0 for a in images),
+          f"[app] {what}: an image of the wrong shape or flat")
+    check(len({a.tobytes() for a in images}) == n, f"[app] {what}: two images alike")
+
+
+def _app_overlay(image: Path, run_dir: Path, figures: bool) -> Path:
+    """The attribution artifact `run_xai_analysis` finds for `image`. With
+    matplotlib the pipeline drew it; without, the run's most important
+    Grad-CAM (from its full_results.pkl) is blended over the image here with
+    PIL, under the pipeline's file name, so the window's overlay path runs
+    on the card's own results."""
+    if figures:
+        found = sorted(run_dir.glob("xai_step_*.png"))
+        check(bool(found), f"[app] no xai_step_*.png in {run_dir}")
+        return found[0]
+    gmi = pickle.loads((run_dir / "full_results.pkl").read_bytes())["gradcam_most_important"]
+    rgb = np.asarray(Image.open(image).convert("RGB").resize((224, 224)), np.float32) / 255.0
+    cam = np.clip(np.asarray(gmi["gradcam"], np.float32), 0.0, 1.0)[..., None]
+    heat = np.concatenate([cam, np.zeros_like(cam), 1.0 - cam], axis=-1)
+    path = run_dir / f"gradcam_most_important_t{gmi['timestep']:.0f}.png"
+    Image.fromarray((255 * (0.5 * rgb + 0.5 * heat)).astype(np.uint8)).save(path)
+    return path
+
+
+def phase_app(state: dict, card: str, base: Path) -> dict:
+    """[app] the desktop window through the headless Qt stub and the four
+    tool scripts on the card, each launch of K1 counted exactly."""
+    from unittest import mock
+
+    from synt_isic_tpu_torch.app import gui, qt_compat
+    from synt_isic_tpu_torch.io.pth import load_checkpoint
+    from synt_isic_tpu_torch.models import unet2d as unet2d_module
+    from synt_isic_tpu_torch.models.classifier import random_resnet
+    from synt_isic_tpu_torch.scripts import convert_checkpoint, smoke_generate, warm_cache
+    from synt_isic_tpu_torch.utils.config import ConfigManager
+    from synt_isic_tpu_torch.xai import integration
+
+    t_phase = time.perf_counter()
+    name = card.split(",")[0].strip()
+    check(name in GPU_PEAKS, f"[app] GPU_PEAKS has no entry for {name!r}")
+    check(qt_compat.QT_BACKEND == "stub",
+          f"[app] drives the window through the headless stub; Qt is {qt_compat.QT_BACKEND}")
+    report = {"launches": {}}
+    ckpt = base / "checkpoints"
+    ckpt.mkdir(parents=True)
+    torch.save(state, ckpt / "unet_MEL_best.pth")
+    torch.save(random_resnet(XAI_OUTPUTS, XAI_CLASSIFIER_SEED).state_dict(),
+               ckpt / "classifier.pth")
+    (base / "config.json").write_text(json.dumps({"generation": {"batch_size": APP_BATCH}}))
+    figures = importlib.util.find_spec("matplotlib") is not None
+    if not figures:
+        print("[app] matplotlib is not installed here: the XAI runs write their results "
+              "without figures (save_figures=False; the standalone child through a -c "
+              "wrapper that passes it to standalone.main), and the overlay artifact is "
+              "drawn here from the run's Grad-CAM with PIL", flush=True)
+    plain_calls = []
+    plain_ref = unet2d_module.attention_reference
+
+    def plain_spy(*args, **kwargs):
+        plain_calls.append(1)
+        return plain_ref(*args, **kwargs)
+
+    def counted(what: str) -> int:
+        got = attention.LAUNCHES[attention.KERNEL]
+        others = {k: v for k, v in attention.LAUNCHES.items() if k != attention.KERNEL and v}
+        report["launches"][what] = got
+        check(got == APP_WANT[what] and not others and not plain_calls,
+              f"[app] {what}: K1 launches {got} (want {APP_WANT[what]}), other kernels "
+              f"{others}, plain attention calls {len(plain_calls)}")
+        plain_calls.clear()
+        return got
+
+    # 1. the window with its default devices
+    win = gui.SyntheticDataGeneratorWindow(
+        config=ConfigManager(config_file=str(base / "config.json"), project_root=str(base)),
+        checkpoints_dir=str(ckpt), output_dir=str(base / "generated"),
+        xai_results_dir=str(base / "xai_results"))
+    devices = list(win.device_combo._items)
+    win._update_memory_info()
+    mem = win.mem_label.text()
+    check(devices[0] == "cuda:0" and re.fullmatch(r"mem: \d+ MB \(peak \d+ MB\)", mem),
+          f"[app] device combo {devices}, memory label {mem!r}")
+    for cls, (box, count) in win.class_rows.items():
+        box.setChecked(cls == XAI_CLASS)
+    win.class_rows[XAI_CLASS][1].setValue(APP_IMAGES)
+    win.steps_spin.setValue(APP_STEPS)
+    win.seed_mode.setCurrentText("fixed")
+    win.seed_spin.setValue(0)
+    win.xai_check.setChecked(False)
+    with mock.patch.object(unet2d_module, "attention_reference", plain_spy):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        win.start_btn.click()
+        torch.cuda.synchronize()
+        report["window_s"] = time.perf_counter() - t0
+        counted("window")
+    out = base / "generated" / XAI_CLASS
+    _check_images(_app_pngs(out), APP_IMAGES, "window")
+    sidecars = sorted(out.glob("*.json"))
+    with open(base / "generated" / "synthetic_dataset.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    blocks = {tuple(json.loads(p.read_text())["block"]["seeds"]) for p in sidecars}
+    check(len(sidecars) == APP_IMAGES and len(rows) == APP_IMAGES and len(blocks) == 1
+          and all(r["class"] == XAI_CLASS for r in rows)
+          and win.status_label.text().startswith("done:"),
+          f"[app] window run: {len(sidecars)} sidecars, {len(rows)} CSV rows, "
+          f"{len(blocks)} blocks, status {win.status_label.text()!r}")
+    with mock.patch.object(unet2d_module, "attention_reference", plain_spy):
+        reset_launches()
+        rc = cli.reproduce_from_sidecar(str(sidecars[3]), str(ckpt),
+                                        output=str(base / "redo.png"), device="cuda")
+        check(rc == 0, f"[app] --reproduce of {sidecars[3].name} returned {rc}")
+        counted("window_reproduce")
+    print(f"[app] window on {card}: combo {devices}, {mem}; Start MEL:{APP_IMAGES}, "
+          f"{win.sampler_combo.currentText()} {APP_STEPS} steps, f32, one block: "
+          f"{report['window_s']:.3f} s, K1 launches "
+          f"{report['launches']['window']} (want {APP_WANT['window']}), no plain attention; "
+          f"{len(sidecars)} PNGs + sidecars + CSV rows; --reproduce of {sidecars[3].name} "
+          f"byte-identical ({report['launches']['window_reproduce']} launches)", flush=True)
+
+    # 2. the same with "Integrated XAI", every 2nd image
+    win.out_edit.setText(str(base / "generated_xai"))
+    win.class_rows[XAI_CLASS][1].setValue(APP_XAI_IMAGES)
+    win.xai_freq.setValue(APP_XAI_FREQUENCY)
+    win.xai_check.setChecked(True)
+    analyzers, create = [], integration.create_integrated_xai_analyzer
+
+    def factory(**kwargs):
+        analyzers.append(create(**kwargs, save_figures=figures, **APP_XAI_RUN))
+        return analyzers[-1]
+
+    with mock.patch.object(integration, "create_integrated_xai_analyzer", factory), \
+            mock.patch.object(unet2d_module, "attention_reference", plain_spy):
+        reset_launches()
+        t0 = time.perf_counter()
+        win.start_btn.click()
+        torch.cuda.synchronize()
+        report["window_xai_s"] = time.perf_counter() - t0
+        counted("window_xai")
+    xai_dir = base / "generated_xai" / "xai_results" / XAI_CLASS
+    jsons = sorted(xai_dir.glob("xai_*.json"))
+    check([p.name.rsplit("_", 2)[0] for p in jsons] == ["xai_ISIC_0000002", "xai_ISIC_0000004"]
+          and "integrated XAI failed" not in win.logs.toPlainText(),
+          f"[app] integrated XAI files {[p.name for p in jsons]}")
+    check(len(analyzers) == 1 and analyzers[0].classifier.device.type == "cuda",
+          f"[app] the window's analyzers: {[str(a.classifier.device) for a in analyzers]}")
+    for path in jsons:
+        data = json.loads(path.read_text())
+        check(not _xai_stage_errors(data) and data["metadata"]["n_timesteps"] == APP_STEPS,
+              f"[app] {path.name}: {_xai_stage_errors(data)}")
+    image = base / "generated_xai" / XAI_CLASS / "ISIC_0000002.png"
+    (run_dir,) = xai_dir.glob("ISIC_0000002_*")
+    artifact = _app_overlay(image, run_dir, figures)
+    win.display_image(str(image))
+    check(win._preview_path == str(artifact) and win.preview.pixmap_set is not None,
+          f"[app] display_image showed {win._preview_path}, not {artifact}")
+    win.xai_check.setChecked(False)
+    print(f"[app] window with integrated XAI (MEL:{APP_XAI_IMAGES}, every "
+          f"{APP_XAI_FREQUENCY}nd, IG {APP_XAI_RUN['ig_n_steps']}, SHAP "
+          f"{APP_XAI_RUN['shap_n_samples']}): {report['window_xai_s']:.3f} s, K1 launches "
+          f"{report['launches']['window_xai']} (want {APP_WANT['window_xai']}), "
+          f"{len(jsons)} JSON files from a classifier on the card; display_image shows "
+          f"{artifact.name}"
+          + ("" if figures else " (drawn by this script from the run's Grad-CAM: no matplotlib)"),
+          flush=True)
+
+    # 3. "Standalone XAI": the port's module in a fresh process on cuda:0
+    # the child inherits this environment, which the window's variables extend;
+    # without matplotlib it runs standalone.main() through a -c wrapper that
+    # turns the figures off, with the window's environment as it stands
+    spawned, popen = [], subprocess.Popen
+
+    def child(argv, env=None, **kwargs):
+        spawned.append((list(argv), dict(env or {})))
+        if not figures and argv[1:] == APP_STANDALONE_ARGV:
+            argv = [argv[0], "-u", "-c", APP_STANDALONE_NO_FIGURES]
+        return popen(argv, env=env, **kwargs)
+
+    with mock.patch.dict(os.environ, {"PYTHONPATH": str(REPO)}), \
+            mock.patch.object(subprocess, "Popen", child):
+        t0 = time.perf_counter()
+        win.run_standalone_xai()
+        report["standalone_s"] = time.perf_counter() - t0
+    check(len(spawned) == 1 and spawned[0][0] == [sys.executable, *APP_STANDALONE_ARGV]
+          and spawned[0][1].get("XAI_DEVICE") == "cuda:0"
+          and spawned[0][1].get("XAI_CHECKPOINTS_DIR") == str(ckpt),
+          f"[app] the window spawned {[(a, {k: v for k, v in e.items() if k.startswith('XAI_')}) for a, e in spawned]}")
+    logs = win.logs.toPlainText()
+    results = sorted((base / "xai_results" / XAI_CLASS).glob("standalone_seed0_*/"
+                                                              "analysis_results.json"))
+    check("standalone XAI exited (0)" in logs and "[xai-standalone] device cuda:0" in logs
+          and len(results) == 1, f"[app] standalone XAI: {logs[-2000:]}")
+    data = json.loads(results[0].read_text())
+    meta = data["metadata"]
+    check(not _xai_stage_errors(data) and meta["n_timesteps"] > 0,
+          f"[app] standalone XAI: {_xai_stage_errors(data)}, metadata {meta}")
+    gui_main = subprocess.run([sys.executable, "-m", "synt_isic_tpu_torch.app.gui"], cwd=REPO,
+                              env=dict(os.environ, PYTHONPATH=str(REPO)),
+                              capture_output=True, text=True, timeout=300)
+    check(gui_main.returncode == 1 and "python -m synt_isic_tpu_torch.cli" in gui_main.stdout,
+          f"[app] python -m synt_isic_tpu_torch.app.gui: rc {gui_main.returncode}, "
+          f"{gui_main.stdout} {gui_main.stderr[-2000:]}")
+    print(f"[app] standalone XAI child ({APP_STEPS} steps, on cuda:0"
+          f"{'' if figures else ', figures off by the -c wrapper'}): exit 0 in "
+          f"{report['standalone_s']:.3f} s, {meta['n_timesteps']} frames; python -m "
+          f"synt_isic_tpu_torch.app.gui: rc 1 ({gui_main.stdout.splitlines()[0]})", flush=True)
+
+    # 4. smoke_generate
+    with mock.patch.object(unet2d_module, "attention_reference", plain_spy):
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = smoke_generate.main(["--checkpoints", str(ckpt), "--output", str(base / "smoke"),
+                                  "--samples", str(APP_SMOKE_SAMPLES),
+                                  "--steps", str(APP_SMOKE_STEPS)])
+        report["smoke_generate_s"] = time.perf_counter() - t0
+        check(rc == 0, f"[app] smoke_generate returned {rc}")
+        counted("smoke_generate")
+    _check_images(_app_pngs(base / "smoke"), APP_SMOKE_SAMPLES, "smoke_generate")
+
+    # 5. convert_checkpoint, host only
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rcs = [convert_checkpoint.main(argv) for argv in (
+            ["inspect", str(ckpt / "unet_MEL_best.pth")],
+            ["to-npz", str(ckpt / "unet_MEL_best.pth"), str(base / "unet_MEL.npz")],
+            ["to-pth", str(base / "unet_MEL.npz"), str(base / "unet_MEL_back.pth")])]
+    report["convert_checkpoint_s"] = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in state.values())
+    summary = f"{len(state)} tensors, {n_params / 1e6:.2f} M parameters"
+    back = load_checkpoint(str(base / "unet_MEL_back.pth"))
+    exact = sorted(back) == sorted(state) and all(
+        torch.equal(back[k], state[k].detach().cpu()) for k in state)
+    check(rcs == [0, 0, 0] and summary in text.getvalue() and exact,
+          f"[app] convert_checkpoint rcs {rcs}, inspect {summary!r} in output "
+          f"{summary in text.getvalue()}, round trip exact {exact}")
+
+    # 6. warm_cache at the production batch, bf16
+    text = io.StringIO()
+    with mock.patch.object(unet2d_module, "attention_reference", plain_spy), \
+            contextlib.redirect_stdout(text):
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = warm_cache.main(["--configs", *APP_WARM_CONFIGS, "--classifier-batches",
+                              *map(str, APP_WARM_CLASSIFIER_BATCHES), "--dtype", "bf16"])
+        report["warm_cache_s"] = time.perf_counter() - t0
+    check(rc == 0, f"[app] warm_cache returned {rc}: {text.getvalue()}")
+    counted("warm_cache")
+    report["warm_cache"] = {m.group(1): {"cold_s": float(m.group(2)), "warm_s": float(m.group(3))}
+                            for m in re.finditer(r"^  (.+?): cold ([\d.]+)s, warm ([\d.]+)s$",
+                                                 text.getvalue(), re.M)}
+    check(set(report["warm_cache"]) == set(APP_WARM_CONFIGS) | {
+        f"classifier b{b}" for b in APP_WARM_CLASSIFIER_BATCHES},
+        f"[app] warm_cache printed {text.getvalue()}")
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"[app] smoke_generate --samples {APP_SMOKE_SAMPLES} --steps {APP_SMOKE_STEPS}: "
+          f"{report['smoke_generate_s']:.3f} s, K1 launches {report['launches']['smoke_generate']}"
+          f" (want {APP_WANT['smoke_generate']}); convert_checkpoint inspect ({summary}), "
+          f"to-npz, to-pth: every tensor torch.equal ({report['convert_checkpoint_s']:.3f} s); "
+          f"warm_cache {' '.join(APP_WARM_CONFIGS)} bf16 on {card}: K1 launches "
+          f"{report['launches']['warm_cache']} (want {APP_WANT['warm_cache']}: each config "
+          f"cold and warm), {report['warm_cache_s']:.3f} s in all; GPU_PEAKS has {name!r}; "
+          f"the phase {report['phase_s']:.1f} s", flush=True)
+    print(f"[app] warm_cache cold / warm s: {json.dumps(report['warm_cache'])}", flush=True)
+    return report
+
+
 def main() -> int:
     card = phase_card()
     if sys.argv[1:] == ["--host"]:
@@ -4586,6 +4918,16 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
                                                  "count": card["count"]}}), flush=True)
         return 0
+    if sys.argv[1:] == ["--app"]:
+        # the [app] phase alone, on the full-width UNet of [unet]
+        native.build([attention.KERNEL, attention.BWD_KERNEL])
+        with tempfile.TemporaryDirectory() as tmp:
+            report = phase_app(phase_unet(), card["card"], Path(tmp))
+        print(json.dumps({"app": report, "card": card["card"]}, default=str), flush=True)
+        print(card["card"], flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
+                                                 "count": card["count"]}}), flush=True)
+        return 0
     if sys.argv[1:] == ["--fast-f32"]:
         # the f32 fast-math timing of [kernel-fast] alone, likewise
         native.build([attention.KERNEL])
@@ -4623,6 +4965,7 @@ def main() -> int:
         served = timed("serve", phase_serve, state, card["card"], Path(tmp) / "serve")
         meshed = timed("mesh", phase_mesh, state, card["card"], Path(tmp) / "mesh")
         evaluated = timed("eval", phase_eval, state, card["card"], Path(tmp) / "eval")
+        app = timed("app", phase_app, state, card["card"], Path(tmp) / "app")
     train_launches = timed("train", phase_train, card["card"])
     bench = timed("bench", phase_bench, card["card"])
     train_f32_launches = timed("train-f32", phase_train, card["card"], True)
@@ -4716,6 +5059,13 @@ def main() -> int:
         "eval_inception": evaluated["inception"],
         "eval_fid": evaluated["fid"],
         "eval_wall_s": {k: evaluated[k] for k in ("gauntlet_s", "e2e_s", "phase_s")},
+        # [app]: the desktop window's run and its integrated-XAI run, an
+        # in-process --reproduce of one of its images, smoke_generate, and
+        # warm_cache's cold and warm walks (bf16, the production batch)
+        "launches_app": app["launches"],
+        "app_wall_s": {k: app[k] for k in ("window_s", "window_xai_s", "standalone_s",
+                                           "smoke_generate_s", "warm_cache_s", "phase_s")},
+        "warm_cache_s": app["warm_cache"],
         # [score]: the ladders and the family through their entry points
         # (K1 per script; the --ab-fast-math row's K1-fast and the G = 2
         # run's K1-G are on their own rows), wall times and images/s

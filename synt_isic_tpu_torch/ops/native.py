@@ -1,8 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each `csrc/<name>.cu` exposes a plain `extern "C"` launcher. It is compiled
-by `nvcc` into a shared library under `synt_isic_tpu_torch/_build/` at first
-use and loaded with `ctypes`; a change to the source, to a header of
+by `nvcc` into a shared library under `build_dir()` at first use and loaded
+with `ctypes`; a change to the source, to a header of
 `csrc/` or to the flags changes the file name, so a stale library is never
 loaded. Nothing here runs at
 import time: the CPU tests import every module without a CUDA toolkit.
@@ -20,9 +20,17 @@ from typing import Dict, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "_build"
+DEFAULT_BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def build_dir() -> Path:
+    """Where the kernels build to and load from: `$SYNT_ISIC_CACHE_DIR`
+    when set, else the package's `_build/`. Read at every build and load,
+    so each process (and each child it starts) follows its environment."""
+    chosen = os.environ.get("SYNT_ISIC_CACHE_DIR")
+    return Path(chosen).resolve() if chosen else DEFAULT_BUILD_DIR
 
 
 def _nvcc() -> str:
@@ -42,14 +50,14 @@ def library_path(name: str) -> Path:
     sources = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
     digest = hashlib.sha256(b"".join(path.name.encode() + path.read_bytes() for path in sources)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return build_dir() / f"lib{name}-{digest}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, str]:
     """Compile every named kernel that is not built yet, all `nvcc`s at
     once. Returns each name's compiler log (`-Xptxas -v` prints registers
     and shared memory per kernel); raises on the first failure."""
-    BUILD_DIR.mkdir(exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = library_path(name)

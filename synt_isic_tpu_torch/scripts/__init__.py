@@ -16,5 +16,15 @@ asked) in place of `--cpu`:
     python -m synt_isic_tpu_torch.scripts.rescore_family_consistency --checkpoints DIR
     python -m synt_isic_tpu_torch.scripts.e2e_conditional --out DIR
 
-`ladder_common` holds the scoring battery the ladders share.
+and the tool scripts, each the port of the JAX script of the same name
+(`--device` where it runs a model; `convert_checkpoint` and
+`convert_inception` stay on the host):
+
+    python -m synt_isic_tpu_torch.scripts.smoke_generate --checkpoints DIR
+    python -m synt_isic_tpu_torch.scripts.convert_checkpoint inspect DIR/unet_MEL_best.pth
+    python -m synt_isic_tpu_torch.scripts.convert_inception --out DIR/inception_v3.pth
+    python -m synt_isic_tpu_torch.scripts.warm_cache
+
+Each has `main(argv=None, model_config=None)`. `ladder_common` holds the
+scoring battery the ladders share.
 """

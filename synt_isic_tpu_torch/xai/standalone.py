@@ -85,6 +85,7 @@ def run_standalone_xai(target_class: str = "MEL",
     # the GUIDED denoising process the production path actually runs)
     mm = ModelManager(checkpoints_dir=str(ckpt_dir), model_config=model_config,
                       conditional=conditional, device=device)
+    log(f"[xai-standalone] device {mm.device}")
     ok = mm.load_model(target_class, checkpoint_path=ddpm_model_path)
     if not ok:
         log(f"[xai-standalone] no DDPM checkpoint for {target_class}")

@@ -1172,3 +1172,77 @@ def test_scoring_entry_points_take_cuda_and_raise_without_it(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
         assert not (tmp_path / "out").exists(), name
+
+
+def test_window_on_cuda_runs_the_kernel(cuda, tmp_path):
+    """The desktop window (stub Qt) with its default devices: every CUDA
+    device in the combo, device memory in MB, and a fixed-seed MEL:2 run at
+    2 steps in one block of 2 with 6 K1 launches per step and no plain
+    attention call."""
+    from synt_isic_tpu_torch.app.gui import SyntheticDataGeneratorWindow
+    from synt_isic_tpu_torch.models import unet2d as unet2d_module
+    from synt_isic_tpu_torch.utils.config import ConfigManager
+
+    cfg = UNet2DConfig(sample_size=32, block_out_channels=(32, 64, 64, 64))
+    ckpt = tmp_path / "checkpoints"
+    ckpt.mkdir()
+    torch.manual_seed(0)
+    torch.save(UNet2D(cfg).state_dict(), ckpt / "unet_MEL_best.pth")
+    (tmp_path / "config.json").write_text(json.dumps({"generation": {"batch_size": 2}}))
+    config = ConfigManager(config_file=str(tmp_path / "config.json"),
+                           project_root=str(tmp_path))
+    gen = ImageGenerator(config=config, checkpoints_dir=str(ckpt), model_config=cfg)
+    win = SyntheticDataGeneratorWindow(config=config, generator=gen,
+                                       checkpoints_dir=str(ckpt),
+                                       output_dir=str(tmp_path / "out"),
+                                       xai_results_dir=str(tmp_path / "xai"))
+    n = torch.cuda.device_count()
+    assert win.device_combo.currentText() == "cuda:0"
+    assert win.device_combo.count() == n + (1 if n > 1 else 0)
+    for cls, (cb, count) in win.class_rows.items():
+        cb.setChecked(cls == "MEL")
+    win.class_rows["MEL"][1].setValue(2)
+    win.steps_spin.setValue(2)
+    win.seed_mode.setCurrentText("fixed")
+    win.seed_spin.setValue(0)
+    plain = []
+    original = unet2d_module.attention_reference
+
+    def spy(*args, **kwargs):
+        plain.append(1)
+        return original(*args, **kwargs)
+
+    unet2d_module.attention_reference = spy
+    before = dict(attention.LAUNCHES)
+    try:
+        win.start_generation()
+    finally:
+        unet2d_module.attention_reference = original
+    torch.cuda.synchronize()
+    assert _launched(before)[attention.KERNEL] == 6 * 2 and not plain
+    assert len(list((tmp_path / "out" / "MEL").glob("*.png"))) == 2
+    win._update_memory_info()
+    assert win.mem_label.text().startswith("mem: ") and win.mem_label.text().endswith(" MB)")
+
+
+def test_smoke_generate_and_warm_cache_on_cuda(cuda, tmp_path, capsys):
+    """smoke_generate on the card: 6 K1 launches per step for the one class;
+    warm_cache: both kernels built, then every config's two walks (cold and
+    warm) on the bf16 tensor-core kernel, 6 launches per step each."""
+    from synt_isic_tpu_torch.scripts import smoke_generate, warm_cache
+
+    cfg = UNet2DConfig(sample_size=32, block_out_channels=(32, 64, 64, 64))
+    torch.manual_seed(0)
+    torch.save(UNet2D(cfg).state_dict(), tmp_path / "unet_MEL_best.pth")
+    before = dict(attention.LAUNCHES)
+    assert smoke_generate.main(["--checkpoints", str(tmp_path), "--output",
+                                str(tmp_path / "out"), "--samples", "2", "--steps", "3"],
+                               model_config=cfg) == 0
+    assert _launched(before)[attention.KERNEL] == 6 * 3
+    assert len(list((tmp_path / "out").glob("MEL_sample*.png"))) == 2
+    before = dict(attention.LAUNCHES)
+    assert warm_cache.main(["--configs", "ddim:2:4", "ddpm:3:2", "--classifier-batches", "2"],
+                           model_config=cfg) == 0
+    assert _launched(before)[attention.KERNEL] == 2 * 6 * (2 + 3)
+    out = capsys.readouterr().out
+    assert "kernels built in" in out and "ddpm:3:2: cold" in out

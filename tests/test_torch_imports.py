@@ -37,12 +37,14 @@ def test_every_ported_module_is_checked():
                    "models/resnet18.py", "models/classifier.py", "native/__init__.py",
                    "serve.py", "app/__init__.py", "app/webui.py", "utils/profiling.py",
                    "app/download_models.py", "ops/resize.py", "models/inception_v3.py",
+                   "app/gui.py", "app/qt_compat.py", "utils/compute.py", "io/convert.py",
                    "metrics/__init__.py", "metrics/fid.py",
                    *(f"scripts/{name}.py" for name in (
                        "__init__", "eval_fid", "fairness_audit", "parity_gauntlet", "e2e_loop",
                        "ladder_common", "score_checkpoint", "sampler_ladder", "augment_eval",
                        "distill_ladder", "train_family", "score_family",
-                       "rescore_family_consistency", "e2e_conditional")),
+                       "rescore_family_consistency", "e2e_conditional", "smoke_generate",
+                       "convert_checkpoint", "convert_inception", "warm_cache")),
                    *(f"parallel/{name}.py" for name in (
                        "__init__", "mesh", "multihost", "replicas", "sharded_sampler")),
                    *(f"xai/{name}.py" for name in (
@@ -50,3 +52,17 @@ def test_every_ported_module_is_checked():
                        "interventions", "pipeline", "regions", "sanity", "standalone", "stats",
                        "viz"))):
         assert f"synt_isic_tpu_torch/{module}" in names, module
+
+
+def test_every_jax_module_has_a_port_file():
+    """Each module of the JAX package has a file of the same path in the
+    port, except the Pallas kernels, which the port has as CUDA sources
+    (`csrc/attention_fwd.cu`, `csrc/attention_bwd.cu`)."""
+    jax_files = {str(p.relative_to(ROOT / "synt_isic_tpu"))
+                 for p in (ROOT / "synt_isic_tpu").rglob("*.py")}
+    port_files = {str(p.relative_to(ROOT / "synt_isic_tpu_torch"))
+                  for p in (ROOT / "synt_isic_tpu_torch").rglob("*.py")}
+    assert jax_files - port_files == {"ops/pallas/__init__.py", "ops/pallas/attention.py"}
+    assert {"csrc/attention_fwd.cu", "csrc/attention_bwd.cu"} <= {
+        str(p.relative_to(ROOT / "synt_isic_tpu_torch"))
+        for p in (ROOT / "synt_isic_tpu_torch" / "csrc").glob("*.cu")}
