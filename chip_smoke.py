@@ -238,6 +238,21 @@ Phases, each of which exits non-zero on failure:
      [xai]'s bound), and the library XAI fan-out over [cuda:0, cpu]
      against no mesh. `python3 chip_smoke.py --mesh` runs card, build,
      [unet] and this phase alone;
+ 16b'. [tp] tensor parallelism over ('data', 'model') meshes whose devices
+     repeat cuda:0, on the full-width UNet of [unet]: `ShardedSampler` over
+     {data 1, model 2} (8 seeds, DDIM 10, f32, exactly 120 K1 launches, each
+     at 16 heads) and {data 2, model 2} (240 at batch 4), each walk and its
+     frames within MESH_WALK_TOL of the unsharded walk under full-f32
+     convolutions, the distance under TF32 printed, host-clock walk times
+     beside the unsharded walk's; bf16 fast math at heads_per_program 2
+     (120 K1-fast launches, all grouped, 16 heads); `ImageGenerator.set_mesh`
+     over 1 x 2 writing MEL:8 (120 launches, sidecars recording dp_mesh 2);
+     a `GenerationServer` on it (status reports the mesh; generates of 3
+     and 2 images: 240 launches); one f32 train step and the standalone XAI
+     run on 1 x 2 against no mesh at [mesh]'s bounds; K1 and K1-fast timed
+     at the shapes a shard hands them, (8,16,1024,8) and (8,16,256,8),
+     beside the bound, the plain version and SDPA. `python3 chip_smoke.py
+     --tp` runs card, build, [unet] and this phase alone;
  16c. [eval] image-set evaluation through its four entry points, on the
      full-width UNet of [unet] (MEL) and a seeded NV one, a seeded random
      classifier.pth and a seeded random inception_v3.pth (torchvision's
@@ -637,6 +652,36 @@ MESH_SEEDS, MESH_MIXED_SEEDS, MESH_WALK_TOL = 5, 2, 1e-3
 MESH_TRAIN_BATCH, MESH_MIXED_TRAIN_BATCH, MESH_TRAIN_IMAGES = 32, 4, 32
 MESH_LOSS_RTOL, MESH_GRAD_TOL, MESH_ADAM_TOL = 1e-5, 1e-4, 1e-6
 MESH_XAI_FRAMES, MESH_XAI_IG_STEPS, MESH_XAI_SHAP_SAMPLES = 3, 8, 16
+# [tp]: tensor parallelism over ('data', 'model') meshes whose devices all
+# repeat cuda:0: one card holds the port to the unsharded results, but
+# shows no speed-up (each sharded layer runs T products where one ran, and
+# attention T launches on H/T heads; the copies between cards are none
+# here). TP_SEEDS MEL seeds at DDIM 10 (CLI_STEPS), f32, exact kernel, on
+# [unet]'s seeded full-width UNet: the 1 x 2 mesh launches K1 6 x 2 x 10 =
+# 120 times, each at 32 / 2 = 16 heads; the 2 x 2 mesh walks 2 rows of 4
+# seeds, 6 x 2 x 2 x 10 = 240 launches at 16 heads. Under full-f32
+# convolutions (and deterministic cuDNN) each walk, every captured frame,
+# is held to the unsharded one within MESH_WALK_TOL, [mesh]'s bound for a
+# data-parallel walk: a sharded convolution or projection forms the same
+# sums over fewer output channels, so only the algorithm cuDNN and cuBLAS
+# pick for the narrower product can change their order, as a batch
+# composition does. Under the default TF32 convolutions the distance is
+# printed, not held. bf16 with fast math at heads_per_program 2: the same
+# 120 launches, all fast-math and grouped (16 heads per shard, G = 2). The
+# library generator over the 1 x 2 mesh writes MEL:8 in one block (120
+# launches; sidecars record dp_mesh 2 = the mesh's devices, as the JAX
+# generator does), and a GenerationServer over it answers status and two
+# bulk generates of 3 and 2 images (one walk each: 240 launches). One f32
+# train step at MESH_TRAIN_BATCH and the standalone XAI run (its
+# defaults) on the 1 x 2 mesh are held to no mesh at [mesh]'s bounds: both
+# replicate over 'model', so their data shard is the whole batch on cuda:0.
+TP_SEEDS = 8
+TP_MESHES = {"1x2": {"data": 1, "model": 2}, "2x2": {"data": 2, "model": 2}}
+TP_WANT = {"1x2": 120, "2x2": 240}
+TP_HEADS = 16
+TP_SHAPES = [(8, 16, 1024, 8), (8, 16, 256, 8)]
+TP_SERVE_COUNTS = (3, 2)
+TP_ROUNDS = 3     # walks timed in turns, medians
 XAI_RESULT_KEYS = {"metadata", "xai_maps", "region_analysis", "interventions",
                    "cfi_analysis", "time_shap", "statistical_validation", "sanity_checks",
                    "visualizations", "gradcam", "gradcam_most_important", "gradcam_summary"}
@@ -3562,7 +3607,7 @@ def _mesh_walks(mm: ModelManager, meshes: dict, seeds) -> dict:
     return report
 
 
-def _mesh_train_step(name: str, mesh, batch_size: int) -> dict:
+def _mesh_train_step(name: str, mesh, batch_size: int, tag: str = "[mesh]") -> dict:
     """One f32 train step at `batch_size` on `mesh` against the
     single-device step from the same weights, batch and draws, full-f32
     convolutions and deterministic cuDNN: the loss, each leaf's reduced
@@ -3586,13 +3631,13 @@ def _mesh_train_step(name: str, mesh, batch_size: int) -> dict:
             loss = step(state, batch, torch.Generator(device="cuda").manual_seed(7))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            check(bool(torch.isfinite(loss)), f"[mesh] {run_name} train step loss {loss}")
+            check(bool(torch.isfinite(loss)), f"{tag} {run_name} train step loss {loss}")
             weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
             replicas = state.replicas.others() if run_mesh is not None else []
             for other in replicas:
                 check(all(torch.equal(weights[k], v.to(weights[k].device))
                           for k, v in other.state_dict().items()),
-                      f"[mesh] {name}: a replica differs from the primary after the step")
+                      f"{tag} {name}: a replica differs from the primary after the step")
             cuda_shards = (1 if run_mesh is None else
                            sum(d.type == "cuda" for d in run_mesh.shard_devices()))
             runs[run_name] = {"loss": loss.item(), "wall_s": wall, "weights": weights,
@@ -3605,15 +3650,15 @@ def _mesh_train_step(name: str, mesh, batch_size: int) -> dict:
     got = tuple(one["launches"][k] for k in (attention.KERNEL, attention.BWD_KERNEL,
                                               attention.STATS_KERNEL))
     check(got == (ATTENTION_CALLS_PER_UNET, ATTENTION_CALLS_PER_UNET, 0),
-          f"[mesh] single train step launched K1/K3/stats {got}")
+          f"{tag} single train step launched K1/K3/stats {got}")
     g_max = max(gr.abs().max().item() for gr in one["grads"].values())
     run = runs[name]
     want = (ATTENTION_CALLS_PER_UNET * run["cuda_shards"],) * 2 + (0,)
     got = tuple(run["launches"][k] for k in (attention.KERNEL, attention.BWD_KERNEL,
                                               attention.STATS_KERNEL))
-    check(got == want, f"[mesh] {name} train step launched K1/K3/stats {got}, not {want}")
+    check(got == want, f"{tag} {name} train step launched K1/K3/stats {got}, not {want}")
     check(set(run["grads"]) == set(one["grads"]),
-          f"[mesh] {name} train step: gradients of other parameters than the single step's")
+          f"{tag} {name} train step: gradients of other parameters than the single step's")
     loss_rel = abs(run["loss"] - one["loss"]) / abs(one["loss"])
     tol = (MESH_GRAD_TOL if run["cuda_shards"] == len(mesh.shard_devices())
            else UNET_GRAD_TOL)
@@ -3630,7 +3675,7 @@ def _mesh_train_step(name: str, mesh, batch_size: int) -> dict:
         adam_err[k] = (moved + adam(run["grads"][k]) - adam(gr)).abs().max().item()
     worst_g = max(grad_rel, key=grad_rel.get)
     worst_w = max(adam_err, key=adam_err.get)
-    print(f"[mesh] one f32 train step at batch {batch_size}, {name} vs one device: "
+    print(f"{tag} one f32 train step at batch {batch_size}, {name} vs one device: "
           f"loss {run['loss']:.7f} vs {one['loss']:.7f} (rel {loss_rel:.3e}, allowed "
           f"{MESH_LOSS_RTOL:.0e}); worst gradient {worst_g} at {grad_rel[worst_g]:.3e} of "
           f"its scale (allowed {tol:.0e}); weights vs Adam's step from the gradients: "
@@ -3638,10 +3683,10 @@ def _mesh_train_step(name: str, mesh, batch_size: int) -> dict:
           f"{run['replicas']} replica(s) torch.equal to the primary; launches K1/K3 "
           f"{got[0]}/{got[1]}; step {run['wall_s']:.3f} s vs {one['wall_s']:.3f} s "
           f"(host clock)", flush=True)
-    check(loss_rel <= MESH_LOSS_RTOL, f"[mesh] {name} dp train loss vs the single step")
-    check(grad_rel[worst_g] <= tol, f"[mesh] {name} dp gradients vs the single step "
+    check(loss_rel <= MESH_LOSS_RTOL, f"{tag} {name} dp train loss vs the single step")
+    check(grad_rel[worst_g] <= tol, f"{tag} {name} dp gradients vs the single step "
           f"({worst_g})")
-    check(adam_err[worst_w] <= MESH_ADAM_TOL, f"[mesh] {name} dp weights vs Adam's step "
+    check(adam_err[worst_w] <= MESH_ADAM_TOL, f"{tag} {name} dp weights vs Adam's step "
           f"from the gradients ({worst_w})")
     return {"loss_rel": loss_rel, "grad_rel": grad_rel[worst_g], "adam_err": adam_err[worst_w],
             "max_weight_diff": max((run["weights"][k] - w).abs().max().item()
@@ -3919,6 +3964,300 @@ def phase_mesh(state: dict, card: str, base: Path) -> dict:
     report["xai_fan_out"] = _mesh_xai_fan_out(mixed)
     report["wall_s"] = time.perf_counter() - t_phase
     print(f"[mesh] phase wall {report['wall_s']:.1f} s on {card}", flush=True)
+    return report
+
+
+def _tp_mesh(name: str):
+    """A TP_MESHES mesh over repeats of cuda:0."""
+    from synt_isic_tpu_torch.parallel import create_mesh
+
+    axes = TP_MESHES[name]
+    return create_mesh(axes, ["cuda:0"] * (axes["data"] * axes["model"]))
+
+
+@contextlib.contextmanager
+def heads_per_launch():
+    """Records the head count of every forward kernel launch made inside."""
+    from unittest import mock
+
+    heads = []
+    original = attention._ForwardPlan.__call__
+
+    def call(plan, q, k, v):
+        heads.append(q.shape[1])
+        return original(plan, q, k, v)
+
+    with mock.patch.object(attention._ForwardPlan, "__call__", call):
+        yield heads
+
+
+def _tp_walk(walker, model, seeds) -> tuple:
+    """One walk of `seeds` with its trajectory: (result, host seconds after
+    `synchronize`, launches, head count of each launch)."""
+    reset_launches()
+    with heads_per_launch() as heads:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = walker.sample(model, seeds, capture_trajectory=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, dict(attention.LAUNCHES), list(heads)
+
+
+def _tp_distance(a: dict, b: dict) -> float:
+    """The largest |difference| of the images and of every captured frame."""
+    return max((a["images"] - b["images"]).abs().max().item(),
+               (a["trajectory"].float() - b["trajectory"].float()).abs().max().item())
+
+
+def _tp_kernel_times() -> dict:
+    """K1 (f32, exact) and K1-fast (bf16) at the shapes one of two shards
+    hands the kernel, beside the bound, the plain version and SDPA."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    report = {}
+    for shape in TP_SHAPES:
+        q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
+        views = _btc_views(q, k, v)
+        got = attention.fused_attention(*views)
+        err = (got - attention.attention_reference(q, k, v)).abs().max().item()
+        check(err <= TOL[torch.float32], f"[tp] K1 at {shape}: max_abs_err {err:.3e}")
+        bound, bound_by, _, unit = attention_bound_ms(shape, torch.float32)
+        exact = dict(ms=cuda_ms(lambda: attention.fused_attention(*views)),
+                     device_ms=graph_ms(lambda: attention.fused_attention(*views)),
+                     plain_ms=cuda_ms(lambda: attention.attention_reference(q, k, v)),
+                     library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                     bound_ms=bound, bound_by=bound_by, max_abs_err=err)
+        qb, kb, vb = (z.to(torch.bfloat16) for z in (q, k, v))
+        fast = fast_times(qb, kb, vb)
+        report[str(shape)] = {"exact_f32": exact, "fast_bf16": fast}
+        print(f"[tp] K1 f32 at {shape}: {exact['ms']:.4f} ms ({exact['device_ms']:.4f} ms "
+              f"from a CUDA graph), plain {exact['plain_ms']:.4f} ms, sdpa "
+              f"{exact['library_ms']:.4f} ms, bound {bound:.4f} ms ({unit}); K1-fast bf16: "
+              f"{fast['ms']:.4f} ms ({fast['device_ms']:.4f} from a graph), exact bf16 "
+              f"{fast['exact_ms']:.4f} ms, sdpa {fast['library_ms']:.4f} ms, bound "
+              f"{fast['bound_ms']:.4f} ms", flush=True)
+    return report
+
+
+def phase_tp(state: dict, card: str, base: Path) -> dict:
+    """[tp] tensor parallelism over ('data', 'model') meshes on repeats of
+    cuda:0, on the full-width UNet with [unet]'s seeded weights: the
+    ShardedSampler walks against the unsharded walk, bf16 fast math at
+    G = 2, the library generator and a server over the 1 x 2 mesh, and one
+    train step and the standalone XAI run on it against no mesh."""
+    from synt_isic_tpu_torch.parallel import ShardedSampler
+    from synt_isic_tpu_torch.parallel import tensor_parallel
+    from synt_isic_tpu_torch.serve import GenerationServer, request
+    from synt_isic_tpu_torch.xai import standalone
+
+    t_phase = time.perf_counter()
+    ckpt = base / "checkpoints"
+    ckpt.mkdir(parents=True)
+    torch.save(state, ckpt / "unet_MEL_best.pth")
+    seeds = np.arange(TP_SEEDS, dtype=np.uint32)
+    report = {"walks": {}}
+
+    # (a), (b): the f32 walks over 1 x 2 and 2 x 2 against the unsharded walk
+    mm = ModelManager(checkpoints_dir=str(ckpt), device="cuda")
+    check(mm.load_model("MEL"), "[tp] ModelManager.load_model")
+    model = mm.loaded_models["MEL"]
+    sampler = mm.create_sampler(CLI_STEPS, scheduler="ddim")
+    walkers = {"unsharded": sampler,
+               **{name: ShardedSampler(sampler, _tp_mesh(name)) for name in TP_MESHES}}
+    for name in TP_MESHES:
+        check(walkers[name].tp_axis == "model",
+              f"[tp] ShardedSampler over {name}: tp_axis {walkers[name].tp_axis}")
+    refs = {}
+    for settings in ("f32", "tf32"):
+        with contextlib.ExitStack() as ctx:
+            if settings == "f32":
+                ctx.enter_context(full_f32_convolutions())
+                ctx.enter_context(deterministic_cudnn())
+            for walker in walkers.values():          # warm: replicas, plans, cuDNN's
+                walker.sample(model, seeds)
+            # in turns (host-clock figures spread between runs), medians
+            runs = {name: [] for name in walkers}
+            for _ in range(TP_ROUNDS):
+                for name, walker in walkers.items():
+                    runs[name].append(_tp_walk(walker, model, seeds))
+        walk_s = {name: statistics.median(r[1] for r in rs) for name, rs in runs.items()}
+        ref = refs[settings] = runs["unsharded"][-1][0]
+        for name in TP_MESHES:
+            out = runs[name][-1][0]
+            dist = _tp_distance(out, ref)
+            row = report["walks"].setdefault(name, {})
+            row[f"max_abs_err_{settings}"] = dist
+            check(bool(torch.isfinite(out["images"]).all())
+                  and out["images"].shape == ref["images"].shape
+                  and list(out["noise_hashes"]) == list(ref["noise_hashes"]),
+                  f"[tp] {name} walk ({settings}): images or noise hashes")
+            if settings == "f32":
+                counts = [(r[2][attention.KERNEL], len(r[3]), sorted(set(r[3])))
+                          for r in runs[name]]
+                row.update(walk_s=walk_s[name], unsharded_walk_s=walk_s["unsharded"],
+                           launches=counts[0][0], heads=counts[0][2])
+                print(f"[tp] ShardedSampler over {name} on [cuda:0] x "
+                      f"{len(_tp_mesh(name).devices.reshape(-1))} ({TP_SEEDS} seeds, DDIM "
+                      f"{CLI_STEPS}, f32, full-f32 convolutions): K1 launches per walk "
+                      f"{[c[0] for c in counts]} (want {TP_WANT[name]}), heads per launch "
+                      f"{counts[0][2]} (want [{TP_HEADS}]); images and trajectory vs the "
+                      f"unsharded walk max_abs_err {dist:.3e} (allowed {MESH_WALK_TOL:.0e}); "
+                      f"walk {walk_s[name]:.4f} s vs unsharded {walk_s['unsharded']:.4f} s "
+                      f"(host clock, medians of {TP_ROUNDS} in turns)", flush=True)
+                check(all(c == (TP_WANT[name], TP_WANT[name], [TP_HEADS]) for c in counts),
+                      f"[tp] {name} launched K1 (count, calls, heads) {counts}")
+                check(dist <= MESH_WALK_TOL, f"[tp] {name} walk vs the unsharded walk")
+            else:
+                row.update(walk_s_tf32=walk_s[name], unsharded_walk_s_tf32=walk_s["unsharded"])
+                print(f"[tp] the same walk over {name} under the default TF32 convolutions: "
+                      f"max_abs_err vs the unsharded walk {dist:.3e} (printed, not held); walk "
+                      f"{walk_s[name]:.4f} s vs unsharded {walk_s['unsharded']:.4f} s (host "
+                      f"clock, medians of {TP_ROUNDS} in turns)", flush=True)
+    report["routes"] = dict(tensor_parallel.ROUTES)
+
+    # (c): bf16, fast math, heads_per_program 2
+    mm16 = ModelManager(checkpoints_dir=str(ckpt), device="cuda", dtype=torch.bfloat16)
+    mm16.set_attention_tuning(heads_per_program=2, fast_math=True)
+    check(mm16.load_model("MEL"), "[tp] bf16 ModelManager.load_model")
+    model16 = mm16.loaded_models["MEL"]
+    sampler16 = mm16.create_sampler(CLI_STEPS, scheduler="ddim")
+    walker16 = ShardedSampler(sampler16, _tp_mesh("1x2"))
+    # one forward of the sharded bf16 UNet against the unsharded one, at
+    # [unet]'s inputs and its bf16 bound (kernel vs plain attention)
+    twin = tensor_parallel.tp_replica(model16, [torch.device("cuda", 0)] * 2)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(8, 3, 128, 128, generator=g, device="cuda")
+    t = torch.tensor([999, 900, 700, 500, 300, 100, 10, 0], device="cuda")
+    with torch.inference_mode(), full_f32_convolutions():
+        got, want16 = twin(x, t), model16(x, t)
+    fwd_err = (got - want16).abs().max().item()
+    fwd_scale = want16.abs().max().item()
+    walker16.sample(model16, seeds)
+    sampler16.sample(model16, seeds)
+    runs16 = {"1x2": [], "unsharded": []}
+    for _ in range(TP_ROUNDS):
+        runs16["1x2"].append(_tp_walk(walker16, model16, seeds))
+        runs16["unsharded"].append(_tp_walk(sampler16, model16, seeds))
+    out16, _, launches16, heads16 = runs16["1x2"][-1]
+    alone16 = runs16["unsharded"][-1][0]
+    wall16, alone16_s = (statistics.median(r[1] for r in runs16[k]) for k in ("1x2", "unsharded"))
+    dist16 = _tp_distance(out16, alone16)
+    # the scale of a bf16 walk's rounding: each bf16 walk's distance from the
+    # f32 walk under TF32 convolutions (the bf16 walks' own settings)
+    from_f32 = {k: (runs16[k][-1][0]["images"] - refs["tf32"]["images"]).abs().max().item()
+                for k in runs16}
+    want = TP_WANT["1x2"]
+    print(f"[tp] bf16, fast math, heads_per_program 2 over 1x2: launches "
+          f"{ {k: v for k, v in launches16.items() if v} } (want {want} fast-math and "
+          f"{want} grouped, 0 exact), heads per launch {sorted(set(heads16))}; one forward "
+          f"at batch 8 vs the unsharded bf16 UNet max_abs_err {fwd_err:.3e} (max |out| "
+          f"{fwd_scale:.3f}; allowed {UNET_TOL[torch.bfloat16]:.0e} x max |out|); the walk vs "
+          f"the unsharded bf16 walk max_abs_err {dist16:.3e} (printed), images vs the f32 "
+          f"walk: sharded {from_f32['1x2']:.3e}, unsharded {from_f32['unsharded']:.3e}; walk "
+          f"{wall16:.4f} s vs {alone16_s:.4f} s (host clock, medians of {TP_ROUNDS} in turns)",
+          flush=True)
+    check(all(r[2][attention.FAST_KERNEL] == want and r[2][attention.GROUPED_KERNEL] == want
+              and r[2][attention.KERNEL] == 0 and set(r[3]) == {TP_HEADS}
+              for r in runs16["1x2"])
+          and bool(torch.isfinite(out16["images"]).all()),
+          f"[tp] bf16 fast-math walk launched {launches16} at heads {sorted(set(heads16))}")
+    check(fwd_err <= UNET_TOL[torch.bfloat16] * fwd_scale, "[tp] bf16 sharded UNet forward")
+    report["fast_bf16"] = {"launches": launches16[attention.FAST_KERNEL],
+                           "grouped": launches16[attention.GROUPED_KERNEL],
+                           "max_abs_err": dist16, "forward_max_abs_err": fwd_err,
+                           "from_f32": from_f32, "walk_s": wall16, "unsharded_walk_s": alone16_s}
+    del mm16, model16, walker16, twin
+
+    # (d): ImageGenerator.set_mesh over 1 x 2, MEL:8 in one block
+    gen = ImageGenerator(checkpoints_dir=str(ckpt))
+    gen.scheduler_kind = "ddim"
+    gen.set_inference_steps(CLI_STEPS)
+    gen.batch_size = TP_SEEDS
+    gen.set_generation_seed(GEN_SEED)
+    gen.set_mesh(_tp_mesh("1x2"))
+    reset_launches()
+    t0 = time.perf_counter()
+    result = gen.generate_images([("MEL", TP_SEEDS)], str(base / "generated"))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = attention.LAUNCHES[attention.KERNEL]
+    pngs = sorted((base / "generated" / "MEL").glob("ISIC_*.png"))
+    metas = [json.loads(p.with_suffix(".json").read_text()) for p in pngs]
+    print(f"[tp] ImageGenerator.set_mesh(1x2), MEL:{TP_SEEDS}, DDIM {CLI_STEPS}, f32: "
+          f"{len(pngs)} PNGs in {gen_s:.3f} s (host clock, first call on the mesh), K1 "
+          f"launches {gen_launches} (want {want}); sidecars' dp_mesh "
+          f"{sorted({m.get('block', {}).get('dp_mesh') for m in metas})} (want [2])",
+          flush=True)
+    check(result.get("generated") == TP_SEEDS and len(pngs) == TP_SEEDS
+          and gen_launches == want
+          and all(m.get("block", {}).get("dp_mesh") == 2 for m in metas),
+          f"[tp] generator over 1x2: {result}, {gen_launches} launches, {metas[:1]}")
+    report["generator"] = {"launches": gen_launches, "wall_s": gen_s}
+
+    # (e): a GenerationServer on that generator
+    srv = GenerationServer(gen, port=0, output_root=str(base / "served"),
+                           interactive_cost=0).start()
+    try:
+        host, port = srv.address
+        reset_launches()
+        status = request(host, port, {"op": "status"}, timeout=60)
+        t0 = time.perf_counter()
+        replies = [request(host, port, {"op": "generate", "class": "MEL", "count": n,
+                                        "seed": 20 + n, "steps": CLI_STEPS,
+                                        "postprocess": False}, timeout=300)
+                   for n in TP_SERVE_COUNTS]
+        served_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        served_launches = attention.LAUNCHES[attention.KERNEL]
+    finally:
+        srv.stop()
+    want_served = ATTENTION_CALLS_PER_UNET * 2 * CLI_STEPS * len(TP_SERVE_COUNTS)
+    served_meta = [json.loads(Path(f).with_suffix(".json").read_text())
+                   for r in replies if r.get("ok") for f in r["files"]]
+    print(f"[tp] GenerationServer over the 1x2 generator: status mesh {status.get('mesh')}, "
+          f"device batch {status.get('device_batch')}; generates of {TP_SERVE_COUNTS} images "
+          f"answered {[r.get('ok') for r in replies]} in {served_s:.3f} s (host clock), K1 "
+          f"launches {served_launches} (want {want_served}), sidecars' dp_mesh "
+          f"{sorted({m.get('block', {}).get('dp_mesh') for m in served_meta})}", flush=True)
+    check(status.get("mesh") == {"data": 1, "model": 2}, f"[tp] server status {status}")
+    check(all(r.get("ok") and len(r["files"]) == n for r, n in zip(replies, TP_SERVE_COUNTS))
+          and served_launches == want_served
+          and all(m.get("block", {}).get("dp_mesh") == 2 for m in served_meta),
+          f"[tp] server replies {replies}, {served_launches} launches")
+    report["serve"] = {"launches": served_launches, "served_s": served_s,
+                       "mesh": status["mesh"]}
+    del gen
+
+    # (f): one f32 train step, and the standalone XAI run, on the 1 x 2 mesh
+    report["train_step"] = _mesh_train_step("1x2", _tp_mesh("1x2"), MESH_TRAIN_BATCH, "[tp]")
+    figures = importlib.util.find_spec("matplotlib") is not None
+    xai, xai_s = {}, {}
+    for name, mesh in (("plain", None), ("1x2", _tp_mesh("1x2"))):
+        t0 = time.perf_counter()
+        xai[name] = standalone.run_standalone_xai(
+            target_class="MEL", seed=XAI_SEED, checkpoints_dir=str(ckpt), device="cuda",
+            results_dir=str(base / f"xai_{name}"), mesh=mesh, save_figures=figures,
+            log=lambda *_: None)
+        torch.cuda.synchronize()
+        xai_s[name] = time.perf_counter() - t0
+        check(xai[name] is not None, f"[tp] standalone XAI ({name}) returned None")
+    want_maps, got_maps = xai["plain"]["xai_maps"], xai["1x2"]["xai_maps"]
+    check(set(got_maps) == set(want_maps) and want_maps, "[tp] standalone XAI frames")
+    worst = 0.0
+    for step, maps in want_maps.items():
+        ref = np.asarray(maps["attribution_map"], np.float64)
+        err = np.abs(np.asarray(got_maps[step]["attribution_map"], np.float64) - ref).max()
+        worst = max(worst, err / max(np.abs(ref).max(), 1e-30))
+    print(f"[tp] standalone XAI with the 1x2 mesh vs without: {len(want_maps)} frames, "
+          f"attribution maps max |diff| / max |map| {worst:.3e} (allowed "
+          f"{XAI_TOL['attribution']:.0e}); wall {xai_s['1x2']:.2f} s vs {xai_s['plain']:.2f} s"
+          f"{'' if figures else ' (no matplotlib here: no figures)'}", flush=True)
+    check(worst <= XAI_TOL["attribution"], "[tp] standalone XAI over 1x2 vs no mesh")
+    report["xai"] = {"rel_err": worst, "wall_s": xai_s}
+
+    report["kernel"] = _tp_kernel_times()
+    report["wall_s"] = time.perf_counter() - t_phase
+    print(f"[tp] phase wall {report['wall_s']:.1f} s on {card}", flush=True)
     return report
 
 
@@ -4895,6 +5234,16 @@ def main() -> int:
             report = phase_mesh(phase_unet(), card["card"], Path(tmp))
         print(json.dumps({"mesh": report, "card": card["card"]}, default=str), flush=True)
         return 0
+    if sys.argv[1:] == ["--tp"]:
+        # the [tp] phase alone, on the full-width UNet of [unet]
+        native.build([attention.KERNEL, attention.BWD_KERNEL])
+        with tempfile.TemporaryDirectory() as tmp:
+            report = phase_tp(phase_unet(), card["card"], Path(tmp))
+        print(json.dumps({"tp": report, "card": card["card"]}, default=str), flush=True)
+        print(card["card"], flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
+                                                 "count": card["count"]}}), flush=True)
+        return 0
     if sys.argv[1:] == ["--eval"]:
         # the [eval] phase alone, on a seeded full-width UNet
         native.build([attention.KERNEL, attention.BWD_KERNEL])
@@ -4964,6 +5313,7 @@ def main() -> int:
         xai = timed("xai", phase_xai, state, card["card"], Path(tmp) / "xai")
         served = timed("serve", phase_serve, state, card["card"], Path(tmp) / "serve")
         meshed = timed("mesh", phase_mesh, state, card["card"], Path(tmp) / "mesh")
+        tp = timed("tp", phase_tp, state, card["card"], Path(tmp) / "tp")
         evaluated = timed("eval", phase_eval, state, card["card"], Path(tmp) / "eval")
         app = timed("app", phase_app, state, card["card"], Path(tmp) / "app")
     train_launches = timed("train", phase_train, card["card"])
@@ -5050,6 +5400,18 @@ def main() -> int:
         "launches_mesh_train": meshed["train_launches"][attention.KERNEL],
         "launches_mesh_train_step": {k: v["launches"][attention.KERNEL]
                                      for k, v in meshed["train_step"].items()},
+        # [tp]: ShardedSampler over 1 x 2 and 2 x 2 meshes of cuda:0 (each
+        # launch at 16 heads), the generator and the server over 1 x 2, the
+        # train step on it; K1 at the shapes one of two shards hands it
+        "launches_tp": {**{k: v["launches"] for k, v in tp["walks"].items()},
+                        "generator": tp["generator"]["launches"],
+                        "serve": tp["serve"]["launches"],
+                        "train_step": tp["train_step"]["launches"][attention.KERNEL]},
+        "tp_walk_s": {k: [v["walk_s"], v["unsharded_walk_s"], v["walk_s_tf32"],
+                          v["unsharded_walk_s_tf32"]] for k, v in tp["walks"].items()},
+        "max_abs_err_tp_walk": {k: [v["max_abs_err_f32"], v["max_abs_err_tf32"]]
+                                for k, v in tp["walks"].items()},
+        "tp_ms": {k: v["exact_f32"] for k, v in tp["kernel"].items()},
         # [eval]: eval_fid --generate's 64 images, parity_gauntlet (420:
         # seven DDIM-10 walks) and the cut e2e_loop (training, probe,
         # samplers, XAI); Inception-v3 at batch 32 and the FIDs card vs CPU
@@ -5225,6 +5587,12 @@ def main() -> int:
         "launches_f32_reproduce": gen_f32["reproduce_launches"][attention.FAST_KERNEL],
         # [score]: score_checkpoint --ab-fast-math's fast row (bf16)
         "launches_score_ab_fast_math": scored["fast_launches"],
+        # [tp]: the bf16 G = 2 walk over 1 x 2 (16 heads per launch), and
+        # K1-fast at the shapes one of two shards hands it
+        "launches_tp": tp["fast_bf16"]["launches"],
+        "tp_ms": {k: {m: v["fast_bf16"][m] for m in ("ms", "device_ms", "exact_ms",
+                                                      "plain_ms", "library_ms", "bound_ms")}
+                  for k, v in tp["kernel"].items()},
         "ms_f32": fast_f32["ms"],
         "device_ms_f32": fast_f32["device_ms"],
         "exact_ms_f32": fast_f32["exact_ms"],

@@ -60,7 +60,11 @@ walked on its device. Per-seed noise streams keep each image the
 single-device image up to batch-composition rounding, and a block sampled
 over a mesh records the mesh's device count in its sidecar
 (`block.dp_mesh`, even for one image), so `--reproduce` rebuilds the same
-layout.
+layout. On a ('data', 'model') mesh each shard walks on its row with the
+UNet channel-sharded over the 'model' axis (tensor parallelism); the
+sidecar records the mesh's D x T device count, as the JAX generator does,
+and `--reproduce` rebuilds a 1-D mesh of that many devices, as the JAX CLI
+does, so the byte identity of such a block is not guaranteed.
 """
 from __future__ import annotations
 
@@ -263,8 +267,9 @@ class ImageGenerator:
 
     def set_mesh(self, mesh) -> None:
         """Shard sampling blocks over a `parallel.Mesh` ('data' axis), or
-        sample on the one device again with None. A mesh whose other axes
-        exceed 1 (tensor parallelism, ROADMAP A8-tp) raises."""
+        sample on the one device again with None. On a ('data', 'model')
+        mesh each block shard walks on its row with the UNet channel-sharded
+        over the 'model' axis (tensor parallelism, `ShardedSampler`)."""
         if mesh is not None:
             mesh.shard_devices("data")
         self.mesh = mesh

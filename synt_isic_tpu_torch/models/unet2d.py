@@ -222,19 +222,37 @@ class AttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
-        heads = c // self.head_dim
+        y = self.tokens(x)
+        q, k, v = (self.heads(z) for z in (self.to_q(y), self.to_k(y), self.to_v(y)))
+        out = self.to_out[0](self.merge(self.attend(q, k, v)))
+        return x + out.transpose(1, 2).reshape(b, c, h, w)
+
+    def tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """The normalised input as (B, T, C) tokens in the compute dtype."""
+        b, c, h, w = x.shape
         if self.fast_norm:
             y = group_norm_silu_fast(x.to(self.dtype), self.group_norm.weight,
                                      self.group_norm.bias, self.groups, self.eps,
                                      silu=False)
         else:
             y = self.group_norm(x.float())
-        y = y.to(self.dtype).reshape(b, c, h * w).transpose(1, 2)    # (B, T, C)
+        return y.to(self.dtype).reshape(b, c, h * w).transpose(1, 2)
 
-        def split(z):
-            return z.view(b, h * w, heads, self.head_dim).transpose(1, 2)
+    def heads(self, z: torch.Tensor) -> torch.Tensor:
+        """A (B, T, C) projection as a (B, C / head_dim, T, head_dim) view."""
+        b, t, c = z.shape
+        return z.view(b, t, c // self.head_dim, self.head_dim).transpose(1, 2)
 
-        q, k, v = split(self.to_q(y)), split(self.to_k(y)), split(self.to_v(y))
+    @staticmethod
+    def merge(out: torch.Tensor) -> torch.Tensor:
+        """(B, H, T, D) heads back to (B, T, H * D) tokens."""
+        b, h, t, d = out.shape
+        return out.transpose(1, 2).reshape(b, t, h * d)
+
+    def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """The attention core over (B, H, T, D) heads, in the compute dtype:
+        the kernels where `use_fused` (the trainable pair when a gradient is
+        taken), else the einsum path."""
         if not self.use_fused:
             out = attention_reference(q, k, v)
         else:
@@ -242,9 +260,7 @@ class AttentionBlock(nn.Module):
                 q.requires_grad or k.requires_grad or v.requires_grad)
             attention = fused_attention_trainable if trainable else fused_attention
             out = attention(q, k, v, self.fused_fast_math, self.fused_heads_per_program)
-        out = out.to(self.dtype)
-        out = self.to_out[0](out.transpose(1, 2).reshape(b, h * w, c))
-        return x + out.transpose(1, 2).reshape(b, c, h, w)
+        return out.to(self.dtype)
 
 
 class Downsample2D(nn.Module):

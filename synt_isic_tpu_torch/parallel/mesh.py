@@ -20,8 +20,13 @@ their own local mesh (`multihost.hybrid_mesh`).
     shards of one device run one after the other on it. `cpu` and `cpu:1`
     both compute on the CPU but are two devices of a mesh, each with its
     own replica and thread (the CPU tests' two-device mesh).
-  * Tensor parallelism (a 'model' axis above 1, `tp_param_shardings`) is
-    not ported: it raises, naming ROADMAP A8-tp.
+  * A 2-D ('data', 'model') mesh is tensor parallelism: each 'data' shard
+    walks on its row of 'model' devices (`rows`), its UNet weights
+    channel-sharded over the row by `tp_param_shardings`, the JAX rule in
+    the port's layouts, and `tensor_parallel.tp_replica` runs the layers as
+    GSPMD runs them for JAX. Everything else that shards over 'data' (XAI,
+    training) takes the first device of each row, and the 'model' axis
+    replicates, as JAX's replicated state does.
 """
 from __future__ import annotations
 
@@ -30,10 +35,6 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-
-TP_NOT_PORTED = ("tensor parallelism over a 'model' mesh axis is not ported "
-                 "(ROADMAP A8-tp)")
-
 
 def canonical(device: Union[str, torch.device]) -> torch.device:
     """`device` with its index: "cuda" names the current card."""
@@ -59,14 +60,23 @@ class Mesh:
         sizes[self.axis_names[0]] *= self.processes
         return sizes
 
-    def shard_devices(self, axis: str = "data") -> List[torch.device]:
-        """This process's device of each shard along `axis`, in mesh order.
-        Every other axis must be 1: tensor parallelism is not ported."""
-        if axis not in self.axis_names:
+    def rows(self, axis: str = "data", tp_axis: str = "model") -> List[List[torch.device]]:
+        """This process's devices of each shard along `axis`, in mesh order:
+        for each shard, the devices of its other axes, `tp_axis` outermost
+        (on a ('data', 'model') mesh, the 'model' devices of each 'data'
+        shard)."""
+        names = list(self.axis_names)
+        if axis not in names:
             raise ValueError(f"mesh has no {axis!r} axis: {self.axis_names}")
-        if any(self.shape[a] > 1 for a in self.axis_names if a != axis):
-            raise NotImplementedError(TP_NOT_PORTED)
-        return [canonical(d) for d in self.devices.reshape(-1)]
+        others = sorted((a for a in names if a != axis), key=lambda a: a != tp_axis)
+        order = [names.index(a) for a in [axis] + others]
+        grid = np.transpose(self.devices, order).reshape(self.devices.shape[order[0]], -1)
+        return [[canonical(d) for d in row] for row in grid]
+
+    def shard_devices(self, axis: str = "data") -> List[torch.device]:
+        """This process's device of each shard along `axis`, in mesh order:
+        the first device of each row (`rows`)."""
+        return [row[0] for row in self.rows(axis)]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.reshape(-1)]})"
@@ -111,14 +121,22 @@ def create_mesh(axes: Optional[Dict[str, int]] = None,
     return Mesh(grid.reshape(tuple(sizes)), tuple(names))
 
 
+def surface_mesh(axes: Dict[str, int], device: Union[str, torch.device, None] = None) -> Mesh:
+    """A mesh of `axes` (-1: every remaining device) for a surface's
+    device: on CUDA over the local cards, on the CPU repeats of the one CPU
+    device, as many as the sizes multiply to (-1 there is 1)."""
+    device = torch.device(device if device is not None else "cuda")
+    if device.type == "cpu":
+        n = int(np.prod([max(int(s), 1) for s in axes.values()]))
+        return create_mesh(axes, [device] * n)
+    return create_mesh(axes)
+
+
 def data_mesh(n: int, device: Union[str, torch.device, None] = None) -> Mesh:
     """A 1-D 'data' mesh of `n` shards (-1: every local device) for a
     surface's device: on CUDA over the local cards, on the CPU `n` repeats
     of the one CPU device (-1 there is 1)."""
-    device = torch.device(device if device is not None else "cuda")
-    if device.type == "cpu":
-        return create_mesh({"data": -1}, [device] * (1 if n == -1 else int(n)))
-    return create_mesh({"data": int(n)})
+    return surface_mesh({"data": int(n)}, device)
 
 
 def pad_to_multiple(n: int, multiple: int) -> int:
@@ -154,36 +172,78 @@ def shard_batch(x, mesh: Mesh, axis: str = "data") -> List[torch.Tensor]:
                                                devices)]
 
 
-def tp_param_shardings(params, mesh: Mesh, axis: str = "model"):
-    """Tensor-parallel placement of the UNet weights: not ported."""
-    raise NotImplementedError(TP_NOT_PORTED)
+# the Flax leaf shape the weight carrier makes of a torch leaf of each rank
+# is read from a probe whose dims are these distinct sizes
+_PROBE = (2, 3, 5, 7, 11, 13)
 
 
-def parse_mesh_spec(spec) -> int:
-    """The data-parallel size a CLI mesh spec names: 'N', 'auto' (-1, every
-    visible device) or 'DxT'; T > 1 raises (tensor parallelism, A8-tp)."""
+def _flax_last_dim(key: str, ndim: int) -> int:
+    """The dim of a torch leaf that the weight carrier (`io/convert.py`)
+    puts last in its Flax leaf: dim 0 (output features) of a conv or
+    dense kernel, dim 1 of an embedding table."""
+    from ..io.convert import flatten_tree, torch_to_flax
+
+    (leaf,) = flatten_tree(torch_to_flax({key: np.zeros(_PROBE[:ndim], np.float32)},
+                                         strip_prefixes=())).values()
+    return _PROBE.index(leaf.shape[-1])
+
+
+def tp_shard_dims(params, tp: int) -> Dict[str, Optional[int]]:
+    """`tp_param_shardings` for a 'model' axis of size `tp`."""
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    dims: Dict[str, Optional[int]] = {}
+    for key, value in params.items():
+        shape = tuple(value.shape)
+        dim = _flax_last_dim(key, len(shape)) if len(shape) >= 2 else None
+        # JAX: a leaf of rank >= 2 whose last (Flax) width divides by the
+        # axis and is at least the axis size is sharded on it
+        dims[key] = dim if dim is not None and shape[dim] % tp == 0 and shape[dim] >= tp \
+            else None
+    return dims
+
+
+def tp_param_shardings(params, mesh: Mesh, axis: str = "model") -> Dict[str, Optional[int]]:
+    """Tensor-parallel placement of the UNet weights (a state dict, or the
+    module): {key: the dim sharded over `axis`, or None where the leaf is
+    replicated}. The JAX rule (`synt_isic_tpu/parallel/mesh.py`
+    `tp_param_shardings`): a leaf of rank >= 2 is sharded on the dim that
+    is last in its Flax leaf (the output features of a conv or dense
+    kernel, the features of an embedding table) when the axis size divides
+    that width and does not exceed it; biases, norm scales and odd widths
+    (`conv_out`'s 3 channels) are replicated. The dim is read through the
+    weight carrier, so it cannot drift from the JAX placement. With the
+    output features sharded each device computes its channel slice with
+    the full contraction: no partial sums."""
+    return tp_shard_dims(params, mesh.shape[axis])
+
+
+def parse_mesh_spec(spec) -> Dict[str, int]:
+    """The mesh axes a CLI mesh spec names: 'N' ({'data': N}), 'auto'
+    ({'data': -1}, every visible device) or 'DxT' ({'data': D, 'model':
+    T}, tensor parallelism over a T-sized 'model' axis)."""
     spec = str(spec)
     if "x" in spec:
         d, t = spec.split("x", 1)
-        if int(t) > 1:
-            raise NotImplementedError(TP_NOT_PORTED)
-        return int(d)
-    return -1 if spec == "auto" else int(spec)
+        return {"data": int(d), "model": int(t)}
+    return {"data": -1 if spec == "auto" else int(spec)}
 
 
 def apply_dp_mesh(generator, spec, device: Union[str, torch.device, None] = None) -> Mesh:
-    """Attach a data-parallel mesh to an `ImageGenerator` from a CLI spec:
-    a device count ('2'), 'auto' for every visible device, or 'DxT', whose
-    T > 1 (tensor parallelism) raises naming ROADMAP A8-tp. Rounds the
-    generator's device batch up to a multiple of the dp size, since every
-    shorter batch would be padded. `device` (default: the generator's)
-    picks CUDA cards, or repeats of the CPU device.
+    """Attach a device mesh to an `ImageGenerator` from a CLI spec: a
+    device count ('2') or 'auto' for every visible device build a 1-D
+    data-parallel mesh; 'DxT' ('1x2') a {'data': D, 'model': T} mesh whose
+    'model' axis channel-shards the UNet weights (tensor parallelism, the
+    latency axis). Rounds the generator's device batch up to a multiple of
+    the dp size D, since every shorter batch would be padded. `device`
+    (default: the generator's) picks CUDA cards, or repeats of the CPU
+    device.
 
     Callers that derive a coalescing cap from the device batch read
     `generator.batch_size` after this call."""
     if device is None:
         device = generator.model_manager.device
-    mesh = data_mesh(parse_mesh_spec(spec), device)
+    mesh = surface_mesh(parse_mesh_spec(spec), device)
     generator.set_mesh(mesh)
     dp = mesh.shape["data"]
     if generator.batch_size % dp:

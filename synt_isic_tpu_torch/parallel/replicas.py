@@ -54,21 +54,32 @@ def replica(module, device: torch.device):
         net = copy.deepcopy(module.model).to(device)
         return LesionClassifier(net, device=device)
     if isinstance(module, UNet2D):
-        on_cuda = device.type == "cuda"
-        same_kind = module_device(module).type == device.type
-        copy_ = UNet2D(module.config, dtype=module.dtype, param_dtype=module.param_dtype,
-                       use_fused_attention=(module.use_fused_attention if same_kind
-                                            else on_cuda),
-                       fast_norm=(module.fast_norm if same_kind
-                                  else on_cuda and module.dtype != torch.float32),
-                       fused_heads_per_program=module.fused_heads_per_program,
-                       fused_fast_math=module.fused_fast_math, remat=module.remat)
-        copy_.load_state_dict(module.state_dict(), strict=True)
-        copy_ = copy_.to(device).train(module.training)
-        for src, dst in zip(module.parameters(), copy_.parameters()):
-            dst.requires_grad_(src.requires_grad)
-        return copy_
+        return unet_copy(module, device)
     return copy.deepcopy(module).to(device)
+
+
+def unet_copy(module, device: torch.device):
+    """A new `UNet2D` on `device` with `module`'s config, dtypes, weights
+    and gradient flags, and that device's kernel switches: the module's
+    own on a device of its kind, else the attention kernel and (below f32)
+    the f32-statistics GroupNorm on CUDA, the plain versions elsewhere."""
+    from ..models.unet2d import UNet2D
+
+    device = canonical(device)
+    on_cuda = device.type == "cuda"
+    same_kind = module_device(module).type == device.type
+    copy_ = UNet2D(module.config, dtype=module.dtype, param_dtype=module.param_dtype,
+                   use_fused_attention=(module.use_fused_attention if same_kind
+                                        else on_cuda),
+                   fast_norm=(module.fast_norm if same_kind
+                              else on_cuda and module.dtype != torch.float32),
+                   fused_heads_per_program=module.fused_heads_per_program,
+                   fused_fast_math=module.fused_fast_math, remat=module.remat)
+    copy_.load_state_dict(module.state_dict(), strict=True)
+    copy_ = copy_.to(device).train(module.training)
+    for src, dst in zip(module.parameters(), copy_.parameters()):
+        dst.requires_grad_(src.requires_grad)
+    return copy_
 
 
 # sampling replicas, kept while their primary lives: {primary: {device: replica}}

@@ -5,11 +5,16 @@ into contiguous shards along the mesh's 'data' axis, in mesh order; each
 shard's walk runs on its device with that device's model replica
 (`replicas.sampling_replica`: built once from the primary's state dict,
 shared by repeated devices, with the device's own kernel switches), one
-host thread per distinct device (`replicas.run_per_device`). The initial
-noise of every seed is drawn as the unsharded walk draws it, on the
-primary sampler's device, and the step noise of (seed, k) likewise, so an
-image depends on its seed alone, whatever the layout, up to the rounding a
-batch-size-dependent convolution brings.
+host thread per distinct device (`replicas.run_per_device`). On a mesh
+with a 'model' axis above 1 (tensor parallelism) a shard walks on its
+mesh row with the UNet channel-sharded over the row
+(`tensor_parallel.tp_replica`), its activations and its thread on the
+row's first device; a multi-process mesh with such an axis raises, as in
+the JAX package. The initial noise of every seed is drawn as the unsharded
+walk draws it, on the primary sampler's device, and the step noise of
+(seed, k) likewise, so an image depends on its seed alone, whatever the
+layout, up to the rounding a batch-size- or width-dependent convolution
+brings.
 
 A batch that does not divide the shard count is padded cyclically
 (`np.resize`, which reaches the padded length even when the pad exceeds
@@ -32,6 +37,7 @@ import torch
 
 from .mesh import Mesh, canonical, pad_to_multiple, split_rows
 from .replicas import run_per_device, sampling_replica
+from .tensor_parallel import tp_replica
 
 
 def _cyclic(n: int, padded: int) -> np.ndarray:
@@ -40,14 +46,24 @@ def _cyclic(n: int, padded: int) -> np.ndarray:
 
 
 class ShardedSampler:
-    """Wraps a `DiffusionSampler` with a mesh's data-parallel split. The
-    mesh's other axes must be 1 (tensor parallelism is ROADMAP A8-tp)."""
+    """Wraps a `DiffusionSampler` with a mesh's data-parallel split.
 
-    def __init__(self, sampler, mesh: Mesh, axis: str = "data"):
+    Tensor parallelism is configured by the mesh itself, as in the JAX
+    package: when the mesh has a `tp_axis` ('model') axis above 1, data
+    shard i walks on row i of the mesh (its 'model' devices) with the UNet
+    channel-sharded over it (`tensor_parallel.tp_replica`), its
+    activations on the row's first device; else `tp_axis` is None and each
+    shard walks a replica on its device. A 1-D 'data' mesh behaves as
+    before."""
+
+    def __init__(self, sampler, mesh: Mesh, axis: str = "data", tp_axis: str = "model"):
         self.sampler = sampler
         self.mesh = mesh
         self.axis = axis
-        self.devices = mesh.shard_devices(axis)
+        self.tp_axis = (tp_axis if tp_axis in mesh.axis_names and mesh.shape[tp_axis] > 1
+                        else None)
+        self.rows = mesh.rows(axis, tp_axis)
+        self.devices = [row[0] for row in self.rows]
         self.n_shards = len(self.devices)
         primary = canonical(sampler.device)
         self._samplers: Dict[torch.device, Any] = {}
@@ -67,6 +83,12 @@ class ShardedSampler:
         seeds_arr = np.atleast_1d(np.asarray(seeds, dtype=np.uint32))
         n = len(seeds_arr)
         procs = self.mesh.processes
+        if procs > 1 and self.tp_axis is not None:
+            # the JAX package refuses it too: the per-layer gathers stay
+            # inside one process's cards
+            raise NotImplementedError(
+                "tensor-parallel sampling is single-process (ICI) only; "
+                "use a 1-D 'data' mesh across hosts")
         padded = pad_to_multiple(n, self.n_shards * procs)
         rows = _cyclic(n, padded)
         labels = None
@@ -93,8 +115,10 @@ class ShardedSampler:
         def walk(i: int) -> Dict[str, Any]:
             d = self.devices[i]
             a, b = spans[i]
+            walker = (tp_replica(model, self.rows[i]) if self.tp_axis is not None
+                      else sampling_replica(model, d))
             return self._samplers[d].sample(
-                sampling_replica(model, d), seeds_pad[a:b],
+                walker, seeds_pad[a:b],
                 capture_trajectory=capture_trajectory,
                 initial_noise=noise[a:b].to(d),
                 step_noise=None if step_noise is None else step_noise[:, a:b].to(d),

@@ -46,8 +46,12 @@ every device batch over a data-parallel mesh (`parallel.apply_dp_mesh`,
 keep each image the single-device image, the device batch is rounded up to
 a multiple of the mesh, `status` reports the mesh, the warmup walks the
 sharded sampler and `"xai": true` requests fan their attribution over the
-same mesh. A `DxT` spec with T > 1 (tensor parallelism, ROADMAP A8-tp)
-exits 2. The fast lane stays on one device: it serves images one by one.
+same mesh. A `DxT` spec builds a {'data': D, 'model': T} mesh: each data
+shard walks on its row of T devices with the UNet channel-sharded over it
+and attention run by heads (`parallel/tensor_parallel.py`), the device
+batch is rounded up by D only, and `status` reports both axes; a spec that
+is not N, auto or DxT exits 2. The fast lane stays on one device: it
+serves images one by one.
 
 Where the port differs: `--device {cuda,cpu}` (the card by default; no
 silent drop to the CPU; with `cpu` a mesh is N repeats of the CPU device),
@@ -733,8 +737,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard every device batch over a data-parallel mesh of "
                         "N devices ('auto' = every visible card; with --device "
                         "cpu, N repeats of the CPU device); rounds --batch up "
-                        "to a multiple of N. DxT with T > 1 (tensor "
-                        "parallelism) is not ported and exits 2")
+                        "to a multiple of N. 'DxT' (e.g. 1x2) adds tensor "
+                        "parallelism: a {data: D, model: T} mesh over D x T "
+                        "cards whose T-sized 'model' axis channel-shards the "
+                        "UNet weights and runs attention by heads (the "
+                        "LATENCY axis; --batch is rounded up by D only)")
     p.add_argument("--interactive-cost", type=int, default=256,
                    help="count x steps threshold under which a request "
                         "rides the priority lane (ahead of queued bulk "
@@ -797,7 +804,7 @@ def main(argv=None) -> int:
 
         try:
             parse_mesh_spec(args.mesh)
-        except (NotImplementedError, ValueError) as exc:
+        except ValueError as exc:
             p.error(f"--mesh {args.mesh}: {exc}")
 
     from .generator import ImageGenerator, parse_guidance_map

@@ -45,7 +45,8 @@ What differs from the JAX distiller, and why:
     and the student's forward and backward on its device's replicas; the
     gradients are summed (and `all_reduce`d across processes) before the
     clip, Adam and the EMA. Across processes checkpoints go through
-    `host0_only`.
+    `host0_only`. A ('data', 'model') mesh runs over its 'data' axis, the
+    state replicated over 'model', as in the trainer.
 """
 from __future__ import annotations
 
@@ -321,7 +322,7 @@ def distill_phase(model: UNet2D, schedule: DiffusionSchedule,
     given). `mesh`: data-parallel over its 'data' axis; `batch_size` is the
     global batch and must divide by its size."""
     if mesh is not None:
-        mesh.shard_devices("data")   # a 'model' axis above 1 raises (A8-tp)
+        mesh.shard_devices("data")   # a mesh without a 'data' axis raises
     if mesh is not None and config.batch_size % mesh.shape["data"] != 0:
         raise ValueError(
             f"batch_size {config.batch_size} must be a multiple of the mesh data "

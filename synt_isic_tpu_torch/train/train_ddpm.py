@@ -38,7 +38,10 @@ processes, and the clip, Adam and the EMA run once on the reduced
 gradients before the primary's weights are copied back into every
 replica. Across processes (`parallel.multihost`) every process draws the
 same global batch and keeps its rows, and checkpoints go through
-`host0_only`; a single process keeps the async writer.
+`host0_only`; a single process keeps the async writer. A 2-D ('data',
+'model') mesh trains over its 'data' axis on the first device of each
+row: the state is replicated over 'model', as the JAX trainer's
+replicated state is, so its step is the D-shard data-parallel step.
 """
 from __future__ import annotations
 
@@ -574,7 +577,7 @@ def train_class(class_name: str, dataset, checkpoint_dir: str,
     process 0 only."""
     device = resolve_device(device)
     if mesh is not None:
-        mesh.shard_devices("data")   # a 'model' axis above 1 raises (A8-tp)
+        mesh.shard_devices("data")   # a mesh without a 'data' axis raises
     if mesh is not None and config.batch_size % mesh.shape["data"] != 0:
         raise ValueError(
             f"batch_size {config.batch_size} must be a multiple of the mesh data "

@@ -35,7 +35,9 @@ repeating the last frame, each shard on its device with that device's
 classifier replica (`parallel.replicas`), one host thread per distinct
 device. Every frame runs the same per-frame code with the same draws (the
 masks of frame i depend on i alone), so the result does not depend on the
-layout. A mesh with a 'model' axis above 1 raises (ROADMAP A8-tp).
+layout. On a 2-D ('data', 'model') mesh the frames split over 'data' on
+each row's first device and the 'model' axis replicates, as JAX's
+`shard_map` with `P()` does.
 """
 from __future__ import annotations
 
@@ -53,8 +55,9 @@ from .interventions import _avg_pool_same
 
 
 def check_mesh(mesh, axis: str = "data"):
-    """`mesh` when XAI can shard over its `axis` (None passes): a mesh
-    whose other axes exceed 1 raises (tensor parallelism, ROADMAP A8-tp)."""
+    """`mesh` when XAI can shard over its `axis` (None passes; a mesh
+    without that axis raises). The shards are the first devices of the
+    mesh's rows (`Mesh.shard_devices`), so a 'model' axis replicates."""
     if mesh is not None:
         mesh.shard_devices(axis)
     return mesh

@@ -359,7 +359,8 @@ def test_train_conditional_end_to_end(params, tmp_path):
     by the JAX `load_pth` and passes the JAX manifest with
     `num_class_embeds`; colour statistics land under each class; the
     probe-based best selection runs; `ModelManager(conditional=True)`
-    loads the result."""
+    loads the result; the same run on a tensor-parallel mesh gives the
+    same checkpoint."""
     datasets = {c: procedural.ProceduralDataset(c, 2, SIZE) for c in COND_CLASSES}
     cfg = train_ddpm.TrainConfig(image_size=SIZE, batch_size=2, epochs=1, eval_every=1,
                                  eval_probe_images=3, eval_t_points=2, bf16_compute=False)
@@ -382,9 +383,20 @@ def test_train_conditional_end_to_end(params, tmp_path):
     with pytest.raises(ValueError, match="num_class_embeds"):   # 1 class + null != 4
         train_conditional({"MEL": datasets["MEL"]}, str(tmp_path), cfg,
                                             model=UNet2D(TINY_COND), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8-tp"):
-        train_conditional(datasets, str(tmp_path), cfg, mesh=tp_mesh(),
-                                            device="cpu")
+    # tensor parallelism is ported: on a 1 x 2 ('data', 'model') mesh the
+    # state is replicated over 'model', so the run is the unsharded one
+    # (weights within 1e-5, the attention key biases, whose exact gradient
+    # is zero, within 3 * lr: tests/test_torch_mesh_surfaces.py)
+    tp_out = train_conditional(datasets, str(tmp_path / "tp"), cfg,
+                               model=port_model(params, TINY_COND), mesh=tp_mesh(),
+                               device="cpu", log=lambda msg: None)
+    assert tp_out["steps"] == out["steps"]
+    assert tp_out["best_val"] == pytest.approx(out["best_val"], rel=1e-5)
+    tp_state = unwrap_state_dict(load_pth(str(tmp_path / "tp" / "unet_conditional_best.pth")))
+    for key, want in state.items():
+        atol = 3 * cfg.learning_rate if key.endswith("to_k.bias") else 1e-5
+        np.testing.assert_allclose(np.asarray(tp_state[key]), np.asarray(want), rtol=0,
+                                   atol=atol, err_msg=key)
 
 
 def test_entry_point_conditional(tmp_path, capsys):

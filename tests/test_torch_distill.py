@@ -225,8 +225,8 @@ def test_progressive_distill_writes_students_both_packages_load(teacher_params, 
 def test_entry_point_distills_on_cpu(tmp_path):
     """`--distill-from` with the {CLASS} rule and the default batch clamped
     to a small dataset, on the full-width UNet at 16x16 (one phase of two
-    steps); several classes without {CLASS} refuse; a tensor-parallel mesh
-    raises."""
+    steps); several classes without {CLASS} refuse; a phase on a
+    tensor-parallel mesh is the unsharded phase."""
     torch.manual_seed(0)
     torch.save(UNet2D(UNet2DConfig(sample_size=16)).state_dict(), tmp_path / "unet_MEL_best.pth")
     out = tmp_path / "out"
@@ -237,6 +237,21 @@ def test_entry_point_distills_on_cpu(tmp_path):
     assert sorted(p.name for p in out.iterdir()) == ["unet_MEL_distill2.pth"]
     assert train_main.main(["--classes", "MEL,NV", "--device", "cpu", "--distill-from",
                             str(tmp_path / "unet_MEL_best.pth")]) == 1
-    with pytest.raises(NotImplementedError, match="A8-tp"):
-        distill.distill_phase(UNet2D(TINY), DiffusionSchedule.create(), {}, [], 2,
-                              mesh=tp_mesh())
+    # tensor parallelism is ported: a phase on a 1 x 2 ('data', 'model')
+    # mesh (the state replicated over 'model') is the unsharded phase, the
+    # losses to rtol 2e-4 and the weights to 1e-5 (the attention key biases,
+    # whose exact gradient is zero, to 3 * lr), the bounds of
+    # tests/test_torch_mesh_surfaces.py
+    params = jax_params(seed=8)
+    cfg = distill.DistillConfig(batch_size=2, bf16_compute=False, steps_per_phase=2,
+                                warmup_steps=1)
+    runs = [distill.distill_phase(port_model(params), DiffusionSchedule.create(),
+                                  port_model(params).state_dict(),
+                                  ProceduralDataset("MEL", 2, TINY.sample_size), 2, cfg,
+                                  mesh=mesh, log=lambda msg: None)
+            for mesh in (tp_mesh(), None)]
+    assert runs[0]["history"] == pytest.approx(runs[1]["history"], rel=2e-4)
+    for key, want in runs[1]["params"].items():
+        atol = 3 * cfg.learning_rate if key.endswith("to_k.bias") else 1e-5
+        np.testing.assert_allclose(runs[0]["params"][key].numpy(), want.numpy(), rtol=0,
+                                   atol=atol, err_msg=key)

@@ -226,16 +226,31 @@ def test_single_image_unknown_class_and_status(tmp_path, ckpt_dir):
     assert gen.model_manager.loaded_models == {} and gen.stop_requested
 
 
-def test_later_slices_raise(ckpt_dir, monkeypatch):
+def test_later_slices_raise(ckpt_dir, monkeypatch, tmp_path):
     # the conditional family is ported: asking for it on a directory of
     # per-class checkpoints fails for want of the conditional metadata
     with pytest.raises(FileNotFoundError, match="unet_conditional_best.json"):
         ImageGenerator(checkpoints_dir=str(ckpt_dir), device="cpu", conditional=True)
     gen = _port(ckpt_dir)
-    # data-parallel sampling is ported (tests/test_torch_mesh_surfaces.py);
-    # tensor parallelism is not
-    with pytest.raises(NotImplementedError, match="A8-tp"):
-        gen.set_mesh(tp_mesh())
+    # data-parallel sampling is ported (tests/test_torch_mesh_surfaces.py),
+    # and so is tensor parallelism: over a 1 x 2 ('data', 'model') mesh the
+    # blocks walk on the row with the UNet channel-sharded, the images are
+    # the unsharded generator's within one 8-bit level, and each sidecar
+    # records the mesh's 2 devices, as the JAX generator does
+    from PIL import Image
+
+    gen.set_mesh(tp_mesh())
+    assert gen.block_sampler().tp_axis == "model"
+    assert gen.generate_images([("MEL", 3)], str(tmp_path / "tp"))["generated"] == 3
+    plain = _port(ckpt_dir)
+    assert plain.generate_images([("MEL", 3)], str(tmp_path / "plain"))["generated"] == 3
+    sidecars = sorted((tmp_path / "tp" / "MEL").glob("*.json"))
+    assert [json.loads(p.read_text())["block"]["dp_mesh"] for p in sidecars] == [2, 2, 2]
+    for p in sidecars:
+        a, b = (np.asarray(Image.open(d / "MEL" / p.with_suffix(".png").name), np.int16)
+                for d in (tmp_path / "tp", tmp_path / "plain"))
+        assert np.abs(a - b).max() <= 1
+    gen.set_mesh(None)
     # integrated XAI (A7) is ported: its setters take their values
     analyzer = object()
     gen.set_xai_hook(print, every_n=3)

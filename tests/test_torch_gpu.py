@@ -1246,3 +1246,65 @@ def test_smoke_generate_and_warm_cache_on_cuda(cuda, tmp_path, capsys):
     assert _launched(before)[attention.KERNEL] == 2 * 6 * (2 + 3)
     out = capsys.readouterr().out
     assert "kernels built in" in out and "ddpm:3:2: cold" in out
+
+
+@pytest.mark.parametrize("axes", [{"data": 1, "model": 2}, {"data": 2, "model": 2}],
+                         ids=["1x2", "2x2"])
+def test_tp_walk_on_one_card_matches_unsharded(cuda, monkeypatch, axes):
+    """A DDIM walk over a ('data', 'model') mesh whose devices repeat the
+    card: each data shard walks on its row with the UNet channel-sharded,
+    K1 launches 6 times per UNet evaluation per row shard, each at the
+    heads of one 'model' slice (8 / 2), and the walk (every frame) is
+    within 1e-3 of the unsharded walk under full-f32 convolutions (the
+    data-parallel walk's bound in `chip_smoke.py`, MESH_WALK_TOL)."""
+    from unittest import mock
+
+    from synt_isic_tpu_torch.parallel import ShardedSampler, create_mesh
+    from synt_isic_tpu_torch.parallel import tensor_parallel
+
+    cfg = UNet2DConfig(sample_size=32, block_out_channels=(32, 64, 64, 64))
+    model = _walk_models(cuda, cfg)[True]
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    steps, seeds = 3, [1, 2, 3, 4]
+    sampler = DiffusionSampler(DiffusionSchedule.create(),
+                               SamplerConfig(num_inference_steps=steps, scheduler="ddim",
+                                             image_size=32), device=cuda)
+    mesh = create_mesh(axes, [cuda] * (axes["data"] * axes["model"]))
+    sharded = ShardedSampler(sampler, mesh)
+    assert sharded.tp_axis == "model"
+    heads, original = [], attention._ForwardPlan.__call__
+
+    def call(plan, q, k, v):
+        heads.append(q.shape[1])
+        return original(plan, q, k, v)
+
+    before, routes = dict(attention.LAUNCHES), dict(tensor_parallel.ROUTES)
+    with mock.patch.object(attention._ForwardPlan, "__call__", call):
+        got = sharded.sample(model, seeds, capture_trajectory=True)
+    launched = _launched(before)
+    assert launched[attention.KERNEL] == 6 * 2 * steps * axes["data"] == len(heads)
+    assert set(heads) == {4}
+    assert (tensor_parallel.ROUTES[tensor_parallel.HEADS] - routes[tensor_parallel.HEADS]
+            == 6 * steps * axes["data"])
+    want = sampler.sample(model, seeds, capture_trajectory=True)
+    assert torch.isfinite(got["images"]).all()
+    torch.testing.assert_close(got["trajectory"], want["trajectory"], rtol=1e-3, atol=1e-3)
+    assert list(got["noise_hashes"]) == list(want["noise_hashes"])
+
+
+def test_tp_replica_runs_the_kernels_under_grad(cuda):
+    """A tensor-parallel replica on the card keeps every slice there and
+    runs the kernels: under grad its attention runs the trainable pair (K1
+    and K3 per shard), never the plain version."""
+    from synt_isic_tpu_torch.parallel import tensor_parallel
+
+    cfg = UNet2DConfig(sample_size=32, block_out_channels=(32, 64, 64, 64))
+    model = _walk_models(cuda, cfg)[True]
+    twin = tensor_parallel.tp_replica(model, [cuda, cuda])
+    assert all(p.is_cuda for p in twin.parameters())
+    x = torch.randn(2, 3, 32, 32, device=cuda, requires_grad=True)
+    before = dict(attention.LAUNCHES)
+    twin(x, torch.tensor([10, 500], device=cuda)).square().mean().backward()
+    launched = _launched(before)
+    assert launched[attention.KERNEL] == launched[attention.BWD_KERNEL] == 12
+    assert torch.isfinite(x.grad).all()

@@ -46,7 +46,8 @@ def test_every_ported_module_is_checked():
                        "rescore_family_consistency", "e2e_conditional", "smoke_generate",
                        "convert_checkpoint", "convert_inception", "warm_cache")),
                    *(f"parallel/{name}.py" for name in (
-                       "__init__", "mesh", "multihost", "replicas", "sharded_sampler")),
+                       "__init__", "mesh", "multihost", "replicas", "sharded_sampler",
+                       "tensor_parallel")),
                    *(f"xai/{name}.py" for name in (
                        "__init__", "attribution", "cfi", "fairness", "gradcam", "integration",
                        "interventions", "pipeline", "regions", "sanity", "standalone", "stats",

@@ -82,15 +82,21 @@ def test_create_mesh_defaults_to_cuda_and_never_to_the_cpu(monkeypatch):
     assert port_mesh.data_mesh(-1, "cpu").shape == {"data": 1}
 
 
-def test_tensor_parallel_refused():
+def test_tensor_parallel_refused(model):
+    """Tensor parallelism is ported: a 1 x 2 ('data', 'model') mesh gives
+    the data-only mesh's shards (each row's first device) and its row, the
+    specs name both sizes, and the placement of the tiny UNet is that of
+    the JAX `tp_param_shardings` (`tests/test_torch_tensor_parallel.py`
+    holds it leaf for leaf)."""
     mesh = create_mesh({"data": 1, "model": 2}, _cpus(2))
-    with pytest.raises(NotImplementedError, match="A8-tp"):
-        mesh.shard_devices("data")
-    with pytest.raises(NotImplementedError, match="A8-tp"):
-        port_mesh.tp_param_shardings({}, mesh)
-    with pytest.raises(NotImplementedError, match="A8-tp"):
-        port_mesh.parse_mesh_spec("2x2")
-    assert [port_mesh.parse_mesh_spec(s) for s in ("4", "auto", "2x1")] == [4, -1, 2]
+    assert mesh.shard_devices("data") == create_mesh({"data": 1}, _cpus(1)).shard_devices()
+    assert mesh.rows("data") == [_cpus(2)]
+    dims = port_mesh.tp_param_shardings(model, mesh)
+    assert dims["conv_in.weight"] == 0 and dims["conv_in.bias"] is None
+    assert dims["conv_out.weight"] is None
+    assert port_mesh.tp_param_shardings({}, mesh) == {}
+    assert [port_mesh.parse_mesh_spec(s) for s in ("4", "auto", "2x1", "2x2")] == [
+        {"data": 4}, {"data": -1}, {"data": 2, "model": 1}, {"data": 2, "model": 2}]
 
 
 def test_shard_batch_and_pad():

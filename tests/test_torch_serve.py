@@ -596,12 +596,44 @@ def test_xai_request_returns_artifacts(ckpt_dir, tmp_path):
     srv.stop()
 
 
-def test_main_refuses_mesh_and_a_missing_card(ckpt_dir, monkeypatch, capsys):
-    # a data-parallel --mesh is served (tests/test_torch_mesh_surfaces.py);
-    # tensor parallelism (DxT with T > 1) exits 2 before any model is built
+def test_main_refuses_mesh_and_a_missing_card(ckpt_dir, tmp_path, monkeypatch, capsys):
+    """Tensor parallelism is ported: `--mesh 1x2 --device cpu` serves over a
+    {'data': 1, 'model': 2} mesh (`status` reports it; the device batch is
+    rounded by the data size only) and answers a generate request with the
+    images the same request gets without a mesh, within one 8-bit level,
+    its sidecars recording the mesh's 2 devices. A spec that is not N, auto
+    or DxT exits 2 before any model is built, and without a card the CUDA
+    default raises."""
+    from PIL import Image
+
     with pytest.raises(SystemExit) as exc:
-        serve.main(["--mesh", "2x2", "--checkpoints", str(ckpt_dir)])
-    assert exc.value.code == 2 and "A8-tp" in capsys.readouterr().err
+        serve.main(["--mesh", "2xq", "--checkpoints", str(ckpt_dir)])
+    assert exc.value.code == 2 and "--mesh 2xq" in capsys.readouterr().err
+    replies = []
+
+    def serve_once(self):
+        host, port = self.address
+        replies.append((request(host, port, {"op": "status"}),
+                        request(host, port, {"op": "generate", "class": "NV", "count": 2,
+                                             "seed": 1, "postprocess": False})))
+        self.stop()
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(GenerationServer, "serve_forever", serve_once)
+    monkeypatch.setattr(ImageGenerator, "__init__", _tiny_init())
+    for mesh in ("1x2", None):
+        argv = ["--device", "cpu", "--checkpoints", str(ckpt_dir), "--port", "0",
+                "--steps", str(STEPS), "--batch", "3", "--scheduler", "ddim", "--dtype", "f32",
+                "--output-root", str(tmp_path / str(mesh))]
+        assert serve.main(argv + (["--mesh", mesh] if mesh else [])) == 0
+    (status, reply), (plain_status, plain) = replies
+    assert status["mesh"] == {"data": 1, "model": 2} and plain_status["mesh"] is None
+    assert status["device_batch"] == plain_status["device_batch"] == 3
+    assert reply["ok"] and plain["ok"] and len(reply["files"]) == len(plain["files"]) == 2
+    for got, want in zip(reply["files"], plain["files"]):
+        a, b = (np.asarray(Image.open(f), np.int16) for f in (got, want))
+        assert np.abs(a - b).max() <= 1
+        assert json.loads(open(got[:-4] + ".json").read())["block"]["dp_mesh"] == 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--checkpoints", str(ckpt_dir)])

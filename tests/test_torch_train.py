@@ -329,6 +329,20 @@ def test_entry_point_refuses_what_it_cannot_do(tmp_path):
         train_ddpm.train_class("MEL", procedural.ProceduralDataset("MEL", 2, 16),
                                str(tmp_path), train_ddpm.TrainConfig(batch_size=3),
                                mesh=two, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8-tp"):
-        train_ddpm.train_class("MEL", procedural.ProceduralDataset("MEL", 2, 16),
-                               str(tmp_path), mesh=tp_mesh(), device="cpu")
+    # tensor parallelism is ported: on a 1 x 2 ('data', 'model') mesh the
+    # state is replicated over 'model', so the epoch is the unsharded one
+    # (weights within 1e-5, the attention key biases, whose exact gradient
+    # is zero, within 3 * lr: tests/test_torch_mesh_surfaces.py)
+    cfg = train_ddpm.TrainConfig(image_size=16, batch_size=2, epochs=1, bf16_compute=False)
+    saved = {}
+    for name, mesh in (("tp", tp_mesh()), ("plain", None)):
+        out = train_ddpm.train_class("MEL", procedural.ProceduralDataset("MEL", 2, 16),
+                                     str(tmp_path / name), cfg,
+                                     model=port_model(jax_params(seed=6)), mesh=mesh,
+                                     device="cpu", log=lambda msg: None)
+        saved[name] = (out, load_checkpoint(str(tmp_path / name / "unet_MEL_best.pth")))
+    assert saved["tp"][0]["history"] == pytest.approx(saved["plain"][0]["history"], rel=1e-6)
+    for key, want in saved["plain"][1].items():
+        atol = 3 * cfg.learning_rate if key.endswith("to_k.bias") else 1e-5
+        np.testing.assert_allclose(saved["tp"][1][key].numpy(), want.numpy(), rtol=0,
+                                   atol=atol, err_msg=key)

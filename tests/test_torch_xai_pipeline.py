@@ -30,7 +30,7 @@ from synt_isic_tpu_torch.xai import (FairnessAuditor, IntegratedXAIAnalyzer, XAI
                                      run_xai_analysis)
 from synt_isic_tpu_torch.xai import standalone
 
-from tests.torch_port_fixtures import classifier_pair, small_classifiers, tp_mesh
+from tests.torch_port_fixtures import TINY, classifier_pair, small_classifiers, tp_mesh
 
 NUM_CLASSES, TARGET, SIZE, PATCH = 8, 1, 32, 8
 TIMESTEPS = [900.0, 500.0, 0.0]
@@ -252,24 +252,101 @@ def test_integrated_analyzer_writes_the_reference_layout(clfs, frames, tmp_path)
     assert shown == str(image)      # no step figure was written: the image itself
 
 
-@pytest.mark.parametrize("call", [
-    lambda clf: XAIAnalyzer(clf, mesh=tp_mesh()),
-    lambda clf: XAIAnalyzer(clf).set_mesh(tp_mesh()),
-    lambda clf: compute_gradcam(clf, np.zeros((1, SIZE, SIZE, 3), np.float32), 0, mesh=tp_mesh()),
-    lambda clf: run_comprehensive_xai_pipeline(np.zeros((1, SIZE, SIZE, 3), np.float32), [0.0],
-                                               XAIAnalyzer(clf), clf, 0, "MEL",
-                                               mesh=tp_mesh()),
-    lambda clf: IntegratedXAIAnalyzer(classifier=clf, mesh=tp_mesh()),
-    lambda clf: FairnessAuditor(clf, mesh=tp_mesh()),
-    lambda clf: standalone.run_standalone_xai(mesh=tp_mesh(), device="cpu"),
-    lambda clf: ImageGenerator(checkpoints_dir=".", device="cpu").set_mesh(tp_mesh()),
+@pytest.fixture(scope="module")
+def tiny_ckpt(tmp_path_factory):
+    """A directory with a seeded random tiny `unet_MEL_best.pth`."""
+    from synt_isic_tpu_torch.models.unet2d import UNet2D
+
+    path = tmp_path_factory.mktemp("tp_ckpt")
+    torch.manual_seed(3)
+    torch.save(UNet2D(TINY).state_dict(), path / "unet_MEL_best.pth")
+    return path
+
+
+SMALL = dict(ig_n_steps=2, shap_n_samples=8, seed=0)
+
+
+def _maps(result):
+    """The attribution maps of a pipeline result, by frame."""
+    return {step: {k: v for k, v in maps.items() if isinstance(v, np.ndarray)}
+            for step, maps in result["xai_maps"].items()}
+
+
+def _analyzer_set_mesh(clf, mesh, frames):
+    an = XAIAnalyzer(clf, **SMALL)
+    an.set_mesh(mesh)
+    return an.compute_time_shap(frames, TIMESTEPS, TARGET)[1]["probability_scores"]
+
+
+def _pipeline(clf, mesh, frames):
+    an = XAIAnalyzer(clf, shap_patch_size=PATCH, **SMALL)
+    return _maps(run_comprehensive_xai_pipeline(
+        frames[:1], [0.0], an, clf, TARGET, "NV", n_bootstrap=20, n_permutations=50,
+        save_results=False, save_figures=False, with_sanity=False, mesh=mesh,
+        log=lambda *a: None))
+
+
+def _standalone(mesh, ckpt, tmp):
+    return _maps(standalone.run_standalone_xai(
+        mesh=mesh, device="cpu", checkpoints_dir=str(ckpt), model_config=TINY,
+        results_dir=str(tmp / ("mesh" if mesh else "plain")), inference_steps=3,
+        save_every=2, num_classes=NUM_CLASSES, ig_n_steps=2, shap_n_samples=4,
+        n_bootstrap=10, n_permutations=20, with_sanity=False, save_figures=False,
+        log=lambda *a: None))
+
+
+def _generator(mesh, ckpt, tmp):
+    from PIL import Image
+
+    gen = ImageGenerator(checkpoints_dir=str(ckpt), device="cpu", model_config=TINY)
+    gen.set_inference_steps(2)
+    gen.set_generation_seed(5)
+    gen.scheduler_kind = "ddim"
+    gen.set_mesh(mesh)
+    out = tmp / ("gen_mesh" if mesh else "gen_plain")
+    assert gen.generate_images([("MEL", 2)], str(out))["generated"] == 2
+    blocks = [json.loads(p.read_text()).get("block", {})
+              for p in sorted((out / "MEL").glob("*.json"))]
+    assert [b.get("dp_mesh") for b in blocks] == ([2, 2] if mesh else [None, None])
+    return np.stack([np.asarray(Image.open(p), np.float64)
+                     for p in sorted((out / "MEL").glob("*.png"))])
+
+
+@pytest.mark.parametrize("call, rel", [
+    (lambda clf, mesh, frames, ckpt, tmp: XAIAnalyzer(clf, mesh=mesh, **SMALL)
+     .compute_ig_frames(frames, TARGET), 1e-5),
+    (lambda clf, mesh, frames, ckpt, tmp: _analyzer_set_mesh(clf, mesh, frames), 1e-5),
+    (lambda clf, mesh, frames, ckpt, tmp: compute_gradcam(clf, frames, TARGET, output_size=32,
+                                                          mesh=mesh), 1e-5),
+    (lambda clf, mesh, frames, ckpt, tmp: _pipeline(clf, mesh, frames), 1e-5),
+    (lambda clf, mesh, frames, ckpt, tmp: IntegratedXAIAnalyzer(
+        classifier=clf, mesh=mesh, verbose=False, **SMALL).xai_analyzer
+     .compute_shap_frames(frames, TARGET, patch_size=PATCH), 1e-5),
+    (lambda clf, mesh, frames, ckpt, tmp: FairnessAuditor(clf, batch_size=2, mesh=mesh)
+     .probabilities((frames * 127.5 + 127.5).astype(np.uint8)), 1e-5),
+    (lambda clf, mesh, frames, ckpt, tmp: _standalone(mesh, ckpt, tmp), 1e-5),
+    # one 8-bit level of the written images
+    (lambda clf, mesh, frames, ckpt, tmp: _generator(mesh, ckpt, tmp), 1 / 255),
 ], ids=["analyzer", "set_mesh", "gradcam", "pipeline", "integrated", "fairness", "standalone",
         "generator"])
-def test_mesh_arguments_refuse(clfs, call):
-    """Data-parallel meshes are ported (tests/test_torch_mesh_surfaces.py);
-    every surface refuses a tensor-parallel one."""
-    with pytest.raises(NotImplementedError, match="A8-tp"):
-        call(clfs[1])
+def test_mesh_arguments_refuse(clfs, frames, tiny_ckpt, tmp_path, call, rel):
+    """Tensor parallelism is ported: every surface takes a 1 x 2 ('data',
+    'model') mesh and gives the result it gives without one (the XAI
+    surfaces split their frames over 'data' on each row's first device and
+    the 'model' axis replicates, as JAX's `shard_map` with `P()` does; the
+    generator walks its blocks on the row with the UNet channel-sharded and
+    records the mesh's 2 devices in its sidecars), within rel of each
+    output's largest magnitude."""
+    got = call(clfs[1], tp_mesh(), frames, tiny_ckpt, tmp_path)
+    want = call(clfs[1], None, frames, tiny_ckpt, tmp_path)
+    if isinstance(want, dict):
+        assert set(got) == set(want) and want
+        for step in want:
+            assert set(got[step]) == set(want[step]) and want[step]
+            for key in want[step]:
+                close(got[step][key], want[step][key], rel)
+    else:
+        close(got, want, rel)
 
 
 def test_standalone_main_refuses_a_mesh(monkeypatch):

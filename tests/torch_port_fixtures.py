@@ -78,8 +78,10 @@ def one_thread():
 
 
 def tp_mesh():
-    """A 1 x 2 ('data', 'model') mesh of CPU repeats: tensor parallelism,
-    the one mesh every surface refuses (ROADMAP A8-tp)."""
+    """A 1 x 2 ('data', 'model') mesh of CPU repeats: tensor parallelism.
+    Every surface takes it and gives its data-only (or no-mesh) result: the
+    sampling walks channel-shard the UNet over the row, the rest replicate
+    over 'model'."""
     return create_mesh({"data": 1, "model": 2}, [torch.device("cpu")] * 2)
 
 
