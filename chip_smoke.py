@@ -25,6 +25,12 @@ Phases, each of which exits non-zero on failure:
      bound (the largest of bytes, products and one pass of exponentials),
      the plain version and `scaled_dot_product_attention`, launched from
      the host and, for the device time alone, replayed from a CUDA graph;
+     then the kernel table's own rows (`python3 chip_smoke.py
+     --kernel-table` runs them alone): K2, the (B, H, T, D) layout, in turns
+     with K1 (the UNet's views) and SDPA at the UNet's shapes, both dtypes;
+     the head_dim-4 CUDA-core forward and backward checked and timed at the
+     tiny test config's calls and at (8,64,1024,4) beside their bounds, the
+     plain versions and SDPA;
   4. the attention backward likewise at the training path's shapes and at
      ragged T; at head_dim 8 (the tensor-core kernels, f32 and bf16) also
      from the exact forward's saved output and log-sum-exp: the output
@@ -251,8 +257,16 @@ Phases, each of which exits non-zero on failure:
      and 2 images: 240 launches); one f32 train step and the standalone XAI
      run on 1 x 2 against no mesh at [mesh]'s bounds; K1 and K1-fast timed
      at the shapes a shard hands them, (8,16,1024,8) and (8,16,256,8),
-     beside the bound, the plain version and SDPA. `python3 chip_smoke.py
-     --tp` runs card, build, [unet] and this phase alone;
+     beside the bound, the plain version and SDPA. Since the sidecars
+     record the mesh's axes and devices, a fresh-process `--reproduce` of
+     one image of the generator's block and one of the server's (the two
+     processes at once) rebuilds the 1 x 2 mesh: byte-identical, 120
+     launches each. Then rows of the card and the CPU, [cuda:0, cpu] and
+     [cpu, cuda:0] (TP_MIXED_ROWS: every activation crosses between two
+     devices): 2 seeds each within MESH_WALK_TOL of the unsharded walk, 60
+     K1 launches at 16 heads from the card's shard, 60 plain calls at 16
+     heads from the CPU's. `python3 chip_smoke.py --tp` runs card, build,
+     [unet] and this phase alone;
  16c. [eval] image-set evaluation through its four entry points, on the
      full-width UNet of [unet] (MEL) and a seeded NV one, a seeded random
      classifier.pth and a seeded random inception_v3.pth (torchvision's
@@ -380,6 +394,14 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
 UNET_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
 MAIN_SHAPES = [(8, 32, 1024, 8), (8, 32, 256, 8)]   # the UNet's 6 calls at batch 8
+# [kernel]'s table rows: K2 (the (B, H, T, D) layout) at MAIN_SHAPES beside
+# K1 (the UNet's (B, T, C) views) and SDPA, in turns; the head_dim-4
+# CUDA-core kernels, forward and backward, at the tiny test config's calls
+# (batch 2: 4 heads at T = 64 and at T = 16) and at (8, 64, 1024, 4), beside
+# their bound, the plain version and SDPA's call (its backward alone on a
+# prebuilt forward)
+D4_SHAPES = [(2, 4, 64, 4), (2, 4, 16, 4), (8, 64, 1024, 4)]
+TABLE_ROUNDS = 3     # timings in turns, medians
 CLI_STEPS, CLI_BATCH = 10, 8
 ATTENTION_CALLS_PER_UNET = 6
 
@@ -682,6 +704,14 @@ TP_HEADS = 16
 TP_SHAPES = [(8, 16, 1024, 8), (8, 16, 256, 8)]
 TP_SERVE_COUNTS = (3, 2)
 TP_ROUNDS = 3     # walks timed in turns, medians
+# [tp] rows over the card and the CPU (the copies between distinct devices,
+# which rows that repeat cuda:0 never make): {data 1, model 2} with the
+# activations on the card, then on the CPU, MESH_MIXED_SEEDS seeds at DDIM
+# 10, f32, exact kernel, full-f32 convolutions, against the unsharded walk
+# within MESH_WALK_TOL. Only the card's shard launches K1, 6 x 10 = 60 per
+# walk at 16 heads; the CPU's shard runs the plain version on its 16.
+TP_MIXED_ROWS = {"[cuda:0, cpu]": ["cuda:0", "cpu"], "[cpu, cuda:0]": ["cpu", "cuda:0"]}
+TP_MIXED_WANT = ATTENTION_CALLS_PER_UNET * CLI_STEPS
 XAI_RESULT_KEYS = {"metadata", "xai_maps", "region_analysis", "interventions",
                    "cfi_analysis", "time_shap", "statistical_validation", "sanity_checks",
                    "visualizations", "gradcam", "gradcam_most_important", "gradcam_summary"}
@@ -1080,6 +1110,7 @@ def phase_kernel() -> dict:
                     ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms,
                     library_ms=library_ms, library_device_ms=library_device_ms,
                     bound_ms=bound, bound_by=bound_by)
+    report["table"] = kernel_table_times()
     return report
 
 
@@ -1151,6 +1182,97 @@ def phase_kernel_bwd() -> dict:
                 report[(shape, dtype, "time")] = times
                 del leaves, out
             del q, k, v, do, want, views
+    return report
+
+
+def _in_turns_ms(fns: dict, graph: bool = True) -> dict:
+    """{name: (host-launched ms, device ms from a CUDA graph or None)} for
+    each of `fns`, timed in turns TABLE_ROUNDS times, medians."""
+    runs = {name: [] for name in fns}
+    for _ in range(TABLE_ROUNDS):
+        for name, fn in fns.items():
+            runs[name].append((cuda_ms(fn), graph_ms(fn) if graph else None))
+    return {name: (statistics.median(r[0] for r in rs),
+                   statistics.median(r[1] for r in rs) if graph else None)
+            for name, rs in runs.items()}
+
+
+def kernel_table_times() -> dict:
+    """[kernel] the kernel table's own rows: K2 in the (B, H, T, D) layout
+    at MAIN_SHAPES in both dtypes, in turns with K1 (the UNet's views) and
+    SDPA, host-launched and from a CUDA graph; the head_dim-4 CUDA-core
+    forward and backward at D4_SHAPES (f32, and bf16 at the largest),
+    checked against their plain versions, in turns with SDPA (the backward
+    host-launched, SDPA's backward alone on a prebuilt forward), beside
+    their bounds and the plain versions."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    report = {"K2": {}, "d4_fwd": {}, "d4_bwd": {}}
+    for shape in MAIN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                       for _ in range(3))
+            views = _btc_views(q, k, v)
+            t = _in_turns_ms({"K2": lambda: attention.fused_attention(q, k, v),
+                              "K1": lambda: attention.fused_attention(*views),
+                              "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)})
+            bound, bound_by, _, unit = attention_bound_ms(shape, dtype)
+            row = dict(ms=t["K2"][0], device_ms=t["K2"][1], k1_ms=t["K1"][0],
+                       k1_device_ms=t["K1"][1], library_ms=t["sdpa"][0],
+                       library_device_ms=t["sdpa"][1], bound_ms=bound, bound_by=bound_by)
+            report["K2"][f"{shape} {str(dtype)[6:]}"] = row
+            print(f"[kernel] K2 (B,H,T,D) {shape} {str(dtype)[6:]}: {row['ms']:.4f} ms "
+                  f"({row['device_ms']:.4f} from a graph); K1 (B,T,C) {row['k1_ms']:.4f} "
+                  f"({row['k1_device_ms']:.4f}); sdpa {row['library_ms']:.4f} "
+                  f"({row['library_device_ms']:.4f}); bound {bound:.4f} ms ({unit}); medians "
+                  f"of {TABLE_ROUNDS} in turns", flush=True)
+            del q, k, v, views
+    for shape in D4_SHAPES:
+        dtypes = (torch.float32, torch.bfloat16) if shape == D4_SHAPES[-1] else (torch.float32,)
+        for dtype in dtypes:
+            name = f"{shape} {str(dtype)[6:]}"
+            q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                           for _ in range(4))
+            want = attention.attention_reference(q, k, v).float()
+            got = attention.fused_attention(q, k, v)
+            err = (got.float() - want).abs().max().item()
+            check(torch.allclose(got.float(), want, rtol=TOL[dtype], atol=TOL[dtype]),
+                  f"[kernel] head_dim-4 forward at {name}: max_abs_err {err:.3e}")
+            t = _in_turns_ms({"kernel": lambda: attention.fused_attention(q, k, v),
+                              "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)})
+            bound, bound_by, _, unit = attention_bound_ms(shape, dtype)
+            fwd = dict(ms=t["kernel"][0], device_ms=t["kernel"][1],
+                       plain_ms=cuda_ms(lambda: attention.attention_reference(q, k, v),
+                                        iters=5),
+                       library_ms=t["sdpa"][0], library_device_ms=t["sdpa"][1],
+                       bound_ms=bound, bound_by=bound_by, max_abs_err=err)
+            report["d4_fwd"][name] = fwd
+            grads = attention.fused_attention_bwd(q, k, v, do)
+            ref = attention.attention_bwd_reference(q, k, v, do)
+            worst = max(((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                        for a, w in zip(grads, ref))
+            check(worst <= BWD_TOL[dtype],
+                  f"[kernel] head_dim-4 backward at {name}: max|diff|/max|g| {worst:.3e}")
+            leaves = [z.detach().requires_grad_() for z in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves)
+            t = _in_turns_ms({
+                "kernel": lambda: attention.fused_attention_bwd(q, k, v, do),
+                "sdpa": lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)},
+                graph=False)
+            bbound, bbound_by, _, bunit = attention_bwd_bound_ms(shape, dtype)
+            bwd = dict(ms=t["kernel"][0], library_ms=t["sdpa"][0],
+                       plain_ms=cuda_ms(lambda: attention.attention_bwd_reference(q, k, v, do),
+                                        iters=5),
+                       bound_ms=bbound, bound_by=bbound_by, max_rel_err=worst)
+            report["d4_bwd"][name] = bwd
+            print(f"[kernel] head_dim-4 forward {name}: {fwd['ms']:.4f} ms "
+                  f"({fwd['device_ms']:.4f} from a graph), plain {fwd['plain_ms']:.4f}, sdpa "
+                  f"{fwd['library_ms']:.4f} ({fwd['library_device_ms']:.4f}), bound "
+                  f"{bound:.4f} ms ({unit}), {fwd['ms'] / bound:.1f}x it; backward "
+                  f"{bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f}, sdpa backward alone "
+                  f"{bwd['library_ms']:.4f}, bound {bbound:.4f} ms ({bunit}), "
+                  f"{bwd['ms'] / bbound:.1f}x it; medians of {TABLE_ROUNDS} in turns",
+                  flush=True)
+            del q, k, v, do, want, got, grads, ref, leaves, out
     return report
 
 
@@ -4228,6 +4350,40 @@ def phase_tp(state: dict, card: str, base: Path) -> dict:
                        "mesh": status["mesh"]}
     del gen
 
+    # (e'): --reproduce, each in a fresh process (the two at once), of one
+    # image of the generator's 1 x 2 block and one of the server's: the
+    # sidecar records the mesh's axes and devices, and the regeneration
+    # rebuilds that mesh, its 'model' axis included
+    record = {"axes": TP_MESHES["1x2"], "devices": ["cuda:0", "cuda:0"]}
+    redo = {"generator": (pngs[3].with_suffix(".json"), []),
+            "server": (Path(replies[0]["files"][1]).with_suffix(".json"), ["--no-postprocess"])}
+    with concurrent.futures.ThreadPoolExecutor(len(redo)) as pool:
+        jobs = {name: pool.submit(run_cli_process, ["--reproduce", str(sidecar),
+                                                    "--checkpoints", str(ckpt),
+                                                    "--device", "cuda", *extra])
+                for name, (sidecar, extra) in redo.items()}
+        t0 = time.perf_counter()
+        done = {name: job.result() for name, job in jobs.items()}
+        redo_s = time.perf_counter() - t0
+    report["reproduce"] = {"wall_s": redo_s}
+    for name, (sidecar, _) in redo.items():
+        rc, launches, output = done[name]
+        meta = json.loads(sidecar.read_text())
+        original = sidecar.with_name(meta["filename"])
+        again = sidecar.with_name(f"{original.stem}_reproduced{original.suffix}")
+        identical = again.exists() and again.read_bytes() == original.read_bytes()
+        mesh_seen = meta.get("block", {}).get("mesh")
+        print(f"[tp] --reproduce of the {name}'s 1x2 image {sidecar.name} in a fresh process: "
+              f"rc {rc}, byte-identical {identical}, K1 launches {launches[attention.KERNEL]} "
+              f"(want {want}); its sidecar's block.mesh {mesh_seen} (want {record}); both "
+              f"processes {redo_s:.1f} s (host clock)", flush=True)
+        check(mesh_seen == record, f"[tp] the {name}'s sidecar records the mesh {mesh_seen}")
+        check(rc == 0 and identical, f"[tp] --reproduce of the {name}'s image: rc {rc}\n{output}")
+        others = sum(n for key, n in launches.items() if key != attention.KERNEL)
+        check(launches[attention.KERNEL] == want and others == 0,
+              f"[tp] --reproduce of the {name}'s image launched {launches}")
+        report["reproduce"][name] = launches[attention.KERNEL]
+
     # (f): one f32 train step, and the standalone XAI run, on the 1 x 2 mesh
     report["train_step"] = _mesh_train_step("1x2", _tp_mesh("1x2"), MESH_TRAIN_BATCH, "[tp]")
     figures = importlib.util.find_spec("matplotlib") is not None
@@ -4256,8 +4412,66 @@ def phase_tp(state: dict, card: str, base: Path) -> dict:
     report["xai"] = {"rel_err": worst, "wall_s": xai_s}
 
     report["kernel"] = _tp_kernel_times()
+    report["mixed"] = _tp_mixed_rows(model, sampler)
     report["wall_s"] = time.perf_counter() - t_phase
     print(f"[tp] phase wall {report['wall_s']:.1f} s on {card}", flush=True)
+    return report
+
+
+def _tp_mixed_rows(model, sampler) -> dict:
+    """(g) `ShardedSampler` over {data 1, model 2} rows of the card and the
+    CPU (TP_MIXED_ROWS), each walk of MESH_MIXED_SEEDS seeds against the
+    unsharded walk under full-f32 convolutions: every activation crosses
+    between the devices twice per sharded layer. K1 launches on the card's
+    shard only (TP_MIXED_WANT, 16 heads each); the CPU's shard runs the
+    plain version on its 16 heads. Each walk's first call builds its
+    replica, which the seconds printed include."""
+    from synt_isic_tpu_torch.parallel import ShardedSampler, create_mesh
+    from synt_isic_tpu_torch.parallel import tensor_parallel
+    from unittest import mock
+
+    seeds = np.arange(MESH_MIXED_SEEDS, dtype=np.uint32)
+    report = {}
+    plain = []
+    reference = attention.attention_reference
+
+    def counted_plain(q, k, v):
+        plain.append((q.device.type, q.shape[1]))
+        return reference(q, k, v)
+
+    with full_f32_convolutions(), deterministic_cudnn():
+        alone, alone_s, _, _ = _tp_walk(sampler, model, seeds)
+        for name, devices in TP_MIXED_ROWS.items():
+            walker = ShardedSampler(sampler, create_mesh(TP_MESHES["1x2"], devices))
+            routes = dict(tensor_parallel.ROUTES)
+            plain.clear()
+            with mock.patch.object(attention, "attention_reference", counted_plain):
+                out, wall, launches, heads = _tp_walk(walker, model, seeds)
+            dist = _tp_distance(out, alone)
+            routed = {k: tensor_parallel.ROUTES[k] - routes[k] for k in routes}
+            print(f"[tp] ShardedSampler over 1x2 on {name} ({MESH_MIXED_SEEDS} seeds, DDIM "
+                  f"{CLI_STEPS}, f32, full-f32 convolutions): K1 launches {launches[attention.KERNEL]} "
+                  f"(want {TP_MIXED_WANT}) at heads {sorted(set(heads))} (want [{TP_HEADS}]), "
+                  f"plain attention calls {len(plain)} on {sorted(set(plain))} (want "
+                  f"{TP_MIXED_WANT} on [('cpu', {TP_HEADS})]), routes {routed}; images and "
+                  f"trajectory vs the unsharded walk max_abs_err {dist:.3e} (allowed "
+                  f"{MESH_WALK_TOL:.0e}); walk {wall:.2f} s, replica build included, vs "
+                  f"unsharded {alone_s:.4f} s (host clock)", flush=True)
+            check(launches[attention.KERNEL] == len(heads) == TP_MIXED_WANT
+                  and set(heads) == {TP_HEADS}
+                  and sum(n for key, n in launches.items() if key != attention.KERNEL) == 0,
+                  f"[tp] {name} launched {launches} at heads {sorted(set(heads))}")
+            check(len(plain) == TP_MIXED_WANT and set(plain) == {("cpu", TP_HEADS)},
+                  f"[tp] {name}: plain attention calls {len(plain)} on {sorted(set(plain))}")
+            check(routed == {tensor_parallel.HEADS: TP_MIXED_WANT, tensor_parallel.FIRST: 0},
+                  f"[tp] {name} routes {routed}")
+            check(bool(torch.isfinite(out["images"]).all())
+                  and out["images"].shape == alone["images"].shape
+                  and list(out["noise_hashes"]) == list(alone["noise_hashes"]),
+                  f"[tp] {name}: images or noise hashes")
+            check(dist <= MESH_WALK_TOL, f"[tp] {name} walk vs the unsharded walk")
+            report[name] = {"launches": launches[attention.KERNEL], "max_abs_err": dist,
+                            "walk_s": wall, "unsharded_walk_s": alone_s}
     return report
 
 
@@ -5244,6 +5458,11 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
                                                  "count": card["count"]}}), flush=True)
         return 0
+    if sys.argv[1:] == ["--kernel-table"]:
+        # the kernel table's K2 and head_dim-4 rows alone
+        native.build([attention.KERNEL, attention.BWD_KERNEL])
+        print(json.dumps({"table": kernel_table_times(), "card": card["card"]}), flush=True)
+        return 0
     if sys.argv[1:] == ["--eval"]:
         # the [eval] phase alone, on a seeded full-width UNet
         native.build([attention.KERNEL, attention.BWD_KERNEL])
@@ -5412,6 +5631,18 @@ def main() -> int:
         "max_abs_err_tp_walk": {k: [v["max_abs_err_f32"], v["max_abs_err_tf32"]]
                                 for k, v in tp["walks"].items()},
         "tp_ms": {k: v["exact_f32"] for k, v in tp["kernel"].items()},
+        # [tp] rows over the card and the CPU (the card's shard launches),
+        # and the fresh-process --reproduce of the generator's and the
+        # server's 1 x 2 images
+        "launches_tp_mixed": {k: v["launches"] for k, v in tp["mixed"].items()},
+        "max_abs_err_tp_mixed": {k: v["max_abs_err"] for k, v in tp["mixed"].items()},
+        "tp_mixed_walk_s": {k: [v["walk_s"], v["unsharded_walk_s"]]
+                            for k, v in tp["mixed"].items()},
+        "launches_tp_reproduce": {k: tp["reproduce"][k] for k in ("generator", "server")},
+        # [kernel]: K2, the (B, H, T, D) layout, in turns with K1 and SDPA;
+        # the head_dim-4 CUDA-core forward (no model configuration has it)
+        "k2": kernel_report["table"]["K2"],
+        "head_dim_4": kernel_report["table"]["d4_fwd"],
         # [eval]: eval_fid --generate's 64 images, parity_gauntlet (420:
         # seven DDIM-10 walks) and the cut e2e_loop (training, probe,
         # samplers, XAI); Inception-v3 at batch 32 and the FIDs card vs CPU
@@ -5540,6 +5771,8 @@ def main() -> int:
         "score_family_step_s": scored["steps"]["s_per_step"]["family"],
         "score_distill_step_s": scored["steps"]["s_per_step"]["distill"],
         "score_step_busy_s": scored["steps"]["busy_s_per_step"],
+        # [kernel]: the head_dim-4 CUDA-core backward
+        "head_dim_4": kernel_report["table"]["d4_bwd"],
         "shape": list(bwd_shape),
         "dtype": "float32",
     }, {

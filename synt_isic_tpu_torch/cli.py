@@ -18,9 +18,14 @@ it byte for byte against the original.
 
 `--dp-mesh N` shards each device block over an N-device data-parallel mesh
 (`parallel.ShardedSampler`; -1 = every local card); its sidecars record
-`block.dp_mesh`, and `--reproduce` of one rebuilds a mesh of that size (rc
-2 on a host with fewer cards). With `--device cpu` the mesh is N repeats of
-the CPU device: the only place the CLI accepts a repeated device.
+`block.dp_mesh` and `block.mesh` (the mesh's axes and devices), and
+`--reproduce` of one rebuilds exactly that mesh, as it does for a block
+the library generator or the server sampled over a 'DxT' mesh (rc 2 on a
+host that lacks a recorded device). A sidecar with `dp_mesh` alone (the
+JAX package's, or the port's before it recorded the mesh) is rebuilt over
+a 1-D mesh of that size (rc 2 on a host with fewer cards). With `--device
+cpu` the mesh is N repeats of the CPU device: the only place the CLI
+accepts a repeated device.
 
 Usage:
     python -m synt_isic_tpu_torch.cli --checkpoints DIR --class-counts MEL:8 \
@@ -57,7 +62,7 @@ from .io.color_stats import apply_mean_shift_postprocessing, load_color_statisti
 from .io.csv_io import append_groundtruth_row, initialize_groundtruth_csv
 from .io.images import save_image, write_sidecar_metadata
 from .model_manager import ModelManager
-from .parallel.mesh import data_mesh
+from .parallel.mesh import data_mesh, mesh_record, recorded_mesh
 from .parallel.sharded_sampler import ShardedSampler
 
 LAST_ORIGINAL_ISIC_NUMBER = 34320  # last id of the real ISIC2018 Task3 set
@@ -190,10 +195,10 @@ class ConsoleGenerator:
                                 "postprocess": ("mean_shift" if postprocess
                                                 else None),
                             },
-                            # a mesh block also records the mesh's device
-                            # count, even for one image
+                            # a mesh block also records the mesh, even for
+                            # one image
                             **({"block": {"seeds": [int(s) for s in seeds], "index": j,
-                                          **({"dp_mesh": int(self.mesh.devices.size)}
+                                          **(mesh_record(self.mesh)
                                              if self.mesh is not None else {})}}
                                if block > 1 or self.mesh is not None else {}),
                         })
@@ -302,8 +307,9 @@ def reproduce_from_sidecar(sidecar_path: str, checkpoints_dir: Optional[str],
     slice cannot reproduce (a block sampled over a mesh of more devices than
     this host has, an in-memory img2img source), or one whose sampler or
     dtype had to be assumed and could not be checked. A mesh block is
-    rebuilt over a mesh of the recorded size (on the CPU, repeats of the
-    CPU device).
+    rebuilt over the recorded mesh, its axes and devices (rc 2 where this
+    host lacks one of them); a block that records only `dp_mesh` over a
+    1-D mesh of that size (on the CPU, repeats of the CPU device).
 
     The initial noise of the recorded seed is hashed before anything is
     written: a sidecar from another noise stream (the JAX package's, or
@@ -315,18 +321,14 @@ def reproduce_from_sidecar(sidecar_path: str, checkpoints_dir: Optional[str],
         print("sidecar records no seed — cannot reproduce", file=sys.stderr)
         return 1
     sched = meta.get("scheduler") or {}
-    # a block sampled over a mesh is rebuilt over a mesh of the same size:
-    # the shard shapes pick the convolution algorithms
-    mesh = None
-    n_dev = int((meta.get("block") or {}).get("dp_mesh") or 0)
-    if n_dev:
-        on_cuda = torch.device(device or "cuda").type == "cuda"
-        have = torch.cuda.device_count() if on_cuda else n_dev
-        if have < n_dev:
-            print(f"sidecar block was sampled over a {n_dev}-device mesh; this host "
-                  f"has {have} — the layout cannot be rebuilt here", file=sys.stderr)
-            return 2
-        mesh = data_mesh(n_dev, device)
+    # a block sampled over a mesh is rebuilt over the recorded mesh (or,
+    # from `dp_mesh` alone, a 1-D mesh of that size): the shard shapes pick
+    # the convolution algorithms, and a 'model' axis the sharded layers
+    try:
+        mesh = recorded_mesh(meta.get("block") or {}, device)
+    except LookupError as refused:
+        print(str(refused), file=sys.stderr)
+        return 2
     i2i = meta.get("img2img")
     source = mask = None
     if i2i:
@@ -549,7 +551,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard sampling over an N-device data-parallel mesh "
                         "(-1 = every local card; 0 = one device). Per-seed "
                         "noise streams keep each image the one-device image; "
-                        "sidecars record the mesh size. With --device cpu the "
+                        "sidecars record the mesh (size, axes and devices) and "
+                        "--reproduce rebuilds it. With --device cpu the "
                         "mesh is N repeats of the CPU device (the only place "
                         "a repeated device is accepted)")
     p.add_argument("--augment-source", type=str, metavar="IMAGE",

@@ -58,13 +58,15 @@ Data-parallel sampling (`set_mesh`, reference `generator.py:200-206,
 seeds split over the mesh's 'data' axis (padded cyclically), each shard
 walked on its device. Per-seed noise streams keep each image the
 single-device image up to batch-composition rounding, and a block sampled
-over a mesh records the mesh's device count in its sidecar
-(`block.dp_mesh`, even for one image), so `--reproduce` rebuilds the same
-layout. On a ('data', 'model') mesh each shard walks on its row with the
-UNet channel-sharded over the 'model' axis (tensor parallelism); the
-sidecar records the mesh's D x T device count, as the JAX generator does,
-and `--reproduce` rebuilds a 1-D mesh of that many devices, as the JAX CLI
-does, so the byte identity of such a block is not guaranteed.
+over a mesh records the mesh in its sidecar, even for one image:
+`block.dp_mesh`, its device count, as the JAX generator records it, and
+`block.mesh`, its axes and devices (`parallel.mesh.mesh_record`). On a
+('data', 'model') mesh each shard walks on its row with the UNet
+channel-sharded over the 'model' axis (tensor parallelism); `--reproduce`
+rebuilds exactly the recorded mesh, 'model' axis included, so such a block
+regenerates byte for byte. A sidecar with `dp_mesh` alone (the JAX
+package's, or the port's before it recorded the mesh) is rebuilt over a
+1-D mesh of that many devices, as the JAX CLI does.
 """
 from __future__ import annotations
 
@@ -83,6 +85,7 @@ from PIL import Image
 
 from .cache import CacheManager
 from .diffusion.sampler import HostCopy, to_uint8_images
+from .parallel.mesh import mesh_record
 from .parallel.sharded_sampler import ShardedSampler
 from .io.color_stats import apply_color_postprocessing, load_color_statistics
 from .io.csv_io import append_synthetic_row, initialize_synthetic_csv
@@ -363,15 +366,14 @@ class ImageGenerator:
         """The sidecar's `block` field of image `index` of a device block: a
         multi-image block (or any, with `always`) records its seeds (and,
         conditional, its classes) so --reproduce can rebuild it; a block
-        sampled over a mesh also records the mesh's device count, even for
-        one image."""
+        sampled over a mesh also records the mesh (`mesh_record`: its device
+        count, axes and devices), even for one image."""
         if len(seeds) == 1 and self.mesh is None and not always:
             return None
         return {"block": {"seeds": [int(s) for s in seeds], "index": int(index),
                           **({"classes": list(classes)}
                              if self.model_manager.conditional and classes else {}),
-                          **({"dp_mesh": int(self.mesh.devices.size)}
-                             if self.mesh is not None else {})}}
+                          **(mesh_record(self.mesh) if self.mesh is not None else {})}}
 
     def _sample_batch(self, class_name: str, seeds: np.ndarray,
                       capture_trajectory: bool) -> Optional[Dict[str, Any]]:

@@ -31,7 +31,7 @@ their own local mesh (`multihost.hybrid_mesh`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -137,6 +137,56 @@ def data_mesh(n: int, device: Union[str, torch.device, None] = None) -> Mesh:
     surface's device: on CUDA over the local cards, on the CPU `n` repeats
     of the one CPU device (-1 there is 1)."""
     return surface_mesh({"data": int(n)}, device)
+
+
+def mesh_record(mesh: Mesh) -> Dict[str, Any]:
+    """What a sidecar's `block` records of the mesh a block was sampled
+    over: `dp_mesh`, its device count (the JAX package's field, which a
+    JAX reader still finds), and `mesh`, its axes and devices in mesh order
+    (e.g. {"axes": {"data": 1, "model": 2}, "devices": ["cuda:0",
+    "cuda:0"]}), so that `--reproduce` rebuilds the same layout, a 'model'
+    axis included (`recorded_mesh`)."""
+    return {"dp_mesh": int(mesh.devices.size),
+            "mesh": {"axes": {name: int(size) for name, size
+                              in zip(mesh.axis_names, mesh.devices.shape)},
+                     "devices": [str(d) for d in mesh.devices.reshape(-1)]}}
+
+
+def _present(device: torch.device) -> bool:
+    """This host has `device`: the CPU (any index), or a visible card."""
+    if device.type == "cpu":
+        return True
+    return (device.type == "cuda" and torch.cuda.is_available()
+            and (device.index or 0) < torch.cuda.device_count())
+
+
+def recorded_mesh(block: Dict[str, Any],
+                  device: Union[str, torch.device, None] = None) -> Optional[Mesh]:
+    """The mesh a sidecar's `block` records, for `--reproduce`: exactly the
+    recorded axes and devices where it has `mesh` (`mesh_record`); a 1-D
+    'data' mesh of `dp_mesh` devices for `device` (`data_mesh`) where it
+    has only `dp_mesh` (a sidecar of the JAX package, or of the port before
+    it recorded the mesh); None for a block sampled without a mesh. Raises
+    LookupError where this host lacks a recorded device, or has fewer cards
+    than `dp_mesh`."""
+    record = block.get("mesh")
+    if record:
+        devices = [torch.device(d) for d in record["devices"]]
+        missing = sorted({str(d) for d in devices if not _present(d)})
+        if missing:
+            raise LookupError(f"sidecar block was sampled over the mesh {record['axes']} on "
+                              f"{record['devices']}; this host lacks {', '.join(missing)} "
+                              f"— the layout cannot be rebuilt here")
+        return create_mesh(record["axes"], devices)
+    n_dev = int(block.get("dp_mesh") or 0)
+    if not n_dev:
+        return None
+    on_cuda = torch.device(device or "cuda").type == "cuda"
+    have = torch.cuda.device_count() if on_cuda else n_dev
+    if have < n_dev:
+        raise LookupError(f"sidecar block was sampled over a {n_dev}-device mesh; this "
+                          f"host has {have} — the layout cannot be rebuilt here")
+    return data_mesh(n_dev, device)
 
 
 def pad_to_multiple(n: int, multiple: int) -> int:

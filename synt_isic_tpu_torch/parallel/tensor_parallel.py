@@ -31,9 +31,14 @@ PyTorch, as `replicas.py` does for data parallelism:
     computes. `ROUTES` counts each block call by route.
 
 One host thread drives a row: work on different cards is queued in turn
-and overlaps on the devices; the copies between cards are `non_blocking`
-and follow stream order. There is no NCCL and no CPU fallback: on CUDA
-devices the kernels launch or raise.
+and overlaps on the devices. A copy to a card is `non_blocking` and follows
+stream order. A copy to the host blocks until the data has landed, because
+the host reads it at once: a CPU shard's layer reads its input, and a row
+whose first device is the CPU concatenates the slices there. A row mixes kinds freely: the attention cores take the
+kernels wherever a replica on one of the row's devices would (`unet_copy`),
+so a shard on a card launches K1 and a shard on the CPU runs its plain
+version. There is no NCCL and no CPU fallback: on CUDA devices the kernels
+launch or raise.
 """
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ import torch.nn as nn
 
 from ..models.unet2d import AttentionBlock, Conv2d, Embedding, Linear
 from .mesh import canonical, tp_shard_dims
-from .replicas import unet_copy
+from .replicas import module_device, unet_copy
 
 HEADS = "heads"     # each device runs the core on its own heads
 FIRST = "first"     # q, k, v gathered; the core over all heads on the first device
@@ -61,20 +66,27 @@ def _count(route: str) -> None:
         ROUTES[route] += 1
 
 
+def _to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """x on `device`. A copy to a card is queued in stream order
+    (`non_blocking`); a copy to the host blocks until the data has landed,
+    since the host reads it at once and a `non_blocking` one lands in pinned
+    memory after the call returns."""
+    return x.to(device, non_blocking=device.type == "cuda")
+
+
 def _spread(x: torch.Tensor, devices: Sequence[torch.device]) -> List[torch.Tensor]:
     """x on each device of `devices` (x itself on the first), one copy per
     distinct device."""
     copies: Dict[torch.device, torch.Tensor] = {devices[0]: x}
     for d in devices[1:]:
         if d not in copies:
-            copies[d] = x.to(d, non_blocking=True)
+            copies[d] = _to(x, d)
     return [copies[d] for d in devices]
 
 
 def _gather(parts: Sequence[torch.Tensor], first: torch.device, dim: int) -> torch.Tensor:
     """The slices concatenated along `dim` on `first`, in row order."""
-    return torch.cat([p if p.device == first else p.to(first, non_blocking=True)
-                      for p in parts], dim=dim)
+    return torch.cat([p if p.device == first else _to(p, first) for p in parts], dim=dim)
 
 
 def _slice_module(module: nn.Module, dim: int, start: int, size: int,
@@ -160,9 +172,20 @@ def _shard(module: nn.Module, name: str, dims: Dict[str, int],
     return module if dim is None else ShardedLayer(module, devices, dim)
 
 
+def _fused_on_row(model, row: List[torch.device]) -> bool:
+    """Whether the row's attention cores take the kernels: where a replica
+    on any device of the row would (`unet_copy`'s switch: the model's own on
+    a device of its kind, else on for a card). The wrapper then launches K1
+    for a shard on a card and runs the plain version for one on the CPU."""
+    kind = module_device(model).type
+    return any(model.use_fused_attention if d.type == kind else d.type == "cuda"
+               for d in row)
+
+
 def _build(model, row: List[torch.device]):
     tp = len(row)
     base = unet_copy(model, row[0])
+    fused = _fused_on_row(model, row)
     dims = tp_shard_dims(base, tp)
     blocks = [name for name, m in base.named_modules() if isinstance(m, AttentionBlock)]
     for name, module in list(base.named_modules()):
@@ -172,6 +195,7 @@ def _build(model, row: List[torch.device]):
             route = attention_route(module.to_q.in_features, module.head_dim, tp,
                                     module.fused_heads_per_program)
             module.__class__ = TPAttentionBlock
+            module.use_fused = fused
             for proj in ("to_q", "to_k", "to_v"):
                 setattr(module, proj, _shard(getattr(module, proj), f"{name}.{proj}",
                                              dims, row))

@@ -1308,3 +1308,82 @@ def test_tp_replica_runs_the_kernels_under_grad(cuda):
     launched = _launched(before)
     assert launched[attention.KERNEL] == launched[attention.BWD_KERNEL] == 12
     assert torch.isfinite(x.grad).all()
+
+
+def _just_written(cuda, seed):
+    """A 32 MB tensor on the card that a kernel writes after the stream has
+    spun for about a fifth of a second (`torch.cuda._sleep`): a copy queued
+    behind it lands long after the host's next read."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    a = torch.randn(4096, 2048, generator=g, device=cuda)
+    torch.cuda._sleep(400_000_000)
+    return a * 3 + 1
+
+
+@pytest.mark.parametrize("where", ["spread", "gather"])
+def test_tp_copies_to_the_cpu_land_before_the_host_reads(cuda, where):
+    """A tensor-parallel row over the card and the CPU copies activations
+    to the host in two places: `_spread` hands a CPU shard's layer its
+    input, and `_gather` concatenates the slices on a CPU first device.
+    The host reads either at once, so what it reads is the card's tensor
+    (`x.cpu()`), never memory a queued copy has yet to fill."""
+    from synt_isic_tpu_torch.parallel import tensor_parallel
+
+    cpu, card = torch.device("cpu"), torch.device("cuda", torch.cuda.current_device())
+    # as in a walk, every kernel below has run before, so no first launch
+    # (a lazy module load) waits for the card; a seed of its own keeps a
+    # reused pinned block from holding these values already
+    _just_written(cuda, 0)
+    torch.cuda.synchronize()
+    x = _just_written(cuda, {"spread": 1, "gather": 2}[where])
+    if where == "spread":
+        # the host's first read of the CPU shard's copy
+        seen = tensor_parallel._spread(x, [card, cpu])[1].clone()
+    else:
+        seen = tensor_parallel._gather([torch.zeros(x.shape[0], 1), x], cpu, 1)[:, 1:]
+    assert torch.equal(seen, x.cpu())
+
+
+@pytest.mark.parametrize("row", ["cuda-cpu", "cpu-cuda"])
+def test_tp_walk_over_the_card_and_the_cpu_matches_unsharded(cuda, monkeypatch, row):
+    """A 1 x 2 ('data', 'model') mesh over the card and the CPU, in either
+    order (activations on the row's first device): the card's shard
+    launches K1 6 times per UNet evaluation at its 4 of 8 heads, the CPU's
+    shard runs the plain version, and the walk (every frame) is within 1e-3
+    of the unsharded walk under full-f32 convolutions (MESH_WALK_TOL in
+    `chip_smoke.py`)."""
+    from synt_isic_tpu_torch.parallel import ShardedSampler, create_mesh
+    from synt_isic_tpu_torch.parallel import tensor_parallel
+
+    cfg = UNet2DConfig(sample_size=32, block_out_channels=(32, 64, 64, 64))
+    model = _walk_models(cuda, cfg)[True]
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    steps, seeds = 3, [1, 2]
+    sampler = DiffusionSampler(DiffusionSchedule.create(),
+                               SamplerConfig(num_inference_steps=steps, scheduler="ddim",
+                                             image_size=32), device=cuda)
+    devices = {"cuda-cpu": [cuda, "cpu"], "cpu-cuda": ["cpu", cuda]}[row]
+    sharded = ShardedSampler(sampler, create_mesh({"data": 1, "model": 2}, devices))
+    assert sharded.tp_axis == "model"
+    heads, original = [], attention._ForwardPlan.__call__
+
+    def call(plan, q, k, v):
+        heads.append(q.shape[1])
+        return original(plan, q, k, v)
+
+    from unittest import mock
+
+    before, routes = dict(attention.LAUNCHES), dict(tensor_parallel.ROUTES)
+    with mock.patch.object(attention._ForwardPlan, "__call__", call):
+        got = sharded.sample(model, seeds, capture_trajectory=True)
+    launched = _launched(before)
+    assert launched[attention.KERNEL] == 6 * steps == len(heads)
+    assert set(heads) == {4}
+    assert (tensor_parallel.ROUTES[tensor_parallel.HEADS] - routes[tensor_parallel.HEADS]
+            == 6 * steps)
+    want = sampler.sample(model, seeds, capture_trajectory=True)
+    assert got["images"].device == want["images"].device
+    assert torch.isfinite(got["images"]).all()
+    torch.testing.assert_close(got["trajectory"].to(want["trajectory"].device),
+                               want["trajectory"], rtol=1e-3, atol=1e-3)
+    assert list(got["noise_hashes"]) == list(want["noise_hashes"])

@@ -333,3 +333,107 @@ def test_multi_process_tp_is_refused_with_jax_message(model, monkeypatch):
     with pytest.raises(NotImplementedError) as got:
         ShardedSampler(_port_sampler(), mesh).sample(model, np.arange(2, dtype=np.uint32))
     assert str(got.value) == str(want.value)
+
+
+# -- a tensor-parallel block's sidecar and its --reproduce ---------------------------------
+
+@pytest.fixture(scope="module")
+def ckpt_dir(model, tmp_path_factory):
+    from synt_isic_tpu_torch.io.pth import save_checkpoint
+
+    path = tmp_path_factory.mktemp("tp_ckpt")
+    save_checkpoint(model.state_dict(), str(path / "unet_MEL_best.pth"))
+    return path
+
+
+@pytest.fixture(scope="module")
+def tp_block(ckpt_dir, tmp_path_factory):
+    """Two MEL images in one block of `ImageGenerator` over a 1 x 2 mesh on
+    [cpu, cpu:1] (two devices of a row): their PNGs and sidecars."""
+    from synt_isic_tpu_torch.generator import ImageGenerator
+
+    out = tmp_path_factory.mktemp("tp_block")
+    gen = ImageGenerator(checkpoints_dir=str(ckpt_dir), model_config=TINY, device="cpu")
+    gen.set_inference_steps(STEPS)
+    gen.set_generation_seed(4)
+    gen.scheduler_kind = "ddim"
+    gen.batch_size = 2
+    gen.set_mesh(create_mesh(MESHES["1x2"], [CPU, torch.device("cpu", 1)]))
+    assert gen.generate_images([("MEL", 2)], str(out))["generated"] == 2
+    return sorted((out / "MEL").glob("*.json"))
+
+
+def _reproduce_recording_mesh(sidecar, ckpt_dir, monkeypatch):
+    """`reproduce_from_sidecar` on the CPU: (rc, the mesh it set on the
+    generator, or None)."""
+    from synt_isic_tpu_torch import cli
+    from synt_isic_tpu_torch.generator import ImageGenerator
+
+    meshes = []
+    set_mesh = ImageGenerator.set_mesh
+    monkeypatch.setattr(ImageGenerator, "set_mesh",
+                        lambda self, mesh: (meshes.append(mesh), set_mesh(self, mesh))[1])
+    rc = cli.reproduce_from_sidecar(str(sidecar), str(ckpt_dir), model_config=TINY,
+                                    device="cpu")
+    return rc, (meshes[-1] if meshes else None)
+
+
+def _edited(sidecar, folder, change):
+    """A copy of `sidecar`, with `change` applied to its block, beside a
+    copy of its image, in `folder`."""
+    import json
+    import shutil
+
+    meta = json.loads(sidecar.read_text())
+    change(meta["block"])
+    folder.mkdir()
+    shutil.copy(sidecar.with_name(meta["filename"]), folder / meta["filename"])
+    path = folder / sidecar.name
+    path.write_text(json.dumps(meta))
+    return path
+
+
+def test_tp_block_records_its_mesh_and_reproduces_over_it(tp_block, ckpt_dir, monkeypatch,
+                                                          capsys):
+    """A 1 x 2 block's sidecars record `dp_mesh` (D x T, the JAX package's
+    field) and the mesh's axes and devices; `--reproduce` rebuilds exactly
+    that mesh, its 'model' axis included, and is byte-identical."""
+    import json
+
+    for sidecar in tp_block:
+        block = json.loads(sidecar.read_text())["block"]
+        assert block["dp_mesh"] == 2
+        assert block["mesh"] == {"axes": {"data": 1, "model": 2}, "devices": ["cpu", "cpu:1"]}
+    capsys.readouterr()
+    rc, mesh = _reproduce_recording_mesh(tp_block[1], ckpt_dir, monkeypatch)
+    assert rc == 0 and "byte-identical" in capsys.readouterr().out
+    assert mesh.axis_names == ("data", "model") and mesh.shape == {"data": 1, "model": 2}
+    assert mesh.rows() == [[CPU, torch.device("cpu", 1)]]
+    redo = tp_block[1].with_name(tp_block[1].stem + "_reproduced.json")
+    assert json.loads(redo.read_text())["block"]["mesh"]["axes"] == {"data": 1, "model": 2}
+
+
+def test_dp_mesh_only_sidecar_rebuilds_a_1d_mesh(tp_block, ckpt_dir, tmp_path, monkeypatch):
+    """A sidecar whose block has `dp_mesh` alone (as the JAX package, and the
+    port before it recorded the mesh, write it) is rebuilt over a 1-D 'data'
+    mesh of that many devices, as before: here 2 repeats of the CPU."""
+    legacy = _edited(tp_block[0], tmp_path / "legacy", lambda b: b.pop("mesh"))
+    rc, mesh = _reproduce_recording_mesh(legacy, ckpt_dir, monkeypatch)
+    assert rc in (0, 1)      # the 1-D walk need not round as the sharded one did
+    assert mesh.axis_names == ("data",) and mesh.shape == {"data": 2}
+    assert [str(d) for d in mesh.devices.reshape(-1)] == ["cpu", "cpu"]
+
+
+def test_recorded_device_the_host_lacks_exits_2(tp_block, ckpt_dir, tmp_path, monkeypatch,
+                                                capsys):
+    """A block recorded over a card this host does not have is refused with
+    rc 2 before any model is built, and nothing is written."""
+    missing = f"cuda:{torch.cuda.device_count()}"
+    edited = _edited(tp_block[0], tmp_path / "missing",
+                     lambda b: b["mesh"].update(devices=["cpu", missing]))
+    capsys.readouterr()
+    rc, mesh = _reproduce_recording_mesh(edited, ckpt_dir, monkeypatch)
+    assert rc == 2 and mesh is None
+    err = capsys.readouterr().err
+    assert missing in err and "cannot be rebuilt here" in err
+    assert not list(edited.parent.glob("*_reproduced*"))
