@@ -10,35 +10,41 @@ Phases, each of which exits non-zero on failure:
      both sides, since under TF32 a 1e-6 change in an attention output can
      flip a TF32 rounding (2^-11 relative) downstream;
   2. build every hand-written kernel from the sources in the checkout, all
-     `nvcc`s at once, with each kernel's registers and spills, and the
-     SASS count of HMMA (tensor-core) and MUFU.EX2 instructions in the
-     head_dim-8 tensor-core kernels (the forward's 8 bf16 instances and 8
-     f32 (3xTF32) ones, exact and fast math at G 1/2/4/8, and the
-     backward's two kernels at each G in bf16 and in f32 (3xTF32)), each of
-     which must hold HMMA and spill nothing;
+     `nvcc`s at once, with each kernel's registers and spills, the build
+     seconds and the instance count, and the SASS count of HMMA
+     (tensor-core) and MUFU.EX2 instructions in every tensor-core instance
+     (TC_KERNELS: the forward in bf16 and in f32 (3xTF32), exact and fast
+     math, and the backward's two kernels in each dtype, at every staged
+     width Dp 8/16/32/64 with G 1/2/4/8 where G * Dp <= 64, and at G 1 for
+     the general staging), each of which must hold HMMA and spill nothing;
   3. the attention forward against its plain PyTorch version at the
      sampling path's shapes (and at batch 16, the guided sampler's and the
-     trainer's, and at ragged T, 101 and 1000), in both layouts; at head_dim
-     8 also its log-sum-exp against `attention_lse_reference` and the
-     output torch.equal with and without it, and in f32 the kernel against
-     `attention_tf32x3_kernel_order` (TF32_ORDER_TOL); then timed beside its
+     trainer's, and at ragged T, 101 and 1000), in both layouts; also its
+     log-sum-exp against `attention_lse_reference` and the output
+     torch.equal with and without it, and in f32 the kernel against
+     `attention_tf32x3_kernel_order` (`tf32_order_tol`); then timed beside its
      bound (the largest of bytes, products and one pass of exponentials),
      the plain version and `scaled_dot_product_attention`, launched from
      the host and, for the device time alone, replayed from a CUDA graph;
      then the kernel table's own rows (`python3 chip_smoke.py
      --kernel-table` runs them alone): K2, the (B, H, T, D) layout, in turns
      with K1 (the UNet's views) and SDPA at the UNet's shapes, both dtypes;
-     the head_dim-4 CUDA-core forward and backward checked and timed at the
-     tiny test config's calls and at (8,64,1024,4) beside their bounds, the
-     plain versions and SDPA;
+     every other head_dim's route (K1 and K3 on the tensor cores at a staged
+     width of 8 for D 4, of D itself for 16, 32 and 64) checked (forward and
+     lse, fast math against its order, backward from the saved statistics
+     against plain and its order, G bit identity) and timed at D4_SHAPES
+     (the tiny test config's calls and (8,64,1024,4)) and at HEADDIM_SHAPES,
+     (8, 256/D, 1024, D), both dtypes, host-launched and from a CUDA graph,
+     in turns with SDPA (the backward with SDPA's backward alone on a
+     prebuilt forward), beside their bounds and the plain versions;
   4. the attention backward likewise at the training path's shapes and at
-     ragged T; at head_dim 8 (the tensor-core kernels, f32 and bf16) also
-     from the exact forward's saved output and log-sum-exp: the output
+     ragged T; also from the exact forward's saved output and log-sum-exp:
+     the output
      torch.equal with and without the log-sum-exp, the log-sum-exp against
      `attention_lse_reference`, the gradients against the plain version of
      the kernel's own rounding (bf16 `attention_bwd_kernel_order` within
      BWD_ORDER_TOL, f32 `attention_bwd_tf32x3_kernel_order` within
-     TF32_BWD_ORDER_TOL), two calls and the standalone call (with its
+     `tf32_order_tol`), two calls and the standalone call (with its
      statistics launch) torch.equal; timed from saved statistics,
      standalone, beside SDPA's backward alone, and its forward+backward
      beside the plain path's and `scaled_dot_product_attention`'s through
@@ -320,6 +326,18 @@ Phases, each of which exits non-zero on failure:
      with 2 x 6 x (10 + 10 + 20) = 480 launches, the cold and warm seconds
      printed; `GPU_PEAKS` holds the card's name. `python3 chip_smoke.py
      --app` runs card, build, [unet] and this phase alone;
+ 16f. [headdim] the library path at other head_dims: for attention_head_dim
+     in HEADDIM_WALKS (4, 32, 64: 64, 8 and 4 heads at the 256-channel
+     blocks) `ImageGenerator(model_config=UNet2DConfig(attention_head_dim=D))`
+     on one full-width checkpoint (the weights do not depend on D), f32
+     exact, DDIM 10, `generate_images([("MEL", 16)])` in two blocks of 8:
+     exactly 120 K1 launches, all at that head count, 16 PNGs; the first
+     block's walk kernel vs plain attention (`use_fused_attention` off)
+     under full-f32 convolutions within HEADDIM_WALK_TOL; then at head_dim
+     32 a few warm steps of `make_train_step` at batch 32, bf16: 6 K1 with
+     their statistics and 6 K3 per step, no statistics launch, and the
+     full-width UNet's f32 gradient kernel vs plain within UNET_GRAD_TOL
+     (`python3 chip_smoke.py --headdim` runs card, build and this phase);
  17. a JSON line of per-kernel numbers, then as the last line
      {"ok": true, "device": {...}}.
 
@@ -395,12 +413,23 @@ UNET_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
 MAIN_SHAPES = [(8, 32, 1024, 8), (8, 32, 256, 8)]   # the UNet's 6 calls at batch 8
 # [kernel]'s table rows: K2 (the (B, H, T, D) layout) at MAIN_SHAPES beside
-# K1 (the UNet's (B, T, C) views) and SDPA, in turns; the head_dim-4
-# CUDA-core kernels, forward and backward, at the tiny test config's calls
-# (batch 2: 4 heads at T = 64 and at T = 16) and at (8, 64, 1024, 4), beside
-# their bound, the plain version and SDPA's call (its backward alone on a
-# prebuilt forward)
+# K1 (the UNet's (B, T, C) views) and SDPA, in turns; head_dim 4 (the
+# tensor-core kernels at a staged width of 8), forward and backward, at the
+# tiny test config's calls (batch 2: 4 heads at T = 64 and at T = 16) and at
+# (8, 64, 1024, 4), and head_dims 16, 32 and 64 at the main path's size, 256
+# channels in heads of D, beside their bound, the plain version and SDPA's
+# call (its backward alone on a prebuilt forward)
 D4_SHAPES = [(2, 4, 64, 4), (2, 4, 16, 4), (8, 64, 1024, 4)]
+HEADDIM_SHAPES = [(8, 16, 1024, 16), (8, 8, 1024, 32), (8, 4, 1024, 64)]
+# [headdim]: the generator's walks at these attention_head_dims (64, 8 and 4
+# heads at the 256-channel blocks, 16 images in two blocks of 8), each kernel
+# vs plain attention within HEADDIM_WALK_TOL (f32 attention outputs 2e-5
+# apart at most, carried through 10 DDIM steps of the full UNet under
+# full-f32 convolutions: the [tp] and [mesh] walks, held to the same kernel,
+# land within 3e-5-5e-5), and the train steps at head_dim 32
+HEADDIM_WALKS = (4, 32, 64)
+HEADDIM_WALK_TOL = 1e-3
+HEADDIM_TRAIN_DIM, HEADDIM_TRAIN_STEPS = 32, 3
 TABLE_ROUNDS = 3     # timings in turns, medians
 CLI_STEPS, CLI_BATCH = 10, 8
 ATTENTION_CALLS_PER_UNET = 6
@@ -420,7 +449,8 @@ BWD_ORDER_TOL = 1e-2
 # the forward's base-2 log-sum-exp against its plain version: f32 sums of up
 # to T = 1024 terms in another order, T * 2^-24 / ln 2 = 8.8e-5 at worst
 LSE_TOL = 1e-4
-# the f32 tensor-core forward against `attention_tf32x3_kernel_order`, the
+# the f32 tensor-core forward against `attention_tf32x3_kernel_order` at
+# head_dim 8 (`tf32_order_tol` below for the other staged widths), the
 # same splits and products in the same order of terms: they differ only where
 # f32 rounds, in the tensor cores' accumulation, ex2.approx (2^-22 relative)
 # and the order of the f32 row sums, each a few f32 ulps of a weight or a
@@ -442,10 +472,27 @@ TF32_ORDER_TOL = 5e-6
 # fifth of BWD_TOL, which one TF32 pass misses 10-50x
 # (tests/test_torch_attention_tf32_bwd.py)
 TF32_BWD_ORDER_TOL = 1e-5
+
+
+def tf32_order_tol(head_dim: int, bwd: bool = False) -> float:
+    """The f32 kernels' limits against their rounding orders at any
+    head_dim: the limits at head_dim 8 (TF32_ORDER_TOL, TF32_BWD_ORDER_TOL,
+    derived above) times sqrt(Dp / 8), Dp the staged width. At Dp the
+    products over channels (S, dP) chain Dp / 8 k-steps of three TF32
+    products each before the f32 adds that follow, so Dp / 8 times as many
+    truncated f32 sums enter each logit; a share shared by a row's logits
+    cancels in the softmax, and the rest, independent from step to step,
+    grows as the square root of the chain. The products that give channels
+    (P V, dS K, ...) chain over keys, as at head_dim 8. On the H100 every D
+    from 1 to 64 reads about 5e-7 forward and 1e-6 max|g| backward, near
+    head_dim 8's own readings."""
+    base = TF32_BWD_ORDER_TOL if bwd else TF32_ORDER_TOL
+    return base * math.sqrt(attention.staged_width(head_dim) / 8)
 # ragged T (a short last key tile, a short last block of rows), checked in
-# both dtypes, at head_dim 8 (the tensor-core kernels) with the forward's lse
-# and the backward from it
-RAGGED_SHAPES = [(2, 4, 101, 8), (2, 32, 1000, 8)]
+# both dtypes with the forward's lse and the backward from it, at head_dim 8
+# and at head_dims that leave part of the staged width zero (D 5, 12, 40)
+RAGGED_SHAPES = [(2, 4, 101, 8), (2, 32, 1000, 8), (2, 4, 101, 5), (2, 8, 77, 12),
+                 (2, 2, 130, 40)]
 # whole-UNet parameter gradients, per parameter as max|diff| / max|g|. f32
 # (full-f32 convolutions): kernel path vs plain attention within 1e-3. bf16
 # compute on f32 parameters: every layer rounds to 8 bits of mantissa, and
@@ -985,15 +1032,26 @@ def phase_card() -> dict:
             "count": torch.cuda.device_count()}
 
 
-# the head_dim-8 kernels on the tensor cores (bf16, and f32 in 3xTF32; the
-# forward exact and fast math): instances per source
-TC_KERNELS = {attention.KERNEL: {"attention_fwd_tc_kernel": 2 * len(GROUPS),
-                                 "attention_fwd_tf32_kernel": 2 * len(GROUPS)},
-              attention.BWD_KERNEL: {"attention_bwd_dq_tc_kernel": len(GROUPS),
-                                     "attention_bwd_dkdv_tc_kernel": len(GROUPS),
-                                     "attention_bwd_dq_tf32_kernel": len(GROUPS),
-                                     "attention_bwd_dkdv_tf32_kernel": len(GROUPS)}}
-_KERNEL_NAME = re.compile(r"(attention_[a-z_]+?(?:tf32_)?kernel)(I\w*?E)Ev")
+# the tensor-core kernels (bf16, and f32 in 3xTF32; the forward exact and
+# fast math): instances per source. The templates run at the staged widths
+# 16, 32 and 64 with every G of GROUPS where G * Dp <= MAX_GROUP_WIDTH (the
+# Wide instances), and at G = 1 at every width for the general staging; head
+# dim 8 at full width runs the `_d8` kernels at every G
+_WIDE = sum(1 for w in attention.STAGED_WIDTHS[1:] for g in GROUPS
+            if g * w <= attention.MAX_GROUP_WIDTH)
+_TEMPLATES = _WIDE + len(attention.STAGED_WIDTHS)
+TC_KERNELS = {attention.KERNEL: {"attention_fwd_tc_kernel": 2 * _TEMPLATES,
+                                 "attention_fwd_tf32_kernel": 2 * _TEMPLATES,
+                                 "attention_fwd_tc_d8_kernel": 2 * len(GROUPS),
+                                 "attention_fwd_tf32_d8_kernel": 2 * len(GROUPS)},
+              attention.BWD_KERNEL: {**{f"attention_bwd_{k}_kernel": _TEMPLATES
+                                        for k in ("dq_tc", "dkdv_tc", "dq_tf32", "dkdv_tf32")},
+                                     **{f"attention_bwd_{k}_d8_kernel": len(GROUPS)
+                                        for k in ("dq_tc", "dkdv_tc", "dq_tf32",
+                                                  "dkdv_tf32")}}}
+# the kernel's own name follows its length in the mangled name (after the
+# anonymous namespace, which names the source file)
+_KERNEL_NAME = re.compile(r"(?<=\d)(attention_[a-z0-9_]+?(?:tf32_)?kernel)(I\w*?E)Ev")
 
 
 def _kernel_label(mangled: str) -> str:
@@ -1006,11 +1064,15 @@ def _kernel_label(mangled: str) -> str:
     return f"{found.group(1)}<{', '.join(words)}>"
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     t0 = time.time()
     names = [attention.KERNEL, attention.BWD_KERNEL]
     logs = native.build(names)
-    print(f"[build] {', '.join(names)} in {time.time() - t0:.1f} s", flush=True)
+    build_s = time.time() - t0
+    instances = sum(log.count("Compiling entry function") for log in logs.values())
+    print(f"[build] {', '.join(names)} in {build_s:.1f} s: {instances} kernel instances "
+          f"(want {sum(sum(v.values()) for v in TC_KERNELS.values())} on the tensor cores)",
+          flush=True)
     cuobjdump = Path(native._nvcc()).with_name("cuobjdump")
     spilled = []
     for name in names:
@@ -1039,17 +1101,19 @@ def phase_build() -> None:
         for label, want in TC_KERNELS[name].items():
             found = {k: c for k, c in counts.items() if k.startswith(label + "<")}
             check(len(found) == want and all(c["HMMA"] > 0 for c in found.values()),
-                  f"[build] HMMA missing in {label} (want {want} instances): {found}")
+                  f"[build] HMMA missing in {label} (want {want} instances): {found}; the "
+                  f"SASS of {name} holds {sorted(counts)}")
             for k, c in sorted(found.items()):
                 print(f"[build]   SASS of {k}: {c['HMMA']} HMMA, {c['MUFU.EX2']} MUFU.EX2",
                       flush=True)
     check(not spilled, f"[build] tensor-core kernels spill: {spilled}")
+    return {"build_s": build_s, "instances": instances}
 
 
 def phase_kernel() -> dict:
     g = torch.Generator(device="cuda").manual_seed(0)
     # the CFG sampler's 2B-batched forward gives batch 16 (checked, not timed)
-    shapes = MAIN_SHAPES + TRAIN_SHAPES + RAGGED_SHAPES + [(2, 4, 64, 4)]
+    shapes = MAIN_SHAPES + TRAIN_SHAPES + RAGGED_SHAPES + [(2, 4, 64, 4)] + HEADDIM_SHAPES
     report = {}
     for shape in shapes:
         b, h, t, d = shape
@@ -1059,7 +1123,7 @@ def phase_kernel() -> dict:
             want = attention.attention_reference(q, k, v).float()
             # the f32 tensor-core kernel's own rounding (3xTF32, max per tile)
             order = (attention.attention_tf32x3_kernel_order(q, k, v)
-                     if dtype == torch.float32 and d == 8 else None)
+                     if dtype == torch.float32 else None)
             # contiguous (B, H, T, D), and the (B, T, C) projection layout
             # split into heads by a view, as the UNet hands it over
             btc = [z.transpose(1, 2).reshape(b, t, h * d) for z in (q, k, v)]
@@ -1081,19 +1145,18 @@ def phase_kernel() -> dict:
                 if order is not None:
                     order_err = (got - order).abs().max().item()
                     print(f"[kernel]   vs attention_tf32x3_kernel_order: max_abs_err "
-                          f"{order_err:.3e} (allowed {TF32_ORDER_TOL:.0e})", flush=True)
-                    check(order_err <= TF32_ORDER_TOL,
+                          f"{order_err:.3e} (allowed {tf32_order_tol(d):.1e})", flush=True)
+                    check(order_err <= tf32_order_tol(d),
                           f"f32 kernel vs its rounding order at {shape} {layout}")
                     report[(shape, dtype, layout, "order")] = order_err
-                if d == 8:
-                    # the tensor-core kernels' log-sum-exp, and the output
-                    # unchanged by writing it
-                    out, lse = attention.fused_attention(*args, with_lse=True)
-                    lse_err = (lse - attention.attention_lse_reference(q, k)).abs().max().item()
-                    print(f"[kernel]   with lse: output torch.equal {torch.equal(out, got)}, "
-                          f"lse max_abs_err {lse_err:.3e} (allowed {LSE_TOL:.0e})", flush=True)
-                    check(torch.equal(out, got) and lse_err <= LSE_TOL,
-                          f"forward lse at {shape} {layout}")
+                # the kernels' log-sum-exp, and the output unchanged by
+                # writing it
+                out, lse = attention.fused_attention(*args, with_lse=True)
+                lse_err = (lse - attention.attention_lse_reference(q, k)).abs().max().item()
+                print(f"[kernel]   with lse: output torch.equal {torch.equal(out, got)}, "
+                      f"lse max_abs_err {lse_err:.3e} (allowed {LSE_TOL:.0e})", flush=True)
+                check(torch.equal(out, got) and lse_err <= LSE_TOL,
+                      f"forward lse at {shape} {layout}")
             if shape in MAIN_SHAPES:
                 kernel_ms = cuda_ms(lambda: attention.fused_attention(*views))
                 device_ms = graph_ms(lambda: attention.fused_attention(*views))
@@ -1117,7 +1180,7 @@ def phase_kernel() -> dict:
 def phase_kernel_bwd() -> dict:
     g = torch.Generator(device="cuda").manual_seed(3)
     report = {}
-    for shape in TRAIN_SHAPES + RAGGED_SHAPES + [(2, 4, 64, 4)]:
+    for shape in TRAIN_SHAPES + RAGGED_SHAPES + [(2, 4, 64, 4)] + HEADDIM_SHAPES:
         b, h, t, d = shape
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -1125,7 +1188,6 @@ def phase_kernel_bwd() -> dict:
             want = attention.attention_bwd_reference(q, k, v, do)
             views = [z.transpose(1, 2).reshape(b, t, h * d).view(b, t, h, d).transpose(1, 2)
                      for z in (q, k, v, do)]
-            tensor_cores = d == 8
             for layout, args in (("BHTD", (q, k, v, do)), ("BTC", views)):
                 got = attention.fused_attention_bwd(*args)
                 torch.cuda.synchronize()
@@ -1142,8 +1204,7 @@ def phase_kernel_bwd() -> dict:
                 check(ok, f"attention backward kernel disagrees with plain at "
                           f"{shape} {dtype} {layout}")
                 report[(shape, dtype, layout)] = max_abs
-                if tensor_cores:
-                    report[(shape, dtype, layout, "order")] = check_bwd_from_stats(shape, args)
+                report[(shape, dtype, layout, "order")] = check_bwd_from_stats(shape, args)
             if shape in TRAIN_SHAPES:
                 kernel_ms = cuda_ms(lambda: attention.fused_attention_bwd(*views))
                 plain_ms = cuda_ms(lambda: attention.attention_bwd_reference(q, k, v, do),
@@ -1165,14 +1226,12 @@ def phase_kernel_bwd() -> dict:
                              fwd_bwd_ms=pair_ms, plain_fwd_bwd_ms=plain_pair_ms,
                              library_bwd_ms=library_bwd_ms, bound_ms=bound,
                              bound_by=bound_by, exp_ms=exp_ms)
-                extra = ""
-                if tensor_cores:
-                    # the two launches K4 runs, from the forward's statistics
-                    o, lse = attention.fused_attention(*views[:3], with_lse=True)
-                    times["from_stats_ms"] = cuda_ms(
-                        lambda: attention.fused_attention_bwd(*views, o=o, lse=lse))
-                    extra = (f"from saved statistics {times['from_stats_ms']:.4f} ms, "
-                             f"standalone (with its statistics launch) ")
+                # the two launches K4 runs, from the forward's statistics
+                o, lse = attention.fused_attention(*views[:3], with_lse=True)
+                times["from_stats_ms"] = cuda_ms(
+                    lambda: attention.fused_attention_bwd(*views, o=o, lse=lse))
+                extra = (f"from saved statistics {times['from_stats_ms']:.4f} ms, "
+                         f"standalone (with its statistics launch) ")
                 print(f"[time] attention backward {shape} {str(dtype)[6:]}: kernel {extra}"
                       f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward alone "
                       f"{library_bwd_ms:.4f} ms, bound {bound:.4f} ms ({unit}), one pass "
@@ -1200,13 +1259,16 @@ def _in_turns_ms(fns: dict, graph: bool = True) -> dict:
 def kernel_table_times() -> dict:
     """[kernel] the kernel table's own rows: K2 in the (B, H, T, D) layout
     at MAIN_SHAPES in both dtypes, in turns with K1 (the UNet's views) and
-    SDPA, host-launched and from a CUDA graph; the head_dim-4 CUDA-core
-    forward and backward at D4_SHAPES (f32, and bf16 at the largest),
-    checked against their plain versions, in turns with SDPA (the backward
-    host-launched, SDPA's backward alone on a prebuilt forward), beside
-    their bounds and the plain versions."""
+    SDPA, host-launched and from a CUDA graph; then every other head_dim's
+    route at D4_SHAPES (f32, and bf16 at the largest) and HEADDIM_SHAPES
+    (both dtypes): the forward and the backward from the forward's saved
+    statistics (K3 as K4 runs it) checked against their plain versions, the
+    forward in turns with SDPA host-launched and from a CUDA graph, the
+    backward host-launched in turns with SDPA's backward alone on a
+    prebuilt forward and from a CUDA graph alone, beside their bounds and
+    the plain versions."""
     g = torch.Generator(device="cuda").manual_seed(5)
-    report = {"K2": {}, "d4_fwd": {}, "d4_bwd": {}}
+    report = {"K2": {}, "head_dim_fwd": {}, "head_dim_bwd": {}}
     for shape in MAIN_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -1226,17 +1288,18 @@ def kernel_table_times() -> dict:
                   f"({row['library_device_ms']:.4f}); bound {bound:.4f} ms ({unit}); medians "
                   f"of {TABLE_ROUNDS} in turns", flush=True)
             del q, k, v, views
-    for shape in D4_SHAPES:
-        dtypes = (torch.float32, torch.bfloat16) if shape == D4_SHAPES[-1] else (torch.float32,)
+    for shape in D4_SHAPES + HEADDIM_SHAPES:
+        dtypes = ((torch.float32,) if shape in D4_SHAPES[:-1]
+                  else (torch.float32, torch.bfloat16))
         for dtype in dtypes:
             name = f"{shape} {str(dtype)[6:]}"
             q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dtype)
                            for _ in range(4))
             want = attention.attention_reference(q, k, v).float()
-            got = attention.fused_attention(q, k, v)
+            got, lse = attention.fused_attention(q, k, v, with_lse=True)
             err = (got.float() - want).abs().max().item()
             check(torch.allclose(got.float(), want, rtol=TOL[dtype], atol=TOL[dtype]),
-                  f"[kernel] head_dim-4 forward at {name}: max_abs_err {err:.3e}")
+                  f"[kernel] head_dim-{shape[-1]} forward at {name}: max_abs_err {err:.3e}")
             t = _in_turns_ms({"kernel": lambda: attention.fused_attention(q, k, v),
                               "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)})
             bound, bound_by, _, unit = attention_bound_ms(shape, dtype)
@@ -1245,39 +1308,43 @@ def kernel_table_times() -> dict:
                                         iters=5),
                        library_ms=t["sdpa"][0], library_device_ms=t["sdpa"][1],
                        bound_ms=bound, bound_by=bound_by, max_abs_err=err)
-            report["d4_fwd"][name] = fwd
-            grads = attention.fused_attention_bwd(q, k, v, do)
+            report["head_dim_fwd"][name] = fwd
+            grads = attention.fused_attention_bwd(q, k, v, do, o=got, lse=lse)
             ref = attention.attention_bwd_reference(q, k, v, do)
             worst = max(((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
                         for a, w in zip(grads, ref))
             check(worst <= BWD_TOL[dtype],
-                  f"[kernel] head_dim-4 backward at {name}: max|diff|/max|g| {worst:.3e}")
+                  f"[kernel] head_dim-{shape[-1]} backward at {name}: max|diff|/max|g| "
+                  f"{worst:.3e}")
             leaves = [z.detach().requires_grad_() for z in (q, k, v)]
             out = F.scaled_dot_product_attention(*leaves)
             t = _in_turns_ms({
-                "kernel": lambda: attention.fused_attention_bwd(q, k, v, do),
+                "kernel": lambda: attention.fused_attention_bwd(q, k, v, do, o=got, lse=lse),
                 "sdpa": lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)},
                 graph=False)
             bbound, bbound_by, _, bunit = attention_bwd_bound_ms(shape, dtype)
-            bwd = dict(ms=t["kernel"][0], library_ms=t["sdpa"][0],
+            bwd = dict(ms=t["kernel"][0],
+                       device_ms=graph_ms(lambda: attention.fused_attention_bwd(
+                           q, k, v, do, o=got, lse=lse)),
+                       library_ms=t["sdpa"][0],
                        plain_ms=cuda_ms(lambda: attention.attention_bwd_reference(q, k, v, do),
                                         iters=5),
                        bound_ms=bbound, bound_by=bbound_by, max_rel_err=worst)
-            report["d4_bwd"][name] = bwd
-            print(f"[kernel] head_dim-4 forward {name}: {fwd['ms']:.4f} ms "
+            report["head_dim_bwd"][name] = bwd
+            print(f"[kernel] head_dim {shape[-1]} forward {name}: {fwd['ms']:.4f} ms "
                   f"({fwd['device_ms']:.4f} from a graph), plain {fwd['plain_ms']:.4f}, sdpa "
                   f"{fwd['library_ms']:.4f} ({fwd['library_device_ms']:.4f}), bound "
-                  f"{bound:.4f} ms ({unit}), {fwd['ms'] / bound:.1f}x it; backward "
-                  f"{bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f}, sdpa backward alone "
-                  f"{bwd['library_ms']:.4f}, bound {bbound:.4f} ms ({bunit}), "
-                  f"{bwd['ms'] / bbound:.1f}x it; medians of {TABLE_ROUNDS} in turns",
-                  flush=True)
-            del q, k, v, do, want, got, grads, ref, leaves, out
+                  f"{bound:.4f} ms ({unit}), {fwd['ms'] / bound:.1f}x it; backward from the "
+                  f"saved statistics {bwd['ms']:.4f} ms ({bwd['device_ms']:.4f} from a graph), "
+                  f"plain {bwd['plain_ms']:.4f}, sdpa backward alone {bwd['library_ms']:.4f}, "
+                  f"bound {bbound:.4f} ms ({bunit}), {bwd['ms'] / bbound:.1f}x it; medians of "
+                  f"{TABLE_ROUNDS} in turns", flush=True)
+            del q, k, v, do, want, got, lse, grads, ref, leaves, out
     return report
 
 
 def check_bwd_from_stats(shape, args) -> float:
-    """The tensor-core backward (f32 or bf16, head_dim 8) from the exact
+    """The tensor-core backward (f32 or bf16, any head_dim) from the exact
     forward's statistics: the output torch.equal with and without the
     log-sum-exp, the log-sum-exp against its plain version, the gradients
     against the plain version of the kernel's own rounding, two calls
@@ -1287,7 +1354,8 @@ def check_bwd_from_stats(shape, args) -> float:
     q, k, v, do = args
     dtype = str(q.dtype)[6:]
     if q.dtype == torch.float32:
-        order_fn, order_tol = attention.attention_bwd_tf32x3_kernel_order, TF32_BWD_ORDER_TOL
+        order_fn = attention.attention_bwd_tf32x3_kernel_order
+        order_tol = tf32_order_tol(shape[-1], bwd=True)
     else:
         order_fn, order_tol = attention.attention_bwd_kernel_order, BWD_ORDER_TOL
     o, lse = attention.fused_attention(q, k, v, with_lse=True)
@@ -1989,6 +2057,131 @@ def phase_unet_grad() -> None:
     print(f"[unet-grad] bf16: the kernel path is as close to the f32 gradients as the "
           f"plain path (allowed {BF16_GRAD_FACTOR['median']} x its median, "
           f"{BF16_GRAD_FACTOR['worst']} x its worst)", flush=True)
+
+
+def phase_headdim(card: str, base: Path) -> dict:
+    """[headdim]: the library generator at other head_dims (HEADDIM_WALKS),
+    f32 exact, DDIM 10, 16 MEL images in two blocks of 8 on one full-width
+    checkpoint: exactly 120 K1 launches each, every one at 256 / D heads;
+    the first block's walk kernel vs plain attention under full-f32
+    convolutions; then the train step at head_dim HEADDIM_TRAIN_DIM (batch
+    BENCH_BATCH, bf16): 6 K1 with their statistics and 6 K3 per step, no
+    statistics launch, and the f32 gradient kernel vs plain."""
+    torch.manual_seed(0)
+    ckpt = base / "checkpoints"
+    ckpt.mkdir(parents=True)
+    torch.save(UNet2D(UNet2DConfig()).state_dict(), ckpt / "unet_MEL_best.pth")
+    want = ATTENTION_CALLS_PER_UNET * CLI_STEPS * GEN_IMAGES // CLI_BATCH
+    report = {"walks": {}}
+    for head_dim in HEADDIM_WALKS:
+        heads = 256 // head_dim
+        cfg = UNet2DConfig(attention_head_dim=head_dim)
+        gen = ImageGenerator(checkpoints_dir=str(ckpt), compute_dtype=torch.float32,
+                             model_config=cfg)
+        gen.scheduler_kind = "ddim"
+        gen.set_inference_steps(CLI_STEPS)
+        gen.batch_size = CLI_BATCH
+        gen.set_generation_seed(GEN_SEED)
+        out = base / f"head_dim_{head_dim}"
+        reset_launches()
+        with heads_per_launch() as launch_heads:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = gen.generate_images([("MEL", GEN_IMAGES)], str(out))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(attention.LAUNCHES)
+        pngs = sorted((out / "MEL").glob("ISIC_*.png"))
+        check(result.get("generated") == GEN_IMAGES and len(pngs) == GEN_IMAGES,
+              f"[headdim] head_dim {head_dim}: generate_images returned {result}, "
+              f"{len(pngs)} PNGs")
+        check(launches[attention.KERNEL] == want and launches[attention.FAST_KERNEL] == 0
+              and set(launch_heads) == {heads} and len(launch_heads) == want,
+              f"[headdim] head_dim {head_dim}: launches {launches}, heads {set(launch_heads)}")
+        # the first block again, kernel and plain attention, from the same seeds
+        seeds = np.asarray(json.loads(pngs[0].with_suffix(".json").read_text())
+                           ["block"]["seeds"], np.uint32)
+        walks = {}
+        with full_f32_convolutions():
+            for fused in (True, False):
+                gen.model_manager.use_fused_attention = fused
+                gen.model_manager.loaded_models.clear()
+                gen.model_manager._samplers.clear()
+                walks[fused] = gen._sample_block(["MEL"] * CLI_BATCH, seeds, False)["images"]
+        gen.model_manager.use_fused_attention = True
+        dist = (walks[True] - walks[False]).abs().max().item()
+        finite = bool(torch.isfinite(walks[True]).all())
+        print(f"[headdim] ImageGenerator(model_config=UNet2DConfig(attention_head_dim="
+              f"{head_dim})), f32 exact, DDIM {CLI_STEPS}, MEL:{GEN_IMAGES} in blocks of "
+              f"{CLI_BATCH}: {len(pngs)} PNGs in {wall:.3f} s; K1 launches "
+              f"{launches[attention.KERNEL]} (want {want}), every one at {heads} heads of "
+              f"{head_dim}; the first block kernel vs plain attention, full-f32 convolutions: "
+              f"max|diff| {dist:.3e} (allowed {HEADDIM_WALK_TOL:.0e}), finite {finite}",
+              flush=True)
+        check(finite and dist <= HEADDIM_WALK_TOL,
+              f"[headdim] head_dim {head_dim} walk kernel vs plain {dist:.3e}")
+        report["walks"][head_dim] = {"launches": launches[attention.KERNEL], "heads": heads,
+                                     "wall_s": wall, "max_abs_err": dist}
+        del gen, walks
+
+    # the train step at HEADDIM_TRAIN_DIM: bf16 compute, f32 parameters
+    cfg = UNet2DConfig(attention_head_dim=HEADDIM_TRAIN_DIM)
+    heads = 256 // HEADDIM_TRAIN_DIM
+    train_cfg = TrainConfig(batch_size=BENCH_BATCH)
+    torch.manual_seed(0)
+    model = UNet2D(cfg, dtype=torch.bfloat16, param_dtype=torch.float32,
+                   use_fused_attention=True, fast_norm=True).cuda().train()
+    state = create_train_state(model, train_cfg)
+    step = make_train_step(DiffusionSchedule.create(), train_cfg)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    batch = torch.rand(BENCH_BATCH, 128, 128, 3, generator=g, device="cuda") * 2 - 1
+    step(state, batch, g)                   # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    with heads_per_launch() as launch_heads:
+        t0 = time.perf_counter()
+        losses = [step(state, batch, g) for _ in range(HEADDIM_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / HEADDIM_TRAIN_STEPS
+    launches = dict(attention.LAUNCHES)
+    per_step = ATTENTION_CALLS_PER_UNET * HEADDIM_TRAIN_STEPS
+    got = tuple(launches[k] for k in (attention.KERNEL, attention.BWD_KERNEL,
+                                      attention.STATS_KERNEL))
+    check(got == (per_step, per_step, 0) and set(launch_heads) == {heads}
+          and all(bool(torch.isfinite(x)) for x in losses),
+          f"[headdim] train steps at head_dim {HEADDIM_TRAIN_DIM}: K1/K3/stats {got}, heads "
+          f"{set(launch_heads)}, losses {[x.item() for x in losses]}")
+    del model, state
+
+    # the whole UNet's f32 gradient at HEADDIM_TRAIN_DIM, kernel vs plain
+    torch.manual_seed(0)
+    weights = UNet2D(cfg).state_dict()
+    x = torch.randn(GRAD_BATCH, 3, 128, 128, generator=g, device="cuda")
+    eps = torch.randn(GRAD_BATCH, 3, 128, 128, generator=g, device="cuda")
+    t = torch.tensor([999, 500, 100, 3], device="cuda")
+    grads = {}
+    for fused in (True, False):
+        unet = UNet2D(cfg, use_fused_attention=fused)
+        unet.load_state_dict(weights)
+        unet = unet.cuda()
+        with full_f32_convolutions():
+            torch.mean((unet(x, t) - eps) ** 2).backward()
+        grads[fused] = {n: p.grad for n, p in unet.named_parameters()}
+    largest = max(w.abs().max().item() for w in grads[False].values())
+    worst, worst_name = max(
+        ((grads[True][n] - w).abs().max().item()
+         / (largest if n.endswith("to_k.bias") else w.abs().max().item()), n)
+        for n, w in grads[False].items())
+    print(f"[headdim] train step at head_dim {HEADDIM_TRAIN_DIM} ({heads} heads), batch "
+          f"{BENCH_BATCH}, bf16: {step_s:.4f} s/step warm on {card}; K1/K3/stats launches "
+          f"{got} over {HEADDIM_TRAIN_STEPS} steps (want {per_step}/{per_step}/0); the "
+          f"full-width UNet's f32 gradient at batch {GRAD_BATCH}, kernel vs plain: worst "
+          f"max|diff|/max|g| {worst:.3e} at {worst_name} (allowed {UNET_GRAD_TOL:.0e})",
+          flush=True)
+    check(worst <= UNET_GRAD_TOL, f"[headdim] gradient at head_dim {HEADDIM_TRAIN_DIM}")
+    report["train"] = {"launches": dict(zip(("fwd", "bwd", "stats"), got)), "step_s": step_s,
+                       "grad_rel": worst}
+    return report
 
 
 def phase_unet() -> dict:
@@ -5458,8 +5651,18 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
                                                  "count": card["count"]}}), flush=True)
         return 0
+    if sys.argv[1:] == ["--headdim"]:
+        # the [headdim] phase alone
+        native.build([attention.KERNEL, attention.BWD_KERNEL])
+        with tempfile.TemporaryDirectory() as tmp:
+            report = phase_headdim(card["card"], Path(tmp))
+        print(json.dumps({"headdim": report, "card": card["card"]}, default=str), flush=True)
+        print(card["card"], flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
+                                                 "count": card["count"]}}), flush=True)
+        return 0
     if sys.argv[1:] == ["--kernel-table"]:
-        # the kernel table's K2 and head_dim-4 rows alone
+        # the kernel table's K2 and head_dim rows alone
         native.build([attention.KERNEL, attention.BWD_KERNEL])
         print(json.dumps({"table": kernel_table_times(), "card": card["card"]}), flush=True)
         return 0
@@ -5511,7 +5714,7 @@ def main() -> int:
               flush=True)
         return out
 
-    timed("build", phase_build)
+    built = timed("build", phase_build)
     kernel_report = timed("kernel", phase_kernel)
     bwd_report = timed("kernel-bwd", phase_kernel_bwd)
     fast_report = timed("kernel-fast", phase_kernel_fast)
@@ -5535,6 +5738,7 @@ def main() -> int:
         tp = timed("tp", phase_tp, state, card["card"], Path(tmp) / "tp")
         evaluated = timed("eval", phase_eval, state, card["card"], Path(tmp) / "eval")
         app = timed("app", phase_app, state, card["card"], Path(tmp) / "app")
+        headdim = timed("headdim", phase_headdim, card["card"], Path(tmp) / "headdim")
     train_launches = timed("train", phase_train, card["card"])
     bench = timed("bench", phase_bench, card["card"])
     train_f32_launches = timed("train-f32", phase_train, card["card"], True)
@@ -5640,9 +5844,18 @@ def main() -> int:
                             for k, v in tp["mixed"].items()},
         "launches_tp_reproduce": {k: tp["reproduce"][k] for k in ("generator", "server")},
         # [kernel]: K2, the (B, H, T, D) layout, in turns with K1 and SDPA;
-        # the head_dim-4 CUDA-core forward (no model configuration has it)
+        # the forward at head_dims 4, 16, 32 and 64 (the tensor cores at a
+        # staged width of 8, 16, 32, 64)
         "k2": kernel_report["table"]["K2"],
-        "head_dim_4": kernel_report["table"]["d4_fwd"],
+        # [headdim]: the generator's walks at head_dims 4, 32 and 64 (K1 at
+        # 64, 8 and 4 heads), and the train step at head_dim 32; [build]
+        "launches_headdim": {str(d): w["launches"] for d, w in headdim["walks"].items()},
+        "max_abs_err_headdim_walk": {str(d): w["max_abs_err"]
+                                     for d, w in headdim["walks"].items()},
+        "launches_headdim_train": headdim["train"]["launches"]["fwd"],
+        "build_s": built["build_s"],
+        "instances": built["instances"],
+        "head_dims": kernel_report["table"]["head_dim_fwd"],
         # [eval]: eval_fid --generate's 64 images, parity_gauntlet (420:
         # seven DDIM-10 walks) and the cut e2e_loop (training, probe,
         # samplers, XAI); Inception-v3 at batch 32 and the FIDs card vs CPU
@@ -5749,6 +5962,11 @@ def main() -> int:
         "host_fwd_bwd_t256_bf16": host_report[host_name((TRAIN_BATCH, 32, 256, 8),
                                                         torch.bfloat16, False, trainable=True)],
         "launches_stats_train": train_launches[attention.STATS_KERNEL],
+        # [headdim]: the train step at head_dim 32 (6 per step), its
+        # statistics launches (0) and its f32 gradient vs plain
+        "launches_headdim_train": headdim["train"]["launches"]["bwd"],
+        "launches_stats_headdim_train": headdim["train"]["launches"]["stats"],
+        "headdim_grad_rel": headdim["train"]["grad_rel"],
         # [mesh]: `train --dp-mesh` (one-rank NCCL) and the [cuda:0, cuda:0]
         # f32 train step against one device
         "launches_mesh_train": meshed["train_launches"][attention.BWD_KERNEL],
@@ -5771,8 +5989,9 @@ def main() -> int:
         "score_family_step_s": scored["steps"]["s_per_step"]["family"],
         "score_distill_step_s": scored["steps"]["s_per_step"]["distill"],
         "score_step_busy_s": scored["steps"]["busy_s_per_step"],
-        # [kernel]: the head_dim-4 CUDA-core backward
-        "head_dim_4": kernel_report["table"]["d4_bwd"],
+        # [kernel]: the backward (K3 from the saved statistics) at head_dims
+        # 4, 16, 32 and 64
+        "head_dims": kernel_report["table"]["head_dim_bwd"],
         "shape": list(bwd_shape),
         "dtype": "float32",
     }, {

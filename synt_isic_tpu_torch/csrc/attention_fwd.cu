@@ -10,23 +10,35 @@
 // projection outputs unchanged (the head split is pointer arithmetic) and
 // the result lands directly in (B, T, C).
 //
+// Every head_dim D from 1 to 64 runs on the tensor cores, in both dtypes, as
+// the Pallas kernel takes any D: the kernels are templates on a staged width
+// Dp of 8, 16, 32 or 64 (the least one >= D), a head's channels past D
+// zero-filled where the kernel stages or loads them (tensor_core.cuh: zero
+// channels are exact in every product), the scale 1/sqrt(D) of the true D.
+// A head_dim above 64 returns cudaErrorInvalidValue. Routes: a head at its
+// staged width whose rows stage in 16-byte units (every dense and (B, T, C)
+// layout at D 16, 32, 64) runs the Wide instances at any G; D 8 at full width
+// runs the head_dim-8 kernels (namespace d8, below), at any G; any other
+// call (D under its width, or rows in smaller units) runs the general
+// staging at G = 1, bit-identical to every G by the contract below.
+//
 // The TPU kernel keeps the whole (T, T) f32 logits tile in VMEM (4 MB at
 // T=1024); a Hopper block has at most 227 KB of shared memory, so neither
-// kernel below forms the tile: both walk the keys in tiles staged in shared
-// memory with an online softmax (a running max m and sum l per row, the
-// accumulator rescaled in f32 when m moves, divided by l at the end), so
+// kernel below forms the tile: both walk the keys in tiles of 64 staged in
+// shared memory with an online softmax (a running max m and sum l per row,
+// the accumulator rescaled in f32 when m moves, divided by l at the end), so
 // any T works. On request (a non-null `lse`, exact maths only) they also
 // write each row's base-2 log-sum-exp m + log2(l), f32 in (B, H, T), which
-// the bf16 backward (`attention_bwd.cu`) reads in place of recomputing it;
-// the output does not depend on whether it is written.
+// the backward (`attention_bwd.cu`) reads in place of recomputing it; the
+// output does not depend on whether it is written.
 //
 // Head grouping (`heads_per_program` = G, the TPU kernel's G heads per grid
 // program): a block covers G heads and stages the key/value tile of all G at
 // once (in the (B, T, C) layout the G * D channels of one token are
-// contiguous). Every thread or warp runs exactly the arithmetic of the
-// G = 1 kernel for its rows and head, so the output and lse are
-// bit-identical for every G (the TPU's contract for the knob); no result
-// depends on the tile size the staging uses.
+// contiguous). Every warp runs exactly the arithmetic of the G = 1 kernel for
+// its rows and head, so the output and lse are bit-identical for every G (the
+// TPU's contract for the knob). G is instantiated where G * Dp <= 64 (D 8 x
+// G 8 is the widest staged row); any other G returns cudaErrorInvalidValue.
 //
 // Fast math (`fast_math`, attention.py:43-49 and :74-80): the shifted logit
 // is rounded to bf16 and exponentiated in bf16, the bf16 weights are summed
@@ -43,93 +55,88 @@
 // minus the row's global max to bf16 and takes `exp` of it: (1) the value
 // rounded to bf16 is the base-2 logit (log2(e) folded into the scale in
 // f32), so the rounding falls on other values; (2) it is shifted by the
-// running max, not the row's global max, and the rescale factor applied to
-// the sum and accumulator when the max moves stays f32. Both change bf16
-// rounding only. The running max moves once per group of keys: 2 keys on
-// the CUDA-core kernel, one staged tile of 64 on the tensor-core kernels.
-// `attention_fast_math_kernel_order(q, k, v, step, tf32x3)` in
-// ops/attention.py is the plain PyTorch version of this rounding, for either
-// group size (`tf32x3`: the f32 tensor-core kernel's logits and tile max).
+// running max, which moves once per staged tile of 64 keys, not the row's
+// global max, and the rescale factor applied to the sum and accumulator when
+// the max moves stays f32. Both change bf16 rounding only.
+// `attention_fast_math_kernel_order(q, k, v, 64, tf32x3)` in ops/attention.py
+// is the plain PyTorch version of this rounding (`tf32x3`: the f32 kernel's
+// logits and tile max).
 //
-// bf16, head_dim 8: the tensor-core kernel (the trainer's and the library
-// generator's configuration).
-//   Bound on the H100 at the main path's largest call, B=8, H=32, T=1024,
-//   D=8: the two T x T contractions are 4*B*H*T^2*D = 8.6 GFLOP, 8.7 us on
+// Staging (both dtypes): K and V come by `cp.async` in units of 16 bytes
+// where a row of a head starts on 16 bytes with D * size a multiple of 16,
+// else in units of 8 or 4 bytes, else (bf16 at an odd D or an unaligned
+// row, or channels that are not contiguous) an element at a time; the
+// launcher picks each tensor's unit from its address and strides
+// (`stage_unit`), so no layout is copied first. q is read from its own
+// strides and out written to them.
+//
+// bf16: the tensor-core kernel (the trainer's and the library generator's
+// configuration).
+//   Bound on the H100 at the main path's calls, B=8, T=1024, H*D = 256: the
+//   two T x T contractions are 4*B*H*T^2*D = 8.6 GFLOP at every D, 8.7 us on
 //   the tensor cores (989 TFLOP/s bf16); q, k, v read once and out written
-//   once are 16.8 MB, 5.0 us at 3.35 TB/s; the B*H*T^2 = 2.7e8
-//   exponentials take 64 us on the special-function units (16 per clock per
-//   SM). So the exponentials are the limit, and the design keeps everything
-//   else off the special-function units' way: the products run on the
-//   tensor cores, and each (i, j) pair costs one MUFU.EX2 and a few f32
-//   instructions, with the 32 warps an SM holds keeping the units busy.
-//   Fragments, as B1's dq launch in `attention_bwd.cu` (helpers in
-//   tensor_core.cuh): one warp owns 16 query rows of one head, 4 warps per
-//   head, 64 rows x G heads per block, at most 64 registers a thread. K and
-//   V are staged in tiles of 64 keys by `cp.async`, double-buffered, 16 bytes
-//   (one row of one head) per copy, so each row of k and v must start on 16
-//   bytes with its 8 channels contiguous (the wrapper copies any other
-//   layout first; q is read from its own strides and out written to them).
-//   S = Q K^T is `mma.sync` m16n8k8 with D = 8 unpadded, q's A fragment from
-//   registers and K's B fragments by `ldmatrix`; O += P V is m16n8k16, the
-//   k16 A fragment being two adjacent n8 fragments of P rounded to bf16 in
-//   registers, V's B fragment by `ldmatrix.trans`.
+//   once are 16.8 MB, 5.0 us at 3.35 TB/s; the B*H*T^2 exponentials take
+//   0.0642 * (8 / D) ms on the special-function units (16 per clock per SM):
+//   0.128 ms at D 4, 0.064 at D 8, 0.016 at D 32. So the exponentials set
+//   the bound up to D 32 and the products (with the bytes) at D 64, and the
+//   design keeps everything else off the special-function units' way: the
+//   products run on the tensor cores, and each (i, j) pair costs one MUFU.EX2
+//   and a few f32 instructions. One warp owns 16 query rows of one head, 4
+//   warps per head, 64 rows x G heads per block. K and V are staged in tiles
+//   of 64 keys, double-buffered, rows Bf16Tile<Dp>::kStride chunks apart.
+//   S = Q K^T is Dp/8 k-steps of `mma.sync` m16n8k8, q's A fragments from
+//   registers and K's B fragments by `ldmatrix`; O += P V is m16n8k16 into
+//   Dp/8 n-tiles, the k16 A fragment being two adjacent n8 fragments of P
+//   rounded to bf16 in registers, V's B fragments by `ldmatrix.trans`.
 //   Per tile the kernel takes two passes over the staged keys: the first
 //   forms S only for each row's tile max (reduced over the row's 4 lanes),
 //   then m, l and the accumulator are rescaled once (one exponential per
-//   row and tile, which the row's 4 lanes each take: 2 per lane beside the
-//   tile's 32); the second forms S again (the tensor cores are idle enough
-//   that recomputing costs less than holding 64 keys of S, 32 registers, in
-//   a 64-register budget) and takes p = 2^(s * scale * log2(e) - m), one
-//   fma and one MUFU.EX2 per pair. Keys past T are masked (s = -inf) on the
-//   last tile only; rows past T are neither stored nor given an lse.
-//   Exact: l sums the f32 p values, not their bf16 roundings, so that
+//   row and tile); the second forms S again (recomputing costs less than
+//   holding 64 keys of S in registers) and takes p = 2^(s * scale * log2(e)
+//   - m), one fma and one MUFU.EX2 per pair. Keys past T are masked (s =
+//   -inf) on the last tile only; rows past T are neither stored nor given an
+//   lse. Exact: l sums the f32 p values, not their bf16 roundings, so that
 //   m + log2(l) is the f32 softmax's log-sum-exp that the backward rebuilds
 //   its f32 probabilities from (within f32 summation order of
-//   `attention_lse_reference`); bf16 roundings would put up to 2^-9
-//   relative error into each term. Fast math: p is already bf16, and the
-//   row sums come from the tensor cores as P times a column of ones, in f32.
+//   `attention_lse_reference`). Fast math: p is already bf16, and the row
+//   sums come from the tensor cores as P times a column of ones, in f32.
 //   Deviations, rounding only: P is rounded to bf16 before P.V, relative to
 //   the running max and unnormalised, and the division by l comes last; the
 //   TPU kernel rounds the normalised probabilities to bf16
 //   (attention.py:81-83); the products accumulate in f32 on the tensor
-//   cores.
+//   cores. Registers: 128 a thread at Dp 8 to 32, 255 at Dp 64 (the
+//   accumulators grow with Dp).
 //
-// f32, head_dim 8: the 3xTF32 tensor-core kernel, exact maths (the console
-// CLI's and the conditional generator's configuration) and fast math (an f32
-// `ModelManager` with `set_attention_tuning(fast_math=True)`); every G, so that
-// G > 1 runs the arithmetic of G = 1.
-//   Bound on the H100 at (8, 32, 1024, 8): products accurate to f32 run on
-//   the tensor cores in three TF32 passes, 3 x 8.6 GFLOP at 494.7 TFLOP/s
-//   (dense TF32) = 52 us; q, k, v and out in f32 are 33.6 MB, 10 us; the
-//   2.7e8 exponentials take 64 us on the special-function units. So, as in
-//   bf16, the exponentials are the limit, and everything else is kept off
-//   their way: one MUFU.EX2 per (i, j) and no data-dependent branch per key.
-//   Layout as the bf16 kernel: one warp per 16 query rows of one head, 4 warps
-//   per head, 64 rows x G heads per block, at most 64 registers a thread. K
-//   and V come in f32 tiles of 64 keys by `cp.async`, double-buffered, two
-//   16-byte copies per key row of one head (so each row of k and v must start
-//   on 16 bytes with its 8 channels contiguous; the wrapper copies any other
-//   layout first); the block then splits each staged tile once into TF32 hi
-//   and lo parts in shared memory (16 KB x G of dynamic shared memory in all),
-//   so no warp splits K or V in its inner loop.
-//   Products: `mma.sync` m16n8k8 with TF32 operands (D = 8 unpadded as k8 for
-//   S = Q K^T; 8 keys as k8 for O += P V), each operand split into hi, its
-//   TF32 rounding to nearest with ties away (as `cvt.rna.tf32.f32`, here two
-//   integer instructions), and lo = x - hi, of which the tensor cores read the
-//   top 19 bits; three products per 8 keys, lo.hi + hi.lo + hi.hi, the small
-//   terms first. q is scaled to base-2 logits in f32 (1/sqrt(D) * log2(e))
-//   and split once, in registers; P is split in registers.
+// f32: the 3xTF32 tensor-core kernel, exact maths (the console CLI's and the
+// conditional generator's configuration) and fast math (an f32
+// `ModelManager` with `set_attention_tuning(fast_math=True)`).
+//   Bound on the H100 at (8, 256/D, 1024, D): products accurate to f32 run
+//   on the tensor cores in three TF32 passes, 3 x 8.6 GFLOP at 494.7
+//   TFLOP/s (dense TF32) = 52 us at every D; q, k, v and out in f32 are
+//   33.6 MB, 10 us; the exponentials as above. So the exponentials set the
+//   bound at D 4 and 8, the products from D 16 on; one MUFU.EX2 per (i, j)
+//   and no data-dependent branch per key.
+//   Layout as the bf16 kernel: one warp per 16 query rows of one head, 4
+//   warps per head, 64 rows x G heads per block. K and V come in raw f32
+//   tiles of 64 keys; the block splits each staged tile once into TF32 hi
+//   and lo parts in shared memory (Tf32Tile: rows Dp + 4 words apart), and
+//   the next raw tile streams in while the warps work on the parts, so no
+//   warp splits K or V in its inner loop.
+//   Products: `mma.sync` m16n8k8 with TF32 operands, each operand split into
+//   hi, its TF32 rounding to nearest with ties away (as `cvt.rna.tf32.f32`,
+//   here two integer instructions), and lo = x - hi, of which the tensor
+//   cores read the top 19 bits; three products per step, lo.hi + hi.lo +
+//   hi.hi, the small terms first: S = Q K^T over Dp/8 k-steps term by term
+//   (`mma3_k`), O += P V into Dp/8 n-tiles per 8 keys. q is scaled to base-2
+//   logits in f32 (1/sqrt(D) * log2(e)) and split once, in registers; P is
+//   split in registers.
 //   Fragments (PTX ISA, m16n8k8 .tf32; g = lane / 4, t = lane % 4): A holds
 //   rows g, g + 8 at columns t and t + 4, B rows t and t + 4 of column g, C
 //   rows g, g + 8 at columns 2t and 2t + 1. S's accumulator thus holds keys
-//   2t, 2t + 1 where P's A fragment wants columns t, t + 4: no shuffle, the
-//   keys are permuted instead. S's B column n reads key n ^ ((n >> 2) & 1)
-//   of its 8, so the accumulator's columns (2t, 2t + 1) hold keys 2t + w and
-//   2t + 1 - w (w = (t >> 1) & 1), which become P's columns t and t + 4;
-//   V's B fragment reads keys 2t + w and 2t + 1 - w of channel g. With V's
-//   rows stored as they come, those reads hit 32 banks; K's reads (keys
-//   n and n + 4 would share banks) do so because the two 16-byte chunks of
-//   keys 4-7 of every 8 are stored swapped.
+//   2t, 2t + 1, which P's A fragment takes as its columns t and t + 4 (the
+//   k order of P V permuted, no shuffle): V's B fragment reads keys 2t and
+//   2t + 1 of channel g, and K's reads key g at channels t and t + 4; with a
+//   part's rows Dp + 4 words apart both hit 32 banks.
 //   Softmax in base 2, one pass per tile: p = 2^(s - m), one FADD and one
 //   MUFU.EX2 per pair, against a running shift m that needs no pass of its
 //   own: the tile max of one TF32 pass (hi.hi) on the first tile, then, after
@@ -151,9 +158,7 @@
 //   division comes last. At randn inputs the result lies within about 5e-7
 //   of float64 attention on the CPU model, as f32 does; one TF32 pass would
 //   miss the 2e-5 tolerance 15-30 times over.
-//   Fast math (`FastMath`), the same kernel with the weights rounded: the
-//   bound is the same 64 us of exponentials (products: 5 TF32 passes, plus
-//   one for the max, 6 x 4.3 GFLOP = 52 us at the dense TF32 rate). S is
+//   Fast math (`FastMath`), the same kernel with the weights rounded. S is
 //   formed in three TF32 passes as above: the bf16 rounding of the shifted
 //   logit magnifies an error of S, and at one pass (about 2^-11 relative) a
 //   large share of the weights would round to another bf16 value, as far
@@ -169,18 +174,8 @@
 //   accumulator; l sums the bf16 p in f32, per lane, then over the row's 4
 //   lanes. The division comes last; no lse is written. Its plain rounding
 //   order is `attention_fast_math_kernel_order(..., step=64, tf32x3=True)`.
-//
-// head_dim 4 (f32 and bf16, exact and fast math): the CUDA-core kernel, one
-// thread per (row, head), everything f32 inside. No configuration of the
-// model has head_dim 4 (the UNet's `attention_head_dim` is 8); it serves
-// small test configurations. A block handles kBlockQ
-// query rows of G heads; the thread keeps its q row, an f32 accumulator of
-// D values, a running max and a running sum in registers, and walks the
-// keys in tiles staged as f32, at most 32 KB. Fast math takes keys in pairs,
-// the two shifted logits rounded to bf16 by one conversion. Deviation from
-// the TPU kernel on the exact path: unnormalised f32 weights multiply v and
-// the normalisation comes last; nothing is rounded until the store. Only
-// rounding changes: about 1e-6 in f32.
+//   Registers: 128 a thread at Dp 8 and 16, 255 at Dp 32 and 64 (q's split
+//   fragments, the accumulator and the tile's P V grow with Dp).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -191,210 +186,543 @@
 
 namespace {
 
-constexpr int kBlockQ = 128;  // query rows per block, one thread per (row, head)
-
 constexpr float kLog2e = 1.4426950408889634f;
 
-// keys per staged tile: 128, or fewer so that the f32 k and v tiles of G
-// heads stay within 32 KB of static shared memory (even, for the key pairs)
-template <int D, int G>
-struct TileKeys {
-  static constexpr int value = 4096 / (G * D) < 128 ? 4096 / (G * D) : 128;
-};
+// blocks per SM at G = 1 for a staged width Dp, which caps the registers a
+// thread at 65536 / (128 * blocks): 128, or 255 where the accumulators and
+// q's split fragments need them (Dp 8 runs here only at G = 1, for heads
+// narrower than 8 or rows that are not 16-byte units)
+__host__ __device__ constexpr int fwd_blocks(int dp) { return dp == 64 ? 2 : 4; }
+__host__ __device__ constexpr int tf32_blocks(int dp) { return dp <= 16 ? 4 : 2; }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel (see the top of the file)
+// ---------------------------------------------------------------------------
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// 2^x of two bf16 values, each correctly rounded to bf16 (see the top of
-// the file): the f32 special-function exponential, then round-to-nearest
-__device__ __forceinline__ float2 exp2_bf16x2(__nv_bfloat162 x) {
-  const float2 xf = __bfloat1622float2(x);
-  float a, b;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(a) : "f"(xf.x));
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(b) : "f"(xf.y));
-  return __bfloat1622float2(__floats2bfloat162_rn(a, b));
-}
-
-template <int D>
-__device__ __forceinline__ float dot(const float* qr, const float* kr) {
-  float s = 0.f;
+// S = Q K^T for one warp's 16 rows and keys [16 s, 16 s + 16) of the staged
+// tile (rows kS chunks apart), as two C fragments: sc[0..3] keys +0..7,
+// sc[4..7] keys +8..15, over Dp/8 k-steps. With Mask, keys at or past `keys`
+// get s = -inf, so their weight is 0.
+template <int Dp, bool Mask>
+__device__ __forceinline__ void qk_step(const uint4* kt, int s, const uint32_t (*qa)[2],
+                                        int keys, float* sc) {
+  constexpr int kS = Bf16Tile<Dp>::kStride;
+  const int lane = threadIdx.x % 32;
 #pragma unroll
-  for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-  return s;
-}
-
-// One fast-math step over the keys k0 (and k1 when Pair): bf16 exponentials
-// of the shifted base-2 logits, rounded to bf16 together; f32 sum and
-// accumulator; an f32 rescale when the running max moves.
-template <int D, bool Pair>
-__device__ __forceinline__ void fast_math_step(const float* qr, const float* k0,
-                                               const float* k1, const float* v0,
-                                               const float* v1, float& m, float& l,
-                                               float* acc) {
-  const float s0 = dot<D>(qr, k0);
-  const float s1 = Pair ? dot<D>(qr, k1) : -INFINITY;
-  const float mx = fmaxf(s0, s1);
-  if (mx > m) {
-    const float c = exp2f(m - mx);  // f32, as on the exact path
-    l *= c;
+  for (int i = 0; i < 8; ++i) sc[i] = 0.f;
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= c;
-    m = mx;
+  for (int j = 0; j < Dp / 8; ++j) {
+    uint32_t kb[2];
+    ldsm_x2(kb, kt + (s * 16 + lane % 16) * kS + j);
+    mma_k8(sc, qa[j], kb[0]);
+    mma_k8(sc + 4, qa[j], kb[1]);
   }
-  const float2 p = exp2_bf16x2(__floats2bfloat162_rn(s0 - m, s1 - m));
-  l += p.x;
+  if (Mask) {
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = fmaf(p.x, v0[d], acc[d]);
-  if (Pair) {
-    l += p.y;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = fmaf(p.y, v1[d], acc[d]);
+    for (int c = 0; c < 2; ++c) {
+      const int key = s * 16 + c * 8 + 2 * (lane % 4);
+      if (key >= keys) sc[4 * c] = sc[4 * c + 2] = -INFINITY;
+      if (key + 1 >= keys) sc[4 * c + 1] = sc[4 * c + 3] = -INFINITY;
+    }
   }
 }
 
-template <int D, typename T, int G, bool FastMath>
-__global__ void __launch_bounds__(kBlockQ * G)
-attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int heads, int seq_len,
-                     Strides sq, Strides sk, Strides sv, Strides so,
-                     float scale_log2) {
-  constexpr int kTileK = TileKeys<D, G>::value;
-  constexpr int kWidth = G * D;  // staged channels per key: G heads of D
-  __shared__ float k_tile[kTileK][kWidth];
-  __shared__ float v_tile[kTileK][kWidth];
+// One staged key tile for one warp's 16 query rows (row a = lane/4 and row
+// b = row a + 8): the tile's max, the rescale, then P and O += P V, 16 keys
+// a step. m[r] is row r's running max of the base-2 logits; l and each
+// n-tile of acc are C fragments ([0..1] row a, [2..3] row b). On the exact
+// path l[i] is this lane's partial sum of its keys' f32 weights; with fast
+// math every column of l is the whole row's sum of the bf16 weights, from
+// the tensor cores.
+template <int Dp, bool FastMath, bool Mask>
+__device__ __forceinline__ void fwd_tile(const uint4* kt, const uint4* vt,
+                                         const uint32_t (*qa)[2], float scale_log2, int keys,
+                                         float* m, float* l, float (*acc)[4]) {
+  constexpr int kS = Bf16Tile<Dp>::kStride;
+  const int lane = threadIdx.x % 32;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int s = 0; s < kTcTile / 16; ++s) {
+    float sc[8];
+    qk_step<Dp, Mask>(kt, s, qa, keys, sc);
+    mx[0] = fmaxf(mx[0], fmaxf(fmaxf(sc[0], sc[1]), fmaxf(sc[4], sc[5])));
+    mx[1] = fmaxf(mx[1], fmaxf(fmaxf(sc[2], sc[3]), fmaxf(sc[6], sc[7])));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // max(s) * scale = max(s * scale) exactly, the scale being positive
+    const float mnew = fmaxf(m[r], mx[r] * scale_log2);
+    // rescale what was summed under the old max; on the first tile
+    // m = -inf, so c = 0 and the zero-initialised state stays zero
+    const float c = mnew > m[r] ? ex2(m[r] - mnew) : 1.f;
+    m[r] = mnew;
+    // __fmul_rn is never contracted into an fma with the sums that follow,
+    // so the rounding does not depend on how the compiler unrolls and
+    // schedules each G instance (G = 1 and G > 1 must agree bit for bit)
+#pragma unroll
+    for (int i = 2 * r; i < 2 * r + 2; ++i) {
+      l[i] = __fmul_rn(l[i], c);
+#pragma unroll
+      for (int n = 0; n < Dp / 8; ++n) acc[n][i] = __fmul_rn(acc[n][i], c);
+    }
+  }
+  const uint32_t ones[2] = {0x3f803f80u, 0x3f803f80u};   // bf16 1.0 pairs
+  // two steps at a time: fully unrolled, the steps' fragments spill at the
+  // register cap
+#pragma unroll 2
+  for (int s = 0; s < kTcTile / 16; ++s) {
+    float sc[8];
+    qk_step<Dp, Mask>(kt, s, qa, keys, sc);
+    uint32_t pa[4];   // P as the k16 A fragment: rows a, b at keys +0..7, then +8..15
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float* f = sc + 4 * c;
+      if (FastMath) {
+        // the shifted base-2 logits rounded to bf16, then their correctly
+        // rounded bf16 exponentials
+        const uint32_t xa = pack_bf16(fmaf(f[0], scale_log2, -m[0]), fmaf(f[1], scale_log2, -m[0]));
+        const uint32_t xb = pack_bf16(fmaf(f[2], scale_log2, -m[1]), fmaf(f[3], scale_log2, -m[1]));
+        pa[2 * c] = pack_bf16(ex2(lo_f32(xa)), ex2(hi_f32(xa)));
+        pa[2 * c + 1] = pack_bf16(ex2(lo_f32(xb)), ex2(hi_f32(xb)));
+      } else {
+        const float p[4] = {ex2(fmaf(f[0], scale_log2, -m[0])), ex2(fmaf(f[1], scale_log2, -m[0])),
+                            ex2(fmaf(f[2], scale_log2, -m[1])), ex2(fmaf(f[3], scale_log2, -m[1]))};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) l[i] += p[i];
+        pa[2 * c] = pack_bf16(p[0], p[1]);
+        pa[2 * c + 1] = pack_bf16(p[2], p[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < Dp / 8; ++n) {
+      uint32_t vT[2];
+      ldsm_x2_trans(vT, vt + (s * 16 + lane % 16) * kS + n);
+      mma_k16(acc[n], pa, vT);             // O += P V, channels 8n..8n+7
+    }
+    if (FastMath) mma_k16(l, pa, ones);    // l += P 1
+  }
+}
 
+template <int Dp, int G, bool FastMath, bool Wide>
+__global__ void __launch_bounds__(32 * kTcWarps * G, min_blocks(fwd_blocks(Dp), G))
+attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, bf16* __restrict__ o,
+                        float* __restrict__ lse, int heads, int seq_len, int head_dim,
+                        Strides sq, Strides sk, Strides sv, Strides so, int unit_k,
+                        int unit_v, float scale_log2) {
+  if constexpr (Wide) head_dim = Dp;   // a Wide head fills its staged width
+  constexpr int kS = Bf16Tile<Dp>::kStride;
+  constexpr int kTile = G * kTcTile * kS;   // 16-byte chunks per tile of G heads
+  // two buffers of G heads' K tiles, then two of their V tiles
+  extern __shared__ uint4 bf16_tiles[];
+  uint4* k_tile = bf16_tiles;
+  uint4* v_tile = bf16_tiles + 2 * kTile;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = warp / kTcWarps;          // this warp's head within the group
+  const int tig = lane % 4;
   const int64_t b = blockIdx.z;
   const int64_t h0 = static_cast<int64_t>(blockIdx.y) * G;
-  const int g = threadIdx.x / kBlockQ;  // this thread's head within the group
   const int64_t h = h0 + g;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kBlockQ + threadIdx.x % kBlockQ;
-  const bool active = row < seq_len;
+  const int ra = blockIdx.x * kTcRows + (warp % kTcWarps) * 16 + lane / 4;
+  const int rb = ra + 8;
+  const bool oka = ra < seq_len;
+  const bool okb = rb < seq_len;
 
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h0 * sk.h;
-  const T* vb = v + b * sv.b + h0 * sv.h;
-
-  // logits in base 2: (q . k) * scale * log2(e), so exp(x) becomes exp2(x)
-  float qr[D];
+  // q's A fragments (rows a and b, channels 8j + 2 tig and +1 of k-step j)
+  const bf16* qh = q + b * sq.b + h * sq.h;
+  uint32_t qa[Dp / 8][2];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = active ? to_f32(qb[row * sq.t + d * sq.d]) * scale_log2 : 0.f;
+  for (int j = 0; j < Dp / 8; ++j) {
+    qa[j][0] = load_pair(qh, sq, ra, 8 * j + 2 * tig, oka, head_dim);
+    qa[j][1] = load_pair(qh, sq, rb, 8 * j + 2 * tig, okb, head_dim);
   }
 
-  float m = -INFINITY;  // running max of the base-2 logits
-  float l = 0.f;        // running sum of exp2(logit - m)
-  float acc[D];
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc[Dp / 8][4];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-
-  for (int k0 = 0; k0 < seq_len; k0 += kTileK) {
-    const int n = min(kTileK, seq_len - k0);
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = threadIdx.x; i < n * kWidth; i += kBlockQ * G) {
-      const int64_t j = i / kWidth;
-      const int64_t c = i % kWidth;
-      const int64_t gh = c / D;
-      const int64_t d = c % D;
-      k_tile[j][c] = to_f32(kb[(k0 + j) * sk.t + gh * sk.h + d * sk.d]);
-      v_tile[j][c] = to_f32(vb[(k0 + j) * sv.t + gh * sv.h + d * sv.d]);
+  for (int n = 0; n < Dp / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const bf16* kb = k + b * sk.b + h0 * sk.h;
+  const bf16* vb = v + b * sv.b + h0 * sv.h;
+  // the second tensor's units from half way, so that at Dp 8 each thread
+  // stages one row of one of the two
+  const int second = (threadIdx.x + 16 * kTcWarps * G) % (32 * kTcWarps * G);
+  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
+  stage<bf16, Dp, G, kS, Wide>(k_tile, kb, sk, unit_k, 0, seq_len, head_dim, threadIdx.x);
+  stage<bf16, Dp, G, kS, Wide>(v_tile, vb, sv, unit_v, 0, seq_len, head_dim, second);
+  cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {   // the next tile streams in while this one is used
+      stage<bf16, Dp, G, kS, Wide>(k_tile + (buf ^ 1) * kTile, kb, sk, unit_k, (t + 1) * kTcTile,
+                             seq_len, head_dim, threadIdx.x);
+      stage<bf16, Dp, G, kS, Wide>(v_tile + (buf ^ 1) * kTile, vb, sv, unit_v, (t + 1) * kTcTile,
+                             seq_len, head_dim, second);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    if (!active) continue;
-    if constexpr (!FastMath) {
-      for (int j = 0; j < n; ++j) {
-        const float s = dot<D>(qr, &k_tile[j][g * D]);
-        if (s > m) {
-          // rescale what was summed under the old max; on the first key
-          // m = -inf, so c = 0 and the zero-initialised state stays zero
-          const float c = exp2f(m - s);
-          l *= c;
+    const uint4* kt = k_tile + buf * kTile + g * kTcTile * kS;
+    const uint4* vt = v_tile + buf * kTile + g * kTcTile * kS;
+    const int keys = seq_len - t * kTcTile;
+    if (keys >= kTcTile) {
+      fwd_tile<Dp, FastMath, false>(kt, vt, qa, scale_log2, keys, m, l, acc);
+    } else {
+      fwd_tile<Dp, FastMath, true>(kt, vt, qa, scale_log2, keys, m, l, acc);
+    }
+    __syncthreads();       // every warp is done with buf before it is refilled
+  }
+
+  float la = l[0];
+  float lb = l[2];
+  if (!FastMath) {         // the lane's partial sums, then the row's 4 lanes
+    la += l[1];
+    lb += l[3];
 #pragma unroll
-          for (int d = 0; d < D; ++d) acc[d] *= c;
-          m = s;
-        }
-        const float p = exp2f(s - m);
-        l += p;
+    for (int x = 1; x < 4; x *= 2) {
+      la += __shfl_xor_sync(0xffffffffu, la, x);
+      lb += __shfl_xor_sync(0xffffffffu, lb, x);
+    }
+  }
+  bf16* oh = o + b * so.b + h * so.h;
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] = fmaf(p, v_tile[j][g * D + d], acc[d]);
+  for (int n = 0; n < Dp / 8; ++n) {
+    const int c = 8 * n + 2 * tig;
+    if (oka && c < head_dim) oh[ra * so.t + c * so.d] = __float2bfloat16(acc[n][0] / la);
+    if (oka && c + 1 < head_dim) oh[ra * so.t + (c + 1) * so.d] = __float2bfloat16(acc[n][1] / la);
+    if (okb && c < head_dim) oh[rb * so.t + c * so.d] = __float2bfloat16(acc[n][2] / lb);
+    if (okb && c + 1 < head_dim) oh[rb * so.t + (c + 1) * so.d] = __float2bfloat16(acc[n][3] / lb);
+  }
+  if (lse != nullptr && tig == 0) {
+    const int64_t stat = (b * heads + h) * seq_len;
+    if (oka) lse[stat + ra] = m[0] + log2f(la);
+    if (okb) lse[stat + rb] = m[1] + log2f(lb);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: the 3xTF32 tensor-core kernel (see the top of the file)
+// ---------------------------------------------------------------------------
+
+// This lane's word offsets in a head's TF32 part (Tf32Tile<Dp>, rows kWords
+// apart) for the 8-row slice 0 and channel block 0 (slice s adds
+// 8 s kWords, channel block j adds 8 j): t0, row g at channel t (and t + 4 at
+// t0 + 4), a B fragment of the tile transposed (k = channel, n = row: K's
+// for S = Q K^T); r0, row 2t at channel g (and row 2t + 1 at r0 + kWords), a
+// B fragment of the tile as it is (k = row in the order S's C fragment holds
+// it, n = channel: V's for O += P V).
+template <int Dp>
+struct Tf32Lane {
+  int t0, r0;
+  __device__ __forceinline__ Tf32Lane() {
+    const int lane = threadIdx.x % 32;
+    t0 = (lane / 4) * Tf32Tile<Dp>::kWords + lane % 4;
+    r0 = 2 * (lane % 4) * Tf32Tile<Dp>::kWords + lane / 4;
+  }
+};
+
+// Keys at or past `keys` get s = -inf (weight 0): c[0], c[2] hold key
+// 8 s + 2 tig, c[1], c[3] key 8 s + 2 tig + 1.
+__device__ __forceinline__ void mask_keys(int s, int keys, float* c) {
+  const int key = 8 * s + 2 * (threadIdx.x % 4);
+  if (key >= keys) c[0] = c[2] = -INFINITY;
+  if (key + 1 >= keys) c[1] = c[3] = -INFINITY;
+}
+
+// S = Q K^T in base 2 for one warp's 16 rows and the 8 keys of slice s of the
+// staged tile, as one C fragment (c[0..1] row a, c[2..3] row b, keys as in
+// mask_keys): three TF32 products per k-step, term by term.
+template <int Dp, bool Mask>
+__device__ __forceinline__ void qk_tf32(const uint32_t* kh, const uint32_t* kl,
+                                        const Tf32Lane<Dp>& ln, int s,
+                                        const uint32_t (*qhi)[4], const uint32_t (*qlo)[4],
+                                        int keys, float* c) {
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+  mma3_k<Dp / 8>(c, qhi, qlo, kh, kl, ln.t0 + 8 * s * Tf32Tile<Dp>::kWords);
+  if (Mask) mask_keys(s, keys, c);
+}
+
+// The row maxima of one TF32 product of the hi parts (within about 2^-10 of
+// S) over the staged tile, for one warp's rows a and b, reduced over each
+// row's 4 lanes.
+template <int Dp, bool Mask>
+__device__ __forceinline__ void tile_max_tf32(const uint32_t* kh, const Tf32Lane<Dp>& ln,
+                                              const uint32_t (*qhi)[4], int keys, float* mx) {
+  mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+  for (int s = 0; s < kTcTile / 8; ++s) {
+    const int o = ln.t0 + 8 * s * Tf32Tile<Dp>::kWords;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < Dp / 8; ++j) {
+      const uint32_t kb[2] = {kh[o + 8 * j], kh[o + 8 * j + 4]};
+      mma_tf32(c, qhi[j], kb);
+    }
+    if (Mask) mask_keys(s, keys, c);
+    mx[0] = fmaxf(mx[0], fmaxf(c[0], c[1]));
+    mx[1] = fmaxf(mx[1], fmaxf(c[2], c[3]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+}
+
+// P = 2^(S - m) and P V over the staged tile for one warp's 16 query rows, 8
+// keys a step: lt[r] gets the row's sum of its f32 weights (reduced over its
+// 4 lanes), pv the tile's P V (a C fragment per n-tile, its own accumulator:
+// the tensor cores' f32 sums truncate, so a chain of 24 products, not one of
+// every key's, carries that error). With FastMath the shifted logit s - m is
+// rounded to bf16 and its correctly rounded bf16 exponential taken; a bf16
+// weight is exact in TF32 (its lo part is zero), so P V takes two products,
+// P.v_lo + P.v_hi, and lt sums the bf16 weights in f32.
+template <int Dp, bool FastMath, bool Mask>
+__device__ __forceinline__ void tile_pv_tf32(const uint32_t* kh, const uint32_t* kl,
+                                             const uint32_t* vh, const uint32_t* vl,
+                                             const Tf32Lane<Dp>& ln, const uint32_t (*qhi)[4],
+                                             const uint32_t (*qlo)[4], int keys, const float* m,
+                                             float* lt, float (*pv)[4]) {
+  constexpr int kW = Tf32Tile<Dp>::kWords;
+  lt[0] = lt[1] = 0.f;
+#pragma unroll
+  for (int n = 0; n < Dp / 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+  // two steps a turn: fully unrolled, the steps' fragments spill at the
+  // register cap
+#pragma unroll 2
+  for (int s = 0; s < kTcTile / 8; ++s) {
+    float c[4];
+    qk_tf32<Dp, Mask>(kh, kl, ln, s, qhi, qlo, keys, c);
+    const int o = ln.r0 + 8 * s * kW;
+    if (FastMath) {
+      // rows a (xa) and b (xb), keys of c[0] and c[2] in the low halves
+      const uint32_t xa = pack_bf16(__fsub_rn(c[0], m[0]), __fsub_rn(c[1], m[0]));
+      const uint32_t xb = pack_bf16(__fsub_rn(c[2], m[1]), __fsub_rn(c[3], m[1]));
+      const uint32_t pa = pack_bf16(ex2(lo_f32(xa)), ex2(hi_f32(xa)));
+      const uint32_t pb = pack_bf16(ex2(lo_f32(xb)), ex2(hi_f32(xb)));
+      lt[0] = __fadd_rn(lt[0], __fadd_rn(lo_f32(pa), hi_f32(pa)));
+      lt[1] = __fadd_rn(lt[1], __fadd_rn(lo_f32(pb), hi_f32(pb)));
+      // P's A fragment as f32 bit patterns: rows a, b at column tig, then at tig + 4
+      const uint32_t pf[4] = {pa << 16, pb << 16, pa & 0xffff0000u, pb & 0xffff0000u};
+#pragma unroll
+      for (int n = 0; n < Dp / 8; ++n) {
+        const uint32_t vhi[2] = {vh[o + 8 * n], vh[o + 8 * n + kW]};
+        const uint32_t vlo[2] = {vl[o + 8 * n], vl[o + 8 * n + kW]};
+        mma_tf32(pv[n], pf, vlo);   // P V, the small term first
+        mma_tf32(pv[n], pf, vhi);
       }
     } else {
-      // keys in pairs (kTileK is even, so pairs never straddle tiles); a
-      // lone last key (odd T) pairs with -inf, whose weight is exactly 0
-      const float* kg = &k_tile[0][g * D];
-      const float* vg = &v_tile[0][g * D];
-      int j = 0;
-      for (; j + 1 < n; j += 2) {
-        fast_math_step<D, true>(qr, kg + j * kWidth, kg + (j + 1) * kWidth,
-                                vg + j * kWidth, vg + (j + 1) * kWidth, m, l, acc);
-      }
-      if (j < n) {
-        fast_math_step<D, false>(qr, kg + j * kWidth, nullptr, vg + j * kWidth,
-                                 nullptr, m, l, acc);
+      const float p[4] = {ex2(__fsub_rn(c[0], m[0])), ex2(__fsub_rn(c[1], m[0])),
+                          ex2(__fsub_rn(c[2], m[1])), ex2(__fsub_rn(c[3], m[1]))};
+      lt[0] = __fadd_rn(lt[0], __fadd_rn(p[0], p[1]));
+      lt[1] = __fadd_rn(lt[1], __fadd_rn(p[2], p[3]));
+      // P's A fragment: rows a, b at column tig (c[0], c[2]), then at tig + 4
+      uint32_t phi[4], plo[4];
+      split_tf32(p[0], phi[0], plo[0]);
+      split_tf32(p[2], phi[1], plo[1]);
+      split_tf32(p[1], phi[2], plo[2]);
+      split_tf32(p[3], phi[3], plo[3]);
+#pragma unroll
+      for (int n = 0; n < Dp / 8; ++n) {
+        mma3(pv[n], phi, plo, vh, vl, o + 8 * n, o + 8 * n + kW);   // P V
       }
     }
   }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lt[r] = __fadd_rn(lt[r], __shfl_xor_sync(0xffffffffu, lt[r], 1));
+    lt[r] = __fadd_rn(lt[r], __shfl_xor_sync(0xffffffffu, lt[r], 2));
+  }
+}
 
-  if (active) {
-    T* ob = o + b * so.b + h * so.h + row * so.t;
-    if constexpr (FastMath) {
+// Bring row r's sum l[r] and accumulator (acc[n][2r], acc[n][2r + 1]) from
+// shift m[r] onto mnew >= m[r]. __fmul_rn is never contracted into an fma
+// with the sums that follow, so no G instance rounds otherwise than G = 1.
+template <int Dp>
+__device__ __forceinline__ void shift_to(int r, float mnew, float* m, float* l,
+                                         float (*acc)[4]) {
+  // on the first tile m = -inf, so c = 0 and the zero state stays zero
+  const float c = mnew > m[r] ? ex2(m[r] - mnew) : 1.f;
+  m[r] = mnew;
+  l[r] = __fmul_rn(l[r], c);
 #pragma unroll
-      for (int d = 0; d < D; ++d) ob[d * so.d] = from_f32<T>(acc[d] / l);
-    } else {
-      const float inv = 1.f / l;
+  for (int n = 0; n < Dp / 8; ++n) {
+    acc[n][2 * r] = __fmul_rn(acc[n][2 * r], c);
+    acc[n][2 * r + 1] = __fmul_rn(acc[n][2 * r + 1], c);
+  }
+}
+
+// One staged key tile for one warp's 16 query rows. The weights are taken
+// against a running shift m that needs no pass over the tile: on the first
+// tile, and on a tile whose row sums would pass 2^40 against it (then, or on
+// inf or NaN, the tile is done again), m first moves to the tile's max from
+// one TF32 pass (tile_max_tf32); after a tile whose row sum passes 2^16, m
+// moves to m + log2 of that sum (within 6 of the tile's max, as a tile has
+// 64 keys), so the weights stay under 2^16. With FastMath the shift is the
+// running max instead, the value the bf16 rounding is taken against: m moves
+// to the one-pass tile max on every tile (the weights then stay near or
+// under 1). m, l (row sums) and acc are per row as in shift_to, the same in
+// each row's 4 lanes.
+template <int Dp, bool FastMath, bool Mask>
+__device__ __forceinline__ void fwd_tile_tf32(const uint32_t* kh, const uint32_t* kl,
+                                              const uint32_t* vh, const uint32_t* vl,
+                                              const Tf32Lane<Dp>& ln, const uint32_t (*qhi)[4],
+                                              const uint32_t (*qlo)[4], int keys, bool first,
+                                              float* m, float* l, float (*acc)[4]) {
+  float lt[2], pv[Dp / 8][4];
+  bool need_max = first || FastMath;
+  for (;;) {
+    if (need_max) {
+      float mx[2];
+      tile_max_tf32<Dp, Mask>(kh, ln, qhi, keys, mx);
+      shift_to<Dp>(0, fmaxf(m[0], mx[0]), m, l, acc);
+      shift_to<Dp>(1, fmaxf(m[1], mx[1]), m, l, acc);
+    }
+    tile_pv_tf32<Dp, FastMath, Mask>(kh, kl, vh, vl, ln, qhi, qlo, keys, m, lt, pv);
+    // !(x <= 2^40) also holds for inf and NaN
+    const bool wide = !(lt[0] <= 0x1p40f) || !(lt[1] <= 0x1p40f);
+    if (need_max || !__any_sync(0xffffffffu, wide)) break;
+    need_max = true;
+  }
 #pragma unroll
-      for (int d = 0; d < D; ++d) ob[d * so.d] = from_f32<T>(acc[d] * inv);
-      if (lse != nullptr) lse[(b * heads + h) * seq_len + row] = m + log2f(l);
+  for (int r = 0; r < 2; ++r) {
+    l[r] = __fadd_rn(l[r], lt[r]);
+#pragma unroll
+    for (int n = 0; n < Dp / 8; ++n) {
+      acc[n][2 * r] = __fadd_rn(acc[n][2 * r], pv[n][2 * r]);
+      acc[n][2 * r + 1] = __fadd_rn(acc[n][2 * r + 1], pv[n][2 * r + 1]);
+    }
+    if (!FastMath && lt[r] > 0x1p16f) {
+      shift_to<Dp>(r, __fadd_rn(m[r], __log2f(lt[r])), m, l, acc);
     }
   }
 }
 
-template <int D, typename T, int G, bool FastMath>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int batch, int heads, int seq_len,
-                   const int64_t* st, float scale, cudaStream_t stream) {
-  const Strides sq{st[0], st[1], st[2], st[3]};
-  const Strides sk{st[4], st[5], st[6], st[7]};
-  const Strides sv{st[8], st[9], st[10], st[11]};
-  const Strides so{st[12], st[13], st[14], st[15]};
-  const dim3 grid((seq_len + kBlockQ - 1) / kBlockQ, heads / G, batch);
-  attention_fwd_kernel<D, T, G, FastMath><<<grid, kBlockQ * G, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, heads, seq_len, sq,
-      sk, sv, so, scale * kLog2e);
-  return cudaGetLastError();
-}
+template <int Dp, int G, bool FastMath, bool Wide>
+__global__ void __launch_bounds__(32 * kTcWarps * G, min_blocks(tf32_blocks(Dp), G))
+attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int heads, int seq_len, int head_dim,
+                          Strides sq, Strides sk, Strides sv, Strides so, int unit_k,
+                          int unit_v, float scale_log2) {
+  if constexpr (Wide) head_dim = Dp;   // a Wide head fills its staged width
+  constexpr int kRawTile = G * kTcTile * Tf32Tile<Dp>::kRaw;   // 16-byte chunks
+  constexpr int kPart = G * kTcTile * Tf32Tile<Dp>::kWords;    // words per part
+  // G heads' raw K tile, their raw V tile, then the K hi, K lo, V hi and V
+  // lo parts of the tile the warps work on
+  extern __shared__ float4 tf32_tiles[];
+  uint4* k_raw = reinterpret_cast<uint4*>(tf32_tiles);
+  uint4* v_raw = k_raw + kRawTile;
+  uint32_t* parts = reinterpret_cast<uint32_t*>(v_raw + kRawTile);
 
-template <int D, typename T, bool FastMath>
-cudaError_t launch_group(int group, const void* q, const void* k, const void* v, void* o,
-                         float* lse, int batch, int heads, int seq_len, const int64_t* st,
-                         float scale, cudaStream_t s) {
-  switch (group) {
-    case 1: return launch<D, T, 1, FastMath>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
-    case 2: return launch<D, T, 2, FastMath>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
-    case 4: return launch<D, T, 4, FastMath>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
-    case 8: return launch<D, T, 8, FastMath>(q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
-    default: return cudaErrorInvalidValue;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = warp / kTcWarps;          // this warp's head within the group
+  const int tig = lane % 4;
+  const int64_t b = blockIdx.z;
+  const int64_t h0 = static_cast<int64_t>(blockIdx.y) * G;
+  const int64_t h = h0 + g;
+  const int ra = blockIdx.x * kTcRows + (warp % kTcWarps) * 16 + lane / 4;
+  const int rb = ra + 8;
+  const bool oka = ra < seq_len;
+  const bool okb = rb < seq_len;
+
+  // q's A fragments (rows a, b at channel 8j + tig, then at 8j + tig + 4),
+  // scaled to base-2 logits in f32 and split into TF32 hi and lo parts once
+  const float* qh = q + b * sq.b + h * sq.h;
+  uint32_t qhi[Dp / 8][4], qlo[Dp / 8][4];
+#pragma unroll
+  for (int j = 0; j < Dp / 8; ++j) {
+    float qx[4];
+    load_a(qh, sq, ra, oka, okb, j, head_dim, qx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(__fmul_rn(qx[i], scale_log2), qhi[j][i], qlo[j][i]);
+  }
+
+  const Tf32Lane<Dp> lane_reads;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float acc[Dp / 8][4];
+#pragma unroll
+  for (int n = 0; n < Dp / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float* kb = k + b * sk.b + h0 * sk.h;
+  const float* vb = v + b * sv.b + h0 * sv.h;
+  constexpr int kRawStride = Tf32Tile<Dp>::kRaw;
+  // the second tensor's units from half way, so that at Dp 8 each thread
+  // stages one row of one of the two
+  const int second = (threadIdx.x + 16 * kTcWarps * G) % (32 * kTcWarps * G);
+  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
+  stage<float, Dp, G, kRawStride, Wide>(k_raw, kb, sk, unit_k, 0, seq_len, head_dim, threadIdx.x);
+  stage<float, Dp, G, kRawStride, Wide>(v_raw, vb, sv, unit_v, 0, seq_len, head_dim, second);
+  cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<0>();
+    // the raw tile has landed for every thread, and every warp is done with
+    // the previous tile's parts
+    __syncthreads();
+    split_tile<Dp, G>(reinterpret_cast<const float4*>(k_raw), reinterpret_cast<float4*>(parts),
+                      reinterpret_cast<float4*>(parts + kPart));
+    split_tile<Dp, G>(reinterpret_cast<const float4*>(v_raw),
+                      reinterpret_cast<float4*>(parts + 2 * kPart),
+                      reinterpret_cast<float4*>(parts + 3 * kPart));
+    __syncthreads();
+    if (t + 1 < tiles) {   // the next raw tile streams in while the parts are used
+      stage<float, Dp, G, kRawStride, Wide>(k_raw, kb, sk, unit_k, (t + 1) * kTcTile, seq_len,
+                                            head_dim, threadIdx.x);
+      stage<float, Dp, G, kRawStride, Wide>(v_raw, vb, sv, unit_v, (t + 1) * kTcTile, seq_len,
+                                            head_dim, second);
+      cp_async_commit();
+    }
+    const uint32_t* head = parts + g * kTcTile * Tf32Tile<Dp>::kWords;
+    const int keys = seq_len - t * kTcTile;
+    if (keys >= kTcTile) {
+      fwd_tile_tf32<Dp, FastMath, false>(head, head + kPart, head + 2 * kPart, head + 3 * kPart,
+                                         lane_reads, qhi, qlo, keys, t == 0, m, l, acc);
+    } else {
+      fwd_tile_tf32<Dp, FastMath, true>(head, head + kPart, head + 2 * kPart, head + 3 * kPart,
+                                        lane_reads, qhi, qlo, keys, t == 0, m, l, acc);
+    }
+  }
+
+  const float la = l[0];
+  const float lb = l[1];
+  float* oh = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int n = 0; n < Dp / 8; ++n) {
+    const int c = 8 * n + 2 * tig;
+    if (oka && c < head_dim) oh[ra * so.t + c * so.d] = acc[n][0] / la;
+    if (oka && c + 1 < head_dim) oh[ra * so.t + (c + 1) * so.d] = acc[n][1] / la;
+    if (okb && c < head_dim) oh[rb * so.t + c * so.d] = acc[n][2] / lb;
+    if (okb && c + 1 < head_dim) oh[rb * so.t + (c + 1) * so.d] = acc[n][3] / lb;
+  }
+  if (lse != nullptr && tig == 0) {
+    const int64_t stat = (b * heads + h) * seq_len;
+    if (oka) lse[stat + ra] = m[0] + log2f(la);
+    if (okb) lse[stat + rb] = m[1] + log2f(lb);
   }
 }
 
-template <int D, typename T>
-cudaError_t launch_math(int group, bool fast_math, const void* q, const void* k,
-                        const void* v, void* o, float* lse, int batch, int heads,
-                        int seq_len, const int64_t* st, float scale, cudaStream_t s) {
-  return fast_math
-      ? launch_group<D, T, true>(group, q, k, v, o, nullptr, batch, heads, seq_len, st, scale, s)
-      : launch_group<D, T, false>(group, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
-}
+// ---------------------------------------------------------------------------
+// head_dim 8 at full width: the head_dim-8 kernels (namespace d8)
+// ---------------------------------------------------------------------------
+//
+// A call at head_dim 8 whose staged rows go in 16-byte units (every dense
+// and (B, T, C) layout) runs these, the head_dim-8 kernels the templates
+// above were grown from, unchanged: at Dp 8 the templates ran 5-12% slower
+// and spilled at the 64 registers a thread that G = 8 (1024 threads a
+// block) allows. The arithmetic is the templates' at Dp 8 (one k-step, one
+// n-tile); the f32 tiles keep their chunk swap instead of the padded rows.
+namespace d8 {
+
+// blocks per SM at G = 1 (G heads per block: 1/G of them), so that 32 warps
+// per SM hide the special-function units' latency; it caps registers at 64
+constexpr int kTcBlocksPerSM = 8;
 
 // ---------------------------------------------------------------------------
 // bf16, D = 8: the tensor-core kernel (see the top of the file)
@@ -497,7 +825,7 @@ __device__ __forceinline__ void fwd_tile(const uint4* kt, const uint4* vt, const
 
 template <int G, bool FastMath>
 __global__ void __launch_bounds__(32 * kTcWarps * G, kTcBlocksPerSM / G)
-attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+attention_fwd_tc_d8_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, bf16* __restrict__ o,
                         float* __restrict__ lse, int heads, int seq_len, Strides sq,
                         Strides sk, Strides sv, Strides so, float scale_log2) {
@@ -587,7 +915,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, floa
   const Strides so{st[12], st[13], st[14], st[15]};
   if (!rows16<bf16>(k, sk) || !rows16<bf16>(v, sv)) return cudaErrorInvalidValue;
   const dim3 grid((seq_len + kTcRows - 1) / kTcRows, heads / G, batch);
-  attention_fwd_tc_kernel<G, FastMath><<<grid, 32 * kTcWarps * G, 0, stream>>>(
+  attention_fwd_tc_d8_kernel<G, FastMath><<<grid, 32 * kTcWarps * G, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), lse, heads, seq_len, sq, sk, sv, so, scale * kLog2e);
   return cudaGetLastError();
@@ -802,7 +1130,7 @@ __device__ __forceinline__ void fwd_tile_tf32(const uint32_t* kh, const uint32_t
 
 template <int G, bool FastMath>
 __global__ void __launch_bounds__(32 * kTcWarps * G, kTcBlocksPerSM / G)
-attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+attention_fwd_tf32_d8_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ o,
                           float* __restrict__ lse, int heads, int seq_len, Strides sq,
                           Strides sk, Strides sv, Strides so, float scale_log2) {
@@ -905,13 +1233,13 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o, fl
   // K and V as staged, double-buffered, and the tile's four parts
   constexpr int kBytes = 8 * G * 2 * kTcTile * 16;
   if (kBytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(attention_fwd_tf32_kernel<G, FastMath>,
+    const cudaError_t err = cudaFuncSetAttribute(attention_fwd_tf32_d8_kernel<G, FastMath>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  kBytes);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((seq_len + kTcRows - 1) / kTcRows, heads / G, batch);
-  attention_fwd_tf32_kernel<G, FastMath><<<grid, 32 * kTcWarps * G, kBytes, stream>>>(
+  attention_fwd_tf32_d8_kernel<G, FastMath><<<grid, 32 * kTcWarps * G, kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), lse, heads, seq_len, sq, sk, sv, so, scale * kLog2e);
   return cudaGetLastError();
@@ -938,13 +1266,94 @@ cudaError_t launch_tf32_group(int group, bool fast_math, const void* q, const vo
   }
 }
 
+}  // namespace d8
+
+// One launch of the bf16 or the f32 kernel at <Dp, G, FastMath>: each staged
+// tensor's unit, the shared memory, the grid, then cudaGetLastError.
+template <typename T, int Dp, int G, bool FastMath, bool Wide>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
+                   int heads, int seq_len, int head_dim, const int64_t* st, int unit_k,
+                   int unit_v, float scale, cudaStream_t stream) {
+  const Strides sq{st[0], st[1], st[2], st[3]};
+  const Strides sk{st[4], st[5], st[6], st[7]};
+  const Strides sv{st[8], st[9], st[10], st[11]};
+  const Strides so{st[12], st[13], st[14], st[15]};
+  const dim3 grid((seq_len + kTcRows - 1) / kTcRows, heads / G, batch);
+  constexpr int kThreads = 32 * kTcWarps * G;
+  if constexpr (std::is_same<T, bf16>::value) {
+    // K and V, double-buffered
+    constexpr int kBytes = 4 * G * kTcTile * Bf16Tile<Dp>::kStride * 16;
+    auto* kernel = attention_fwd_tc_kernel<Dp, G, FastMath, Wide>;
+    const cudaError_t err = allow_shared(kernel, kBytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, kBytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), lse, heads, seq_len, head_dim, sq, sk, sv, so, unit_k, unit_v,
+        scale * kLog2e);
+  } else {
+    // raw K and V, and the four parts
+    constexpr int kBytes = G * kTcTile * 16 * (2 * Tf32Tile<Dp>::kRaw + 4 * Tf32Tile<Dp>::kStride);
+    auto* kernel = attention_fwd_tf32_kernel<Dp, G, FastMath, Wide>;
+    const cudaError_t err = allow_shared(kernel, kBytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, kBytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), lse, heads, seq_len, head_dim, sq, sk, sv, so, unit_k, unit_v,
+        scale * kLog2e);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_typed(bool fast_math, int group, const void* q, const void* k, const void* v,
+                         void* o, float* lse, int batch, int heads, int seq_len, int head_dim,
+                         const int64_t* st, float scale, cudaStream_t s) {
+  const int unit_k = stage_unit<T>(k, Strides{st[4], st[5], st[6], st[7]}, head_dim);
+  const int unit_v = stage_unit<T>(v, Strides{st[8], st[9], st[10], st[11]}, head_dim);
+  // every staged row in 16-byte units and the head at its staged width: the
+  // Wide instances, at every G; else the general staging, at G = 1 only
+  const bool wide = unit_k == 4 && unit_v == 4 && head_dim == padded_head_dim(head_dim);
+  if (!wide && group != 1) return cudaErrorInvalidValue;
+  if (wide && head_dim == 8) {   // the head_dim-8 kernels, namespace d8
+    if constexpr (std::is_same<T, bf16>::value) {
+      return d8::launch_tc_group(group, fast_math, q, k, v, o, lse, batch, heads, seq_len, st,
+                                 scale, s);
+    } else {
+      return d8::launch_tf32_group(group, fast_math, q, k, v, o, lse, batch, heads, seq_len, st,
+                                   scale, s);
+    }
+  }
+  float* stats = fast_math ? nullptr : lse;
+  return dispatch_width(head_dim, group, [&](auto dp, auto g) {
+    constexpr int Dp = decltype(dp)::value;
+    constexpr int G = decltype(g)::value;
+    if constexpr (Dp != 8) {
+      if (wide) {
+        return fast_math
+            ? launch<T, Dp, G, true, true>(q, k, v, o, stats, batch, heads, seq_len, head_dim,
+                                           st, unit_k, unit_v, scale, s)
+            : launch<T, Dp, G, false, true>(q, k, v, o, stats, batch, heads, seq_len, head_dim,
+                                            st, unit_k, unit_v, scale, s);
+      }
+    }
+    if constexpr (G == 1) {
+      return fast_math ? launch<T, Dp, 1, true, false>(q, k, v, o, stats, batch, heads, seq_len,
+                                                       head_dim, st, unit_k, unit_v, scale, s)
+                       : launch<T, Dp, 1, false, false>(q, k, v, o, stats, batch, heads, seq_len,
+                                                        head_dim, st, unit_k, unit_v, scale, s);
+    }
+    return cudaErrorInvalidValue;
+  });
+}
+
 }  // namespace
 
 // The launch's shape, types and knobs, packed once per checked layout by
 // ops/attention.py (`_FwdArgs` there: the same fields in the same order).
 // dtype: 0 = float32, 1 = bfloat16. strides: 16 element strides, (b, h, t, d)
-// for q, k, v and out in that order. heads_per_program: 1, 2, 4 or 8, and it
-// must divide heads. fast_math: 0 or 1.
+// for q, k, v and out in that order. head_dim: 1 to 64. heads_per_program: 1,
+// 2, 4 or 8 with heads_per_program * (the staged width, 8, 16, 32 or 64)
+// <= 64, and it must divide heads. fast_math: 0 or 1.
 struct FwdArgs {
   int64_t strides[16];
   int32_t batch, heads, seq_len, head_dim, dtype, heads_per_program, fast_math;
@@ -954,27 +1363,21 @@ struct FwdArgs {
 // lse: null, or (exact path only) a contiguous f32 (batch, heads, seq_len)
 // output for each row's base-2 log-sum-exp. Returns a cudaError_t; an
 // unsupported head_dim, dtype or group, or lse with fast_math, returns
-// cudaErrorInvalidValue without launching. head_dim 8 (the tensor-core
-// kernels, both dtypes, exact and fast math) also needs each row of k and v
-// to start on 16 bytes with its channels contiguous.
+// cudaErrorInvalidValue without launching. Any strides are taken.
 extern "C" int attention_fwd(const FwdArgs* a, const void* q, const void* k, const void* v,
                              void* o, float* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int g = a->heads_per_program;
   const int batch = a->batch, heads = a->heads, seq_len = a->seq_len;
-  const int64_t* st = a->strides;
-  const float scale = a->scale;
   if (seq_len <= 0 || batch <= 0 || heads <= 0 || g <= 0 || heads % g != 0)
     return cudaErrorInvalidValue;
   const bool fm = a->fast_math != 0;
   if (fm && lse != nullptr) return cudaErrorInvalidValue;
-  if (a->dtype == 0 && a->head_dim == 8)
-    return launch_tf32_group(g, fm, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
-  if (a->dtype == 1 && a->head_dim == 8)
-    return launch_tc_group(g, fm, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
-  if (a->dtype == 0 && a->head_dim == 4)
-    return launch_math<4, float>(g, fm, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
-  if (a->dtype == 1 && a->head_dim == 4)
-    return launch_math<4, __nv_bfloat16>(g, fm, q, k, v, o, lse, batch, heads, seq_len, st, scale, s);
+  if (a->dtype == 0)
+    return launch_typed<float>(fm, g, q, k, v, o, lse, batch, heads, seq_len, a->head_dim,
+                               a->strides, a->scale, s);
+  if (a->dtype == 1)
+    return launch_typed<bf16>(fm, g, q, k, v, o, lse, batch, heads, seq_len, a->head_dim,
+                              a->strides, a->scale, s);
   return cudaErrorInvalidValue;
 }

@@ -9,10 +9,13 @@ The port of synt_isic_tpu/ops/pallas/attention.py:
   * `fused_attention_bwd` (the Pallas recompute backward, with its knob
     `heads_per_program`) launches `csrc/attention_bwd.cu`;
   * `fused_attention_trainable` (the Pallas `custom_vjp`) is the autograd
-    Function `FusedAttention`: forward kernel, backward kernel. At head_dim
-    8 (f32 and bf16) its exact forward also writes each row's base-2
-    log-sum-exp, and it saves that and its output for the backward's
-    tensor-core kernels.
+    Function `FusedAttention`: forward kernel, backward kernel. On CUDA its
+    exact forward also writes each row's base-2 log-sum-exp, and it saves
+    that and its output for the backward.
+Every kernel runs on the tensor cores at every head_dim D from 1 to 64 (a
+staged width of 8, 16, 32 or 64 channels, the least one >= D, its channels
+past D zero-filled inside the kernel), in f32 (3xTF32) and bf16; a larger
+D raises on CUDA.
 For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it runs the plain PyTorch version (`attention_reference`,
 `attention_fast_math_reference`, `attention_bwd_reference`), which the
@@ -26,20 +29,26 @@ rounds, and the forward's log-sum-exp to `attention_lse_reference`. There is
 no other route.
 
 The UNet calls the wrappers with the same few layouts on every step, so a
-CUDA call's checks run once per layout: the verdict, G, the copies the
-tensor-core kernels need and the kernel's packed arguments are kept in
-`_PLANS`, keyed by everything the checks read, and a call with a key not
-seen yet is checked in full first.
+CUDA call's checks run once per layout: the verdict, G and the kernel's
+packed arguments are kept in `_PLANS`, keyed by everything the checks read,
+and a call with a key not seen yet is checked in full first.
 
 `heads_per_program` = G runs G heads per block with bit-identical maths,
 in the forward and the backward alike; as in the JAX package, a G that does
-not divide the head count means G = 1. The kernels take G in (1, 2, 4, 8).
-On a CPU tensor G has no effect.
+not divide the head count means G = 1. The kernels take G in (1, 2, 4, 8)
+with G times the staged width at most 64 (`_group`), where the head fills
+its staged width and every staged tensor's rows go in 16-byte units
+(`_wide`: every dense or (B, T, C) layout at head_dim 8, 16, 32 or 64); any
+other call runs at G = 1, as bit-identical as ever. At head_dim 8 a layout
+that is not wide is copied into fresh contiguous storage first, as the
+head_dim-8 kernels have always taken it, so head_dim 8 runs those kernels at
+every layout and G. On a CPU tensor G has no effect.
 
 q, k, v (and do) are (B, H, T, D) tensors of any strides, so a view of a
 (B, T, C) projection output (`z.view(B, T, H, D).transpose(1, 2)`) goes in
-without a copy, and every result keeps q's strides (dk and dv those of k
-and v), so it reshapes back to (B, T, C) for free.
+without a copy (the kernels stage each tensor in the largest unit its
+layout allows, down to one element), and every result keeps q's strides
+(dk and dv those of k and v), so it reshapes back to (B, T, C) for free.
 """
 from __future__ import annotations
 
@@ -60,11 +69,14 @@ FAST_KERNEL = "attention_fwd_fast_math"
 GROUPED_KERNEL = "attention_fwd_grouped"
 # counter of the backward kernel's grouped variant (one source, `attention_bwd.cu`)
 BWD_GROUPED_KERNEL = "attention_bwd_grouped"
-# counter of the exact forward launches that a head_dim-8 backward without
-# saved statistics runs first for its o and log-sum-exp (`attention_fwd.cu`)
+# counter of the exact forward launches that a backward without saved
+# statistics runs first for its o and log-sum-exp (`attention_fwd.cu`)
 STATS_KERNEL = "attention_bwd_stats"
-HEAD_DIMS = (4, 8)
+HEAD_DIMS = range(1, 65)
 HEADS_PER_PROGRAM = (1, 2, 4, 8)
+STAGED_WIDTHS = (8, 16, 32, 64)
+# G heads of the staged width at most: D 8 x G 8, the widest staged row
+MAX_GROUP_WIDTH = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of each hand-written kernel, counted where the wrapper launches it
@@ -113,9 +125,8 @@ def attention_fast_math_reference(q: torch.Tensor, k: torch.Tensor,
 
 def fast_math_step(q: torch.Tensor) -> int:
     """Keys per running-max update of the fast-math kernel that takes
-    tensors like q: a staged tile of 64 on the tensor-core kernels (head_dim
-    8, bf16 and f32), pairs on the CUDA-core kernel (head_dim 4)."""
-    return 64 if q.shape[-1] == 8 else 2
+    tensors like q: a staged tile of 64 at every head_dim, in bf16 and f32."""
+    return 64
 
 
 def attention_fast_math_kernel_order(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -125,8 +136,8 @@ def attention_fast_math_kernel_order(q: torch.Tensor, k: torch.Tensor, v: torch.
     branch (`attention_fast_math_reference`) rounds the natural-log logit
     minus the row's max, the kernels round the base-2 logit (log2(e) folded
     into the scale, in f32) minus the running max, which moves once per
-    group of `step` keys (`fast_math_step`: 2 on the CUDA-core kernel, 64 on
-    the tensor-core ones; groups start at key 0, the last may be short), and
+    group of `step` keys (`fast_math_step`: a staged tile of 64; groups
+    start at key 0, the last may be short), and
     take `exp2` of that bf16 value in bf16. Here, as there, the weights are
     brought onto the row's max in f32, summed and multiplied into v in f32,
     and the division comes last; the result is in q's dtype.
@@ -155,9 +166,9 @@ def attention_fast_math_kernel_order(q: torch.Tensor, k: torch.Tensor, v: torch.
 def fast_math_kernel_order(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """`attention_fast_math_kernel_order` by the rule of the fast-math kernel
     that takes tensors like q: its keys per max update (`fast_math_step`),
-    and at head_dim 8 in f32 the 3xTF32 logits and one-pass tile max."""
+    and in f32 the 3xTF32 logits and one-pass tile max."""
     return attention_fast_math_kernel_order(
-        q, k, v, fast_math_step(q), tf32x3=q.dtype == torch.float32 and q.shape[-1] == 8)
+        q, k, v, fast_math_step(q), tf32x3=q.dtype == torch.float32)
 
 
 def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -183,8 +194,8 @@ def _tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def attention_tf32x3_kernel_order(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor) -> torch.Tensor:
-    """The f32 tensor-core kernel's arithmetic (`attention_fwd.cu`, exact f32
-    at head_dim 8) in plain PyTorch, to hold the kernel to its own rounding.
+    """The f32 tensor-core kernel's arithmetic (`attention_fwd.cu`, exact f32)
+    in plain PyTorch, to hold the kernel to its own rounding.
     q is scaled to base-2 logits in f32 (1/sqrt(D) * log2(e)), then q, k, v
     and the weights are split into TF32 hi and lo parts (`tf32_split`), and
     each product is lo.hi + hi.lo + hi.hi in f32, the small terms first
@@ -274,8 +285,8 @@ def attention_bwd_kernel_order(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def attention_bwd_tf32x3_kernel_order(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       do: torch.Tensor, o: torch.Tensor, lse: torch.Tensor
                                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The f32 tensor-core backward's arithmetic (`attention_bwd.cu`, f32 at
-    head_dim 8) in plain PyTorch, to hold the kernel to its own rounding,
+    """The f32 tensor-core backward's arithmetic (`attention_bwd.cu`, f32)
+    in plain PyTorch, to hold the kernel to its own rounding,
     from the forward's output `o` and base-2 log-sum-exp `lse`. Every
     product is 3xTF32 (`_tf32x3_matmul`): S = q k^T and dP = do v^T;
     P = 2^(S * scale * log2(e) - lse) with the shift rounded once, as the
@@ -312,9 +323,16 @@ def _check(*tensors: torch.Tensor) -> str:
         if any(z.dtype != q.dtype for z in tensors) or q.dtype not in _DTYPE_CODES:
             raise ValueError(f"kernel takes float32 or bfloat16 inputs of one "
                              f"dtype, got {[z.dtype for z in tensors]}")
-        if q.shape[-1] not in HEAD_DIMS:
-            raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, got {q.shape[-1]}")
+        _check_head_dim(q.shape[-1])
     return q.device.type
+
+
+def _check_head_dim(head_dim: int) -> int:
+    """The staged width of a CUDA call's head_dim; a head_dim outside
+    HEAD_DIMS raises."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim 1 to {HEAD_DIMS[-1]}, got {head_dim}")
+    return staged_width(head_dim)
 
 
 class _FwdArgs(ctypes.Structure):
@@ -342,9 +360,17 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _group(heads: int, heads_per_program: int, device: str) -> int:
+def staged_width(head_dim: int) -> int:
+    """The kernels' staged width of a head: the least of STAGED_WIDTHS that
+    holds head_dim channels."""
+    return next(w for w in STAGED_WIDTHS if head_dim <= w)
+
+
+def _group(heads: int, heads_per_program: int, device: str, head_dim: int) -> int:
     """G as the Pallas wrapper takes it: a G that does not divide the head
-    count means 1. On CUDA, a G the kernels do not take raises."""
+    count means 1. On CUDA, a G the kernels do not take raises: one outside
+    HEADS_PER_PROGRAM, or one whose G heads of the staged width pass
+    MAX_GROUP_WIDTH channels."""
     g = int(heads_per_program)
     if g < 1:
         raise ValueError(f"heads_per_program must be >= 1, got {g}")
@@ -352,24 +378,28 @@ def _group(heads: int, heads_per_program: int, device: str) -> int:
     if device == "cuda" and g not in HEADS_PER_PROGRAM:
         raise ValueError(f"kernel takes heads_per_program in {HEADS_PER_PROGRAM}, "
                          f"got {g}")
+    if device == "cuda" and g * staged_width(head_dim) > MAX_GROUP_WIDTH:
+        raise ValueError(f"kernel takes heads_per_program * {staged_width(head_dim)} (the "
+                         f"staged width of head_dim {head_dim}) <= {MAX_GROUP_WIDTH}, got G {g}")
     return g
 
 
-def _tensor_cores(q: torch.Tensor) -> bool:
-    """Whether a CUDA call runs the tensor-core kernels: head_dim 8, in both
-    dtypes (f32 in 3xTF32), the forward with exact and fast math alike. They
-    stage their rows in 16-byte chunks (k and v in the forward; q, k, v and
-    do in the backward), and the backward reads the exact forward's output
-    and log-sum-exp."""
-    return q.shape[-1] == 8
+def _wide(*tensors: torch.Tensor) -> bool:
+    """Whether the kernels take these tensors at their Wide instances, as
+    the launchers decide it: head_dim one of STAGED_WIDTHS, and every row
+    staged in 16-byte units (`stage_unit` in `csrc/tensor_core.cuh`:
+    channels contiguous, the address and the t, h and b strides in bytes
+    multiples of 16). The kernels run any G there, G = 1 elsewhere."""
+    return all(z.shape[-1] in STAGED_WIDTHS and z.stride(-1) == 1 and z.data_ptr() % 16 == 0
+               and all(st * z.element_size() % 16 == 0 for st in z.stride()[:3])
+               for z in tensors)
 
 
-def _rows16(z: torch.Tensor) -> bool:
-    """Whether each (b, h, t) row of z starts on 16 bytes with its channels
-    contiguous, as the tensor-core kernels stage it. The UNet's views and
-    dense tensors pass; other layouts are copied first."""
-    return (z.stride(-1) == 1 and z.data_ptr() % 16 == 0
-            and all(st % (16 // z.element_size()) == 0 for st in z.stride()[:3]))
+def _copies(*tensors: torch.Tensor) -> Tuple[bool, ...]:
+    """Which of these staged tensors a call copies before its launch: at
+    head_dim 8, each that is not `_wide` (the head_dim-8 kernels stage
+    16-byte rows only); at any other head_dim none."""
+    return tuple(z.shape[-1] == 8 and not _wide(z) for z in tensors)
 
 
 def _staged(z: torch.Tensor, copy: bool) -> torch.Tensor:
@@ -400,8 +430,8 @@ def _count(kernels: Tuple[str, ...]) -> None:
 
 
 # Checked launches, keyed by everything the checks read: shapes, strides,
-# dtypes and devices of the tensors, the knobs, and whether the rows the
-# tensor-core kernels stage start on 16 bytes. A call whose key is not here
+# dtypes and devices of the tensors, the knobs, and whether the staged
+# tensors start on 16 bytes (`_wide`). A call whose key is not here
 # goes through every check first, so nothing launches on a layout that was
 # not checked, and what the checks refuse raises as before.
 _PLANS: dict = {}
@@ -442,8 +472,7 @@ class _ForwardPlan:
         self.empty = q.numel() == 0
         b, h, t, d = q.shape
         self.lse_shape = (b, h, t) if with_lse else None
-        staged = _tensor_cores(q)
-        self.copy_k, self.copy_v = (staged and not _rows16(z) for z in (k, v))
+        self.copy_k, self.copy_v = _copies(k, v)
         strides = (q.stride(), _staged_strides(k, self.copy_k), _staged_strides(v, self.copy_v),
                    self.outputs(q)[0].stride())
         self.args = _FwdArgs((ctypes.c_int64 * 16)(*(s for st in strides for s in st)),
@@ -480,11 +509,12 @@ def _forward_plan(q, k, v, fast_math, heads_per_program, with_lse):
     """The plan of a forward call the cache has not seen, after every check;
     None for CPU tensors."""
     device = _check(q, k, v)
-    group = _group(q.shape[1], heads_per_program, device)
+    group = _group(q.shape[1], heads_per_program, device, q.shape[-1])
     if with_lse and (device != "cuda" or fast_math):
         raise ValueError("the log-sum-exp comes from the exact CUDA kernel only")
     if device == "cpu":
         return None
+    group = group if q.shape[-1] == 8 or _wide(k, v) else 1
     counts = (FAST_KERNEL if fast_math else KERNEL,) + ((GROUPED_KERNEL,) if group > 1 else ())
     return _remember(_forward_key(q, k, v, fast_math, heads_per_program, with_lse),
                      _ForwardPlan(q, k, v, fast_math, group, with_lse, counts))
@@ -527,22 +557,19 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class _BackwardPlan:
     """One checked backward layout on CUDA: the kernel's packed arguments,
     which of q, k, v, do are copied before staging, and the LAUNCHES keys a
-    launch counts under. With `stats`, a head_dim-8 call without o and lse,
-    the exact forward plan that computes them first (counted under
-    STATS_KERNEL)."""
-    __slots__ = ("args", "address", "fn", "copies", "counts", "index", "tensor_cores", "stats",
-                 "empty")
+    launch counts under. With `stats`, a call without o and lse, the exact
+    forward plan that computes them first (counted under STATS_KERNEL)."""
+    __slots__ = ("args", "address", "fn", "copies", "counts", "index", "stats", "empty")
 
     def __init__(self, q, k, v, do, o, group: int, stats):
         self.index, self.stats = q.device.index, stats
         self.counts = (BWD_KERNEL,) + ((BWD_GROUPED_KERNEL,) if group > 1 else ())
         self.empty = q.numel() == 0
-        self.tensor_cores = _tensor_cores(q)
         b, h, t, d = q.shape
-        self.copies = tuple(self.tensor_cores and not _rows16(z) for z in (q, k, v, do))
+        self.copies = _copies(q, k, v, do)
         strides = (*(_staged_strides(z, c) for z, c in zip((q, k, v, do), self.copies)),
                    *(torch.empty_like(z).stride() for z in (q, k, v)),
-                   (o if self.tensor_cores else q).stride())
+                   (q if o is None else o).stride())
         self.args = _BwdArgs((ctypes.c_int64 * 32)(*(s for st in strides for s in st)),
                              b, h, t, d, _DTYPE_CODES[q.dtype], group, 1.0 / math.sqrt(d))
         self.address, self.fn = ctypes.addressof(self.args), _lib(BWD_KERNEL).attention_bwd
@@ -554,10 +581,7 @@ class _BackwardPlan:
         if self.empty:
             return dq, dk, dv
         b, h, t, _ = q.shape
-        if not self.tensor_cores:
-            # the row's base-2 log-sum-exp, computed by the first launch (f32 scratch)
-            o, lse = q, q.new_empty((b, h, t), dtype=torch.float32)
-        elif self.stats is not None:
+        if self.stats is not None:
             o, lse = self.stats(q, k, v)
         if any(self.copies):
             q, k, v, do = (_staged(z, c) for z, c in zip((q, k, v, do), self.copies))
@@ -574,12 +598,13 @@ def _backward_plan(q, k, v, do, heads_per_program, o, lse):
     """The plan of a backward call the cache has not seen, after every
     check; None for CPU tensors."""
     device = _check(q, k, v, do)
-    group = _group(q.shape[1], heads_per_program, device)
+    group = _group(q.shape[1], heads_per_program, device, q.shape[-1])
     if device == "cpu":
         return None
+    group = group if q.shape[-1] == 8 or _wide(q, k, v, do) else 1
     key = _backward_key(q, k, v, do, heads_per_program, o, lse)
     stats = None
-    if q.numel() and _tensor_cores(q):
+    if q.numel():
         if o is None or lse is None:
             stats = _ForwardPlan(q, k, v, False, 1, True, (STATS_KERNEL,))
             o, lse = stats.outputs(q)   # laid out as the statistics launch fills them
@@ -609,11 +634,10 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `heads_per_program` groups heads per block (identical results). One
     call launches the kernel's two passes and counts one launch.
 
-    On CUDA at head_dim 8 (f32 and bf16) the kernels read the exact
-    forward's output `o` and base-2 log-sum-exp `lse` (f32, (B, H, T)), as
-    `FusedAttention` saves them; without them one exact forward launch
-    (counted under STATS_KERNEL) computes both first. At head_dim 4 they
-    are not used."""
+    On CUDA (f32 and bf16) the kernels read the exact forward's output `o`
+    and base-2 log-sum-exp `lse` (f32, (B, H, T)), as `FusedAttention` saves
+    them; without them one exact forward launch (counted under
+    STATS_KERNEL) computes both first."""
     plan = _PLANS.get(_backward_key(q, k, v, do, heads_per_program, o, lse))
     if plan is None:
         plan = _backward_plan(q, k, v, do, heads_per_program, o, lse)
@@ -626,13 +650,13 @@ class FusedAttention(torch.autograd.Function):
     """The Pallas `fused_attention_trainable` custom VJP: the forward kernel
     as the primal, the recompute backward kernel as the VJP. Saves q, k, v
     (views of the projections, no copy) and, where the backward reads them
-    (CUDA, head_dim 8, exact maths), the output and each row's f32
-    log-sum-exp (B*H*T*4 bytes); nothing of size T^2."""
+    (CUDA, exact maths), the output and each row's f32 log-sum-exp
+    (B*H*T*4 bytes); nothing of size T^2."""
 
     @staticmethod
     def forward(ctx, q, k, v, fast_math=False, heads_per_program=1):
         ctx.heads_per_program = heads_per_program
-        if q.is_cuda and _tensor_cores(q) and not fast_math:
+        if q.is_cuda and not fast_math:
             out, lse = _forward(q, k, v, False, heads_per_program, with_lse=True)
             ctx.save_for_backward(q, k, v, out, lse)
             return out

@@ -59,8 +59,8 @@ def test_fast_math_is_near_exact():
 
 def _kernel_loop(q, k, v, step):
     """`attention_fwd.cu`'s fast-math walk in plain PyTorch, every row at
-    once: keys `step` at a time (2 on the CUDA-core kernel, a staged tile of
-    64 on the tensor-core one), the running max over the groups seen so far,
+    once: keys `step` at a time (a staged tile of 64 on the kernels, any
+    step here), the running max over the groups seen so far,
     bf16 exponentials of the base-2 logit minus it, an f32 rescale of the
     sum and accumulator when it moves, the division last."""
     t = q.shape[-2]
@@ -84,9 +84,9 @@ def _kernel_loop(q, k, v, step):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 2, 33, 4), (2, 4, 64, 8)])
 def test_kernel_order_follows_the_kernel(shape, dtype):
-    """`attention_fast_math_kernel_order` at 2 keys per max update, which
-    the CUDA-core kernel is held to on the card, is that kernel's walk (up
-    to f32 rounding of the rescale: 1e-5; bf16 output: one bf16 ulp, 2^-6 at
+    """`attention_fast_math_kernel_order` at 2 keys per max update (the
+    function takes any step; the kernels take 64) is the kernel walk at that
+    step (up to f32 rounding of the rescale: 1e-5; bf16 output: one bf16 ulp, 2^-6 at
     |x| < 4), and it is fast math: within 1e-2 of the Pallas-order version
     and within the JAX package's fast-math tolerance of exact attention,
     but not exact."""
@@ -105,12 +105,12 @@ def test_kernel_order_follows_the_kernel(shape, dtype):
 
 
 def test_fast_math_step_names_the_kernel():
-    """Keys per max update: a tile of 64 at head_dim 8 in both dtypes (the
-    tensor-core kernels), pairs at head_dim 4 (the CUDA-core kernel)."""
+    """Keys per max update: a staged tile of 64 at every head_dim in both
+    dtypes, head_dim 4 too (the tensor-core kernels run every head_dim)."""
     assert attention.fast_math_step(torch.zeros(1, 2, 16, 8, dtype=torch.bfloat16)) == 64
     assert attention.fast_math_step(torch.zeros(1, 2, 16, 8)) == 64
-    assert attention.fast_math_step(torch.zeros(1, 2, 16, 4, dtype=torch.bfloat16)) == 2
-    assert attention.fast_math_step(torch.zeros(1, 2, 16, 4)) == 2
+    assert attention.fast_math_step(torch.zeros(1, 2, 16, 4, dtype=torch.bfloat16)) == 64
+    assert attention.fast_math_step(torch.zeros(1, 2, 16, 4)) == 64
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,0 +1,197 @@
+"""The attention core at head_dims other than 8, the port against the JAX
+package's Pallas kernels on the CPU.
+
+The Pallas kernels take any head_dim (their blocks hold the whole D); the
+port's kernels run every head_dim from 1 to 64 at a staged width of 8, 16,
+32 or 64 channels. On the CPU the port's wrappers run their plain versions,
+and the JAX kernels run in interpret mode, as the JAX package's own tests
+run them. Here, at D = 4, 16, 32 and 64: the port's plain forward and the
+plain version of the f32 kernel's rounding (`attention_tf32x3_kernel_order`)
+against the Pallas forward, rtol = atol = 2e-5; the fast-math plain version
+and the fast-math kernel's rounding order (`fast_math_kernel_order`) against
+the Pallas fast-math forward within the JAX package's fast-math tolerance
+(rtol 0.05, atol 0.02); the plain backward and the f32 backward kernel's
+order against the Pallas backward within 5e-5 * max|g| (the tolerances of
+`tests/test_pallas_ops.py`); bf16 within one bf16 ulp of the output (2^-6 at
+|x| < 4) forward and 2e-2 * max|g| backward, as `tests/test_torch_gpu.py`
+holds the kernels. Then a tiny UNet at head_dim 16 against the JAX model,
+and the wrapper's route table: which (head_dim, G) the kernels take. The
+kernels themselves run only on a GPU (`tests/test_torch_gpu.py`).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from synt_isic_tpu.models.unet2d import UNet2D as JaxUNet2D
+from synt_isic_tpu.ops.pallas.attention import fused_attention as jax_fused_attention
+from synt_isic_tpu.ops.pallas.attention import fused_attention_bwd as jax_fused_attention_bwd
+from synt_isic_tpu_torch.ops import attention
+
+from tests.torch_port_fixtures import TINY, TINY_JAX, jax_params, nchw, port_model
+
+HEAD_DIMS = (4, 16, 32, 64)
+SEQ_LENS = (16, 64, 101)
+TOL = 2e-5
+FAST = {"rtol": 0.05, "atol": 0.02}
+GRAD_TOL = 5e-5
+BF16_TOL, BF16_GRAD_TOL = 2.0 ** -6, 2e-2
+
+
+def _inputs(d, t, seed, heads=2, n=4):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(1, heads, t, d)).astype(np.float32) for _ in range(n)]
+
+
+def _torch(*arrays, dtype=torch.float32):
+    return [torch.from_numpy(z).to(dtype) for z in arrays]
+
+
+def _jax(*arrays, dtype=jnp.float32):
+    return [jnp.asarray(z, dtype) for z in arrays]
+
+
+def _grads_close(got, want, tol):
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        a, w = np.asarray(a, np.float32), np.asarray(w, np.float32)
+        np.testing.assert_allclose(a, w, rtol=0, atol=tol * np.abs(w).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("t", SEQ_LENS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_forward_matches_pallas(d, t):
+    q, k, v, _ = _inputs(d, t, seed=d + t)
+    want = np.asarray(jax_fused_attention(*_jax(q, k, v), interpret=True))
+    tq, tk, tv = _torch(q, k, v)
+    np.testing.assert_allclose(attention.fused_attention(tq, tk, tv).numpy(), want,
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(attention.attention_tf32x3_kernel_order(tq, tk, tv).numpy(),
+                               want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("t", (SEQ_LENS[0], SEQ_LENS[-1]))
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_fast_math_matches_pallas(d, t):
+    """The Pallas fast-math branch (bf16 exponentials of the natural-log
+    logits against the row's max) beside the port's plain version of it
+    and the kernel's own rounding (base-2 logits against a max that moves
+    per tile of 64 keys, 3xTF32 logits in f32)."""
+    q, k, v, _ = _inputs(d, t, seed=2 * d + t)
+    want = np.asarray(jax_fused_attention(*_jax(q, k, v), interpret=True, fast_math=True))
+    tq, tk, tv = _torch(q, k, v)
+    assert attention.fast_math_step(tq) == 64
+    np.testing.assert_allclose(attention.fused_attention(tq, tk, tv, fast_math=True).numpy(),
+                               want, **FAST)
+    np.testing.assert_allclose(attention.fast_math_kernel_order(tq, tk, tv).numpy(), want,
+                               **FAST)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_grouped_matches_pallas(d):
+    """The widest G the kernels take at this head_dim (G times the staged
+    width at most 64, dividing the 4 heads): the Pallas kernel at that G,
+    exact and fast math, against the port's call at the same G."""
+    q, k, v, _ = _inputs(d, 64, seed=3 * d, heads=4)
+    tq, tk, tv = _torch(q, k, v)
+    groups = [g for g in (2, 4) if g * attention.staged_width(d) <= attention.MAX_GROUP_WIDTH]
+    assert groups or d == 64
+    for g in groups[-1:]:
+        for fast_math in (False, True):
+            want = np.asarray(jax_fused_attention(*_jax(q, k, v), interpret=True,
+                                                  heads_per_program=g, fast_math=fast_math))
+            got = attention.fused_attention(tq, tk, tv, fast_math=fast_math, heads_per_program=g)
+            tol = FAST if fast_math else {"rtol": TOL, "atol": TOL}
+            np.testing.assert_allclose(got.numpy(), want, **tol, err_msg=f"G {g}")
+
+
+@pytest.mark.parametrize("t", SEQ_LENS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_backward_matches_pallas(d, t):
+    """The Pallas recompute backward against the port's plain backward and
+    the f32 backward kernel's rounding order, which reads the forward's
+    output and base-2 log-sum-exp as the kernels do."""
+    q, k, v, do = _inputs(d, t, seed=5 * d + t)
+    want = jax_fused_attention_bwd(*_jax(q, k, v, do), interpret=True)
+    tq, tk, tv, tdo = _torch(q, k, v, do)
+    _grads_close(attention.fused_attention_bwd(tq, tk, tv, tdo), want, GRAD_TOL)
+    o = attention.attention_tf32x3_kernel_order(tq, tk, tv)
+    lse = attention.attention_lse_reference(tq, tk)
+    _grads_close(attention.attention_bwd_tf32x3_kernel_order(tq, tk, tv, tdo, o, lse), want,
+                 GRAD_TOL)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_bf16_matches_pallas(d):
+    """bf16 inputs, forward and backward: the port's plain versions and the
+    bf16 backward kernel's rounding order against the Pallas kernels."""
+    q, k, v, do = _inputs(d, 64, seed=7 * d)
+    want = np.asarray(jax_fused_attention(*_jax(q, k, v, dtype=jnp.bfloat16), interpret=True)
+                      .astype(jnp.float32))
+    tq, tk, tv, tdo = _torch(q, k, v, do, dtype=torch.bfloat16)
+    got = attention.fused_attention(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_TOL, atol=BF16_TOL)
+    grads = [z.astype(jnp.float32)
+             for z in jax_fused_attention_bwd(*_jax(q, k, v, do, dtype=jnp.bfloat16),
+                                              interpret=True)]
+    _grads_close([z.float() for z in attention.fused_attention_bwd(tq, tk, tv, tdo)], grads,
+                 BF16_GRAD_TOL)
+    lse = attention.attention_lse_reference(tq, tk)
+    order = attention.attention_bwd_kernel_order(tq, tk, tv, tdo, got, lse)
+    _grads_close([z.float() for z in order], grads, BF16_GRAD_TOL)
+
+
+def test_unet_at_head_dim_16_matches_jax():
+    """The tiny UNet with attention_head_dim 16 (the weights' shapes do not
+    depend on it): the port with its fused attention on (the plain version
+    on the CPU) against the JAX model, f32, within the 1e-4 of
+    `tests/test_torch_unet.py`; and the head_dim changes what it computes."""
+    params = jax_params()
+    rng = np.random.default_rng(1)
+    x, t = rng.normal(size=(2, 16, 16, 3)).astype(np.float32), np.array([5, 900])
+    jmodel = JaxUNet2D(config=dataclasses.replace(TINY_JAX, attention_head_dim=16))
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jax.jit(lambda p, x, t: jmodel.apply({"params": p}, x, t))(
+            params, jnp.asarray(x), jnp.asarray(t)))
+    outs = {}
+    for head_dim in (16, TINY.attention_head_dim):
+        model = port_model(params, dataclasses.replace(TINY, attention_head_dim=head_dim),
+                           use_fused_attention=True)
+        with torch.no_grad():
+            outs[head_dim] = model(nchw(x), torch.from_numpy(t)).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(outs[16], want, rtol=1e-4, atol=1e-4)
+    assert np.abs(outs[16] - outs[TINY.attention_head_dim]).max() > 1e-3
+
+
+def test_route_table():
+    """Which calls the CUDA kernels take, read without a card: every
+    head_dim from 1 to 64 at the least staged width that holds it, G in
+    (1, 2, 4, 8) with G times that width at most 64; head_dim 65, and a G
+    past the width, raise. A G that does not divide the heads means 1, and
+    on the CPU G is not checked."""
+    assert list(attention.HEAD_DIMS) == list(range(1, 65))
+    widths = {d: attention._check_head_dim(d) for d in attention.HEAD_DIMS}
+    assert {d: w for d, w in widths.items() if d in (1, 4, 8, 9, 16, 17, 32, 33, 64)} == {
+        1: 8, 4: 8, 8: 8, 9: 16, 16: 16, 17: 32, 32: 32, 33: 64, 64: 64}
+    for bad in (0, 65, 72, 128):
+        with pytest.raises(ValueError, match="head_dim 1 to 64"):
+            attention._check_head_dim(bad)
+    taken = {}
+    for d in attention.HEAD_DIMS:
+        for g in attention.HEADS_PER_PROGRAM:
+            try:
+                assert attention._group(8, g, "cuda", d) == g
+                taken.setdefault(widths[d], []).append(g)
+            except ValueError:
+                assert g * widths[d] > attention.MAX_GROUP_WIDTH
+    assert {w: sorted(set(gs)) for w, gs in taken.items()} == {
+        8: [1, 2, 4, 8], 16: [1, 2, 4], 32: [1, 2], 64: [1]}
+    with pytest.raises(ValueError, match="staged width"):
+        attention._group(8, 2, "cuda", 33)
+    with pytest.raises(ValueError):
+        attention._group(32, 16, "cuda", 4)
+    assert attention._group(6, 4, "cuda", 64) == 1
+    assert attention._group(8, 8, "cpu", 64) == 8

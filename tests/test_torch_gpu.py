@@ -15,18 +15,20 @@ fast-math forward: within 1e-2 of its plain version (both take bf16
 exponentials, relative to different maxima), within the JAX package's
 fast-math tolerance of exact attention (rtol 0.05, atol 0.02), and near the
 plain version of its own rounding order at the kernel's keys per max update
-(`fast_math_kernel_order`): in f32 at head_dim 8 (the 3xTF32 tensor-core
-kernel) each output within FAST_FLIPS moves of one bf16 flip of a weight
-(`_flip_bound`, derived in `chip_smoke.py` at FLIP_MOVE), in f32 at
-head_dim 4 (the
-CUDA-core kernel, whose logits are f32 fmas as the order function's are)
-within 5e-6, limits the exact kernel misses; in bf16 one bf16 ulp, as TOL;
+(`fast_math_kernel_order`): in f32 (the 3xTF32 tensor-core kernels, at
+every head_dim) each output within FAST_FLIPS moves of one bf16 flip of a
+weight (`_flip_bound`, derived in `chip_smoke.py` at FLIP_MOVE), a limit
+the exact kernel misses; in bf16 one bf16 ulp, as TOL;
 at head_dim 8 in both dtypes, at logits 8x wider, the exact kernel's mean
 distance from that order exceeds the fast kernel's FAST_SEPARATION times
 (`chip_smoke.py` gives the reason for the factor). Head grouping, forward
-and backward: bit-identical to one head per block.
+and backward: bit-identical to one head per block. Head_dims other than 8
+(`test_head_dim_*`): the same checks at D 4, 16, 32 and 64, the f32
+kernels against their rounding orders within head_dim 8's limits times
+sqrt(Dp / 8), Dp the staged width (`chip_smoke.py` `tf32_order_tol`).
 """
 import json
+import math
 
 import numpy as np
 import pytest
@@ -41,7 +43,7 @@ from synt_isic_tpu_torch.ops import attention
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
-FAST_ORDER_TOL = {torch.float32: 5e-6, torch.bfloat16: 2.0 ** -6}
+FAST_ORDER_TOL = {torch.bfloat16: 2.0 ** -6}
 FLIP_MOVE, FAST_FLIPS = 2.0 ** -7, 1
 FAST_SEPARATION = 10.0
 
@@ -61,7 +63,7 @@ def _flip_bound(q, k, v, order):
 
 def _order_limit(q, k, v, order):
     """What the fast kernel may lie from its rounding order, per output."""
-    if q.dtype == torch.float32 and q.shape[-1] == 8:
+    if q.dtype == torch.float32:
         return FAST_FLIPS * _flip_bound(q, k, v, order)
     return FAST_ORDER_TOL[q.dtype]
 
@@ -98,9 +100,9 @@ def test_attention_kernel_strided_btc(cuda):
 
 
 def test_attention_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 2, 16, 16, device=cuda)
+    q = torch.zeros(1, 2, 16, 72, device=cuda)
     with pytest.raises(ValueError):
-        attention.fused_attention(q, q, q)                 # head_dim 16
+        attention.fused_attention(q, q, q)                 # head_dim 72
     q = torch.zeros(1, 2, 16, 8, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError):
         attention.fused_attention(q, q, q)                 # float16
@@ -1387,3 +1389,117 @@ def test_tp_walk_over_the_card_and_the_cpu_matches_unsharded(cuda, monkeypatch, 
     torch.testing.assert_close(got["trajectory"].to(want["trajectory"].device),
                                want["trajectory"], rtol=1e-3, atol=1e-3)
     assert list(got["noise_hashes"]) == list(want["noise_hashes"])
+
+
+# head_dims other than 8: the tensor-core kernels at a staged width of 8
+# (head_dim 4), 16, 32 and 64, at a ragged T in both layouts and dtypes
+HEAD_DIMS = (4, 16, 32, 64)
+
+
+def _tf32_order_tol(d, bwd=False):
+    """`chip_smoke.py` `tf32_order_tol`: head_dim 8's limit times
+    sqrt(Dp / 8), Dp the staged width."""
+    base = TF32_BWD_ORDER_TOL if bwd else TF32_ORDER_TOL
+    return base * math.sqrt(attention.staged_width(d) / 8)
+
+
+def _head_dim_args(cuda, d, dtype, layout, seed):
+    args = _bf16_args(cuda, (2, 8, 101, d), layout, seed)
+    return args if dtype == torch.bfloat16 else [z.float() for z in args]
+
+
+@pytest.mark.parametrize("layout", ["BHTD", "BTC"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_head_dim_forward(cuda, d, dtype, layout):
+    """The forward at head_dim d and T = 101: within TOL of the plain version
+    and (f32) of its own rounding order, its log-sum-exp within LSE_TOL and
+    the output torch.equal with and without it, in q's strides; fast math
+    near its rounding order (`_order_limit`); every G the kernels take at
+    this width (G times the staged width at most 64) torch.equal to G = 1."""
+    q, k, v, _ = _head_dim_args(cuda, d, dtype, layout, 40 + d)
+    before = dict(attention.LAUNCHES)
+    out, lse = attention.fused_attention(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES[attention.KERNEL] == before[attention.KERNEL] + 1
+    assert out.stride() == q.stride() and torch.equal(out, attention.fused_attention(q, k, v))
+    want = attention.attention_reference(q, k, v).float()
+    torch.testing.assert_close(out.float(), want, rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(lse, attention.attention_lse_reference(q, k), rtol=0, atol=LSE_TOL)
+    if dtype == torch.float32:
+        order = attention.attention_tf32x3_kernel_order(q, k, v)
+        assert (out - order).abs().max().item() <= _tf32_order_tol(d)
+    fast = attention.fused_attention(q, k, v, fast_math=True)
+    fast_order = attention.fast_math_kernel_order(q, k, v)
+    assert ((fast.float() - fast_order.float()).abs()
+            <= _order_limit(q, k, v, fast_order.float())).all()
+    for group in (2, 4, 8):
+        if group * attention.staged_width(d) > attention.MAX_GROUP_WIDTH:
+            continue
+        o_g, lse_g = attention.fused_attention(q, k, v, heads_per_program=group, with_lse=True)
+        assert torch.equal(o_g, out) and torch.equal(lse_g, lse), group
+        assert torch.equal(attention.fused_attention(q, k, v, fast_math=True,
+                                                     heads_per_program=group), fast), group
+
+
+@pytest.mark.parametrize("layout", ["BHTD", "BTC"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_head_dim_trainable_gradient(cuda, d, dtype, layout):
+    """K4 at head_dim d and T = 101: one forward with its statistics and one
+    backward, no statistics launch; the gradients within BWD_TOL of the
+    plain backward and within the kernel's rounding order's limit of it
+    (bf16 BWD_ORDER_TOL, f32 `_tf32_order_tol`), in the strides of q, k, v;
+    every G the kernels take torch.equal to G = 1."""
+    q, k, v, do = _head_dim_args(cuda, d, dtype, layout, 50 + d)
+    leaves = [z.detach().requires_grad_() for z in (q, k, v)]
+    before = dict(attention.LAUNCHES)
+    got = torch.autograd.grad(attention.fused_attention_trainable(*leaves), leaves, do)
+    torch.cuda.synchronize()
+    launched = {key: attention.LAUNCHES[key] - before[key] for key in before}
+    assert launched[attention.KERNEL] == launched[attention.BWD_KERNEL] == 1
+    assert launched[attention.STATS_KERNEL] == 0
+    want = attention.attention_bwd_reference(q, k, v, do)
+    o, lse = attention.fused_attention(q, k, v, with_lse=True)
+    if dtype == torch.float32:
+        order = attention.attention_bwd_tf32x3_kernel_order(q, k, v, do, o, lse)
+        order_tol = _tf32_order_tol(d, bwd=True)
+    else:
+        order = attention.attention_bwd_kernel_order(q, k, v, do, o, lse)
+        order_tol = BWD_ORDER_TOL
+    for name, a, w, r, src in zip(("dq", "dk", "dv"), got, want, order, (q, k, v)):
+        assert a.dtype == dtype and a.stride() == src.stride(), name
+        for ref, tol in ((w, BWD_TOL[dtype]), (r, order_tol)):
+            ref = ref.float()
+            torch.testing.assert_close(a.float(), ref, rtol=0,
+                                       atol=tol * ref.abs().max().item(), msg=name)
+    for group in (2, 4, 8):
+        if group * attention.staged_width(d) > attention.MAX_GROUP_WIDTH:
+            continue
+        grouped = attention.fused_attention_bwd(q, k, v, do, heads_per_program=group, o=o,
+                                                lse=lse)
+        for a, w in zip(grouped, attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse)):
+            assert torch.equal(a, w), group
+
+
+def test_bf16_head_dim_4_takes_an_unaligned_contiguous_tensor(cuda):
+    """bf16 rows of head_dim 4 are 8 bytes; a contiguous tensor that starts 2
+    bytes off is staged an element at a time: the same output, log-sum-exp
+    and gradients, bit for bit, as from aligned storage; a G asked of such a
+    call runs as G = 1 and is not counted grouped."""
+    q, k, v, do = _bf16_args(cuda, (2, 8, 77, 4), "BHTD", 60)
+    storage = torch.empty(k.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    k_off = storage[1:].view(k.shape)
+    k_off.copy_(k)
+    assert k_off.is_contiguous() and k_off.data_ptr() % 4 != 0
+    out, lse = attention.fused_attention(q, k, v, with_lse=True)
+    before = dict(attention.LAUNCHES)
+    got, got_lse = attention.fused_attention(q, k_off, v, heads_per_program=8, with_lse=True)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES[attention.KERNEL] == before[attention.KERNEL] + 1
+    assert attention.LAUNCHES[attention.GROUPED_KERNEL] == before[attention.GROUPED_KERNEL]
+    assert torch.equal(got, out) and torch.equal(got_lse, lse)
+    want = attention.fused_attention_bwd(q, k, v, do, o=out, lse=lse)
+    for name, a, w in zip(("dq", "dk", "dv"),
+                          attention.fused_attention_bwd(q, k_off, v, do, o=out, lse=lse), want):
+        assert torch.equal(a, w), name
