@@ -12,11 +12,14 @@ Phases, each of which exits non-zero on failure:
   2. build every hand-written kernel from the sources in the checkout, all
      `nvcc`s at once, with each kernel's registers and spills, the build
      seconds and the instance count, and the SASS count of HMMA
-     (tensor-core) and MUFU.EX2 instructions in every tensor-core instance
-     (TC_KERNELS: the forward in bf16 and in f32 (3xTF32), exact and fast
-     math, and the backward's two kernels in each dtype, at every staged
-     width Dp 8/16/32/64 with G 1/2/4/8 where G * Dp <= 64, and at G 1 for
-     the general staging), each of which must hold HMMA and spill nothing;
+     (tensor-core `mma.sync`), HGMMA (warpgroup `wgmma`) and MUFU.EX2
+     instructions in every tensor-core instance (TC_KERNELS: the forward
+     in f32 (3xTF32), exact and fast math, and the backward's two kernels
+     in each dtype, at every staged width Dp 8/16/32/64 with G 1/2/4/8 where
+     G * Dp <= 64, and at G 1 for the general staging; the bf16 forward at
+     Dp 8 on `mma.sync` and at Dp 16 to 256 on `wgmma`; the wide kernels at
+     Dp 128 and 256), each of which must hold its product instruction
+     (HGMMA for the `wgmma` kernel, HMMA for the rest) and spill nothing;
   3. the attention forward against its plain PyTorch version at the
      sampling path's shapes (and at batch 16, the guided sampler's and the
      trainer's, and at ragged T, 101 and 1000), in both layouts; also its
@@ -30,7 +33,8 @@ Phases, each of which exits non-zero on failure:
      --kernel-table` runs them alone): K2, the (B, H, T, D) layout, in turns
      with K1 (the UNet's views) and SDPA at the UNet's shapes, both dtypes;
      every other head_dim's route (K1 and K3 on the tensor cores at a staged
-     width of 8 for D 4, of D itself for 16, 32 and 64) checked (forward and
+     width of 8 for D 4, of D itself for 16 to 256; the bf16 forward from
+     16 on the warpgroup-product kernel) checked (forward and
      lse, fast math against its order, backward from the saved statistics
      against plain and its order, G bit identity) and timed at D4_SHAPES
      (the tiny test config's calls and (8,64,1024,4)) and at HEADDIM_SHAPES,
@@ -327,15 +331,17 @@ Phases, each of which exits non-zero on failure:
      printed; `GPU_PEAKS` holds the card's name. `python3 chip_smoke.py
      --app` runs card, build, [unet] and this phase alone;
  16f. [headdim] the library path at other head_dims: for attention_head_dim
-     in HEADDIM_WALKS (4, 32, 64: 64, 8 and 4 heads at the 256-channel
-     blocks) `ImageGenerator(model_config=UNet2DConfig(attention_head_dim=D))`
+     in HEADDIM_WALKS (4, 32, 64, 128, 256: 64, 8, 4, 2 and 1 heads at the
+     256-channel blocks) `ImageGenerator(model_config=UNet2DConfig(attention_head_dim=D))`
      on one full-width checkpoint (the weights do not depend on D), f32
      exact, DDIM 10, `generate_images([("MEL", 16)])` in two blocks of 8:
      exactly 120 K1 launches, all at that head count, 16 PNGs; the first
      block's walk kernel vs plain attention (`use_fused_attention` off)
-     under full-f32 convolutions within HEADDIM_WALK_TOL; then at head_dim
-     32 a few warm steps of `make_train_step` at batch 32, bf16: 6 K1 with
-     their statistics and 6 K3 per step, no statistics launch, and the
+     under full-f32 convolutions within HEADDIM_WALK_TOL; the same in bf16
+     at head_dim HEADDIM_BF16_WALK (120 K1 launches, each on the `wgmma`
+     kernel); then at each of HEADDIM_TRAIN_DIMS (32, 128) a few warm steps
+     of `make_train_step` at batch 32, bf16: 6 K1 with their statistics (on
+     the `wgmma` kernel) and 6 K3 per step, no statistics launch, and the
      full-width UNet's f32 gradient kernel vs plain within UNET_GRAD_TOL
      (`python3 chip_smoke.py --headdim` runs card, build and this phase);
  17. a JSON line of per-kernel numbers, then as the last line
@@ -416,20 +422,27 @@ MAIN_SHAPES = [(8, 32, 1024, 8), (8, 32, 256, 8)]   # the UNet's 6 calls at batc
 # K1 (the UNet's (B, T, C) views) and SDPA, in turns; head_dim 4 (the
 # tensor-core kernels at a staged width of 8), forward and backward, at the
 # tiny test config's calls (batch 2: 4 heads at T = 64 and at T = 16) and at
-# (8, 64, 1024, 4), and head_dims 16, 32 and 64 at the main path's size, 256
-# channels in heads of D, beside their bound, the plain version and SDPA's
-# call (its backward alone on a prebuilt forward)
+# (8, 64, 1024, 4), and head_dims 16, 32, 64, 128 and 256 at the main path's
+# size, 256 channels in heads of D, beside their bound, the plain version and
+# SDPA's call (its backward alone on a prebuilt forward)
 D4_SHAPES = [(2, 4, 64, 4), (2, 4, 16, 4), (8, 64, 1024, 4)]
-HEADDIM_SHAPES = [(8, 16, 1024, 16), (8, 8, 1024, 32), (8, 4, 1024, 64)]
+HEADDIM_SHAPES = [(8, 16, 1024, 16), (8, 8, 1024, 32), (8, 4, 1024, 64), (8, 2, 1024, 128),
+                  (8, 1, 1024, 256)]
+WGMMA_SHAPE = (8, 4, 1024, 64)   # the `wgmma` kernel's row in the kernels line
 # [headdim]: the generator's walks at these attention_head_dims (64, 8 and 4
 # heads at the 256-channel blocks, 16 images in two blocks of 8), each kernel
 # vs plain attention within HEADDIM_WALK_TOL (f32 attention outputs 2e-5
 # apart at most, carried through 10 DDIM steps of the full UNet under
 # full-f32 convolutions: the [tp] and [mesh] walks, held to the same kernel,
-# land within 3e-5-5e-5), and the train steps at head_dim 32
-HEADDIM_WALKS = (4, 32, 64)
+# land within 3e-5-5e-5), a bf16 walk at HEADDIM_BF16_WALK (the `wgmma`
+# forward), and the train steps at HEADDIM_TRAIN_DIMS
+HEADDIM_WALKS = (4, 32, 64, 128, 256)
 HEADDIM_WALK_TOL = 1e-3
-HEADDIM_TRAIN_DIM, HEADDIM_TRAIN_STEPS = 32, 3
+HEADDIM_BF16_WALK = 128
+HEADDIM_TRAIN_DIMS, HEADDIM_TRAIN_STEPS = (32, 128), 3
+# [kernel-group]: heads_per_program values past what one block holds, each
+# against G = 1 bit for bit, forward (output, lse) and backward, both dtypes
+GROUP_EXTRA = [((8, 32, 1024, 8), 16), ((8, 4, 1024, 64), 2), ((8, 2, 1024, 128), 2)]
 TABLE_ROUNDS = 3     # timings in turns, medians
 CLI_STEPS, CLI_BATCH = 10, 8
 ATTENTION_CALLS_PER_UNET = 6
@@ -1033,22 +1046,34 @@ def phase_card() -> dict:
 
 
 # the tensor-core kernels (bf16, and f32 in 3xTF32; the forward exact and
-# fast math): instances per source. The templates run at the staged widths
-# 16, 32 and 64 with every G of GROUPS where G * Dp <= MAX_GROUP_WIDTH (the
-# Wide instances), and at G = 1 at every width for the general staging; head
-# dim 8 at full width runs the `_d8` kernels at every G
-_WIDE = sum(1 for w in attention.STAGED_WIDTHS[1:] for g in GROUPS
-            if g * w <= attention.MAX_GROUP_WIDTH)
-_TEMPLATES = _WIDE + len(attention.STAGED_WIDTHS)
-TC_KERNELS = {attention.KERNEL: {"attention_fwd_tc_kernel": 2 * _TEMPLATES,
+# fast math): instances per source. The `mma.sync` templates run at the
+# staged widths 16, 32 and 64 with every G of GROUPS where G * Dp <=
+# MAX_GROUP_WIDTH (the Wide instances), and at G = 1 at every width up to 64
+# for the general staging (the bf16 forward at Dp 8 only); head dim 8 at
+# full width runs the `_d8` kernels at every G; the bf16 forward at Dp 16 to
+# 256 runs the `wgmma` kernel (exact and fast math, TMA and `cp.async`
+# staging), and heads wider than 64 the wide kernels at Dp 128 and 256, Wide
+# and general staging
+MMA_WIDTHS = tuple(w for w in attention.STAGED_WIDTHS if w <= attention.MAX_GROUP_WIDTH)
+WIDE_WIDTHS = tuple(w for w in attention.STAGED_WIDTHS if w > attention.MAX_GROUP_WIDTH)
+WGMMA_WIDTHS = tuple(w for w in attention.STAGED_WIDTHS if w >= 16)
+_WIDE = sum(1 for w in MMA_WIDTHS[1:] for g in GROUPS if g * w <= attention.MAX_GROUP_WIDTH)
+_TEMPLATES = _WIDE + len(MMA_WIDTHS)
+TC_KERNELS = {attention.KERNEL: {"attention_fwd_tc_kernel": 2,
                                  "attention_fwd_tf32_kernel": 2 * _TEMPLATES,
                                  "attention_fwd_tc_d8_kernel": 2 * len(GROUPS),
-                                 "attention_fwd_tf32_d8_kernel": 2 * len(GROUPS)},
+                                 "attention_fwd_tf32_d8_kernel": 2 * len(GROUPS),
+                                 "attention_fwd_wgmma_kernel": 4 * len(WGMMA_WIDTHS),
+                                 "attention_fwd_tf32_wide_kernel": 4 * len(WIDE_WIDTHS)},
               attention.BWD_KERNEL: {**{f"attention_bwd_{k}_kernel": _TEMPLATES
                                         for k in ("dq_tc", "dkdv_tc", "dq_tf32", "dkdv_tf32")},
                                      **{f"attention_bwd_{k}_d8_kernel": len(GROUPS)
+                                        for k in ("dq_tc", "dkdv_tc", "dq_tf32", "dkdv_tf32")},
+                                     **{f"attention_bwd_{k}_wide_kernel": 2 * len(WIDE_WIDTHS)
                                         for k in ("dq_tc", "dkdv_tc", "dq_tf32",
                                                   "dkdv_tf32")}}}
+# the product instruction each kernel's SASS must hold
+PRODUCT_OP = {"attention_fwd_wgmma_kernel": "HGMMA"}
 # the kernel's own name follows its length in the mangled name (after the
 # anonymous namespace, which names the source file)
 _KERNEL_NAME = re.compile(r"(?<=\d)(attention_[a-z0-9_]+?(?:tf32_)?kernel)(I\w*?E)Ev")
@@ -1075,6 +1100,7 @@ def phase_build() -> dict:
           flush=True)
     cuobjdump = Path(native._nvcc()).with_name("cuobjdump")
     spilled = []
+    report = {"sass": {}, "registers": {}}
     for name in names:
         kernel = ""
         for line in logs.get(name, "").splitlines():
@@ -1082,6 +1108,9 @@ def phase_build() -> dict:
                 kernel = _kernel_label(line)
             if "registers" in line or "spill" in line:
                 print(f"[build]   {name}: {kernel}: {line.strip()}", flush=True)
+            used = re.search(r"Used (\d+) registers", line)
+            if used and kernel.startswith("attention_fwd_wgmma_kernel"):
+                report["registers"][kernel] = int(used.group(1))
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if (spills and kernel.split("<")[0] in TC_KERNELS[name]
                     and not spills.group(1) == spills.group(2) == "0"):
@@ -1094,20 +1123,22 @@ def phase_build() -> dict:
         for line in sass.splitlines():
             if "Function :" in line:
                 kernel = _kernel_label(line.split("Function :")[1].strip())
-                counts[kernel] = {"HMMA": 0, "MUFU.EX2": 0}
+                counts[kernel] = {"HMMA": 0, "HGMMA": 0, "MUFU.EX2": 0}
             elif kernel is not None:
                 for op in counts[kernel]:
-                    counts[kernel][op] += op in line
+                    counts[kernel][op] += f"{op} " in line or f"{op}." in line
         for label, want in TC_KERNELS[name].items():
+            op = PRODUCT_OP.get(label, "HMMA")
             found = {k: c for k, c in counts.items() if k.startswith(label + "<")}
-            check(len(found) == want and all(c["HMMA"] > 0 for c in found.values()),
-                  f"[build] HMMA missing in {label} (want {want} instances): {found}; the "
+            check(len(found) == want and all(c[op] > 0 for c in found.values()),
+                  f"[build] {op} missing in {label} (want {want} instances): {found}; the "
                   f"SASS of {name} holds {sorted(counts)}")
             for k, c in sorted(found.items()):
-                print(f"[build]   SASS of {k}: {c['HMMA']} HMMA, {c['MUFU.EX2']} MUFU.EX2",
-                      flush=True)
+                print(f"[build]   SASS of {k}: {c['HMMA']} HMMA, {c['HGMMA']} HGMMA, "
+                      f"{c['MUFU.EX2']} MUFU.EX2", flush=True)
+                report["sass"][k] = c
     check(not spilled, f"[build] tensor-core kernels spill: {spilled}")
-    return {"build_s": build_s, "instances": instances}
+    return {"build_s": build_s, "instances": instances, **report}
 
 
 def phase_kernel() -> dict:
@@ -1590,6 +1621,140 @@ def phase_kernel_group() -> dict:
     print(f"[kernel-group] fastest G for fast math in bf16: G={best} ({fast[best]:.4f} ms, "
           f"G=1 {fast[1]:.4f} ms); G* = {report['g_star']} (the fastest G > 1) drives "
           f"[generator]", flush=True)
+    report["extra"] = check_any_group(g)
+    return report
+
+
+def check_any_group(g: torch.Generator) -> dict:
+    """[kernel-group] the heads_per_program values past what one block
+    holds (GROUP_EXTRA: G 16 at 32 heads of 8, G 2 at heads of 64 and 128),
+    which run as G / G' consecutive groups of G' heads a block: in the
+    UNet's (B, T, C) views, both dtypes, the forward (exact with its lse, and
+    fast math) and the backward from the saved statistics torch.equal to
+    G = 1, each launch counted as grouped; the G launch timed beside G = 1."""
+    report = {}
+    for shape, group in GROUP_EXTRA:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = _btc_views(*(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                                       for _ in range(4)))
+            out, lse = attention.fused_attention(q, k, v, with_lse=True)
+            fast = attention.fused_attention(q, k, v, fast_math=True)
+            grads = attention.fused_attention_bwd(q, k, v, do, o=out, lse=lse)
+            before = dict(attention.LAUNCHES)
+            out_g, lse_g = attention.fused_attention(q, k, v, heads_per_program=group,
+                                                     with_lse=True)
+            fast_g = attention.fused_attention(q, k, v, fast_math=True, heads_per_program=group)
+            grads_g = attention.fused_attention_bwd(q, k, v, do, heads_per_program=group, o=out,
+                                                    lse=lse)
+            torch.cuda.synchronize()
+            counted = (attention.LAUNCHES[attention.GROUPED_KERNEL]
+                       - before[attention.GROUPED_KERNEL],
+                       attention.LAUNCHES[attention.BWD_GROUPED_KERNEL]
+                       - before[attention.BWD_GROUPED_KERNEL])
+            same = (torch.equal(out_g, out) and torch.equal(lse_g, lse)
+                    and torch.equal(fast_g, fast)
+                    and all(torch.equal(a, w) for a, w in zip(grads_g, grads)))
+            times = {grp: cuda_ms(lambda: attention.fused_attention(
+                q, k, v, heads_per_program=grp)) for grp in (1, group)}
+            print(f"[kernel-group] {shape} {str(dtype)[6:]:8s} G={group} (blocks of "
+                  f"{attention.block_group(group, shape[-1], dtype, True)} heads): output, lse, "
+                  f"fast math and gradients torch.equal to G=1 {same}; grouped launches "
+                  f"counted {counted} (want (2, 1)); exact ms G=1 {times[1]:.4f}, "
+                  f"G={group} {times[group]:.4f}", flush=True)
+            check(same and counted == (2, 1),
+                  f"[kernel-group] G={group} at {shape} {dtype}: not bit-identical to G=1 or "
+                  f"not counted ({counted})")
+            report[f"{shape} {str(dtype)[6:]} G{group}"] = times[group]
+            del q, k, v, do, out, lse, fast, grads, out_g, lse_g, fast_g, grads_g
+    return report
+
+
+# `--wgmma-ablation`: copies of `csrc/attention_fwd.cu` with one part of the
+# `wgmma` forward removed or replaced (the results of a removal are wrong;
+# only the time is read), each a list of (start marker, old, new) edits of
+# the kernel's source. Removing the copies keeps the waits balanced: tiles
+# past the second are neither copied nor waited for.
+_WGMMA_KERNEL = "attention_fwd_wgmma_kernel(const bf16*"
+WGMMA_ABLATIONS = {
+    "cp.async staging": [("cudaError_t launch_wgmma(", "const bool tma = wg::tensor_map<Dp>",
+                          "const bool tma = false && wg::tensor_map<Dp>")],
+    "no exponentials": [("__device__ __forceinline__ void wgmma_softmax(",
+                         "const float p[4] = {ex2(fmaf(f[0], scale_log2, -m[0])), "
+                         "ex2(fmaf(f[1], scale_log2, -m[0])),\n                            "
+                         "ex2(fmaf(f[2], scale_log2, -m[1])), ex2(fmaf(f[3], scale_log2, -m[1]))};",
+                         "const float p[4] = {fmaf(f[0], scale_log2, -m[0]), "
+                         "fmaf(f[1], scale_log2, -m[0]),\n                            "
+                         "fmaf(f[2], scale_log2, -m[1]), fmaf(f[3], scale_log2, -m[1])};")],
+    "no S = Q K^T": [(_WGMMA_KERNEL, "wg::wgmma_ss_n64(s, wg::k_major<Dp>(q_addr, kk), "
+                      "wg::k_major<Dp>(k_addr, kk), kk > 0);", ";")],
+    "no P V": [(_WGMMA_KERNEL, "wg::wgmma_pv<Dp>(acc, pa[kk], wg::mn_major<Dp>(v_addr, kk));",
+                ";")],
+    "no K/V copies after tile 1": [
+        (_WGMMA_KERNEL, "if (threadIdx.x == 0 && t + 1 < tiles) load_tile(t + 1);",
+         "if (threadIdx.x == 0 && t + 1 < tiles && t + 1 < 2) load_tile(t + 1);"),
+        (_WGMMA_KERNEL, "wg::mbar_wait(kv_full + t % 2, (t / 2) & 1);",
+         "if (t < 2) wg::mbar_wait(kv_full + t % 2, (t / 2) & 1);")],
+}
+
+
+def _ablated_library(name: str, edits, out_dir: Path):
+    """(Popen, library path) of `csrc/attention_fwd.cu` with each of `edits`
+    applied from its marker on, built with the port's flags."""
+    src_dir = out_dir / re.sub(r"[^a-z0-9]+", "_", name.lower())
+    shutil.copytree(native.CSRC_DIR, src_dir)
+    source = src_dir / "attention_fwd.cu"
+    text = source.read_text()
+    for marker, old, new in edits:
+        start = text.index(marker)
+        check(text[start:].count(old) == 1, f"[wgmma-ablation] {name}: the edit does not apply")
+        text = text[:start] + text[start:].replace(old, new)
+    source.write_text(text)
+    lib = src_dir / "libablated.so"
+    proc = subprocess.Popen([native._nvcc(), *native.NVCC_FLAGS, "-o", str(lib), str(source)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def phase_wgmma_ablation() -> dict:
+    """[wgmma-ablation]: the bf16 forward's `wgmma` kernel at (8, 256/D,
+    1024, D) for D 16 to 256, exact maths, contiguous inputs (the TMA
+    route), intact and with each part of WGMMA_ABLATIONS removed or
+    replaced, every copy built at once from the checkout's sources, timed in
+    turns (CUDA events, medians of TABLE_ROUNDS): what each part costs is
+    the intact time less the ablated one."""
+    import ctypes
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        builds = {name: _ablated_library(name, edits, Path(tmp))
+                  for name, edits in WGMMA_ABLATIONS.items()}
+        native.build([attention.KERNEL])   # the intact kernel, beside the copies' builds
+        fns = {"intact": attention._lib(attention.KERNEL).attention_fwd}
+        for name, (proc, lib) in builds.items():
+            log, _ = proc.communicate()
+            check(proc.returncode == 0, f"[wgmma-ablation] {name}: nvcc failed\n{log[-3000:]}")
+            fn = ctypes.CDLL(str(lib)).attention_fwd
+            fn.argtypes = [ctypes.c_void_p] * 7
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+        g = torch.Generator(device="cuda").manual_seed(8)
+        for shape in HEADDIM_SHAPES:
+            q, k, v = (torch.randn(shape, generator=g, device="cuda").bfloat16() for _ in range(3))
+            plan = attention._ForwardPlan(q, k, v, False, 1, False, ())
+            out = torch.empty_like(q)
+
+            def call(fn):
+                return lambda: attention._launch(fn, plan.address, q.device.index, q.data_ptr(),
+                                                 k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                                 None)
+
+            times = {name: ms for name, (ms, _) in
+                     _in_turns_ms({name: call(fn) for name, fn in fns.items()},
+                                  graph=False).items()}
+            report[str(shape)] = times
+            print(f"[wgmma-ablation] {shape} bf16 exact: " + ", ".join(
+                f"{name} {ms:.4f} ms" for name, ms in times.items()) + f"; medians of "
+                  f"{TABLE_ROUNDS} in turns", flush=True)
+            del q, k, v, out
     return report
 
 
@@ -2059,45 +2224,60 @@ def phase_unet_grad() -> None:
           f"{BF16_GRAD_FACTOR['worst']} x its worst)", flush=True)
 
 
+def _headdim_generator(ckpt: Path, head_dim: int, dtype: torch.dtype) -> ImageGenerator:
+    gen = ImageGenerator(checkpoints_dir=str(ckpt), compute_dtype=dtype,
+                         model_config=UNet2DConfig(attention_head_dim=head_dim))
+    gen.scheduler_kind = "ddim"
+    gen.set_inference_steps(CLI_STEPS)
+    gen.batch_size = CLI_BATCH
+    gen.set_generation_seed(GEN_SEED)
+    return gen
+
+
+def _headdim_walk(gen: ImageGenerator, out: Path, head_dim: int, label: str) -> tuple:
+    """`generate_images([("MEL", GEN_IMAGES)])` with the launches counted:
+    (launches, heads per launch, PNG paths, wall seconds), after checking
+    the images were written and every launch ran at 256 / head_dim heads."""
+    reset_launches()
+    with heads_per_launch() as launch_heads:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = gen.generate_images([("MEL", GEN_IMAGES)], str(out))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(attention.LAUNCHES)
+    pngs = sorted((out / "MEL").glob("ISIC_*.png"))
+    check(result.get("generated") == GEN_IMAGES and len(pngs) == GEN_IMAGES,
+          f"[headdim] {label}: generate_images returned {result}, {len(pngs)} PNGs")
+    check(set(launch_heads) == {256 // head_dim},
+          f"[headdim] {label}: heads per launch {set(launch_heads)}")
+    return launches, list(launch_heads), pngs, wall
+
+
 def phase_headdim(card: str, base: Path) -> dict:
     """[headdim]: the library generator at other head_dims (HEADDIM_WALKS),
     f32 exact, DDIM 10, 16 MEL images in two blocks of 8 on one full-width
     checkpoint: exactly 120 K1 launches each, every one at 256 / D heads;
     the first block's walk kernel vs plain attention under full-f32
-    convolutions; then the train step at head_dim HEADDIM_TRAIN_DIM (batch
-    BENCH_BATCH, bf16): 6 K1 with their statistics and 6 K3 per step, no
-    statistics launch, and the f32 gradient kernel vs plain."""
+    convolutions; the same walk in bf16 at HEADDIM_BF16_WALK, its 120 K1
+    launches each on the `wgmma` kernel; then the train step at each of
+    HEADDIM_TRAIN_DIMS (batch BENCH_BATCH, bf16): 6 K1 with their
+    statistics (on the `wgmma` kernel) and 6 K3 per step, no statistics
+    launch, and the f32 gradient kernel vs plain."""
     torch.manual_seed(0)
     ckpt = base / "checkpoints"
     ckpt.mkdir(parents=True)
     torch.save(UNet2D(UNet2DConfig()).state_dict(), ckpt / "unet_MEL_best.pth")
     want = ATTENTION_CALLS_PER_UNET * CLI_STEPS * GEN_IMAGES // CLI_BATCH
-    report = {"walks": {}}
+    report = {"walks": {}, "train": {}}
     for head_dim in HEADDIM_WALKS:
         heads = 256 // head_dim
-        cfg = UNet2DConfig(attention_head_dim=head_dim)
-        gen = ImageGenerator(checkpoints_dir=str(ckpt), compute_dtype=torch.float32,
-                             model_config=cfg)
-        gen.scheduler_kind = "ddim"
-        gen.set_inference_steps(CLI_STEPS)
-        gen.batch_size = CLI_BATCH
-        gen.set_generation_seed(GEN_SEED)
-        out = base / f"head_dim_{head_dim}"
-        reset_launches()
-        with heads_per_launch() as launch_heads:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            result = gen.generate_images([("MEL", GEN_IMAGES)], str(out))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        launches = dict(attention.LAUNCHES)
-        pngs = sorted((out / "MEL").glob("ISIC_*.png"))
-        check(result.get("generated") == GEN_IMAGES and len(pngs) == GEN_IMAGES,
-              f"[headdim] head_dim {head_dim}: generate_images returned {result}, "
-              f"{len(pngs)} PNGs")
+        gen = _headdim_generator(ckpt, head_dim, torch.float32)
+        launches, launch_heads, pngs, wall = _headdim_walk(
+            gen, base / f"head_dim_{head_dim}", head_dim, f"head_dim {head_dim}")
         check(launches[attention.KERNEL] == want and launches[attention.FAST_KERNEL] == 0
-              and set(launch_heads) == {heads} and len(launch_heads) == want,
-              f"[headdim] head_dim {head_dim}: launches {launches}, heads {set(launch_heads)}")
+              and len(launch_heads) == want,
+              f"[headdim] head_dim {head_dim}: launches {launches}")
         # the first block again, kernel and plain attention, from the same seeds
         seeds = np.asarray(json.loads(pngs[0].with_suffix(".json").read_text())
                            ["block"]["seeds"], np.uint32)
@@ -2124,9 +2304,35 @@ def phase_headdim(card: str, base: Path) -> dict:
                                      "wall_s": wall, "max_abs_err": dist}
         del gen, walks
 
-    # the train step at HEADDIM_TRAIN_DIM: bf16 compute, f32 parameters
-    cfg = UNet2DConfig(attention_head_dim=HEADDIM_TRAIN_DIM)
-    heads = 256 // HEADDIM_TRAIN_DIM
+    # the bf16 walk at a wide head: every K1 launch on the warpgroup-product kernel
+    head_dim = HEADDIM_BF16_WALK
+    gen = _headdim_generator(ckpt, head_dim, torch.bfloat16)
+    launches, launch_heads, pngs, wall = _headdim_walk(
+        gen, base / f"head_dim_{head_dim}_bf16", head_dim, f"bf16 head_dim {head_dim}")
+    got = tuple(launches[k] for k in (attention.KERNEL, attention.WGMMA_KERNEL,
+                                      attention.FAST_KERNEL))
+    print(f"[headdim] ImageGenerator(model_config=UNet2DConfig(attention_head_dim={head_dim}), "
+          f"compute_dtype=torch.bfloat16), DDIM {CLI_STEPS}, MEL:{GEN_IMAGES}: {len(pngs)} PNGs "
+          f"in {wall:.3f} s; K1/wgmma/fast launches {got} (want {want}/{want}/0), every one at "
+          f"{256 // head_dim} heads", flush=True)
+    check(got == (want, want, 0) and len(launch_heads) == want,
+          f"[headdim] bf16 head_dim {head_dim}: K1/wgmma/fast launches {got}")
+    report["bf16_walk"] = {"head_dim": head_dim, "launches": want, "wgmma_launches": got[1],
+                           "wall_s": wall}
+    del gen
+
+    for train_dim in HEADDIM_TRAIN_DIMS:
+        report["train"][train_dim] = _headdim_train(card, train_dim)
+    return report
+
+
+def _headdim_train(card: str, head_dim: int) -> dict:
+    """The train step at `head_dim` (bf16 compute, f32 parameters, batch
+    BENCH_BATCH): 6 K1 with their statistics, each on the `wgmma` kernel,
+    and 6 K3 per step, no statistics launch; then the whole UNet's f32
+    gradient, kernel vs plain."""
+    cfg = UNet2DConfig(attention_head_dim=head_dim)
+    heads = 256 // head_dim
     train_cfg = TrainConfig(batch_size=BENCH_BATCH)
     torch.manual_seed(0)
     model = UNet2D(cfg, dtype=torch.bfloat16, param_dtype=torch.float32,
@@ -2145,15 +2351,15 @@ def phase_headdim(card: str, base: Path) -> dict:
         step_s = (time.perf_counter() - t0) / HEADDIM_TRAIN_STEPS
     launches = dict(attention.LAUNCHES)
     per_step = ATTENTION_CALLS_PER_UNET * HEADDIM_TRAIN_STEPS
-    got = tuple(launches[k] for k in (attention.KERNEL, attention.BWD_KERNEL,
-                                      attention.STATS_KERNEL))
-    check(got == (per_step, per_step, 0) and set(launch_heads) == {heads}
+    got = tuple(launches[k] for k in (attention.KERNEL, attention.WGMMA_KERNEL,
+                                      attention.BWD_KERNEL, attention.STATS_KERNEL))
+    check(got == (per_step, per_step, per_step, 0) and set(launch_heads) == {heads}
           and all(bool(torch.isfinite(x)) for x in losses),
-          f"[headdim] train steps at head_dim {HEADDIM_TRAIN_DIM}: K1/K3/stats {got}, heads "
+          f"[headdim] train steps at head_dim {head_dim}: K1/wgmma/K3/stats {got}, heads "
           f"{set(launch_heads)}, losses {[x.item() for x in losses]}")
     del model, state
 
-    # the whole UNet's f32 gradient at HEADDIM_TRAIN_DIM, kernel vs plain
+    # the whole UNet's f32 gradient at head_dim, kernel vs plain
     torch.manual_seed(0)
     weights = UNet2D(cfg).state_dict()
     x = torch.randn(GRAD_BATCH, 3, 128, 128, generator=g, device="cuda")
@@ -2172,16 +2378,15 @@ def phase_headdim(card: str, base: Path) -> dict:
         ((grads[True][n] - w).abs().max().item()
          / (largest if n.endswith("to_k.bias") else w.abs().max().item()), n)
         for n, w in grads[False].items())
-    print(f"[headdim] train step at head_dim {HEADDIM_TRAIN_DIM} ({heads} heads), batch "
-          f"{BENCH_BATCH}, bf16: {step_s:.4f} s/step warm on {card}; K1/K3/stats launches "
-          f"{got} over {HEADDIM_TRAIN_STEPS} steps (want {per_step}/{per_step}/0); the "
-          f"full-width UNet's f32 gradient at batch {GRAD_BATCH}, kernel vs plain: worst "
-          f"max|diff|/max|g| {worst:.3e} at {worst_name} (allowed {UNET_GRAD_TOL:.0e})",
-          flush=True)
-    check(worst <= UNET_GRAD_TOL, f"[headdim] gradient at head_dim {HEADDIM_TRAIN_DIM}")
-    report["train"] = {"launches": dict(zip(("fwd", "bwd", "stats"), got)), "step_s": step_s,
-                       "grad_rel": worst}
-    return report
+    print(f"[headdim] train step at head_dim {head_dim} ({heads} heads), batch "
+          f"{BENCH_BATCH}, bf16: {step_s:.4f} s/step warm on {card}; K1/wgmma/K3/stats "
+          f"launches {got} over {HEADDIM_TRAIN_STEPS} steps (want "
+          f"{per_step}/{per_step}/{per_step}/0); the full-width UNet's f32 gradient at batch "
+          f"{GRAD_BATCH}, kernel vs plain: worst max|diff|/max|g| {worst:.3e} at {worst_name} "
+          f"(allowed {UNET_GRAD_TOL:.0e})", flush=True)
+    check(worst <= UNET_GRAD_TOL, f"[headdim] gradient at head_dim {head_dim}")
+    return {"launches": dict(zip(("fwd", "wgmma", "bwd", "stats"), got)), "step_s": step_s,
+            "grad_rel": worst}
 
 
 def phase_unet() -> dict:
@@ -5661,6 +5866,11 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
                                                  "count": card["count"]}}), flush=True)
         return 0
+    if sys.argv[1:] == ["--wgmma-ablation"]:
+        # the `wgmma` forward with each of its parts removed in turn
+        print(json.dumps({"wgmma_ablation": phase_wgmma_ablation(), "card": card["card"]}),
+              flush=True)
+        return 0
     if sys.argv[1:] == ["--kernel-table"]:
         # the kernel table's K2 and head_dim rows alone
         native.build([attention.KERNEL, attention.BWD_KERNEL])
@@ -5765,6 +5975,7 @@ def main() -> int:
     fast_f32 = fast_report[(MAIN_SHAPES[0], torch.float32, "time")]
     g_star = group_report["g_star"]
     group_bound, group_bound_by, _, _ = attention_bound_ms(GROUP_SHAPE, torch.bfloat16)
+    wgmma_row = kernel_report["table"]["head_dim_fwd"][f"{WGMMA_SHAPE} bfloat16"]
     line = {"kernels": [{
         "name": "attention_fwd",
         "route": "cuda",
@@ -5847,12 +6058,14 @@ def main() -> int:
         # the forward at head_dims 4, 16, 32 and 64 (the tensor cores at a
         # staged width of 8, 16, 32, 64)
         "k2": kernel_report["table"]["K2"],
-        # [headdim]: the generator's walks at head_dims 4, 32 and 64 (K1 at
-        # 64, 8 and 4 heads), and the train step at head_dim 32; [build]
+        # [headdim]: the generator's walks at head_dims 4, 32, 64, 128 and 256
+        # (K1 at 64, 8, 4, 2 and 1 heads), and the train steps at head_dims 32
+        # and 128; [build]
         "launches_headdim": {str(d): w["launches"] for d, w in headdim["walks"].items()},
         "max_abs_err_headdim_walk": {str(d): w["max_abs_err"]
                                      for d, w in headdim["walks"].items()},
-        "launches_headdim_train": headdim["train"]["launches"]["fwd"],
+        "launches_headdim_train": {str(d): r["launches"]["fwd"]
+                                   for d, r in headdim["train"].items()},
         "build_s": built["build_s"],
         "instances": built["instances"],
         "head_dims": kernel_report["table"]["head_dim_fwd"],
@@ -5962,11 +6175,14 @@ def main() -> int:
         "host_fwd_bwd_t256_bf16": host_report[host_name((TRAIN_BATCH, 32, 256, 8),
                                                         torch.bfloat16, False, trainable=True)],
         "launches_stats_train": train_launches[attention.STATS_KERNEL],
-        # [headdim]: the train step at head_dim 32 (6 per step), its
-        # statistics launches (0) and its f32 gradient vs plain
-        "launches_headdim_train": headdim["train"]["launches"]["bwd"],
-        "launches_stats_headdim_train": headdim["train"]["launches"]["stats"],
-        "headdim_grad_rel": headdim["train"]["grad_rel"],
+        # [headdim]: the train steps at head_dims 32 and 128 (6 per step; at
+        # 128 the wide kernels), their statistics launches (0) and their f32
+        # gradients vs plain
+        "launches_headdim_train": {str(d): r["launches"]["bwd"]
+                                   for d, r in headdim["train"].items()},
+        "launches_stats_headdim_train": {str(d): r["launches"]["stats"]
+                                         for d, r in headdim["train"].items()},
+        "headdim_grad_rel": {str(d): r["grad_rel"] for d, r in headdim["train"].items()},
         # [mesh]: `train --dp-mesh` (one-rank NCCL) and the [cuda:0, cuda:0]
         # f32 train step against one device
         "launches_mesh_train": meshed["train_launches"][attention.BWD_KERNEL],
@@ -6091,6 +6307,35 @@ def main() -> int:
         "ms_by_heads_per_program": {str(grp): ms for grp, ms in
                                     group_report[(torch.bfloat16, "exact")].items()},
         "shape": list(GROUP_SHAPE),
+        "dtype": "bfloat16",
+        # [kernel-group]: G past one block's heads (16 at 32 heads of 8, 2 at
+        # heads of 64 and 128), exact ms at G, torch.equal to G = 1
+        "ms_any_group": group_report["extra"],
+    }, {
+        "name": "attention_fwd_wgmma",
+        "route": "cuda",
+        "source": "synt_isic_tpu_torch/csrc/attention_fwd.cu",
+        "replaces": "synt_isic_tpu/ops/pallas/attention.py:28",
+        # [headdim]: the bf16 generator walk at head_dim 128 (all of its K1
+        # launches), and the train steps' K1 at head_dims 32 and 128
+        "launches": headdim["bf16_walk"]["wgmma_launches"],
+        "launches_headdim_train": {str(d): r["launches"]["wgmma"]
+                                   for d, r in headdim["train"].items()},
+        "max_abs_err": wgmma_row["max_abs_err"],
+        "ms": wgmma_row["ms"],
+        "device_ms": wgmma_row["device_ms"],
+        "plain_ms": wgmma_row["plain_ms"],
+        "bound_ms": wgmma_row["bound_ms"],
+        "bound_by": wgmma_row["bound_by"],
+        "library_ms": wgmma_row["library_ms"],
+        # [kernel]: the bf16 forward at (8, 256/D, 1024, D) for D 16 to 256
+        "by_head_dim": {name: row for name, row in kernel_report["table"]["head_dim_fwd"].items()
+                        if name.endswith("bfloat16") and attention.uses_wgmma(
+                            torch.bfloat16, int(name.split(")")[0].rsplit(",", 1)[1]))},
+        "registers": built["registers"],
+        "hgmma": {k: c["HGMMA"] for k, c in built["sass"].items()
+                  if k.startswith("attention_fwd_wgmma_kernel")},
+        "shape": list(WGMMA_SHAPE),
         "dtype": "bfloat16",
     }]}
     print(json.dumps(line), flush=True)

@@ -12,13 +12,15 @@
 // element at a time (`stage_unit` in tensor_core.cuh), so no layout is copied
 // first.
 //
-// Every head_dim D from 1 to 64 runs on the tensor cores, in both dtypes: the
-// kernels are templates on a staged width Dp of 8, 16, 32 or 64 (the least
-// one >= D), a head's channels past D zero-filled where they are staged or
-// loaded (exact in every product, tensor_core.cuh), the scale 1/sqrt(D) of
-// the true D. A head_dim above 64 returns cudaErrorInvalidValue. Routes, as
-// in the forward: the Wide instances at D 16, 32, 64 (any G), the head_dim-8
-// kernels (namespace d8) at D 8, the general staging at G = 1 for the rest.
+// Every head_dim D from 1 to 256 runs on the tensor cores, in both dtypes: the
+// kernels are templates on a staged width Dp of 8, 16, 32, 64, 128 or 256
+// (the least one >= D), a head's channels past D zero-filled where they are
+// staged or loaded (exact in every product, tensor_core.cuh), the scale
+// 1/sqrt(D) of the true D. A head_dim above 256 returns
+// cudaErrorInvalidValue. Routes, as in the forward: the wide kernels at Dp
+// 128 and 256 (one head a block, below), the Wide instances at D 16, 32, 64
+// (any G' the launcher is given), the head_dim-8 kernels (namespace d8) at
+// D 8, the general staging at G' = 1 for the rest.
 //
 // The TPU kernel holds the (T, T) probs, dp and ds of one head in VMEM (about
 // 10 MB at T=1024); a Hopper block has at most 227 KB of shared memory. So
@@ -30,8 +32,9 @@
 // changes only which heads a block covers and stages the other side's rows
 // of all G heads at once (in the (B, T, C) layout the G * D channels of one
 // token are contiguous); each head's arithmetic is the G = 1 sequence, so dq,
-// dk and dv are bit-identical for every G. G is instantiated where
-// G * Dp <= 64.
+// dk and dv are bit-identical for every G. G' (the heads a block runs) is
+// instantiated where G' * Dp <= 64; the wrapper runs any G that divides the
+// heads as G / G' consecutive groups of G' (`block_group`).
 //
 // Inputs besides q, k, v, do: the exact forward's output o (in the primal
 // dtype) and each query row's base-2 log-sum-exp lse (f32), which
@@ -1644,6 +1647,620 @@ cudaError_t launch_tf32_group(int group, const void* q, const void* k, const voi
 
 }  // namespace d8
 
+// ---------------------------------------------------------------------------
+// staged widths 128 and 256: the wide kernels
+// ---------------------------------------------------------------------------
+//
+// The templates above hold the warp's own rows' fragments and Dp/8 n-tiles
+// of accumulators in registers; at Dp 256 that is about 384 registers a
+// thread. The wide kernels (heads of 65 to 256 channels, G = 1; a G > 1 runs
+// as G consecutive groups of one head) do the same arithmetic in the same
+// rounding order with the products that give channels cut into 64-channel
+// chunks: a block covers 64 rows of one head and one chunk of its gradients
+// (blockIdx.y = head * chunks + chunk, chunks = ceil(D / 64)) and forms S and
+// dP over every channel, reading its own rows' fragments from device memory
+// at each k-step (`wide_product_bf16`, `wide_product_tf32`), so S and dP are
+// formed once per chunk (2 or 4 times). A simple kernel that is right, not
+// yet a fast one. bf16: the other side's tiles double-buffered at the full
+// staged width (33 chunks a row at Dp 256: 135 KB); f32: one stage of raw
+// rows (Dp + 4 words apart, split as they are read; 133 KB at Dp 256), the
+// dk/dv launch's totals in each thread's own shared-memory slots.
+
+// Launch 1 (bf16, wide): dq of one chunk, and each query row's delta = do . o
+// (written by chunk 0's blocks).
+template <int Dp, bool Wide>
+__global__ void __launch_bounds__(32 * kTcWarps, 1)
+attention_bwd_dq_tc_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                const bf16* __restrict__ o, const float* __restrict__ lse,
+                                bf16* __restrict__ dq, float* __restrict__ delta, int heads,
+                                int chunks, int seq_len, int head_dim, Strides sq, Strides sk,
+                                Strides sv, Strides sdo, Strides so, Strides sdq, int unit_k,
+                                int unit_v, float scale, float scale_log2) {
+  if constexpr (Wide) head_dim = Dp;   // a Wide head fills its staged width
+  constexpr int kS = Bf16Tile<Dp>::kStride;
+  constexpr int kTile = kTcTile * kS;
+  extern __shared__ uint4 bf16_tiles[];   // K [2][kTile], then V [2][kTile]
+  uint4* k_tile = bf16_tiles;
+  uint4* v_tile = bf16_tiles + 2 * kTile;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tig = lane % 4;
+  const int64_t b = blockIdx.z;
+  const int64_t h = blockIdx.y / chunks;
+  const int chunk = blockIdx.y % chunks;
+  const int ra = blockIdx.x * kTcRows + warp * 16 + lane / 4;
+  const int rb = ra + 8;
+  const bool oka = ra < seq_len;
+  const bool okb = rb < seq_len;
+
+  const bf16* qh = q + b * sq.b + h * sq.h;
+  const bf16* doh = dout + b * sdo.b + h * sdo.h;
+  const bf16* oh = o + b * so.b + h * so.h;
+  float dla = 0.f, dlb = 0.f;   // delta = do . o: 2 channels a k-step here, then the 4 lanes
+  for (int j = 0; j < Dp / 8; ++j) {
+    const int c = 8 * j + 2 * tig;
+    const uint32_t da = load_pair(doh, sdo, ra, c, oka, head_dim);
+    const uint32_t db = load_pair(doh, sdo, rb, c, okb, head_dim);
+    const uint32_t oa = load_pair(oh, so, ra, c, oka, head_dim);
+    const uint32_t ob = load_pair(oh, so, rb, c, okb, head_dim);
+    dla = fmaf(hi_f32(da), hi_f32(oa), fmaf(lo_f32(da), lo_f32(oa), dla));
+    dlb = fmaf(hi_f32(db), hi_f32(ob), fmaf(lo_f32(db), lo_f32(ob), dlb));
+  }
+#pragma unroll
+  for (int m = 1; m < 4; m *= 2) {
+    dla += __shfl_xor_sync(0xffffffffu, dla, m);
+    dlb += __shfl_xor_sync(0xffffffffu, dlb, m);
+  }
+  const int64_t stat = (b * heads + h) * seq_len;
+  const float lsea = oka ? lse[stat + ra] : 0.f;
+  const float lseb = okb ? lse[stat + rb] : 0.f;
+  if (chunk == 0 && tig == 0) {
+    if (oka) delta[stat + ra] = dla;
+    if (okb) delta[stat + rb] = dlb;
+  }
+  const float dsa = dla * scale;
+  const float dsb = dlb * scale;
+
+  float acc[kChunk / 8][4];
+#pragma unroll
+  for (int n = 0; n < kChunk / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
+  stage<bf16, Dp, 1, kS, Wide>(k_tile, kb, sk, unit_k, 0, seq_len, head_dim, threadIdx.x);
+  stage<bf16, Dp, 1, kS, Wide>(v_tile, vb, sv, unit_v, 0, seq_len, head_dim, threadIdx.x);
+  cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {   // the next tile streams in while this one is used
+      stage<bf16, Dp, 1, kS, Wide>(k_tile + (buf ^ 1) * kTile, kb, sk, unit_k, (t + 1) * kTcTile,
+                                   seq_len, head_dim, threadIdx.x);
+      stage<bf16, Dp, 1, kS, Wide>(v_tile + (buf ^ 1) * kTile, vb, sv, unit_v, (t + 1) * kTcTile,
+                                   seq_len, head_dim, threadIdx.x);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint4* kt = k_tile + buf * kTile;
+    const uint4* vt = v_tile + buf * kTile;
+    const int keys = seq_len - t * kTcTile;
+    // S = Q K^T and dP = dO V^T over the tile's 64 keys, 8 keys a slice
+    float sc[kTcTile / 8][4], dp[kTcTile / 8][4];
+#pragma unroll
+    for (int s = 0; s < kTcTile / 8; ++s) {
+      sc[s][0] = sc[s][1] = sc[s][2] = sc[s][3] = 0.f;
+      dp[s][0] = dp[s][1] = dp[s][2] = dp[s][3] = 0.f;
+    }
+    wide_product_bf16<Dp>(sc, dp, qh, sq, doh, sdo, ra, oka, okb, head_dim, kt, vt);
+#pragma unroll
+    for (int s = 0; s < kTcTile / 16; ++s) {
+      uint32_t ds[4];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float* f = sc[2 * s + c];
+        const float* d = dp[2 * s + c];
+        float p[4] = {ex2(fmaf(f[0], scale_log2, -lsea)), ex2(fmaf(f[1], scale_log2, -lsea)),
+                      ex2(fmaf(f[2], scale_log2, -lseb)), ex2(fmaf(f[3], scale_log2, -lseb))};
+        const int key = s * 16 + c * 8 + 2 * tig;
+        if (key >= keys) p[0] = p[2] = 0.f;
+        if (key + 1 >= keys) p[1] = p[3] = 0.f;
+        const uint32_t pa = pack_bf16(p[0], p[1]);
+        const uint32_t pb = pack_bf16(p[2], p[3]);
+        ds[2 * c] = pack_bf16(lo_f32(pa) * fmaf(d[0], scale, -dsa),
+                              hi_f32(pa) * fmaf(d[1], scale, -dsa));
+        ds[2 * c + 1] = pack_bf16(lo_f32(pb) * fmaf(d[2], scale, -dsb),
+                                  hi_f32(pb) * fmaf(d[3], scale, -dsb));
+      }
+#pragma unroll
+      for (int n = 0; n < kChunk / 8; ++n) {   // dQ += dS K, this chunk's channels
+        uint32_t yT[2];
+        ldsm_x2_trans(yT, kt + (s * 16 + lane % 16) * kS + chunk * (kChunk / 8) + n);
+        mma_k16(acc[n], ds, yT);
+      }
+    }
+    __syncthreads();       // every warp is done with buf before it is refilled
+  }
+
+  bf16* dqh = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int n = 0; n < kChunk / 8; ++n) {
+    const int c = chunk * kChunk + 8 * n + 2 * tig;
+    if (oka && c < head_dim) dqh[ra * sdq.t + c * sdq.d] = __float2bfloat16(acc[n][0]);
+    if (oka && c + 1 < head_dim) dqh[ra * sdq.t + (c + 1) * sdq.d] = __float2bfloat16(acc[n][1]);
+    if (okb && c < head_dim) dqh[rb * sdq.t + c * sdq.d] = __float2bfloat16(acc[n][2]);
+    if (okb && c + 1 < head_dim) dqh[rb * sdq.t + (c + 1) * sdq.d] = __float2bfloat16(acc[n][3]);
+  }
+}
+
+// Launch 2 (bf16, wide): dk and dv of one chunk. Each warp holds 16 key rows
+// and walks the query tiles (q, do, lse, delta).
+template <int Dp, bool Wide>
+__global__ void __launch_bounds__(32 * kTcWarps, 1)
+attention_bwd_dkdv_tc_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ delta, bf16* __restrict__ dk,
+                                  bf16* __restrict__ dv, int heads, int chunks, int seq_len,
+                                  int head_dim, Strides sq, Strides sk, Strides sv, Strides sdo,
+                                  Strides sdk, Strides sdv, int unit_q, int unit_do, float scale,
+                                  float scale_log2) {
+  if constexpr (Wide) head_dim = Dp;   // a Wide head fills its staged width
+  constexpr int kS = Bf16Tile<Dp>::kStride;
+  constexpr int kTile = kTcTile * kS;
+  // Q [2][kTile], dO [2][kTile], then lse [2][kTcTile] and delta [2][kTcTile]
+  extern __shared__ uint4 bf16_tiles[];
+  uint4* q_tile = bf16_tiles;
+  uint4* do_tile = bf16_tiles + 2 * kTile;
+  float* l_tile = reinterpret_cast<float*>(bf16_tiles + 4 * kTile);
+  float* d_tile = l_tile + 2 * kTcTile;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tig = lane % 4;
+  const int64_t b = blockIdx.z;
+  const int64_t h = blockIdx.y / chunks;
+  const int chunk = blockIdx.y % chunks;
+  const int ja = blockIdx.x * kTcRows + warp * 16 + lane / 4;
+  const int jb = ja + 8;
+  const bool oka = ja < seq_len;
+  const bool okb = jb < seq_len;
+
+  const bf16* kh = k + b * sk.b + h * sk.h;
+  const bf16* vh = v + b * sv.b + h * sv.h;
+  float dka[kChunk / 8][4], dva[kChunk / 8][4];
+#pragma unroll
+  for (int n = 0; n < kChunk / 8; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  }
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lseb = lse + (b * heads + h) * seq_len;
+  const float* deltab = delta + (b * heads + h) * seq_len;
+  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
+  stage<bf16, Dp, 1, kS, Wide>(q_tile, qb, sq, unit_q, 0, seq_len, head_dim, threadIdx.x);
+  stage<bf16, Dp, 1, kS, Wide>(do_tile, dob, sdo, unit_do, 0, seq_len, head_dim, threadIdx.x);
+  stage_stats<1>(l_tile, d_tile, lseb, deltab, 0, seq_len);
+  cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {
+      stage<bf16, Dp, 1, kS, Wide>(q_tile + (buf ^ 1) * kTile, qb, sq, unit_q, (t + 1) * kTcTile,
+                                   seq_len, head_dim, threadIdx.x);
+      stage<bf16, Dp, 1, kS, Wide>(do_tile + (buf ^ 1) * kTile, dob, sdo, unit_do,
+                                   (t + 1) * kTcTile, seq_len, head_dim, threadIdx.x);
+      stage_stats<1>(l_tile + (buf ^ 1) * kTcTile, d_tile + (buf ^ 1) * kTcTile, lseb, deltab,
+                     (t + 1) * kTcTile, seq_len);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint4* qt = q_tile + buf * kTile;
+    const uint4* dt = do_tile + buf * kTile;
+    const float* lt = l_tile + buf * kTcTile;
+    const float* dlt = d_tile + buf * kTcTile;
+    // S^T = K Q^T and dP^T = V dO^T over the tile's 64 queries
+    float sc[kTcTile / 8][4], dp[kTcTile / 8][4];
+#pragma unroll
+    for (int s = 0; s < kTcTile / 8; ++s) {
+      sc[s][0] = sc[s][1] = sc[s][2] = sc[s][3] = 0.f;
+      dp[s][0] = dp[s][1] = dp[s][2] = dp[s][3] = 0.f;
+    }
+    wide_product_bf16<Dp>(sc, dp, kh, sk, vh, sv, ja, oka, okb, head_dim, qt, dt);
+#pragma unroll
+    for (int s = 0; s < kTcTile / 16; ++s) {
+      uint32_t pt[4], ds[4];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float* f = sc[2 * s + c];
+        const float* d = dp[2 * s + c];
+        const int col = s * 16 + c * 8 + 2 * tig;   // this lane's two queries
+        const float2 l = *reinterpret_cast<const float2*>(lt + col);
+        const float2 dl = *reinterpret_cast<const float2*>(dlt + col);
+        const float dsx = dl.x * scale;
+        const float dsy = dl.y * scale;
+        pt[2 * c] = pack_bf16(ex2(fmaf(f[0], scale_log2, -l.x)),
+                              ex2(fmaf(f[1], scale_log2, -l.y)));
+        pt[2 * c + 1] = pack_bf16(ex2(fmaf(f[2], scale_log2, -l.x)),
+                                  ex2(fmaf(f[3], scale_log2, -l.y)));
+        ds[2 * c] = pack_bf16(lo_f32(pt[2 * c]) * fmaf(d[0], scale, -dsx),
+                              hi_f32(pt[2 * c]) * fmaf(d[1], scale, -dsy));
+        ds[2 * c + 1] = pack_bf16(lo_f32(pt[2 * c + 1]) * fmaf(d[2], scale, -dsx),
+                                  hi_f32(pt[2 * c + 1]) * fmaf(d[3], scale, -dsy));
+      }
+#pragma unroll
+      for (int n = 0; n < kChunk / 8; ++n) {   // this chunk's channels
+        const int at = (s * 16 + lane % 16) * kS + chunk * (kChunk / 8) + n;
+        uint32_t yT[2];
+        ldsm_x2_trans(yT, dt + at);
+        mma_k16(dva[n], pt, yT);   // dV += P^T dO
+        ldsm_x2_trans(yT, qt + at);
+        mma_k16(dka[n], ds, yT);   // dK += dS^T Q
+      }
+    }
+    __syncthreads();
+  }
+
+  bf16* dkh = dk + b * sdk.b + h * sdk.h;
+  bf16* dvh = dv + b * sdv.b + h * sdv.h;
+#pragma unroll
+  for (int n = 0; n < kChunk / 8; ++n) {
+    const int c = chunk * kChunk + 8 * n + 2 * tig;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r == 0 ? ja : jb;
+      if (!(r == 0 ? oka : okb)) continue;
+      if (c < head_dim) {
+        dkh[row * sdk.t + c * sdk.d] = __float2bfloat16(dka[n][2 * r]);
+        dvh[row * sdv.t + c * sdv.d] = __float2bfloat16(dva[n][2 * r]);
+      }
+      if (c + 1 < head_dim) {
+        dkh[row * sdk.t + (c + 1) * sdk.d] = __float2bfloat16(dka[n][2 * r + 1]);
+        dvh[row * sdv.t + (c + 1) * sdv.d] = __float2bfloat16(dva[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// Launch 1 (f32, wide): dq of one chunk, and each query row's delta = do . o
+// (written by chunk 0's blocks).
+template <int Dp, bool Wide>
+__global__ void __launch_bounds__(32 * kTcWarps, 1)
+attention_bwd_dq_tf32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, const float* __restrict__ dout,
+                                  const float* __restrict__ o, const float* __restrict__ lse,
+                                  float* __restrict__ dq, float* __restrict__ delta, int heads,
+                                  int chunks, int seq_len, int head_dim, Strides sq, Strides sk,
+                                  Strides sv, Strides sdo, Strides so, Strides sdq, int unit_k,
+                                  int unit_v, float scale, float scale_log2) {
+  if constexpr (Wide) head_dim = Dp;   // a Wide head fills its staged width
+  constexpr int kW = Tf32Tile<Dp>::kWords;
+  extern __shared__ float4 tf32_tiles[];
+  float* k_tile = reinterpret_cast<float*>(tf32_tiles);   // raw rows, kW words apart
+  float* v_tile = k_tile + kTcTile * kW;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tig = lane % 4;
+  const int64_t b = blockIdx.z;
+  const int64_t h = blockIdx.y / chunks;
+  const int chunk = blockIdx.y % chunks;
+  const int ra = blockIdx.x * kTcRows + warp * 16 + lane / 4;
+  const int rb = ra + 8;
+  const bool oka = ra < seq_len;
+  const bool okb = rb < seq_len;
+
+  const float* qh = q + b * sq.b + h * sq.h;
+  const float* doh = dout + b * sdo.b + h * sdo.h;
+  float dla = 0.f, dlb = 0.f;   // delta = do . o in f32: per k-step here, then the 4 lanes
+  for (int j = 0; j < Dp / 8; ++j) {
+    float x[4], ox[4];
+    load_a(doh, sdo, ra, oka, okb, j, head_dim, x);
+    load_a(o + b * so.b + h * so.h, so, ra, oka, okb, j, head_dim, ox);
+    dla = fmaf(x[2], ox[2], fmaf(x[0], ox[0], dla));
+    dlb = fmaf(x[3], ox[3], fmaf(x[1], ox[1], dlb));
+  }
+#pragma unroll
+  for (int m = 1; m < 4; m *= 2) {
+    dla = __fadd_rn(dla, __shfl_xor_sync(0xffffffffu, dla, m));
+    dlb = __fadd_rn(dlb, __shfl_xor_sync(0xffffffffu, dlb, m));
+  }
+  const int64_t stat = (b * heads + h) * seq_len;
+  const float nla = oka ? -lse[stat + ra] : 0.f;
+  const float nlb = okb ? -lse[stat + rb] : 0.f;
+  if (chunk == 0 && tig == 0) {
+    if (oka) delta[stat + ra] = dla;
+    if (okb) delta[stat + rb] = dlb;
+  }
+
+  const BwdLane<Dp> lane_reads;
+  float acc[kChunk / 8][4];
+#pragma unroll
+  for (int n = 0; n < kChunk / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
+  for (int t = 0; t < tiles; ++t) {
+    stage<float, Dp, 1, Tf32Tile<Dp>::kStride, Wide>(reinterpret_cast<uint4*>(k_tile), kb, sk,
+                                                     unit_k, t * kTcTile, seq_len, head_dim,
+                                                     threadIdx.x);
+    stage<float, Dp, 1, Tf32Tile<Dp>::kStride, Wide>(reinterpret_cast<uint4*>(v_tile), vb, sv,
+                                                     unit_v, t * kTcTile, seq_len, head_dim,
+                                                     threadIdx.x);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    const int keys = seq_len - t * kTcTile;
+    float sc[kTcTile / 8][4], dp[kTcTile / 8][4];
+#pragma unroll
+    for (int s = 0; s < kTcTile / 8; ++s) {
+      sc[s][0] = sc[s][1] = sc[s][2] = sc[s][3] = 0.f;
+      dp[s][0] = dp[s][1] = dp[s][2] = dp[s][3] = 0.f;
+    }
+    wide_product_tf32<Dp, kW, false>(sc, qh, sq, ra, oka, okb, head_dim, 1.f, k_tile,
+                                     lane_reads.t0);   // S = Q K^T
+    wide_product_tf32<Dp, kW, false>(dp, doh, sdo, ra, oka, okb, head_dim, 1.f, v_tile,
+                                     lane_reads.t0);   // dP = dO V^T
+    float part[kChunk / 8][4];
+#pragma unroll
+    for (int n = 0; n < kChunk / 8; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
+#pragma unroll
+    for (int s = 0; s < kTcTile / 8; ++s) {
+      const float* c = sc[s];
+      const float* d = dp[s];
+      // c[0], c[2] hold key 8 s + 2 tig, c[1], c[3] key 8 s + 2 tig + 1
+      float ds[4] = {__fmul_rn(ex2(fmaf(c[0], scale_log2, nla)), __fsub_rn(d[0], dla)),
+                     __fmul_rn(ex2(fmaf(c[1], scale_log2, nla)), __fsub_rn(d[1], dla)),
+                     __fmul_rn(ex2(fmaf(c[2], scale_log2, nlb)), __fsub_rn(d[2], dlb)),
+                     __fmul_rn(ex2(fmaf(c[3], scale_log2, nlb)), __fsub_rn(d[3], dlb))};
+      if (8 * s + 2 * tig >= keys) ds[0] = ds[2] = 0.f;
+      if (8 * s + 2 * tig + 1 >= keys) ds[1] = ds[3] = 0.f;
+      uint32_t hi[4], lo[4];
+      split_as_a(ds, hi, lo);
+      const int o = lane_reads.r0 + 8 * s * kW + chunk * kChunk;
+#pragma unroll
+      for (int n = 0; n < kChunk / 8; ++n) {
+        mma3_raw(part[n], hi, lo, k_tile, o + 8 * n, o + 8 * n + kW);   // dQ += dS K
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kChunk / 8; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] = __fadd_rn(acc[n][i], part[n][i]);
+    }
+    __syncthreads();       // every warp is done with the tile before it is refilled
+  }
+
+  float* dqh = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int n = 0; n < kChunk / 8; ++n) {
+    const int c = chunk * kChunk + 8 * n + 2 * tig;
+    if (oka && c < head_dim) dqh[ra * sdq.t + c * sdq.d] = __fmul_rn(acc[n][0], scale);
+    if (oka && c + 1 < head_dim) dqh[ra * sdq.t + (c + 1) * sdq.d] = __fmul_rn(acc[n][1], scale);
+    if (okb && c < head_dim) dqh[rb * sdq.t + c * sdq.d] = __fmul_rn(acc[n][2], scale);
+    if (okb && c + 1 < head_dim) dqh[rb * sdq.t + (c + 1) * sdq.d] = __fmul_rn(acc[n][3], scale);
+  }
+}
+
+// Launch 2 (f32, wide): dk and dv of one chunk. Each warp holds 16 key rows
+// and walks the query tiles (q, do raw; lse, delta).
+template <int Dp, bool Wide>
+__global__ void __launch_bounds__(32 * kTcWarps, 1)
+attention_bwd_dkdv_tf32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                    const float* __restrict__ v, const float* __restrict__ dout,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ delta, float* __restrict__ dk,
+                                    float* __restrict__ dv, int heads, int chunks, int seq_len,
+                                    int head_dim, Strides sq, Strides sk, Strides sv,
+                                    Strides sdo, Strides sdk, Strides sdv, int unit_q,
+                                    int unit_do, float scale, float scale_log2) {
+  if constexpr (Wide) head_dim = Dp;   // a Wide head fills its staged width
+  constexpr int kW = Tf32Tile<Dp>::kWords;
+  constexpr int kThreads = 32 * kTcWarps;
+  constexpr int kNT = kChunk / 8;
+  // raw Q and dO rows (kW words apart), each thread's dk and dv totals
+  // (kNT n-tiles, kThreads apart), then the tile's lse and delta
+  extern __shared__ float4 tf32_tiles[];
+  float* q_tile = reinterpret_cast<float*>(tf32_tiles);
+  float* do_tile = q_tile + kTcTile * kW;
+  float4* dk_total = reinterpret_cast<float4*>(do_tile + kTcTile * kW) + threadIdx.x;
+  float4* dv_total = dk_total + kNT * kThreads;
+  float* l_raw = reinterpret_cast<float*>(reinterpret_cast<float4*>(do_tile + kTcTile * kW)
+                                          + 2 * kNT * kThreads);
+  float* d_raw = l_raw + kTcTile;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    dk_total[n * kThreads] = dv_total[n * kThreads] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tig = lane % 4;
+  const int64_t b = blockIdx.z;
+  const int64_t h = blockIdx.y / chunks;
+  const int chunk = blockIdx.y % chunks;
+  const int ja = blockIdx.x * kTcRows + warp * 16 + lane / 4;
+  const int jb = ja + 8;
+  const bool oka = ja < seq_len;
+  const bool okb = jb < seq_len;
+
+  const BwdLane<Dp> lane_reads;
+  const float* kh = k + b * sk.b + h * sk.h;
+  const float* vh = v + b * sv.b + h * sv.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lseb = lse + (b * heads + h) * seq_len;
+  const float* deltab = delta + (b * heads + h) * seq_len;
+  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
+  for (int t = 0; t < tiles; ++t) {
+    stage<float, Dp, 1, Tf32Tile<Dp>::kStride, Wide>(reinterpret_cast<uint4*>(q_tile), qb, sq,
+                                                     unit_q, t * kTcTile, seq_len, head_dim,
+                                                     threadIdx.x);
+    stage<float, Dp, 1, Tf32Tile<Dp>::kStride, Wide>(reinterpret_cast<uint4*>(do_tile), dob, sdo,
+                                                     unit_do, t * kTcTile, seq_len, head_dim,
+                                                     threadIdx.x);
+    stage_stats<1>(l_raw, d_raw, lseb, deltab, t * kTcTile, seq_len);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    float sc[kTcTile / 8][4], dp[kTcTile / 8][4];
+#pragma unroll
+    for (int s = 0; s < kTcTile / 8; ++s) {
+      sc[s][0] = sc[s][1] = sc[s][2] = sc[s][3] = 0.f;
+      dp[s][0] = dp[s][1] = dp[s][2] = dp[s][3] = 0.f;
+    }
+    wide_product_tf32<Dp, kW, false>(sc, kh, sk, ja, oka, okb, head_dim, 1.f, q_tile,
+                                     lane_reads.t0);   // S^T = K Q^T
+    wide_product_tf32<Dp, kW, false>(dp, vh, sv, ja, oka, okb, head_dim, 1.f, do_tile,
+                                     lane_reads.t0);   // dP^T = V dO^T
+    float pk[kNT][4], pv[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      pk[n][0] = pk[n][1] = pk[n][2] = pk[n][3] = 0.f;
+      pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+    }
+#pragma unroll
+    for (int s = 0; s < kTcTile / 8; ++s) {
+      const float* c = sc[s];
+      const float* d = dp[s];
+      // c[0], c[2] hold query 8 s + 2 tig, c[1], c[3] query 8 s + 2 tig + 1;
+      // past T lse = +inf (p = 0) and delta = 0
+      const int col = 8 * s + 2 * tig;
+      const float nl0 = -l_raw[col], nl1 = -l_raw[col + 1];
+      const float dl0 = d_raw[col], dl1 = d_raw[col + 1];
+      float p[4] = {ex2(fmaf(c[0], scale_log2, nl0)), ex2(fmaf(c[1], scale_log2, nl1)),
+                    ex2(fmaf(c[2], scale_log2, nl0)), ex2(fmaf(c[3], scale_log2, nl1))};
+      uint32_t hi[4], lo[4];
+      split_as_a(p, hi, lo);
+      const int o = lane_reads.r0 + 8 * s * kW + chunk * kChunk;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        mma3_raw(pv[n], hi, lo, do_tile, o + 8 * n, o + 8 * n + kW);   // dV += P^T dO
+      }
+      p[0] = __fmul_rn(p[0], __fsub_rn(d[0], dl0));
+      p[1] = __fmul_rn(p[1], __fsub_rn(d[1], dl1));
+      p[2] = __fmul_rn(p[2], __fsub_rn(d[2], dl0));
+      p[3] = __fmul_rn(p[3], __fsub_rn(d[3], dl1));
+      split_as_a(p, hi, lo);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        mma3_raw(pk[n], hi, lo, q_tile, o + 8 * n, o + 8 * n + kW);   // dK += dS^T Q
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      add_to_total(dk_total + n * kThreads, pk[n]);
+      add_to_total(dv_total + n * kThreads, pv[n]);
+    }
+    __syncthreads();       // every warp is done with the tile before it is refilled
+  }
+
+  float* dkh = dk + b * sdk.b + h * sdk.h;
+  float* dvh = dv + b * sdv.b + h * sdv.h;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    const float4 dka = dk_total[n * kThreads];
+    const float4 dva = dv_total[n * kThreads];
+    const int c = chunk * kChunk + 8 * n + 2 * tig;
+    if (oka && c < head_dim) {
+      dkh[ja * sdk.t + c * sdk.d] = __fmul_rn(dka.x, scale);
+      dvh[ja * sdv.t + c * sdv.d] = dva.x;
+    }
+    if (oka && c + 1 < head_dim) {
+      dkh[ja * sdk.t + (c + 1) * sdk.d] = __fmul_rn(dka.y, scale);
+      dvh[ja * sdv.t + (c + 1) * sdv.d] = dva.y;
+    }
+    if (okb && c < head_dim) {
+      dkh[jb * sdk.t + c * sdk.d] = __fmul_rn(dka.z, scale);
+      dvh[jb * sdv.t + c * sdv.d] = dva.z;
+    }
+    if (okb && c + 1 < head_dim) {
+      dkh[jb * sdk.t + (c + 1) * sdk.d] = __fmul_rn(dka.w, scale);
+      dvh[jb * sdv.t + (c + 1) * sdv.d] = dva.w;
+    }
+  }
+}
+
+// Both launches of the wide bf16 or f32 kernels at Dp (G = 1): the shared
+// memory, the grid (one block per 64 rows, head and 64-channel chunk),
+// cudaGetLastError after each.
+template <typename T, int Dp, bool Wide>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* dout,
+                        const void* o, void* dq, void* dk, void* dv, const float* lse,
+                        float* delta, int batch, int heads, int seq_len, int head_dim,
+                        const int64_t* st, const int* units, float scale, cudaStream_t stream) {
+  const Strides sq{st[0], st[1], st[2], st[3]};
+  const Strides sk{st[4], st[5], st[6], st[7]};
+  const Strides sv{st[8], st[9], st[10], st[11]};
+  const Strides sdo{st[12], st[13], st[14], st[15]};
+  const Strides sdq{st[16], st[17], st[18], st[19]};
+  const Strides sdk{st[20], st[21], st[22], st[23]};
+  const Strides sdv{st[24], st[25], st[26], st[27]};
+  const Strides so{st[28], st[29], st[30], st[31]};
+  const int chunks = (head_dim + kChunk - 1) / kChunk;
+  const dim3 grid((seq_len + kTcRows - 1) / kTcRows, heads * chunks, batch);
+  constexpr int kThreads = 32 * kTcWarps;
+  const float scale_log2 = scale * kLog2e;
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr int kDqBytes = 4 * kTcTile * Bf16Tile<Dp>::kStride * 16;
+    constexpr int kDkdvBytes = kDqBytes + 4 * kTcTile * 4;
+    auto* dq_kernel = attention_bwd_dq_tc_wide_kernel<Dp, Wide>;
+    auto* dkdv_kernel = attention_bwd_dkdv_tc_wide_kernel<Dp, Wide>;
+    if ((err = allow_shared(dq_kernel, kDqBytes)) != cudaSuccess) return err;
+    if ((err = allow_shared(dkdv_kernel, kDkdvBytes)) != cudaSuccess) return err;
+    dq_kernel<<<grid, kThreads, kDqBytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), static_cast<const bf16*>(o), lse,
+        static_cast<bf16*>(dq), delta, heads, chunks, seq_len, head_dim, sq, sk, sv, sdo, so, sdq,
+        units[1], units[2], scale, scale_log2);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    dkdv_kernel<<<grid, kThreads, kDkdvBytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), heads, chunks, seq_len, head_dim, sq, sk, sv, sdo, sdk, sdv,
+        units[0], units[3], scale, scale_log2);
+  } else {
+    constexpr int kTileBytes = 2 * kTcTile * Tf32Tile<Dp>::kWords * 4;
+    constexpr int kDqBytes = kTileBytes;
+    constexpr int kDkdvBytes = kTileBytes + 2 * (kChunk / 8) * kThreads * 16 + 2 * kTcTile * 4;
+    auto* dq_kernel = attention_bwd_dq_tf32_wide_kernel<Dp, Wide>;
+    auto* dkdv_kernel = attention_bwd_dkdv_tf32_wide_kernel<Dp, Wide>;
+    if ((err = allow_shared(dq_kernel, kDqBytes)) != cudaSuccess) return err;
+    if ((err = allow_shared(dkdv_kernel, kDkdvBytes)) != cudaSuccess) return err;
+    dq_kernel<<<grid, kThreads, kDqBytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(o), lse, static_cast<float*>(dq), delta, heads, chunks,
+        seq_len, head_dim, sq, sk, sv, sdo, so, sdq, units[1], units[2], scale, scale_log2);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    dkdv_kernel<<<grid, kThreads, kDkdvBytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+        static_cast<float*>(dk), static_cast<float*>(dv), heads, chunks, seq_len, head_dim, sq,
+        sk, sv, sdo, sdk, sdv, units[0], units[3], scale, scale_log2);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, int Dp>
+cudaError_t launch_wide_layout(bool wide, const void* q, const void* k, const void* v,
+                               const void* dout, const void* o, void* dq, void* dk, void* dv,
+                               const float* lse, float* delta, int batch, int heads, int seq_len,
+                               int head_dim, const int64_t* st, const int* units, float scale,
+                               cudaStream_t s) {
+  return wide ? launch_wide<T, Dp, true>(q, k, v, dout, o, dq, dk, dv, lse, delta, batch, heads,
+                                         seq_len, head_dim, st, units, scale, s)
+              : launch_wide<T, Dp, false>(q, k, v, dout, o, dq, dk, dv, lse, delta, batch, heads,
+                                          seq_len, head_dim, st, units, scale, s);
+}
+
 // Both launches of the bf16 or the f32 kernels at <Dp, G>: each staged
 // tensor's unit, the shared memory, the grid, cudaGetLastError after each.
 template <typename T, int Dp, int G, bool Wide>
@@ -1723,6 +2340,15 @@ cudaError_t launch_typed(int group, const void* q, const void* k, const void* v,
   // Wide instances, at every G; else the general staging, at G = 1 only
   const bool wide = units[0] == 4 && units[1] == 4 && units[2] == 4 && units[3] == 4
                     && head_dim == padded_head_dim(head_dim);
+  if (head_dim < 1 || head_dim > kMaxHeadDim) return cudaErrorInvalidValue;
+  if (head_dim > kMaxMmaWidth) {   // the wide kernels, one head per block
+    if (group != 1) return cudaErrorInvalidValue;
+    return head_dim > 128
+        ? launch_wide_layout<T, 256>(wide, q, k, v, dout, o, dq, dk, dv, lse, delta, batch,
+                                     heads, seq_len, head_dim, st, units, scale, s)
+        : launch_wide_layout<T, 128>(wide, q, k, v, dout, o, dq, dk, dv, lse, delta, batch,
+                                     heads, seq_len, head_dim, st, units, scale, s);
+  }
   if (!wide && group != 1) return cudaErrorInvalidValue;
   if (wide && head_dim == 8) {   // the head_dim-8 kernels, namespace d8
     if constexpr (std::is_same<T, bf16>::value) {
@@ -1755,9 +2381,10 @@ cudaError_t launch_typed(int group, const void* q, const void* k, const void* v,
 // The launch's shape, types and knobs, packed once per checked layout by
 // ops/attention.py (`_BwdArgs` there: the same fields in the same order).
 // dtype: 0 = float32, 1 = bfloat16. strides: 32 element strides, (b, h, t, d)
-// for q, k, v, dout, dq, dk, dv and o in that order. head_dim: 1 to 64.
-// heads_per_program: 1, 2, 4 or 8 with heads_per_program * (the staged width,
-// 8, 16, 32 or 64) <= 64, and it must divide heads.
+// for q, k, v, dout, dq, dk, dv and o in that order. head_dim: 1 to 256.
+// heads_per_program: the heads one block runs, G' (`block_group`): 1, 2, 4
+// or 8 with G' * (the staged width, 8, 16, 32 or 64) <= 64 on a layout of
+// 16-byte rows, 1 for the wide kernels, and it must divide heads.
 struct BwdArgs {
   int64_t strides[32];
   int32_t batch, heads, seq_len, head_dim, dtype, heads_per_program;

@@ -10,17 +10,21 @@
 // projection outputs unchanged (the head split is pointer arithmetic) and
 // the result lands directly in (B, T, C).
 //
-// Every head_dim D from 1 to 64 runs on the tensor cores, in both dtypes, as
+// Every head_dim D from 1 to 256 runs on the tensor cores, in both dtypes, as
 // the Pallas kernel takes any D: the kernels are templates on a staged width
-// Dp of 8, 16, 32 or 64 (the least one >= D), a head's channels past D
-// zero-filled where the kernel stages or loads them (tensor_core.cuh: zero
-// channels are exact in every product), the scale 1/sqrt(D) of the true D.
-// A head_dim above 64 returns cudaErrorInvalidValue. Routes: a head at its
-// staged width whose rows stage in 16-byte units (every dense and (B, T, C)
-// layout at D 16, 32, 64) runs the Wide instances at any G; D 8 at full width
-// runs the head_dim-8 kernels (namespace d8, below), at any G; any other
-// call (D under its width, or rows in smaller units) runs the general
-// staging at G = 1, bit-identical to every G by the contract below.
+// Dp of 8, 16, 32, 64, 128 or 256 (the least one >= D), a head's channels
+// past D zero-filled where the kernel stages or loads them (tensor_core.cuh:
+// zero channels are exact in every product), the scale 1/sqrt(D) of the true
+// D. A head_dim above 256 returns cudaErrorInvalidValue. Routes: bf16 at Dp
+// 16 to 256, the warpgroup-product kernel (`attention_fwd_wgmma_kernel`,
+// below), one head a block, any layout; f32 at Dp 128 and 256, the wide
+// kernel (`attention_fwd_tf32_wide_kernel`), one head a block; otherwise a
+// head at its staged width whose rows stage in 16-byte units (every dense
+// and (B, T, C) layout at D 16, 32, 64) runs the Wide instances at any G the
+// launcher is given; D 8 at full width runs the head_dim-8 kernels
+// (namespace d8, below), at any G; any other call (D under its width, or rows
+// in smaller units) runs the general staging at G = 1, bit-identical to every
+// G by the contract below.
 //
 // The TPU kernel keeps the whole (T, T) f32 logits tile in VMEM (4 MB at
 // T=1024); a Hopper block has at most 227 KB of shared memory, so neither
@@ -33,12 +37,16 @@
 // output does not depend on whether it is written.
 //
 // Head grouping (`heads_per_program` = G, the TPU kernel's G heads per grid
-// program): a block covers G heads and stages the key/value tile of all G at
-// once (in the (B, T, C) layout the G * D channels of one token are
-// contiguous). Every warp runs exactly the arithmetic of the G = 1 kernel for
-// its rows and head, so the output and lse are bit-identical for every G (the
-// TPU's contract for the knob). G is instantiated where G * Dp <= 64 (D 8 x
-// G 8 is the widest staged row); any other G returns cudaErrorInvalidValue.
+// program): a block covers G' heads and stages the key/value tile of all G'
+// at once (in the (B, T, C) layout the G' * D channels of one token are
+// contiguous). Every warp runs exactly the arithmetic of the G' = 1 kernel
+// for its rows and head, so the output and lse are bit-identical for every G
+// (the TPU's contract for the knob). G' is instantiated where G' * Dp <= 64
+// (D 8 x G' 8 is the widest staged row) and must divide the heads; the
+// wrapper (`block_group` in ops/attention.py) runs any G that divides the
+// heads as G / G' consecutive groups of the widest G' that divides G, in one
+// launch (blockIdx.y walks the groups); the `wgmma` and wide kernels take
+// G' = 1. Any other G' returns cudaErrorInvalidValue.
 //
 // Fast math (`fast_math`, attention.py:43-49 and :74-80): the shifted logit
 // is rounded to bf16 and exponentiated in bf16, the bf16 weights are summed
@@ -68,10 +76,14 @@
 // row, or channels that are not contiguous) an element at a time; the
 // launcher picks each tensor's unit from its address and strides
 // (`stage_unit`), so no layout is copied first. q is read from its own
-// strides and out written to them.
+// strides and out written to them. The bf16 `wgmma` kernel stages by TMA
+// where every stride is a multiple of 16 bytes, by `cp.async` as above
+// otherwise (see it below).
 //
-// bf16: the tensor-core kernel (the trainer's and the library generator's
-// configuration).
+// bf16 at Dp 8 (head_dim 8 at full width runs namespace d8 below; this
+// template runs heads narrower than 8 and layouts that are not 16-byte rows),
+// the `mma.sync` tensor-core kernel; at Dp 16 to 256 the `wgmma` kernel
+// below, faster at every such width on the H100 (PERF.md §6), runs instead.
 //   Bound on the H100 at the main path's calls, B=8, T=1024, H*D = 256: the
 //   two T x T contractions are 4*B*H*T^2*D = 8.6 GFLOP at every D, 8.7 us on
 //   the tensor cores (989 TFLOP/s bf16); q, k, v read once and out written
@@ -104,8 +116,7 @@
 //   the running max and unnormalised, and the division by l comes last; the
 //   TPU kernel rounds the normalised probabilities to bf16
 //   (attention.py:81-83); the products accumulate in f32 on the tensor
-//   cores. Registers: 128 a thread at Dp 8 to 32, 255 at Dp 64 (the
-//   accumulators grow with Dp).
+//   cores. Registers: 128 a thread (instantiated at Dp 8 only).
 //
 // f32: the 3xTF32 tensor-core kernel, exact maths (the console CLI's and the
 // conditional generator's configuration) and fast math (an f32
@@ -183,6 +194,7 @@
 #include <stdint.h>
 
 #include "tensor_core.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -1268,6 +1280,544 @@ cudaError_t launch_tf32_group(int group, bool fast_math, const void* q, const vo
 
 }  // namespace d8
 
+// ---------------------------------------------------------------------------
+// bf16 at staged widths 16 to 256: the warpgroup-product kernel
+// ---------------------------------------------------------------------------
+//
+// attention_fwd_wgmma_kernel<Dp, FastMath, Tma> replaces, for bf16 heads of 9
+// to 256 channels, the Pallas kernels `_attention_kernel_tm` and
+// `_attention_kernel` (synt_isic_tpu/ops/pallas/attention.py:28, 58) with
+// both knobs and the optional base-2 log-sum-exp.
+//   Bound on the H100 at (8, 256/D, 1024, D), the main path's 256 channels
+//   in heads of D: the two T x T products are 8.6 GFLOP at every D, 0.0087 ms
+//   at 989 TFLOP/s; q, k, v and out are 16.8 MB, 0.005 ms at 3.35 TB/s; the
+//   B*H*T^2 exponentials on the special-function units take 0.0321 ms at D 16
+//   and 0.0160 at D 32, 0.0080 at 64, 0.0040 at 128, 0.0020 at 256. So the
+//   exponentials bound D 16 and 32, the products D 64 and up.
+//   Design: one warpgroup (4 warps, 128 threads) per 64 query rows of one
+//   head, two of them per block from Dp 32 to 128 (`wgmma_consumers`). The Q
+//   tiles and a ring of two stages of 64-key K and V tiles sit in shared
+//   memory in the swizzled layout the descriptors read (wgmma.cuh). Where
+//   every stride of q, k and v is a multiple of 16 bytes (every dense and
+//   (B, T, C) layout) the tiles come by TMA (Tma: one thread starts the
+//   copies of tile t + 1 while tile t is used, an mbarrier per stage counts
+//   the bytes, the copies zero-fill rows past T and channels past D); any
+//   other layout stages by `cp.async` in the largest unit it allows, down to
+//   one element. Per tile: S = Q K^T by Dp/16 `wgmma` m64n64k16 (Q and K
+//   K-major from shared memory), 32 f32 registers a thread; the online
+//   softmax in those registers (the row's max over its 4 lanes, the rescale
+//   of m, l and O by one exponential per row, then one MUFU.EX2 per (i, j));
+//   P rounded to bf16 pairs in registers is the A fragment of O += P V, 4
+//   `wgmma` m64nDpk16 with V's tile read MN-major through the transpose bit.
+//   O stays in Dp/2 f32 registers a thread (128 at Dp 256). The key tile
+//   stays 64 keys, so the running max moves once per 64 keys as
+//   `fast_math_step` says, and the rounding points are the mma.sync
+//   template's: exact, l sums the f32 weights and P is rounded to bf16 for
+//   P V; fast math, the base-2 logit minus the running max rounded to bf16,
+//   its correctly rounded bf16 exponential, l the f32 sum of those bf16
+//   weights; the division last. Rows past T are not stored, keys past T get
+//   s = -inf on the last tile only. G > 1 runs as G consecutive groups of
+//   one head (a block per head).
+//   Measured (chip_smoke.py `--wgmma-ablation`, PERF.md): staging K and V by
+//   `cp.async` from every thread cost a third of the time at D 64 to 256;
+//   TMA took it off. Overlapping a tile's softmax with the previous tile's
+//   P V inside a warpgroup (S_t started with P_{t-1} V_{t-1} behind it) gave
+//   no measurable gain and is not used.
+// warpgroups per block: each owns 64 query rows, all share the K and V
+// ring; one at Dp 16, where the exponentials bound the kernel and more
+// blocks keep more of them in flight, and at Dp 256, where one block fills
+// an SM and (8, 1, 1024, 256) would give 132 SMs 64 blocks of two
+template <int Dp>
+__host__ __device__ constexpr int wgmma_consumers() { return Dp <= 16 || Dp >= 256 ? 1 : 2; }
+template <int Dp>
+__host__ __device__ constexpr int wgmma_threads() { return wgmma_consumers<Dp>() * wg::kThreads; }
+// blocks per SM for __launch_bounds__: a 128-register cap up to Dp 32, 255
+// from Dp 64 on (O's Dp / 2 accumulators, S's 32 and two sets of P's 16)
+template <int Dp>
+__host__ __device__ constexpr int wgmma_blocks() { return Dp <= 32 ? 512 / wgmma_threads<Dp>() : 1; }
+
+// the Q tiles, two stages of K and V after up to 1 KB of alignment, then the
+// TMA route's three mbarriers (Q, the two stages)
+template <int Dp>
+constexpr int wgmma_shared_bytes() {
+  return wg::kAlign + (wgmma_consumers<Dp>() + 4) * wg::Tile<Dp>::kBytes + 3 * 8;
+}
+
+// The online softmax of one tile's S (64 rows x 64 keys, register 4 i + c of
+// the lane's rows a (c < 2) and b at key 8 i + 2 tig + c % 2) in its
+// registers: keys at or past `keys` masked, each row's max over its 4 lanes,
+// m and l moved onto it (c[r] the factor O must be rescaled by), P rounded to
+// bf16 as the A fragments of the 4 k-steps of 16 keys (k-step kk takes keys
+// 16 kk .. 16 kk + 15, registers 8 kk .. 8 kk + 7), l summing this lane's
+// weights (f32, or with FastMath the bf16 weights).
+template <bool FastMath>
+__device__ __forceinline__ void wgmma_softmax(float (&s)[32], int keys, float scale_log2,
+                                              float* m, float* l, float* c,
+                                              uint32_t (&pa)[4][4]) {
+  const int tig = threadIdx.x % 4;
+  if (keys < wg::kKeys) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int key = 8 * i + 2 * tig;
+      if (key >= keys) s[4 * i] = s[4 * i + 2] = -INFINITY;
+      if (key + 1 >= keys) s[4 * i + 1] = s[4 * i + 3] = -INFINITY;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fmaxf(s[4 * i + 2 * r], s[4 * i + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // max(s) * scale = max(s * scale) exactly, the scale being positive
+    const float mnew = fmaxf(m[r], mx * scale_log2);
+    // rescale what was summed under the old max; on the first tile
+    // m = -inf, so c = 0 and the zero-initialised state stays zero
+    c[r] = mnew > m[r] ? ex2(m[r] - mnew) : 1.f;
+    m[r] = mnew;
+    l[r] = __fmul_rn(l[r], c[r]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float* f = s + 8 * kk + 4 * half;
+      if (FastMath) {
+        // the shifted base-2 logits rounded to bf16, then their correctly
+        // rounded bf16 exponentials
+        const uint32_t xa = pack_bf16(fmaf(f[0], scale_log2, -m[0]), fmaf(f[1], scale_log2, -m[0]));
+        const uint32_t xb = pack_bf16(fmaf(f[2], scale_log2, -m[1]), fmaf(f[3], scale_log2, -m[1]));
+        const uint32_t pa_ = pack_bf16(ex2(lo_f32(xa)), ex2(hi_f32(xa)));
+        const uint32_t pb_ = pack_bf16(ex2(lo_f32(xb)), ex2(hi_f32(xb)));
+        l[0] += lo_f32(pa_) + hi_f32(pa_);
+        l[1] += lo_f32(pb_) + hi_f32(pb_);
+        pa[kk][2 * half] = pa_;
+        pa[kk][2 * half + 1] = pb_;
+      } else {
+        const float p[4] = {ex2(fmaf(f[0], scale_log2, -m[0])), ex2(fmaf(f[1], scale_log2, -m[0])),
+                            ex2(fmaf(f[2], scale_log2, -m[1])), ex2(fmaf(f[3], scale_log2, -m[1]))};
+        l[0] += p[0] + p[1];
+        l[1] += p[2] + p[3];
+        pa[kk][2 * half] = pack_bf16(p[0], p[1]);
+        pa[kk][2 * half + 1] = pack_bf16(p[2], p[3]);
+      }
+    }
+  }
+}
+
+template <int Dp, bool FastMath, bool Tma>
+__global__ void __launch_bounds__(wgmma_threads<Dp>(), wgmma_blocks<Dp>())
+attention_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ o,
+                           float* __restrict__ lse, int heads, int seq_len, int head_dim,
+                           Strides sq, Strides sk, Strides sv, Strides so, int unit_q,
+                           int unit_k, int unit_v, float scale_log2,
+                           const __grid_constant__ wg::TmaMaps maps) {
+  constexpr int kBytes = wg::Tile<Dp>::kBytes;
+  constexpr int kConsumers = wgmma_consumers<Dp>();
+  constexpr int kThreads = wgmma_threads<Dp>();
+  extern __shared__ uint8_t wgmma_tiles[];
+  uint8_t* q_tiles = wgmma_tiles + (wg::kAlign - smem_addr(wgmma_tiles) % wg::kAlign) % wg::kAlign;
+  // stage s of the ring: K at kv_ring + 2 s kBytes, V after it
+  uint8_t* kv_ring = q_tiles + kConsumers * kBytes;
+  // TMA: the Q tiles' barrier, then one per stage of the ring
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kv_ring + 4 * kBytes);
+  uint64_t* kv_full = q_full + 1;
+
+  const int group = threadIdx.x / wg::kThreads;   // this thread's warpgroup
+  const int warp = (threadIdx.x % wg::kThreads) / 32;
+  const int lane = threadIdx.x % 32;
+  const int tig = lane % 4;
+  const int64_t b = blockIdx.z;
+  const int64_t h = blockIdx.y;
+  const int q0 = (blockIdx.x * kConsumers + group) * wg::kRows;
+  const int ra = q0 + warp * 16 + lane / 4;
+  const int rb = ra + 8;
+  uint8_t* q_tile = q_tiles + group * kBytes;
+
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const int tiles = (seq_len + wg::kKeys - 1) / wg::kKeys;
+  // the K and V of tile t into stage t % 2: by TMA, thread 0 starting and the
+  // stage's barrier counting the bytes; else by `cp.async`, every thread
+  auto load_tile = [&](int t) {
+    uint8_t* dst = kv_ring + t % 2 * 2 * kBytes;
+    if constexpr (Tma) {
+      wg::mbar_expect(kv_full + t % 2, 2 * kBytes);
+      wg::tma_tile<Dp>(dst, &maps.k, kv_full + t % 2, t * wg::kKeys, h, b);
+      wg::tma_tile<Dp>(dst + kBytes, &maps.v, kv_full + t % 2, t * wg::kKeys, h, b);
+    } else {
+      wg::stage<Dp>(dst, kb, sk, unit_k, t * wg::kKeys, seq_len, head_dim, threadIdx.x,
+                    kThreads);
+      wg::stage<Dp>(dst + kBytes, vb, sv, unit_v, t * wg::kKeys, seq_len, head_dim,
+                    threadIdx.x, kThreads);
+    }
+  };
+  if constexpr (Tma) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < 3; ++i) wg::mbar_init(q_full + i);
+      wg::mbar_init_fence();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      wg::mbar_expect(q_full, kConsumers * kBytes);
+      for (int g = 0; g < kConsumers; ++g) {
+        wg::tma_tile<Dp>(q_tiles + g * kBytes, &maps.q, q_full,
+                         (blockIdx.x * kConsumers + g) * wg::kRows, h, b);
+      }
+      load_tile(0);
+    }
+  } else {
+    // each warpgroup stages its own Q tile, all threads the first K and V
+    wg::stage<Dp>(q_tile, q + b * sq.b + h * sq.h, sq, unit_q, q0, seq_len, head_dim,
+                  threadIdx.x % wg::kThreads, wg::kThreads);
+    load_tile(0);
+    cp_async_commit();
+  }
+
+  const uint32_t q_addr = smem_addr(q_tile);
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};   // this lane's partial row sums (rows a and b)
+  float acc[Dp / 2];
+#pragma unroll
+  for (int i = 0; i < Dp / 2; ++i) acc[i] = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    // tile t + 1 streams in while tile t is used, into the stage that tile
+    // t - 1 left before the barrier that ended it
+    if constexpr (Tma) {
+      if (threadIdx.x == 0 && t + 1 < tiles) load_tile(t + 1);
+      if (t == 0) wg::mbar_wait(q_full, 0);
+      wg::mbar_wait(kv_full + t % 2, (t / 2) & 1);
+    } else {
+      if (t + 1 < tiles) load_tile(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      wg::fence_async_shared();
+      __syncthreads();
+    }
+    const uint32_t k_addr = smem_addr(kv_ring + t % 2 * 2 * kBytes);
+    const uint32_t v_addr = k_addr + kBytes;
+
+    // S = Q K^T
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wg::fence_operands(s);
+    wg::arrive();
+#pragma unroll
+    for (int kk = 0; kk < Dp / 16; ++kk) {
+      wg::wgmma_ss_n64(s, wg::k_major<Dp>(q_addr, kk), wg::k_major<Dp>(k_addr, kk), kk > 0);
+    }
+    wg::commit();
+    wg::wait_group<0>();
+    wg::fence_operands(s);
+
+    // the softmax in S's registers, O onto the tile's max, then O += P V
+    float c[2];
+    uint32_t pa[4][4];
+    wgmma_softmax<FastMath>(s, seq_len - t * wg::kKeys, scale_log2, m, l, c, pa);
+#pragma unroll
+    for (int n = 0; n < Dp / 8; ++n) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        acc[4 * n + 2 * r] = __fmul_rn(acc[4 * n + 2 * r], c[r]);
+        acc[4 * n + 2 * r + 1] = __fmul_rn(acc[4 * n + 2 * r + 1], c[r]);
+      }
+    }
+    wg::fence_operands(acc);
+    wg::arrive();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wg::wgmma_pv<Dp>(acc, pa[kk], wg::mn_major<Dp>(v_addr, kk));
+    wg::commit();
+    wg::wait_group<0>();
+    wg::fence_operands(acc);
+    wg::fence_operands(pa);
+    __syncthreads();       // every warp is done with the stage before it is refilled
+  }
+
+  float la = l[0];
+  float lb = l[1];
+#pragma unroll
+  for (int x = 1; x < 4; x *= 2) {   // the row's 4 lanes
+    la += __shfl_xor_sync(0xffffffffu, la, x);
+    lb += __shfl_xor_sync(0xffffffffu, lb, x);
+  }
+  const bool oka = ra < seq_len;
+  const bool okb = rb < seq_len;
+  bf16* oh = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int n = 0; n < Dp / 8; ++n) {
+    const int c = 8 * n + 2 * tig;
+    if (oka && c < head_dim) oh[ra * so.t + c * so.d] = __float2bfloat16(acc[4 * n] / la);
+    if (oka && c + 1 < head_dim) oh[ra * so.t + (c + 1) * so.d] = __float2bfloat16(acc[4 * n + 1] / la);
+    if (okb && c < head_dim) oh[rb * so.t + c * so.d] = __float2bfloat16(acc[4 * n + 2] / lb);
+    if (okb && c + 1 < head_dim) oh[rb * so.t + (c + 1) * so.d] = __float2bfloat16(acc[4 * n + 3] / lb);
+  }
+  if (lse != nullptr && tig == 0) {
+    const int64_t stat = (b * heads + h) * seq_len;
+    if (oka) lse[stat + ra] = m[0] + log2f(la);
+    if (okb) lse[stat + rb] = m[1] + log2f(lb);
+  }
+}
+
+template <int Dp, bool FastMath>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                         int batch, int heads, int seq_len, int head_dim, const int64_t* st,
+                         const int* units, float scale, cudaStream_t stream) {
+  const Strides sq{st[0], st[1], st[2], st[3]};
+  const Strides sk{st[4], st[5], st[6], st[7]};
+  const Strides sv{st[8], st[9], st[10], st[11]};
+  const Strides so{st[12], st[13], st[14], st[15]};
+  constexpr int kBytes = wgmma_shared_bytes<Dp>();
+  constexpr int kRows = wgmma_consumers<Dp>() * wg::kRows;
+  const dim3 grid((seq_len + kRows - 1) / kRows, heads, batch);
+  // TMA where all three tensors have a map, else `cp.async`
+  wg::TmaMaps maps = {};
+  const bool tma = wg::tensor_map<Dp>(&maps.q, q, sq, batch, heads, seq_len, head_dim)
+                   && wg::tensor_map<Dp>(&maps.k, k, sk, batch, heads, seq_len, head_dim)
+                   && wg::tensor_map<Dp>(&maps.v, v, sv, batch, heads, seq_len, head_dim);
+  auto* kernel = tma ? attention_fwd_wgmma_kernel<Dp, FastMath, true>
+                     : attention_fwd_wgmma_kernel<Dp, FastMath, false>;
+  const cudaError_t err = allow_shared(kernel, kBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, wgmma_threads<Dp>(), kBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, heads, seq_len, head_dim, sq, sk, sv, so, units[0], units[1],
+      units[2], scale * kLog2e, maps);
+  return cudaGetLastError();
+}
+
+template <bool FastMath>
+cudaError_t launch_wgmma_width(const void* q, const void* k, const void* v, void* o, float* lse,
+                               int batch, int heads, int seq_len, int head_dim,
+                               const int64_t* st, const int* units, float scale,
+                               cudaStream_t s) {
+  switch (padded_head_dim(head_dim)) {
+    case 16: return launch_wgmma<16, FastMath>(q, k, v, o, lse, batch, heads, seq_len, head_dim, st, units, scale, s);
+    case 32: return launch_wgmma<32, FastMath>(q, k, v, o, lse, batch, heads, seq_len, head_dim, st, units, scale, s);
+    case 64: return launch_wgmma<64, FastMath>(q, k, v, o, lse, batch, heads, seq_len, head_dim, st, units, scale, s);
+    case 128: return launch_wgmma<128, FastMath>(q, k, v, o, lse, batch, heads, seq_len, head_dim, st, units, scale, s);
+    case 256: return launch_wgmma<256, FastMath>(q, k, v, o, lse, batch, heads, seq_len, head_dim, st, units, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 at staged widths 128 and 256: the wide 3xTF32 kernel
+// ---------------------------------------------------------------------------
+//
+// The f32 kernel's arithmetic (3xTF32 products, the running shift, the tile
+// redone past 2^40, fast math's bf16 rounding against the one-pass tile max;
+// `attention_tf32x3_kernel_order` and `fast_math_kernel_order`) for heads of
+// 65 to 256 channels, where the template above would need about 384
+// registers a thread for q's split fragments and O. Each block covers 64
+// query rows of one head and one 64-channel chunk of O (blockIdx.y = head *
+// chunks + chunk, chunks = ceil(D / 64)): it forms S over every channel,
+// reading q's fragments from device memory at each k-step and splitting K's
+// staged raw rows (Dp + 4 words apart) as it reads them, and keeps only its
+// chunk of V and O. So S is formed once per chunk (2 or 4 times): a simple
+// kernel that is right, not yet a fast one. K's tile and V's chunk are staged
+// once per tile (no second stage: at Dp 256 one stage of both is 84 KB).
+template <int Dp, bool FastMath, bool Wide>
+__global__ void __launch_bounds__(32 * kTcWarps, 1)
+attention_fwd_tf32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, float* __restrict__ o,
+                               float* __restrict__ lse, int heads, int chunks, int seq_len,
+                               int head_dim, Strides sq, Strides sk, Strides sv, Strides so,
+                               int unit_k, int unit_v, float scale_log2) {
+  if constexpr (Wide) head_dim = Dp;   // a Wide head fills its staged width
+  constexpr int kW = Tf32Tile<Dp>::kWords;
+  constexpr int kWv = Tf32Tile<kChunk>::kWords;
+  extern __shared__ float4 tf32_wide_tiles[];
+  float* k_tile = reinterpret_cast<float*>(tf32_wide_tiles);   // 64 rows x kW words
+  float* v_tile = k_tile + kTcTile * kW;                       // 64 rows x kWv words
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tig = lane % 4;
+  const int64_t b = blockIdx.z;
+  const int64_t h = blockIdx.y / chunks;
+  const int chunk = blockIdx.y % chunks;
+  const int ra = blockIdx.x * kTcRows + warp * 16 + lane / 4;
+  const int rb = ra + 8;
+  const bool oka = ra < seq_len;
+  const bool okb = rb < seq_len;
+
+  const float* qh = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h + chunk * kChunk * sv.d;
+  const int v_dim = min(head_dim - chunk * kChunk, kChunk);   // this chunk's channels
+  const Tf32Lane<Dp> k_reads;
+  const Tf32Lane<kChunk> v_reads;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float acc[kChunk / 8][4];
+#pragma unroll
+  for (int n = 0; n < kChunk / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
+  for (int t = 0; t < tiles; ++t) {
+    stage<float, Dp, 1, Tf32Tile<Dp>::kStride, Wide>(reinterpret_cast<uint4*>(k_tile), kb, sk,
+                                                     unit_k, t * kTcTile, seq_len, head_dim,
+                                                     threadIdx.x);
+    stage<float, kChunk, 1, Tf32Tile<kChunk>::kStride, Wide>(
+        reinterpret_cast<uint4*>(v_tile), vb, sv, unit_v, t * kTcTile, seq_len, v_dim,
+        threadIdx.x);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    const int keys = seq_len - t * kTcTile;
+    // S in base 2 over the tile (q scaled in f32 before its split)
+    float sc[kTcTile / 8][4];
+#pragma unroll
+    for (int s = 0; s < kTcTile / 8; ++s) sc[s][0] = sc[s][1] = sc[s][2] = sc[s][3] = 0.f;
+    wide_product_tf32<Dp, kW, false>(sc, qh, sq, ra, oka, okb, head_dim, scale_log2, k_tile,
+                                     k_reads.t0);
+    if (keys < kTcTile) {
+#pragma unroll
+      for (int s = 0; s < kTcTile / 8; ++s) mask_keys(s, keys, sc[s]);
+    }
+    float lt[2], pv[kChunk / 8][4];
+    bool need_max = t == 0 || FastMath;
+    for (;;) {
+      if (need_max) {   // the tile's one-pass (hi.hi) row maxima
+        float sh[kTcTile / 8][4];
+#pragma unroll
+        for (int s = 0; s < kTcTile / 8; ++s) sh[s][0] = sh[s][1] = sh[s][2] = sh[s][3] = 0.f;
+        wide_product_tf32<Dp, kW, true>(sh, qh, sq, ra, oka, okb, head_dim, scale_log2, k_tile,
+                                        k_reads.t0);
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int s = 0; s < kTcTile / 8; ++s) {
+          if (keys < kTcTile) mask_keys(s, keys, sh[s]);
+          mx[0] = fmaxf(mx[0], fmaxf(sh[s][0], sh[s][1]));
+          mx[1] = fmaxf(mx[1], fmaxf(sh[s][2], sh[s][3]));
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          shift_to<kChunk>(r, fmaxf(m[r], mx[r]), m, l, acc);
+        }
+      }
+      lt[0] = lt[1] = 0.f;
+#pragma unroll
+      for (int n = 0; n < kChunk / 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+#pragma unroll
+      for (int s = 0; s < kTcTile / 8; ++s) {
+        const float* c = sc[s];
+        const int ov = v_reads.r0 + 8 * s * kWv;
+        if (FastMath) {
+          const uint32_t xa = pack_bf16(__fsub_rn(c[0], m[0]), __fsub_rn(c[1], m[0]));
+          const uint32_t xb = pack_bf16(__fsub_rn(c[2], m[1]), __fsub_rn(c[3], m[1]));
+          const uint32_t pa = pack_bf16(ex2(lo_f32(xa)), ex2(hi_f32(xa)));
+          const uint32_t pb = pack_bf16(ex2(lo_f32(xb)), ex2(hi_f32(xb)));
+          lt[0] = __fadd_rn(lt[0], __fadd_rn(lo_f32(pa), hi_f32(pa)));
+          lt[1] = __fadd_rn(lt[1], __fadd_rn(lo_f32(pb), hi_f32(pb)));
+          const uint32_t pf[4] = {pa << 16, pb << 16, pa & 0xffff0000u, pb & 0xffff0000u};
+#pragma unroll
+          for (int n = 0; n < kChunk / 8; ++n) {
+            uint32_t vhi[2], vlo[2];
+            split_tf32(v_tile[ov + 8 * n], vhi[0], vlo[0]);
+            split_tf32(v_tile[ov + 8 * n + kWv], vhi[1], vlo[1]);
+            mma_tf32(pv[n], pf, vlo);   // P V, the small term first
+            mma_tf32(pv[n], pf, vhi);
+          }
+        } else {
+          const float p[4] = {ex2(__fsub_rn(c[0], m[0])), ex2(__fsub_rn(c[1], m[0])),
+                              ex2(__fsub_rn(c[2], m[1])), ex2(__fsub_rn(c[3], m[1]))};
+          lt[0] = __fadd_rn(lt[0], __fadd_rn(p[0], p[1]));
+          lt[1] = __fadd_rn(lt[1], __fadd_rn(p[2], p[3]));
+          uint32_t phi[4], plo[4];
+          split_tf32(p[0], phi[0], plo[0]);
+          split_tf32(p[2], phi[1], plo[1]);
+          split_tf32(p[1], phi[2], plo[2]);
+          split_tf32(p[3], phi[3], plo[3]);
+#pragma unroll
+          for (int n = 0; n < kChunk / 8; ++n) {
+            mma3_raw(pv[n], phi, plo, v_tile, ov + 8 * n, ov + 8 * n + kWv);   // P V
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        lt[r] = __fadd_rn(lt[r], __shfl_xor_sync(0xffffffffu, lt[r], 1));
+        lt[r] = __fadd_rn(lt[r], __shfl_xor_sync(0xffffffffu, lt[r], 2));
+      }
+      // !(x <= 2^40) also holds for inf and NaN
+      const bool wide = !(lt[0] <= 0x1p40f) || !(lt[1] <= 0x1p40f);
+      if (need_max || !__any_sync(0xffffffffu, wide)) break;
+      need_max = true;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = __fadd_rn(l[r], lt[r]);
+#pragma unroll
+      for (int n = 0; n < kChunk / 8; ++n) {
+        acc[n][2 * r] = __fadd_rn(acc[n][2 * r], pv[n][2 * r]);
+        acc[n][2 * r + 1] = __fadd_rn(acc[n][2 * r + 1], pv[n][2 * r + 1]);
+      }
+      if (!FastMath && lt[r] > 0x1p16f) {
+        shift_to<kChunk>(r, __fadd_rn(m[r], __log2f(lt[r])), m, l, acc);
+      }
+    }
+    __syncthreads();       // every warp is done with the tile before it is refilled
+  }
+
+  float* oh = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int n = 0; n < kChunk / 8; ++n) {
+    const int c = chunk * kChunk + 8 * n + 2 * tig;
+    if (oka && c < head_dim) oh[ra * so.t + c * so.d] = acc[n][0] / l[0];
+    if (oka && c + 1 < head_dim) oh[ra * so.t + (c + 1) * so.d] = acc[n][1] / l[0];
+    if (okb && c < head_dim) oh[rb * so.t + c * so.d] = acc[n][2] / l[1];
+    if (okb && c + 1 < head_dim) oh[rb * so.t + (c + 1) * so.d] = acc[n][3] / l[1];
+  }
+  if (lse != nullptr && chunk == 0 && tig == 0) {
+    const int64_t stat = (b * heads + h) * seq_len;
+    if (oka) lse[stat + ra] = m[0] + log2f(l[0]);
+    if (okb) lse[stat + rb] = m[1] + log2f(l[1]);
+  }
+}
+
+template <int Dp, bool FastMath, bool Wide>
+cudaError_t launch_tf32_wide(const void* q, const void* k, const void* v, void* o, float* lse,
+                             int batch, int heads, int seq_len, int head_dim, const int64_t* st,
+                             int unit_k, int unit_v, float scale, cudaStream_t stream) {
+  const Strides sq{st[0], st[1], st[2], st[3]};
+  const Strides sk{st[4], st[5], st[6], st[7]};
+  const Strides sv{st[8], st[9], st[10], st[11]};
+  const Strides so{st[12], st[13], st[14], st[15]};
+  constexpr int kBytes = kTcTile * 4 * (Tf32Tile<Dp>::kWords + Tf32Tile<kChunk>::kWords);
+  auto* kernel = attention_fwd_tf32_wide_kernel<Dp, FastMath, Wide>;
+  const cudaError_t err = allow_shared(kernel, kBytes);
+  if (err != cudaSuccess) return err;
+  const int chunks = (head_dim + kChunk - 1) / kChunk;
+  const dim3 grid((seq_len + kTcRows - 1) / kTcRows, heads * chunks, batch);
+  kernel<<<grid, 32 * kTcWarps, kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, heads, chunks, seq_len, head_dim, sq, sk, sv, so, unit_k,
+      unit_v, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int Dp>
+cudaError_t launch_tf32_wide_math(bool fast_math, bool wide, const void* q, const void* k,
+                                  const void* v, void* o, float* lse, int batch, int heads,
+                                  int seq_len, int head_dim, const int64_t* st, int unit_k,
+                                  int unit_v, float scale, cudaStream_t s) {
+  if (wide) {
+    return fast_math ? launch_tf32_wide<Dp, true, true>(q, k, v, o, nullptr, batch, heads, seq_len,
+                                                        head_dim, st, unit_k, unit_v, scale, s)
+                     : launch_tf32_wide<Dp, false, true>(q, k, v, o, lse, batch, heads, seq_len,
+                                                         head_dim, st, unit_k, unit_v, scale, s);
+  }
+  return fast_math ? launch_tf32_wide<Dp, true, false>(q, k, v, o, nullptr, batch, heads, seq_len,
+                                                       head_dim, st, unit_k, unit_v, scale, s)
+                   : launch_tf32_wide<Dp, false, false>(q, k, v, o, lse, batch, heads, seq_len,
+                                                        head_dim, st, unit_k, unit_v, scale, s);
+}
+
 // One launch of the bf16 or the f32 kernel at <Dp, G, FastMath>: each staged
 // tensor's unit, the shared memory, the grid, then cudaGetLastError.
 template <typename T, int Dp, int G, bool FastMath, bool Wide>
@@ -1308,11 +1858,33 @@ template <typename T>
 cudaError_t launch_typed(bool fast_math, int group, const void* q, const void* k, const void* v,
                          void* o, float* lse, int batch, int heads, int seq_len, int head_dim,
                          const int64_t* st, float scale, cudaStream_t s) {
+  if (head_dim < 1 || head_dim > kMaxHeadDim) return cudaErrorInvalidValue;
   const int unit_k = stage_unit<T>(k, Strides{st[4], st[5], st[6], st[7]}, head_dim);
   const int unit_v = stage_unit<T>(v, Strides{st[8], st[9], st[10], st[11]}, head_dim);
   // every staged row in 16-byte units and the head at its staged width: the
   // Wide instances, at every G; else the general staging, at G = 1 only
   const bool wide = unit_k == 4 && unit_v == 4 && head_dim == padded_head_dim(head_dim);
+  float* stats = fast_math ? nullptr : lse;
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (head_dim > 8) {   // the warpgroup-product kernel, one head per block, any layout
+      if (group != 1) return cudaErrorInvalidValue;
+      const int units[3] = {stage_unit<T>(q, Strides{st[0], st[1], st[2], st[3]}, head_dim),
+                            unit_k, unit_v};
+      return fast_math ? launch_wgmma_width<true>(q, k, v, o, nullptr, batch, heads, seq_len,
+                                                  head_dim, st, units, scale, s)
+                       : launch_wgmma_width<false>(q, k, v, o, lse, batch, heads, seq_len,
+                                                   head_dim, st, units, scale, s);
+    }
+  } else {
+    if (head_dim > kMaxMmaWidth) {   // the wide kernel, one head per block
+      if (group != 1) return cudaErrorInvalidValue;
+      return head_dim > 128
+          ? launch_tf32_wide_math<256>(fast_math, wide, q, k, v, o, stats, batch, heads, seq_len,
+                                       head_dim, st, unit_k, unit_v, scale, s)
+          : launch_tf32_wide_math<128>(fast_math, wide, q, k, v, o, stats, batch, heads, seq_len,
+                                       head_dim, st, unit_k, unit_v, scale, s);
+    }
+  }
   if (!wide && group != 1) return cudaErrorInvalidValue;
   if (wide && head_dim == 8) {   // the head_dim-8 kernels, namespace d8
     if constexpr (std::is_same<T, bf16>::value) {
@@ -1323,26 +1895,32 @@ cudaError_t launch_typed(bool fast_math, int group, const void* q, const void* k
                                    scale, s);
     }
   }
-  float* stats = fast_math ? nullptr : lse;
   return dispatch_width(head_dim, group, [&](auto dp, auto g) {
     constexpr int Dp = decltype(dp)::value;
     constexpr int G = decltype(g)::value;
-    if constexpr (Dp != 8) {
-      if (wide) {
-        return fast_math
-            ? launch<T, Dp, G, true, true>(q, k, v, o, stats, batch, heads, seq_len, head_dim,
-                                           st, unit_k, unit_v, scale, s)
-            : launch<T, Dp, G, false, true>(q, k, v, o, stats, batch, heads, seq_len, head_dim,
-                                            st, unit_k, unit_v, scale, s);
+    // bf16 reaches here at Dp 8 only (head_dim <= 8 in a layout that is not
+    // 16-byte rows)
+    if constexpr (std::is_same<T, bf16>::value && Dp != 8) {
+      return cudaErrorInvalidValue;
+    } else {
+      if constexpr (Dp != 8) {
+        if (wide) {
+          return fast_math
+              ? launch<T, Dp, G, true, true>(q, k, v, o, stats, batch, heads, seq_len, head_dim,
+                                             st, unit_k, unit_v, scale, s)
+              : launch<T, Dp, G, false, true>(q, k, v, o, stats, batch, heads, seq_len, head_dim,
+                                              st, unit_k, unit_v, scale, s);
+        }
       }
+      if constexpr (G == 1) {
+        return fast_math ? launch<T, Dp, 1, true, false>(q, k, v, o, stats, batch, heads, seq_len,
+                                                         head_dim, st, unit_k, unit_v, scale, s)
+                         : launch<T, Dp, 1, false, false>(q, k, v, o, stats, batch, heads,
+                                                          seq_len, head_dim, st, unit_k, unit_v,
+                                                          scale, s);
+      }
+      return cudaErrorInvalidValue;
     }
-    if constexpr (G == 1) {
-      return fast_math ? launch<T, Dp, 1, true, false>(q, k, v, o, stats, batch, heads, seq_len,
-                                                       head_dim, st, unit_k, unit_v, scale, s)
-                       : launch<T, Dp, 1, false, false>(q, k, v, o, stats, batch, heads, seq_len,
-                                                        head_dim, st, unit_k, unit_v, scale, s);
-    }
-    return cudaErrorInvalidValue;
   });
 }
 
@@ -1351,9 +1929,10 @@ cudaError_t launch_typed(bool fast_math, int group, const void* q, const void* k
 // The launch's shape, types and knobs, packed once per checked layout by
 // ops/attention.py (`_FwdArgs` there: the same fields in the same order).
 // dtype: 0 = float32, 1 = bfloat16. strides: 16 element strides, (b, h, t, d)
-// for q, k, v and out in that order. head_dim: 1 to 64. heads_per_program: 1,
-// 2, 4 or 8 with heads_per_program * (the staged width, 8, 16, 32 or 64)
-// <= 64, and it must divide heads. fast_math: 0 or 1.
+// for q, k, v and out in that order. head_dim: 1 to 256. heads_per_program:
+// the heads one block runs, G' (`block_group`): 1, 2, 4 or 8 with G' * (the
+// staged width, 8, 16, 32 or 64) <= 64 on a layout of 16-byte rows, 1 for
+// the `wgmma` and wide kernels, and it must divide heads. fast_math: 0 or 1.
 struct FwdArgs {
   int64_t strides[16];
   int32_t batch, heads, seq_len, head_dim, dtype, heads_per_program, fast_math;

@@ -12,10 +12,14 @@ The port of synt_isic_tpu/ops/pallas/attention.py:
     Function `FusedAttention`: forward kernel, backward kernel. On CUDA its
     exact forward also writes each row's base-2 log-sum-exp, and it saves
     that and its output for the backward.
-Every kernel runs on the tensor cores at every head_dim D from 1 to 64 (a
-staged width of 8, 16, 32 or 64 channels, the least one >= D, its channels
-past D zero-filled inside the kernel), in f32 (3xTF32) and bf16; a larger
-D raises on CUDA.
+Every kernel runs on the tensor cores at every head_dim D from 1 to 256 (a
+staged width of 8, 16, 32, 64, 128 or 256 channels, the least one >= D, its
+channels past D zero-filled inside the kernel), in f32 (3xTF32) and bf16; a
+larger D raises on CUDA. The bf16 forward at a staged width of 16 to 256
+runs Hopper's warpgroup products (`wgmma`, counted under WGMMA_KERNEL as
+well); head_dim 8 and the f32 forward keep their `mma.sync` kernels, and
+heads wider than 64 channels run the wide kernels, which cut the channels
+of each product that gives channels into 64-channel chunks.
 For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it runs the plain PyTorch version (`attention_reference`,
 `attention_fast_math_reference`, `attention_bwd_reference`), which the
@@ -33,16 +37,20 @@ CUDA call's checks run once per layout: the verdict, G and the kernel's
 packed arguments are kept in `_PLANS`, keyed by everything the checks read,
 and a call with a key not seen yet is checked in full first.
 
-`heads_per_program` = G runs G heads per block with bit-identical maths,
-in the forward and the backward alike; as in the JAX package, a G that does
-not divide the head count means G = 1. The kernels take G in (1, 2, 4, 8)
-with G times the staged width at most 64 (`_group`), where the head fills
-its staged width and every staged tensor's rows go in 16-byte units
-(`_wide`: every dense or (B, T, C) layout at head_dim 8, 16, 32 or 64); any
-other call runs at G = 1, as bit-identical as ever. At head_dim 8 a layout
-that is not wide is copied into fresh contiguous storage first, as the
-head_dim-8 kernels have always taken it, so head_dim 8 runs those kernels at
-every layout and G. On a CPU tensor G has no effect.
+`heads_per_program` = G runs G heads per block group with bit-identical
+maths, in the forward and the backward alike; as in the JAX package, a G
+that does not divide the head count means G = 1 (`_group`), and every G >= 1
+that divides it runs. A block of the kernels runs G' heads (`block_group`):
+the widest of (1, 2, 4, 8) that divides G with G' times the staged width at
+most 64, where the head fills its staged width and every staged tensor's
+rows go in 16-byte units (`_wide`: every dense or (B, T, C) layout at a
+staged head_dim); the `wgmma` forward and the wide kernels run one head a
+block. The launcher runs the call's G heads as G / G' consecutive groups of
+G' in one launch, so each head's arithmetic is that of G = 1, and the
+launch counts as grouped when G > 1 on a wide layout. At head_dim 8 a
+layout that is not wide is copied into fresh contiguous storage first, as
+the head_dim-8 kernels have always taken it, so head_dim 8 runs those
+kernels at every layout and G. On a CPU tensor G has no effect.
 
 q, k, v (and do) are (B, H, T, D) tensors of any strides, so a view of a
 (B, T, C) projection output (`z.view(B, T, H, D).transpose(1, 2)`) goes in
@@ -67,27 +75,32 @@ BWD_KERNEL = "attention_bwd"
 # counters of the forward kernel's variants (one source, `attention_fwd.cu`)
 FAST_KERNEL = "attention_fwd_fast_math"
 GROUPED_KERNEL = "attention_fwd_grouped"
+# counter of the bf16 forward's warpgroup-product kernel (staged widths 16 to
+# 256, `attention_fwd.cu`), counted beside KERNEL or FAST_KERNEL
+WGMMA_KERNEL = "attention_fwd_wgmma"
 # counter of the backward kernel's grouped variant (one source, `attention_bwd.cu`)
 BWD_GROUPED_KERNEL = "attention_bwd_grouped"
 # counter of the exact forward launches that a backward without saved
 # statistics runs first for its o and log-sum-exp (`attention_fwd.cu`)
 STATS_KERNEL = "attention_bwd_stats"
-HEAD_DIMS = range(1, 65)
+HEAD_DIMS = range(1, 257)
+# the heads one block of the `mma.sync` kernels runs (`block_group`)
 HEADS_PER_PROGRAM = (1, 2, 4, 8)
-STAGED_WIDTHS = (8, 16, 32, 64)
-# G heads of the staged width at most: D 8 x G 8, the widest staged row
+STAGED_WIDTHS = (8, 16, 32, 64, 128, 256)
+# G' heads of the staged width at most: D 8 x G' 8, the widest staged row
 MAX_GROUP_WIDTH = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of each hand-written kernel, counted where the wrapper launches it
 # and nowhere else, so a run can show that its main path went through them.
 # A forward launch counts under KERNEL (exact softmax) or FAST_KERNEL
-# (fast_math), and under GROUPED_KERNEL too when it runs G > 1 heads per
-# block. A backward launch counts under BWD_KERNEL, and under
+# (fast_math), under WGMMA_KERNEL too when it runs the bf16 warpgroup-product
+# kernel, and under GROUPED_KERNEL too when it runs G > 1 heads (`_group`) on a
+# wide layout. A backward launch counts under BWD_KERNEL, and under
 # BWD_GROUPED_KERNEL too when it runs G > 1 heads per block. The forward
 # launch that gives such a backward its statistics counts under STATS_KERNEL
 # only.
-LAUNCHES = {KERNEL: 0, FAST_KERNEL: 0, GROUPED_KERNEL: 0, BWD_KERNEL: 0,
+LAUNCHES = {KERNEL: 0, FAST_KERNEL: 0, GROUPED_KERNEL: 0, WGMMA_KERNEL: 0, BWD_KERNEL: 0,
             BWD_GROUPED_KERNEL: 0, STATS_KERNEL: 0}
 LOG2E = 1.4426950408889634
 
@@ -366,21 +379,34 @@ def staged_width(head_dim: int) -> int:
     return next(w for w in STAGED_WIDTHS if head_dim <= w)
 
 
-def _group(heads: int, heads_per_program: int, device: str, head_dim: int) -> int:
+def uses_wgmma(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether a CUDA forward of this dtype and head_dim runs the bf16
+    warpgroup-product kernel: bf16 at a staged width of 16 to 256."""
+    return dtype == torch.bfloat16 and staged_width(head_dim) >= 16
+
+
+def _group(heads: int, heads_per_program: int) -> int:
     """G as the Pallas wrapper takes it: a G that does not divide the head
-    count means 1. On CUDA, a G the kernels do not take raises: one outside
-    HEADS_PER_PROGRAM, or one whose G heads of the staged width pass
-    MAX_GROUP_WIDTH channels."""
+    count means 1; any G >= 1 that divides it runs."""
     g = int(heads_per_program)
     if g < 1:
         raise ValueError(f"heads_per_program must be >= 1, got {g}")
-    g = g if heads % g == 0 else 1
-    if device == "cuda" and g not in HEADS_PER_PROGRAM:
-        raise ValueError(f"kernel takes heads_per_program in {HEADS_PER_PROGRAM}, "
-                         f"got {g}")
-    if device == "cuda" and g * staged_width(head_dim) > MAX_GROUP_WIDTH:
-        raise ValueError(f"kernel takes heads_per_program * {staged_width(head_dim)} (the "
-                         f"staged width of head_dim {head_dim}) <= {MAX_GROUP_WIDTH}, got G {g}")
+    return g if heads % g == 0 else 1
+
+
+def block_group(group: int, head_dim: int, dtype: torch.dtype, wide: bool,
+                forward: bool = True) -> int:
+    """G', the heads one block runs for a call of G = `group` heads per
+    program: the widest of HEADS_PER_PROGRAM that divides G with G' times
+    the staged width at most MAX_GROUP_WIDTH, on a wide layout; 1 on any
+    other layout, for the `wgmma` forward and for heads wider than 64. The
+    launch runs the G heads as G / G' consecutive groups of G'."""
+    width = staged_width(head_dim)
+    if not wide or width > MAX_GROUP_WIDTH or (forward and uses_wgmma(dtype, head_dim)):
+        return 1
+    g = 1
+    while 2 * g in HEADS_PER_PROGRAM and group % (2 * g) == 0 and 2 * g * width <= MAX_GROUP_WIDTH:
+        g *= 2
     return g
 
 
@@ -468,6 +494,7 @@ class _ForwardPlan:
 
     def __init__(self, q, k, v, fast_math: bool, group: int, with_lse: bool,
                  counts: Tuple[str, ...]):
+        """`group` is G' (`block_group`), the heads one block runs."""
         self.counts, self.index = counts, q.device.index
         self.empty = q.numel() == 0
         b, h, t, d = q.shape
@@ -509,15 +536,20 @@ def _forward_plan(q, k, v, fast_math, heads_per_program, with_lse):
     """The plan of a forward call the cache has not seen, after every check;
     None for CPU tensors."""
     device = _check(q, k, v)
-    group = _group(q.shape[1], heads_per_program, device, q.shape[-1])
+    group = _group(q.shape[1], heads_per_program)
     if with_lse and (device != "cuda" or fast_math):
         raise ValueError("the log-sum-exp comes from the exact CUDA kernel only")
     if device == "cpu":
         return None
-    group = group if q.shape[-1] == 8 or _wide(k, v) else 1
-    counts = (FAST_KERNEL if fast_math else KERNEL,) + ((GROUPED_KERNEL,) if group > 1 else ())
+    wide = q.shape[-1] == 8 or _wide(k, v)
+    group = group if wide else 1
+    counts = ((FAST_KERNEL if fast_math else KERNEL,)
+              + ((WGMMA_KERNEL,) if uses_wgmma(q.dtype, q.shape[-1]) else ())
+              + ((GROUPED_KERNEL,) if group > 1 else ()))
     return _remember(_forward_key(q, k, v, fast_math, heads_per_program, with_lse),
-                     _ForwardPlan(q, k, v, fast_math, group, with_lse, counts))
+                     _ForwardPlan(q, k, v, fast_math,
+                                  block_group(group, q.shape[-1], q.dtype, wide), with_lse,
+                                  counts))
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -561,7 +593,7 @@ class _BackwardPlan:
     forward plan that computes them first (counted under STATS_KERNEL)."""
     __slots__ = ("args", "address", "fn", "copies", "counts", "index", "stats", "empty")
 
-    def __init__(self, q, k, v, do, o, group: int, stats):
+    def __init__(self, q, k, v, do, o, group: int, wide: bool, stats):
         self.index, self.stats = q.device.index, stats
         self.counts = (BWD_KERNEL,) + ((BWD_GROUPED_KERNEL,) if group > 1 else ())
         self.empty = q.numel() == 0
@@ -571,7 +603,9 @@ class _BackwardPlan:
                    *(torch.empty_like(z).stride() for z in (q, k, v)),
                    (q if o is None else o).stride())
         self.args = _BwdArgs((ctypes.c_int64 * 32)(*(s for st in strides for s in st)),
-                             b, h, t, d, _DTYPE_CODES[q.dtype], group, 1.0 / math.sqrt(d))
+                             b, h, t, d, _DTYPE_CODES[q.dtype],
+                             block_group(group, d, q.dtype, wide, forward=False),
+                             1.0 / math.sqrt(d))
         self.address, self.fn = ctypes.addressof(self.args), _lib(BWD_KERNEL).attention_bwd
 
     def __call__(self, q, k, v, do, o, lse):
@@ -598,10 +632,11 @@ def _backward_plan(q, k, v, do, heads_per_program, o, lse):
     """The plan of a backward call the cache has not seen, after every
     check; None for CPU tensors."""
     device = _check(q, k, v, do)
-    group = _group(q.shape[1], heads_per_program, device, q.shape[-1])
+    group = _group(q.shape[1], heads_per_program)
     if device == "cpu":
         return None
-    group = group if q.shape[-1] == 8 or _wide(q, k, v, do) else 1
+    wide = q.shape[-1] == 8 or _wide(q, k, v, do)
+    group = group if wide else 1
     key = _backward_key(q, k, v, do, heads_per_program, o, lse)
     stats = None
     if q.numel():
@@ -613,7 +648,7 @@ def _backward_plan(q, k, v, do, heads_per_program, o, lse):
         if lse.shape != (b, h, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
             raise ValueError(f"lse must be a contiguous float32 {(b, h, t)} tensor, got "
                              f"{lse.dtype} {tuple(lse.shape)}")
-    return _remember(key, _BackwardPlan(q, k, v, do, o, group, stats))
+    return _remember(key, _BackwardPlan(q, k, v, do, o, group, wide, stats))
 
 
 def _backward_key(q, k, v, do, heads_per_program, o, lse) -> tuple:

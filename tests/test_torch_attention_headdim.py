@@ -1,11 +1,13 @@
 """The attention core at head_dims other than 8, the port against the JAX
 package's Pallas kernels on the CPU.
 
-The Pallas kernels take any head_dim (their blocks hold the whole D); the
-port's kernels run every head_dim from 1 to 64 at a staged width of 8, 16,
-32 or 64 channels. On the CPU the port's wrappers run their plain versions,
-and the JAX kernels run in interpret mode, as the JAX package's own tests
-run them. Here, at D = 4, 16, 32 and 64: the port's plain forward and the
+The Pallas kernels take any head_dim (their blocks hold the whole D) and
+any heads_per_program G that divides the heads; the port's kernels run
+every head_dim from 1 to 256 at a staged width of 8, 16, 32, 64, 128 or 256
+channels, at every such G. On the CPU the port's wrappers run their plain
+versions, and the JAX kernels run in interpret mode, as the JAX package's
+own tests run them. Here, at D = 4, 16, 32 and 64, and at the wide heads
+D = 128 (2 heads) and 256 (1 head) at T <= 64: the port's plain forward and the
 plain version of the f32 kernel's rounding (`attention_tf32x3_kernel_order`)
 against the Pallas forward, rtol = atol = 2e-5; the fast-math plain version
 and the fast-math kernel's rounding order (`fast_math_kernel_order`) against
@@ -14,9 +16,11 @@ the Pallas fast-math forward within the JAX package's fast-math tolerance
 order against the Pallas backward within 5e-5 * max|g| (the tolerances of
 `tests/test_pallas_ops.py`); bf16 within one bf16 ulp of the output (2^-6 at
 |x| < 4) forward and 2e-2 * max|g| backward, as `tests/test_torch_gpu.py`
-holds the kernels. Then a tiny UNet at head_dim 16 against the JAX model,
-and the wrapper's route table: which (head_dim, G) the kernels take. The
-kernels themselves run only on a GPU (`tests/test_torch_gpu.py`).
+holds the kernels. G = 16 at 32 heads of 8 and G = 2 at 2 heads of 128
+against the Pallas kernels at that G. Then a tiny UNet at head_dim 16
+against the JAX model, and the wrapper's route table: which (head_dim, G)
+the kernels take and how many heads a block runs. The kernels themselves
+run only on a GPU (`tests/test_torch_gpu.py`).
 """
 import dataclasses
 
@@ -35,13 +39,17 @@ from tests.torch_port_fixtures import TINY, TINY_JAX, jax_params, nchw, port_mod
 
 HEAD_DIMS = (4, 16, 32, 64)
 SEQ_LENS = (16, 64, 101)
+# the wide heads at T <= 64: (head_dim, T), at 2 heads of 128 and 1 of 256
+WIDE_CASES = ((128, 64), (256, 40))
+CASES = [(d, t) for d in HEAD_DIMS for t in SEQ_LENS] + list(WIDE_CASES)
 TOL = 2e-5
 FAST = {"rtol": 0.05, "atol": 0.02}
 GRAD_TOL = 5e-5
 BF16_TOL, BF16_GRAD_TOL = 2.0 ** -6, 2e-2
 
 
-def _inputs(d, t, seed, heads=2, n=4):
+def _inputs(d, t, seed, heads=None, n=4):
+    heads = heads or (1 if d > 128 else 2)
     rng = np.random.default_rng(seed)
     return [rng.normal(size=(1, heads, t, d)).astype(np.float32) for _ in range(n)]
 
@@ -60,8 +68,7 @@ def _grads_close(got, want, tol):
         np.testing.assert_allclose(a, w, rtol=0, atol=tol * np.abs(w).max(), err_msg=name)
 
 
-@pytest.mark.parametrize("t", SEQ_LENS)
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d, t", CASES)
 def test_forward_matches_pallas(d, t):
     q, k, v, _ = _inputs(d, t, seed=d + t)
     want = np.asarray(jax_fused_attention(*_jax(q, k, v), interpret=True))
@@ -72,8 +79,8 @@ def test_forward_matches_pallas(d, t):
                                want, rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("t", (SEQ_LENS[0], SEQ_LENS[-1]))
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d, t", [(d, t) for d in HEAD_DIMS for t in (SEQ_LENS[0], SEQ_LENS[-1])]
+                         + list(WIDE_CASES))
 def test_fast_math_matches_pallas(d, t):
     """The Pallas fast-math branch (bf16 exponentials of the natural-log
     logits against the row's max) beside the port's plain version of it
@@ -107,8 +114,7 @@ def test_grouped_matches_pallas(d):
             np.testing.assert_allclose(got.numpy(), want, **tol, err_msg=f"G {g}")
 
 
-@pytest.mark.parametrize("t", SEQ_LENS)
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d, t", CASES)
 def test_backward_matches_pallas(d, t):
     """The Pallas recompute backward against the port's plain backward and
     the f32 backward kernel's rounding order, which reads the forward's
@@ -123,7 +129,7 @@ def test_backward_matches_pallas(d, t):
                  GRAD_TOL)
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS + tuple(d for d, _ in WIDE_CASES))
 def test_bf16_matches_pallas(d):
     """bf16 inputs, forward and backward: the port's plain versions and the
     bf16 backward kernel's rounding order against the Pallas kernels."""
@@ -142,6 +148,27 @@ def test_bf16_matches_pallas(d):
     lse = attention.attention_lse_reference(tq, tk)
     order = attention.attention_bwd_kernel_order(tq, tk, tv, tdo, got, lse)
     _grads_close([z.float() for z in order], grads, BF16_GRAD_TOL)
+
+
+@pytest.mark.parametrize("heads, t, d, g", [(32, 16, 8, 16), (2, 16, 128, 2)])
+def test_any_group_matches_pallas(heads, t, d, g):
+    """A G the kernels' blocks do not hold at once (16 heads of 8, 2 heads
+    of 128): the Pallas kernels at that G, forward exact and fast math and
+    backward, against the port's calls at the same G, which run G / G'
+    consecutive groups of G' heads (`block_group`)."""
+    q, k, v, do = _inputs(d, t, seed=11 * d + g, heads=heads)
+    tq, tk, tv, tdo = _torch(q, k, v, do)
+    assert attention._group(heads, g) == g
+    assert attention.block_group(g, d, torch.float32, True) in ((8,) if d == 8 else (1,))
+    for fast_math in (False, True):
+        want = np.asarray(jax_fused_attention(*_jax(q, k, v), interpret=True,
+                                              heads_per_program=g, fast_math=fast_math))
+        got = attention.fused_attention(tq, tk, tv, fast_math=fast_math, heads_per_program=g)
+        tol = FAST if fast_math else {"rtol": TOL, "atol": TOL}
+        np.testing.assert_allclose(got.numpy(), want, **tol, err_msg=f"fast_math {fast_math}")
+    want = jax_fused_attention_bwd(*_jax(q, k, v, do), interpret=True, heads_per_program=g)
+    _grads_close(attention.fused_attention_bwd(tq, tk, tv, tdo, heads_per_program=g), want,
+                 GRAD_TOL)
 
 
 def test_unet_at_head_dim_16_matches_jax():
@@ -168,30 +195,45 @@ def test_unet_at_head_dim_16_matches_jax():
 
 def test_route_table():
     """Which calls the CUDA kernels take, read without a card: every
-    head_dim from 1 to 64 at the least staged width that holds it, G in
-    (1, 2, 4, 8) with G times that width at most 64; head_dim 65, and a G
-    past the width, raise. A G that does not divide the heads means 1, and
-    on the CPU G is not checked."""
-    assert list(attention.HEAD_DIMS) == list(range(1, 65))
+    head_dim from 1 to 256 at the least staged width that holds it (8, 16,
+    32, 64, 128, 256), and head_dim 257 raises; every G >= 1 that divides the
+    heads runs (a G that does not divide them means 1, and G 0 raises), as
+    G / G' consecutive groups of the G' heads one block runs
+    (`block_group`): the widest of 1, 2, 4, 8 that divides G with G' times
+    the staged width at most 64 on a wide layout, else 1, and 1 for the bf16
+    forward at a staged width of 16 or more (`uses_wgmma`: the warpgroup
+    kernel, one head a block)."""
+    assert list(attention.HEAD_DIMS) == list(range(1, 257))
     widths = {d: attention._check_head_dim(d) for d in attention.HEAD_DIMS}
-    assert {d: w for d, w in widths.items() if d in (1, 4, 8, 9, 16, 17, 32, 33, 64)} == {
-        1: 8, 4: 8, 8: 8, 9: 16, 16: 16, 17: 32, 32: 32, 33: 64, 64: 64}
-    for bad in (0, 65, 72, 128):
-        with pytest.raises(ValueError, match="head_dim 1 to 64"):
+    assert {d: w for d, w in widths.items()
+            if d in (1, 4, 8, 9, 16, 17, 32, 33, 64, 65, 100, 128, 129, 256)} == {
+        1: 8, 4: 8, 8: 8, 9: 16, 16: 16, 17: 32, 32: 32, 33: 64, 64: 64, 65: 128, 100: 128,
+        128: 128, 129: 256, 256: 256}
+    assert sorted(set(widths.values())) == list(attention.STAGED_WIDTHS)
+    for bad in (0, 257, 512):
+        with pytest.raises(ValueError, match="head_dim 1 to 256"):
             attention._check_head_dim(bad)
-    taken = {}
+    for heads in (1, 2, 6, 8, 32):
+        for g in range(1, 2 * heads + 1):
+            assert attention._group(heads, g) == (g if heads % g == 0 else 1), (heads, g)
+    with pytest.raises(ValueError, match=">= 1"):
+        attention._group(8, 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for forward in (True, False):
+            blocks = {w: attention.block_group(16, w, dtype, True, forward)
+                      for w in attention.STAGED_WIDTHS}
+            wgmma = dtype == torch.bfloat16 and forward
+            assert blocks == {8: 8, 16: 1 if wgmma else 4, 32: 1 if wgmma else 2, 64: 1, 128: 1,
+                              256: 1}, (dtype, forward)
     for d in attention.HEAD_DIMS:
-        for g in attention.HEADS_PER_PROGRAM:
-            try:
-                assert attention._group(8, g, "cuda", d) == g
-                taken.setdefault(widths[d], []).append(g)
-            except ValueError:
-                assert g * widths[d] > attention.MAX_GROUP_WIDTH
-    assert {w: sorted(set(gs)) for w, gs in taken.items()} == {
-        8: [1, 2, 4, 8], 16: [1, 2, 4], 32: [1, 2], 64: [1]}
-    with pytest.raises(ValueError, match="staged width"):
-        attention._group(8, 2, "cuda", 33)
-    with pytest.raises(ValueError):
-        attention._group(32, 16, "cuda", 4)
-    assert attention._group(6, 4, "cuda", 64) == 1
-    assert attention._group(8, 8, "cpu", 64) == 8
+        for g in (1, 2, 3, 4, 6, 8, 12, 16, 32):
+            gp = attention.block_group(g, d, torch.float32, True)
+            assert g % gp == 0 and gp in attention.HEADS_PER_PROGRAM
+            assert gp * attention.staged_width(d) <= attention.MAX_GROUP_WIDTH or gp == 1
+            assert attention.block_group(g, d, torch.float32, False) == 1
+    assert [attention.block_group(g, 8, torch.float32, True) for g in (3, 6, 12, 16)] == [1, 2, 4, 8]
+    assert [attention.uses_wgmma(torch.bfloat16, d) for d in (4, 8, 9, 64, 256)] == [
+        False, False, True, True, True]
+    assert not attention.uses_wgmma(torch.float32, 64)
+    assert attention._group(6, 4) == 1
+    assert attention._group(32, 16) == 16

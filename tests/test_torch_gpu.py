@@ -100,9 +100,9 @@ def test_attention_kernel_strided_btc(cuda):
 
 
 def test_attention_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 2, 16, 72, device=cuda)
+    q = torch.zeros(1, 2, 16, 257, device=cuda)
     with pytest.raises(ValueError):
-        attention.fused_attention(q, q, q)                 # head_dim 72
+        attention.fused_attention(q, q, q)                 # head_dim 257
     q = torch.zeros(1, 2, 16, 8, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError):
         attention.fused_attention(q, q, q)                 # float16
@@ -236,7 +236,8 @@ def test_grouped_kernel_is_bit_identical(cuda, dtype, fast_math):
     btc = [torch.randn(b, t, h * d, generator=g, device=cuda).to(dtype) for _ in range(3)]
     views = [z.view(b, t, h, d).transpose(1, 2) for z in btc]
     base = attention.fused_attention(*views, fast_math=fast_math)
-    for group in (2, 4, 8, 3):      # 3 does not divide 32 heads: it means 1
+    # 16 and 32 run as groups of 8 heads a block; 3 does not divide 32 heads: it means 1
+    for group in (2, 4, 8, 16, 32, 3):
         before = attention.LAUNCHES[attention.GROUPED_KERNEL]
         got = attention.fused_attention(*views, fast_math=fast_math,
                                         heads_per_program=group)
@@ -245,7 +246,7 @@ def test_grouped_kernel_is_bit_identical(cuda, dtype, fast_math):
         assert torch.equal(got, base), group
     q = torch.zeros(1, 32, 16, 8, device=cuda)
     with pytest.raises(ValueError):
-        attention.fused_attention(q, q, q, heads_per_program=16)
+        attention.fused_attention(q, q, q, heads_per_program=0)
 
 
 def test_model_manager_moved_to_cuda_runs_the_kernels(cuda, tmp_path):
@@ -283,7 +284,8 @@ def test_grouped_bwd_kernel_is_bit_identical(cuda, dtype, layout):
         args = [z.transpose(1, 2).reshape(b, t, h * d).view(b, t, h, d).transpose(1, 2)
                 for z in args]
     base = attention.fused_attention_bwd(*args)
-    for group in (2, 4, 8, 3):      # 3 does not divide 32 heads: it means 1
+    # 16 runs as two groups of 8 heads a block; 3 does not divide 32 heads: it means 1
+    for group in (2, 4, 8, 16, 3):
         before = dict(attention.LAUNCHES)
         got = attention.fused_attention_bwd(*args, heads_per_program=group)
         torch.cuda.synchronize()
@@ -294,7 +296,7 @@ def test_grouped_bwd_kernel_is_bit_identical(cuda, dtype, layout):
             assert torch.equal(a, w), (group, name)
     q = torch.zeros(1, 32, 16, 8, device=cuda)
     with pytest.raises(ValueError):
-        attention.fused_attention_bwd(q, q, q, q, heads_per_program=16)
+        attention.fused_attention_bwd(q, q, q, q, heads_per_program=0)
 
 
 def test_conditional_generator_runs_one_forward_per_step(cuda, tmp_path):
@@ -612,8 +614,8 @@ def test_cached_launch_still_refuses(cuda, dtype):
     attention.fused_attention_bwd(q, k, v, do)
     with pytest.raises(ValueError):        # another dtype
         attention.fused_attention(q, k.half(), v)
-    with pytest.raises(ValueError):        # a G the kernels do not take
-        attention.fused_attention(q, k, v, heads_per_program=16)
+    with pytest.raises(ValueError):        # a G below 1
+        attention.fused_attention(q, k, v, heads_per_program=0)
     with pytest.raises(ValueError):        # another device
         attention.fused_attention(q, k.cpu(), v)
     with pytest.raises(ValueError):        # another shape
@@ -625,7 +627,7 @@ def test_cached_launch_still_refuses(cuda, dtype):
     with pytest.raises(ValueError):
         attention.fused_attention_bwd(q, k, v, do.half())
     with pytest.raises(ValueError):
-        attention.fused_attention_bwd(q, k, v, do, heads_per_program=16)
+        attention.fused_attention_bwd(q, k, v, do, heads_per_program=0)
     with pytest.raises(ValueError):
         attention.fused_attention_bwd(q, k, v, do[:, :, :32])
     # head_dim 8: the backward reads o and lse in both dtypes
@@ -1392,8 +1394,9 @@ def test_tp_walk_over_the_card_and_the_cpu_matches_unsharded(cuda, monkeypatch, 
 
 
 # head_dims other than 8: the tensor-core kernels at a staged width of 8
-# (head_dim 4), 16, 32 and 64, at a ragged T in both layouts and dtypes
-HEAD_DIMS = (4, 16, 32, 64)
+# (head_dim 4), 16, 32, 64, 128 and 256, at a ragged T in both layouts and
+# dtypes (bf16 forward from 16 on: the warpgroup-product kernel)
+HEAD_DIMS = (4, 16, 32, 64, 128, 256)
 
 
 def _tf32_order_tol(d, bwd=False):
@@ -1415,8 +1418,8 @@ def test_head_dim_forward(cuda, d, dtype, layout):
     """The forward at head_dim d and T = 101: within TOL of the plain version
     and (f32) of its own rounding order, its log-sum-exp within LSE_TOL and
     the output torch.equal with and without it, in q's strides; fast math
-    near its rounding order (`_order_limit`); every G the kernels take at
-    this width (G times the staged width at most 64) torch.equal to G = 1."""
+    near its rounding order (`_order_limit`); every G that divides the 8
+    heads torch.equal to G = 1."""
     q, k, v, _ = _head_dim_args(cuda, d, dtype, layout, 40 + d)
     before = dict(attention.LAUNCHES)
     out, lse = attention.fused_attention(q, k, v, with_lse=True)
@@ -1434,8 +1437,6 @@ def test_head_dim_forward(cuda, d, dtype, layout):
     assert ((fast.float() - fast_order.float()).abs()
             <= _order_limit(q, k, v, fast_order.float())).all()
     for group in (2, 4, 8):
-        if group * attention.staged_width(d) > attention.MAX_GROUP_WIDTH:
-            continue
         o_g, lse_g = attention.fused_attention(q, k, v, heads_per_program=group, with_lse=True)
         assert torch.equal(o_g, out) and torch.equal(lse_g, lse), group
         assert torch.equal(attention.fused_attention(q, k, v, fast_math=True,
@@ -1450,7 +1451,7 @@ def test_head_dim_trainable_gradient(cuda, d, dtype, layout):
     backward, no statistics launch; the gradients within BWD_TOL of the
     plain backward and within the kernel's rounding order's limit of it
     (bf16 BWD_ORDER_TOL, f32 `_tf32_order_tol`), in the strides of q, k, v;
-    every G the kernels take torch.equal to G = 1."""
+    every G that divides the 8 heads torch.equal to G = 1."""
     q, k, v, do = _head_dim_args(cuda, d, dtype, layout, 50 + d)
     leaves = [z.detach().requires_grad_() for z in (q, k, v)]
     before = dict(attention.LAUNCHES)
@@ -1474,8 +1475,6 @@ def test_head_dim_trainable_gradient(cuda, d, dtype, layout):
             torch.testing.assert_close(a.float(), ref, rtol=0,
                                        atol=tol * ref.abs().max().item(), msg=name)
     for group in (2, 4, 8):
-        if group * attention.staged_width(d) > attention.MAX_GROUP_WIDTH:
-            continue
         grouped = attention.fused_attention_bwd(q, k, v, do, heads_per_program=group, o=o,
                                                 lse=lse)
         for a, w in zip(grouped, attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse)):
@@ -1503,3 +1502,44 @@ def test_bf16_head_dim_4_takes_an_unaligned_contiguous_tensor(cuda):
     for name, a, w in zip(("dq", "dk", "dv"),
                           attention.fused_attention_bwd(q, k_off, v, do, o=out, lse=lse), want):
         assert torch.equal(a, w), name
+
+
+WGMMA_DIMS = (16, 32, 64, 128, 256)
+
+
+@pytest.mark.parametrize("layout", ["BHTD", "BTC"])
+@pytest.mark.parametrize("d", WGMMA_DIMS)
+def test_wgmma_forward(cuda, d, layout):
+    """The bf16 forward's warpgroup-product kernel at staged width d, at
+    T = 101 and 1024: each call one launch, counted under WGMMA_KERNEL beside
+    KERNEL or FAST_KERNEL; within one bf16 ulp (TOL) of the plain version,
+    its log-sum-exp within LSE_TOL, fast math within FAST_ORDER_TOL of
+    `attention_fast_math_kernel_order` at the kernel's keys per max update;
+    an unaligned contiguous k (staged an element at a time) and G = 2
+    torch.equal to the aligned G = 1 call."""
+    for t in (101, 1024):
+        q, k, v, _ = _bf16_args(cuda, (2, 4, t, d), layout, 70 + d + t)
+        before = dict(attention.LAUNCHES)
+        out, lse = attention.fused_attention(q, k, v, with_lse=True)
+        fast = attention.fused_attention(q, k, v, fast_math=True)
+        torch.cuda.synchronize()
+        launched = {key: attention.LAUNCHES[key] - before[key] for key in before}
+        assert launched[attention.WGMMA_KERNEL] == 2
+        assert launched[attention.KERNEL] == launched[attention.FAST_KERNEL] == 1
+        want = attention.attention_reference(q, k, v).float()
+        tol = TOL[torch.bfloat16]
+        torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
+        torch.testing.assert_close(lse, attention.attention_lse_reference(q, k), rtol=0,
+                                   atol=LSE_TOL)
+        order = attention.attention_fast_math_kernel_order(q, k, v, attention.fast_math_step(q))
+        assert ((fast.float() - order.float()).abs() <= FAST_ORDER_TOL[torch.bfloat16]).all()
+        storage = torch.empty(k.numel() + 1, device=cuda, dtype=torch.bfloat16)
+        k_off = storage[1:].view(k.shape)
+        k_off.copy_(k)
+        assert k_off.is_contiguous() and k_off.data_ptr() % 4 != 0
+        got, got_lse = attention.fused_attention(q, k_off, v, with_lse=True)
+        assert torch.equal(got, out) and torch.equal(got_lse, lse)
+        o_g, lse_g = attention.fused_attention(q, k, v, heads_per_program=2, with_lse=True)
+        assert torch.equal(o_g, out) and torch.equal(lse_g, lse)
+        assert torch.equal(attention.fused_attention(q, k, v, fast_math=True,
+                                                     heads_per_program=2), fast)
