@@ -427,7 +427,8 @@ MAIN_SHAPES = [(8, 32, 1024, 8), (8, 32, 256, 8)]   # the UNet's 6 calls at batc
 # SDPA's call (its backward alone on a prebuilt forward)
 D4_SHAPES = [(2, 4, 64, 4), (2, 4, 16, 4), (8, 64, 1024, 4)]
 HEADDIM_SHAPES = [(8, 16, 1024, 16), (8, 8, 1024, 32), (8, 4, 1024, 64), (8, 2, 1024, 128),
-                  (8, 1, 1024, 256)]
+                  (8, 1, 1024, 256), (8, 1, 1024, 320), (4, 1, 1024, 512)]
+WIDE_SHAPE = (8, 1, 1024, 256)   # the wide kernels' row in the kernels line
 WGMMA_SHAPE = (8, 4, 1024, 64)   # the `wgmma` kernel's row in the kernels line
 # [headdim]: the generator's walks at these attention_head_dims (64, 8 and 4
 # heads at the 256-channel blocks, 16 images in two blocks of 8), each kernel
@@ -440,9 +441,14 @@ HEADDIM_WALKS = (4, 32, 64, 128, 256)
 HEADDIM_WALK_TOL = 1e-3
 HEADDIM_BF16_WALK = 128
 HEADDIM_TRAIN_DIMS, HEADDIM_TRAIN_STEPS = (32, 128), 3
-# [kernel-group]: heads_per_program values past what one block holds, each
-# against G = 1 bit for bit, forward (output, lse) and backward, both dtypes
-GROUP_EXTRA = [((8, 32, 1024, 8), 16), ((8, 4, 1024, 64), 2), ((8, 2, 1024, 128), 2)]
+# a model whose attention blocks are 512 channels wide, at one head of 512:
+# its f32 and bf16 walks and its train step, all on the wide kernels
+HEADDIM_WIDE = UNet2DConfig(block_out_channels=(128, 256, 512, 512), attention_head_dim=512)
+# [kernel-group]: heads_per_program values past what one block holds (the
+# wide kernels at 128 and 512 run one head a block), each against G = 1 bit
+# for bit, forward (output, lse) and backward, both dtypes
+GROUP_EXTRA = [((8, 32, 1024, 8), 16), ((8, 4, 1024, 64), 2), ((8, 2, 1024, 128), 2),
+               ((2, 2, 1024, 512), 2)]
 TABLE_ROUNDS = 3     # timings in turns, medians
 CLI_STEPS, CLI_BATCH = 10, 8
 ATTENTION_CALLS_PER_UNET = 6
@@ -490,9 +496,10 @@ TF32_BWD_ORDER_TOL = 1e-5
 def tf32_order_tol(head_dim: int, bwd: bool = False) -> float:
     """The f32 kernels' limits against their rounding orders at any
     head_dim: the limits at head_dim 8 (TF32_ORDER_TOL, TF32_BWD_ORDER_TOL,
-    derived above) times sqrt(Dp / 8), Dp the staged width. At Dp the
-    products over channels (S, dP) chain Dp / 8 k-steps of three TF32
-    products each before the f32 adds that follow, so Dp / 8 times as many
+    derived above) times sqrt(W / 8), W = `attention.staged_channels` (the
+    staged width up to 64 channels, above it the head's 64-channel chunks).
+    The products over channels (S, dP) chain W / 8 k-steps of three TF32
+    products each before the f32 adds that follow, so W / 8 times as many
     truncated f32 sums enter each logit; a share shared by a row's logits
     cancels in the softmax, and the rest, independent from step to step,
     grows as the square root of the chain. The products that give channels
@@ -500,7 +507,7 @@ def tf32_order_tol(head_dim: int, bwd: bool = False) -> float:
     from 1 to 64 reads about 5e-7 forward and 1e-6 max|g| backward, near
     head_dim 8's own readings."""
     base = TF32_BWD_ORDER_TOL if bwd else TF32_ORDER_TOL
-    return base * math.sqrt(attention.staged_width(head_dim) / 8)
+    return base * math.sqrt(attention.staged_channels(head_dim) / 8)
 # ragged T (a short last key tile, a short last block of rows), checked in
 # both dtypes with the forward's lse and the backward from it, at head_dim 8
 # and at head_dims that leave part of the staged width zero (D 5, 12, 40)
@@ -1052,10 +1059,13 @@ def phase_card() -> dict:
 # for the general staging (the bf16 forward at Dp 8 only); head dim 8 at
 # full width runs the `_d8` kernels at every G; the bf16 forward at Dp 16 to
 # 256 runs the `wgmma` kernel (exact and fast math, TMA and `cp.async`
-# staging), and heads wider than 64 the wide kernels at Dp 128 and 256, Wide
-# and general staging
+# staging), and heads wider than 64 (the bf16 forward: 256) the wide kernels
+# at WIDE_CHUNKS
 MMA_WIDTHS = tuple(w for w in attention.STAGED_WIDTHS if w <= attention.MAX_GROUP_WIDTH)
-WIDE_WIDTHS = tuple(w for w in attention.STAGED_WIDTHS if w > attention.MAX_GROUP_WIDTH)
+# the wide kernels' channel groups of NC chunks of 64: the forward in f32 at
+# each and in bf16 (above 256 channels) at 8, exact and fast math; the dq
+# launch at each, the dk/dv launch at 2 and 4, in both dtypes
+WIDE_CHUNKS = (2, 4, 8)
 WGMMA_WIDTHS = tuple(w for w in attention.STAGED_WIDTHS if w >= 16)
 _WIDE = sum(1 for w in MMA_WIDTHS[1:] for g in GROUPS if g * w <= attention.MAX_GROUP_WIDTH)
 _TEMPLATES = _WIDE + len(MMA_WIDTHS)
@@ -1064,16 +1074,24 @@ TC_KERNELS = {attention.KERNEL: {"attention_fwd_tc_kernel": 2,
                                  "attention_fwd_tc_d8_kernel": 2 * len(GROUPS),
                                  "attention_fwd_tf32_d8_kernel": 2 * len(GROUPS),
                                  "attention_fwd_wgmma_kernel": 4 * len(WGMMA_WIDTHS),
-                                 "attention_fwd_tf32_wide_kernel": 4 * len(WIDE_WIDTHS)},
+                                 "attention_fwd_wide_kernel": 2 * (len(WIDE_CHUNKS) + 1)},
               attention.BWD_KERNEL: {**{f"attention_bwd_{k}_kernel": _TEMPLATES
                                         for k in ("dq_tc", "dkdv_tc", "dq_tf32", "dkdv_tf32")},
                                      **{f"attention_bwd_{k}_d8_kernel": len(GROUPS)
                                         for k in ("dq_tc", "dkdv_tc", "dq_tf32", "dkdv_tf32")},
-                                     **{f"attention_bwd_{k}_wide_kernel": 2 * len(WIDE_WIDTHS)
-                                        for k in ("dq_tc", "dkdv_tc", "dq_tf32",
-                                                  "dkdv_tf32")}}}
-# the product instruction each kernel's SASS must hold
-PRODUCT_OP = {"attention_fwd_wgmma_kernel": "HGMMA"}
+                                     "attention_bwd_dq_wide_kernel": 2 * len(WIDE_CHUNKS),
+                                     "attention_bwd_dkdv_wide_kernel": 2 * (len(WIDE_CHUNKS) - 1)}}
+
+
+def _product_op(kernel: str) -> str:
+    """The product instruction a kernel instance's SASS must hold: HGMMA in
+    the `wgmma` forward and in the wide kernels' bf16 instances, HMMA in
+    every other."""
+    if kernel.startswith("attention_fwd_wgmma_kernel<") or (
+            "_wide_" in kernel and "bfloat16" in kernel):
+        return "HGMMA"
+    return "HMMA"
+
 # the kernel's own name follows its length in the mangled name (after the
 # anonymous namespace, which names the source file)
 _KERNEL_NAME = re.compile(r"(?<=\d)(attention_[a-z0-9_]+?(?:tf32_)?kernel)(I\w*?E)Ev")
@@ -1109,7 +1127,7 @@ def phase_build() -> dict:
             if "registers" in line or "spill" in line:
                 print(f"[build]   {name}: {kernel}: {line.strip()}", flush=True)
             used = re.search(r"Used (\d+) registers", line)
-            if used and kernel.startswith("attention_fwd_wgmma_kernel"):
+            if used and (kernel.startswith("attention_fwd_wgmma_kernel") or "_wide_" in kernel):
                 report["registers"][kernel] = int(used.group(1))
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if (spills and kernel.split("<")[0] in TC_KERNELS[name]
@@ -1128,11 +1146,10 @@ def phase_build() -> dict:
                 for op in counts[kernel]:
                     counts[kernel][op] += f"{op} " in line or f"{op}." in line
         for label, want in TC_KERNELS[name].items():
-            op = PRODUCT_OP.get(label, "HMMA")
             found = {k: c for k, c in counts.items() if k.startswith(label + "<")}
-            check(len(found) == want and all(c[op] > 0 for c in found.values()),
-                  f"[build] {op} missing in {label} (want {want} instances): {found}; the "
-                  f"SASS of {name} holds {sorted(counts)}")
+            check(len(found) == want and all(c[_product_op(k)] > 0 for k, c in found.items()),
+                  f"[build] HMMA or HGMMA missing in {label} (want {want} instances): {found}; "
+                  f"the SASS of {name} holds {sorted(counts)}")
             for k, c in sorted(found.items()):
                 print(f"[build]   SASS of {k}: {c['HMMA']} HMMA, {c['HGMMA']} HGMMA, "
                       f"{c['MUFU.EX2']} MUFU.EX2", flush=True)
@@ -1287,7 +1304,74 @@ def _in_turns_ms(fns: dict, graph: bool = True) -> dict:
             for name, rs in runs.items()}
 
 
-def kernel_table_times() -> dict:
+def _parent_libraries(trees: dict, out_dir: Path) -> dict:
+    """{label: {KERNEL: attention_fwd, BWD_KERNEL: attention_bwd}} of other
+    trees' `csrc/` ({label: path}; e.g. the parent commit's, unpacked beside
+    this checkout), all built at once with the port's flags and loaded with
+    ctypes: the launchers take the same packed arguments (`_FwdArgs`,
+    `_BwdArgs`)."""
+    import ctypes
+    procs = {}
+    for label, csrc in trees.items():
+        for name in (attention.KERNEL, attention.BWD_KERNEL):
+            lib = out_dir / f"lib{label}_{name}.so"
+            procs[label, name] = (lib, subprocess.Popen(
+                [native._nvcc(), *native.NVCC_FLAGS, "-o", str(lib), str(csrc / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {label: {} for label in trees}
+    for (label, name), (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"[kernel] {label}'s {name}.cu: nvcc failed\n{log[-3000:]}")
+        fn = getattr(ctypes.CDLL(str(lib)), name)
+        fn.argtypes = [ctypes.c_void_p] * (7 if name == attention.KERNEL else 12)
+        fn.restype = ctypes.c_int
+        fns[label][name] = fn
+    return fns
+
+
+def _parent_calls(parent: dict, q, k, v, do, o, lse) -> dict:
+    """Each other tree's forward (exact, no lse) and backward (from o and
+    lse) on these tensors, as `_in_turns_ms` entries "{label}_fwd" and
+    "{label}_bwd", where its kernels take the head (a tree whose launcher
+    refuses the head_dim is left out). Before it is timed, each call's
+    output is held against the plain version at the table's tolerances, so
+    that a launcher whose packed arguments no longer match this tree's
+    fails here instead of timing a wrong launch."""
+    if not parent:
+        return {}
+    calls = {}
+    index = q.device.index
+    fplan = attention._ForwardPlan(q, k, v, False, 1, False, ())
+    bplan = attention._BackwardPlan(q, k, v, do, o, 1, False, None)
+    want = attention.attention_reference(q, k, v).float()
+    want_grads = attention.attention_bwd_reference(q, k, v, do)
+    for label, lib in (parent or {}).items():
+        out, grads = torch.empty_like(q), [torch.empty_like(z) for z in (q, k, v)]
+        delta = torch.empty(q.shape[:3], device=q.device)
+        fwd = lambda fn=lib[attention.KERNEL], out=out: attention._launch(
+            fn, fplan.address, index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), None)
+        bwd = lambda fn=lib[attention.BWD_KERNEL], grads=grads, delta=delta: attention._launch(
+            fn, bplan.address, index, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            o.data_ptr(), *(z.data_ptr() for z in grads), lse.data_ptr(), delta.data_ptr())
+        try:
+            fwd()
+        except RuntimeError:   # this tree's launcher refuses the head_dim
+            continue
+        bwd()
+        torch.cuda.synchronize()
+        err = (out.float() - want).abs().max().item()
+        check(torch.allclose(out.float(), want, rtol=TOL[q.dtype], atol=TOL[q.dtype]),
+              f"[kernel] {label}'s forward at {tuple(q.shape)}: max_abs_err {err:.3e}")
+        worst = max(((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                    for a, w in zip(grads, want_grads))
+        check(worst <= BWD_TOL[q.dtype],
+              f"[kernel] {label}'s backward at {tuple(q.shape)}: max|diff|/max|g| {worst:.3e}")
+        calls[f"{label}_fwd"], calls[f"{label}_bwd"] = fwd, bwd
+    return calls
+
+
+def kernel_table_times(parent: dict = None) -> dict:
     """[kernel] the kernel table's own rows: K2 in the (B, H, T, D) layout
     at MAIN_SHAPES in both dtypes, in turns with K1 (the UNet's views) and
     SDPA, host-launched and from a CUDA graph; then every other head_dim's
@@ -1297,7 +1381,9 @@ def kernel_table_times() -> dict:
     forward in turns with SDPA host-launched and from a CUDA graph, the
     backward host-launched in turns with SDPA's backward alone on a
     prebuilt forward and from a CUDA graph alone, beside their bounds and
-    the plain versions."""
+    the plain versions. With `parent` (`_parent_libraries`), other
+    trees' kernels on the same inputs join the turns where they take the
+    head (`_parent_calls`): the before and after from one card and run."""
     g = torch.Generator(device="cuda").manual_seed(5)
     report = {"K2": {}, "head_dim_fwd": {}, "head_dim_bwd": {}}
     for shape in MAIN_SHAPES:
@@ -1331,19 +1417,26 @@ def kernel_table_times() -> dict:
             err = (got.float() - want).abs().max().item()
             check(torch.allclose(got.float(), want, rtol=TOL[dtype], atol=TOL[dtype]),
                   f"[kernel] head_dim-{shape[-1]} forward at {name}: max_abs_err {err:.3e}")
+            older = _parent_calls(parent, q, k, v, do, got, lse)
             t = _in_turns_ms({"kernel": lambda: attention.fused_attention(q, k, v),
-                              "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)})
+                              "sdpa": lambda: F.scaled_dot_product_attention(q, k, v),
+                              **{n: f for n, f in older.items() if n.endswith("_fwd")}})
             bound, bound_by, _, unit = attention_bound_ms(shape, dtype)
             fwd = dict(ms=t["kernel"][0], device_ms=t["kernel"][1],
                        plain_ms=cuda_ms(lambda: attention.attention_reference(q, k, v),
                                         iters=5),
                        library_ms=t["sdpa"][0], library_device_ms=t["sdpa"][1],
-                       bound_ms=bound, bound_by=bound_by, max_abs_err=err)
+                       bound_ms=bound, bound_by=bound_by, max_abs_err=err,
+                       wide=attention.uses_wide(dtype, shape[-1]))
+            for n in older:
+                if n.endswith("_fwd"):
+                    fwd[f"{n[:-4]}_ms"] = t[n][0]
             report["head_dim_fwd"][name] = fwd
             grads = attention.fused_attention_bwd(q, k, v, do, o=got, lse=lse)
             ref = attention.attention_bwd_reference(q, k, v, do)
             worst = max(((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
                         for a, w in zip(grads, ref))
+            bwd_abs = max((a.float() - w.float()).abs().max().item() for a, w in zip(grads, ref))
             check(worst <= BWD_TOL[dtype],
                   f"[kernel] head_dim-{shape[-1]} backward at {name}: max|diff|/max|g| "
                   f"{worst:.3e}")
@@ -1351,7 +1444,8 @@ def kernel_table_times() -> dict:
             out = F.scaled_dot_product_attention(*leaves)
             t = _in_turns_ms({
                 "kernel": lambda: attention.fused_attention_bwd(q, k, v, do, o=got, lse=lse),
-                "sdpa": lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)},
+                "sdpa": lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                **{n: f for n, f in older.items() if n.endswith("_bwd")}},
                 graph=False)
             bbound, bbound_by, _, bunit = attention_bwd_bound_ms(shape, dtype)
             bwd = dict(ms=t["kernel"][0],
@@ -1360,7 +1454,12 @@ def kernel_table_times() -> dict:
                        library_ms=t["sdpa"][0],
                        plain_ms=cuda_ms(lambda: attention.attention_bwd_reference(q, k, v, do),
                                         iters=5),
-                       bound_ms=bbound, bound_by=bbound_by, max_rel_err=worst)
+                       bound_ms=bbound, bound_by=bbound_by, max_rel_err=worst,
+                       max_abs_err=bwd_abs,
+                       wide=attention.uses_wide(dtype, shape[-1], forward=False))
+            for n in older:
+                if n.endswith("_bwd"):
+                    bwd[f"{n[:-4]}_ms"] = t[n][0]
             report["head_dim_bwd"][name] = bwd
             print(f"[kernel] head_dim {shape[-1]} forward {name}: {fwd['ms']:.4f} ms "
                   f"({fwd['device_ms']:.4f} from a graph), plain {fwd['plain_ms']:.4f}, sdpa "
@@ -1370,7 +1469,11 @@ def kernel_table_times() -> dict:
                   f"plain {bwd['plain_ms']:.4f}, sdpa backward alone {bwd['library_ms']:.4f}, "
                   f"bound {bbound:.4f} ms ({bunit}), {bwd['ms'] / bbound:.1f}x it; medians of "
                   f"{TABLE_ROUNDS} in turns", flush=True)
-            del q, k, v, do, want, got, lse, grads, ref, leaves, out
+            for label in sorted({n[:-4] for n in older}):
+                print(f"[kernel]   {label}'s kernels in the same turns: forward "
+                      f"{fwd[label + '_ms']:.4f} ms, backward {bwd[label + '_ms']:.4f} ms",
+                      flush=True)
+            del q, k, v, do, want, got, lse, grads, ref, leaves, out, older
     return report
 
 
@@ -1737,7 +1840,7 @@ def phase_wgmma_ablation() -> dict:
             fn.restype = ctypes.c_int
             fns[name] = fn
         g = torch.Generator(device="cuda").manual_seed(8)
-        for shape in HEADDIM_SHAPES:
+        for shape in [s for s in HEADDIM_SHAPES if attention.uses_wgmma(torch.bfloat16, s[-1])]:
             q, k, v = (torch.randn(shape, generator=g, device="cuda").bfloat16() for _ in range(3))
             plan = attention._ForwardPlan(q, k, v, False, 1, False, ())
             out = torch.empty_like(q)
@@ -2224,9 +2327,8 @@ def phase_unet_grad() -> None:
           f"{BF16_GRAD_FACTOR['worst']} x its worst)", flush=True)
 
 
-def _headdim_generator(ckpt: Path, head_dim: int, dtype: torch.dtype) -> ImageGenerator:
-    gen = ImageGenerator(checkpoints_dir=str(ckpt), compute_dtype=dtype,
-                         model_config=UNet2DConfig(attention_head_dim=head_dim))
+def _headdim_generator(ckpt: Path, cfg: UNet2DConfig, dtype: torch.dtype) -> ImageGenerator:
+    gen = ImageGenerator(checkpoints_dir=str(ckpt), compute_dtype=dtype, model_config=cfg)
     gen.scheduler_kind = "ddim"
     gen.set_inference_steps(CLI_STEPS)
     gen.batch_size = CLI_BATCH
@@ -2234,10 +2336,16 @@ def _headdim_generator(ckpt: Path, head_dim: int, dtype: torch.dtype) -> ImageGe
     return gen
 
 
-def _headdim_walk(gen: ImageGenerator, out: Path, head_dim: int, label: str) -> tuple:
+def _attention_heads(cfg: UNet2DConfig) -> int:
+    """Heads of every attention call of `cfg`'s UNet: its attention blocks
+    (the third level's and the middle's) over the head_dim."""
+    return cfg.block_out_channels[2] // cfg.attention_head_dim
+
+
+def _headdim_walk(gen: ImageGenerator, out: Path, heads: int, label: str) -> tuple:
     """`generate_images([("MEL", GEN_IMAGES)])` with the launches counted:
     (launches, heads per launch, PNG paths, wall seconds), after checking
-    the images were written and every launch ran at 256 / head_dim heads."""
+    the images were written and every launch ran at `heads` heads."""
     reset_launches()
     with heads_per_launch() as launch_heads:
         torch.cuda.synchronize()
@@ -2249,90 +2357,121 @@ def _headdim_walk(gen: ImageGenerator, out: Path, head_dim: int, label: str) -> 
     pngs = sorted((out / "MEL").glob("ISIC_*.png"))
     check(result.get("generated") == GEN_IMAGES and len(pngs) == GEN_IMAGES,
           f"[headdim] {label}: generate_images returned {result}, {len(pngs)} PNGs")
-    check(set(launch_heads) == {256 // head_dim},
+    check(set(launch_heads) == {heads},
           f"[headdim] {label}: heads per launch {set(launch_heads)}")
     return launches, list(launch_heads), pngs, wall
+
+
+def _headdim_f32_walk(ckpt: Path, cfg: UNet2DConfig, out: Path) -> dict:
+    """The f32 exact walk of `cfg` (`generate_images`, DDIM CLI_STEPS,
+    GEN_IMAGES MEL images): exactly 120 K1 launches, every one at
+    `_attention_heads(cfg)` heads, on the wide kernel where the head is
+    wider than 64 channels; then the first block again, kernel and plain
+    attention, under full-f32 convolutions, within HEADDIM_WALK_TOL."""
+    head_dim, heads = cfg.attention_head_dim, _attention_heads(cfg)
+    want = ATTENTION_CALLS_PER_UNET * CLI_STEPS * GEN_IMAGES // CLI_BATCH
+    wide = want if attention.uses_wide(torch.float32, head_dim) else 0
+    gen = _headdim_generator(ckpt, cfg, torch.float32)
+    launches, launch_heads, pngs, wall = _headdim_walk(
+        gen, out, heads, f"head_dim {head_dim}")
+    check(launches[attention.KERNEL] == want and launches[attention.FAST_KERNEL] == 0
+          and launches[attention.WIDE_KERNEL] == wide and len(launch_heads) == want,
+          f"[headdim] head_dim {head_dim}: launches {launches}")
+    # the first block again, kernel and plain attention, from the same seeds
+    seeds = np.asarray(json.loads(pngs[0].with_suffix(".json").read_text())
+                       ["block"]["seeds"], np.uint32)
+    walks = {}
+    with full_f32_convolutions():
+        for fused in (True, False):
+            gen.model_manager.use_fused_attention = fused
+            gen.model_manager.loaded_models.clear()
+            gen.model_manager._samplers.clear()
+            walks[fused] = gen._sample_block(["MEL"] * CLI_BATCH, seeds, False)["images"]
+    gen.model_manager.use_fused_attention = True
+    dist = (walks[True] - walks[False]).abs().max().item()
+    finite = bool(torch.isfinite(walks[True]).all())
+    print(f"[headdim] ImageGenerator(model_config=UNet2DConfig(block_out_channels="
+          f"{cfg.block_out_channels}, attention_head_dim={head_dim})), f32 exact, DDIM "
+          f"{CLI_STEPS}, MEL:{GEN_IMAGES} in blocks of {CLI_BATCH}: {len(pngs)} PNGs in "
+          f"{wall:.3f} s; K1 launches {launches[attention.KERNEL]} (want {want}), on the wide "
+          f"kernel {launches[attention.WIDE_KERNEL]} (want {wide}), every one at {heads} heads "
+          f"of {head_dim}; the first block kernel vs plain attention, full-f32 convolutions: "
+          f"max|diff| {dist:.3e} (allowed {HEADDIM_WALK_TOL:.0e}), finite {finite}", flush=True)
+    check(finite and dist <= HEADDIM_WALK_TOL,
+          f"[headdim] head_dim {head_dim} walk kernel vs plain {dist:.3e}")
+    return {"launches": launches[attention.KERNEL],
+            "wide_launches": launches[attention.WIDE_KERNEL], "heads": heads, "wall_s": wall,
+            "max_abs_err": dist}
+
+
+def _headdim_bf16_walk(ckpt: Path, cfg: UNet2DConfig, out: Path) -> dict:
+    """The bf16 walk of `cfg`: exactly 120 K1 launches, each on the `wgmma`
+    kernel (heads of 9 to 256 channels) or on the wide kernel (wider)."""
+    head_dim, heads = cfg.attention_head_dim, _attention_heads(cfg)
+    want = ATTENTION_CALLS_PER_UNET * CLI_STEPS * GEN_IMAGES // CLI_BATCH
+    route = (attention.WIDE_KERNEL if attention.uses_wide(torch.bfloat16, head_dim)
+             else attention.WGMMA_KERNEL)
+    gen = _headdim_generator(ckpt, cfg, torch.bfloat16)
+    launches, launch_heads, pngs, wall = _headdim_walk(
+        gen, out, heads, f"bf16 head_dim {head_dim}")
+    got = tuple(launches[k] for k in (attention.KERNEL, route, attention.FAST_KERNEL))
+    print(f"[headdim] ImageGenerator(model_config=UNet2DConfig(block_out_channels="
+          f"{cfg.block_out_channels}, attention_head_dim={head_dim}), compute_dtype="
+          f"torch.bfloat16), DDIM {CLI_STEPS}, MEL:{GEN_IMAGES}: {len(pngs)} PNGs in {wall:.3f} "
+          f"s; K1/{route}/fast launches {got} (want {want}/{want}/0), every one at {heads} "
+          f"heads", flush=True)
+    check(got == (want, want, 0) and len(launch_heads) == want,
+          f"[headdim] bf16 head_dim {head_dim}: K1/{route}/fast launches {got}")
+    return {"head_dim": head_dim, "launches": want, "route": route, "route_launches": got[1],
+            "wall_s": wall}
 
 
 def phase_headdim(card: str, base: Path) -> dict:
     """[headdim]: the library generator at other head_dims (HEADDIM_WALKS),
     f32 exact, DDIM 10, 16 MEL images in two blocks of 8 on one full-width
-    checkpoint: exactly 120 K1 launches each, every one at 256 / D heads;
-    the first block's walk kernel vs plain attention under full-f32
-    convolutions; the same walk in bf16 at HEADDIM_BF16_WALK, its 120 K1
-    launches each on the `wgmma` kernel; then the train step at each of
-    HEADDIM_TRAIN_DIMS (batch BENCH_BATCH, bf16): 6 K1 with their
-    statistics (on the `wgmma` kernel) and 6 K3 per step, no statistics
+    checkpoint: exactly 120 K1 launches each, every one at 256 / D heads
+    (on the wide kernel above 64 channels); the first block's walk kernel vs
+    plain attention under full-f32 convolutions; the same walk in bf16 at
+    HEADDIM_BF16_WALK, its 120 K1 launches each on the `wgmma` kernel; then
+    the f32 and bf16 walks of a full-width checkpoint of HEADDIM_WIDE (one
+    head of 512 channels a call, on the wide kernel); then the train step
+    at each of HEADDIM_TRAIN_DIMS and of HEADDIM_WIDE (batch BENCH_BATCH,
+    bf16): 6 K1 with their statistics (on the `wgmma` or the wide kernel) and
+    6 K3 per step (on the wide kernels above 64 channels), no statistics
     launch, and the f32 gradient kernel vs plain."""
-    torch.manual_seed(0)
-    ckpt = base / "checkpoints"
-    ckpt.mkdir(parents=True)
-    torch.save(UNet2D(UNet2DConfig()).state_dict(), ckpt / "unet_MEL_best.pth")
-    want = ATTENTION_CALLS_PER_UNET * CLI_STEPS * GEN_IMAGES // CLI_BATCH
     report = {"walks": {}, "train": {}}
+    ckpts = {}
+    for name, cfg in (("default", UNet2DConfig()), ("wide", HEADDIM_WIDE)):
+        torch.manual_seed(0)
+        ckpts[name] = base / f"checkpoints_{name}"
+        ckpts[name].mkdir(parents=True)
+        torch.save(UNet2D(cfg).state_dict(), ckpts[name] / "unet_MEL_best.pth")
     for head_dim in HEADDIM_WALKS:
-        heads = 256 // head_dim
-        gen = _headdim_generator(ckpt, head_dim, torch.float32)
-        launches, launch_heads, pngs, wall = _headdim_walk(
-            gen, base / f"head_dim_{head_dim}", head_dim, f"head_dim {head_dim}")
-        check(launches[attention.KERNEL] == want and launches[attention.FAST_KERNEL] == 0
-              and len(launch_heads) == want,
-              f"[headdim] head_dim {head_dim}: launches {launches}")
-        # the first block again, kernel and plain attention, from the same seeds
-        seeds = np.asarray(json.loads(pngs[0].with_suffix(".json").read_text())
-                           ["block"]["seeds"], np.uint32)
-        walks = {}
-        with full_f32_convolutions():
-            for fused in (True, False):
-                gen.model_manager.use_fused_attention = fused
-                gen.model_manager.loaded_models.clear()
-                gen.model_manager._samplers.clear()
-                walks[fused] = gen._sample_block(["MEL"] * CLI_BATCH, seeds, False)["images"]
-        gen.model_manager.use_fused_attention = True
-        dist = (walks[True] - walks[False]).abs().max().item()
-        finite = bool(torch.isfinite(walks[True]).all())
-        print(f"[headdim] ImageGenerator(model_config=UNet2DConfig(attention_head_dim="
-              f"{head_dim})), f32 exact, DDIM {CLI_STEPS}, MEL:{GEN_IMAGES} in blocks of "
-              f"{CLI_BATCH}: {len(pngs)} PNGs in {wall:.3f} s; K1 launches "
-              f"{launches[attention.KERNEL]} (want {want}), every one at {heads} heads of "
-              f"{head_dim}; the first block kernel vs plain attention, full-f32 convolutions: "
-              f"max|diff| {dist:.3e} (allowed {HEADDIM_WALK_TOL:.0e}), finite {finite}",
-              flush=True)
-        check(finite and dist <= HEADDIM_WALK_TOL,
-              f"[headdim] head_dim {head_dim} walk kernel vs plain {dist:.3e}")
-        report["walks"][head_dim] = {"launches": launches[attention.KERNEL], "heads": heads,
-                                     "wall_s": wall, "max_abs_err": dist}
-        del gen, walks
-
-    # the bf16 walk at a wide head: every K1 launch on the warpgroup-product kernel
-    head_dim = HEADDIM_BF16_WALK
-    gen = _headdim_generator(ckpt, head_dim, torch.bfloat16)
-    launches, launch_heads, pngs, wall = _headdim_walk(
-        gen, base / f"head_dim_{head_dim}_bf16", head_dim, f"bf16 head_dim {head_dim}")
-    got = tuple(launches[k] for k in (attention.KERNEL, attention.WGMMA_KERNEL,
-                                      attention.FAST_KERNEL))
-    print(f"[headdim] ImageGenerator(model_config=UNet2DConfig(attention_head_dim={head_dim}), "
-          f"compute_dtype=torch.bfloat16), DDIM {CLI_STEPS}, MEL:{GEN_IMAGES}: {len(pngs)} PNGs "
-          f"in {wall:.3f} s; K1/wgmma/fast launches {got} (want {want}/{want}/0), every one at "
-          f"{256 // head_dim} heads", flush=True)
-    check(got == (want, want, 0) and len(launch_heads) == want,
-          f"[headdim] bf16 head_dim {head_dim}: K1/wgmma/fast launches {got}")
-    report["bf16_walk"] = {"head_dim": head_dim, "launches": want, "wgmma_launches": got[1],
-                           "wall_s": wall}
-    del gen
-
+        report["walks"][head_dim] = _headdim_f32_walk(
+            ckpts["default"], UNet2DConfig(attention_head_dim=head_dim),
+            base / f"head_dim_{head_dim}")
+    report["bf16_walk"] = _headdim_bf16_walk(
+        ckpts["default"], UNet2DConfig(attention_head_dim=HEADDIM_BF16_WALK),
+        base / f"head_dim_{HEADDIM_BF16_WALK}_bf16")
+    wide = HEADDIM_WIDE.attention_head_dim
+    report["walks"][wide] = _headdim_f32_walk(ckpts["wide"], HEADDIM_WIDE,
+                                              base / f"head_dim_{wide}")
+    report["bf16_walk_wide"] = _headdim_bf16_walk(ckpts["wide"], HEADDIM_WIDE,
+                                                  base / f"head_dim_{wide}_bf16")
     for train_dim in HEADDIM_TRAIN_DIMS:
-        report["train"][train_dim] = _headdim_train(card, train_dim)
+        report["train"][train_dim] = _headdim_train(
+            card, UNet2DConfig(attention_head_dim=train_dim))
+    report["train"][wide] = _headdim_train(card, HEADDIM_WIDE)
     return report
 
 
-def _headdim_train(card: str, head_dim: int) -> dict:
-    """The train step at `head_dim` (bf16 compute, f32 parameters, batch
-    BENCH_BATCH): 6 K1 with their statistics, each on the `wgmma` kernel,
-    and 6 K3 per step, no statistics launch; then the whole UNet's f32
+def _headdim_train(card: str, cfg: UNet2DConfig) -> dict:
+    """The train step of `cfg` (bf16 compute, f32 parameters, batch
+    BENCH_BATCH): 6 K1 with their statistics, each on the `wgmma` kernel
+    (or the wide kernel above 256 channels), and 6 K3 per step (on the wide
+    kernels above 64), no statistics launch; then the whole UNet's f32
     gradient, kernel vs plain."""
-    cfg = UNet2DConfig(attention_head_dim=head_dim)
-    heads = 256 // head_dim
+    head_dim, heads = cfg.attention_head_dim, _attention_heads(cfg)
     train_cfg = TrainConfig(batch_size=BENCH_BATCH)
     torch.manual_seed(0)
     model = UNet2D(cfg, dtype=torch.bfloat16, param_dtype=torch.float32,
@@ -2351,12 +2490,15 @@ def _headdim_train(card: str, head_dim: int) -> dict:
         step_s = (time.perf_counter() - t0) / HEADDIM_TRAIN_STEPS
     launches = dict(attention.LAUNCHES)
     per_step = ATTENTION_CALLS_PER_UNET * HEADDIM_TRAIN_STEPS
-    got = tuple(launches[k] for k in (attention.KERNEL, attention.WGMMA_KERNEL,
-                                      attention.BWD_KERNEL, attention.STATS_KERNEL))
-    check(got == (per_step, per_step, per_step, 0) and set(launch_heads) == {heads}
+    route = (attention.WIDE_KERNEL if attention.uses_wide(torch.bfloat16, head_dim)
+             else attention.WGMMA_KERNEL)
+    bwd_wide = per_step if attention.uses_wide(torch.bfloat16, head_dim, forward=False) else 0
+    got = tuple(launches[k] for k in (attention.KERNEL, route, attention.BWD_KERNEL,
+                                      attention.BWD_WIDE_KERNEL, attention.STATS_KERNEL))
+    check(got == (per_step, per_step, per_step, bwd_wide, 0) and set(launch_heads) == {heads}
           and all(bool(torch.isfinite(x)) for x in losses),
-          f"[headdim] train steps at head_dim {head_dim}: K1/wgmma/K3/stats {got}, heads "
-          f"{set(launch_heads)}, losses {[x.item() for x in losses]}")
+          f"[headdim] train steps at head_dim {head_dim}: K1/{route}/K3/K3 wide/stats {got}, "
+          f"heads {set(launch_heads)}, losses {[x.item() for x in losses]}")
     del model, state
 
     # the whole UNet's f32 gradient at head_dim, kernel vs plain
@@ -2366,6 +2508,7 @@ def _headdim_train(card: str, head_dim: int) -> dict:
     eps = torch.randn(GRAD_BATCH, 3, 128, 128, generator=g, device="cuda")
     t = torch.tensor([999, 500, 100, 3], device="cuda")
     grads = {}
+    reset_launches()
     for fused in (True, False):
         unet = UNet2D(cfg, use_fused_attention=fused)
         unet.load_state_dict(weights)
@@ -2373,20 +2516,27 @@ def _headdim_train(card: str, head_dim: int) -> dict:
         with full_f32_convolutions():
             torch.mean((unet(x, t) - eps) ** 2).backward()
         grads[fused] = {n: p.grad for n, p in unet.named_parameters()}
+    f32_wide = tuple(attention.LAUNCHES[k] for k in (attention.WIDE_KERNEL,
+                                                     attention.BWD_WIDE_KERNEL))
+    want_f32 = tuple(ATTENTION_CALLS_PER_UNET if attention.uses_wide(torch.float32, head_dim, f)
+                     else 0 for f in (True, False))
+    check(f32_wide == want_f32, f"[headdim] f32 gradient at head_dim {head_dim}: wide "
+                                f"launches {f32_wide} (want {want_f32})")
     largest = max(w.abs().max().item() for w in grads[False].values())
     worst, worst_name = max(
         ((grads[True][n] - w).abs().max().item()
          / (largest if n.endswith("to_k.bias") else w.abs().max().item()), n)
         for n, w in grads[False].items())
-    print(f"[headdim] train step at head_dim {head_dim} ({heads} heads), batch "
-          f"{BENCH_BATCH}, bf16: {step_s:.4f} s/step warm on {card}; K1/wgmma/K3/stats "
-          f"launches {got} over {HEADDIM_TRAIN_STEPS} steps (want "
-          f"{per_step}/{per_step}/{per_step}/0); the full-width UNet's f32 gradient at batch "
-          f"{GRAD_BATCH}, kernel vs plain: worst max|diff|/max|g| {worst:.3e} at {worst_name} "
+    print(f"[headdim] train step at head_dim {head_dim} ({heads} heads of "
+          f"{cfg.block_out_channels[2]} channels), batch {BENCH_BATCH}, bf16: {step_s:.4f} s/step "
+          f"warm on {card}; K1/{route}/K3/K3 wide/stats launches {got} over "
+          f"{HEADDIM_TRAIN_STEPS} steps (want {per_step}/{per_step}/{per_step}/{bwd_wide}/0); the "
+          f"full-width UNet's f32 gradient at batch {GRAD_BATCH}, kernel vs plain (wide "
+          f"K1/K3 launches {f32_wide}): worst max|diff|/max|g| {worst:.3e} at {worst_name} "
           f"(allowed {UNET_GRAD_TOL:.0e})", flush=True)
     check(worst <= UNET_GRAD_TOL, f"[headdim] gradient at head_dim {head_dim}")
-    return {"launches": dict(zip(("fwd", "wgmma", "bwd", "stats"), got)), "step_s": step_s,
-            "grad_rel": worst}
+    return {"launches": dict(zip(("fwd", "route", "bwd", "bwd_wide", "stats"), got)),
+            "route": route, "step_s": step_s, "grad_rel": worst}
 
 
 def phase_unet() -> dict:
@@ -5871,10 +6021,17 @@ def main() -> int:
         print(json.dumps({"wgmma_ablation": phase_wgmma_ablation(), "card": card["card"]}),
               flush=True)
         return 0
-    if sys.argv[1:] == ["--kernel-table"]:
-        # the kernel table's K2 and head_dim rows alone
+    if sys.argv[1:2] == ["--kernel-table"]:
+        # the kernel table's K2 and head_dim rows alone; `--kernel-table
+        # [LABEL=]DIR ...` times other trees' kernels (DIR: a tree's csrc/,
+        # LABEL by default "parent") in the same turns
         native.build([attention.KERNEL, attention.BWD_KERNEL])
-        print(json.dumps({"table": kernel_table_times(), "card": card["card"]}), flush=True)
+        trees = dict((a.split("=", 1) if "=" in a else ("parent", a)) for a in sys.argv[2:])
+        with tempfile.TemporaryDirectory() as tmp:
+            parent = _parent_libraries({label: Path(d).resolve() for label, d in trees.items()},
+                                       Path(tmp)) if trees else None
+            table = kernel_table_times(parent)
+        print(json.dumps({"table": table, "card": card["card"]}), flush=True)
         return 0
     if sys.argv[1:] == ["--eval"]:
         # the [eval] phase alone, on a seeded full-width UNet
@@ -5976,6 +6133,8 @@ def main() -> int:
     g_star = group_report["g_star"]
     group_bound, group_bound_by, _, _ = attention_bound_ms(GROUP_SHAPE, torch.bfloat16)
     wgmma_row = kernel_report["table"]["head_dim_fwd"][f"{WGMMA_SHAPE} bfloat16"]
+    wide_fwd = kernel_report["table"]["head_dim_fwd"][f"{WIDE_SHAPE} float32"]
+    wide_bwd = kernel_report["table"]["head_dim_bwd"][f"{WIDE_SHAPE} float32"]
     line = {"kernels": [{
         "name": "attention_fwd",
         "route": "cuda",
@@ -6318,9 +6477,10 @@ def main() -> int:
         "replaces": "synt_isic_tpu/ops/pallas/attention.py:28",
         # [headdim]: the bf16 generator walk at head_dim 128 (all of its K1
         # launches), and the train steps' K1 at head_dims 32 and 128
-        "launches": headdim["bf16_walk"]["wgmma_launches"],
-        "launches_headdim_train": {str(d): r["launches"]["wgmma"]
-                                   for d, r in headdim["train"].items()},
+        "launches": headdim["bf16_walk"]["route_launches"],
+        "launches_headdim_train": {str(d): r["launches"]["route"]
+                                   for d, r in headdim["train"].items()
+                                   if r["route"] == attention.WGMMA_KERNEL},
         "max_abs_err": wgmma_row["max_abs_err"],
         "ms": wgmma_row["ms"],
         "device_ms": wgmma_row["device_ms"],
@@ -6337,6 +6497,48 @@ def main() -> int:
                   if k.startswith("attention_fwd_wgmma_kernel")},
         "shape": list(WGMMA_SHAPE),
         "dtype": "bfloat16",
+    }, {
+        "name": "attention_fwd_wide",
+        "route": "cuda",
+        "source": "synt_isic_tpu_torch/csrc/attention_fwd.cu",
+        "replaces": "synt_isic_tpu/ops/pallas/attention.py:28",
+        # [headdim]: the f32 walk of HEADDIM_WIDE (one head of 512 a call, all
+        # of its K1 launches on the wide kernel); the other walks and train
+        # steps that ran it
+        "launches": headdim["walks"][HEADDIM_WIDE.attention_head_dim]["wide_launches"],
+        "launches_headdim": {**{f"f32 {d}": w["wide_launches"]
+                                for d, w in headdim["walks"].items()},
+                             "bf16 512": headdim["bf16_walk_wide"]["route_launches"],
+                             **{f"train {d}": r["launches"]["route"]
+                                for d, r in headdim["train"].items()
+                                if r["route"] == attention.WIDE_KERNEL}},
+        **{key: wide_fwd[key] for key in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                          "bound_ms", "bound_by", "library_ms")},
+        # [kernel]: the f32 forward at (8, 256/D, 1024, D) for D 128 to 320
+        # and at (4, 1, 1024, 512), and the bf16 one above 256
+        "by_head_dim": {name: row for name, row in kernel_report["table"]["head_dim_fwd"].items()
+                        if row["wide"]},
+        "registers": {k: r for k, r in built["registers"].items() if "wide" in k},
+        "shape": list(WIDE_SHAPE),
+        "dtype": "float32",
+    }, {
+        "name": "attention_bwd_wide",
+        "route": "cuda",
+        "source": "synt_isic_tpu_torch/csrc/attention_bwd.cu",
+        "replaces": "synt_isic_tpu/ops/pallas/attention.py:149",
+        # [headdim]: the bf16 train steps of HEADDIM_WIDE (3 steps, 6 K3
+        # each, all on the wide kernels) and at head_dim 128
+        "launches": headdim["train"][HEADDIM_WIDE.attention_head_dim]["launches"]["bwd_wide"],
+        "launches_headdim_train": {str(d): r["launches"]["bwd_wide"]
+                                   for d, r in headdim["train"].items()},
+        **{key: wide_bwd[key] for key in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                          "bound_ms", "bound_by", "library_ms")},
+        # [kernel]: K3 from saved statistics at (8, 256/D, 1024, D) for D 128 to
+        # 320 and at (4, 1, 1024, 512), both dtypes
+        "by_head_dim": {name: row for name, row in kernel_report["table"]["head_dim_bwd"].items()
+                        if row["wide"]},
+        "shape": list(WIDE_SHAPE),
+        "dtype": "float32",
     }]}
     print(json.dumps(line), flush=True)
     print(card["card"], flush=True)

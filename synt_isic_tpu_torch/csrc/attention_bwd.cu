@@ -12,13 +12,13 @@
 // element at a time (`stage_unit` in tensor_core.cuh), so no layout is copied
 // first.
 //
-// Every head_dim D from 1 to 256 runs on the tensor cores, in both dtypes: the
-// kernels are templates on a staged width Dp of 8, 16, 32, 64, 128 or 256
-// (the least one >= D), a head's channels past D zero-filled where they are
-// staged or loaded (exact in every product, tensor_core.cuh), the scale
-// 1/sqrt(D) of the true D. A head_dim above 256 returns
-// cudaErrorInvalidValue. Routes, as in the forward: the wide kernels at Dp
-// 128 and 256 (one head a block, below), the Wide instances at D 16, 32, 64
+// Every head_dim D >= 1 runs on the tensor cores, in both dtypes: up to 64
+// the kernels are templates on a staged width Dp of 8, 16, 32 or 64 (the
+// least one >= D), above 64 the wide kernels walk the head in chunks of 64
+// channels; a head's channels past D are zero-filled where they are staged
+// or loaded (exact in every product, tensor_core.cuh), the scale 1/sqrt(D)
+// of the true D. Routes, as in the forward: the wide kernels above 64
+// channels (one head a block, below), the Wide instances at D 16, 32, 64
 // (any G' the launcher is given), the head_dim-8 kernels (namespace d8) at
 // D 8, the general staging at G' = 1 for the rest.
 //
@@ -130,6 +130,7 @@
 #include <stdint.h>
 
 #include "tensor_core.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -1648,549 +1649,412 @@ cudaError_t launch_tf32_group(int group, const void* q, const void* k, const voi
 }  // namespace d8
 
 // ---------------------------------------------------------------------------
-// staged widths 128 and 256: the wide kernels
+// heads wider than 64 channels: the wide kernels
 // ---------------------------------------------------------------------------
 //
-// The templates above hold the warp's own rows' fragments and Dp/8 n-tiles
-// of accumulators in registers; at Dp 256 that is about 384 registers a
-// thread. The wide kernels (heads of 65 to 256 channels, G = 1; a G > 1 runs
-// as G consecutive groups of one head) do the same arithmetic in the same
-// rounding order with the products that give channels cut into 64-channel
-// chunks: a block covers 64 rows of one head and one chunk of its gradients
-// (blockIdx.y = head * chunks + chunk, chunks = ceil(D / 64)) and forms S and
-// dP over every channel, reading its own rows' fragments from device memory
-// at each k-step (`wide_product_bf16`, `wide_product_tf32`), so S and dP are
-// formed once per chunk (2 or 4 times). A simple kernel that is right, not
-// yet a fast one. bf16: the other side's tiles double-buffered at the full
-// staged width (33 chunks a row at Dp 256: 135 KB); f32: one stage of raw
-// rows (Dp + 4 words apart, split as they are read; 133 KB at Dp 256), the
-// dk/dv launch's totals in each thread's own shared-memory slots.
+// attention_bwd_dq_wide_kernel<T, NC> and attention_bwd_dkdv_wide_kernel<T,
+// NC> replace, for heads of 65 channels and more in both dtypes, the Pallas
+// kernel `_attention_bwd_kernel` (synt_isic_tpu/ops/pallas/attention.py:149)
+// at any head_dim, with the arithmetic and rounding points of the templates
+// above (`attention_bwd_kernel_order`, `attention_bwd_tf32x3_kernel_order`):
+// two exponentials per (i, j) from the saved lse (one a launch), no atomics.
+//   Bound on the H100 at (8, 256/D, 1024, D): the five T x T products are
+//   21.5 GFLOP at every D, 0.0217 ms in bf16 on the tensor cores and 0.130
+//   ms in f32 as three TF32 passes (494.7 TFLOP/s); q, k, v, do read once and
+//   dq, dk, dv written once are 25.2 MB in bf16, 0.0075 ms. So the products
+//   bound it.
+//   What the earlier wide kernels lost, and what this design does about it: (1)
+//   a block covered one 64-channel chunk of a gradient and formed S and dP
+//   over every channel for it, 2 or 4 times at D 128 and 256, with their
+//   exponentials: here a block of 8 warps (wide.cuh) owns 64 rows of one head
+//   and 64 NC channels of its gradients (NC = 2, 4 or 8 for dq, 2 or 4 for dk
+//   and dv, which keep two gradients; a wider head runs channel groups of
+//   blocks), forms S and dP once per tile of the other side over every
+//   channel chunk (the warps of a row group split the tile's 64 rows in
+//   halves) and hands dS (dq; P^T and dS^T for dk, dv) to the warps that own
+//   the other channels through 64 x 64 tiles in shared memory; (2) it read its
+//   own rows' fragments (q, do; k, v) from device memory at every k-step of
+//   every tile: here they are staged once per block (f32 up to 4 chunks a
+//   tensor, bf16 up to 8; a wider head's further channels from device
+//   memory); (3) its f32 kernels staged one tile at a time: here every
+//   chunk of the other side comes through a ring of 3 stages, by TMA where
+//   every stride is a multiple of 16 bytes, else by `cp.async`. The dq
+//   launch streams per key tile K's chunks (S), V's (dP) and K's again for
+//   its group (dQ += dS K); the dk/dv launch per query tile Q's (S^T), dO's
+//   (dP^T), dO's for its group (dV += P^T dO) and Q's (dK += dS^T Q), the
+//   tile's lse and delta beside them. (4) The products: bf16 on `wgmma`
+//   m64n32k16 (S, dP, S^T and dP^T from the own chunk and the other side's,
+//   both K-major; dQ += dS K, dV += P^T dO and dK += dS^T Q from the 64 x 64
+//   tile, stored as a swizzled chunk, and the other side's chunk as an
+//   MN-major operand, warpgroup hf taking half hf of the tile's columns in
+//   the first and of each chunk's channels in the second; wide.cuh); f32
+//   3xTF32 on `mma.sync` (attention_fwd.cu's wide kernel says why). f32:
+//   each tile's dq, dk, dv chunk gathers in its own accumulator, added to
+//   the total in f32 (the tensor cores' f32 sums truncate), as the templates
+//   do; dq and dk times 1/sqrt(D) at the store. bf16: P rounded to bf16, dS = bf16(P (dP scale -
+//   delta scale)), the gradients accumulated in f32 and rounded once.
+//   Registers: dq 16 NC a thread, dk and dv 32 NC, beside S's and dP's 16
+//   each and a chunk's partial sums 16; one block an SM (the own rows of two
+//   tensors and two tiles leave no room for a second at NC 2).
 
-// Launch 1 (bf16, wide): dq of one chunk, and each query row's delta = do . o
-// (written by chunk 0's blocks).
-template <int Dp, bool Wide>
-__global__ void __launch_bounds__(32 * kTcWarps, 1)
-attention_bwd_dq_tc_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                                const bf16* __restrict__ o, const float* __restrict__ lse,
-                                bf16* __restrict__ dq, float* __restrict__ delta, int heads,
-                                int chunks, int seq_len, int head_dim, Strides sq, Strides sk,
-                                Strides sv, Strides sdo, Strides so, Strides sdq, int unit_k,
-                                int unit_v, float scale, float scale_log2) {
-  if constexpr (Wide) head_dim = Dp;   // a Wide head fills its staged width
-  constexpr int kS = Bf16Tile<Dp>::kStride;
-  constexpr int kTile = kTcTile * kS;
-  extern __shared__ uint4 bf16_tiles[];   // K [2][kTile], then V [2][kTile]
-  uint4* k_tile = bf16_tiles;
-  uint4* v_tile = bf16_tiles + 2 * kTile;
+// c += X Y^T over one chunk (own rows X from `xs`, or from device memory)
+template <typename T>
+__device__ __forceinline__ void rows_product(float (*c)[4], const uint8_t* xs, int la,
+                                             const T* x, Strides sx, int row0, int seq_len,
+                                             int head_dim, int cx, const uint8_t* ys, int hf) {
+  if constexpr (std::is_same<T, float>::value) {
+    wide::tf32_rows(c, c, false, xs, la, x, sx, row0 + la, seq_len, head_dim, cx, 1.f, ys, hf);
+  } else {
+    wide::bf16_rows(c, xs, x, sx, row0 + la, seq_len, head_dim, cx, ys, hf);
+  }
+}
+
+// Launch 1 (wide): dq of this block's channel group, and each query row's
+// delta = do . o (written by group 0).
+template <typename T, int NC>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+attention_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const T* __restrict__ dout,
+                             const T* __restrict__ o, const float* __restrict__ lse,
+                             T* __restrict__ dq, float* __restrict__ delta, int heads, int groups,
+                             int seq_len, int head_dim, Strides sq, Strides sk, Strides sv,
+                             Strides sdo, Strides so, Strides sdq, int unit_q, int unit_k,
+                             int unit_v, int unit_do, int own_chunks, int tma, float scale,
+                             float scale_log2, const __grid_constant__ wide::Maps maps) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kCB = wide::chunk_bytes<T>();
+  extern __shared__ uint8_t wide_dq_smem[];
+  const wide::Smem sm = wide::smem_layout<T>(wide_dq_smem, 2 * own_chunks, 1);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int tig = lane % 4;
+  const int rg = warp % 4;
+  const int hf = warp / 4;
+  const int la = 16 * rg + lane / 4;
   const int64_t b = blockIdx.z;
-  const int64_t h = blockIdx.y / chunks;
-  const int chunk = blockIdx.y % chunks;
-  const int ra = blockIdx.x * kTcRows + warp * 16 + lane / 4;
-  const int rb = ra + 8;
-  const bool oka = ra < seq_len;
-  const bool okb = rb < seq_len;
+  const int64_t h = blockIdx.y / groups;
+  const int group = blockIdx.y % groups;
+  const int q0 = blockIdx.x * wide::kRows;
+  const int ra = q0 + la;
+  const int chunks = (head_dim + wide::kChunk - 1) / wide::kChunk;
+  const int c0 = group * NC;
+  const int nc = min(NC, chunks - c0);
+  const int per_tile = 2 * chunks + nc;   // K (S), V (dP), K of this group (dQ)
+  const int tiles = (seq_len + wide::kTile - 1) / wide::kTile;
+  const int total = tiles * per_tile;
+  const T* qh = q + b * sq.b + h * sq.h;
+  const T* kh = k + b * sk.b + h * sk.h;
+  const T* vh = v + b * sv.b + h * sv.h;
+  const T* doh = dout + b * sdo.b + h * sdo.h;
 
-  const bf16* qh = q + b * sq.b + h * sq.h;
-  const bf16* doh = dout + b * sdo.b + h * sdo.h;
-  const bf16* oh = o + b * so.b + h * so.h;
-  float dla = 0.f, dlb = 0.f;   // delta = do . o: 2 channels a k-step here, then the 4 lanes
-  for (int j = 0; j < Dp / 8; ++j) {
-    const int c = 8 * j + 2 * tig;
-    const uint32_t da = load_pair(doh, sdo, ra, c, oka, head_dim);
-    const uint32_t db = load_pair(doh, sdo, rb, c, okb, head_dim);
-    const uint32_t oa = load_pair(oh, so, ra, c, oka, head_dim);
-    const uint32_t ob = load_pair(oh, so, rb, c, okb, head_dim);
-    dla = fmaf(hi_f32(da), hi_f32(oa), fmaf(lo_f32(da), lo_f32(oa), dla));
-    dlb = fmaf(hi_f32(db), hi_f32(ob), fmaf(lo_f32(db), lo_f32(ob), dlb));
+  const int64_t k_t = sk.t, k_d = sk.d, v_t = sv.t, v_d = sv.d;
+  auto load_item = [&](int i, uint8_t* dst, uint64_t* bar) {
+    const int t = i / per_tile;
+    const int j = i % per_tile;
+    const bool is_v = j >= chunks && j < 2 * chunks;
+    const int c = j < chunks ? j : is_v ? j - chunks : c0 + j - 2 * chunks;
+    if (bar != nullptr) wg::mbar_expect(bar, kCB);
+    wide::stage_chunk<T>(dst, &maps.m[is_v ? 2 : 1], bar, is_v ? vh : kh, is_v ? v_t : k_t,
+                         is_v ? v_d : k_d, is_v ? unit_v : unit_k, wide::kTile * t, seq_len,
+                         wide::kChunk * c, head_dim, h, b);
+  };
+  wide::start<T>(sm, own_chunks, 2, tma, maps, 0, 3, qh, doh, sq, sdo, unit_q, unit_do, q0, h,
+                 b, seq_len, head_dim, total, load_item);
+
+  // delta = do . o over the row's channels from device memory: 2 a k-step
+  // here (bf16 pairs; f32 channels t and t + 4), then over the row's 4 lanes
+  float dl[2] = {0.f, 0.f};
+  const T* ohd = o + b * so.b + h * so.h;
+  for (int j = 0; j < (head_dim + 7) / 8; ++j) {
+    if constexpr (kF32) {
+      float x[4], ox[4];
+      load_a(doh, sdo, ra, ra < seq_len, ra + 8 < seq_len, j, head_dim, x);
+      load_a(ohd, so, ra, ra < seq_len, ra + 8 < seq_len, j, head_dim, ox);
+      dl[0] = fmaf(x[2], ox[2], fmaf(x[0], ox[0], dl[0]));
+      dl[1] = fmaf(x[3], ox[3], fmaf(x[1], ox[1], dl[1]));
+    } else {
+      const int c = 8 * j + 2 * tig;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const bool ok = ra + 8 * r < seq_len;
+        const uint32_t d = load_pair(doh, sdo, ra + 8 * r, c, ok, head_dim);
+        const uint32_t oo = load_pair(ohd, so, ra + 8 * r, c, ok, head_dim);
+        dl[r] = fmaf(hi_f32(d), hi_f32(oo), fmaf(lo_f32(d), lo_f32(oo), dl[r]));
+      }
+    }
   }
 #pragma unroll
-  for (int m = 1; m < 4; m *= 2) {
-    dla += __shfl_xor_sync(0xffffffffu, dla, m);
-    dlb += __shfl_xor_sync(0xffffffffu, dlb, m);
+  for (int x = 1; x < 4; x *= 2) {
+    dl[0] = kF32 ? __fadd_rn(dl[0], __shfl_xor_sync(0xffffffffu, dl[0], x))
+                 : dl[0] + __shfl_xor_sync(0xffffffffu, dl[0], x);
+    dl[1] = kF32 ? __fadd_rn(dl[1], __shfl_xor_sync(0xffffffffu, dl[1], x))
+                 : dl[1] + __shfl_xor_sync(0xffffffffu, dl[1], x);
   }
   const int64_t stat = (b * heads + h) * seq_len;
-  const float lsea = oka ? lse[stat + ra] : 0.f;
-  const float lseb = okb ? lse[stat + rb] : 0.f;
-  if (chunk == 0 && tig == 0) {
-    if (oka) delta[stat + ra] = dla;
-    if (okb) delta[stat + rb] = dlb;
+  float nl[2], ds_row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = ra + 8 * r;
+    nl[r] = row < seq_len ? -lse[stat + row] : 0.f;
+    ds_row[r] = kF32 ? dl[r] : dl[r] * scale;   // bf16: delta * scale
+    if (group == 0 && hf == 0 && tig == 0 && row < seq_len) delta[stat + row] = dl[r];
   }
-  const float dsa = dla * scale;
-  const float dsb = dlb * scale;
 
-  float acc[kChunk / 8][4];
+  float acc[NC][4][4];
 #pragma unroll
-  for (int n = 0; n < kChunk / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
-  stage<bf16, Dp, 1, kS, Wide>(k_tile, kb, sk, unit_k, 0, seq_len, head_dim, threadIdx.x);
-  stage<bf16, Dp, 1, kS, Wide>(v_tile, vb, sv, unit_v, 0, seq_len, head_dim, threadIdx.x);
-  cp_async_commit();
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int n = 0; n < 4; ++n) acc[c][n][0] = acc[c][n][1] = acc[c][n][2] = acc[c][n][3] = 0.f;
+  }
+  int item = 0;
   for (int t = 0; t < tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < tiles) {   // the next tile streams in while this one is used
-      stage<bf16, Dp, 1, kS, Wide>(k_tile + (buf ^ 1) * kTile, kb, sk, unit_k, (t + 1) * kTcTile,
-                                   seq_len, head_dim, threadIdx.x);
-      stage<bf16, Dp, 1, kS, Wide>(v_tile + (buf ^ 1) * kTile, vb, sv, unit_v, (t + 1) * kTcTile,
-                                   seq_len, head_dim, threadIdx.x);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    const int keys = seq_len - t * wide::kTile;
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
     }
-    __syncthreads();
-    const uint4* kt = k_tile + buf * kTile;
-    const uint4* vt = v_tile + buf * kTile;
-    const int keys = seq_len - t * kTcTile;
-    // S = Q K^T and dP = dO V^T over the tile's 64 keys, 8 keys a slice
-    float sc[kTcTile / 8][4], dp[kTcTile / 8][4];
-#pragma unroll
-    for (int s = 0; s < kTcTile / 8; ++s) {
-      sc[s][0] = sc[s][1] = sc[s][2] = sc[s][3] = 0.f;
-      dp[s][0] = dp[s][1] = dp[s][2] = dp[s][3] = 0.f;
+    for (int c = 0; c < chunks; ++c) {   // S = Q K^T
+      const uint8_t* kc = wide::ring_next<T>(item++, total, tma, sm.ring, sm.bars, load_item);
+      rows_product<T>(s, c < own_chunks ? sm.own + c * kCB : nullptr, la, qh, sq, q0,
+                      seq_len, head_dim, c, kc, hf);
     }
-    wide_product_bf16<Dp>(sc, dp, qh, sq, doh, sdo, ra, oka, okb, head_dim, kt, vt);
+    for (int c = 0; c < chunks; ++c) {   // dP = dO V^T
+      const uint8_t* vc = wide::ring_next<T>(item++, total, tma, sm.ring, sm.bars, load_item);
+      rows_product<T>(dp, c < own_chunks ? sm.own + (own_chunks + c) * kCB : nullptr, la, doh,
+                      sdo, q0, seq_len, head_dim, c, vc, hf);
+    }
+    // dS = P (dP - delta), P = 2^(S scale log2(e) - lse); keys past T: dS = 0
 #pragma unroll
-    for (int s = 0; s < kTcTile / 16; ++s) {
-      uint32_t ds[4];
+    for (int i = 0; i < 4; ++i) {
+      const int key = 32 * hf + 8 * i + 2 * tig;
+      float p[4], ds[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float* f = sc[2 * s + c];
-        const float* d = dp[2 * s + c];
-        float p[4] = {ex2(fmaf(f[0], scale_log2, -lsea)), ex2(fmaf(f[1], scale_log2, -lsea)),
-                      ex2(fmaf(f[2], scale_log2, -lseb)), ex2(fmaf(f[3], scale_log2, -lseb))};
-        const int key = s * 16 + c * 8 + 2 * tig;
-        if (key >= keys) p[0] = p[2] = 0.f;
-        if (key + 1 >= keys) p[1] = p[3] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        p[e] = ex2(fmaf(s[i][e], scale_log2, nl[e / 2]));
+        if (key + (e & 1) >= keys) p[e] = 0.f;
+      }
+      uint32_t pa = 0u, pb = 0u;
+      if constexpr (kF32) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[e] = __fmul_rn(p[e], __fsub_rn(dp[i][e], ds_row[e / 2]));
+      } else {
+        const uint32_t qa = pack_bf16(p[0], p[1]);
+        const uint32_t qb = pack_bf16(p[2], p[3]);
+        pa = pack_bf16(lo_f32(qa) * fmaf(dp[i][0], scale, -ds_row[0]),
+                       hi_f32(qa) * fmaf(dp[i][1], scale, -ds_row[0]));
+        pb = pack_bf16(lo_f32(qb) * fmaf(dp[i][2], scale, -ds_row[1]),
+                       hi_f32(qb) * fmaf(dp[i][3], scale, -ds_row[1]));
+      }
+      wide::tile_store<T>(sm.tile, la, key, ds, pa, pb);
+    }
+    wide::tile_ready<T>(rg);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {   // dQ += dS K, this group's chunks
+      if (c < nc) {
+        const uint8_t* kc = wide::ring_next<T>(item++, total, tma, sm.ring, sm.bars, load_item);
+        wide::channels_product<T>(acc[c], sm.tile, la, kc, hf);
+      }
+    }
+  }
+
+  T* dqh = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (c >= nc) continue;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int ch = wide::kChunk * (c0 + c) + 32 * hf + 8 * n + 2 * tig;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = ra + 8 * r;
+        if (row >= seq_len) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (ch + e >= head_dim) continue;
+          const float x = acc[c][n][2 * r + e];
+          dqh[row * sdq.t + (ch + e) * sdq.d] = wide::from_f32<T>(kF32 ? __fmul_rn(x, scale) : x);
+        }
+      }
+    }
+  }
+}
+
+// Launch 2 (wide): dk and dv of this block's channel group. The block's own
+// rows are 64 keys; it walks the query tiles (q, do, lse, delta).
+template <typename T, int NC>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+attention_bwd_dkdv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, const T* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               T* __restrict__ dk, T* __restrict__ dv, int heads, int groups,
+                               int seq_len, int head_dim, Strides sq, Strides sk, Strides sv,
+                               Strides sdo, Strides sdk, Strides sdv, int unit_q, int unit_k,
+                               int unit_v, int unit_do, int own_chunks, int tma, float scale,
+                               float scale_log2, const __grid_constant__ wide::Maps maps) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kCB = wide::chunk_bytes<T>();
+  extern __shared__ uint8_t wide_dkdv_smem[];
+  const wide::Smem sm = wide::smem_layout<T>(wide_dkdv_smem, 2 * own_chunks, 2);
+  uint8_t* pt_tile = sm.tile;                        // P^T
+  uint8_t* ds_tile = sm.tile + wide::p_bytes<T>();   // dS^T
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tig = lane % 4;
+  const int rg = warp % 4;
+  const int hf = warp / 4;
+  const int la = 16 * rg + lane / 4;
+  const int64_t b = blockIdx.z;
+  const int64_t h = blockIdx.y / groups;
+  const int group = blockIdx.y % groups;
+  const int k0 = blockIdx.x * wide::kRows;
+  const int ja = k0 + la;
+  const int chunks = (head_dim + wide::kChunk - 1) / wide::kChunk;
+  const int c0 = group * NC;
+  const int nc = min(NC, chunks - c0);
+  // Q (S^T), dO (dP^T), dO of this group (dV), Q of this group (dK)
+  const int per_tile = 2 * chunks + 2 * nc;
+  const int tiles = (seq_len + wide::kTile - 1) / wide::kTile;
+  const int total = tiles * per_tile;
+  const T* qh = q + b * sq.b + h * sq.h;
+  const T* kh = k + b * sk.b + h * sk.h;
+  const T* vh = v + b * sv.b + h * sv.h;
+  const T* doh = dout + b * sdo.b + h * sdo.h;
+  const float* lseh = lse + (b * heads + h) * seq_len;
+  const float* deltah = delta + (b * heads + h) * seq_len;
+
+  const int64_t q_t = sq.t, q_d = sq.d, do_t = sdo.t, do_d = sdo.d;
+  auto load_item = [&](int i, uint8_t* dst, uint64_t* bar) {
+    const int t = i / per_tile;
+    const int j = i % per_tile;
+    const bool is_do = (j >= chunks && j < 2 * chunks + nc);
+    const int c = j < chunks ? j : j < 2 * chunks ? j - chunks
+                : j < 2 * chunks + nc ? c0 + j - 2 * chunks : c0 + j - 2 * chunks - nc;
+    if (bar != nullptr) wg::mbar_expect(bar, kCB);
+    wide::stage_chunk<T>(dst, &maps.m[is_do ? 3 : 0], bar, is_do ? doh : qh, is_do ? do_t : q_t,
+                         is_do ? do_d : q_d, is_do ? unit_do : unit_q, wide::kTile * t, seq_len,
+                         wide::kChunk * c, head_dim, h, b);
+  };
+  wide::start<T>(sm, own_chunks, 2, tma, maps, 1, 2, kh, vh, sk, sv, unit_k, unit_v, k0, h,
+                 b, seq_len, head_dim, total, load_item);
+
+  float dka[NC][4][4], dva[NC][4][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      dka[c][n][0] = dka[c][n][1] = dka[c][n][2] = dka[c][n][3] = 0.f;
+      dva[c][n][0] = dva[c][n][1] = dva[c][n][2] = dva[c][n][3] = 0.f;
+    }
+  }
+  int item = 0;
+  for (int t = 0; t < tiles; ++t) {
+    // the tile's lse (+inf past T: P = 0) and delta (0 past T), buffer t % 2;
+    // the ring's next __syncthreads makes them visible
+    float* lt = sm.stats + (t & 1) * 2 * wide::kTile;
+    float* dlt = lt + wide::kTile;
+    if (threadIdx.x < 2 * wide::kTile) {
+      const int i = threadIdx.x % wide::kTile;
+      const int row = t * wide::kTile + i;
+      if (threadIdx.x < wide::kTile) {
+        lt[i] = row < seq_len ? lseh[row] : INFINITY;
+      } else {
+        dlt[i] = row < seq_len ? deltah[row] : 0.f;
+      }
+    }
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
+    }
+    for (int c = 0; c < chunks; ++c) {   // S^T = K Q^T
+      const uint8_t* qc = wide::ring_next<T>(item++, total, tma, sm.ring, sm.bars, load_item);
+      rows_product<T>(s, c < own_chunks ? sm.own + c * kCB : nullptr, la, kh, sk, k0,
+                      seq_len, head_dim, c, qc, hf);
+    }
+    for (int c = 0; c < chunks; ++c) {   // dP^T = V dO^T
+      const uint8_t* dc = wide::ring_next<T>(item++, total, tma, sm.ring, sm.bars, load_item);
+      rows_product<T>(dp, c < own_chunks ? sm.own + (own_chunks + c) * kCB : nullptr, la, vh,
+                      sv, k0, seq_len, head_dim, c, dc, hf);
+    }
+    // P^T = 2^(S^T scale log2(e) - lse_j), dS^T = P^T (dP^T - delta_j) for
+    // this lane's queries 32 hf + 8 i + 2 t and + 1
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = 32 * hf + 8 * i + 2 * tig;
+      const float2 l2 = *reinterpret_cast<const float2*>(lt + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(dlt + col);
+      float p[4] = {ex2(fmaf(s[i][0], scale_log2, -l2.x)), ex2(fmaf(s[i][1], scale_log2, -l2.y)),
+                    ex2(fmaf(s[i][2], scale_log2, -l2.x)), ex2(fmaf(s[i][3], scale_log2, -l2.y))};
+      if constexpr (kF32) {
+        wide::tile_store<T>(pt_tile, la, col, p, 0u, 0u);
+        float ds[4] = {__fmul_rn(p[0], __fsub_rn(dp[i][0], d2.x)),
+                       __fmul_rn(p[1], __fsub_rn(dp[i][1], d2.y)),
+                       __fmul_rn(p[2], __fsub_rn(dp[i][2], d2.x)),
+                       __fmul_rn(p[3], __fsub_rn(dp[i][3], d2.y))};
+        wide::tile_store<T>(ds_tile, la, col, ds, 0u, 0u);
+      } else {
+        const float dsx = d2.x * scale;
+        const float dsy = d2.y * scale;
         const uint32_t pa = pack_bf16(p[0], p[1]);
         const uint32_t pb = pack_bf16(p[2], p[3]);
-        ds[2 * c] = pack_bf16(lo_f32(pa) * fmaf(d[0], scale, -dsa),
-                              hi_f32(pa) * fmaf(d[1], scale, -dsa));
-        ds[2 * c + 1] = pack_bf16(lo_f32(pb) * fmaf(d[2], scale, -dsb),
-                                  hi_f32(pb) * fmaf(d[3], scale, -dsb));
-      }
-#pragma unroll
-      for (int n = 0; n < kChunk / 8; ++n) {   // dQ += dS K, this chunk's channels
-        uint32_t yT[2];
-        ldsm_x2_trans(yT, kt + (s * 16 + lane % 16) * kS + chunk * (kChunk / 8) + n);
-        mma_k16(acc[n], ds, yT);
+        wide::tile_store<T>(pt_tile, la, col, p, pa, pb);
+        wide::tile_store<T>(ds_tile, la, col, p,
+                      pack_bf16(lo_f32(pa) * fmaf(dp[i][0], scale, -dsx),
+                                hi_f32(pa) * fmaf(dp[i][1], scale, -dsy)),
+                      pack_bf16(lo_f32(pb) * fmaf(dp[i][2], scale, -dsx),
+                                hi_f32(pb) * fmaf(dp[i][3], scale, -dsy)));
       }
     }
-    __syncthreads();       // every warp is done with buf before it is refilled
-  }
-
-  bf16* dqh = dq + b * sdq.b + h * sdq.h;
+    wide::tile_ready<T>(rg);
 #pragma unroll
-  for (int n = 0; n < kChunk / 8; ++n) {
-    const int c = chunk * kChunk + 8 * n + 2 * tig;
-    if (oka && c < head_dim) dqh[ra * sdq.t + c * sdq.d] = __float2bfloat16(acc[n][0]);
-    if (oka && c + 1 < head_dim) dqh[ra * sdq.t + (c + 1) * sdq.d] = __float2bfloat16(acc[n][1]);
-    if (okb && c < head_dim) dqh[rb * sdq.t + c * sdq.d] = __float2bfloat16(acc[n][2]);
-    if (okb && c + 1 < head_dim) dqh[rb * sdq.t + (c + 1) * sdq.d] = __float2bfloat16(acc[n][3]);
-  }
-}
-
-// Launch 2 (bf16, wide): dk and dv of one chunk. Each warp holds 16 key rows
-// and walks the query tiles (q, do, lse, delta).
-template <int Dp, bool Wide>
-__global__ void __launch_bounds__(32 * kTcWarps, 1)
-attention_bwd_dkdv_tc_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                                  const float* __restrict__ lse,
-                                  const float* __restrict__ delta, bf16* __restrict__ dk,
-                                  bf16* __restrict__ dv, int heads, int chunks, int seq_len,
-                                  int head_dim, Strides sq, Strides sk, Strides sv, Strides sdo,
-                                  Strides sdk, Strides sdv, int unit_q, int unit_do, float scale,
-                                  float scale_log2) {
-  if constexpr (Wide) head_dim = Dp;   // a Wide head fills its staged width
-  constexpr int kS = Bf16Tile<Dp>::kStride;
-  constexpr int kTile = kTcTile * kS;
-  // Q [2][kTile], dO [2][kTile], then lse [2][kTcTile] and delta [2][kTcTile]
-  extern __shared__ uint4 bf16_tiles[];
-  uint4* q_tile = bf16_tiles;
-  uint4* do_tile = bf16_tiles + 2 * kTile;
-  float* l_tile = reinterpret_cast<float*>(bf16_tiles + 4 * kTile);
-  float* d_tile = l_tile + 2 * kTcTile;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int tig = lane % 4;
-  const int64_t b = blockIdx.z;
-  const int64_t h = blockIdx.y / chunks;
-  const int chunk = blockIdx.y % chunks;
-  const int ja = blockIdx.x * kTcRows + warp * 16 + lane / 4;
-  const int jb = ja + 8;
-  const bool oka = ja < seq_len;
-  const bool okb = jb < seq_len;
-
-  const bf16* kh = k + b * sk.b + h * sk.h;
-  const bf16* vh = v + b * sv.b + h * sv.h;
-  float dka[kChunk / 8][4], dva[kChunk / 8][4];
-#pragma unroll
-  for (int n = 0; n < kChunk / 8; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
-  }
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* dob = dout + b * sdo.b + h * sdo.h;
-  const float* lseb = lse + (b * heads + h) * seq_len;
-  const float* deltab = delta + (b * heads + h) * seq_len;
-  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
-  stage<bf16, Dp, 1, kS, Wide>(q_tile, qb, sq, unit_q, 0, seq_len, head_dim, threadIdx.x);
-  stage<bf16, Dp, 1, kS, Wide>(do_tile, dob, sdo, unit_do, 0, seq_len, head_dim, threadIdx.x);
-  stage_stats<1>(l_tile, d_tile, lseb, deltab, 0, seq_len);
-  cp_async_commit();
-  for (int t = 0; t < tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < tiles) {
-      stage<bf16, Dp, 1, kS, Wide>(q_tile + (buf ^ 1) * kTile, qb, sq, unit_q, (t + 1) * kTcTile,
-                                   seq_len, head_dim, threadIdx.x);
-      stage<bf16, Dp, 1, kS, Wide>(do_tile + (buf ^ 1) * kTile, dob, sdo, unit_do,
-                                   (t + 1) * kTcTile, seq_len, head_dim, threadIdx.x);
-      stage_stats<1>(l_tile + (buf ^ 1) * kTcTile, d_tile + (buf ^ 1) * kTcTile, lseb, deltab,
-                     (t + 1) * kTcTile, seq_len);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const uint4* qt = q_tile + buf * kTile;
-    const uint4* dt = do_tile + buf * kTile;
-    const float* lt = l_tile + buf * kTcTile;
-    const float* dlt = d_tile + buf * kTcTile;
-    // S^T = K Q^T and dP^T = V dO^T over the tile's 64 queries
-    float sc[kTcTile / 8][4], dp[kTcTile / 8][4];
-#pragma unroll
-    for (int s = 0; s < kTcTile / 8; ++s) {
-      sc[s][0] = sc[s][1] = sc[s][2] = sc[s][3] = 0.f;
-      dp[s][0] = dp[s][1] = dp[s][2] = dp[s][3] = 0.f;
-    }
-    wide_product_bf16<Dp>(sc, dp, kh, sk, vh, sv, ja, oka, okb, head_dim, qt, dt);
-#pragma unroll
-    for (int s = 0; s < kTcTile / 16; ++s) {
-      uint32_t pt[4], ds[4];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float* f = sc[2 * s + c];
-        const float* d = dp[2 * s + c];
-        const int col = s * 16 + c * 8 + 2 * tig;   // this lane's two queries
-        const float2 l = *reinterpret_cast<const float2*>(lt + col);
-        const float2 dl = *reinterpret_cast<const float2*>(dlt + col);
-        const float dsx = dl.x * scale;
-        const float dsy = dl.y * scale;
-        pt[2 * c] = pack_bf16(ex2(fmaf(f[0], scale_log2, -l.x)),
-                              ex2(fmaf(f[1], scale_log2, -l.y)));
-        pt[2 * c + 1] = pack_bf16(ex2(fmaf(f[2], scale_log2, -l.x)),
-                                  ex2(fmaf(f[3], scale_log2, -l.y)));
-        ds[2 * c] = pack_bf16(lo_f32(pt[2 * c]) * fmaf(d[0], scale, -dsx),
-                              hi_f32(pt[2 * c]) * fmaf(d[1], scale, -dsy));
-        ds[2 * c + 1] = pack_bf16(lo_f32(pt[2 * c + 1]) * fmaf(d[2], scale, -dsx),
-                                  hi_f32(pt[2 * c + 1]) * fmaf(d[3], scale, -dsy));
-      }
-#pragma unroll
-      for (int n = 0; n < kChunk / 8; ++n) {   // this chunk's channels
-        const int at = (s * 16 + lane % 16) * kS + chunk * (kChunk / 8) + n;
-        uint32_t yT[2];
-        ldsm_x2_trans(yT, dt + at);
-        mma_k16(dva[n], pt, yT);   // dV += P^T dO
-        ldsm_x2_trans(yT, qt + at);
-        mma_k16(dka[n], ds, yT);   // dK += dS^T Q
+    for (int c = 0; c < NC; ++c) {   // dV += P^T dO
+      if (c < nc) {
+        const uint8_t* dc = wide::ring_next<T>(item++, total, tma, sm.ring, sm.bars, load_item);
+        wide::channels_product<T>(dva[c], pt_tile, la, dc, hf);
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {   // dK += dS^T Q
+      if (c < nc) {
+        const uint8_t* qc = wide::ring_next<T>(item++, total, tma, sm.ring, sm.bars, load_item);
+        wide::channels_product<T>(dka[c], ds_tile, la, qc, hf);
+      }
+    }
   }
 
-  bf16* dkh = dk + b * sdk.b + h * sdk.h;
-  bf16* dvh = dv + b * sdv.b + h * sdv.h;
+  T* dkh = dk + b * sdk.b + h * sdk.h;
+  T* dvh = dv + b * sdv.b + h * sdv.h;
 #pragma unroll
-  for (int n = 0; n < kChunk / 8; ++n) {
-    const int c = chunk * kChunk + 8 * n + 2 * tig;
+  for (int c = 0; c < NC; ++c) {
+    if (c >= nc) continue;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r == 0 ? ja : jb;
-      if (!(r == 0 ? oka : okb)) continue;
-      if (c < head_dim) {
-        dkh[row * sdk.t + c * sdk.d] = __float2bfloat16(dka[n][2 * r]);
-        dvh[row * sdv.t + c * sdv.d] = __float2bfloat16(dva[n][2 * r]);
-      }
-      if (c + 1 < head_dim) {
-        dkh[row * sdk.t + (c + 1) * sdk.d] = __float2bfloat16(dka[n][2 * r + 1]);
-        dvh[row * sdv.t + (c + 1) * sdv.d] = __float2bfloat16(dva[n][2 * r + 1]);
+    for (int n = 0; n < 4; ++n) {
+      const int ch = wide::kChunk * (c0 + c) + 32 * hf + 8 * n + 2 * tig;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = ja + 8 * r;
+        if (row >= seq_len) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (ch + e >= head_dim) continue;
+          const float x = dka[c][n][2 * r + e];
+          dkh[row * sdk.t + (ch + e) * sdk.d] = wide::from_f32<T>(kF32 ? __fmul_rn(x, scale) : x);
+          dvh[row * sdv.t + (ch + e) * sdv.d] = wide::from_f32<T>(dva[c][n][2 * r + e]);
+        }
       }
     }
   }
 }
 
-// Launch 1 (f32, wide): dq of one chunk, and each query row's delta = do . o
-// (written by chunk 0's blocks).
-template <int Dp, bool Wide>
-__global__ void __launch_bounds__(32 * kTcWarps, 1)
-attention_bwd_dq_tf32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                  const float* __restrict__ v, const float* __restrict__ dout,
-                                  const float* __restrict__ o, const float* __restrict__ lse,
-                                  float* __restrict__ dq, float* __restrict__ delta, int heads,
-                                  int chunks, int seq_len, int head_dim, Strides sq, Strides sk,
-                                  Strides sv, Strides sdo, Strides so, Strides sdq, int unit_k,
-                                  int unit_v, float scale, float scale_log2) {
-  if constexpr (Wide) head_dim = Dp;   // a Wide head fills its staged width
-  constexpr int kW = Tf32Tile<Dp>::kWords;
-  extern __shared__ float4 tf32_tiles[];
-  float* k_tile = reinterpret_cast<float*>(tf32_tiles);   // raw rows, kW words apart
-  float* v_tile = k_tile + kTcTile * kW;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int tig = lane % 4;
-  const int64_t b = blockIdx.z;
-  const int64_t h = blockIdx.y / chunks;
-  const int chunk = blockIdx.y % chunks;
-  const int ra = blockIdx.x * kTcRows + warp * 16 + lane / 4;
-  const int rb = ra + 8;
-  const bool oka = ra < seq_len;
-  const bool okb = rb < seq_len;
-
-  const float* qh = q + b * sq.b + h * sq.h;
-  const float* doh = dout + b * sdo.b + h * sdo.h;
-  float dla = 0.f, dlb = 0.f;   // delta = do . o in f32: per k-step here, then the 4 lanes
-  for (int j = 0; j < Dp / 8; ++j) {
-    float x[4], ox[4];
-    load_a(doh, sdo, ra, oka, okb, j, head_dim, x);
-    load_a(o + b * so.b + h * so.h, so, ra, oka, okb, j, head_dim, ox);
-    dla = fmaf(x[2], ox[2], fmaf(x[0], ox[0], dla));
-    dlb = fmaf(x[3], ox[3], fmaf(x[1], ox[1], dlb));
-  }
-#pragma unroll
-  for (int m = 1; m < 4; m *= 2) {
-    dla = __fadd_rn(dla, __shfl_xor_sync(0xffffffffu, dla, m));
-    dlb = __fadd_rn(dlb, __shfl_xor_sync(0xffffffffu, dlb, m));
-  }
-  const int64_t stat = (b * heads + h) * seq_len;
-  const float nla = oka ? -lse[stat + ra] : 0.f;
-  const float nlb = okb ? -lse[stat + rb] : 0.f;
-  if (chunk == 0 && tig == 0) {
-    if (oka) delta[stat + ra] = dla;
-    if (okb) delta[stat + rb] = dlb;
-  }
-
-  const BwdLane<Dp> lane_reads;
-  float acc[kChunk / 8][4];
-#pragma unroll
-  for (int n = 0; n < kChunk / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
-  for (int t = 0; t < tiles; ++t) {
-    stage<float, Dp, 1, Tf32Tile<Dp>::kStride, Wide>(reinterpret_cast<uint4*>(k_tile), kb, sk,
-                                                     unit_k, t * kTcTile, seq_len, head_dim,
-                                                     threadIdx.x);
-    stage<float, Dp, 1, Tf32Tile<Dp>::kStride, Wide>(reinterpret_cast<uint4*>(v_tile), vb, sv,
-                                                     unit_v, t * kTcTile, seq_len, head_dim,
-                                                     threadIdx.x);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    const int keys = seq_len - t * kTcTile;
-    float sc[kTcTile / 8][4], dp[kTcTile / 8][4];
-#pragma unroll
-    for (int s = 0; s < kTcTile / 8; ++s) {
-      sc[s][0] = sc[s][1] = sc[s][2] = sc[s][3] = 0.f;
-      dp[s][0] = dp[s][1] = dp[s][2] = dp[s][3] = 0.f;
-    }
-    wide_product_tf32<Dp, kW, false>(sc, qh, sq, ra, oka, okb, head_dim, 1.f, k_tile,
-                                     lane_reads.t0);   // S = Q K^T
-    wide_product_tf32<Dp, kW, false>(dp, doh, sdo, ra, oka, okb, head_dim, 1.f, v_tile,
-                                     lane_reads.t0);   // dP = dO V^T
-    float part[kChunk / 8][4];
-#pragma unroll
-    for (int n = 0; n < kChunk / 8; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
-#pragma unroll
-    for (int s = 0; s < kTcTile / 8; ++s) {
-      const float* c = sc[s];
-      const float* d = dp[s];
-      // c[0], c[2] hold key 8 s + 2 tig, c[1], c[3] key 8 s + 2 tig + 1
-      float ds[4] = {__fmul_rn(ex2(fmaf(c[0], scale_log2, nla)), __fsub_rn(d[0], dla)),
-                     __fmul_rn(ex2(fmaf(c[1], scale_log2, nla)), __fsub_rn(d[1], dla)),
-                     __fmul_rn(ex2(fmaf(c[2], scale_log2, nlb)), __fsub_rn(d[2], dlb)),
-                     __fmul_rn(ex2(fmaf(c[3], scale_log2, nlb)), __fsub_rn(d[3], dlb))};
-      if (8 * s + 2 * tig >= keys) ds[0] = ds[2] = 0.f;
-      if (8 * s + 2 * tig + 1 >= keys) ds[1] = ds[3] = 0.f;
-      uint32_t hi[4], lo[4];
-      split_as_a(ds, hi, lo);
-      const int o = lane_reads.r0 + 8 * s * kW + chunk * kChunk;
-#pragma unroll
-      for (int n = 0; n < kChunk / 8; ++n) {
-        mma3_raw(part[n], hi, lo, k_tile, o + 8 * n, o + 8 * n + kW);   // dQ += dS K
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kChunk / 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[n][i] = __fadd_rn(acc[n][i], part[n][i]);
-    }
-    __syncthreads();       // every warp is done with the tile before it is refilled
-  }
-
-  float* dqh = dq + b * sdq.b + h * sdq.h;
-#pragma unroll
-  for (int n = 0; n < kChunk / 8; ++n) {
-    const int c = chunk * kChunk + 8 * n + 2 * tig;
-    if (oka && c < head_dim) dqh[ra * sdq.t + c * sdq.d] = __fmul_rn(acc[n][0], scale);
-    if (oka && c + 1 < head_dim) dqh[ra * sdq.t + (c + 1) * sdq.d] = __fmul_rn(acc[n][1], scale);
-    if (okb && c < head_dim) dqh[rb * sdq.t + c * sdq.d] = __fmul_rn(acc[n][2], scale);
-    if (okb && c + 1 < head_dim) dqh[rb * sdq.t + (c + 1) * sdq.d] = __fmul_rn(acc[n][3], scale);
-  }
-}
-
-// Launch 2 (f32, wide): dk and dv of one chunk. Each warp holds 16 key rows
-// and walks the query tiles (q, do raw; lse, delta).
-template <int Dp, bool Wide>
-__global__ void __launch_bounds__(32 * kTcWarps, 1)
-attention_bwd_dkdv_tf32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                    const float* __restrict__ v, const float* __restrict__ dout,
-                                    const float* __restrict__ lse,
-                                    const float* __restrict__ delta, float* __restrict__ dk,
-                                    float* __restrict__ dv, int heads, int chunks, int seq_len,
-                                    int head_dim, Strides sq, Strides sk, Strides sv,
-                                    Strides sdo, Strides sdk, Strides sdv, int unit_q,
-                                    int unit_do, float scale, float scale_log2) {
-  if constexpr (Wide) head_dim = Dp;   // a Wide head fills its staged width
-  constexpr int kW = Tf32Tile<Dp>::kWords;
-  constexpr int kThreads = 32 * kTcWarps;
-  constexpr int kNT = kChunk / 8;
-  // raw Q and dO rows (kW words apart), each thread's dk and dv totals
-  // (kNT n-tiles, kThreads apart), then the tile's lse and delta
-  extern __shared__ float4 tf32_tiles[];
-  float* q_tile = reinterpret_cast<float*>(tf32_tiles);
-  float* do_tile = q_tile + kTcTile * kW;
-  float4* dk_total = reinterpret_cast<float4*>(do_tile + kTcTile * kW) + threadIdx.x;
-  float4* dv_total = dk_total + kNT * kThreads;
-  float* l_raw = reinterpret_cast<float*>(reinterpret_cast<float4*>(do_tile + kTcTile * kW)
-                                          + 2 * kNT * kThreads);
-  float* d_raw = l_raw + kTcTile;
-#pragma unroll
-  for (int n = 0; n < kNT; ++n) {
-    dk_total[n * kThreads] = dv_total[n * kThreads] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int tig = lane % 4;
-  const int64_t b = blockIdx.z;
-  const int64_t h = blockIdx.y / chunks;
-  const int chunk = blockIdx.y % chunks;
-  const int ja = blockIdx.x * kTcRows + warp * 16 + lane / 4;
-  const int jb = ja + 8;
-  const bool oka = ja < seq_len;
-  const bool okb = jb < seq_len;
-
-  const BwdLane<Dp> lane_reads;
-  const float* kh = k + b * sk.b + h * sk.h;
-  const float* vh = v + b * sv.b + h * sv.h;
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* dob = dout + b * sdo.b + h * sdo.h;
-  const float* lseb = lse + (b * heads + h) * seq_len;
-  const float* deltab = delta + (b * heads + h) * seq_len;
-  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
-  for (int t = 0; t < tiles; ++t) {
-    stage<float, Dp, 1, Tf32Tile<Dp>::kStride, Wide>(reinterpret_cast<uint4*>(q_tile), qb, sq,
-                                                     unit_q, t * kTcTile, seq_len, head_dim,
-                                                     threadIdx.x);
-    stage<float, Dp, 1, Tf32Tile<Dp>::kStride, Wide>(reinterpret_cast<uint4*>(do_tile), dob, sdo,
-                                                     unit_do, t * kTcTile, seq_len, head_dim,
-                                                     threadIdx.x);
-    stage_stats<1>(l_raw, d_raw, lseb, deltab, t * kTcTile, seq_len);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    float sc[kTcTile / 8][4], dp[kTcTile / 8][4];
-#pragma unroll
-    for (int s = 0; s < kTcTile / 8; ++s) {
-      sc[s][0] = sc[s][1] = sc[s][2] = sc[s][3] = 0.f;
-      dp[s][0] = dp[s][1] = dp[s][2] = dp[s][3] = 0.f;
-    }
-    wide_product_tf32<Dp, kW, false>(sc, kh, sk, ja, oka, okb, head_dim, 1.f, q_tile,
-                                     lane_reads.t0);   // S^T = K Q^T
-    wide_product_tf32<Dp, kW, false>(dp, vh, sv, ja, oka, okb, head_dim, 1.f, do_tile,
-                                     lane_reads.t0);   // dP^T = V dO^T
-    float pk[kNT][4], pv[kNT][4];
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      pk[n][0] = pk[n][1] = pk[n][2] = pk[n][3] = 0.f;
-      pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
-    }
-#pragma unroll
-    for (int s = 0; s < kTcTile / 8; ++s) {
-      const float* c = sc[s];
-      const float* d = dp[s];
-      // c[0], c[2] hold query 8 s + 2 tig, c[1], c[3] query 8 s + 2 tig + 1;
-      // past T lse = +inf (p = 0) and delta = 0
-      const int col = 8 * s + 2 * tig;
-      const float nl0 = -l_raw[col], nl1 = -l_raw[col + 1];
-      const float dl0 = d_raw[col], dl1 = d_raw[col + 1];
-      float p[4] = {ex2(fmaf(c[0], scale_log2, nl0)), ex2(fmaf(c[1], scale_log2, nl1)),
-                    ex2(fmaf(c[2], scale_log2, nl0)), ex2(fmaf(c[3], scale_log2, nl1))};
-      uint32_t hi[4], lo[4];
-      split_as_a(p, hi, lo);
-      const int o = lane_reads.r0 + 8 * s * kW + chunk * kChunk;
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        mma3_raw(pv[n], hi, lo, do_tile, o + 8 * n, o + 8 * n + kW);   // dV += P^T dO
-      }
-      p[0] = __fmul_rn(p[0], __fsub_rn(d[0], dl0));
-      p[1] = __fmul_rn(p[1], __fsub_rn(d[1], dl1));
-      p[2] = __fmul_rn(p[2], __fsub_rn(d[2], dl0));
-      p[3] = __fmul_rn(p[3], __fsub_rn(d[3], dl1));
-      split_as_a(p, hi, lo);
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        mma3_raw(pk[n], hi, lo, q_tile, o + 8 * n, o + 8 * n + kW);   // dK += dS^T Q
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      add_to_total(dk_total + n * kThreads, pk[n]);
-      add_to_total(dv_total + n * kThreads, pv[n]);
-    }
-    __syncthreads();       // every warp is done with the tile before it is refilled
-  }
-
-  float* dkh = dk + b * sdk.b + h * sdk.h;
-  float* dvh = dv + b * sdv.b + h * sdv.h;
-#pragma unroll
-  for (int n = 0; n < kNT; ++n) {
-    const float4 dka = dk_total[n * kThreads];
-    const float4 dva = dv_total[n * kThreads];
-    const int c = chunk * kChunk + 8 * n + 2 * tig;
-    if (oka && c < head_dim) {
-      dkh[ja * sdk.t + c * sdk.d] = __fmul_rn(dka.x, scale);
-      dvh[ja * sdv.t + c * sdv.d] = dva.x;
-    }
-    if (oka && c + 1 < head_dim) {
-      dkh[ja * sdk.t + (c + 1) * sdk.d] = __fmul_rn(dka.y, scale);
-      dvh[ja * sdv.t + (c + 1) * sdv.d] = dva.y;
-    }
-    if (okb && c < head_dim) {
-      dkh[jb * sdk.t + c * sdk.d] = __fmul_rn(dka.z, scale);
-      dvh[jb * sdv.t + c * sdv.d] = dva.z;
-    }
-    if (okb && c + 1 < head_dim) {
-      dkh[jb * sdk.t + (c + 1) * sdk.d] = __fmul_rn(dka.w, scale);
-      dvh[jb * sdv.t + (c + 1) * sdv.d] = dva.w;
-    }
-  }
-}
-
-// Both launches of the wide bf16 or f32 kernels at Dp (G = 1): the shared
-// memory, the grid (one block per 64 rows, head and 64-channel chunk),
-// cudaGetLastError after each.
-template <typename T, int Dp, bool Wide>
+// Both launches of the wide kernels at their NC: the tensor maps (TMA where
+// all four staged tensors have one), the shared memory, the grid (one block
+// per 64 rows, head and channel group), cudaGetLastError after each.
+template <typename T, int NQ, int NKV>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* dout,
                         const void* o, void* dq, void* dk, void* dv, const float* lse,
                         float* delta, int batch, int heads, int seq_len, int head_dim,
@@ -2203,62 +2067,56 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const void*
   const Strides sdk{st[20], st[21], st[22], st[23]};
   const Strides sdv{st[24], st[25], st[26], st[27]};
   const Strides so{st[28], st[29], st[30], st[31]};
-  const int chunks = (head_dim + kChunk - 1) / kChunk;
-  const dim3 grid((seq_len + kTcRows - 1) / kTcRows, heads * chunks, batch);
-  constexpr int kThreads = 32 * kTcWarps;
+  const int chunks = (head_dim + wide::kChunk - 1) / wide::kChunk;
+  const int own = min(chunks, wide::own_max<T>(2));
   const float scale_log2 = scale * kLog2e;
+  wide::Maps maps = {};
+  const bool tma = wide::tensor_map<T>(&maps.m[0], q, sq, batch, heads, seq_len, head_dim)
+                   && wide::tensor_map<T>(&maps.m[1], k, sk, batch, heads, seq_len, head_dim)
+                   && wide::tensor_map<T>(&maps.m[2], v, sv, batch, heads, seq_len, head_dim)
+                   && wide::tensor_map<T>(&maps.m[3], dout, sdo, batch, heads, seq_len, head_dim);
+  const int rows = (seq_len + wide::kRows - 1) / wide::kRows;
   cudaError_t err;
-  if constexpr (std::is_same<T, bf16>::value) {
-    constexpr int kDqBytes = 4 * kTcTile * Bf16Tile<Dp>::kStride * 16;
-    constexpr int kDkdvBytes = kDqBytes + 4 * kTcTile * 4;
-    auto* dq_kernel = attention_bwd_dq_tc_wide_kernel<Dp, Wide>;
-    auto* dkdv_kernel = attention_bwd_dkdv_tc_wide_kernel<Dp, Wide>;
-    if ((err = allow_shared(dq_kernel, kDqBytes)) != cudaSuccess) return err;
-    if ((err = allow_shared(dkdv_kernel, kDkdvBytes)) != cudaSuccess) return err;
-    dq_kernel<<<grid, kThreads, kDqBytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), static_cast<const bf16*>(o), lse,
-        static_cast<bf16*>(dq), delta, heads, chunks, seq_len, head_dim, sq, sk, sv, sdo, so, sdq,
-        units[1], units[2], scale, scale_log2);
+  {
+    const int groups = (chunks + NQ - 1) / NQ;
+    const int bytes = wide::shared_bytes<T>(2 * own, 1);
+    auto* kernel = attention_bwd_dq_wide_kernel<T, NQ>;
+    if ((err = allow_shared(kernel, bytes)) != cudaSuccess) return err;
+    kernel<<<dim3(rows, heads * groups, batch), wide::kThreads, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const T*>(o), lse, static_cast<T*>(dq), delta,
+        heads, groups, seq_len, head_dim, sq, sk, sv, sdo, so, sdq, units[0], units[1], units[2],
+        units[3], own, tma ? 1 : 0, scale, scale_log2, maps);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    dkdv_kernel<<<grid, kThreads, kDkdvBytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), heads, chunks, seq_len, head_dim, sq, sk, sv, sdo, sdk, sdv,
-        units[0], units[3], scale, scale_log2);
-  } else {
-    constexpr int kTileBytes = 2 * kTcTile * Tf32Tile<Dp>::kWords * 4;
-    constexpr int kDqBytes = kTileBytes;
-    constexpr int kDkdvBytes = kTileBytes + 2 * (kChunk / 8) * kThreads * 16 + 2 * kTcTile * 4;
-    auto* dq_kernel = attention_bwd_dq_tf32_wide_kernel<Dp, Wide>;
-    auto* dkdv_kernel = attention_bwd_dkdv_tf32_wide_kernel<Dp, Wide>;
-    if ((err = allow_shared(dq_kernel, kDqBytes)) != cudaSuccess) return err;
-    if ((err = allow_shared(dkdv_kernel, kDkdvBytes)) != cudaSuccess) return err;
-    dq_kernel<<<grid, kThreads, kDqBytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout),
-        static_cast<const float*>(o), lse, static_cast<float*>(dq), delta, heads, chunks,
-        seq_len, head_dim, sq, sk, sv, sdo, so, sdq, units[1], units[2], scale, scale_log2);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    dkdv_kernel<<<grid, kThreads, kDkdvBytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
-        static_cast<float*>(dk), static_cast<float*>(dv), heads, chunks, seq_len, head_dim, sq,
-        sk, sv, sdo, sdk, sdv, units[0], units[3], scale, scale_log2);
   }
+  const int groups = (chunks + NKV - 1) / NKV;
+  const int bytes = wide::shared_bytes<T>(2 * own, 2);
+  auto* kernel = attention_bwd_dkdv_wide_kernel<T, NKV>;
+  if ((err = allow_shared(kernel, bytes)) != cudaSuccess) return err;
+  kernel<<<dim3(rows, heads * groups, batch), wide::kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), heads,
+      groups, seq_len, head_dim, sq, sk, sv, sdo, sdk, sdv, units[0], units[1], units[2], units[3],
+      own, tma ? 1 : 0, scale, scale_log2, maps);
   return cudaGetLastError();
 }
 
-template <typename T, int Dp>
-cudaError_t launch_wide_layout(bool wide, const void* q, const void* k, const void* v,
-                               const void* dout, const void* o, void* dq, void* dk, void* dv,
-                               const float* lse, float* delta, int batch, int heads, int seq_len,
-                               int head_dim, const int64_t* st, const int* units, float scale,
+// the wide launches at the head's chunks: dq's NC of 2, 4 or 8, dk/dv's of 2
+// or 4
+template <typename T>
+cudaError_t launch_wide_chunks(const void* q, const void* k, const void* v, const void* dout,
+                               const void* o, void* dq, void* dk, void* dv, const float* lse,
+                               float* delta, int batch, int heads, int seq_len, int head_dim,
+                               const int64_t* st, const int* units, float scale,
                                cudaStream_t s) {
-  return wide ? launch_wide<T, Dp, true>(q, k, v, dout, o, dq, dk, dv, lse, delta, batch, heads,
-                                         seq_len, head_dim, st, units, scale, s)
-              : launch_wide<T, Dp, false>(q, k, v, dout, o, dq, dk, dv, lse, delta, batch, heads,
-                                          seq_len, head_dim, st, units, scale, s);
+  switch (wide::group_chunks(head_dim)) {
+    case 2: return launch_wide<T, 2, 2>(q, k, v, dout, o, dq, dk, dv, lse, delta, batch, heads,
+                                        seq_len, head_dim, st, units, scale, s);
+    case 4: return launch_wide<T, 4, 4>(q, k, v, dout, o, dq, dk, dv, lse, delta, batch, heads,
+                                        seq_len, head_dim, st, units, scale, s);
+    default: return launch_wide<T, 8, 4>(q, k, v, dout, o, dq, dk, dv, lse, delta, batch, heads,
+                                         seq_len, head_dim, st, units, scale, s);
+  }
 }
 
 // Both launches of the bf16 or the f32 kernels at <Dp, G>: each staged
@@ -2340,14 +2198,11 @@ cudaError_t launch_typed(int group, const void* q, const void* k, const void* v,
   // Wide instances, at every G; else the general staging, at G = 1 only
   const bool wide = units[0] == 4 && units[1] == 4 && units[2] == 4 && units[3] == 4
                     && head_dim == padded_head_dim(head_dim);
-  if (head_dim < 1 || head_dim > kMaxHeadDim) return cudaErrorInvalidValue;
+  if (head_dim < 1) return cudaErrorInvalidValue;
   if (head_dim > kMaxMmaWidth) {   // the wide kernels, one head per block
     if (group != 1) return cudaErrorInvalidValue;
-    return head_dim > 128
-        ? launch_wide_layout<T, 256>(wide, q, k, v, dout, o, dq, dk, dv, lse, delta, batch,
-                                     heads, seq_len, head_dim, st, units, scale, s)
-        : launch_wide_layout<T, 128>(wide, q, k, v, dout, o, dq, dk, dv, lse, delta, batch,
-                                     heads, seq_len, head_dim, st, units, scale, s);
+    return launch_wide_chunks<T>(q, k, v, dout, o, dq, dk, dv, lse, delta, batch, heads, seq_len,
+                                 head_dim, st, units, scale, s);
   }
   if (!wide && group != 1) return cudaErrorInvalidValue;
   if (wide && head_dim == 8) {   // the head_dim-8 kernels, namespace d8
@@ -2381,7 +2236,7 @@ cudaError_t launch_typed(int group, const void* q, const void* k, const void* v,
 // The launch's shape, types and knobs, packed once per checked layout by
 // ops/attention.py (`_BwdArgs` there: the same fields in the same order).
 // dtype: 0 = float32, 1 = bfloat16. strides: 32 element strides, (b, h, t, d)
-// for q, k, v, dout, dq, dk, dv and o in that order. head_dim: 1 to 256.
+// for q, k, v, dout, dq, dk, dv and o in that order. head_dim: >= 1.
 // heads_per_program: the heads one block runs, G' (`block_group`): 1, 2, 4
 // or 8 with G' * (the staged width, 8, 16, 32 or 64) <= 64 on a layout of
 // 16-byte rows, 1 for the wide kernels, and it must divide heads.

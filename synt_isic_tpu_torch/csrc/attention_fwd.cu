@@ -10,21 +10,22 @@
 // projection outputs unchanged (the head split is pointer arithmetic) and
 // the result lands directly in (B, T, C).
 //
-// Every head_dim D from 1 to 256 runs on the tensor cores, in both dtypes, as
-// the Pallas kernel takes any D: the kernels are templates on a staged width
-// Dp of 8, 16, 32, 64, 128 or 256 (the least one >= D), a head's channels
-// past D zero-filled where the kernel stages or loads them (tensor_core.cuh:
-// zero channels are exact in every product), the scale 1/sqrt(D) of the true
-// D. A head_dim above 256 returns cudaErrorInvalidValue. Routes: bf16 at Dp
-// 16 to 256, the warpgroup-product kernel (`attention_fwd_wgmma_kernel`,
-// below), one head a block, any layout; f32 at Dp 128 and 256, the wide
-// kernel (`attention_fwd_tf32_wide_kernel`), one head a block; otherwise a
-// head at its staged width whose rows stage in 16-byte units (every dense
-// and (B, T, C) layout at D 16, 32, 64) runs the Wide instances at any G the
-// launcher is given; D 8 at full width runs the head_dim-8 kernels
-// (namespace d8, below), at any G; any other call (D under its width, or rows
-// in smaller units) runs the general staging at G = 1, bit-identical to every
-// G by the contract below.
+// Every head_dim D >= 1 runs on the tensor cores, in both dtypes, as the
+// Pallas kernel takes any D: up to 256 the kernels are templates on a staged
+// width Dp of 8, 16, 32, 64, 128 or 256 (the least one >= D), above 64 (f32)
+// or 256 (bf16) the wide kernel walks the head in chunks of 64 channels; a
+// head's channels past D are zero-filled where the kernel stages or loads
+// them (tensor_core.cuh: zero channels are exact in every product), the
+// scale 1/sqrt(D) of the true D. Routes: bf16 at Dp 16 to 256, the
+// warpgroup-product kernel (`attention_fwd_wgmma_kernel`, below), one head a
+// block, any layout; f32 above 64 channels and bf16 above 256, the wide
+// kernel (`attention_fwd_wide_kernel`, below), one head a block, any layout;
+// otherwise a head at its staged width whose rows stage in 16-byte units
+// (every dense and (B, T, C) layout at D 16, 32, 64) runs the Wide instances
+// at any G the launcher is given; D 8 at full width runs the head_dim-8
+// kernels (namespace d8, below), at any G; any other call (D under its
+// width, or rows in smaller units) runs the general staging at G = 1,
+// bit-identical to every G by the contract below.
 //
 // The TPU kernel keeps the whole (T, T) f32 logits tile in VMEM (4 MB at
 // T=1024); a Hopper block has at most 227 KB of shared memory, so neither
@@ -195,6 +196,7 @@
 
 #include "tensor_core.cuh"
 #include "wgmma.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -1441,17 +1443,18 @@ attention_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const int tiles = (seq_len + wg::kKeys - 1) / wg::kKeys;
   // the K and V of tile t into stage t % 2: by TMA, thread 0 starting and the
   // stage's barrier counting the bytes; else by `cp.async`, every thread
+  const int64_t k_t = sk.t, k_d = sk.d, v_t = sv.t, v_d = sv.d;
   auto load_tile = [&](int t) {
     uint8_t* dst = kv_ring + t % 2 * 2 * kBytes;
     if constexpr (Tma) {
       wg::mbar_expect(kv_full + t % 2, 2 * kBytes);
-      wg::tma_tile<Dp>(dst, &maps.k, kv_full + t % 2, t * wg::kKeys, h, b);
-      wg::tma_tile<Dp>(dst + kBytes, &maps.v, kv_full + t % 2, t * wg::kKeys, h, b);
+      wg::tma_tile<bf16, 2 * Dp>(dst, &maps.k, kv_full + t % 2, 0, t * wg::kKeys, h, b);
+      wg::tma_tile<bf16, 2 * Dp>(dst + kBytes, &maps.v, kv_full + t % 2, 0, t * wg::kKeys, h, b);
     } else {
-      wg::stage<Dp>(dst, kb, sk, unit_k, t * wg::kKeys, seq_len, head_dim, threadIdx.x,
-                    kThreads);
-      wg::stage<Dp>(dst + kBytes, vb, sv, unit_v, t * wg::kKeys, seq_len, head_dim,
-                    threadIdx.x, kThreads);
+      wg::stage<bf16, 2 * Dp>(dst, kb, k_t, k_d, unit_k, t * wg::kKeys, seq_len, 0, head_dim,
+                              threadIdx.x, kThreads);
+      wg::stage<bf16, 2 * Dp>(dst + kBytes, vb, v_t, v_d, unit_v, t * wg::kKeys, seq_len, 0,
+                              head_dim, threadIdx.x, kThreads);
     }
   };
   if constexpr (Tma) {
@@ -1463,15 +1466,15 @@ attention_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     if (threadIdx.x == 0) {
       wg::mbar_expect(q_full, kConsumers * kBytes);
       for (int g = 0; g < kConsumers; ++g) {
-        wg::tma_tile<Dp>(q_tiles + g * kBytes, &maps.q, q_full,
-                         (blockIdx.x * kConsumers + g) * wg::kRows, h, b);
+        wg::tma_tile<bf16, 2 * Dp>(q_tiles + g * kBytes, &maps.q, q_full, 0,
+                                   (blockIdx.x * kConsumers + g) * wg::kRows, h, b);
       }
       load_tile(0);
     }
   } else {
     // each warpgroup stages its own Q tile, all threads the first K and V
-    wg::stage<Dp>(q_tile, q + b * sq.b + h * sq.h, sq, unit_q, q0, seq_len, head_dim,
-                  threadIdx.x % wg::kThreads, wg::kThreads);
+    wg::stage<bf16, 2 * Dp>(q_tile, q + b * sq.b + h * sq.h, sq.t, sq.d, unit_q, q0, seq_len, 0,
+                            head_dim, threadIdx.x % wg::kThreads, wg::kThreads);
     load_tile(0);
     cp_async_commit();
   }
@@ -1574,9 +1577,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, f
   const dim3 grid((seq_len + kRows - 1) / kRows, heads, batch);
   // TMA where all three tensors have a map, else `cp.async`
   wg::TmaMaps maps = {};
-  const bool tma = wg::tensor_map<Dp>(&maps.q, q, sq, batch, heads, seq_len, head_dim)
-                   && wg::tensor_map<Dp>(&maps.k, k, sk, batch, heads, seq_len, head_dim)
-                   && wg::tensor_map<Dp>(&maps.v, v, sv, batch, heads, seq_len, head_dim);
+  const bool tma = wg::tensor_map<bf16, 2 * Dp>(&maps.q, q, sq, batch, heads, seq_len, head_dim)
+                   && wg::tensor_map<bf16, 2 * Dp>(&maps.k, k, sk, batch, heads, seq_len, head_dim)
+                   && wg::tensor_map<bf16, 2 * Dp>(&maps.v, v, sv, batch, heads, seq_len, head_dim);
   auto* kernel = tma ? attention_fwd_wgmma_kernel<Dp, FastMath, true>
                      : attention_fwd_wgmma_kernel<Dp, FastMath, false>;
   const cudaError_t err = allow_shared(kernel, kBytes);
@@ -1604,218 +1607,360 @@ cudaError_t launch_wgmma_width(const void* q, const void* k, const void* v, void
 }
 
 // ---------------------------------------------------------------------------
-// f32 at staged widths 128 and 256: the wide 3xTF32 kernel
+// heads wider than 64 channels (f32), and than 256 (bf16): the wide kernel
 // ---------------------------------------------------------------------------
 //
-// The f32 kernel's arithmetic (3xTF32 products, the running shift, the tile
-// redone past 2^40, fast math's bf16 rounding against the one-pass tile max;
-// `attention_tf32x3_kernel_order` and `fast_math_kernel_order`) for heads of
-// 65 to 256 channels, where the template above would need about 384
-// registers a thread for q's split fragments and O. Each block covers 64
-// query rows of one head and one 64-channel chunk of O (blockIdx.y = head *
-// chunks + chunk, chunks = ceil(D / 64)): it forms S over every channel,
-// reading q's fragments from device memory at each k-step and splitting K's
-// staged raw rows (Dp + 4 words apart) as it reads them, and keeps only its
-// chunk of V and O. So S is formed once per chunk (2 or 4 times): a simple
-// kernel that is right, not yet a fast one. K's tile and V's chunk are staged
-// once per tile (no second stage: at Dp 256 one stage of both is 84 KB).
-template <int Dp, bool FastMath, bool Wide>
-__global__ void __launch_bounds__(32 * kTcWarps, 1)
-attention_fwd_tf32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                               const float* __restrict__ v, float* __restrict__ o,
-                               float* __restrict__ lse, int heads, int chunks, int seq_len,
-                               int head_dim, Strides sq, Strides sk, Strides sv, Strides so,
-                               int unit_k, int unit_v, float scale_log2) {
-  if constexpr (Wide) head_dim = Dp;   // a Wide head fills its staged width
-  constexpr int kW = Tf32Tile<Dp>::kWords;
-  constexpr int kWv = Tf32Tile<kChunk>::kWords;
-  extern __shared__ float4 tf32_wide_tiles[];
-  float* k_tile = reinterpret_cast<float*>(tf32_wide_tiles);   // 64 rows x kW words
-  float* v_tile = k_tile + kTcTile * kW;                       // 64 rows x kWv words
+// attention_fwd_wide_kernel<T, NC, FastMath> replaces, for f32 heads of 65
+// channels and more and bf16 heads of 257 and more, the Pallas kernels
+// `_attention_kernel_tm` and `_attention_kernel`
+// (synt_isic_tpu/ops/pallas/attention.py:28, 58), with both knobs and the
+// optional base-2 log-sum-exp, at any head_dim (wide.cuh has the layout).
+//   Bound on the H100 at (8, 256/D, 1024, D): the two T x T products in f32
+//   (three TF32 passes) are 3 x 8.6 GFLOP at every D, 0.052 ms at 494.7
+//   TFLOP/s dense TF32, above the 33.6 MB of q, k, v and out (0.010 ms) and
+//   the exponentials (0.004 ms at D 128); the same at (4, 1, 1024, 512). So
+//   the products bound it.
+//   What the earlier wide kernel lost, and what this design does about it:
+//   (1) it formed S = Q K^T once per 64-channel chunk of O, 2 or 4 times at
+//   D 128 and 256, and took the exponentials as often: here a block of 8
+//   warps owns 64 query rows and all of O's channels (up to 64 NC of them,
+//   NC = 2, 4 or 8 by D; a wider head runs ceil(D / 64 NC) channel groups of
+//   blocks), forms S once per key tile over every channel chunk (the warps of
+//   a row group split the tile's 64 keys in halves of 32), takes each (i, j)'s
+//   exponential once, and hands P to the warps that own the other channels
+//   through a 64 x 64 tile in shared memory; warp w then runs P V for its
+//   row group and half w / 4 (32 channels) of every chunk. (2) It read q's
+//   fragments from device memory at every k-step of every key tile: here q's
+//   rows are staged once per block (scaled to base-2 logits in f32 in place,
+//   f32 up to 8 chunks, bf16 up to 16; a wider head's further channels come
+//   from device memory). (3) It staged K and V one tile at a time, with no
+//   second stage: here K's and V's chunks come through a ring of 3 stages of
+//   one chunk (16 KB f32, 8 KB bf16), by TMA where every stride is a
+//   multiple of 16 bytes, else by `cp.async`, so copies overlap the products.
+//   (4) The products: bf16 on `wgmma` m64n32k16 (warpgroup hf = warps 4 hf
+//   to 4 hf + 3 forms S for keys 32 hf to 32 hf + 31 from q's chunk and K's,
+//   both K-major in shared memory, and P V for channels 32 hf to 32 hf + 31
+//   of each chunk from the P tile, stored as a swizzled chunk, and V's chunk
+//   as an MN-major operand; wide.cuh); f32 3xTF32, P V on `mma.sync` with V
+//   split into TF32 parts as it is read, S at NC 4 (D 129-256) on TF32
+//   `wgmma` m64n32k8 from split copies (q's parts once per block, each K
+//   chunk's once per tile, lo beside hi in shared memory), at NC 2 and 8 on
+//   `mma.sync`. `wgmma` takes TF32 operands K-major only, so P V would need
+//   a transposed split copy of each V chunk; that is not built. Measured
+//   (H100 80GB HBM3, 700 W, `chip_smoke.py --kernel-table`, the two in the
+//   same turns, medians of 3): S on `wgmma` at (8,1,1024,256) 0.2294 ms
+//   against 0.2543 on `mma.sync`; at (8,2,1024,128) (NC 2) 0.2635 against
+//   0.2057, the split copies taking the second block an SM; above 256
+//   channels they do not fit beside q's chunks.
+//   Rounding, as the f32 kernel above (`attention_tf32x3_kernel_order`,
+//   `fast_math_kernel_order`): tiles of 64 keys; S in 3xTF32 (lo.hi, hi.lo,
+//   hi.hi per k-step; q scaled in f32 before its split); the weights against
+//   a running shift, on the first tile the tile's one-pass (hi.hi) max, after
+//   a tile whose row sum passes 2^16 the shift plus log2 of that sum; a tile
+//   whose row sums would pass 2^40 is done again against the max of its S
+//   (the 3xTF32 logits, still in registers: no second pass over K); each
+//   tile's P V gathers in its own accumulator, added in f32. Fast math: the
+//   one-pass tile max on every tile, bf16(2^bf16(s - m)), P V as P.v_lo +
+//   P.v_hi. A row's sums over its keys are the two halves' sums added in
+//   f32, half 0 first. bf16 (heads above 256; narrower ones run `wgmma`
+//   above): the `wgmma` kernel's rounding, the running max moved on every
+//   tile, 2^(s * scale * log2(e) - m), P rounded to bf16 for P V, l the f32
+//   sum of the f32 weights (fast math: of the bf16 weights), the division
+//   last. Rows past T are not stored, keys past T get s = -inf on the last
+//   tile. A block runs one head, so any G is bit-identical to G 1.
+//   Registers: O is 64 x 64 NC f32 over 256 threads, 16 NC a thread, beside
+//   S's 16 and a chunk's P V 16; NC 2 runs two blocks an SM.
+template <typename T, int NC, bool FastMath>
+__global__ void __launch_bounds__(wide::kThreads, NC <= 2 ? 2 : 1)
+attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                          int heads, int groups, int seq_len, int head_dim, Strides sq,
+                          Strides sk, Strides sv, Strides so, int unit_q, int unit_k, int unit_v,
+                          int own_chunks, int tma, float scale_log2,
+                          const __grid_constant__ wide::Maps maps) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kCB = wide::chunk_bytes<T>();
+  extern __shared__ uint8_t wide_fwd_smem[];
+  // f32 at NC 4: S on TF32 `wgmma` from split copies, q's lo parts after its
+  // chunks, then one chunk for a K chunk's lo parts
+  constexpr bool kWgS = kF32 && NC == 4;
+  const wide::Smem sm = wide::smem_layout<T>(wide_fwd_smem, kWgS ? 2 * own_chunks + 1 : own_chunks,
+                                             1);
+  uint8_t* own_lo = sm.own + own_chunks * kCB;
+  uint8_t* k_lo = sm.own + 2 * own_chunks * kCB;
+  float* xch = sm.xch;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
   const int tig = lane % 4;
+  const int rg = warp % 4;                  // row group: rows 16 rg .. 16 rg + 15
+  const int hf = warp / 4;                  // half of the keys and of each chunk's channels
+  const int la = 16 * rg + g;               // the lane's rows la and la + 8 in the block
   const int64_t b = blockIdx.z;
-  const int64_t h = blockIdx.y / chunks;
-  const int chunk = blockIdx.y % chunks;
-  const int ra = blockIdx.x * kTcRows + warp * 16 + lane / 4;
-  const int rb = ra + 8;
-  const bool oka = ra < seq_len;
-  const bool okb = rb < seq_len;
+  const int64_t h = blockIdx.y / groups;
+  const int group = blockIdx.y % groups;
+  const int q0 = blockIdx.x * wide::kRows;
+  const int ra = q0 + la;
+  const int chunks = (head_dim + wide::kChunk - 1) / wide::kChunk;
+  const int c0 = group * NC;                // the block's first chunk of O
+  const int nc = min(NC, chunks - c0);
+  const int per_tile = chunks + nc;         // K's chunks, then V's of this group
+  const int tiles = (seq_len + wide::kTile - 1) / wide::kTile;
+  const int total = tiles * per_tile;
+  const T* qh = q + b * sq.b + h * sq.h;
+  const T* kh = k + b * sk.b + h * sk.h;
+  const T* vh = v + b * sv.b + h * sv.h;
 
-  const float* qh = q + b * sq.b + h * sq.h;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h + chunk * kChunk * sv.d;
-  const int v_dim = min(head_dim - chunk * kChunk, kChunk);   // this chunk's channels
-  const Tf32Lane<Dp> k_reads;
-  const Tf32Lane<kChunk> v_reads;
+  const int64_t k_t = sk.t, k_d = sk.d, v_t = sv.t, v_d = sv.d;
+  auto load_item = [&](int i, uint8_t* dst, uint64_t* bar) {
+    const int t = i / per_tile;
+    const int j = i % per_tile;
+    const bool is_k = j < chunks;
+    const int c = is_k ? j : c0 + j - chunks;
+    if (bar != nullptr) wg::mbar_expect(bar, kCB);
+    wide::stage_chunk<T>(dst, &maps.m[is_k ? 1 : 2], bar, is_k ? kh : vh, is_k ? k_t : v_t,
+                         is_k ? k_d : v_d, is_k ? unit_k : unit_v, wide::kTile * t, seq_len,
+                         wide::kChunk * c, head_dim, h, b);
+  };
+  wide::start<T>(sm, own_chunks, 1, tma, maps, 0, 0, qh, qh, sq, sq, unit_q, unit_q, q0, h, b,
+                 seq_len, head_dim, total, load_item);
+  if constexpr (kF32) {   // q to base-2 logits in f32, in place, before its split
+    if (!tma) cp_async_wait<wide::kStages - 1>();   // the own rows' group
+    __syncthreads();
+    float* f = reinterpret_cast<float*>(sm.own);
+    for (int i = threadIdx.x; i < own_chunks * kCB / 4; i += wide::kThreads) {
+      f[i] = __fmul_rn(f[i], scale_log2);
+      if constexpr (kWgS) {
+        uint32_t hi, lo;
+        split_tf32(f[i], hi, lo);
+        f[i] = __uint_as_float(hi);
+        reinterpret_cast<uint32_t*>(own_lo)[i] = lo;
+      }
+    }
+    if constexpr (kWgS) {
+      wg::fence_async_shared();
+      __syncthreads();
+    }
+  }
+
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
-  float acc[kChunk / 8][4];
+  float acc[NC][4][4];
 #pragma unroll
-  for (int n = 0; n < kChunk / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const int tiles = (seq_len + kTcTile - 1) / kTcTile;
-  for (int t = 0; t < tiles; ++t) {
-    stage<float, Dp, 1, Tf32Tile<Dp>::kStride, Wide>(reinterpret_cast<uint4*>(k_tile), kb, sk,
-                                                     unit_k, t * kTcTile, seq_len, head_dim,
-                                                     threadIdx.x);
-    stage<float, kChunk, 1, Tf32Tile<kChunk>::kStride, Wide>(
-        reinterpret_cast<uint4*>(v_tile), vb, sv, unit_v, t * kTcTile, seq_len, v_dim,
-        threadIdx.x);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    const int keys = seq_len - t * kTcTile;
-    // S in base 2 over the tile (q scaled in f32 before its split)
-    float sc[kTcTile / 8][4];
+  for (int c = 0; c < NC; ++c) {
 #pragma unroll
-    for (int s = 0; s < kTcTile / 8; ++s) sc[s][0] = sc[s][1] = sc[s][2] = sc[s][3] = 0.f;
-    wide_product_tf32<Dp, kW, false>(sc, qh, sq, ra, oka, okb, head_dim, scale_log2, k_tile,
-                                     k_reads.t0);
-    if (keys < kTcTile) {
+    for (int n = 0; n < 4; ++n) acc[c][n][0] = acc[c][n][1] = acc[c][n][2] = acc[c][n][3] = 0.f;
+  }
+  // rescale row r's sum and O from the shift m[r] to mnew >= m[r] (on the
+  // first tile m = -inf: factor 0, and the zero state stays zero)
+  auto shift_to = [&](int r, float mnew) {
+    const float f = mnew > m[r] ? ex2(m[r] - mnew) : 1.f;
+    m[r] = mnew;
+    l[r] = __fmul_rn(l[r], f);
 #pragma unroll
-      for (int s = 0; s < kTcTile / 8; ++s) mask_keys(s, keys, sc[s]);
-    }
-    float lt[2], pv[kChunk / 8][4];
-    bool need_max = t == 0 || FastMath;
-    for (;;) {
-      if (need_max) {   // the tile's one-pass (hi.hi) row maxima
-        float sh[kTcTile / 8][4];
+    for (int c = 0; c < NC; ++c) {
 #pragma unroll
-        for (int s = 0; s < kTcTile / 8; ++s) sh[s][0] = sh[s][1] = sh[s][2] = sh[s][3] = 0.f;
-        wide_product_tf32<Dp, kW, true>(sh, qh, sq, ra, oka, okb, head_dim, scale_log2, k_tile,
-                                        k_reads.t0);
-        float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-        for (int s = 0; s < kTcTile / 8; ++s) {
-          if (keys < kTcTile) mask_keys(s, keys, sh[s]);
-          mx[0] = fmaxf(mx[0], fmaxf(sh[s][0], sh[s][1]));
-          mx[1] = fmaxf(mx[1], fmaxf(sh[s][2], sh[s][3]));
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-          shift_to<kChunk>(r, fmaxf(m[r], mx[r]), m, l, acc);
-        }
+      for (int n = 0; n < 4; ++n) {
+        acc[c][n][2 * r] = __fmul_rn(acc[c][n][2 * r], f);
+        acc[c][n][2 * r + 1] = __fmul_rn(acc[c][n][2 * r + 1], f);
       }
+    }
+  };
+  int item = 0;
+  for (int t = 0; t < tiles; ++t) {
+    const int keys = seq_len - t * wide::kTile;
+    bool need_max = !kF32 || FastMath || t == 0;
+    // S over every chunk: the row group's 16 rows x this half's 32 keys
+    float s[4][4], sh[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+      sh[i][0] = sh[i][1] = sh[i][2] = sh[i][3] = 0.f;
+    }
+    for (int c = 0; c < chunks; ++c) {
+      const uint8_t* kc = wide::ring_next<T>(item++, total, tma, sm.ring, sm.bars, load_item);
+      const uint8_t* xs = c < own_chunks ? sm.own + c * kCB : nullptr;
+      if constexpr (kWgS) {
+        wide::split_chunk(const_cast<uint8_t*>(kc), k_lo);
+        wg::fence_async_shared();
+        __syncthreads();
+        wide::tf32_rows_wg(s, sh, need_max, sm.own + c * kCB, own_lo + c * kCB, kc, k_lo, hf);
+      } else if constexpr (kF32) {
+        wide::tf32_rows(s, sh, need_max, xs, la, qh, sq, ra, seq_len, head_dim, c, scale_log2,
+                        kc, hf);
+      } else {
+        wide::bf16_rows(s, xs, qh, sq, ra, seq_len, head_dim, c, kc, hf);
+      }
+    }
+    if (keys < wide::kTile) {   // keys past T: s = -inf, weight 0
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = 32 * hf + 8 * i + 2 * tig;
+        if (key >= keys) s[i][0] = s[i][2] = sh[i][0] = sh[i][2] = -INFINITY;
+        if (key + 1 >= keys) s[i][1] = s[i][3] = sh[i][1] = sh[i][3] = -INFINITY;
+      }
+    }
+    // the row max over this half's keys, over the row's 4 lanes, then both halves
+    auto row_max = [&](float (*x)[4], float* mx, float* buf) {
+      mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        mx[0] = fmaxf(mx[0], fmaxf(x[i][0], x[i][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(x[i][2], x[i][3]));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+      wide::pair_combine(buf, rg, hf, la, mx, true);
+    };
+    if (need_max) {
+      float mx[2];
+      row_max(kF32 ? sh : s, mx, xch);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // bf16: max(s) * scale = max(s * scale) exactly, the scale being positive
+        shift_to(r, fmaxf(m[r], kF32 ? mx[r] : mx[r] * scale_log2));
+      }
+    }
+    // P (written to the tile as it is formed, again if the tile is redone;
+    // the other warp of the row group reads it after the pair barrier below)
+    float lt[2];
+    for (;;) {
       lt[0] = lt[1] = 0.f;
 #pragma unroll
-      for (int n = 0; n < kChunk / 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+      for (int i = 0; i < 4; ++i) {
+        float p[4];
 #pragma unroll
-      for (int s = 0; s < kTcTile / 8; ++s) {
-        const float* c = sc[s];
-        const int ov = v_reads.r0 + 8 * s * kWv;
-        if (FastMath) {
-          const uint32_t xa = pack_bf16(__fsub_rn(c[0], m[0]), __fsub_rn(c[1], m[0]));
-          const uint32_t xb = pack_bf16(__fsub_rn(c[2], m[1]), __fsub_rn(c[3], m[1]));
-          const uint32_t pa = pack_bf16(ex2(lo_f32(xa)), ex2(hi_f32(xa)));
-          const uint32_t pb = pack_bf16(ex2(lo_f32(xb)), ex2(hi_f32(xb)));
-          lt[0] = __fadd_rn(lt[0], __fadd_rn(lo_f32(pa), hi_f32(pa)));
-          lt[1] = __fadd_rn(lt[1], __fadd_rn(lo_f32(pb), hi_f32(pb)));
-          const uint32_t pf[4] = {pa << 16, pb << 16, pa & 0xffff0000u, pb & 0xffff0000u};
-#pragma unroll
-          for (int n = 0; n < kChunk / 8; ++n) {
-            uint32_t vhi[2], vlo[2];
-            split_tf32(v_tile[ov + 8 * n], vhi[0], vlo[0]);
-            split_tf32(v_tile[ov + 8 * n + kWv], vhi[1], vlo[1]);
-            mma_tf32(pv[n], pf, vlo);   // P V, the small term first
-            mma_tf32(pv[n], pf, vhi);
-          }
-        } else {
-          const float p[4] = {ex2(__fsub_rn(c[0], m[0])), ex2(__fsub_rn(c[1], m[0])),
-                              ex2(__fsub_rn(c[2], m[1])), ex2(__fsub_rn(c[3], m[1]))};
-          lt[0] = __fadd_rn(lt[0], __fadd_rn(p[0], p[1]));
-          lt[1] = __fadd_rn(lt[1], __fadd_rn(p[2], p[3]));
-          uint32_t phi[4], plo[4];
-          split_tf32(p[0], phi[0], plo[0]);
-          split_tf32(p[2], phi[1], plo[1]);
-          split_tf32(p[1], phi[2], plo[2]);
-          split_tf32(p[3], phi[3], plo[3]);
-#pragma unroll
-          for (int n = 0; n < kChunk / 8; ++n) {
-            mma3_raw(pv[n], phi, plo, v_tile, ov + 8 * n, ov + 8 * n + kWv);   // P V
+        for (int e = 0; e < 4; ++e) {
+          const float x = kF32 ? __fsub_rn(s[i][e], m[e / 2]) : fmaf(s[i][e], scale_log2, -m[e / 2]);
+          if (FastMath) {   // the shifted logit rounded to bf16, its bf16 exponential
+            p[e] = __bfloat162float(__float2bfloat16(ex2(__bfloat162float(__float2bfloat16(x)))));
+          } else {
+            p[e] = ex2(x);
           }
         }
+        lt[0] = __fadd_rn(lt[0], __fadd_rn(p[0], p[1]));
+        lt[1] = __fadd_rn(lt[1], __fadd_rn(p[2], p[3]));
+        // rows la, la + 8 at keys 32 hf + 8 i + 2 tig and + 1
+        wide::tile_store<T>(sm.tile, la, 32 * hf + 8 * i + 2 * tig, p, pack_bf16(p[0], p[1]),
+                            pack_bf16(p[2], p[3]));
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         lt[r] = __fadd_rn(lt[r], __shfl_xor_sync(0xffffffffu, lt[r], 1));
         lt[r] = __fadd_rn(lt[r], __shfl_xor_sync(0xffffffffu, lt[r], 2));
       }
-      // !(x <= 2^40) also holds for inf and NaN
-      const bool wide = !(lt[0] <= 0x1p40f) || !(lt[1] <= 0x1p40f);
-      if (need_max || !__any_sync(0xffffffffu, wide)) break;
+      wide::pair_combine(xch + 2 * wide::kRows, rg, hf, la, lt, false);
+      if (!kF32 || need_max) break;
+      // !(x <= 2^40) also holds for inf and NaN; both warps of the row group
+      // hold the same sums, so they decide alike
+      const bool wide_sum = !(lt[0] <= 0x1p40f) || !(lt[1] <= 0x1p40f);
+      if (!__any_sync(0xffffffffu, wide_sum)) break;
+      float mx[2];
+      row_max(s, mx, xch + 4 * wide::kRows);
+      shift_to(0, fmaxf(m[0], mx[0]));
+      shift_to(1, fmaxf(m[1], mx[1]));
       need_max = true;
     }
+    l[0] = __fadd_rn(l[0], lt[0]);
+    l[1] = __fadd_rn(l[1], lt[1]);
+    wide::tile_ready<T>(rg);
+    // O += P V over this group's chunks, 32 channels of each a warp
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] = __fadd_rn(l[r], lt[r]);
-#pragma unroll
-      for (int n = 0; n < kChunk / 8; ++n) {
-        acc[n][2 * r] = __fadd_rn(acc[n][2 * r], pv[n][2 * r]);
-        acc[n][2 * r + 1] = __fadd_rn(acc[n][2 * r + 1], pv[n][2 * r + 1]);
-      }
-      if (!FastMath && lt[r] > 0x1p16f) {
-        shift_to<kChunk>(r, __fadd_rn(m[r], __log2f(lt[r])), m, l, acc);
+    for (int c = 0; c < NC; ++c) {
+      if (c < nc) {
+        const uint8_t* vc = wide::ring_next<T>(item++, total, tma, sm.ring, sm.bars, load_item);
+        wide::channels_product<T, FastMath>(acc[c], sm.tile, la, vc, hf);
       }
     }
-    __syncthreads();       // every warp is done with the tile before it is refilled
+    if (kF32 && !FastMath) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (lt[r] > 0x1p16f) shift_to(r, __fadd_rn(m[r], __log2f(lt[r])));
+      }
+    }
   }
 
-  float* oh = o + b * so.b + h * so.h;
+  T* oh = o + b * so.b + h * so.h;
 #pragma unroll
-  for (int n = 0; n < kChunk / 8; ++n) {
-    const int c = chunk * kChunk + 8 * n + 2 * tig;
-    if (oka && c < head_dim) oh[ra * so.t + c * so.d] = acc[n][0] / l[0];
-    if (oka && c + 1 < head_dim) oh[ra * so.t + (c + 1) * so.d] = acc[n][1] / l[0];
-    if (okb && c < head_dim) oh[rb * so.t + c * so.d] = acc[n][2] / l[1];
-    if (okb && c + 1 < head_dim) oh[rb * so.t + (c + 1) * so.d] = acc[n][3] / l[1];
+  for (int c = 0; c < NC; ++c) {
+    if (c >= nc) continue;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int ch = wide::kChunk * (c0 + c) + 32 * hf + 8 * n + 2 * tig;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = ra + 8 * r;
+        if (row >= seq_len) continue;
+        if (ch < head_dim) oh[row * so.t + ch * so.d] = wide::from_f32<T>(acc[c][n][2 * r] / l[r]);
+        if (ch + 1 < head_dim) {
+          oh[row * so.t + (ch + 1) * so.d] = wide::from_f32<T>(acc[c][n][2 * r + 1] / l[r]);
+        }
+      }
+    }
   }
-  if (lse != nullptr && chunk == 0 && tig == 0) {
+  if (lse != nullptr && group == 0 && hf == 0 && tig == 0) {
     const int64_t stat = (b * heads + h) * seq_len;
-    if (oka) lse[stat + ra] = m[0] + log2f(l[0]);
-    if (okb) lse[stat + rb] = m[1] + log2f(l[1]);
+    if (ra < seq_len) lse[stat + ra] = m[0] + log2f(l[0]);
+    if (ra + 8 < seq_len) lse[stat + ra + 8] = m[1] + log2f(l[1]);
   }
 }
 
-template <int Dp, bool FastMath, bool Wide>
-cudaError_t launch_tf32_wide(const void* q, const void* k, const void* v, void* o, float* lse,
-                             int batch, int heads, int seq_len, int head_dim, const int64_t* st,
-                             int unit_k, int unit_v, float scale, cudaStream_t stream) {
+template <typename T, int NC, bool FastMath>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int batch, int heads, int seq_len, int head_dim, const int64_t* st,
+                        const int* units, float scale, cudaStream_t stream) {
   const Strides sq{st[0], st[1], st[2], st[3]};
   const Strides sk{st[4], st[5], st[6], st[7]};
   const Strides sv{st[8], st[9], st[10], st[11]};
   const Strides so{st[12], st[13], st[14], st[15]};
-  constexpr int kBytes = kTcTile * 4 * (Tf32Tile<Dp>::kWords + Tf32Tile<kChunk>::kWords);
-  auto* kernel = attention_fwd_tf32_wide_kernel<Dp, FastMath, Wide>;
-  const cudaError_t err = allow_shared(kernel, kBytes);
+  const int chunks = (head_dim + wide::kChunk - 1) / wide::kChunk;
+  const int groups = (chunks + NC - 1) / NC;
+  const int own = min(chunks, wide::own_max<T>(1));
+  // f32 at NC 4 (S on TF32 `wgmma`): q's lo parts and a K chunk's beside q
+  const bool wg_s = std::is_same<T, float>::value && NC == 4;
+  const int bytes = wide::shared_bytes<T>(wg_s ? 2 * own + 1 : own, 1);
+  // TMA where all three tensors have a map, else `cp.async`
+  wide::Maps maps = {};
+  const bool tma = wide::tensor_map<T>(&maps.m[0], q, sq, batch, heads, seq_len, head_dim)
+                   && wide::tensor_map<T>(&maps.m[1], k, sk, batch, heads, seq_len, head_dim)
+                   && wide::tensor_map<T>(&maps.m[2], v, sv, batch, heads, seq_len, head_dim);
+  auto* kernel = attention_fwd_wide_kernel<T, NC, FastMath>;
+  const cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return err;
-  const int chunks = (head_dim + kChunk - 1) / kChunk;
-  const dim3 grid((seq_len + kTcRows - 1) / kTcRows, heads * chunks, batch);
-  kernel<<<grid, 32 * kTcWarps, kBytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, heads, chunks, seq_len, head_dim, sq, sk, sv, so, unit_k,
-      unit_v, scale * kLog2e);
+  const dim3 grid((seq_len + wide::kRows - 1) / wide::kRows, heads * groups, batch);
+  kernel<<<grid, wide::kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, heads, groups, seq_len, head_dim, sq, sk, sv, so, units[0],
+      units[1], units[2], own, tma ? 1 : 0, scale * kLog2e, maps);
   return cudaGetLastError();
 }
 
-template <int Dp>
-cudaError_t launch_tf32_wide_math(bool fast_math, bool wide, const void* q, const void* k,
-                                  const void* v, void* o, float* lse, int batch, int heads,
-                                  int seq_len, int head_dim, const int64_t* st, int unit_k,
-                                  int unit_v, float scale, cudaStream_t s) {
-  if (wide) {
-    return fast_math ? launch_tf32_wide<Dp, true, true>(q, k, v, o, nullptr, batch, heads, seq_len,
-                                                        head_dim, st, unit_k, unit_v, scale, s)
-                     : launch_tf32_wide<Dp, false, true>(q, k, v, o, lse, batch, heads, seq_len,
-                                                         head_dim, st, unit_k, unit_v, scale, s);
+// The wide forward at the head's NC, exact or fast math (no lse with fast
+// math); bf16 runs it only above 256 channels, so at NC 8
+template <typename T>
+cudaError_t launch_wide_math(bool fast_math, const void* q, const void* k, const void* v, void* o,
+                             float* lse, int batch, int heads, int seq_len, int head_dim,
+                             const int64_t* st, const int* units, float scale, cudaStream_t s) {
+  auto run = [&](auto nc) {
+    constexpr int NC = decltype(nc)::value;
+    return fast_math ? launch_wide<T, NC, true>(q, k, v, o, nullptr, batch, heads, seq_len,
+                                                head_dim, st, units, scale, s)
+                     : launch_wide<T, NC, false>(q, k, v, o, lse, batch, heads, seq_len,
+                                                 head_dim, st, units, scale, s);
+  };
+  if constexpr (std::is_same<T, bf16>::value) {
+    return run(IntC<8>{});
+  } else {
+    switch (wide::group_chunks(head_dim)) {
+      case 2: return run(IntC<2>{});
+      case 4: return run(IntC<4>{});
+      default: return run(IntC<8>{});
+    }
   }
-  return fast_math ? launch_tf32_wide<Dp, true, false>(q, k, v, o, nullptr, batch, heads, seq_len,
-                                                       head_dim, st, unit_k, unit_v, scale, s)
-                   : launch_tf32_wide<Dp, false, false>(q, k, v, o, lse, batch, heads, seq_len,
-                                                        head_dim, st, unit_k, unit_v, scale, s);
 }
 
 // One launch of the bf16 or the f32 kernel at <Dp, G, FastMath>: each staged
@@ -1858,32 +2003,31 @@ template <typename T>
 cudaError_t launch_typed(bool fast_math, int group, const void* q, const void* k, const void* v,
                          void* o, float* lse, int batch, int heads, int seq_len, int head_dim,
                          const int64_t* st, float scale, cudaStream_t s) {
-  if (head_dim < 1 || head_dim > kMaxHeadDim) return cudaErrorInvalidValue;
+  if (head_dim < 1) return cudaErrorInvalidValue;
   const int unit_k = stage_unit<T>(k, Strides{st[4], st[5], st[6], st[7]}, head_dim);
   const int unit_v = stage_unit<T>(v, Strides{st[8], st[9], st[10], st[11]}, head_dim);
   // every staged row in 16-byte units and the head at its staged width: the
   // Wide instances, at every G; else the general staging, at G = 1 only
   const bool wide = unit_k == 4 && unit_v == 4 && head_dim == padded_head_dim(head_dim);
   float* stats = fast_math ? nullptr : lse;
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (head_dim > 8) {   // the warpgroup-product kernel, one head per block, any layout
-      if (group != 1) return cudaErrorInvalidValue;
-      const int units[3] = {stage_unit<T>(q, Strides{st[0], st[1], st[2], st[3]}, head_dim),
-                            unit_k, unit_v};
-      return fast_math ? launch_wgmma_width<true>(q, k, v, o, nullptr, batch, heads, seq_len,
-                                                  head_dim, st, units, scale, s)
-                       : launch_wgmma_width<false>(q, k, v, o, lse, batch, heads, seq_len,
-                                                   head_dim, st, units, scale, s);
+  // the warpgroup-product kernel (bf16, 9 to kMaxWgmmaWidth channels) and the
+  // wide kernel (f32 above kMaxMmaWidth, bf16 above kMaxWgmmaWidth): one head
+  // per block, any layout
+  const bool one_head = std::is_same<T, bf16>::value ? head_dim > 8 : head_dim > kMaxMmaWidth;
+  if (one_head) {
+    if (group != 1) return cudaErrorInvalidValue;
+    const int units[3] = {stage_unit<T>(q, Strides{st[0], st[1], st[2], st[3]}, head_dim),
+                          unit_k, unit_v};
+    if constexpr (std::is_same<T, bf16>::value) {
+      if (head_dim <= kMaxWgmmaWidth) {
+        return fast_math ? launch_wgmma_width<true>(q, k, v, o, nullptr, batch, heads, seq_len,
+                                                    head_dim, st, units, scale, s)
+                         : launch_wgmma_width<false>(q, k, v, o, lse, batch, heads, seq_len,
+                                                     head_dim, st, units, scale, s);
+      }
     }
-  } else {
-    if (head_dim > kMaxMmaWidth) {   // the wide kernel, one head per block
-      if (group != 1) return cudaErrorInvalidValue;
-      return head_dim > 128
-          ? launch_tf32_wide_math<256>(fast_math, wide, q, k, v, o, stats, batch, heads, seq_len,
-                                       head_dim, st, unit_k, unit_v, scale, s)
-          : launch_tf32_wide_math<128>(fast_math, wide, q, k, v, o, stats, batch, heads, seq_len,
-                                       head_dim, st, unit_k, unit_v, scale, s);
-    }
+    return launch_wide_math<T>(fast_math, q, k, v, o, stats, batch, heads, seq_len, head_dim, st,
+                               units, scale, s);
   }
   if (!wide && group != 1) return cudaErrorInvalidValue;
   if (wide && head_dim == 8) {   // the head_dim-8 kernels, namespace d8
@@ -1929,7 +2073,7 @@ cudaError_t launch_typed(bool fast_math, int group, const void* q, const void* k
 // The launch's shape, types and knobs, packed once per checked layout by
 // ops/attention.py (`_FwdArgs` there: the same fields in the same order).
 // dtype: 0 = float32, 1 = bfloat16. strides: 16 element strides, (b, h, t, d)
-// for q, k, v and out in that order. head_dim: 1 to 256. heads_per_program:
+// for q, k, v and out in that order. head_dim: >= 1. heads_per_program:
 // the heads one block runs, G' (`block_group`): 1, 2, 4 or 8 with G' * (the
 // staged width, 8, 16, 32 or 64) <= 64 on a layout of 16-byte rows, 1 for
 // the `wgmma` and wide kernels, and it must divide heads. fast_math: 0 or 1.

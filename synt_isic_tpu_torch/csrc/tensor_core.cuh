@@ -1,7 +1,9 @@
 // Building blocks of the attention kernels on Hopper's tensor cores
-// (`attention_fwd.cu`, `attention_bwd.cu`) at every head_dim D from 1 to 256:
-// a head runs at a staged width Dp of 8, 16, 32, 64, 128 or 256 channels, the
-// least one >= D, its channels past D zero-filled where the kernel stages or
+// (`attention_fwd.cu`, `attention_bwd.cu`; the wide kernels' own in
+// wide.cuh) at every head_dim D >= 1: a head runs at a staged width Dp of 8,
+// 16, 32, 64, 128 or 256 channels (above that, in the wide kernels, chunks
+// of 64), the least one >= D, its channels past D zero-filled where the
+// kernel stages or
 // loads them. Zero channels are exact in every product: a zero column of q, k,
 // do or v adds an exact 0 to each sum over channels (each TF32 part of a zero
 // is zero), and a product that gives channels (P V, dS K, P^T dO, dS^T Q) gives
@@ -21,11 +23,8 @@
 // C fragment; a product that gives channels takes Dp/8 n-tiles of 8 channels,
 // each its own C fragment of f32 accumulators, all from the warp's one A
 // fragment (P, P^T, dS or dS^T), each with its own B fragment. The `mma.sync`
-// templates take Dp up to 64 (kMaxMmaWidth); the wide kernels (Dp 128 and
-// 256, `Wide*` below) keep one 64-channel chunk of the product that gives
-// channels per block and read the warp's own rows' fragments from device
-// memory at each k-step, so that neither the accumulators nor the fragments
-// grow with Dp.
+// templates take Dp up to 64 (kMaxMmaWidth); wider heads run the wide
+// kernels (wide.cuh), which split the channels among a block's warps.
 
 #pragma once
 
@@ -46,10 +45,9 @@ using bf16 = __nv_bfloat16;
 constexpr int kTcWarps = 4;              // warps per head and block, 16 rows each
 constexpr int kTcRows = 16 * kTcWarps;   // rows per block and head
 constexpr int kTcTile = 64;              // rows of the other side per staged tile
-constexpr int kMaxHeadDim = 256;         // the widest staged head
+constexpr int kMaxWgmmaWidth = 256;      // the widest head of the bf16 `wgmma` forward
 constexpr int kMaxMmaWidth = 64;         // the widest staged head of the mma.sync templates
 constexpr int kMaxGroupWidth = 64;       // G * Dp at most: D 8 x G 8
-constexpr int kChunk = 64;               // channels of a wide kernel's output chunk
 
 // the staged width of a head of head_dim channels
 __host__ __device__ constexpr int padded_head_dim(int head_dim) {
@@ -374,86 +372,6 @@ __device__ __forceinline__ void load_a(const float* xh, Strides s, int ra, bool 
   x[1] = load_f32(xh, s, ra + 8, c, okb, head_dim);
   x[2] = load_f32(xh, s, ra, c + 4, oka, head_dim);
   x[3] = load_f32(xh, s, ra + 8, c + 4, okb, head_dim);
-}
-
-// c += a b in 3xTF32 for one 8-row k-step, lo.hi + hi.lo + hi.hi: a's split
-// A fragment in registers, b's B fragment at word offsets o0 and o1 of the
-// raw f32 tile x, split here (the wide kernels keep no split parts)
-__device__ __forceinline__ void mma3_raw(float* c, const uint32_t* ahi, const uint32_t* alo,
-                                         const float* x, int o0, int o1) {
-  uint32_t bhi[2], blo[2];
-  split_tf32(x[o0], bhi[0], blo[0]);
-  split_tf32(x[o1], bhi[1], blo[1]);
-  mma_tf32(c, alo, bhi);
-  mma_tf32(c, ahi, blo);
-  mma_tf32(c, ahi, bhi);
-}
-
-// The wide f32 kernels' product over channels (S = Q K^T, dP = dO V^T and
-// their transposes) at staged width Dp: c[s] += x y^T for the warp's 16 rows
-// of x and the 8 rows [8 s, 8 s + 8) of the raw tile y (rows kW words apart,
-// the lane's B reads from word t0 = (l/4) kW + l%4), in 3xTF32 term by term
-// as `mma3_k`: lo.hi over every k-step, then hi.lo, then hi.hi (with HiOnly,
-// hi.hi alone: the one-pass product). x's A fragments come from device memory
-// at each k-step (`load_a`, times `mul` in f32) and are split there, and y's B
-// fragments are split as they are read, so no fragment array grows with Dp.
-template <int Dp, int kW, bool HiOnly>
-__device__ __forceinline__ void wide_product_tf32(float (*c)[4], const float* xh, Strides sx,
-                                                  int ra, bool oka, bool okb, int head_dim,
-                                                  float mul, const float* y, int t0) {
-#pragma unroll 1
-  for (int term = HiOnly ? 2 : 0; term < 3; ++term) {
-#pragma unroll 1
-    for (int j = 0; j < Dp / 8; ++j) {
-      float x[4];
-      load_a(xh, sx, ra, oka, okb, j, head_dim, x);
-      uint32_t a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        uint32_t hi, lo;
-        split_tf32(__fmul_rn(x[i], mul), hi, lo);
-        a[i] = term == 0 ? lo : hi;
-      }
-#pragma unroll
-      for (int s = 0; s < kTcTile / 8; ++s) {
-        const int o = t0 + 8 * s * kW + 8 * j;
-        uint32_t b[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          uint32_t hi, lo;
-          split_tf32(y[o + 4 * e], hi, lo);
-          b[e] = term == 1 ? lo : hi;
-        }
-        mma_tf32(c[s], a, b);
-      }
-    }
-  }
-}
-
-// The wide bf16 kernels' product over channels at staged width Dp: c[s] +=
-// x y^T for the warp's 16 rows of x (A fragments from device memory at each
-// k-step, `load_pair`) and the 8 rows [8 s, 8 s + 8) of the staged tile y
-// (rows Bf16Tile<Dp>::kStride chunks apart), for two pairs (x, y) at once.
-template <int Dp>
-__device__ __forceinline__ void wide_product_bf16(float (*c)[4], float (*d)[4], const bf16* xh,
-                                                  Strides sx, const bf16* zh, Strides sz, int ra,
-                                                  bool oka, bool okb, int head_dim,
-                                                  const uint4* y, const uint4* w) {
-  constexpr int kS = Bf16Tile<Dp>::kStride;
-  const int lane = threadIdx.x % 32;
-  const int col = 2 * (lane % 4);
-#pragma unroll 2
-  for (int j = 0; j < Dp / 8; ++j) {
-    const uint32_t xa[2] = {load_pair(xh, sx, ra, 8 * j + col, oka, head_dim),
-                            load_pair(xh, sx, ra + 8, 8 * j + col, okb, head_dim)};
-    const uint32_t za[2] = {load_pair(zh, sz, ra, 8 * j + col, oka, head_dim),
-                            load_pair(zh, sz, ra + 8, 8 * j + col, okb, head_dim)};
-#pragma unroll
-    for (int s = 0; s < kTcTile / 8; ++s) {
-      mma_k8(c[s], xa, ldsm_x1(y + (8 * s + lane % 8) * kS + j));
-      mma_k8(d[s], za, ldsm_x1(w + (8 * s + lane % 8) * kS + j));
-    }
-  }
 }
 
 // Split the raw f32 tile of G heads (rows of Dp/4 chunks) into its TF32 hi

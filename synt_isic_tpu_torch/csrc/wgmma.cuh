@@ -1,13 +1,15 @@
 // Hopper's warpgroup products (`wgmma`) for the bf16 attention forward
-// (`attention_fwd_wgmma_kernel` in attention_fwd.cu): shared-memory matrix
-// descriptors, the 128/64/32-byte swizzled tile layout they read, the staging
-// of rows into it (by the Tensor Memory Accelerator, TMA, with an mbarrier,
-// where every stride is a multiple of 16 bytes; else by `cp.async`), and the
-// products it runs.
+// (`attention_fwd_wgmma_kernel` in attention_fwd.cu) and the wide kernels'
+// bf16 products (wide.cuh): shared-memory matrix descriptors, the
+// 128/64/32-byte swizzled tile layout they read, the staging of rows into it
+// (by the Tensor Memory Accelerator, TMA, with an mbarrier, where every
+// stride is a multiple of 16 bytes; else by `cp.async`; f32 rows too, for the
+// wide kernels' 3xTF32 products), and the products they run.
 //
 // A staged tile holds 64 rows (queries or keys) of one head at a staged width
-// Dp of 16 to 256 bf16 channels. Its rows are lines of kLine = min(2 Dp, 128)
-// bytes: at Dp 16 and 32 one line is the whole row (32 or 64 bytes), from Dp
+// Dp of 16 to 256 bf16 channels (a row of 2 Dp bytes; the wide kernels stage
+// 64 channels a tile, 128 bytes in bf16 and 256 in f32). Its rows are lines
+// of kLine = min(2 Dp, 128) bytes: at Dp 16 and 32 one line is the whole row (32 or 64 bytes), from Dp
 // 64 on a row is Dp / 64 lines, one in each column block of 64 channels, the
 // blocks 64 * 128 bytes apart. Within a block, the 16-byte chunk c of row r
 // sits at r * kLine + (c ^ swz(r)), the swizzle of CUTLASS's Swizzle<B, 4, 3>
@@ -55,12 +57,15 @@ struct Tile {
   static constexpr uint64_t kLayout = kLine == 128 ? 1 : kLine == 64 ? 2 : 3;
 };
 
-// the byte offset in a tile of byte b of row r (b < 2 Dp)
+// the byte offset in a tile of byte b of row r (b < 2 Dp): the 16-byte
+// chunk XOR bits 7 and up of the line's offset in its column block (whose
+// 64 kLine bytes leave bits 7 to 9 of a block's offset zero)
 template <int Dp>
 __device__ __forceinline__ int swizzled(int r, int b) {
   using T = Tile<Dp>;
-  const int off = (b / T::kLine) * T::kBlock + r * T::kLine + b % T::kLine;
-  return off ^ (((off >> 7) & ((1 << T::kSwizzleBits) - 1)) << 4);
+  const int line = r * T::kLine;
+  return (b / T::kLine) * T::kBlock + line
+         + ((b % T::kLine) ^ (((line >> 7) & ((1 << T::kSwizzleBits) - 1)) << 4));
 }
 
 // a shared-memory matrix descriptor: start address, leading and stride byte
@@ -72,7 +77,8 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
          | static_cast<uint64_t>((sbo >> 4) & 0x3fff) << 32 | layout << 62;
 }
 
-// k-step kk (16 channels) of a K-major tile at shared address `tile`
+// k-step kk (32 bytes: 16 bf16 or 8 f32 channels) of a K-major tile at
+// shared address `tile`
 template <int Dp>
 __device__ __forceinline__ uint64_t k_major(uint32_t tile, int kk) {
   using T = Tile<Dp>;
@@ -87,25 +93,29 @@ __device__ __forceinline__ uint64_t mn_major(uint32_t tile, int kk) {
   return desc(tile + 16 * kk * T::kLine, T::kBlock, 8 * T::kLine, T::kLayout);
 }
 
-// Stage rows [r0, r0 + 64) of one head (x: its row 0) into a swizzled tile,
-// channels [0, head_dim) in units of 2^unit_log2 bytes (`stage_unit`: 16, 8
-// and 4 by `cp.async`, 2 through a register), channels [head_dim, Dp) and
-// rows past seq_len zeros, by `threads` threads from thread `first` on. A unit
-// lies within one 16-byte chunk, which the swizzle moves whole.
-template <int Dp>
-__device__ __forceinline__ void stage(uint8_t* tile, const bf16* x, const Strides& s,
-                                      int unit_log2, int r0, int seq_len, int head_dim,
+// Stage rows [r0, r0 + 64) of one head (x: its row 0, channel 0; st, sd its
+// row and channel strides) into a swizzled tile of RowBytes-byte rows (the
+// layout of Tile<RowBytes / 2>), channels [c0, c0 + RowBytes / sizeof(T)) in
+// units of 2^unit_log2 bytes (`stage_unit`: 16, 8 and 4 by `cp.async`, 2
+// through a register), channels past head_dim and rows past seq_len zeros, by
+// `threads` threads from thread `first` on. A unit lies within one 16-byte
+// chunk, which the swizzle moves whole. (The strides come as scalars: a
+// kernel's Strides parameter whose address a caller's lambda took would be
+// copied to the stack.)
+template <typename T, int RowBytes>
+__device__ __forceinline__ void stage(uint8_t* tile, const T* x, int64_t st, int64_t sd,
+                                      int unit_log2, int r0, int seq_len, int c0, int head_dim,
                                       int first, int threads) {
-  constexpr int kRowLog2 = log2_of(2 * Dp);
+  constexpr int kRowLog2 = log2_of(RowBytes);
   const int per_row_log2 = kRowLog2 - unit_log2;
   for (int i = first; i < kRows << per_row_log2; i += threads) {
     const int r = i >> per_row_log2;
-    const int u = i & ((1 << per_row_log2) - 1);
-    const int e = u << (unit_log2 - 1);            // the unit's first channel
-    uint8_t* dst = tile + swizzled<Dp>(r, u << unit_log2);
+    const int bb = (i & ((1 << per_row_log2) - 1)) << unit_log2;   // byte within the row
+    const int e = c0 + bb / static_cast<int>(sizeof(T));            // the unit's first channel
+    uint8_t* dst = tile + swizzled<RowBytes / 2>(r, bb);
     const uint32_t d = smem_addr(dst);
     if (r0 + r < seq_len && e < head_dim) {
-      const bf16* src = x + (r0 + r) * s.t + e * s.d;
+      const T* src = x + static_cast<int64_t>(r0 + r) * st + static_cast<int64_t>(e) * sd;
       switch (unit_log2) {
         case 4:
           asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src));
@@ -202,7 +212,9 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[
 
 // d += a b, m64n32k16, bf16 in, f32 accumulated: a from registers (the
 // k16 A fragment of each warp's 16 rows), b from shared memory by
-// descriptor, MN-major (stored [k][n], read through the transpose bit)
+// descriptor, MN-major (TransB 1: stored [k][n], read through the transpose
+// bit) or K-major (TransB 0)
+template <int TransB = 1>
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -211,9 +223,25 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TransB));
+}
+
+// d += a b, m64n32k16, bf16 in, f32 accumulated: a and b from shared memory
+// by descriptor, a K-major, b K-major (TransB 0) or MN-major (TransB 1)
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1), "n"(TransB));
 }
 
 // d += a b, m64n64k16, bf16 in, f32 accumulated: a from registers (the
@@ -323,35 +351,33 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// rows [r0, r0 + 64) of head h of batch b into a swizzled tile: one copy per
-// column block of 64 channels (one for Dp <= 64), channels past D and rows
-// past T zero-filled by the copy
-template <int Dp>
+// rows [r0, r0 + 64) of head h of batch b, channels from c0 on, into a
+// swizzled tile of RowBytes-byte rows: one copy per column block of 128
+// bytes (one for rows of 128 bytes or less), channels past D and rows past T
+// zero-filled by the copy
+template <typename T, int RowBytes>
 __device__ __forceinline__ void tma_tile(uint8_t* tile, const CUtensorMap* map, uint64_t* bar,
-                                         int r0, int h, int b) {
-  using T = Tile<Dp>;
+                                         int c0, int r0, int h, int b) {
+  using L = Tile<RowBytes / 2>;
 #pragma unroll
-  for (int c = 0; c < T::kBytes / T::kBlock; ++c) {
+  for (int c = 0; c < RowBytes / L::kLine; ++c) {
     asm volatile("cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
                  "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-                 :: "r"(smem_addr(tile + c * T::kBlock)), "l"(reinterpret_cast<uint64_t>(map)),
-                    "r"(smem_addr(bar)), "r"(c * T::kLine / 2), "r"(r0), "r"(h), "r"(b)
+                 :: "r"(smem_addr(tile + c * L::kBlock)), "l"(reinterpret_cast<uint64_t>(map)),
+                    "r"(smem_addr(bar)), "r"(c0 + c * L::kLine / static_cast<int>(sizeof(T))),
+                    "r"(r0), "r"(h), "r"(b)
                  : "memory");
   }
 }
 
-// The tensor map of one (B, H, T, D) bf16 tensor for `tma_tile` at staged
-// width Dp: false where the layout has no map (an address or a stride in
-// bytes not a multiple of 16, channels not contiguous) or no encoder is
-// found; the kernel then stages by `cp.async`. cuTensorMapEncodeTiled is
-// looked up through the CUDA runtime, so nothing links libcuda.
-template <int Dp>
-bool tensor_map(CUtensorMap* map, const void* x, const Strides& s, int batch, int heads,
-                int seq_len, int head_dim) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                            const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                            const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                            CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once through the CUDA runtime, so that
+// nothing links libcuda; null where no encoder is found
+inline Encode encoder() {
   static Encode encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -365,26 +391,53 @@ bool tensor_map(CUtensorMap* map, const void* x, const Strides& s, int batch, in
     return err == cudaSuccess && found == cudaDriverEntryPointSuccess
         ? reinterpret_cast<Encode>(fn) : nullptr;
   }();
-  const uint64_t bytes = static_cast<uint64_t>(s.t * 2) | static_cast<uint64_t>(s.h * 2)
-                         | static_cast<uint64_t>(s.b * 2) | reinterpret_cast<uintptr_t>(x);
+  return encode;
+}
+
+// The tensor map of one (B, H, T, D) tensor for `tma_tile` into tiles of
+// RowBytes-byte rows: false where the layout has no map (an address or a
+// stride in bytes not a multiple of 16, channels not contiguous) or no
+// encoder is found; the kernel then stages by `cp.async`.
+template <typename T, int RowBytes>
+bool tensor_map(CUtensorMap* map, const void* x, const Strides& s, int batch, int heads,
+                int seq_len, int head_dim) {
+  constexpr int64_t kSize = sizeof(T);
+  const Encode encode = encoder();
+  const uint64_t bytes = static_cast<uint64_t>(s.t * kSize) | static_cast<uint64_t>(s.h * kSize)
+                         | static_cast<uint64_t>(s.b * kSize) | reinterpret_cast<uintptr_t>(x);
   if (encode == nullptr || s.d != 1 || bytes % 16 != 0 || s.t <= 0 || s.h <= 0 || s.b <= 0) {
     return false;
   }
-  using T = Tile<Dp>;
+  using L = Tile<RowBytes / 2>;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim), static_cast<cuuint64_t>(seq_len),
                               static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s.t * 2),
-                                 static_cast<cuuint64_t>(s.h * 2),
-                                 static_cast<cuuint64_t>(s.b * 2)};
-  const cuuint32_t box[4] = {T::kLine / 2, 64, 1, 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s.t * kSize),
+                                 static_cast<cuuint64_t>(s.h * kSize),
+                                 static_cast<cuuint64_t>(s.b * kSize)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(L::kLine / kSize), 64, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = T::kLine == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : T::kLine == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+  const CUtensorMapSwizzle swizzle = L::kLine == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : L::kLine == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
+  return encode(map, kSize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4, const_cast<void*>(x), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
          == CUDA_SUCCESS;
+}
+
+// d += a b, m64n32k8, tf32 in, f32 accumulated: a and b from shared memory
+// by descriptor, both K-major (the only layout TF32 takes)
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
 }
 
 // O += P V for one k-step, N = Dp output channels

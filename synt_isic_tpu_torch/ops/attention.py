@@ -12,14 +12,17 @@ The port of synt_isic_tpu/ops/pallas/attention.py:
     Function `FusedAttention`: forward kernel, backward kernel. On CUDA its
     exact forward also writes each row's base-2 log-sum-exp, and it saves
     that and its output for the backward.
-Every kernel runs on the tensor cores at every head_dim D from 1 to 256 (a
-staged width of 8, 16, 32, 64, 128 or 256 channels, the least one >= D, its
-channels past D zero-filled inside the kernel), in f32 (3xTF32) and bf16; a
-larger D raises on CUDA. The bf16 forward at a staged width of 16 to 256
-runs Hopper's warpgroup products (`wgmma`, counted under WGMMA_KERNEL as
-well); head_dim 8 and the f32 forward keep their `mma.sync` kernels, and
-heads wider than 64 channels run the wide kernels, which cut the channels
-of each product that gives channels into 64-channel chunks.
+Every kernel runs on the tensor cores at every head_dim D >= 1 (up to 64 at
+a staged width of 8, 16, 32 or 64 channels, the least one >= D,
+`staged_width`, and above 64 in chunks of 64 channels; channels past D
+zero-filled inside the kernel), in f32 (3xTF32) and bf16. The bf16 forward
+at a staged width of 16 to 256 runs Hopper's warpgroup products (`wgmma`,
+counted under WGMMA_KERNEL as well); head_dim 8 and the f32 forward keep
+their `mma.sync` kernels, and heads wider than 64 channels (the bf16
+forward: wider than 256) run the wide kernels (counted under WIDE_KERNEL
+and BWD_WIDE_KERNEL as well), whose blocks form S once per tile for all of
+a head's channels and split the channels of each product that gives
+channels among their warps (bf16 on `wgmma`, f32 on `mma.sync`).
 For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it runs the plain PyTorch version (`attention_reference`,
 `attention_fast_math_reference`, `attention_bwd_reference`), which the
@@ -80,13 +83,21 @@ GROUPED_KERNEL = "attention_fwd_grouped"
 WGMMA_KERNEL = "attention_fwd_wgmma"
 # counter of the backward kernel's grouped variant (one source, `attention_bwd.cu`)
 BWD_GROUPED_KERNEL = "attention_bwd_grouped"
+# counters of the wide kernels (`uses_wide`: the f32 forward above 64 channels
+# and the bf16 one above 256, `attention_fwd.cu`; the backward above 64,
+# `attention_bwd.cu`), counted beside KERNEL or FAST_KERNEL, and BWD_KERNEL
+WIDE_KERNEL = "attention_fwd_wide"
+BWD_WIDE_KERNEL = "attention_bwd_wide"
 # counter of the exact forward launches that a backward without saved
 # statistics runs first for its o and log-sum-exp (`attention_fwd.cu`)
 STATS_KERNEL = "attention_bwd_stats"
-HEAD_DIMS = range(1, 257)
 # the heads one block of the `mma.sync` kernels runs (`block_group`)
 HEADS_PER_PROGRAM = (1, 2, 4, 8)
+# the staged widths of the `mma.sync` templates (8 to 64) and of the bf16
+# `wgmma` forward (16 to 256) (`staged_width`)
 STAGED_WIDTHS = (8, 16, 32, 64, 128, 256)
+# the widest head of the `mma.sync` templates and of the bf16 `wgmma` forward
+MAX_MMA_WIDTH, MAX_WGMMA_WIDTH = 64, 256
 # G' heads of the staged width at most: D 8 x G' 8, the widest staged row
 MAX_GROUP_WIDTH = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -96,12 +107,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # A forward launch counts under KERNEL (exact softmax) or FAST_KERNEL
 # (fast_math), under WGMMA_KERNEL too when it runs the bf16 warpgroup-product
 # kernel, and under GROUPED_KERNEL too when it runs G > 1 heads (`_group`) on a
-# wide layout. A backward launch counts under BWD_KERNEL, and under
-# BWD_GROUPED_KERNEL too when it runs G > 1 heads per block. The forward
-# launch that gives such a backward its statistics counts under STATS_KERNEL
-# only.
-LAUNCHES = {KERNEL: 0, FAST_KERNEL: 0, GROUPED_KERNEL: 0, WGMMA_KERNEL: 0, BWD_KERNEL: 0,
-            BWD_GROUPED_KERNEL: 0, STATS_KERNEL: 0}
+# wide layout, and under WIDE_KERNEL too when it runs the wide kernel. A
+# backward launch counts under BWD_KERNEL, under BWD_GROUPED_KERNEL too when it
+# runs G > 1 heads per block, and under BWD_WIDE_KERNEL too when it runs the
+# wide kernels. The forward launch that gives such a backward its statistics
+# counts under STATS_KERNEL only.
+LAUNCHES = {KERNEL: 0, FAST_KERNEL: 0, GROUPED_KERNEL: 0, WGMMA_KERNEL: 0, WIDE_KERNEL: 0,
+            BWD_KERNEL: 0, BWD_GROUPED_KERNEL: 0, BWD_WIDE_KERNEL: 0, STATS_KERNEL: 0}
 LOG2E = 1.4426950408889634
 
 
@@ -340,12 +352,10 @@ def _check(*tensors: torch.Tensor) -> str:
     return q.device.type
 
 
-def _check_head_dim(head_dim: int) -> int:
-    """The staged width of a CUDA call's head_dim; a head_dim outside
-    HEAD_DIMS raises."""
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"kernel takes head_dim 1 to {HEAD_DIMS[-1]}, got {head_dim}")
-    return staged_width(head_dim)
+def _check_head_dim(head_dim: int) -> None:
+    """A CUDA call takes every head_dim >= 1; below 1 raises."""
+    if head_dim < 1:
+        raise ValueError(f"kernel takes head_dim >= 1, got {head_dim}")
 
 
 class _FwdArgs(ctypes.Structure):
@@ -374,15 +384,36 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 def staged_width(head_dim: int) -> int:
-    """The kernels' staged width of a head: the least of STAGED_WIDTHS that
-    holds head_dim channels."""
+    """The staged width of a head up to 256 channels, the least of
+    STAGED_WIDTHS that holds it: the `mma.sync` templates' (up to 64) and
+    the bf16 `wgmma` forward's. The wide kernels stage no width: they walk a
+    head in chunks of 64 channels (`staged_channels`)."""
+    if head_dim > MAX_WGMMA_WIDTH:
+        raise ValueError(f"no staged width above {MAX_WGMMA_WIDTH} channels, got {head_dim}")
     return next(w for w in STAGED_WIDTHS if head_dim <= w)
+
+
+def staged_channels(head_dim: int) -> int:
+    """The channels the kernels stage a head in: its staged width up to 64
+    channels, above it the head's 64-channel chunks (the wide kernels). The
+    f32 products over channels (S, dP) chain over these in k-steps of 8, so
+    the f32 limits against the rounding orders grow as its square root
+    (`chip_smoke.py` `tf32_order_tol`)."""
+    return staged_width(head_dim) if head_dim <= MAX_MMA_WIDTH else 64 * -(-head_dim // 64)
 
 
 def uses_wgmma(dtype: torch.dtype, head_dim: int) -> bool:
     """Whether a CUDA forward of this dtype and head_dim runs the bf16
     warpgroup-product kernel: bf16 at a staged width of 16 to 256."""
-    return dtype == torch.bfloat16 and staged_width(head_dim) >= 16
+    return dtype == torch.bfloat16 and 8 < head_dim <= MAX_WGMMA_WIDTH
+
+
+def uses_wide(dtype: torch.dtype, head_dim: int, forward: bool = True) -> bool:
+    """Whether a CUDA call of this dtype and head_dim runs the wide kernels:
+    heads wider than 64 channels, in the bf16 forward wider than 256."""
+    if forward and dtype == torch.bfloat16:
+        return head_dim > MAX_WGMMA_WIDTH
+    return head_dim > MAX_MMA_WIDTH
 
 
 def _group(heads: int, heads_per_program: int) -> int:
@@ -399,11 +430,12 @@ def block_group(group: int, head_dim: int, dtype: torch.dtype, wide: bool,
     """G', the heads one block runs for a call of G = `group` heads per
     program: the widest of HEADS_PER_PROGRAM that divides G with G' times
     the staged width at most MAX_GROUP_WIDTH, on a wide layout; 1 on any
-    other layout, for the `wgmma` forward and for heads wider than 64. The
-    launch runs the G heads as G / G' consecutive groups of G'."""
-    width = staged_width(head_dim)
-    if not wide or width > MAX_GROUP_WIDTH or (forward and uses_wgmma(dtype, head_dim)):
+    other layout, for the `wgmma` forward and for heads wider than 64 (the
+    wide kernels). The launch runs the G heads as G / G' consecutive groups
+    of G'."""
+    if not wide or head_dim > MAX_GROUP_WIDTH or (forward and uses_wgmma(dtype, head_dim)):
         return 1
+    width = staged_width(head_dim)
     g = 1
     while 2 * g in HEADS_PER_PROGRAM and group % (2 * g) == 0 and 2 * g * width <= MAX_GROUP_WIDTH:
         g *= 2
@@ -412,11 +444,13 @@ def block_group(group: int, head_dim: int, dtype: torch.dtype, wide: bool,
 
 def _wide(*tensors: torch.Tensor) -> bool:
     """Whether the kernels take these tensors at their Wide instances, as
-    the launchers decide it: head_dim one of STAGED_WIDTHS, and every row
-    staged in 16-byte units (`stage_unit` in `csrc/tensor_core.cuh`:
-    channels contiguous, the address and the t, h and b strides in bytes
-    multiples of 16). The kernels run any G there, G = 1 elsewhere."""
-    return all(z.shape[-1] in STAGED_WIDTHS and z.stride(-1) == 1 and z.data_ptr() % 16 == 0
+    the launchers decide it: a head that fills the channels it is staged
+    in (`staged_channels`), and every row staged in 16-byte units
+    (`stage_unit` in `csrc/tensor_core.cuh`: channels contiguous, the
+    address and the t, h and b strides in bytes multiples of 16). The kernels run any G there,
+    G = 1 elsewhere."""
+    return all(z.shape[-1] == staged_channels(z.shape[-1]) and z.stride(-1) == 1
+               and z.data_ptr() % 16 == 0
                and all(st * z.element_size() % 16 == 0 for st in z.stride()[:3])
                for z in tensors)
 
@@ -545,6 +579,7 @@ def _forward_plan(q, k, v, fast_math, heads_per_program, with_lse):
     group = group if wide else 1
     counts = ((FAST_KERNEL if fast_math else KERNEL,)
               + ((WGMMA_KERNEL,) if uses_wgmma(q.dtype, q.shape[-1]) else ())
+              + ((WIDE_KERNEL,) if uses_wide(q.dtype, q.shape[-1]) else ())
               + ((GROUPED_KERNEL,) if group > 1 else ()))
     return _remember(_forward_key(q, k, v, fast_math, heads_per_program, with_lse),
                      _ForwardPlan(q, k, v, fast_math,
@@ -595,7 +630,8 @@ class _BackwardPlan:
 
     def __init__(self, q, k, v, do, o, group: int, wide: bool, stats):
         self.index, self.stats = q.device.index, stats
-        self.counts = (BWD_KERNEL,) + ((BWD_GROUPED_KERNEL,) if group > 1 else ())
+        self.counts = ((BWD_KERNEL,) + ((BWD_GROUPED_KERNEL,) if group > 1 else ())
+                       + ((BWD_WIDE_KERNEL,) if uses_wide(q.dtype, q.shape[-1], False) else ()))
         self.empty = q.numel() == 0
         b, h, t, d = q.shape
         self.copies = _copies(q, k, v, do)

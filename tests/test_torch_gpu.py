@@ -25,7 +25,7 @@ distance from that order exceeds the fast kernel's FAST_SEPARATION times
 and backward: bit-identical to one head per block. Head_dims other than 8
 (`test_head_dim_*`): the same checks at D 4, 16, 32 and 64, the f32
 kernels against their rounding orders within head_dim 8's limits times
-sqrt(Dp / 8), Dp the staged width (`chip_smoke.py` `tf32_order_tol`).
+sqrt(W / 8), W = `attention.staged_channels` (`chip_smoke.py` `tf32_order_tol`).
 """
 import json
 import math
@@ -100,9 +100,9 @@ def test_attention_kernel_strided_btc(cuda):
 
 
 def test_attention_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 2, 16, 257, device=cuda)
+    q = torch.zeros(1, 2, 16, 0, device=cuda)
     with pytest.raises(ValueError):
-        attention.fused_attention(q, q, q)                 # head_dim 257
+        attention.fused_attention(q, q, q)                 # head_dim 0
     q = torch.zeros(1, 2, 16, 8, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError):
         attention.fused_attention(q, q, q)                 # float16
@@ -1394,16 +1394,18 @@ def test_tp_walk_over_the_card_and_the_cpu_matches_unsharded(cuda, monkeypatch, 
 
 
 # head_dims other than 8: the tensor-core kernels at a staged width of 8
-# (head_dim 4), 16, 32, 64, 128 and 256, at a ragged T in both layouts and
-# dtypes (bf16 forward from 16 on: the warpgroup-product kernel)
-HEAD_DIMS = (4, 16, 32, 64, 128, 256)
+# (head_dim 4), 16, 32, 64, 128 and 256, and the wide kernels above 256 (320,
+# not a power of two, and 512), at a ragged T in both layouts and dtypes (bf16
+# forward from 16 to 256: the warpgroup-product kernel)
+HEAD_DIMS = (4, 16, 32, 64, 128, 256, 320, 512)
 
 
 def _tf32_order_tol(d, bwd=False):
     """`chip_smoke.py` `tf32_order_tol`: head_dim 8's limit times
-    sqrt(Dp / 8), Dp the staged width."""
+    sqrt(W / 8), W = `attention.staged_channels` (the staged width up to 64
+    channels, above it the head's 64-channel chunks)."""
     base = TF32_BWD_ORDER_TOL if bwd else TF32_ORDER_TOL
-    return base * math.sqrt(attention.staged_width(d) / 8)
+    return base * math.sqrt(attention.staged_channels(d) / 8)
 
 
 def _head_dim_args(cuda, d, dtype, layout, seed):
@@ -1479,6 +1481,109 @@ def test_head_dim_trainable_gradient(cuda, d, dtype, layout):
                                                 lse=lse)
         for a, w in zip(grouped, attention.fused_attention_bwd(q, k, v, do, o=o, lse=lse)):
             assert torch.equal(a, w), group
+
+
+# the wide kernels (`attention.uses_wide`) at T = 1024 (16 key tiles, where
+# the running shift moves) and at a ragged T: NC 2, 4 (the f32 forward's S on
+# TF32 `wgmma`) and 8
+WIDE_ORDER_DIMS = (128, 256, 320, 512)
+
+
+@pytest.mark.parametrize("layout", ["BHTD", "BTC"])
+@pytest.mark.parametrize("d", WIDE_ORDER_DIMS)
+def test_wide_kernels_hold_their_rounding_orders(cuda, d, layout):
+    """The wide kernels at head_dim d, one head, T = 1024 and 200: the f32
+    forward within `_tf32_order_tol` of `attention_tf32x3_kernel_order`, its
+    fast math near `fast_math_kernel_order` (`_order_limit`), the bf16
+    forward (wide above 256) within one bf16 ulp of
+    `attention_fast_math_kernel_order` in fast math; the backward from the
+    saved statistics within the f32 and bf16 orders' limits of
+    `attention_bwd_tf32x3_kernel_order` and `attention_bwd_kernel_order`;
+    every launch counted under WIDE_KERNEL (BWD_WIDE_KERNEL) where
+    `uses_wide` says so."""
+    for t in (1024, 200):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _bf16_args(cuda, (1, 1, t, d), layout, 90 + d + t)
+            q, k, v, do = args if dtype == torch.bfloat16 else [z.float() for z in args]
+            before = dict(attention.LAUNCHES)
+            out, lse = attention.fused_attention(q, k, v, with_lse=True)
+            fast = attention.fused_attention(q, k, v, fast_math=True)
+            grads = attention.fused_attention_bwd(q, k, v, do, o=out, lse=lse)
+            torch.cuda.synchronize()
+            launched = {key: attention.LAUNCHES[key] - before[key] for key in before}
+            wide = attention.uses_wide(dtype, d)
+            assert launched[attention.WIDE_KERNEL] == (2 if wide else 0)
+            assert launched[attention.BWD_WIDE_KERNEL] == launched[attention.BWD_KERNEL] == 1
+            if dtype == torch.float32:
+                order = attention.attention_tf32x3_kernel_order(q, k, v)
+                assert (out - order).abs().max().item() <= _tf32_order_tol(d)
+                fast_order = attention.fast_math_kernel_order(q, k, v)
+                assert ((fast - fast_order).abs() <= _order_limit(q, k, v, fast_order)).all()
+                bwd_order = attention.attention_bwd_tf32x3_kernel_order(q, k, v, do, out, lse)
+                bwd_tol = _tf32_order_tol(d, bwd=True)
+            else:
+                fast_order = attention.attention_fast_math_kernel_order(
+                    q, k, v, attention.fast_math_step(q))
+                assert ((fast.float() - fast_order.float()).abs()
+                        <= FAST_ORDER_TOL[torch.bfloat16]).all()
+                bwd_order = attention.attention_bwd_kernel_order(q, k, v, do, out, lse)
+                bwd_tol = BWD_ORDER_TOL
+            torch.testing.assert_close(out.float(), attention.attention_reference(q, k, v).float(),
+                                       rtol=TOL[dtype], atol=TOL[dtype])
+            for name, a, r in zip(("dq", "dk", "dv"), grads, bwd_order):
+                r = r.float()
+                torch.testing.assert_close(a.float(), r, rtol=0,
+                                           atol=bwd_tol * r.abs().max().item(), msg=name)
+
+
+@pytest.mark.parametrize("d", (128, 512))
+def test_wide_kernels_grouped_are_bit_identical(cuda, d):
+    """heads_per_program 2 at head_dim 128 and 512 (the wide kernels run one
+    head a block, as G / 1 consecutive groups): forward output and lse, fast
+    math and K4's gradients torch.equal to G 1, in both dtypes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _bf16_args(cuda, (2, 4, 130, d), "BTC", 95 + d)
+        q, k, v, do = args if dtype == torch.bfloat16 else [z.float() for z in args]
+        runs = {}
+        for group in (1, 2):
+            leaves = [z.detach().requires_grad_() for z in (q, k, v)]
+            out, lse = attention.fused_attention(q, k, v, heads_per_program=group, with_lse=True)
+            fast = attention.fused_attention(q, k, v, fast_math=True, heads_per_program=group)
+            grads = torch.autograd.grad(
+                attention.fused_attention_trainable(*leaves, heads_per_program=group), leaves, do)
+            runs[group] = (out, lse, fast, *grads)
+        for name, a, b in zip(("out", "lse", "fast", "dq", "dk", "dv"), runs[1], runs[2]):
+            assert torch.equal(a, b), (dtype, name)
+
+
+@pytest.mark.parametrize("d", (640, 1090))
+def test_wide_kernels_past_their_staged_rows(cuda, d):
+    """Heads wider than the own rows a wide block stages (f32 512 channels
+    forward and 256 a tensor backward, bf16 twice that): at head_dim 640
+    (f32 forward, both backwards) and 1090 (every wide kernel; in bf16 a
+    (B, T, C) row of 4360 bytes, staged by `cp.async`) the further channels
+    come from device memory. Two heads at T = 150 in the (B, T, C) layout: forward,
+    log-sum-exp and K3 from the saved statistics within TOL, LSE_TOL and
+    BWD_TOL of the plain versions, every launch on the wide kernels."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _bf16_args(cuda, (1, 2, 150, d), "BTC", 97 + d)
+        q, k, v, do = args if dtype == torch.bfloat16 else [z.float() for z in args]
+        before = dict(attention.LAUNCHES)
+        out, lse = attention.fused_attention(q, k, v, with_lse=True)
+        grads = attention.fused_attention_bwd(q, k, v, do, o=out, lse=lse)
+        torch.cuda.synchronize()
+        launched = {key: attention.LAUNCHES[key] - before[key] for key in before}
+        assert launched[attention.WIDE_KERNEL] == 1, dtype
+        assert launched[attention.BWD_WIDE_KERNEL] == 1, dtype
+        torch.testing.assert_close(out.float(), attention.attention_reference(q, k, v).float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+        torch.testing.assert_close(lse, attention.attention_lse_reference(q, k), rtol=0,
+                                   atol=LSE_TOL)
+        for name, a, w in zip(("dq", "dk", "dv"), grads,
+                              attention.attention_bwd_reference(q, k, v, do)):
+            w = w.float()
+            torch.testing.assert_close(a.float(), w, rtol=0,
+                                       atol=BWD_TOL[dtype] * w.abs().max().item(), msg=name)
 
 
 def test_bf16_head_dim_4_takes_an_unaligned_contiguous_tensor(cuda):
